@@ -1,0 +1,188 @@
+"""FaceEnhanceNet building blocks as nn.Modules over NHWC tensors.
+
+Port of `facesr/models/blocks.py` (float path). Module and parameter
+names follow the reference state dict (`residual_groups.{g}.blocks.{b}.
+conv1.weight`, `...channel_attention.fc.0.weight`, `upsample.stages.{s}.
+conv.weight`, ...), so reference `.pth` files load with ``strict=True``.
+Parameters are created uninitialized (`torch.nn.utils.skip_init`) and
+filled from an explicit `torch.Generator` by the ``init_*`` functions.
+
+  - ChannelAttention (SE): mean over HW -> FC(C -> max(C/r, 8), no bias)
+    -> ReLU -> FC(-> C, no bias) -> sigmoid -> scale
+  - RCAB: conv3x3 -> PReLU -> conv3x3 -> CA -> * res_scale + skip
+  - ResidualGroup: B RCABs -> conv3x3 -> + group skip
+  - Upsample stage: conv C -> 4C (ICNR) -> PixelShuffle(2) -> PReLU
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn.utils import skip_init
+
+from facesr_torch.ops import init as finit
+from facesr_torch.ops.conv import conv2d, prelu
+from facesr_torch.ops.pixel_shuffle import pixel_shuffle
+
+__all__ = ["reduced_channels", "ChannelAttention", "RCAB", "ResidualGroup",
+           "UpsampleStage", "Upsample", "make_conv", "channel_attention", "rcab",
+           "residual_groups", "upsample", "make_residual_groups",
+           "make_upsample", "init_conv", "init_rcab", "init_residual_group",
+           "init_upsample"]
+
+
+def reduced_channels(num_channels: int, reduction_ratio: int) -> int:
+    """SE bottleneck width: max(C // r, 8)."""
+    return max(num_channels // reduction_ratio, 8)
+
+
+def make_conv(cin: int, cout: int, k: int) -> nn.Conv2d:
+    """An uninitialized Conv2d (weight OIHW, bias) holding parameters only."""
+    return skip_init(nn.Conv2d, cin, cout, k, padding=k // 2)
+
+
+class ChannelAttention(nn.Module):
+    def __init__(self, c: int, reduction_ratio: int):
+        super().__init__()
+        cr = reduced_channels(c, reduction_ratio)
+        self.fc = nn.Sequential(
+            skip_init(nn.Linear, c, cr, bias=False),
+            nn.ReLU(),
+            skip_init(nn.Linear, cr, c, bias=False),
+        )
+
+
+class RCAB(nn.Module):
+    def __init__(self, c: int, k: int, reduction_ratio: int):
+        super().__init__()
+        self.conv1 = make_conv(c, c, k)
+        self.prelu = skip_init(nn.PReLU, c)
+        self.conv2 = make_conv(c, c, k)
+        self.channel_attention = ChannelAttention(c, reduction_ratio)
+
+
+class ResidualGroup(nn.Module):
+    def __init__(self, c: int, num_blocks: int, k: int, reduction_ratio: int):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            RCAB(c, k, reduction_ratio) for _ in range(num_blocks))
+        self.conv = make_conv(c, c, k)
+
+
+class UpsampleStage(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = make_conv(c, c * 4, 3)
+        self.prelu = skip_init(nn.PReLU, c)
+
+
+class Upsample(nn.Module):
+    def __init__(self, c: int, scale_factor: int):
+        super().__init__()
+        num_stages = int(math.log2(scale_factor))
+        if 2 ** num_stages != scale_factor:
+            raise ValueError(f"scale_factor must be a power of 2, got {scale_factor}")
+        self.stages = nn.ModuleList(UpsampleStage(c) for _ in range(num_stages))
+
+
+# ---------------------------------------------------------------------------
+# Initialization (Kaiming fan_out/relu, zero biases, PReLU 0.25, ICNR)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def init_conv(conv: nn.Conv2d, gen: torch.Generator) -> None:
+    conv.weight.copy_(finit.kaiming_normal(conv.weight.shape, gen))
+    conv.bias.zero_()
+
+
+@torch.no_grad()
+def init_rcab(blk: RCAB, gen: torch.Generator) -> None:
+    init_conv(blk.conv1, gen)
+    blk.prelu.weight.copy_(finit.prelu_init(blk.prelu.weight.numel()))
+    init_conv(blk.conv2, gen)
+    for i in (0, 2):
+        fc = blk.channel_attention.fc[i].weight
+        fc.copy_(finit.kaiming_normal(fc.shape, gen))
+
+
+def init_residual_group(group: ResidualGroup, gen: torch.Generator) -> None:
+    for blk in group.blocks:
+        init_rcab(blk, gen)
+    init_conv(group.conv, gen)
+
+
+@torch.no_grad()
+def init_upsample(up: Upsample, gen: torch.Generator) -> None:
+    for st in up.stages:
+        st.conv.weight.copy_(finit.icnr(st.conv.weight.shape, gen, scale_factor=2))
+        st.conv.bias.zero_()
+        st.prelu.weight.copy_(finit.prelu_init(st.prelu.weight.numel()))
+
+
+def make_residual_groups(num_groups: int, blocks_per_group: int, c: int, k: int,
+                         reduction_ratio: int, gen: torch.Generator) -> nn.ModuleList:
+    groups = nn.ModuleList(
+        ResidualGroup(c, blocks_per_group, k, reduction_ratio)
+        for _ in range(num_groups))
+    for g in groups:
+        init_residual_group(g, gen)
+    return groups
+
+
+def make_upsample(c: int, scale_factor: int, gen: torch.Generator) -> Upsample:
+    up = Upsample(c, scale_factor)
+    init_upsample(up, gen)
+    return up
+
+
+# ---------------------------------------------------------------------------
+# Forward functions (NHWC; compute dtype follows the input)
+# ---------------------------------------------------------------------------
+
+def channel_attention(ca: ChannelAttention,
+                      x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SE gating. Returns (gated tensor, attention weights [N, C])."""
+    y = x.mean(dim=(1, 2))
+    y = torch.relu(y @ ca.fc[0].weight.t().to(y.dtype))
+    y = torch.sigmoid(y @ ca.fc[2].weight.t().to(y.dtype))
+    return x * y[:, None, None, :], y
+
+
+def rcab(blk: RCAB, x: torch.Tensor, res_scale: float,
+         padding: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One residual channel-attention block. Returns (out, attention [N, C])."""
+    out = conv2d(x, blk.conv1.weight, blk.conv1.bias, padding=padding)
+    out = prelu(out, blk.prelu.weight)
+    out = conv2d(out, blk.conv2.weight, blk.conv2.bias, padding=padding)
+    out, attn = channel_attention(blk.channel_attention, out)
+    return x + out * res_scale, attn
+
+
+def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
+                    padding: int, collect_attention: bool = False,
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain trunk: each group runs its RCABs, then the tail conv and
+    the group skip. Returns (features, attention [G, B, N, C] if
+    ``collect_attention`` else None)."""
+    attns: List[torch.Tensor] = []
+    for g in groups:
+        res = x
+        for blk in g.blocks:
+            x, attn = rcab(blk, x, res_scale, padding)
+            if collect_attention:
+                attns.append(attn)
+        x = conv2d(x, g.conv.weight, g.conv.bias, padding=padding) + res
+    if not collect_attention:
+        return x, None
+    return x, torch.stack(attns).reshape(len(groups), -1, *attns[0].shape)
+
+
+def upsample(up: Upsample, x: torch.Tensor) -> torch.Tensor:
+    """Cascaded conv -> PixelShuffle(2) -> PReLU stages (float path)."""
+    for st in up.stages:
+        x = pixel_shuffle(conv2d(x, st.conv.weight, st.conv.bias, padding=1), 2)
+        x = prelu(x, st.prelu.weight)
+    return x
