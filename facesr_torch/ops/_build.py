@@ -65,7 +65,7 @@ def build_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
             target = _target(name)
             if target.exists():
                 continue
-            # unique temp name, then an atomic rename: concurrent builders
+            # unique temp name, then an atomic rename: concurrent builds
             # (test workers, several processes) never load a half-written file
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]

@@ -14,6 +14,7 @@ path is the explicit ``dtype=torch.bfloat16`` policy.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional
 
 import torch
@@ -22,17 +23,30 @@ import torch.nn.functional as F
 __all__ = ["conv2d", "prelu", "leaky_relu", "global_avg_pool", "full_f32"]
 
 
+_tf32_lock = threading.Lock()
+_tf32_users = 0
+_tf32_saved = True
+
+
 @contextlib.contextmanager
 def full_f32() -> Iterator[None]:
-    """cuDNN float32 convs in IEEE float32, not TF32 (restored on exit).
-    The flag is process-wide: f32 convs on other threads meanwhile see it
-    too, which only makes them more exact."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    """cuDNN float32 convs in IEEE float32, not TF32. The flag is
+    process-wide, so overlapping users (serving threads) are counted: the
+    first turns TF32 off and the last out restores the caller's setting.
+    f32 convs on other threads meanwhile only become more exact."""
+    global _tf32_users, _tf32_saved
+    with _tf32_lock:
+        if _tf32_users == 0:
+            _tf32_saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_users += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        with _tf32_lock:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                torch.backends.cudnn.allow_tf32 = _tf32_saved
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

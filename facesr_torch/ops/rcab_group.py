@@ -17,7 +17,6 @@ added in f32, PReLU and the SE path run in f32, and the output is
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Dict
 
 import torch
@@ -26,10 +25,9 @@ import torch.nn.functional as F
 from facesr_torch.ops.conv import conv2d
 
 __all__ = ["fused_residual_group", "rcab_group_reference",
-           "prepare_group_weights", "TILE", "KERNEL_CHANNELS"]
+           "prepare_group_weights", "KERNEL_CHANNELS"]
 
 KERNEL_CHANNELS = 64  # the CUDA kernel's only channel width
-TILE = 16             # output tile edge of the CUDA conv (SE partial sums per tile)
 
 GroupWeights = Dict[str, torch.Tensor]
 
@@ -101,15 +99,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _lib():
+def _lib() -> ctypes.CDLL:
     from facesr_torch.ops._build import load_library
 
     lib = load_library("rcab_group")
-    fn = lib.rcab_group_forward
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.rcab_group_forward.argtypes is None:
+        lib.rcab_group_forward.argtypes = _ARGTYPES
+        lib.rcab_group_forward.restype = ctypes.c_int
+        lib.rcab_group_tiles_per_image.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.rcab_group_tiles_per_image.restype = ctypes.c_int
+    return lib
 
 
 _WEIGHT_SPECS = {  # name -> (dtype, shape given C, B, Cr)
@@ -164,23 +163,23 @@ def fused_residual_group(x: torch.Tensor, gw: GroupWeights,
     n, h, w, c = x.shape
     if c != KERNEL_CHANNELS:
         raise ValueError(f"the fused_residual_group kernel takes C={KERNEL_CHANNELS}, got C={c}")
-    fn = _lib()
+    lib = _lib()
     f32 = dict(device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     feat = torch.empty(x.shape, **f32)
     t1 = torch.empty_like(x)
     t2 = torch.empty(x.shape, **f32)
-    tiles = math.ceil(h / TILE) * math.ceil(w / TILE)
-    tile_sums = torch.empty((n, tiles, c), **f32)
+    tile_sums = torch.empty((n, lib.rcab_group_tiles_per_image(h, w), c), **f32)
     gate = torch.empty((n, c), **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(),
-                 *(gw[k].data_ptr() for k in _WEIGHT_SPECS),
-                 feat.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-                 tile_sums.data_ptr(), gate.data_ptr(),
-                 n, h, w, gw["w1"].shape[0], gw["fc1"].shape[-1],
-                 float(res_scale), stream)
+        err = lib.rcab_group_forward(
+            x.data_ptr(), out.data_ptr(),
+            *(gw[k].data_ptr() for k in _WEIGHT_SPECS),
+            feat.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+            tile_sums.data_ptr(), gate.data_ptr(),
+            n, h, w, gw["w1"].shape[0], gw["fc1"].shape[-1],
+            float(res_scale), stream)
     if err != 0:
         raise RuntimeError(f"rcab_group_forward failed: cudaError_t {err}")
     fused_residual_group.launches += 1

@@ -94,6 +94,23 @@ def test_conv2d_restores_tf32_flag():
     assert torch.backends.cudnn.allow_tf32 == prev
 
 
+def test_full_f32_overlapping_users_keep_tf32_off():
+    # two serving threads whose f32 convs overlap: the first one out must
+    # not turn TF32 back on under the other
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        a, b = tconv.full_f32(), tconv.full_f32()
+        a.__enter__()
+        b.__enter__()
+        a.__exit__(None, None, None)
+        assert torch.backends.cudnn.allow_tf32 is False
+        b.__exit__(None, None, None)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def test_prelu_leaky_relu_avg_pool_match_jax():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 5, 5, 6)).astype(np.float32)
