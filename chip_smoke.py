@@ -13,13 +13,17 @@ catches an error and goes on):
 3. each kernel against its plain PyTorch version on the card, at the
    production shape and at a ragged one;
 4. the full 6x10x64 FaceEnhanceNet in bf16: kernel trunk against the plain
-   trunk (conv_last redrawn non-zero), and zero conv_last == bicubic;
+   trunk (conv_last redrawn non-zero), plain trunks with a planted fault
+   as controls (the model limits must reject a dropped SE gate and a
+   halved res_scale; the kernel tolerance must reject a bf16-rounded
+   feature buffer at one group), and zero conv_last == bicubic;
 5. serving, the main path: `Predictor(bf16, max_batch=128)` on one request
    of 130 images and eight concurrent single-image requests through
    `MicroBatcher`; the launch counters are zeroed just before and read
    just after, and every kernel must have run;
 6. times on this card (CUDA events for kernels, host clock ending in
-   synchronize for requests), peak memory and a profiler breakdown.
+   synchronize for requests and the batch-1 forward), peak memory and a
+   profiler breakdown.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -47,13 +51,24 @@ KERNEL_ATOL, KERNEL_RTOL = 2e-2, 2.0 ** -7
 # model: the trunk's one-ulp differences compound over 6 groups and pass
 # through four more bf16 convs (conv_after_body, two upsample stages,
 # conv_last), so the bound is relative to the residual's own scale
-# max|out - bicubic| (random weights make that residual large)
+# max|out - bicubic| (random weights make that residual large); the mean
+# abs difference is held to the same share of mean|out - bicubic|
 MODEL_RTOL = 2.0 ** -5
 DEVICE = "cuda"
 MAX_BATCH = 128                   # serving chunk, the production batch
 REQUEST = 130                     # one full chunk plus a padded remainder
 GROUP_TIMING = (128, 64, 64, 64, 10)  # N, H, W, C, B of the timed group call
-CHECK_SHAPES = (((4, 64, 64, 64), 10), ((3, 20, 36, 64), 3))  # production, ragged
+# kernel vs plain: the production shape and a ragged one, each at a batch
+# where every conv block gets one tile and at one where blocks loop over
+# several (the grid is min(tiles, 2 x SMs): 4096 and 360 tiles here), so the
+# next-tile halo prefetch and the reuse of shared memory across tiles run
+CHECK_SHAPES = (((4, 64, 64, 64), 10), ((128, 64, 64, 64), 10),
+                ((3, 20, 36, 64), 3), ((40, 20, 36, 64), 3))
+# plain groups with a planted fault, the controls for the limits: the
+# model limits must reject the wiring faults; the rounding fault passes
+# them (its reading is printed) and the kernel tolerance must reject it
+WIRING_FAULTS = ("no_gate", "half_res_scale")
+ROUNDING_FAULT = "bf16_feat"
 
 
 def log(msg=""):
@@ -135,6 +150,16 @@ def library_group(x, gw, res_scale):
     return (conv(feat, gw["wg"], gw["bg"]) + x.float()).to(torch.bfloat16)
 
 
+def group_diff(got, want):
+    """(max abs, mean abs, share of elements that differ, excess over the
+    kernel tolerance) of two bf16 group outputs."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    excess = (diff - (KERNEL_ATOL + KERNEL_RTOL * want.abs())).max().item()
+    return (diff.max().item(), diff.mean().item(), (diff > 0).float().mean().item(),
+            excess)
+
+
 def check_kernel(dev, shape, B, seed):
     from facesr_torch.ops.rcab_group import fused_residual_group, rcab_group_reference
 
@@ -143,17 +168,46 @@ def check_kernel(dev, shape, B, seed):
     x = torch.rand(shape, generator=gen).to(torch.bfloat16).to(dev)
     got = fused_residual_group(x, gw, 0.2)
     torch.cuda.synchronize()
-    want = rcab_group_reference(x, gw, 0.2).float()
-    diff = (got.float() - want).abs()
-    excess = (diff - (KERNEL_ATOL + KERNEL_RTOL * want.abs())).max().item()
-    max_abs, mean_abs = diff.max().item(), diff.mean().item()
+    want = rcab_group_reference(x, gw, 0.2)
+    max_abs, mean_abs, share, excess = group_diff(got, want)
     log(f"  {tuple(shape)} B={B}: max_abs={max_abs:.6g} mean_abs={mean_abs:.6g} "
-        f"max|ref|={want.abs().max().item():.4g} finite={bool(torch.isfinite(got).all())}")
+        f"differing={share:.6g} max|ref|={want.float().abs().max().item():.4g} "
+        f"finite={bool(torch.isfinite(got).all())}")
     if not torch.isfinite(got).all() or excess > 0:
         raise AssertionError(f"kernel disagrees with its plain version at {shape}: "
                              f"max_abs={max_abs} exceeds {KERNEL_ATOL} + "
                              f"{KERNEL_RTOL}*|ref| by {excess}")
     return max_abs
+
+
+def planted_fault_group(x, gw, res_scale, fault):
+    """`rcab_group_reference` with one planted fault, the control that shows
+    a check rejects a wrong trunk: "no_gate" drops the SE gate,
+    "half_res_scale" halves res_scale, "bf16_feat" rounds the f32 feature
+    accumulator to bf16 after every RCAB."""
+    from facesr_torch.ops.conv import conv2d
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    def conv(t, w_mat, b):
+        w = w_mat.reshape(3, 3, 64, 64).permute(3, 2, 0, 1)  # OIHW
+        return conv2d(bf(t), bf(w), b, padding=1)
+
+    scale = res_scale / 2 if fault == "half_res_scale" else res_scale
+    x32 = bf(x)
+    feat = x32
+    for k in range(gw["w1"].shape[0]):
+        t = conv(feat, gw["w1"][k], gw["b1"][k])
+        t = torch.where(t >= 0, t, gw["a"][k] * t)
+        t = conv(t, gw["w2"][k], gw["b2"][k])
+        if fault != "no_gate":
+            y = torch.sigmoid(torch.relu(t.mean(dim=(1, 2)) @ gw["fc1"][k]) @ gw["fc2"][k])
+            t = t * y[:, None, None, :]
+        feat = feat + t * scale
+        if fault == "bf16_feat":
+            feat = bf(feat)
+    return (conv(feat, gw["wg"], gw["bg"]) + x32).to(torch.bfloat16)
 
 
 def production_config():
@@ -184,7 +238,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from facesr_torch.ops import _build
     from facesr_torch.ops import rcab_group as rg
-    from facesr_torch.ops.rcab_group import fused_residual_group, rcab_group_reference
+    from facesr_torch.ops.rcab_group import (fused_residual_group, prepare_group_weights,
+                                             rcab_group_reference)
     from facesr_torch.ops.resize import bicubic_up
     from facesr_torch.parallel.serving import MicroBatcher, Predictor, build_serving_fn
 
@@ -214,29 +269,60 @@ def main() -> int:
 
     cfg = production_config()
     log(f"== 4. FaceEnhanceNet {cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels} bf16, batch 4 (kernel trunk vs plain trunk, "
-        f"max abs <= {MODEL_RTOL} * max|out - bicubic|: the trunk's bf16-ulp "
-        "differences compound and pass through four more bf16 convs)")
+        f"max and mean abs <= {MODEL_RTOL} * max and mean |out - bicubic|: the "
+        "trunk's bf16-ulp differences compound and pass through four more bf16 convs)")
     model = production_model(dev, nonzero_last=True)
     x4 = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    res_scale = model.config.res_scale
 
-    def plain_trunk(groups, feat):
-        for g in groups:
-            feat = rcab_group_reference(feat, group_weights(g, dev), model.config.res_scale)
-        return feat
+    def trunk_of(group_fn):
+        def trunk(groups, feat):
+            for g in groups:
+                feat = group_fn(feat, group_weights(g, dev))
+            return feat
+        return trunk
 
+    plain_trunk = trunk_of(lambda f, gw: rcab_group_reference(f, gw, res_scale))
     with torch.inference_mode():
         out_k = model(x4, train=True, dtype=torch.bfloat16)
         out_p = model(x4, train=True, dtype=torch.bfloat16, trunk_fn=plain_trunk)
-        torch.cuda.synchronize()
-        d = (out_k - out_p).abs()
         resid = (out_p - bicubic_up(x4, 4)).abs()
-        log(f"  out {tuple(out_k.shape)}: max_abs={d.max().item():.6g} "
-            f"mean_abs={d.mean().item():.6g} max|out-bicubic|={resid.max().item():.4g} "
-            f"mean|out-bicubic|={resid.mean().item():.4g}")
+        limit_max = MODEL_RTOL * resid.max().item()
+        limit_mean = MODEL_RTOL * resid.mean().item()
+
+        def model_check(name, out):
+            d = (out - out_p).abs()
+            mx, mean = d.max().item(), d.mean().item()
+            ok = mx <= limit_max and mean <= limit_mean
+            log(f"  {name}: max_abs={mx:.6g} (limit {limit_max:.6g}) mean_abs={mean:.6g} "
+                f"(limit {limit_mean:.6g}) -> {'within' if ok else 'rejected'}")
+            return ok
+
+        log(f"  out {tuple(out_k.shape)}: max|out-bicubic|={resid.max().item():.6g} "
+            f"mean|out-bicubic|={resid.mean().item():.6g}")
         if out_k.shape != (4, 256, 256, 3) or not torch.isfinite(out_k).all():
             raise AssertionError("model output has the wrong shape or is not finite")
-        if d.max().item() > MODEL_RTOL * resid.max().item():
-            raise AssertionError(f"kernel trunk disagrees with the plain trunk: {d.max().item()}")
+        if not model_check("kernel trunk", out_k):
+            raise AssertionError("kernel trunk disagrees with the plain trunk")
+        for fault in WIRING_FAULTS + (ROUNDING_FAULT,):
+            faulty = trunk_of(lambda f, gw: planted_fault_group(f, gw, res_scale, fault))
+            rejected = not model_check(f"planted fault {fault}", model(
+                x4, train=True, dtype=torch.bfloat16, trunk_fn=faulty))
+            if fault in WIRING_FAULTS and not rejected:
+                raise AssertionError(f"the model limits let the planted fault {fault} pass")
+        # the rounding fault against the kernel tolerance, at one group
+        shape, B = CHECK_SHAPES[0]
+        gw = group_weights(seeded_group(B, 0), dev)
+        xg = torch.rand(shape, generator=torch.Generator().manual_seed(0)).to(
+            torch.bfloat16).to(dev)
+        mx, mean, share, excess = group_diff(
+            planted_fault_group(xg, gw, 0.2, ROUNDING_FAULT), rcab_group_reference(xg, gw, 0.2))
+        log(f"  planted fault {ROUNDING_FAULT}, one group {shape} B={B} vs plain: "
+            f"max_abs={mx:.6g} mean_abs={mean:.6g} differing={share:.6g} -> "
+            f"{'rejected' if excess > 0 else 'within'} the kernel tolerance")
+        if excess <= 0:
+            raise AssertionError(f"the kernel tolerance lets the planted fault "
+                                 f"{ROUNDING_FAULT} pass")
         zero_last = production_model(dev, nonzero_last=False)
         out_z = zero_last(x4, train=True, dtype=torch.bfloat16)
         if not torch.equal(out_z, bicubic_up(x4, 4)):
@@ -319,6 +405,23 @@ def main() -> int:
     pred_med = statistics.median(pred_s)
     log(f"  Predictor {MAX_BATCH} images numpy in/out: median of 3 "
         f"{pred_med * 1e3:.3f} ms = {MAX_BATCH / pred_med:.1f} images/s [{card}]")
+
+    def host_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    x1 = x128[:1].contiguous()
+    fwd(x1)
+    one_ms = host_ms(lambda: fwd(x1), reps=5)
+    prep_ms = host_ms(lambda: [prepare_group_weights(g) for g in model.residual_groups], 3)
+    log(f"  forward batch 1 bf16 (device-resident input): median of 5 {one_ms:.3f} ms; "
+        f"preparing the {cfg.num_groups} groups' kernel weights, which a forward "
+        f"reuses until they change: median of 3 {prep_ms:.3f} ms [{card}]")
 
     n, h, w, c, B = GROUP_TIMING
     gw = group_weights(seeded_group(B, seed=4), dev)

@@ -15,7 +15,7 @@ trunk is the plain f32 path (the kernel is bf16-only).
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -23,7 +23,8 @@ from torch import nn
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models import blocks
 from facesr_torch.ops.conv import conv2d
-from facesr_torch.ops.rcab_group import fused_residual_group, prepare_group_weights
+from facesr_torch.ops.rcab_group import (GroupWeights, fused_residual_group,
+                                         prepare_group_weights)
 from facesr_torch.ops.resize import bicubic_up
 
 __all__ = ["FaceEnhanceNetConfig", "FaceEnhanceNet", "param_count",
@@ -44,11 +45,6 @@ class FaceEnhanceNetConfig:
     in_channels: int = 3
     out_channels: int = 3
     init_scale: float = 0.1
-    # Legacy field kept for config-surface compatibility.
-    num_rcab_blocks: int = 8
-    # Training-only backward memory trade in the JAX package; kept so one
-    # config dict drives both packages.
-    remat: str = "save_ca"
 
     def replace(self, **kwargs) -> "FaceEnhanceNetConfig":
         d = asdict(self)
@@ -78,6 +74,7 @@ class FaceEnhanceNet(nn.Module):
         if kwargs:
             cfg = cfg.replace(**kwargs)
         self.config = cfg
+        self._kernel_weights = None  # (key, per-group kernel-layout weights)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         c, k = cfg.num_channels, cfg.kernel_size
@@ -115,7 +112,9 @@ class FaceEnhanceNet(nn.Module):
         if trunk_fn is not None:
             feat = trunk_fn(self.residual_groups, feat)
         elif dtype == torch.bfloat16:
-            feat = kernel_trunk(self.residual_groups, feat, cfg.res_scale)
+            feat = feat.contiguous()
+            for gw in self.kernel_group_weights():
+                feat = fused_residual_group(feat, gw, cfg.res_scale)
         else:
             feat, _ = blocks.residual_groups(self.residual_groups, feat,
                                              cfg.res_scale, pad)
@@ -146,14 +145,27 @@ class FaceEnhanceNet(nn.Module):
     def get_model_info(self) -> Dict[str, Any]:
         return get_model_info(self, self.config)
 
+    def kernel_group_weights(self) -> List[GroupWeights]:
+        """Each residual group's weights in the kernel layout, for the bf16
+        trunk. Prepared once and reused until a trunk parameter changes: an
+        in-place edit or `load_state_dict` bumps its version, a device or
+        dtype move clears the cache (`_apply`). Parameters made under
+        `torch.inference_mode` track no version, so theirs are prepared on
+        every call."""
+        params = list(self.residual_groups.parameters())
+        key = None if any(p.is_inference() for p in params) else tuple(
+            (p.data_ptr(), p._version) for p in params)
+        if key is None or self._kernel_weights is None or self._kernel_weights[0] != key:
+            # plain tensors even when called under inference_mode, so a
+            # later autograd forward on the CPU can save them for backward
+            with torch.inference_mode(False), torch.no_grad():
+                gws = [prepare_group_weights(g) for g in self.residual_groups]
+            self._kernel_weights = (key, gws)
+        return self._kernel_weights[1]
 
-def kernel_trunk(groups: nn.ModuleList, feat: torch.Tensor,
-                 res_scale: float) -> torch.Tensor:
-    """The bf16 trunk: one `fused_residual_group` call per group."""
-    feat = feat.contiguous()
-    for g in groups:
-        feat = fused_residual_group(feat, prepare_group_weights(g), res_scale)
-    return feat
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_weights = None
+        return super()._apply(fn, *args, **kwargs)
 
 
 def param_count(model: nn.Module) -> int:

@@ -12,6 +12,7 @@ from facesr.models import face_enhance_net as fen
 from facesr.ops.pallas import rcab_group as jgroup
 from facesr_torch.ckpt.weights import load_reference_pth, state_dict_from_jax_params
 from facesr_torch.models import face_enhance_net as tfen
+from facesr_torch.ops.rcab_group import prepare_group_weights
 from facesr_torch.ops.resize import bicubic_up
 
 torch.set_num_threads(1)
@@ -95,6 +96,44 @@ def test_bf16_forward_matches_jax_kernel_trunk():
     # 5.9e-3 at the worst of two other seeds.
     err = float(np.abs(got.numpy() - want).max())
     assert err < 1e-2, err
+
+
+def test_kernel_weights_prepared_once_and_refreshed_on_change():
+    _, params = _params(seed=14)
+    model = _port(params)
+    x = torch.from_numpy(_x(seed=15))
+    with torch.inference_mode():
+        first = model(x, dtype=torch.bfloat16)
+        gws = model.kernel_group_weights()
+        assert model.kernel_group_weights() is gws  # reused, not re-stacked
+        with torch.no_grad():
+            model.residual_groups[1].blocks[0].conv2.weight.mul_(3.0)
+        fresh = model.kernel_group_weights()
+        assert fresh is not gws
+        want = prepare_group_weights(model.residual_groups[1])["w2"]
+        assert torch.equal(fresh[1]["w2"], want)
+        assert not torch.equal(gws[1]["w2"], want)
+        assert not torch.equal(model(x, dtype=torch.bfloat16), first)
+    # the refreshed weights were prepared outside inference mode, so an
+    # autograd forward on the CPU can use them
+    model.zero_grad()
+    model(x, train=True, dtype=torch.bfloat16).sum().backward()
+    assert model.conv_first.weight.grad is not None
+    model.to(torch.device("cpu"))
+    assert model.kernel_group_weights() is not fresh
+
+
+def test_bf16_forward_of_a_model_built_in_inference_mode():
+    _, params = _params(seed=16)
+    x = torch.from_numpy(_x(seed=17))
+    with torch.no_grad():
+        want = _port(params)(x, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        model = _port(params)  # inference-tensor parameters: no version counter
+        assert torch.equal(model(x, dtype=torch.bfloat16), want)
+        with torch.no_grad():
+            model.residual_groups[0].blocks[1].conv1.bias.add_(0.5)
+        assert not torch.equal(model(x, dtype=torch.bfloat16), want)
 
 
 def test_zero_conv_last_gives_bicubic():

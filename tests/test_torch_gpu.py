@@ -43,7 +43,9 @@ def _excess(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,B", [((4, 64, 64, 64), 10), ((3, 20, 36, 64), 3),
-                                     ((1, 7, 5, 64), 1)])
+                                     ((1, 7, 5, 64), 1),
+                                     # conv blocks loop over several tiles each
+                                     ((128, 64, 64, 64), 10), ((40, 20, 36, 64), 3)])
 def test_kernel_matches_plain_on_cuda(cuda_device, shape, B):
     gw = _group_weights(B, seed=6, device=cuda_device)
     x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
