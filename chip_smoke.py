@@ -11,7 +11,8 @@ catches an error and goes on):
 2. build: every kernel of the serving path from the sources in this
    checkout (nvcc, sm_90a), with the ptxas register/smem/spill lines;
 3. each kernel against its plain PyTorch version on the card, at the
-   production shape and at a ragged one;
+   production shape, ragged ones, a width past one tile and a lone image,
+   and two calls on the same input must agree bitwise;
 4. the full 6x10x64 FaceEnhanceNet in bf16: kernel trunk against the plain
    trunk (conv_last redrawn non-zero), plain trunks with a planted fault
    as controls (the model limits must reject a dropped SE gate and a
@@ -22,8 +23,9 @@ catches an error and goes on):
    `MicroBatcher`; the launch counters are zeroed just before and read
    just after, and every kernel must have run;
 6. times on this card (CUDA events for kernels, host clock ending in
-   synchronize for requests and the batch-1 forward), peak memory and a
-   profiler breakdown.
+   synchronize for requests and the batch-1 forward), peak memory, the
+   profiler's kernels of one group call and of two forwards, and the
+   ptxas register/spill lines.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -58,12 +60,15 @@ DEVICE = "cuda"
 MAX_BATCH = 128                   # serving chunk, the production batch
 REQUEST = 130                     # one full chunk plus a padded remainder
 GROUP_TIMING = (128, 64, 64, 64, 10)  # N, H, W, C, B of the timed group call
-# kernel vs plain: the production shape and a ragged one, each at a batch
-# where every conv block gets one tile and at one where blocks loop over
-# several (the grid is min(tiles, 2 x SMs): 4096 and 360 tiles here), so the
-# next-tile halo prefetch and the reuse of shared memory across tiles run
+# kernel vs plain: the production shape and a ragged one (bands of 2 and 3
+# rows), each at a batch where every cluster takes one image and at one
+# where clusters loop over several (the grid holds 7 to 15 clusters), so
+# the next image's loads behind a tail conv run; a width past one 64-pixel
+# tile with an H the band count does not divide (the scratch variant); and
+# a lone image (one cluster)
 CHECK_SHAPES = (((4, 64, 64, 64), 10), ((128, 64, 64, 64), 10),
-                ((3, 20, 36, 64), 3), ((40, 20, 36, 64), 3))
+                ((3, 20, 36, 64), 3), ((40, 20, 36, 64), 3),
+                ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10))
 # plain groups with a planted fault, the controls for the limits: the
 # model limits must reject the wiring faults; the rounding fault passes
 # them (its reading is printed) and the kernel tolerance must reject it
@@ -167,17 +172,32 @@ def check_kernel(dev, shape, B, seed):
     gen = torch.Generator().manual_seed(seed)
     x = torch.rand(shape, generator=gen).to(torch.bfloat16).to(dev)
     got = fused_residual_group(x, gw, 0.2)
+    again = fused_residual_group(x, gw, 0.2)
     torch.cuda.synchronize()
     want = rcab_group_reference(x, gw, 0.2)
     max_abs, mean_abs, share, excess = group_diff(got, want)
-    log(f"  {tuple(shape)} B={B}: max_abs={max_abs:.6g} mean_abs={mean_abs:.6g} "
-        f"differing={share:.6g} max|ref|={want.float().abs().max().item():.4g} "
-        f"finite={bool(torch.isfinite(got).all())}")
+    repeat = torch.equal(got, again)
+    log(f"  {tuple(shape)} B={B} ({kernel_variant(shape)}): max_abs={max_abs:.6g} "
+        f"mean_abs={mean_abs:.6g} differing={share:.6g} "
+        f"max|ref|={want.float().abs().max().item():.4g} "
+        f"finite={bool(torch.isfinite(got).all())} repeat bitwise equal={repeat}")
     if not torch.isfinite(got).all() or excess > 0:
         raise AssertionError(f"kernel disagrees with its plain version at {shape}: "
                              f"max_abs={max_abs} exceeds {KERNEL_ATOL} + "
                              f"{KERNEL_RTOL}*|ref| by {excess}")
+    if not repeat:
+        raise AssertionError(f"two kernel calls on the same input differ at {shape}: "
+                             "the design claims fixed-order sums")
     return max_abs
+
+
+def kernel_variant(shape):
+    """The launch the kernel's plan picks for an NHWC shape."""
+    from facesr_torch.ops import rcab_group as rg
+
+    n, h, w, _ = shape
+    clusters, size, scratch = rg._plan(rg._lib(), n, h, w)
+    return (f"{'scratch' if scratch else 'resident'}, {clusters} cluster(s) of {size}")
 
 
 def planted_fault_group(x, gw, res_scale, fault):
@@ -259,8 +279,10 @@ def main() -> int:
             if any(s in line for s in ("registers", "spill", "smem", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
     lib = _build.load_library("rcab_group")
-    lib.rcab_group_conv_smem_bytes.restype = ctypes.c_int
-    log(f"  conv3x3 dynamic shared memory: {lib.rcab_group_conv_smem_bytes()} bytes a block")
+    lib.rcab_group_smem_bytes.argtypes = [ctypes.c_int]
+    lib.rcab_group_smem_bytes.restype = ctypes.c_int
+    log(f"  dynamic shared memory a block: resident {lib.rcab_group_smem_bytes(1)} bytes, "
+        f"scratch {lib.rcab_group_smem_bytes(0)} bytes")
 
     log(f"== 3. kernel vs plain (|diff| <= {KERNEL_ATOL} + 2^-7*|ref|: bf16 output, "
         "another f32 summation order)")
@@ -432,18 +454,34 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: rcab_group_reference(xg, gw, 0.2), iters=3, warmup=1)
     library_ms = cuda_ms(lambda: library_group(xg, gw, 0.2), iters=10)
     bound_ms, bound_by = group_bound(n, h, w, c, B, cr)
-    log(f"  one group call N={n} {h}x{w} C={c} B={B}: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library (cuDNN bf16) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+    log(f"  one group call N={n} {h}x{w} C={c} B={B} ({kernel_variant(xg.shape)}): kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library (cuDNN bf16) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    x1g = xg[:1].contiguous()
+    lone_ms = cuda_ms(lambda: fused_residual_group(x1g, gw, 0.2), iters=20)
+    log(f"  one group call N=1 ({kernel_variant(x1g.shape)}): kernel {lone_ms:.4f} ms [{card}]")
 
     from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_residual_group(xg, gw, 0.2)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if getattr(getattr(e, "device_type", None), "name", "") == "CUDA" and dev_us(e) > 0]
+    log(f"  profiler, one group call N={n}: {len(rows)} device kernel(s) [{card}]")
+    for e in sorted(rows, key=lambda e: -dev_us(e)):
+        log(f"    {dev_us(e) / 1e3:9.4f} ms  x{e.count:<3} {e.key[:100]}")
+    for text in _build.build_logs().values():
+        for line in text.splitlines():
+            if any(s in line for s in ("registers", "spill")):
+                log(f"  ptxas: {line.strip()}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fwd(x128)
         fwd(x128)
         torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
     events = [e for e in prof.key_averages()
               if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
     total_us = sum(dev_us(e) for e in events)

@@ -8,69 +8,322 @@
 //     gate = sigmoid(fc2 . relu(fc1 . mean_hw(t2)))
 //     feat = feat + (t2 * gate) * res_scale
 // then out = bf16(conv3x3(bf16(feat), wg) + bg + x). feat stays float32 for
-// the whole group; every conv input is rounded to bf16 as it is loaded;
-// conv products are bf16 x bf16 with f32 accumulation and the bias is added
-// in f32 — the rounding points of the Pallas kernel.
+// the whole group; every conv input is bf16 of that f32 value; conv
+// products are bf16 x bf16 with f32 accumulation and the bias is added in
+// f32 — the rounding points of the Pallas kernel.
 //
 // What bounds it on this card: the 2B+1 3x3 64->64 convs are ~99% of the
 // arithmetic; at N=128, 64x64, B=10 a group is 812 GFLOP, 0.82 ms at the
-// bf16 tensor-core peak, while its unavoidable HBM traffic (x, out, weights)
-// is ~0.14 GB, 41 us. So it is compute-bound in principle. The Pallas design
-// kept one image (512 KB) plus all B RCABs' weights (~1.5 MB) in VMEM for
-// the whole group; a Hopper block has at most 227 KB of shared memory, one
-// 3x3 64->64 bf16 weight alone is 72 KB, and the SE mean needs every tile of
-// an image before the residual update. So this design splits each RCAB into
-// launches that pass f32/bf16 intermediates through HBM (~8 GB per group
-// call at N=128):
-//   (a) conv3x3_kernel: persistent implicit-GEMM 3x3 SAME conv, two blocks
-//       an SM so one block's halo load overlaps the other's MMAs. A block
-//       keeps the whole [9*64, 64] bf16 weight in shared memory for all its
-//       tiles, loads the zero-padded 10x18x64 halo of its next 8x16-pixel
-//       tile into registers while the current tile's MMAs run (then rounds
-//       f32 to bf16 into shared memory), and multiplies with mma.sync
-//       m16n8k16 bf16 tensor-core ops fed by ldmatrix from 144-byte rows
-//       (conflict-free), accumulating in f32.
-//       The epilogue adds the bias and then, by mode: PReLU and a bf16 store
-//       (conv1); an f32 store plus deterministic per-tile channel sums for
-//       the SE mean (conv2); the group input and a bf16 store (tail conv).
-//   (b) se_gate_kernel: one block per image reduces the tile sums in a fixed
-//       order, then mean -> fc1 -> ReLU -> fc2 -> sigmoid in f32.
-//   (c) residual_update_kernel: feat += (t2 * gate) * res_scale in f32.
-// Fusing (c) into the next conv's prologue and moving the conv to
-// wgmma/TMA is the later redesign for speed.
+// bf16 tensor-core peak, while its unavoidable HBM traffic (x, out,
+// weights) is ~0.14 GB, 41 us. So it is compute-bound once the RCAB
+// intermediates stay out of HBM. The Pallas design kept one image and the
+// weights in VMEM for the whole group; a Hopper block has 227 KB of shared
+// memory, and the SE mean needs every pixel of an image before the update.
 //
-// Plain C entry `rcab_group_forward` issues every launch of one group call
-// on the caller's stream and returns the first cudaError_t.
+// Design: one launch a group call. A persistent grid of thread-block
+// clusters walks the images, one image a cluster at a time; the blocks of
+// a cluster own row bands of it. Every RCAB stage is separated by a wait on
+// the other blocks, not by a launch. The SE mean is the only cross-block
+// reduction: each block stores its per-channel sums into every block of the
+// cluster (DSMEM) and every block sums them in rank order, so the gate is
+// computed without atomics and the same every run. The residual update
+// runs in the same kernel and also produces bf16(feat), so every conv reads
+// bf16. Two variants of this design, by image size:
+//
+//  * resident (W <= 64, 8 <= H <= 64; the serving shape): clusters of 8 or
+//    16 blocks so a band is at most 4 rows. Nothing of an RCAB leaves the
+//    chip: each warpgroup keeps its tiles' f32 feat and conv accumulators
+//    in registers for the whole group call; a conv's epilogue writes the
+//    next conv's bf16 input into the block's own shared memory and pushes
+//    the band's edge rows into the neighbours' halo rows. Data between
+//    blocks (those rows, the SE sums) goes by st.async, whose bytes count
+//    on the receiving block's mbarrier, so a block waits for exactly the
+//    bytes it reads: its neighbours' rows before its edge rows, every
+//    block's sums before the gate (double-buffered, as are the halos). The
+//    cluster barrier stays only to order the reuse of buffers (a weight
+//    buffer every block has finished reading before the next multicast
+//    into it; the halos at an image's first conv), so its arrive is
+//    relaxed: the release arrive compiles to a GPU-scope memory barrier
+//    (MEMBAR.ALL.GPU) that took ~1,000 SM cycles an arrive. A conv
+//    multiplies the rows that need no halo before it waits, the edge rows
+//    after, so the waits hide behind MMAs. Each conv's weight is loaded by
+//    TMA, one slice a block multicast to the whole cluster, into the second
+//    of two buffers while the current conv runs. HBM sees x, out and the
+//    weights.
+//  * scratch (any other H x W): the same phases with feat, t2 (f32) and
+//    bf16(feat), t1 (bf16) in global scratch sized for the images in
+//    flight, one per cluster (~3 MB at 64x64), not for the batch; a larger
+//    image only loses L2 residency. Input bands come by TMA as a 4-D box
+//    over NHWC whose out-of-bounds zero fill is the SAME padding, in a
+//    two-stage ring; the residual update is a pass over the band. Its
+//    stages are separated by release/acquire cluster barriers, which
+//    publish the global scratch and the SE sums.
+//
+// Conv mainloop (both): an implicit GEMM, M = 64 pixels of one image row
+// (one wgmma M-tile; a narrower row is masked, a wider one takes several),
+// N = 64 output channels, K = 9 taps x 64 input channels, on wgmma
+// m64n64k16 with f32 accumulators, one warpgroup a tile. B, the [576, 64]
+// weight, sits in 128-byte-swizzled shared memory (TMA) and is read through
+// an MN-major SW128 descriptor. A is fed from registers (ldmatrix): a dx
+// tap shifts A by one pixel, 128 bytes, off the 1024-byte swizzle atom,
+// which a shared-memory A descriptor could follow only through its
+// matrix-base-offset field, while ldmatrix addresses every lane's row
+// itself and the 128-byte swizzle of the input rows keeps its 8-row phases
+// free of bank conflicts. The no-swizzle layout with a shared-memory A
+// descriptor was not built: measured on an H100 (clock64 marks of the
+// resident variant, facesr_torch/cli/profile_group.py), the two
+// warpgroups' 72 wgmmas of a pass take ~3,000-3,100 SM cycles against
+// 2,304 at the peak, and each m64n64k16 reads 2 KB of B from shared memory
+// besides the 2 KB of A, so shared-memory bandwidth, not the way A arrives,
+// is what the MMA passes are near. The rest of a group call is the
+// epilogues (instruction-bound: two warps an SM sub-partition, ~500
+// instructions a thread each) and the waits between the passes.
+//
+// Plain C entries: `rcab_group_plan` picks the variant, the cluster size
+// and the number of clusters (the scratch extent), `rcab_group_forward`
+// issues the one launch on the caller's stream and returns the first
+// cudaError_t.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int C = 64;             // channels (the kernel's only width)
-constexpr int TH = 8;             // output tile rows
-constexpr int TW = 16;            // output tile cols (= the MMA's 16 rows)
-constexpr int HALO_H = TH + 2;
-constexpr int HALO_W = TW + 2;
-constexpr int LDS = C + 8;        // smem row stride in bf16 (144 bytes): the
-                                  // 8 rows of an ldmatrix phase hit 8
-                                  // distinct 16-byte bank groups
-constexpr int WARPS = TH / 2;     // each warp: 2 output rows x 16 px x 64 ch
-constexpr int THREADS = WARPS * 32;
-constexpr int BLOCKS_PER_SM = 2;
-constexpr int KROWS = 9 * C;      // GEMM depth: (dy, dx, cin)
-constexpr int LOAD_BATCH = 8;     // 16-byte global loads in flight a thread
+constexpr int C = 64;              // channels (the kernel's only width)
+constexpr int TILE = 64;           // pixels of one M-tile (a row, or 64 px of one)
+constexpr int NWG = 2;             // warpgroups a block, one M-tile each at a time
+constexpr int THREADS = NWG * 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int KROWS = 9 * C;       // GEMM depth: (dy, dx, cin)
+constexpr int BOX_W = TILE + 2;    // an input row: the tile and its two halo columns
+constexpr uint32_t ROW_BYTES = BOX_W * C * 2;
+constexpr uint32_t W_BYTES = KROWS * C * 2;
 
-constexpr size_t W_SMEM = size_t(KROWS) * LDS * sizeof(__nv_bfloat16);
-constexpr size_t HALO_SMEM = size_t(HALO_H) * HALO_W * LDS * sizeof(__nv_bfloat16);
-constexpr size_t PSUM_SMEM = size_t(WARPS) * C * sizeof(float);
-constexpr size_t CONV_SMEM = W_SMEM + HALO_SMEM + PSUM_SMEM;
+// scratch variant: a stage is ROWS image rows (ROWS / NWG tiles a warpgroup)
+constexpr int ROWS = 4;
+constexpr int BOX_H = ROWS + 2;
+constexpr int W_BOX_ROWS = 192;    // weight rows a TMA box (box extents <= 256)
+constexpr uint32_t STAGE_BYTES = BOX_H * ROW_BYTES;
+constexpr uint32_t STAGE_STRIDE = (STAGE_BYTES + 1023) / 1024 * 1024;
+constexpr int STAGES = 2;
+constexpr int UPDATE_BATCH = 8;    // residual-update vectors in flight a thread
+constexpr int STG_LD = C + 8;      // row stride of the epilogue staging, in elements
 
-enum ConvMode { PRELU_BF16 = 0, BIAS_F32_SUMS = 1, SKIP_BF16 = 2 };
+// shared memory of the scratch variant, from a 1024-byte-aligned base
+constexpr uint32_t OFF_W = 0;
+constexpr uint32_t OFF_STAGE = OFF_W + W_BYTES;
+constexpr uint32_t OFF_STG = OFF_STAGE + STAGES * STAGE_STRIDE;  // [warps][16][STG_LD] f32
+constexpr uint32_t OFF_MISC = OFF_STG + WARPS * 16 * STG_LD * 4;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+// resident variant: a band of at most RES_ROWS rows, one tile a row,
+// R_TILES tiles a warpgroup
+constexpr int RES_ROWS = 4;
+constexpr int R_TILES = RES_ROWS / NWG;
+constexpr uint32_t HALO_SLOT = (ROW_BYTES + 1023) / 1024 * 1024;
+constexpr uint32_t R_OFF_W = 0;                                  // two weight buffers
+constexpr uint32_t R_OFF_S = 2 * W_BYTES;                        // the band's input rows
+constexpr uint32_t R_OFF_H = R_OFF_S + (RES_ROWS * ROW_BYTES + 1023) / 1024 * 1024;
+constexpr uint32_t R_OFF_MISC = R_OFF_H + 4 * HALO_SLOT;         // halos: 2 sets x {top, bottom}
+constexpr uint32_t PUSH_BYTES = TILE * C * 2;  // a band row pushed into a neighbour's halo
+
+// the small arrays both variants keep (from OFF_MISC / R_OFF_MISC)
+constexpr uint32_t M_WSUM = 0;                     // [warps][C] per-warp channel sums
+constexpr uint32_t M_ALLSUM = M_WSUM + WARPS * C * 4;  // [2][16][C] every block's channel sums
+constexpr uint32_t M_MEAN = M_ALLSUM + 2 * 16 * C * 4;
+constexpr uint32_t M_Z = M_MEAN + C * 4;
+constexpr uint32_t M_GATE = M_Z + C * 4;
+constexpr uint32_t M_BIAS = M_GATE + C * 4;        // the current conv's bias
+constexpr uint32_t M_ALPHA = M_BIAS + C * 4;       // and PReLU slopes
+constexpr uint32_t M_BAR = M_ALPHA + C * 4;        // mbarriers
+constexpr int N_BARS = 7;
+constexpr uint32_t M_BYTES = M_BAR + 8 * N_BARS;
+
+constexpr size_t SMEM_BYTES = OFF_MISC + M_BYTES + 1024;  // + room to align the base
+constexpr size_t R_SMEM_BYTES = R_OFF_MISC + M_BYTES + 1024;
+
+static_assert(OFF_STAGE % 1024 == 0 && STAGE_STRIDE % 1024 == 0, "SW128 atoms");
+static_assert(R_OFF_S % 1024 == 0 && R_OFF_H % 1024 == 0 && HALO_SLOT % 1024 == 0, "SW128");
+static_assert(ROWS % NWG == 0 && RES_ROWS % NWG == 0, "whole tiles a warpgroup");
+static_assert(THREADS % C == 0, "the SE gate gives whole groups of threads to each output");
+static_assert(SMEM_BYTES <= 232448 && R_SMEM_BYTES <= 232448, "shared memory of a block");
+
+enum ConvMode { PRELU_T1 = 0, BIAS_T2_SUMS = 1, SKIP_OUT = 2 };
+
+struct Params {
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  const float* b1;
+  const float* a;
+  const float* b2;
+  const float* fc1;
+  const float* fc2;
+  const float* bg;
+  float* feat;            // scratch variant: [clusters, H, W, C] f32
+  float* t2;              // [clusters, H, W, C] f32
+  __nv_bfloat16* t1;      // [clusters, H, W, C]
+  __nv_bfloat16* featb;   // [clusters, H, W, C]: bf16(feat)
+  int n, h, w, num_blocks, cr;
+  float res_scale;
+};
+
+// ---- PTX wrappers -------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `parity` to complete; trap rather than hang if a
+// copy never lands (a bad tensor map), so the launch reports an error.
+// CLUSTER: acquire at cluster scope, for data that other blocks of the
+// cluster stored with st.async.
+template <bool CLUSTER = false>
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    if (CLUSTER)
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    if (done) return;
+    if (spins > (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the same box into shared memory at `dst` (and its barrier at `bar`) of
+// every block of the cluster in `mask`
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// generic-proxy writes before async-proxy (TMA) accesses, and back
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The arrive half of a cluster barrier that orders no data, only the
+// reuse of buffers (every block is done reading them, by wgmma or ldmatrix,
+// before another block's TMA multicast or st.async overwrites them): the
+// data between blocks goes through mbarrier transactions. It spares the
+// GPU-scope memory barrier (MEMBAR.ALL.GPU) that the release arrive compiles
+// to.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t special_reg_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t special_reg_nrank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t special_reg_cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t special_reg_nclusters() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+
+// the address in block `rank`'s shared memory of this block's `addr`
+__device__ __forceinline__ uint32_t dsmem_addr(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_dsmem_v4(uint32_t addr, uint32_t rank, const uint4& v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(dsmem_addr(addr, rank)),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// 16 bytes into block `rank`'s shared memory at (its) `addr`, counted as
+// complete_tx bytes on its mbarrier at `bar`: the data is visible to that
+// block's threads once they see the barrier's phase complete
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint32_t bar, uint32_t rank,
+                                            const uint4& v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(dsmem_addr(addr, rank)), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w),
+      "r"(dsmem_addr(bar, rank))
+      : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_smem_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void st_smem_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};" ::"r"(addr), "r"(0) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -79,378 +332,1031 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// four 8x8 bf16 matrices from the mma fragment layout into shared memory
+// (lanes 8i..8i+7 give the row addresses of matrix i)
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
-// d += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Shared-memory descriptor of a B tile stored MN-major (output channels
+// contiguous, 128 bytes a K row) in 128-byte swizzle atoms of 8 K rows:
+// the stride between 8-row groups (SBO) is 1024 bytes; with N = 64 the
+// tile is one atom wide, so the MN stride (LBO) is never used.
+__device__ __forceinline__ uint64_t desc_b_sw128(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// d[64 px, 64 ch] += A[64 px, 16 k] (registers, the mma.m16n8k16 A fragment
+// of each warp's 16 rows) * B[16 k, 64 ch] (shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// One 16-byte global load of an input pixel's channels and its bf16 store
-// into the halo: f32 input carries 4 channels (rounded to nearest even),
-// bf16 input 8.
-template <typename Tin>
-struct HaloVec;
+// keeps the compiler from moving accumulator reads above the wgmma wait
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-template <>
-struct HaloVec<float> {
-  using V = float4;
-  static constexpr int CH = 4;
-  __device__ static V zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static void store(__nv_bfloat16* dst, const V& v) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = packed;
+// Byte offset of pixel L, channel c in a run of 128-byte pixel rows that
+// starts on a 1024-byte boundary, as TMA's 128-byte swizzle stores it: the
+// 16-byte chunk c / 8 of pixel L sits at chunk (c / 8) ^ (L & 7).
+__device__ __forceinline__ uint32_t swz(int L, int c) {
+  return uint32_t(L) * 128 + (uint32_t((c >> 3) ^ (L & 7)) << 4) + uint32_t(c & 7) * 2;
+}
+
+// ---- pieces both variants share ----------------------------------------
+
+// One M-tile: 64 output pixels of one image row. rows[dy] / l0[dy]: where
+// the input row dy - 1 relative to the output row lies (a 1024-aligned run
+// of BOX_W-pixel rows, and the pixel index of its column -1 in that run).
+// acc[4*jn + 2*half + e] ends up holding pixel 16*wq + g + 8*half, channel
+// 8*jn + 2*t + e (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void conv_tile(float (&acc)[32], const uint32_t (&rows)[3],
+                                          const int (&l0)[3], uint32_t wsm, int wq, int lane) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint32_t a[2][4][4];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+    // this lane's ldmatrix row: pixel 16*wq + (lane & 15) of the tile,
+    // channels (lane >> 4) * 8 of each 16-channel step
+    const int px = l0[dy] + dx + wq * 16 + (lane & 15);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      ldmatrix_x4(a[tap & 1][kc], rows[dy] + swz(px, kc * 16 + (lane >> 4) * 8));
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_rs(acc, a[tap & 1][kc], desc_b_sw128(wsm + uint32_t(tap * C + kc * 16) * 128));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tap's group is done with its A registers
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+struct Misc {
+  float *wsum, *allsum, *mean, *z, *gate, *bias, *alpha;
+  uint32_t bar;  // three mbarriers, 8 bytes apart
+
+  __device__ void init(unsigned char* p) {
+    wsum = reinterpret_cast<float*>(p + M_WSUM);
+    allsum = reinterpret_cast<float*>(p + M_ALLSUM);
+    mean = reinterpret_cast<float*>(p + M_MEAN);
+    z = reinterpret_cast<float*>(p + M_Z);
+    gate = reinterpret_cast<float*>(p + M_GATE);
+    bias = reinterpret_cast<float*>(p + M_BIAS);
+    alpha = reinterpret_cast<float*>(p + M_ALPHA);
+    bar = smem_u32(p + M_BAR);
   }
 };
 
-template <>
-struct HaloVec<__nv_bfloat16> {
-  using V = uint4;
-  static constexpr int CH = 8;
-  __device__ static V zero() { return make_uint4(0u, 0u, 0u, 0u); }
-  __device__ static void store(__nv_bfloat16* dst, const V& v) {
-    *reinterpret_cast<uint4*>(dst) = v;
+// The block's per-channel sums of t2 in a fixed order (each warp's lanes
+// that share t, which differ in bits 2..4, then the warps in order): thread
+// tid < C / 4 gets channels 4 tid .. 4 tid + 3, as the bits of a uint4 for
+// a 16-byte store into every block of the cluster.
+constexpr int SUM_THREADS = C / 4;
+__device__ __forceinline__ uint4 block_channel_sums(const Misc& m, float (&csum)[8][2], int tid) {
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = csum[jn][e];
+#pragma unroll
+      for (int msk = 4; msk < 32; msk <<= 1) s += __shfl_xor_sync(0xffffffffu, s, msk);
+      if (g == 0) m.wsum[(tid >> 5) * C + jn * 8 + 2 * t + e] = s;
+    }
+  __syncthreads();
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < SUM_THREADS)
+    for (int wi = 0; wi < WARPS; ++wi) {
+      const float4 v = *reinterpret_cast<const float4*>(m.wsum + wi * C + 4 * tid);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+  return make_uint4(__float_as_uint(s.x), __float_as_uint(s.y), __float_as_uint(s.z),
+                    __float_as_uint(s.w));
+}
+
+// The SE weights of RCAB k that thread `tid` multiplies in se_gate, loaded
+// ahead so their latency hides behind the cluster barrier before the gate.
+// GATE_LANES adjacent threads share output o = tid / GATE_LANES; lane part
+// takes fc1[part * C / GATE_LANES + i, o] and fc2[part + GATE_LANES * i, o].
+constexpr int GATE_LANES = THREADS / C;
+struct GateWeights {
+  float f1[C / GATE_LANES], f2[C / GATE_LANES];
+};
+
+__device__ __forceinline__ GateWeights load_gate_weights(const Params& p, int k, int tid) {
+  const int o = tid / GATE_LANES, part = tid % GATE_LANES;
+  const float* f1 = p.fc1 + size_t(k) * C * p.cr;  // [C, Cr]
+  const float* f2 = p.fc2 + size_t(k) * p.cr * C;  // [Cr, C]
+  GateWeights gw;
+#pragma unroll
+  for (int i = 0; i < C / GATE_LANES; ++i) {
+    gw.f1[i] = o < p.cr ? f1[(part * (C / GATE_LANES) + i) * p.cr + o] : 0.f;
+    gw.f2[i] = part + GATE_LANES * i < p.cr ? f2[(part + GATE_LANES * i) * C + o] : 0.f;
+  }
+  return gw;
+}
+
+// SE gate of RCAB k, the same in every block: the cluster's channel sums
+// (`allsum`, one row a block) in rank order, then fc1, ReLU, fc2, sigmoid,
+// each output summed by GATE_LANES adjacent lanes. Leaves m.gate ready for
+// every thread.
+__device__ __forceinline__ void se_gate(const Misc& m, const float* allsum, const Params& p,
+                                        const GateWeights& gw, int csize, int tid) {
+  if (tid < C) {
+    float s = 0.f;
+    for (int r = 0; r < csize; ++r) s += allsum[r * C + tid];
+    m.mean[tid] = s / float(p.h * p.w);
+  }
+  __syncthreads();
+  const int o = tid / GATE_LANES, part = tid % GATE_LANES;
+  {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < C / GATE_LANES; ++i)
+      s += m.mean[part * (C / GATE_LANES) + i] * gw.f1[i];
+#pragma unroll
+    for (int msk = 1; msk < GATE_LANES; msk <<= 1) s += __shfl_xor_sync(0xffffffffu, s, msk);
+    if (o < p.cr && part == 0) m.z[o] = fmaxf(s, 0.f);
+  }
+  __syncthreads();
+  {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < C / GATE_LANES; ++i)
+      if (part + GATE_LANES * i < p.cr) s += m.z[part + GATE_LANES * i] * gw.f2[i];
+#pragma unroll
+    for (int msk = 1; msk < GATE_LANES; msk <<= 1) s += __shfl_xor_sync(0xffffffffu, s, msk);
+    if (part == 0) m.gate[o] = 1.f / (1.f + expf(-s));
+  }
+  __syncthreads();
+}
+
+// ---- scratch variant ------------------------------------------------------
+
+struct Block {
+  uint32_t wsm, stage0, bar_w, bar_s0;
+  Misc m;
+  float* stg;
+  int tid, wq, lane, warp, wg;
+  int rank, csize, r0, r1, col_tiles, n_st;
+  uint32_t it;  // stages consumed so far (ring slot it & 1, parity (it >> 1) & 1)
+  uint32_t q;   // convs started so far (weight barrier parity q & 1)
+
+  __device__ uint32_t stage(uint32_t i) const { return stage0 + (i & 1) * STAGE_STRIDE; }
+  __device__ uint32_t bar_s(uint32_t i) const { return bar_s0 + (i & 1) * 8; }
+
+  __device__ void load_weight(const CUtensorMap* map, int row0) const {
+    mbar_expect_tx(bar_w, W_BYTES);
+#pragma unroll
+    for (int part = 0; part < KROWS / W_BOX_ROWS; ++part)
+      tma_load_2d(wsm + part * W_BOX_ROWS * C * 2, map, bar_w, 0, row0 + part * W_BOX_ROWS);
+  }
+
+  __device__ void load_stage(uint32_t i, int s, const CUtensorMap* map, int img) const {
+    const int y0 = r0 + (s / col_tiles) * ROWS, x0 = (s % col_tiles) * TILE;
+    mbar_expect_tx(bar_s(i), STAGE_BYTES);
+    tma_load_4d(stage(i), map, bar_s(i), 0, x0 - 1, y0 - 1, img);
   }
 };
 
-// out[n, y, x, :] = epilogue(sum_{dy,dx,cin} in[n, y+dy-1, x+dx-1, cin] *
-//                            w[(dy*3+dx)*C + cin, :] + bias)
-template <typename Tin, int MODE>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
-conv3x3_kernel(const Tin* __restrict__ in, const __nv_bfloat16* __restrict__ wt,
-               const float* __restrict__ bias, const float* __restrict__ alpha,
-               const __nv_bfloat16* __restrict__ skip, void* __restrict__ out,
-               float* __restrict__ tile_sums, int n_img, int h, int w) {
-  using HV = HaloVec<Tin>;
-  using V = typename HV::V;
-  constexpr int PER_PX = C / HV::CH;
-  constexpr int HALO_ITEMS = HALO_H * HALO_W * PER_PX;
-  constexpr int HALO_PER_THREAD = (HALO_ITEMS + THREADS - 1) / THREADS;
-  constexpr int W_ITEMS = KROWS * (C / 8);
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* hsm = reinterpret_cast<__nv_bfloat16*>(smem + W_SMEM);
-  float* psum = reinterpret_cast<float*>(smem + W_SMEM + HALO_SMEM);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  // the whole weight, once per block, LOAD_BATCH vectors in flight a thread
-  for (int base = 0; base < W_ITEMS; base += LOAD_BATCH * THREADS) {
-    uint4 v[LOAD_BATCH];
-#pragma unroll
-    for (int j = 0; j < LOAD_BATCH; ++j) {
-      const int i = base + j * THREADS + tid;
-      if (i < W_ITEMS)
-        v[j] = *reinterpret_cast<const uint4*>(wt + (i >> 3) * C + (i & 7) * 8);
-    }
-#pragma unroll
-    for (int j = 0; j < LOAD_BATCH; ++j) {
-      const int i = base + j * THREADS + tid;
-      if (i < W_ITEMS) *reinterpret_cast<uint4*>(wsm + (i >> 3) * LDS + (i & 7) * 8) = v[j];
-    }
+// One 3x3 conv over the block's band, input `in_map` image `in_img`; then
+// the next conv's weight (`next_w`, or none) starts loading.
+template <int MODE>
+__device__ __forceinline__ void conv_phase(Block& b, const Params& p, const CUtensorMap* in_map,
+                                           int in_img, const float* bias, const float* alpha,
+                                           int img, int slot, const CUtensorMap* next_w,
+                                           int next_row) {
+  mbar_wait(b.bar_w, b.q & 1);
+  if (b.tid == 0 && b.n_st > 0) {
+    fence_proxy_async();
+    b.load_stage(b.it, 0, in_map, in_img);
   }
-
-  const int tiles_h = (h + TH - 1) / TH;
-  const int tiles_w = (w + TW - 1) / TW;
-  const int tiles_img = tiles_h * tiles_w;
-  const int n_tiles = n_img * tiles_img;
-
-  // ldmatrix row addresses of this lane: A rows are the 16 pixels of an
-  // output row (second 8 channels for lanes 16-31); B rows are k = cin
-  const int a_px = lane & 15, a_ch = (lane >> 4) * 8;
-  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
-  const uint32_t w_base = smem_addr(wsm);
-  const uint32_t h_base = smem_addr(hsm);
-  const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
-  const int r0 = warp * 2;                // this warp's first output row in the tile
-
-  // The halo of the block's next tile is loaded into registers while the
-  // current tile's MMAs run (HALO_PER_THREAD 16-byte loads in flight a
-  // thread), then stored to shared memory between tiles.
-  V v[HALO_PER_THREAD];
-  auto load_halo = [&](int tile) {
-    const int n = tile / tiles_img;
-    const int t_in = tile % tiles_img;
-    const int y0 = (t_in / tiles_w) * TH, x0 = (t_in % tiles_w) * TW;
+  if (b.tid < C) {  // read after the stage loop's first barrier
+    b.m.bias[b.tid] = bias[b.tid];
+    b.m.alpha[b.tid] = MODE == PRELU_T1 ? alpha[b.tid] : 0.f;
+  }
+  const int g = b.lane >> 2, t = b.lane & 3;
+  float csum[8][2];
 #pragma unroll
-    for (int j = 0; j < HALO_PER_THREAD; ++j) {
-      const int i = j * THREADS + tid;
-      const int px = i / PER_PX, q = i % PER_PX;
-      const int iy = y0 - 1 + px / HALO_W, ix = x0 - 1 + px % HALO_W;
-      v[j] = HV::zero();
-      if (i < HALO_ITEMS && iy >= 0 && iy < h && ix >= 0 && ix < w)
-        v[j] = *reinterpret_cast<const V*>(in + ((size_t(n) * h + iy) * w + ix) * C + q * HV::CH);
-    }
-  };
-  if (blockIdx.x < n_tiles) load_halo(blockIdx.x);
+  for (int jn = 0; jn < 8; ++jn) csum[jn][0] = csum[jn][1] = 0.f;
+  // this warp's 16 pixels of a tile, staged so that global stores are whole
+  // 16-byte vectors of consecutive channels and pixels: f32 rows of STG_LD
+  // floats, or bf16 rows of STG_LD halves (both conflict-free for the
+  // fragment writes and the 16-byte reads)
+  float* stg = b.stg + b.warp * 16 * STG_LD;
+  __nv_bfloat16* stg_h = reinterpret_cast<__nv_bfloat16*>(stg);
+  const size_t img_px = size_t(p.h) * p.w;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int n = tile / tiles_img;
-    const int t_in = tile % tiles_img;
-    const int y0 = (t_in / tiles_w) * TH;
-    const int x0 = (t_in % tiles_w) * TW;
-
-    __syncthreads();  // the previous tile is done with hsm and psum
-#pragma unroll
-    for (int j = 0; j < HALO_PER_THREAD; ++j) {
-      const int i = j * THREADS + tid;
-      if (i < HALO_ITEMS) HV::store(hsm + (i / PER_PX) * LDS + (i % PER_PX) * HV::CH, v[j]);
-    }
-    __syncthreads();
-    if (tile + gridDim.x < n_tiles) load_halo(tile + gridDim.x);
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[rr][nb][e] = 0.f;
-
+  for (int s = 0; s < b.n_st; ++s) {
+    __syncthreads();  // stage s-1 is done, so its ring slot may be refilled
+    if (b.tid == 0 && s + 1 < b.n_st) b.load_stage(b.it + 1, s + 1, in_map, in_img);
+    mbar_wait(b.bar_s(b.it), (b.it >> 1) & 1);
+    const int y0 = b.r0 + (s / b.col_tiles) * ROWS, x0 = (s % b.col_tiles) * TILE;
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-      for (int kc = 0; kc < C / 16; ++kc) {
-        uint32_t b[8][2];
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, w_base + ((tap * C + kc * 16 + b_k) * LDS + np * 16 + b_n) * 2);
-          b[2 * np][0] = r[0];
-          b[2 * np][1] = r[1];
-          b[2 * np + 1][0] = r[2];
-          b[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          uint32_t a[4];
-          ldmatrix_x4(a, h_base + (((r0 + rr + dy) * HALO_W + dx + a_px) * LDS + kc * 16 + a_ch) * 2);
-#pragma unroll
-          for (int nb = 0; nb < 8; ++nb) mma_bf16(acc[rr][nb], a, b[nb][0], b[nb][1]);
-        }
-      }
-    }
-
-    // epilogue: acc[rr][nb] holds pixels g and g+8 of output row r0+rr,
-    // channels nb*8 + 2t and nb*8 + 2t + 1
-    float csum[8][2];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) csum[nb][0] = csum[nb][1] = 0.f;
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
+    for (int jj = 0; jj < ROWS / NWG; ++jj) {
+      const int j = b.wg + jj * NWG;
+      const int y = y0 + j;
+      if (y >= b.r1) break;  // uniform over the warpgroup
+      float acc[32];
+      const uint32_t st = b.stage(b.it);
+      const uint32_t rows[3] = {st, st, st};
+      const int l0[3] = {j * BOX_W, (j + 1) * BOX_W, (j + 2) * BOX_W};
+      conv_tile(acc, rows, l0, b.wsm, b.wq, b.lane);
+      const int xw = x0 + b.wq * 16;  // this warp's first pixel
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int oy = y0 + r0 + rr, ox = x0 + g + half * 8;
-        if (oy >= h || ox >= w) continue;
-        const size_t px_off = ((size_t(n) * h + oy) * w + ox) * C;
+        const int px = g + half * 8;
+        const bool valid = xw + px < p.w;
 #pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
-          const int c = nb * 8 + 2 * t;
-          float v0 = acc[rr][nb][half * 2] + bias[c];
-          float v1 = acc[rr][nb][half * 2 + 1] + bias[c + 1];
-          if (MODE == PRELU_BF16) {
-            v0 = v0 >= 0.f ? v0 : alpha[c] * v0;
-            v1 = v1 >= 0.f ? v1 : alpha[c + 1] * v1;
-          } else if (MODE == SKIP_BF16) {
-            const float2 s = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(skip + px_off + c));
-            v0 += s.x;
-            v1 += s.y;
-          }
-          if (MODE == BIAS_F32_SUMS) {
-            *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + px_off + c) =
-                make_float2(v0, v1);
-            csum[nb][0] += v0;
-            csum[nb][1] += v1;
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + px_off + c) =
+        for (int jn = 0; jn < 8; ++jn) {
+          const int c = jn * 8 + 2 * t;
+          float v0 = acc[4 * jn + 2 * half] + b.m.bias[c];
+          float v1 = acc[4 * jn + 2 * half + 1] + b.m.bias[c + 1];
+          if (MODE == PRELU_T1) {
+            v0 = v0 >= 0.f ? v0 : b.m.alpha[c] * v0;
+            v1 = v1 >= 0.f ? v1 : b.m.alpha[c + 1] * v1;
+            *reinterpret_cast<__nv_bfloat162*>(stg_h + px * STG_LD + c) =
                 __floats2bfloat162_rn(v0, v1);
+          } else {
+            *reinterpret_cast<float2*>(stg + px * STG_LD + c) = make_float2(v0, v1);
+            if (MODE == BIAS_T2_SUMS && valid) {
+              csum[jn][0] += v0;
+              csum[jn][1] += v1;
+            }
           }
         }
       }
-    }
-    if (MODE == BIAS_F32_SUMS) {
-      // sum over the warp's pixels: lanes with the same t differ in bits 2..4
+      __syncwarp();
+      const size_t row0 = size_t(y) * p.w + xw;  // pixel offset in the image
+      if (MODE == PRELU_T1) {
+        // 16 px x 8 chunks of 8 channels
 #pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float s = csum[nb][j];
-#pragma unroll
-          for (int m = 4; m < 32; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-          if (g == 0) psum[warp * C + nb * 8 + 2 * t + j] = s;
+        for (int u = 0; u < 4; ++u) {
+          const int i = b.lane + 32 * u, px = i >> 3, q = i & 7;
+          if (xw + px < p.w)
+            *reinterpret_cast<uint4*>(p.t1 + ((size_t(slot) * img_px + row0 + px) * C + q * 8)) =
+                *reinterpret_cast<const uint4*>(stg_h + px * STG_LD + q * 8);
         }
-      __syncthreads();
-      if (tid < C) {
-        float s = 0.f;
-        for (int wi = 0; wi < WARPS; ++wi) s += psum[wi * C + tid];
-        tile_sums[size_t(tile) * C + tid] = s;
+      } else if (MODE == BIAS_T2_SUMS) {
+        // 16 px x 16 chunks of 4 channels
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = b.lane + 32 * u, px = i >> 4, q = i & 15;
+          if (xw + px < p.w)
+            *reinterpret_cast<float4*>(p.t2 + ((size_t(slot) * img_px + row0 + px) * C + q * 4)) =
+                *reinterpret_cast<const float4*>(stg + px * STG_LD + q * 4);
+        }
+      } else {
+        // out = bf16(acc + bg + x), 16 px x 8 chunks of 8 channels
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = b.lane + 32 * u, px = i >> 3, q = i & 7;
+          if (xw + px >= p.w) continue;
+          const size_t o = (size_t(img) * img_px + row0 + px) * C + q * 8;
+          const uint4 xv = *reinterpret_cast<const uint4*>(p.x + o);
+          const float4 lo = *reinterpret_cast<const float4*>(stg + px * STG_LD + q * 8);
+          const float4 hi = *reinterpret_cast<const float4*>(stg + px * STG_LD + q * 8 + 4);
+          const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xv);
+          const float2 x0f = __bfloat1622float2(xh[0]), x1f = __bfloat1622float2(xh[1]);
+          const float2 x2f = __bfloat1622float2(xh[2]), x3f = __bfloat1622float2(xh[3]);
+          __nv_bfloat162 r[4] = {__floats2bfloat162_rn(lo.x + x0f.x, lo.y + x0f.y),
+                                 __floats2bfloat162_rn(lo.z + x1f.x, lo.w + x1f.y),
+                                 __floats2bfloat162_rn(hi.x + x2f.x, hi.y + x2f.y),
+                                 __floats2bfloat162_rn(hi.z + x3f.x, hi.w + x3f.y)};
+          *reinterpret_cast<uint4*>(p.out + o) = *reinterpret_cast<const uint4*>(r);
+        }
+      }
+      __syncwarp();  // the staging rows are free for the next tile
+    }
+    ++b.it;
+  }
+  __syncthreads();  // every MMA of this conv is done with the weight buffer
+  if (b.tid == 0 && next_w != nullptr) b.load_weight(next_w, next_row);
+  ++b.q;
+  if (MODE == BIAS_T2_SUMS) {
+    // into row `rank` of allsum in every block; the cluster barrier after
+    // this conv publishes them
+    const uint4 s = block_channel_sums(b.m, csum, b.tid);
+    if (b.tid < SUM_THREADS) {
+      const uint32_t addr = smem_u32(b.m.allsum + b.rank * C + 4 * b.tid);
+      for (int r = 0; r < b.csize; ++r) st_dsmem_v4(addr, uint32_t(r), s);
+    }
+  }
+  fence_proxy_async();  // t1 / out writes before neighbours' TMA reads
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+rcab_group_scratch_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_featb,
+                          const __grid_constant__ CUtensorMap tm_t1,
+                          const __grid_constant__ CUtensorMap tm_w1,
+                          const __grid_constant__ CUtensorMap tm_w2,
+                          const __grid_constant__ CUtensorMap tm_wg, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sb = smem_raw + (base - raw);
+
+  Block b;
+  b.wsm = base + OFF_W;
+  b.stage0 = base + OFF_STAGE;
+  b.m.init(sb + OFF_MISC);
+  b.bar_w = b.m.bar;
+  b.bar_s0 = b.m.bar + 8;
+  b.stg = reinterpret_cast<float*>(sb + OFF_STG);
+  b.tid = threadIdx.x;
+  b.warp = b.tid >> 5;
+  b.wg = b.tid >> 7;
+  b.wq = b.warp & 3;
+  b.lane = b.tid & 31;
+  b.it = 0;
+  b.q = 0;
+
+  b.rank = int(special_reg_rank());
+  b.csize = int(special_reg_nrank());
+  const int cid = int(special_reg_cluster_id()), ncl = int(special_reg_nclusters());
+  b.r0 = b.rank * p.h / b.csize;
+  b.r1 = (b.rank + 1) * p.h / b.csize;
+  b.col_tiles = (p.w + TILE - 1) / TILE;
+  b.n_st = ((b.r1 - b.r0 + ROWS - 1) / ROWS) * b.col_tiles;
+
+  if (b.tid == 0) {
+    mbar_init(b.bar_w, 1);
+    for (int i = 0; i < STAGES; ++i) mbar_init(b.bar_s(i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (cid < p.n) b.load_weight(&tm_w1, 0);
+  }
+  __syncthreads();
+
+  const int B = p.num_blocks, slot = cid;
+  const size_t img_elems = size_t(p.h) * p.w * C;
+  const size_t band_off = size_t(b.r0) * p.w * C;
+  const int band_vec4 = (b.r1 - b.r0) * p.w * (C / 4);
+  float* feat = p.feat + size_t(slot) * img_elems + band_off;
+  const float* t2 = p.t2 + size_t(slot) * img_elems + band_off;
+  __nv_bfloat16* featb = p.featb + size_t(slot) * img_elems + band_off;
+
+  for (int img = cid; img < p.n; img += ncl) {
+    const __nv_bfloat16* xb = p.x + size_t(img) * img_elems + band_off;
+    for (int k = 0; k < B; ++k) {
+      conv_phase<PRELU_T1>(b, p, k == 0 ? &tm_x : &tm_featb, k == 0 ? img : slot,
+                           p.b1 + k * C, p.a + k * C, img, slot, &tm_w2, k * KROWS);
+      cluster_sync();  // every block's t1 band is written
+      conv_phase<BIAS_T2_SUMS>(b, p, &tm_t1, slot, p.b2 + k * C, nullptr, img, slot,
+                               k + 1 < B ? &tm_w1 : &tm_wg, k + 1 < B ? (k + 1) * KROWS : 0);
+      const GateWeights gw = load_gate_weights(p, k, b.tid);
+      cluster_sync();  // every block's channel sums are in its shared memory
+      se_gate(b.m, b.m.allsum, p, gw, b.csize, b.tid);
+
+      // residual update of the band: feat += (t2 * gate) * res_scale in f32
+      // (feat starts as float(x)), and bf16(feat) for the next conv
+      // (UPDATE_BATCH vectors of loads in flight a thread: one block an SM
+      // has too few threads to cover the L2 latency otherwise)
+      for (int i0 = b.tid; i0 < band_vec4; i0 += THREADS * UPDATE_BATCH) {
+        float4 f[UPDATE_BATCH], tv[UPDATE_BATCH];
+#pragma unroll
+        for (int u = 0; u < UPDATE_BATCH; ++u) {
+          const int i = i0 + u * THREADS;
+          if (i >= band_vec4) break;
+          if (k == 0) {
+            const uint2 xv = reinterpret_cast<const uint2*>(xb)[i];
+            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.x));
+            const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.y));
+            f[u] = make_float4(lo.x, lo.y, hi.x, hi.y);
+          } else {
+            f[u] = reinterpret_cast<const float4*>(feat)[i];
+          }
+          tv[u] = reinterpret_cast<const float4*>(t2)[i];
+        }
+#pragma unroll
+        for (int u = 0; u < UPDATE_BATCH; ++u) {
+          const int i = i0 + u * THREADS;
+          if (i >= band_vec4) break;
+          const int c = (i * 4) % C;
+          f[u].x += (tv[u].x * b.m.gate[c]) * p.res_scale;
+          f[u].y += (tv[u].y * b.m.gate[c + 1]) * p.res_scale;
+          f[u].z += (tv[u].z * b.m.gate[c + 2]) * p.res_scale;
+          f[u].w += (tv[u].w * b.m.gate[c + 3]) * p.res_scale;
+          reinterpret_cast<float4*>(feat)[i] = f[u];
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(f[u].x, f[u].y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(f[u].z, f[u].w);
+          uint2 packed;
+          packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+          packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+          reinterpret_cast<uint2*>(featb)[i] = packed;
+        }
+      }
+      fence_proxy_async();
+      cluster_sync();  // every block's bf16(feat) band is written
+    }
+    const bool more = img + ncl < p.n;
+    conv_phase<SKIP_OUT>(b, p, &tm_featb, slot, p.bg, nullptr, img, slot,
+                         more ? &tm_w1 : nullptr, 0);
+  }
+  // no block leaves while another may still read its shared memory
+  cluster_sync();
+}
+
+// ---- resident variant -------------------------------------------------------
+
+struct Res {
+  uint32_t w0, s, h;  // shared-memory addresses
+  // mbarriers: weight buffers (TMA), x (TMA), halo sets and SE sums
+  // buffers (st.async from the other blocks)
+  uint32_t bar_w0, bar_x, bar_h0, bar_sum0;
+  Misc m;
+  int tid, lane, wg, wq, g, t;
+  int rank, csize, r0, nb;  // the band: image rows r0 .. r0 + nb - 1 (1 <= nb <= 4)
+  uint32_t q;       // convs started: weight buffer and input halo set q & 1
+  uint32_t ns;      // SE rounds started: sums buffer ns & 1
+  uint32_t hphase;  // bit s: phase parity of halo set s's barrier
+  uint32_t halo_bytes;  // what the neighbours push into a halo set a conv
+
+  __device__ uint32_t halo(int set, int bottom) const {
+    return h + uint32_t(set * 2 + bottom) * HALO_SLOT;
+  }
+  __device__ uint32_t bar_h(int set) const { return bar_h0 + 8 * uint32_t(set); }
+  __device__ uint32_t bar_sum(int buf) const { return bar_sum0 + 8 * uint32_t(buf); }
+  __device__ float* allsum(int buf) const { return m.allsum + buf * 16 * C; }
+  // where input row jr of the band's box lies (jr = 0: the row above the
+  // band, jr = nb + 1: the row below; the rest are the band's own rows)
+  __device__ void row(int jr, int set, uint32_t& addr, int& l0) const {
+    if (jr == 0) {
+      addr = halo(set, 0);
+      l0 = 0;
+    } else if (jr == nb + 1) {
+      addr = halo(set, 1);
+      l0 = 0;
+    } else {
+      addr = s;
+      l0 = (jr - 1) * BOX_W;
+    }
+  }
+
+  // a conv's weight into buffer `buf` of every block of the cluster: this
+  // block's share of its 8-row atoms, multicast
+  __device__ void load_weight(const CUtensorMap* map, int row0, uint32_t buf) const {
+    const uint32_t bar = bar_w0 + 8 * buf, dst = w0 + buf * W_BYTES;
+    mbar_expect_tx(bar, W_BYTES);
+    const uint16_t mask = uint16_t((1u << csize) - 1);
+    for (int a = rank; a < KROWS / 8; a += csize)
+      tma_load_2d_multicast(dst + a * 1024, map, bar, 0, row0 + a * 8, mask);
+  }
+
+  // image `img` of x as the input of a conv reading halo set `set`
+  __device__ void load_x(const CUtensorMap* x4, const CUtensorMap* x1, int img, int set) const {
+    fence_proxy_async();
+    mbar_expect_tx(bar_x, (RES_ROWS + 2) * ROW_BYTES);
+    tma_load_4d(s, x4, bar_x, 0, -1, r0, img);
+    tma_load_4d(halo(set, 0), x1, bar_x, 0, -1, r0 - 1, img);
+    tma_load_4d(halo(set, 1), x1, bar_x, 0, -1, r0 + nb, img);
+  }
+
+  // this thread's accumulator channels 8*jn + 2*t + e of a per-channel array
+  __device__ void channels(const float* v, float (&out)[8][2]) const {
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      out[jn][0] = v[jn * 8 + 2 * t];
+      out[jn][1] = v[jn * 8 + 2 * t + 1];
+    }
+  }
+
+  // this warp's 16 pixels of band row j (all 64 channels, f32 in the
+  // accumulator layout) as bf16 input of the next conv, with stmatrix;
+  // pixels past W stay zero: they are the next conv's padding. An edge row
+  // of the band also goes to the neighbour's halo row of set `set`
+  // (16-byte st.async, counted on the neighbour's barrier of that set).
+  __device__ void put_tile(int j, const float (&v)[32], int w, int set) const {
+    const int mi = lane >> 3, half = mi & 1;  // this lane's row address: matrix mi
+    const int L = j * BOX_W + 1 + wq * 16 + (lane & 7) + 8 * half;
+    const uint32_t row = s + uint32_t(L) * 128;
+    const bool lo_ok = wq * 16 + g < w, hi_ok = wq * 16 + g + 8 < w;  // this thread's values
+#pragma unroll
+    for (int jp = 0; jp < 8; jp += 2) {
+      uint32_t r[4];  // matrices (half, jn): (0, jp), (1, jp), (0, jp + 1), (1, jp + 1)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int jn = jp + (m >> 1), hm = m & 1;
+        const bool ok = hm ? hi_ok : lo_ok;
+        r[m] = pack_bf16(ok ? v[4 * jn + 2 * hm] : 0.f, ok ? v[4 * jn + 2 * hm + 1] : 0.f);
+      }
+      stmatrix_x4(row + (uint32_t((jp + (mi >> 1)) ^ (L & 7)) << 4), r);
+    }
+    const int up = j == 0 ? rank - 1 : -1, down = j == nb - 1 ? rank + 1 : csize;
+    if (up < 0 && down >= csize) return;
+    __syncwarp();
+    constexpr int PER_LANE = 16 * 8 / 32;  // the warp's 16 px x 8 chunks
+    uint4 cv[PER_LANE];
+#pragma unroll
+    for (int u = 0; u < PER_LANE; ++u) {  // all loads first, then all stores
+      const int i = lane + 32 * u, ls = j * BOX_W + 1 + wq * 16 + (i >> 3);
+      cv[u] = ld_smem_v4(s + uint32_t(ls) * 128 + (uint32_t((i & 7) ^ (ls & 7)) << 4));
+    }
+#pragma unroll
+    for (int u = 0; u < PER_LANE; ++u) {
+      const int i = lane + 32 * u, lh = 1 + wq * 16 + (i >> 3);
+      const uint32_t off = uint32_t(lh) * 128 + (uint32_t((i & 7) ^ (lh & 7)) << 4);
+      if (up >= 0) st_async_v4(halo(set, 1) + off, bar_h(set), uint32_t(up), cv[u]);
+      if (down < csize) st_async_v4(halo(set, 0) + off, bar_h(set), uint32_t(down), cv[u]);
+    }
+  }
+
+  // after a conv's output is in the band's rows: arrive at the cluster
+  // barrier the next conv waits on before it reloads a weight buffer
+  __device__ void finish_rows() const {
+    __syncthreads();
+    cluster_arrive_relaxed();
+  }
+
+  // The MMAs of conv q into acc (warpgroup wg's tiles are band rows wg and
+  // wg + NWG): first the rows that read only this block's own input; then
+  // the cluster barrier that ends every block's conv q - 1, after which the
+  // next conv's weight starts loading into the buffer conv q - 1 used; then
+  // the edge rows, once the neighbours' edge rows of conv q - 1 are in the
+  // halo (`pushed`; the first conv of an image reads x's rows by TMA).
+  __device__ __forceinline__ void conv(float (&acc)[R_TILES][32], const float* bias,
+                                       const float* alpha, const CUtensorMap* next_w,
+                                       int next_row, bool pushed, uint32_t x_parity) {
+    if (tid < C) {  // read after the barrier that follows the MMAs
+      m.bias[tid] = bias[tid];
+      m.alpha[tid] = alpha != nullptr ? alpha[tid] : 0.f;
+    }
+    mbar_wait(bar_w0 + 8 * (q & 1), (q >> 1) & 1);
+    if (!pushed) mbar_wait(bar_x, x_parity);
+    const uint32_t wsm = w0 + (q & 1) * W_BYTES;
+#pragma unroll
+    for (int edge = 0; edge < 2; ++edge) {
+      if (edge) {
+        cluster_wait();
+        if (tid == 0 && next_w != nullptr) load_weight(next_w, next_row, (q + 1) & 1);
+        if (pushed) {
+          // Armed here though the pushes may have landed already (the
+          // tx-count may go below zero). The next pushes into this set come
+          // after this phase: they need this conv's edge rows or, from an
+          // image's first conv, the cluster barrier after the tail conv.
+          const int set = int(q & 1);
+          if (tid == 0) mbar_expect_tx(bar_h(set), halo_bytes);
+          mbar_wait<true>(bar_h(set), (hphase >> set) & 1);
+          hphase ^= 1u << set;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R_TILES; ++i) {
+        const int j = wg + NWG * i;
+        if (j < nb && (j == 0 || j == nb - 1) == bool(edge)) {
+          uint32_t rows[3];
+          int l0[3];
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) row(j + dy, int(q & 1), rows[dy], l0[dy]);
+          conv_tile(acc[i], rows, l0, wsm, wq, lane);
+        }
       }
     }
+    __syncthreads();  // the block's input rows, halos and weight buffer are free
   }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+rcab_group_resident_kernel(const __grid_constant__ CUtensorMap tm_x4,
+                           const __grid_constant__ CUtensorMap tm_x1,
+                           const __grid_constant__ CUtensorMap tm_w1,
+                           const __grid_constant__ CUtensorMap tm_w2,
+                           const __grid_constant__ CUtensorMap tm_wg, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sb = smem_raw + (base - raw);
+
+  Res r;
+  r.w0 = base + R_OFF_W;
+  r.s = base + R_OFF_S;
+  r.h = base + R_OFF_H;
+  r.m.init(sb + R_OFF_MISC);
+  r.bar_w0 = r.m.bar;
+  r.bar_x = r.m.bar + 16;
+  r.bar_h0 = r.m.bar + 24;
+  r.bar_sum0 = r.m.bar + 40;
+  r.tid = threadIdx.x;
+  r.lane = r.tid & 31;
+  r.wg = r.tid >> 7;
+  r.wq = (r.tid >> 5) & 3;
+  r.g = r.lane >> 2;
+  r.t = r.lane & 3;
+  r.rank = int(special_reg_rank());
+  r.csize = int(special_reg_nrank());
+  r.r0 = r.rank * p.h / r.csize;
+  r.nb = (r.rank + 1) * p.h / r.csize - r.r0;
+  r.q = 0;
+  r.ns = 0;
+  r.hphase = 0;
+  r.halo_bytes = PUSH_BYTES * uint32_t((r.rank > 0) + (r.rank + 1 < r.csize));
+  const int cid = int(special_reg_cluster_id()), ncl = int(special_reg_nclusters());
+
+  // zero the input rows and halos: their padding columns, the image's
+  // border halos and the pixels past W are never written again
+  for (uint32_t i = r.tid; i < (R_OFF_MISC - R_OFF_S) / 16; i += THREADS)
+    st_smem_zero16(r.s + 16 * i);
+  if (r.tid == 0) {
+    for (int i = 0; i < N_BARS; ++i) mbar_init(r.m.bar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  fence_proxy_async();
+  cluster_sync();  // every block's barriers exist before a multicast lands
+  if (r.tid == 0 && cid < p.n) {
+    r.load_weight(&tm_w1, 0, 0);
+    r.load_x(&tm_x4, &tm_x1, cid, 0);
+  }
+  cluster_arrive_relaxed();  // what the first conv's barrier waits for
+
+  const int B = p.num_blocks;
+  const size_t img_px = size_t(p.h) * p.w;
+  uint32_t n_img = 0;  // images this block has taken (x barrier parity)
+  for (int img = cid; img < p.n; img += ncl, ++n_img) {
+    // feat = float(x) for this warpgroup's tiles, in accumulator layout
+    float feat[R_TILES][32];
+#pragma unroll
+    for (int i = 0; i < R_TILES; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = r.wg + NWG * i, px = r.wq * 16 + r.g + half * 8;
+        const bool ok = j < r.nb && px < p.w;
+        const size_t o = ((size_t(img) * p.h + r.r0 + j) * p.w + px) * C;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          float2 v = make_float2(0.f, 0.f);
+          if (ok)
+            v = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(p.x + o + jn * 8 + 2 * r.t));
+          feat[i][4 * jn + 2 * half] = v.x;
+          feat[i][4 * jn + 2 * half + 1] = v.y;
+        }
+      }
+    float acc[R_TILES][32];
+
+    for (int k = 0; k < B; ++k) {
+      // conv1 + PReLU: t1 goes straight into the next conv's input rows
+      r.conv(acc, p.b1 + k * C, p.a + k * C, &tm_w2, k * KROWS, k > 0, n_img & 1);
+      {
+        float bias[8][2], alpha[8][2];  // this thread's channels, read once
+        r.channels(r.m.bias, bias);
+        r.channels(r.m.alpha, alpha);
+#pragma unroll
+        for (int i = 0; i < R_TILES; ++i) {
+          const int j = r.wg + NWG * i;
+          if (j >= r.nb) continue;
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const float v = acc[i][e] + bias[e >> 2][e & 1];
+            acc[i][e] = v >= 0.f ? v : alpha[e >> 2][e & 1] * v;
+          }
+          r.put_tile(j, acc[i], p.w, int((r.q + 1) & 1));
+        }
+      }
+      ++r.q;
+      r.finish_rows();
+
+      // conv2: t2 stays in the accumulators across the SE barrier
+      r.conv(acc, p.b2 + k * C, nullptr, k + 1 < B ? &tm_w1 : &tm_wg,
+             k + 1 < B ? (k + 1) * KROWS : 0, true, 0);
+      {
+        float csum[8][2];
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) csum[jn][0] = csum[jn][1] = 0.f;
+#pragma unroll
+        for (int i = 0; i < R_TILES; ++i) {
+          const int j = r.wg + NWG * i;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const bool ok = j < r.nb && r.wq * 16 + r.g + half * 8 < p.w;
+#pragma unroll
+            for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float v = acc[i][4 * jn + 2 * half + e] + r.m.bias[jn * 8 + 2 * r.t + e];
+                acc[i][4 * jn + 2 * half + e] = v;
+                if (ok) csum[jn][e] += v;
+              }
+          }
+        }
+        // into row `rank` of sums buffer ns & 1 in every block
+        const uint4 s = block_channel_sums(r.m, csum, r.tid);
+        if (r.tid < SUM_THREADS) {
+          const int buf = int(r.ns & 1);
+          const uint32_t addr = smem_u32(r.allsum(buf) + r.rank * C + 4 * r.tid);
+          for (int dst = 0; dst < r.csize; ++dst)
+            st_async_v4(addr, r.bar_sum(buf), uint32_t(dst), s);
+        }
+      }
+      {
+        const GateWeights gw = load_gate_weights(p, k, r.tid);
+        // every block's sums; the next round that stores into this buffer
+        // needs every block's sums of the round between, which each block
+        // sends only after its gate of this round
+        const int buf = int(r.ns & 1);
+        if (r.tid == 0) mbar_expect_tx(r.bar_sum(buf), uint32_t(r.csize) * C * 4);
+        mbar_wait<true>(r.bar_sum(buf), (r.ns >> 1) & 1);
+        ++r.ns;
+        se_gate(r.m, r.allsum(buf), p, gw, r.csize, r.tid);
+      }
+      // feat += (t2 * gate) * res_scale; bf16(feat) is the next conv's input
+      {
+        float gate[8][2];
+        r.channels(r.m.gate, gate);
+#pragma unroll
+        for (int i = 0; i < R_TILES; ++i) {
+          const int j = r.wg + NWG * i;
+          if (j >= r.nb) continue;
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            feat[i][e] += (acc[i][e] * gate[e >> 2][e & 1]) * p.res_scale;
+          r.put_tile(j, feat[i], p.w, int((r.q + 1) & 1));
+        }
+      }
+      ++r.q;
+      r.finish_rows();
+    }
+
+    // tail conv: out = bf16(conv + bg + x); then the next image's x loads
+    // into the rows this conv read
+    const bool more = img + ncl < p.n;
+    r.conv(acc, p.bg, nullptr, more ? &tm_w1 : nullptr, 0, true, 0);
+    fence_proxy_async();  // the rows TMA overwrites now were written by every thread
+    __syncthreads();
+    if (r.tid == 0 && more) r.load_x(&tm_x4, &tm_x1, img + ncl, int((r.q + 1) & 1));
+#pragma unroll
+    for (int i = 0; i < R_TILES; ++i) {
+      const int j = r.wg + NWG * i;
+      if (j >= r.nb) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int px = r.wq * 16 + r.g + half * 8;
+        if (px >= p.w) continue;
+        const size_t o = (size_t(img) * img_px + size_t(r.r0 + j) * p.w + px) * C;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const int c = jn * 8 + 2 * r.t;
+          const float2 xv =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.x + o + c));
+          *reinterpret_cast<__nv_bfloat162*>(p.out + o + c) = __floats2bfloat162_rn(
+              acc[i][4 * jn + 2 * half] + r.m.bias[c] + xv.x,
+              acc[i][4 * jn + 2 * half + 1] + r.m.bias[c + 1] + xv.y);
+        }
+      }
+    }
+    ++r.q;
+    __syncthreads();  // the bias is read: the next conv may replace it
+    // the next image's first conv pushes into halos the slowest block may
+    // still be reading: it waits on this arrive
+    cluster_arrive_relaxed();
+  }
+  cluster_wait();  // no block leaves while another may still read its shared memory
 }
 
-// gate[n, :] = sigmoid(fc2^T relu(fc1^T mean)), mean = sum of tile sums / HW
-__global__ void se_gate_kernel(const float* __restrict__ tile_sums, int tiles_img,
-                               float hw, const float* __restrict__ fc1,
-                               const float* __restrict__ fc2, int cr,
-                               float* __restrict__ gate) {
-  __shared__ float y[C];
-  __shared__ float z[C];
-  const int n = blockIdx.x, c = threadIdx.x;
-  float s = 0.f;
-  for (int t = 0; t < tiles_img; ++t) s += tile_sums[(size_t(n) * tiles_img + t) * C + c];
-  y[c] = s / hw;
-  __syncthreads();
-  if (c < cr) {
-    float a = 0.f;
-    for (int k = 0; k < C; ++k) a += y[k] * fc1[k * cr + c];  // fc1 [C, Cr]
-    z[c] = fmaxf(a, 0.f);
+// ---- host side -----------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver API's tensor-map encoder, through the runtime (no -lcuda)
+cudaError_t get_encoder(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  if (cached == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &status);
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiledFn>(ptr);
   }
-  __syncthreads();
-  float g = 0.f;
-  for (int j = 0; j < cr; ++j) g += z[j] * fc2[j * C + c];  // fc2 [Cr, C]
-  gate[n * C + c] = 1.f / (1.f + expf(-g));
+  *fn = cached;
+  return cudaSuccess;
 }
 
-// feat += (t2 * gate[n, c]) * res_scale, 4 channels a thread
-__global__ void residual_update_kernel(float* __restrict__ feat,
-                                       const float* __restrict__ t2,
-                                       const float* __restrict__ gate,
-                                       size_t n_vec4, int hw, float res_scale) {
-  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n_vec4;
-       i += size_t(gridDim.x) * blockDim.x) {
-    const size_t e = i * 4;
-    const int c = int(e % C);
-    const size_t n = e / (size_t(hw) * C);
-    float4 f = reinterpret_cast<float4*>(feat)[i];
-    const float4 t = reinterpret_cast<const float4*>(t2)[i];
-    const float* g = gate + n * C + c;
-    f.x += (t.x * g[0]) * res_scale;
-    f.y += (t.y * g[1]) * res_scale;
-    f.z += (t.z * g[2]) * res_scale;
-    f.w += (t.w * g[3]) * res_scale;
-    reinterpret_cast<float4*>(feat)[i] = f;
-  }
+// [imgs, h, w, C] bf16, read in boxes of `rows` x BOX_W pixels, zero fill
+cudaError_t act_map(EncodeTiledFn enc, CUtensorMap* m, const void* ptr, int imgs, int h, int w,
+                    int rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(C), cuuint64_t(w), cuuint64_t(h), cuuint64_t(imgs)};
+  const cuuint64_t strides[3] = {cuuint64_t(C) * 2, cuuint64_t(w) * C * 2,
+                                 cuuint64_t(h) * w * C * 2};
+  const cuuint32_t box[4] = {cuuint32_t(C), cuuint32_t(BOX_W), cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// feat = float(x)
-__global__ void widen_kernel(const __nv_bfloat16* __restrict__ x,
-                             float* __restrict__ feat, size_t n_vec2) {
-  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n_vec2;
-       i += size_t(gridDim.x) * blockDim.x) {
-    reinterpret_cast<float2*>(feat)[i] =
-        __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(x)[i]);
-  }
+// [rows, C] bf16 weights, read in boxes of `box_rows` rows
+cudaError_t weight_map(EncodeTiledFn enc, CUtensorMap* m, const void* ptr, int rows,
+                       int box_rows) {
+  const cuuint64_t dims[2] = {cuuint64_t(C), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(C) * 2};
+  const cuuint32_t box[2] = {cuuint32_t(C), cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename Tin, int MODE>
-cudaError_t launch_conv(const Tin* in, const __nv_bfloat16* wt, const float* bias,
-                        const float* alpha, const __nv_bfloat16* skip, void* out,
-                        float* tile_sums, int n, int h, int w, int grid,
-                        cudaStream_t stream) {
-  auto* kernel = conv3x3_kernel<Tin, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(CONV_SMEM));
+cudaLaunchConfig_t launch_config(int clusters, int csize, size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * csize, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Kernel>
+cudaError_t set_attributes(Kernel kernel, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             int(cudaSharedmemCarveoutMaxShared));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, CONV_SMEM, stream>>>(in, wt, bias, alpha, skip, out,
-                                               tile_sums, n, h, w);
-  return cudaGetLastError();
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// clusters of `csize` blocks of `kernel` that fit on the card at once (0 if none)
+template <typename Kernel>
+int max_clusters(Kernel kernel, size_t smem, int csize) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(1, csize, smem, nullptr, &attr);
+  int count = 0;
+  if (cudaOccupancyMaxActiveClusters(&count, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // an unsupported size is not an error of the launch
+    return 0;
+  }
+  return count;
+}
+
+// The resident variant takes an image whose rows split into bands of 1 to
+// 4 rows over a cluster of 8 or 16 blocks, and one tile a row; its cluster
+// size for that image (0: the scratch variant).
+int resident_cluster(int h, int w) {
+  if (w > TILE) return 0;
+  if (h >= 8 && h <= 4 * 8) return 8;
+  if (h > 4 * 8 && h <= 4 * 16) return 16;
+  return 0;
 }
 
 }  // namespace
 
-// Tiles of one HxW image: the middle extent of the tile_sums scratch.
-extern "C" int rcab_group_tiles_per_image(int h, int w) {
-  return ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-}
-
-#define RETURN_IF_ERR(expr)               \
-  do {                                    \
-    cudaError_t e_ = (expr);              \
+#define RETURN_IF_ERR(expr)                \
+  do {                                     \
+    cudaError_t e_ = (expr);               \
     if (e_ != cudaSuccess) return int(e_); \
   } while (0)
 
-// x, out: [N, H, W, 64] bf16. w1, w2: [B, 9*64, 64] bf16; b1, a, b2: [B, 64]
-// f32; fc1: [B, 64, Cr] f32; fc2: [B, Cr, 64] f32; wg: [9*64, 64] bf16;
-// bg: [64] f32. Scratch: feat, t2 [N, H, W, 64] f32; t1 [N, H, W, 64] bf16;
-// tile_sums [N, rcab_group_tiles_per_image(H, W), 64] f32; gate [N, 64] f32.
-extern "C" int rcab_group_forward(
-    const void* x, void* out, const void* w1, const void* b1, const void* a,
-    const void* w2, const void* b2, const void* fc1, const void* fc2,
-    const void* wg, const void* bg, void* feat, void* t1, void* t2,
-    void* tile_sums, void* gate, int n, int h, int w, int num_blocks, int cr,
-    float res_scale, void* stream_ptr) {
-  if (n <= 0 || h <= 0 || w <= 0 || num_blocks <= 0 || cr <= 0 || cr > C)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int dev = 0, sms = 0;
-  RETURN_IF_ERR(cudaGetDevice(&dev));
-  RETURN_IF_ERR(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-
-  const int tiles_img = rcab_group_tiles_per_image(h, w);
-  const int n_tiles = n * tiles_img;
-  const int grid = n_tiles < BLOCKS_PER_SM * sms ? n_tiles : BLOCKS_PER_SM * sms;
-  const size_t elems = size_t(n) * h * w * C;
-  const int ew_grid = sms * 8;
-
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* featf = static_cast<float*>(feat);
-  auto* t1b = static_cast<__nv_bfloat16*>(t1);
-  auto* t2f = static_cast<float*>(t2);
-  auto* sums = static_cast<float*>(tile_sums);
-  auto* gatef = static_cast<float*>(gate);
-  const auto* w1b = static_cast<const __nv_bfloat16*>(w1);
-  const auto* w2b = static_cast<const __nv_bfloat16*>(w2);
-  const auto* b1f = static_cast<const float*>(b1);
-  const auto* b2f = static_cast<const float*>(b2);
-  const auto* af = static_cast<const float*>(a);
-  const auto* fc1f = static_cast<const float*>(fc1);
-  const auto* fc2f = static_cast<const float*>(fc2);
-
-  widen_kernel<<<ew_grid, 256, 0, stream>>>(xb, featf, elems / 2);
-  RETURN_IF_ERR(cudaGetLastError());
-  for (int k = 0; k < num_blocks; ++k) {
-    const size_t wo = size_t(k) * KROWS * C;
-    RETURN_IF_ERR((launch_conv<float, PRELU_BF16>(
-        featf, w1b + wo, b1f + k * C, af + k * C, nullptr, t1b, nullptr, n, h, w,
-        grid, stream)));
-    RETURN_IF_ERR((launch_conv<__nv_bfloat16, BIAS_F32_SUMS>(
-        t1b, w2b + wo, b2f + k * C, nullptr, nullptr, t2f, sums, n, h, w, grid,
-        stream)));
-    se_gate_kernel<<<n, C, 0, stream>>>(sums, tiles_img, float(h * w),
-                                        fc1f + size_t(k) * C * cr,
-                                        fc2f + size_t(k) * cr * C, cr, gatef);
-    RETURN_IF_ERR(cudaGetLastError());
-    residual_update_kernel<<<ew_grid, 256, 0, stream>>>(featf, t2f, gatef, elems / 4,
-                                                        h * w, res_scale);
-    RETURN_IF_ERR(cudaGetLastError());
+// The launch for n images of h x w: the cluster size, the number of
+// clusters, and the images of scratch the launch needs (0 for the resident
+// variant; else one a cluster, the leading extent of the scratch buffers).
+// The scratch variant's clusters have 8 blocks, or 16 where that keeps more
+// SMs busy, as for a lone image.
+extern "C" int rcab_group_plan(int n, int h, int w, int* clusters, int* cluster_size,
+                               int* scratch_images) {
+  if (n <= 0 || h <= 0 || w <= 0) return int(cudaErrorInvalidValue);
+  const int rc = resident_cluster(h, w);
+  if (rc > 0) {
+    RETURN_IF_ERR(set_attributes(rcab_group_resident_kernel, R_SMEM_BYTES));
+    const int m = max_clusters(rcab_group_resident_kernel, R_SMEM_BYTES, rc);
+    if (m <= 0) return int(cudaErrorInvalidConfiguration);
+    *cluster_size = rc;
+    *clusters = n < m ? n : m;
+    *scratch_images = 0;
+    return int(cudaSuccess);
   }
-  RETURN_IF_ERR((launch_conv<float, SKIP_BF16>(
-      featf, static_cast<const __nv_bfloat16*>(wg), static_cast<const float*>(bg),
-      nullptr, xb, out, nullptr, n, h, w, grid, stream)));
+  RETURN_IF_ERR(set_attributes(rcab_group_scratch_kernel, SMEM_BYTES));
+  const int m8 = max_clusters(rcab_group_scratch_kernel, SMEM_BYTES, 8);
+  const int m16 = max_clusters(rcab_group_scratch_kernel, SMEM_BYTES, 16);
+  if (m8 <= 0 && m16 <= 0) return int(cudaErrorInvalidConfiguration);
+  const int busy8 = (n < m8 ? n : m8) * 8, busy16 = (n < m16 ? n : m16) * 16;
+  *cluster_size = busy16 > busy8 ? 16 : 8;
+  const int m = busy16 > busy8 ? m16 : m8;
+  *clusters = n < m ? n : m;
+  *scratch_images = *clusters;
   return int(cudaSuccess);
 }
 
-// Bytes of dynamic shared memory one conv block asks for (for the build log).
-extern "C" int rcab_group_conv_smem_bytes() { return int(CONV_SMEM); }
+// x, out: [N, H, W, 64] bf16. w1, w2: [B, 9*64, 64] bf16; b1, a, b2: [B, 64]
+// f32; fc1: [B, 64, Cr] f32; fc2: [B, Cr, 64] f32; wg: [9*64, 64] bf16;
+// bg: [64] f32. clusters, cluster_size from rcab_group_plan; scratch (null
+// when it asked for none): feat, t2 [scratch_images, H, W, 64] f32; featb,
+// t1 [scratch_images, H, W, 64] bf16.
+extern "C" int rcab_group_forward(
+    const void* x, void* out, const void* w1, const void* b1, const void* a,
+    const void* w2, const void* b2, const void* fc1, const void* fc2,
+    const void* wg, const void* bg, void* feat, void* featb, void* t1, void* t2,
+    int n, int h, int w, int num_blocks, int cr, float res_scale, int clusters,
+    int cluster_size, void* stream_ptr) {
+  const int rc = resident_cluster(h, w);
+  if (n <= 0 || h <= 0 || w <= 0 || num_blocks <= 0 || cr <= 0 || cr > C || clusters <= 0 ||
+      clusters > n || (cluster_size != 8 && cluster_size != 16) ||
+      (rc > 0 && cluster_size != rc) ||
+      (rc == 0 && (feat == nullptr || featb == nullptr || t1 == nullptr || t2 == nullptr)))
+    return int(cudaErrorInvalidValue);
+  EncodeTiledFn enc;
+  RETURN_IF_ERR(get_encoder(&enc));
+
+  Params p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.b1 = static_cast<const float*>(b1);
+  p.a = static_cast<const float*>(a);
+  p.b2 = static_cast<const float*>(b2);
+  p.fc1 = static_cast<const float*>(fc1);
+  p.fc2 = static_cast<const float*>(fc2);
+  p.bg = static_cast<const float*>(bg);
+  p.feat = static_cast<float*>(feat);
+  p.t2 = static_cast<float*>(t2);
+  p.t1 = static_cast<__nv_bfloat16*>(t1);
+  p.featb = static_cast<__nv_bfloat16*>(featb);
+  p.n = n;
+  p.h = h;
+  p.w = w;
+  p.num_blocks = num_blocks;
+  p.cr = cr;
+  p.res_scale = res_scale;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaLaunchAttribute attr;
+
+  CUtensorMap tm_w1, tm_w2, tm_wg;
+  if (rc > 0) {
+    CUtensorMap tm_x4, tm_x1;
+    RETURN_IF_ERR(act_map(enc, &tm_x4, x, n, h, w, RES_ROWS));
+    RETURN_IF_ERR(act_map(enc, &tm_x1, x, n, h, w, 1));
+    RETURN_IF_ERR(weight_map(enc, &tm_w1, w1, num_blocks * KROWS, 8));
+    RETURN_IF_ERR(weight_map(enc, &tm_w2, w2, num_blocks * KROWS, 8));
+    RETURN_IF_ERR(weight_map(enc, &tm_wg, wg, KROWS, 8));
+    RETURN_IF_ERR(set_attributes(rcab_group_resident_kernel, R_SMEM_BYTES));
+    cudaLaunchConfig_t cfg = launch_config(clusters, cluster_size, R_SMEM_BYTES, stream, &attr);
+    RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, rcab_group_resident_kernel, tm_x4, tm_x1, tm_w1,
+                                     tm_w2, tm_wg, p));
+  } else {
+    CUtensorMap tm_x, tm_featb, tm_t1;
+    RETURN_IF_ERR(act_map(enc, &tm_x, x, n, h, w, BOX_H));
+    RETURN_IF_ERR(act_map(enc, &tm_featb, featb, clusters, h, w, BOX_H));
+    RETURN_IF_ERR(act_map(enc, &tm_t1, t1, clusters, h, w, BOX_H));
+    RETURN_IF_ERR(weight_map(enc, &tm_w1, w1, num_blocks * KROWS, W_BOX_ROWS));
+    RETURN_IF_ERR(weight_map(enc, &tm_w2, w2, num_blocks * KROWS, W_BOX_ROWS));
+    RETURN_IF_ERR(weight_map(enc, &tm_wg, wg, KROWS, W_BOX_ROWS));
+    RETURN_IF_ERR(set_attributes(rcab_group_scratch_kernel, SMEM_BYTES));
+    cudaLaunchConfig_t cfg = launch_config(clusters, cluster_size, SMEM_BYTES, stream, &attr);
+    RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, rcab_group_scratch_kernel, tm_x, tm_featb, tm_t1,
+                                     tm_w1, tm_w2, tm_wg, p));
+  }
+  return int(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory a block of each variant asks for.
+extern "C" int rcab_group_smem_bytes(int resident) {
+  return int(resident ? R_SMEM_BYTES : SMEM_BYTES);
+}

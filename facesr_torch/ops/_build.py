@@ -3,9 +3,12 @@
 Each source ``facesr_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled for Hopper (``sm_90a``) into ``facesr_torch/_build/`` at first
 use — never at import, since CPU-only hosts import every module. The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale build is never loaded. Builds of several sources run
-as parallel nvcc processes.
+library's file name carries a hash of the nvcc flags and of every source
+it is built from (the ``.cu`` and the ``csrc/`` headers it includes), so
+an edit anywhere is rebuilt and a stale build is never loaded. Builds of
+several sources run as parallel nvcc processes. The build links the CUDA
+runtime only: a kernel that needs a CUDA driver API function (the TMA
+tensor-map encoder) fetches it with ``cudaGetDriverEntryPoint``.
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 __all__ = ["load_library", "build_all", "build_logs", "BuildError"]
 
@@ -49,9 +53,34 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file it includes from ``csrc/`` with
+    ``#include "..."``, transitively, in a fixed order."""
+    root = CSRC.resolve()
+    seen: List[Path] = []
+    todo = [root / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            cand = (path.parent / inc.decode()).resolve()
+            if cand.is_file() and root in cand.parents:
+                todo.append(cand)
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}.{digest}.so"
+    """The library's path: its name carries a hash of the flags and of every
+    source it is built from, so no edit leaves a stale build loadable."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:

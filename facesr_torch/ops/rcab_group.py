@@ -95,8 +95,8 @@ def rcab_group_reference(x: torch.Tensor, gw: GroupWeights,
     return out.to(torch.bfloat16).to(x.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
-             + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def _lib() -> ctypes.CDLL:
@@ -106,9 +106,21 @@ def _lib() -> ctypes.CDLL:
     if lib.rcab_group_forward.argtypes is None:
         lib.rcab_group_forward.argtypes = _ARGTYPES
         lib.rcab_group_forward.restype = ctypes.c_int
-        lib.rcab_group_tiles_per_image.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.rcab_group_tiles_per_image.restype = ctypes.c_int
+        lib.rcab_group_plan.argtypes = ([ctypes.c_int] * 3
+                                        + [ctypes.POINTER(ctypes.c_int)] * 3)
+        lib.rcab_group_plan.restype = ctypes.c_int
     return lib
+
+
+def _plan(lib: ctypes.CDLL, n: int, h: int, w: int):
+    """(clusters, cluster size, scratch images) of the launch for n images
+    of h x w on the current device: the kernel keeps an image on chip where
+    it fits, else in scratch for the images in flight, one a cluster."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = lib.rcab_group_plan(n, h, w, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"rcab_group_plan failed: cudaError_t {err}")
+    return tuple(v.value for v in out)
 
 
 _WEIGHT_SPECS = {  # name -> (dtype, shape given C, B, Cr)
@@ -164,22 +176,22 @@ def fused_residual_group(x: torch.Tensor, gw: GroupWeights,
     if c != KERNEL_CHANNELS:
         raise ValueError(f"the fused_residual_group kernel takes C={KERNEL_CHANNELS}, got C={c}")
     lib = _lib()
-    f32 = dict(device=x.device, dtype=torch.float32)
-    out = torch.empty_like(x)
-    feat = torch.empty(x.shape, **f32)
-    t1 = torch.empty_like(x)
-    t2 = torch.empty(x.shape, **f32)
-    tile_sums = torch.empty((n, lib.rcab_group_tiles_per_image(h, w), c), **f32)
-    gate = torch.empty((n, c), **f32)
     with torch.cuda.device(x.device):
+        clusters, cluster_size, scratch_images = _plan(lib, n, h, w)
+        # scratch for the images in flight (one a cluster), not the batch
+        scratch = [None] * 4
+        if scratch_images:
+            shape = (scratch_images, h, w, c)
+            scratch = [torch.empty(shape, device=x.device, dtype=dt) for dt in
+                       (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32)]
+        out = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rcab_group_forward(
             x.data_ptr(), out.data_ptr(),
             *(gw[k].data_ptr() for k in _WEIGHT_SPECS),
-            feat.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-            tile_sums.data_ptr(), gate.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch),  # feat, featb, t1, t2
             n, h, w, gw["w1"].shape[0], gw["fc1"].shape[-1],
-            float(res_scale), stream)
+            float(res_scale), clusters, cluster_size, stream)
     if err != 0:
         raise RuntimeError(f"rcab_group_forward failed: cudaError_t {err}")
     fused_residual_group.launches += 1

@@ -41,11 +41,17 @@ def _excess(got, want):
     return ((got.float() - want).abs() - (2e-2 + 2.0 ** -7 * want.abs())).max().item()
 
 
+# the resident variant at the production shape and a ragged one (bands of 2
+# and 3 rows), each with one image a cluster and with clusters looping over
+# several; the scratch variant at a tiny image and at a width past one
+# 64-pixel tile with an H the band count does not divide; a lone image
+_SHAPES = [((4, 64, 64, 64), 10), ((3, 20, 36, 64), 3), ((1, 7, 5, 64), 1),
+           ((128, 64, 64, 64), 10), ((40, 20, 36, 64), 3),
+           ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,B", [((4, 64, 64, 64), 10), ((3, 20, 36, 64), 3),
-                                     ((1, 7, 5, 64), 1),
-                                     # conv blocks loop over several tiles each
-                                     ((128, 64, 64, 64), 10), ((40, 20, 36, 64), 3)])
+@pytest.mark.parametrize("shape,B", _SHAPES)
 def test_kernel_matches_plain_on_cuda(cuda_device, shape, B):
     gw = _group_weights(B, seed=6, device=cuda_device)
     x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
@@ -57,6 +63,21 @@ def test_kernel_matches_plain_on_cuda(cuda_device, shape, B):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     assert torch.isfinite(got).all()
     assert _excess(got, tgroup.rcab_group_reference(x, gw, 0.2)) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,B", [((4, 64, 64, 64), 10), ((40, 20, 36, 64), 3),
+                                     ((2, 40, 80, 64), 2)])
+def test_kernel_repeats_bitwise_on_cuda(cuda_device, shape, B):
+    """The SE mean is summed in a fixed order (no atomics), so two calls on
+    the same input agree to the bit."""
+    gw = _group_weights(B, seed=7, device=cuda_device)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(2))
+    x = x.to(torch.bfloat16).to(cuda_device)
+    first = tgroup.fused_residual_group(x, gw, 0.2)
+    second = tgroup.fused_residual_group(x, gw, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu

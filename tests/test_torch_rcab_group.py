@@ -38,7 +38,9 @@ def _one_group(B, C=64, seed=0):
     return model.residual_groups[0], gp
 
 
-@pytest.mark.parametrize("shape,B,seed", [((2, 16, 16, 64), 3, 0), ((1, 8, 8, 64), 1, 1)])
+# the last case is wider than one 64-pixel tile of the CUDA kernel
+@pytest.mark.parametrize("shape,B,seed", [((2, 16, 16, 64), 3, 0), ((1, 8, 8, 64), 1, 1),
+                                          ((1, 32, 80, 64), 1, 2)])
 def test_plain_group_matches_pallas_interpret(shape, B, seed):
     group, gp = _one_group(B, seed=seed)
     x = np.random.default_rng(seed).random(shape, dtype=np.float32)
