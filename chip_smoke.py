@@ -64,11 +64,11 @@ GROUP_TIMING = (128, 64, 64, 64, 10)  # N, H, W, C, B of the timed group call
 # rows), each at a batch where every cluster takes one image and at one
 # where clusters loop over several (the grid holds 7 to 15 clusters), so
 # the next image's loads behind a tail conv run; a width past one 64-pixel
-# tile with an H the band count does not divide (the scratch variant); and
-# a lone image (one cluster)
+# tile with an H the band count does not divide (the scratch variant); a
+# lone image (one cluster); and bands of 1 and 2 rows at an odd width
 CHECK_SHAPES = (((4, 64, 64, 64), 10), ((128, 64, 64, 64), 10),
                 ((3, 20, 36, 64), 3), ((40, 20, 36, 64), 3),
-                ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10))
+                ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10), ((2, 12, 17, 64), 2))
 # plain groups with a planted fault, the controls for the limits: the
 # model limits must reject the wiring faults; the rounding fault passes
 # them (its reading is printed) and the kernel tolerance must reject it

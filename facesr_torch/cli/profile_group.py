@@ -29,17 +29,19 @@ R_MARK = "if (r.dbg != nullptr && r.tid == 0) r.dbg[r.nmark++] = clock64();"
 
 # (anchor, text before it, text after it, how many anchors); marks in order
 ANCHORS = [
-    ("  uint32_t q;       // convs started: weight buffer and input halo set q & 1\n",
+    ("  uint32_t q;      // convs started: weight buffer q & 1\n",
      "", "  long long* dbg;\n  int nmark;\n", 1),
-    ("    mbar_wait(bar_w0 + 8 * (q & 1), (q >> 1) & 1);\n",
-     MARK + "\n", MARK + "\n", 1),
-    ("        cluster_wait();\n"
-     "        if (tid == 0 && next_w != nullptr) load_weight(next_w, next_row, (q + 1) & 1);\n",
-     MARK + "\n", MARK + "\n", 1),
-    ("          hphase ^= 1u << set;\n", "", MARK + "\n", 1),
-    ("    __syncthreads();  // the block's input rows, halos and weight buffer are free\n",
+    ("    mbar_wait(bar_w0 + 8 * (q & 1), (q >> 1) & 1);\n", MARK + "\n", MARK + "\n", 1),
+    ("        if (tid == 0) mbar_expect_tx(bar_h, halo_bytes);\n", MARK + "\n", "", 1),
+    ("        fence_proxy_async_smem();  // before wgmma (the async proxy) reads them\n",
      "", MARK + "\n", 1),
-    ("      r.finish_rows();\n", R_MARK + "\n", R_MARK + "\n", 2),
+    ("    wgmma_wait<0>();\n    fence_acc(d);\n", "", MARK + "\n", 1),
+    ("    __syncthreads();  // this block's weight buffer and input rows are free\n"
+     "    cluster_arrive_relaxed();\n", "", MARK + "\n", 1),
+    ("    cluster_wait();\n"
+     "    if (tid == 0 && next_w != nullptr) load_weight(next_w, next_row, q & 1);\n",
+     MARK + "\n", MARK + "\n", 1),
+    ("    ++q;\n", MARK + "\n", "", 1),
     ("        const GateWeights gw = load_gate_weights(p, k, r.tid);\n", R_MARK + "\n", "", 1),
     ("        se_gate(r.m, r.allsum(buf), p, gw, r.csize, r.tid);\n",
      R_MARK + "\n", R_MARK + "\n", 1),
@@ -50,11 +52,12 @@ ANCHORS = [
      "      r.dbg = marks != nullptr && cid == 0 && r.rank == 0 && img == cid && k == 1"
      " ? marks : nullptr;\n      r.nmark = 0;\n", "", 1),
 ]
-CONV_MARKS = ["start", "weight ready", "interior MMAs", "barrier passed", "halo rows in",
-              "edge MMAs"]
-NAMES = (["conv1 " + m for m in CONV_MARKS] + ["t1 rows written", "arrived"]
-         + ["conv2 " + m for m in CONV_MARKS]
-         + ["sums sent", "sums in", "gate", "feat rows written", "arrived"])
+CONV_MARKS = ["start", "weight ready", "own-row MMAs queued", "halo rows in", "MMAs done",
+              "arrived"]
+FINISH_MARKS = ["rows stored", "barrier passed", "edge rows pushed"]
+NAMES = (["conv1 " + m for m in CONV_MARKS] + ["t1 " + m for m in FINISH_MARKS]
+         + ["conv2 " + m for m in CONV_MARKS] + ["sums sent", "sums in", "gate"]
+         + ["feat " + m for m in FINISH_MARKS])
 
 
 def build_probe() -> ctypes.CDLL:

@@ -31,25 +31,23 @@
 // bf16. Two variants of this design, by image size:
 //
 //  * resident (W <= 64, 8 <= H <= 64; the serving shape): clusters of 8 or
-//    16 blocks so a band is at most 4 rows. Nothing of an RCAB leaves the
-//    chip: each warpgroup keeps its tiles' f32 feat and conv accumulators
-//    in registers for the whole group call; a conv's epilogue writes the
-//    next conv's bf16 input into the block's own shared memory and pushes
-//    the band's edge rows into the neighbours' halo rows. Data between
-//    blocks (those rows, the SE sums) goes by st.async, whose bytes count
-//    on the receiving block's mbarrier, so a block waits for exactly the
-//    bytes it reads: its neighbours' rows before its edge rows, every
-//    block's sums before the gate (double-buffered, as are the halos). The
-//    cluster barrier stays only to order the reuse of buffers (a weight
-//    buffer every block has finished reading before the next multicast
-//    into it; the halos at an image's first conv), so its arrive is
-//    relaxed: the release arrive compiles to a GPU-scope memory barrier
-//    (MEMBAR.ALL.GPU) that took ~1,000 SM cycles an arrive. A conv
-//    multiplies the rows that need no halo before it waits, the edge rows
-//    after, so the waits hide behind MMAs. Each conv's weight is loaded by
-//    TMA, one slice a block multicast to the whole cluster, into the second
-//    of two buffers while the current conv runs. HBM sees x, out and the
-//    weights.
+//    16 blocks so a band is at most 4 rows, two a warpgroup. Nothing of an
+//    RCAB leaves the chip: each warpgroup keeps its rows' f32 feat and conv
+//    accumulators in registers for the whole group call; a conv's epilogue
+//    writes the next conv's bf16 input rows into the block's own shared
+//    memory and pushes the band's edge rows into the neighbours' halo rows.
+//    Data between blocks (those rows, the SE sums) goes by st.async, whose
+//    bytes count on the receiving block's mbarrier, so a block waits for
+//    exactly the bytes it reads: its neighbours' rows before the taps that
+//    read them, every block's sums before the gate (double-buffered). One
+//    cluster barrier a conv orders the reuse of buffers: each block arrives
+//    when its MMAs of conv q are done and waits late in that conv's
+//    epilogue; past it, every block may overwrite the halo rows and the
+//    weight buffer conv q read, so the edge rows go out and conv q + 2's
+//    weight starts loading (by TMA, one slice a block multicast to the
+//    cluster, into the buffer conv q used). Its arrive is relaxed: the
+//    release arrive compiles to a GPU-scope memory barrier (MEMBAR.ALL.GPU)
+//    that took ~1,000 SM cycles an arrive. HBM sees x, out and the weights.
 //  * scratch (any other H x W): the same phases with feat, t2 (f32) and
 //    bf16(feat), t1 (bf16) in global scratch sized for the images in
 //    flight, one per cluster (~3 MB at 64x64), not for the batch; a larger
@@ -59,29 +57,34 @@
 //    stages are separated by release/acquire cluster barriers, which
 //    publish the global scratch and the SE sums.
 //
-// Conv mainloop (both): an implicit GEMM, M = 64 pixels of one image row
-// (one wgmma M-tile; a narrower row is masked, a wider one takes several),
-// N = 64 output channels, K = 9 taps x 64 input channels, on wgmma
-// m64n64k16 with f32 accumulators, one warpgroup a tile. B, the [576, 64]
-// weight, sits in 128-byte-swizzled shared memory (TMA) and is read through
-// an MN-major SW128 descriptor. A is fed from registers (ldmatrix): a dx
-// tap shifts A by one pixel, 128 bytes, off the 1024-byte swizzle atom,
-// which a shared-memory A descriptor could follow only through its
-// matrix-base-offset field, while ldmatrix addresses every lane's row
-// itself and the 128-byte swizzle of the input rows keeps its 8-row phases
-// free of bank conflicts. The no-swizzle layout with a shared-memory A
-// descriptor was not built: measured on an H100 (clock64 marks of the
-// resident variant, facesr_torch/cli/profile_group.py), the two
-// warpgroups' 72 wgmmas of a pass take ~3,000-3,100 SM cycles against
-// 2,304 at the peak, and each m64n64k16 reads 2 KB of B from shared memory
-// besides the 2 KB of A, so shared-memory bandwidth, not the way A arrives,
-// is what the MMA passes are near. The rest of a group call is the
-// epilogues (instruction-bound: two warps an SM sub-partition, ~500
-// instructions a thread each) and the waits between the passes.
+// Conv mainloops: implicit GEMMs over K = 9 taps x 64 input channels with
+// f32 accumulators; the [576, 64] weight sits in 128-byte-swizzled shared
+// memory (TMA) and is read through an MN-major SW128 descriptor.
+//
+//  * resident: pixels are the N operand. D[64 out, 136 slots] =
+//    W[64 out, 16 in] (A, shared memory) x X[16 in, 136 slots] (B, shared
+//    memory, K-major: a slot's 64 channels in one 128-byte row), one
+//    m64n136k16 a tap and 16 channels. The band's input rows and its halo
+//    rows lie in one run of rows of 66 slots (the halo columns included),
+//    so a warpgroup's two output rows and the two halo columns between them
+//    are one run of 136 slots for every tap, which starts dy rows and dx
+//    slots on: the descriptor's start moves, and the swizzle follows the
+//    absolute address. Each wgmma reads 2 KB of A and 4.25 KB of B for 2.1
+//    times the work of an m64n64k16, which reads 4 KB: shared-memory
+//    bandwidth is what bounds the MMA passes (measured on an H100 with
+//    clock64 marks, facesr_torch/cli/profile_group.py: with pixels as M
+//    and A by ldmatrix, a pass of 72 m64n64k16 ran at ~75% of the tensor
+//    peak, ~96% when A was loaded once a dy instead of once a tap). With
+//    no operand in registers, all of a pass's wgmmas are in flight
+//    together; the epilogue writes rows back transposed by stmatrix.trans.
+//  * scratch: pixels are the M operand, M = 64 pixels of one image row (a
+//    narrower row is masked, a wider one takes several M-tiles), N = 64
+//    output channels, wgmma m64n64k16 with A from registers (ldmatrix; the
+//    dx shift is a per-lane row address) and the weight as B.
 //
 // Plain C entries: `rcab_group_plan` picks the variant, the cluster size
 // and the number of clusters (the scratch extent), `rcab_group_forward`
-// issues the one launch on the caller's stream and returns the first
+// makes the one launch on the caller's stream and returns the first
 // cudaError_t.
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
@@ -117,16 +120,17 @@ constexpr uint32_t OFF_STAGE = OFF_W + W_BYTES;
 constexpr uint32_t OFF_STG = OFF_STAGE + STAGES * STAGE_STRIDE;  // [warps][16][STG_LD] f32
 constexpr uint32_t OFF_MISC = OFF_STG + WARPS * 16 * STG_LD * 4;
 
-// resident variant: a band of at most RES_ROWS rows, one tile a row,
-// R_TILES tiles a warpgroup
+// resident variant: a band of at most RES_ROWS rows, two a warpgroup
 constexpr int RES_ROWS = 4;
-constexpr int R_TILES = RES_ROWS / NWG;
-constexpr uint32_t HALO_SLOT = (ROW_BYTES + 1023) / 1024 * 1024;
-constexpr uint32_t R_OFF_W = 0;                                  // two weight buffers
-constexpr uint32_t R_OFF_S = 2 * W_BYTES;                        // the band's input rows
-constexpr uint32_t R_OFF_H = R_OFF_S + (RES_ROWS * ROW_BYTES + 1023) / 1024 * 1024;
-constexpr uint32_t R_OFF_MISC = R_OFF_H + 4 * HALO_SLOT;         // halos: 2 sets x {top, bottom}
-constexpr uint32_t PUSH_BYTES = TILE * C * 2;  // a band row pushed into a neighbour's halo
+constexpr int R_BUF_ROWS = RES_ROWS + 2;  // the row above the band, the band, the row below
+constexpr int R_N = 136;                  // wgmma N: two rows of BOX_W slots, to a multiple of 8
+constexpr int R_ACC = R_N / 2;            // f32 accumulators a thread of a warpgroup
+// the input rows and the slack that a tap's last run reads past them
+constexpr uint32_t R_BUF_BYTES = ((R_BUF_ROWS * BOX_W + 12) * 128 + 1023) / 1024 * 1024;
+constexpr uint32_t R_OFF_W = 0;                    // two weight buffers
+constexpr uint32_t R_OFF_S = 2 * W_BYTES;          // the input rows
+constexpr uint32_t R_OFF_MISC = R_OFF_S + R_BUF_BYTES;
+constexpr uint32_t PUSH_BYTES = TILE * C * 2;  // a band row pushed into a neighbour's halo row
 
 // the small arrays both variants keep (from OFF_MISC / R_OFF_MISC)
 constexpr uint32_t M_WSUM = 0;                     // [warps][C] per-warp channel sums
@@ -136,15 +140,18 @@ constexpr uint32_t M_Z = M_MEAN + C * 4;
 constexpr uint32_t M_GATE = M_Z + C * 4;
 constexpr uint32_t M_BIAS = M_GATE + C * 4;        // the current conv's bias
 constexpr uint32_t M_ALPHA = M_BIAS + C * 4;       // and PReLU slopes
-constexpr uint32_t M_BAR = M_ALPHA + C * 4;        // mbarriers
-constexpr int N_BARS = 7;
+constexpr uint32_t M_WGSUM = M_ALPHA + C * 4;      // [NWG][C] warpgroup channel sums (resident)
+constexpr uint32_t M_DUMMY = M_WGSUM + NWG * C * 4;  // 16 bytes no one reads
+constexpr uint32_t M_BAR = M_DUMMY + 16;           // mbarriers
+constexpr int N_BARS = 6;
 constexpr uint32_t M_BYTES = M_BAR + 8 * N_BARS;
 
 constexpr size_t SMEM_BYTES = OFF_MISC + M_BYTES + 1024;  // + room to align the base
 constexpr size_t R_SMEM_BYTES = R_OFF_MISC + M_BYTES + 1024;
 
 static_assert(OFF_STAGE % 1024 == 0 && STAGE_STRIDE % 1024 == 0, "SW128 atoms");
-static_assert(R_OFF_S % 1024 == 0 && R_OFF_H % 1024 == 0 && HALO_SLOT % 1024 == 0, "SW128");
+static_assert(R_OFF_S % 1024 == 0 && R_BUF_BYTES % 1024 == 0, "SW128");
+static_assert((RES_ROWS / NWG) * BOX_W <= R_N && R_N <= 256 && R_N % 8 == 0, "a wgmma N");
 static_assert(ROWS % NWG == 0 && RES_ROWS % NWG == 0, "whole tiles a warpgroup");
 static_assert(THREADS % C == 0, "the SE gate gives whole groups of threads to each output");
 static_assert(SMEM_BYTES <= 232448 && R_SMEM_BYTES <= 232448, "shared memory of a block");
@@ -245,6 +252,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;" ::: "memory");
 }
 
+// the same for this block's shared memory only, before wgmma reads rows
+// that threads stored; on an H100 the full fence above, in the same two
+// places of the resident variant, made a group call clearly slower
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
@@ -332,13 +346,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// four 8x8 bf16 matrices from the mma fragment layout into shared memory
-// (lanes 8i..8i+7 give the row addresses of matrix i)
-__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
-               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -356,13 +363,46 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// Shared-memory descriptor of a B tile stored MN-major (output channels
-// contiguous, 128 bytes a K row) in 128-byte swizzle atoms of 8 K rows:
-// the stride between 8-row groups (SBO) is 1024 bytes; with N = 64 the
-// tile is one atom wide, so the MN stride (LBO) is never used.
-__device__ __forceinline__ uint64_t desc_b_sw128(uint32_t addr) {
+// Shared-memory descriptor of a weight tile stored MN-major (output
+// channels contiguous, 128 bytes a K row) in 128-byte swizzle atoms of 8 K
+// rows: the stride between 8-row groups (SBO) is 1024 bytes; the 64 output
+// channels are one atom wide, so the MN stride (LBO) is never used. The
+// scratch variant's wgmma reads it as B, the resident variant's as A.
+__device__ __forceinline__ uint64_t desc_w_sw128(uint32_t addr) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
+}
+
+// Shared-memory descriptor of a B tile stored K-major (a pixel slot's 64
+// channels in one 128-byte row) in 128-byte swizzle atoms laid out from a
+// 1024-byte boundary, 8-row groups 1024 bytes apart. A start off that
+// boundary (a tap's slot offset) needs no base offset: measured on an H100,
+// the swizzle follows the absolute address bits, as TMA wrote them (a base
+// offset of (addr >> 7) & 7 gave wrong results, 0 right ones).
+__device__ __forceinline__ uint64_t desc_kmajor_sw128(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// four 8x8 bf16 matrices from the mma fragment layout into shared memory,
+// each transposed (lanes 8i..8i+7 give the addresses of matrix i's rows,
+// which are its fragment's columns)
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// d[64 out-channels, 136 slots] += A[64, 16] * B[16, 136], both from shared
+// memory: A (the weight) MN-major, B (input slots) K-major
+__device__ __forceinline__ void wgmma_ss_n136(float (&d)[R_ACC], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67}, "
+      "%68, %69, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // d[64 px, 64 ch] += A[64 px, 16 k] (registers, the mma.m16n8k16 A fragment
@@ -383,9 +423,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 
 // keeps the compiler from moving accumulator reads above the wgmma wait
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Byte offset of pixel L, channel c in a run of 128-byte pixel rows that
@@ -419,7 +460,7 @@ __device__ __forceinline__ void conv_tile(float (&acc)[32], const uint32_t (&row
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)
-      wgmma_rs(acc, a[tap & 1][kc], desc_b_sw128(wsm + uint32_t(tap * C + kc * 16) * 128));
+      wgmma_rs(acc, a[tap & 1][kc], desc_w_sw128(wsm + uint32_t(tap * C + kc * 16) * 128));
     wgmma_commit();
     wgmma_wait<1>();  // the previous tap's group is done with its A registers
   }
@@ -797,40 +838,42 @@ rcab_group_scratch_kernel(const __grid_constant__ CUtensorMap tm_x,
 }
 
 // ---- resident variant -------------------------------------------------------
+//
+// Pixels are the wgmma N operand: D[64 out-channels, R_N slots] =
+// W[64 out, 16 in] (A, the weight, MN-major) x X[16 in, R_N slots] (B, the
+// input rows, K-major, 128 bytes a slot), both read from shared memory. The
+// band's rows and its two halo rows lie in one run of R_BUF_ROWS rows of
+// BOX_W slots (input row 0: the row above the band, row nb + 1: the row
+// below), so the slots of a warpgroup's two output rows, with the two halo
+// columns between them, are one run of R_N slots for every tap: tap
+// (dy, dx) starts at input row j0 + dy, slot dx. Column n of the tile is
+// band row j0 + n / BOX_W, pixel n % BOX_W (pixels 64 and 65 of a row are
+// not the image's).
 
 struct Res {
-  uint32_t w0, s, h;  // shared-memory addresses
-  // mbarriers: weight buffers (TMA), x (TMA), halo sets and SE sums
-  // buffers (st.async from the other blocks)
-  uint32_t bar_w0, bar_x, bar_h0, bar_sum0;
+  uint32_t w0, s;  // shared-memory addresses: weight buffers, input rows
+  uint32_t bar_w0, bar_x, bar_h, bar_sum0;  // mbarriers
+  uint32_t dummy;  // where stmatrix puts the slots no row of this block owns
   Misc m;
+  float* wgsum;    // [NWG][C] the warpgroups' channel sums
   int tid, lane, wg, wq, g, t;
   int rank, csize, r0, nb;  // the band: image rows r0 .. r0 + nb - 1 (1 <= nb <= 4)
-  uint32_t q;       // convs started: weight buffer and input halo set q & 1
-  uint32_t ns;      // SE rounds started: sums buffer ns & 1
-  uint32_t hphase;  // bit s: phase parity of halo set s's barrier
-  uint32_t halo_bytes;  // what the neighbours push into a halo set a conv
+  int j0;          // the warpgroup's band rows: j0 and j0 + 1
+  int nb_up;       // the band rows of the block above (its bottom halo is its input row nb_up + 1)
+  uint32_t q;      // convs started: weight buffer q & 1
+  uint32_t ns;     // SE rounds started: sums buffer ns & 1
+  uint32_t hphase; // phase parity of the halo barrier
+  uint32_t halo_bytes;  // what the neighbours push into the halo rows a conv
+  uint64_t vmask;  // bit 2 jb + e: this thread's column 8 jb + 2 t + e is an image pixel of the band
 
-  __device__ uint32_t halo(int set, int bottom) const {
-    return h + uint32_t(set * 2 + bottom) * HALO_SLOT;
-  }
-  __device__ uint32_t bar_h(int set) const { return bar_h0 + 8 * uint32_t(set); }
   __device__ uint32_t bar_sum(int buf) const { return bar_sum0 + 8 * uint32_t(buf); }
   __device__ float* allsum(int buf) const { return m.allsum + buf * 16 * C; }
-  // where input row jr of the band's box lies (jr = 0: the row above the
-  // band, jr = nb + 1: the row below; the rest are the band's own rows)
-  __device__ void row(int jr, int set, uint32_t& addr, int& l0) const {
-    if (jr == 0) {
-      addr = halo(set, 0);
-      l0 = 0;
-    } else if (jr == nb + 1) {
-      addr = halo(set, 1);
-      l0 = 0;
-    } else {
-      addr = s;
-      l0 = (jr - 1) * BOX_W;
-    }
+  // 16-byte chunk `chunk` (channels 8 chunk ..) of input slot `slot` (SW128)
+  __device__ uint32_t slot_addr(int slot, int chunk) const {
+    return s + uint32_t(slot) * 128 + (uint32_t(chunk ^ (slot & 7)) << 4);
   }
+  __device__ bool col_valid(int jb, int e) const { return (vmask >> (2 * jb + e)) & 1; }
+  __device__ int c_lo() const { return 16 * wq + g; }  // this thread's channels: c_lo, c_lo + 8
 
   // a conv's weight into buffer `buf` of every block of the cluster: this
   // block's share of its 8-row atoms, multicast
@@ -842,122 +885,139 @@ struct Res {
       tma_load_2d_multicast(dst + a * 1024, map, bar, 0, row0 + a * 8, mask);
   }
 
-  // image `img` of x as the input of a conv reading halo set `set`
-  __device__ void load_x(const CUtensorMap* x4, const CUtensorMap* x1, int img, int set) const {
+  // image rows r0 - 1 .. r0 + R_BUF_ROWS - 2 of x into the input rows (zero
+  // fill past the image's edges and in the halo columns)
+  __device__ void load_x(const CUtensorMap* xm, int img) const {
     fence_proxy_async();
-    mbar_expect_tx(bar_x, (RES_ROWS + 2) * ROW_BYTES);
-    tma_load_4d(s, x4, bar_x, 0, -1, r0, img);
-    tma_load_4d(halo(set, 0), x1, bar_x, 0, -1, r0 - 1, img);
-    tma_load_4d(halo(set, 1), x1, bar_x, 0, -1, r0 + nb, img);
+    mbar_expect_tx(bar_x, R_BUF_ROWS * ROW_BYTES);
+    tma_load_4d(s, xm, bar_x, 0, -1, r0 - 1, img);
   }
 
-  // this thread's accumulator channels 8*jn + 2*t + e of a per-channel array
-  __device__ void channels(const float* v, float (&out)[8][2]) const {
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn) {
-      out[jn][0] = v[jn * 8 + 2 * t];
-      out[jn][1] = v[jn * 8 + 2 * t + 1];
-    }
-  }
-
-  // this warp's 16 pixels of band row j (all 64 channels, f32 in the
-  // accumulator layout) as bf16 input of the next conv, with stmatrix;
-  // pixels past W stay zero: they are the next conv's padding. An edge row
-  // of the band also goes to the neighbour's halo row of set `set`
-  // (16-byte st.async, counted on the neighbour's barrier of that set).
-  __device__ void put_tile(int j, const float (&v)[32], int w, int set) const {
-    const int mi = lane >> 3, half = mi & 1;  // this lane's row address: matrix mi
-    const int L = j * BOX_W + 1 + wq * 16 + (lane & 7) + 8 * half;
-    const uint32_t row = s + uint32_t(L) * 128;
-    const bool lo_ok = wq * 16 + g < w, hi_ok = wq * 16 + g + 8 < w;  // this thread's values
-#pragma unroll
-    for (int jp = 0; jp < 8; jp += 2) {
-      uint32_t r[4];  // matrices (half, jn): (0, jp), (1, jp), (0, jp + 1), (1, jp + 1)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int jn = jp + (m >> 1), hm = m & 1;
-        const bool ok = hm ? hi_ok : lo_ok;
-        r[m] = pack_bf16(ok ? v[4 * jn + 2 * hm] : 0.f, ok ? v[4 * jn + 2 * hm + 1] : 0.f);
-      }
-      stmatrix_x4(row + (uint32_t((jp + (mi >> 1)) ^ (L & 7)) << 4), r);
-    }
-    const int up = j == 0 ? rank - 1 : -1, down = j == nb - 1 ? rank + 1 : csize;
-    if (up < 0 && down >= csize) return;
-    __syncwarp();
-    constexpr int PER_LANE = 16 * 8 / 32;  // the warp's 16 px x 8 chunks
-    uint4 cv[PER_LANE];
-#pragma unroll
-    for (int u = 0; u < PER_LANE; ++u) {  // all loads first, then all stores
-      const int i = lane + 32 * u, ls = j * BOX_W + 1 + wq * 16 + (i >> 3);
-      cv[u] = ld_smem_v4(s + uint32_t(ls) * 128 + (uint32_t((i & 7) ^ (ls & 7)) << 4));
-    }
-#pragma unroll
-    for (int u = 0; u < PER_LANE; ++u) {
-      const int i = lane + 32 * u, lh = 1 + wq * 16 + (i >> 3);
-      const uint32_t off = uint32_t(lh) * 128 + (uint32_t((i & 7) ^ (lh & 7)) << 4);
-      if (up >= 0) st_async_v4(halo(set, 1) + off, bar_h(set), uint32_t(up), cv[u]);
-      if (down < csize) st_async_v4(halo(set, 0) + off, bar_h(set), uint32_t(down), cv[u]);
-    }
-  }
-
-  // after a conv's output is in the band's rows: arrive at the cluster
-  // barrier the next conv waits on before it reloads a weight buffer
-  __device__ void finish_rows() const {
-    __syncthreads();
-    cluster_arrive_relaxed();
-  }
-
-  // The MMAs of conv q into acc (warpgroup wg's tiles are band rows wg and
-  // wg + NWG): first the rows that read only this block's own input; then
-  // the cluster barrier that ends every block's conv q - 1, after which the
-  // next conv's weight starts loading into the buffer conv q - 1 used; then
-  // the edge rows, once the neighbours' edge rows of conv q - 1 are in the
-  // halo (`pushed`; the first conv of an image reads x's rows by TMA).
-  __device__ __forceinline__ void conv(float (&acc)[R_TILES][32], const float* bias,
-                                       const float* alpha, const CUtensorMap* next_w,
-                                       int next_row, bool pushed, uint32_t x_parity) {
+  // Conv q into d: first the taps whose input rows are all band rows, then,
+  // once the neighbours' rows are in the halo rows (`pushed`; an image's
+  // first conv reads x's rows, loaded by TMA), the rest. No operand is in
+  // registers, so all of a pass's wgmmas are in flight together. Ends with
+  // the arrive at the cluster barrier that tells the other blocks this
+  // block is done with conv q's weight buffer and halo rows.
+  __device__ __forceinline__ void conv(float (&d)[R_ACC], const float* bias, const float* alpha,
+                                       bool pushed, uint32_t x_parity) {
     if (tid < C) {  // read after the barrier that follows the MMAs
       m.bias[tid] = bias[tid];
       m.alpha[tid] = alpha != nullptr ? alpha[tid] : 0.f;
     }
+#pragma unroll
+    for (int i = 0; i < R_ACC; ++i) d[i] = 0.f;
     mbar_wait(bar_w0 + 8 * (q & 1), (q >> 1) & 1);
     if (!pushed) mbar_wait(bar_x, x_parity);
     const uint32_t wsm = w0 + (q & 1) * W_BYTES;
+    const bool active = j0 < nb;
+    // the taps' dy in the order they run (2 bits each): those whose two
+    // input rows are band rows, then those that read a halo row
+    uint32_t order = 0;
+    int n_own = 0, cnt = 0;
 #pragma unroll
-    for (int edge = 0; edge < 2; ++edge) {
-      if (edge) {
-        cluster_wait();
-        if (tid == 0 && next_w != nullptr) load_weight(next_w, next_row, (q + 1) & 1);
-        if (pushed) {
-          // Armed here though the pushes may have landed already (the
-          // tx-count may go below zero). The next pushes into this set come
-          // after this phase: they need this conv's edge rows or, from an
-          // image's first conv, the cluster barrier after the tail conv.
-          const int set = int(q & 1);
-          if (tid == 0) mbar_expect_tx(bar_h(set), halo_bytes);
-          mbar_wait<true>(bar_h(set), (hphase >> set) & 1);
-          hphase ^= 1u << set;
-        }
+    for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int ra = j0 + dy, rb = ra + 1;  // the input rows the run reads
+        const bool halo = ra == 0 || ra == nb + 1 || rb == nb + 1;
+        if (halo != bool(pass)) continue;
+        order |= uint32_t(dy) << (2 * cnt++);
+        if (!pass) ++n_own;
       }
+#pragma unroll 1
+    for (int i = 0; i < 3; ++i) {
+      if (i == n_own && pushed) {
+        // Armed here though the pushes may have landed already (the
+        // tx-count may go below zero); the next ones come after the cluster
+        // barrier this conv arrives at.
+        if (tid == 0) mbar_expect_tx(bar_h, halo_bytes);
+        mbar_wait<true>(bar_h, hphase);
+        fence_proxy_async_smem();  // before wgmma (the async proxy) reads them
+      }
+      if (!active) continue;
+      const int dy = int(order >> (2 * i)) & 3;
+      const uint32_t wrow = wsm + uint32_t(dy * 3 * C) * 128;
+      const uint32_t srow = s + uint32_t((j0 + dy) * BOX_W) * 128;
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < R_TILES; ++i) {
-        const int j = wg + NWG * i;
-        if (j < nb && (j == 0 || j == nb - 1) == bool(edge)) {
-          uint32_t rows[3];
-          int l0[3];
+      for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-          for (int dy = 0; dy < 3; ++dy) row(j + dy, int(q & 1), rows[dy], l0[dy]);
-          conv_tile(acc[i], rows, l0, wsm, wq, lane);
-        }
+        for (int kc = 0; kc < 4; ++kc)
+          wgmma_ss_n136(d, desc_w_sw128(wrow + uint32_t(dx * C + kc * 16) * 128),
+                        desc_kmajor_sw128(srow + uint32_t(dx * 128 + kc * 32)));
+      wgmma_commit();
+    }
+    if (pushed) hphase ^= 1u;
+    wgmma_wait<0>();
+    fence_acc(d);
+    __syncthreads();  // this block's weight buffer and input rows are free
+    cluster_arrive_relaxed();
+  }
+
+  // The warpgroup's tile (f32, accumulator layout) as bf16 input rows of the
+  // next conv, by stmatrix.trans: 8 channels of a slot are one 16-byte row
+  // of a transposed 8x8 matrix. Pixels past W are written as zeros (the
+  // next conv's padding); slots no band row owns go to `dummy`.
+  __device__ void store_rows(const float (&v)[R_ACC]) const {
+#pragma unroll
+    for (int k = 0; k < (R_N / 8 + 1) / 2; ++k) {  // column blocks 2k and 2k + 1
+      const int mi = lane >> 3, jb = 2 * k + (mi >> 1), n = 8 * jb + (lane & 7);
+      const int ro = n / BOX_W, x = n - ro * BOX_W;
+      const bool own = jb < R_N / 8 && ro < 2 && x < TILE && j0 + ro < nb;
+      const uint32_t addr = own ? slot_addr((j0 + 1) * BOX_W + 1 + n, 2 * wq + (mi & 1)) : dummy;
+      uint32_t r[4];  // matrices (jb 2k, channels c_lo), (2k, c_lo + 8), (2k + 1, ..), (2k + 1, ..)
+#pragma unroll
+      for (int mm = 0; mm < 4; ++mm) {
+        const int b = 2 * k + (mm >> 1), h = mm & 1;
+        if (b < R_N / 8)
+          r[mm] = pack_bf16(col_valid(b, 0) ? v[4 * b + 2 * h] : 0.f,
+                            col_valid(b, 1) ? v[4 * b + 2 * h + 1] : 0.f);
+        else
+          r[mm] = 0;
+      }
+      stmatrix_x4_trans(addr, r);
+    }
+  }
+
+  // After a conv's epilogue: the cluster barrier that conv arrived at (every
+  // block is done with its weight buffer and halo rows), then conv q + 2's
+  // weight into that buffer and, when `push`, band rows 0 and nb - 1 (input
+  // rows 1 and nb, just stored) into the neighbours' halo rows: the block
+  // above takes row 0 as its bottom halo, the block below row nb - 1 as its
+  // top halo (16-byte st.async counted on the receiver's halo barrier).
+  __device__ void finish(bool push, const CUtensorMap* next_w, int next_row) {
+    fence_proxy_async_smem();  // the rows stmatrix stored, before wgmma reads them
+    __syncthreads();
+    cluster_wait();
+    if (tid == 0 && next_w != nullptr) load_weight(next_w, next_row, q & 1);
+    if (push) {
+      for (int i = tid; i < 2 * TILE * (C / 8); i += THREADS) {
+        const bool up = i < TILE * (C / 8);
+        const int k = up ? i : i - TILE * (C / 8), px = k >> 3, ch = k & 7;
+        const int dst = up ? rank - 1 : rank + 1;
+        if (dst < 0 || dst >= csize) continue;
+        const uint4 v = ld_smem_v4(slot_addr((up ? 1 : nb) * BOX_W + 1 + px, ch));
+        st_async_v4(slot_addr((up ? nb_up + 1 : 0) * BOX_W + 1 + px, ch), bar_h, uint32_t(dst), v);
       }
     }
-    __syncthreads();  // the block's input rows, halos and weight buffer are free
+    ++q;
   }
 };
 
+// The weight of conv c of an image (0 .. 2B): w1[c / 2], w2[c / 2], the tail's wg
+struct WeightOf {
+  const CUtensorMap* map;
+  int row;
+};
+__device__ __forceinline__ WeightOf weight_of(int c, int B, const CUtensorMap* w1,
+                                              const CUtensorMap* w2, const CUtensorMap* wg) {
+  if (c == 2 * B) return {wg, 0};
+  return {(c & 1) ? w2 : w1, (c >> 1) * KROWS};
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
-rcab_group_resident_kernel(const __grid_constant__ CUtensorMap tm_x4,
-                           const __grid_constant__ CUtensorMap tm_x1,
+rcab_group_resident_kernel(const __grid_constant__ CUtensorMap tm_x,
                            const __grid_constant__ CUtensorMap tm_w1,
                            const __grid_constant__ CUtensorMap tm_w2,
                            const __grid_constant__ CUtensorMap tm_wg, const Params p) {
@@ -969,12 +1029,13 @@ rcab_group_resident_kernel(const __grid_constant__ CUtensorMap tm_x4,
   Res r;
   r.w0 = base + R_OFF_W;
   r.s = base + R_OFF_S;
-  r.h = base + R_OFF_H;
   r.m.init(sb + R_OFF_MISC);
+  r.wgsum = reinterpret_cast<float*>(sb + R_OFF_MISC + M_WGSUM);
+  r.dummy = smem_u32(sb + R_OFF_MISC + M_DUMMY);
   r.bar_w0 = r.m.bar;
   r.bar_x = r.m.bar + 16;
-  r.bar_h0 = r.m.bar + 24;
-  r.bar_sum0 = r.m.bar + 40;
+  r.bar_h = r.m.bar + 24;
+  r.bar_sum0 = r.m.bar + 32;
   r.tid = threadIdx.x;
   r.lane = r.tid & 31;
   r.wg = r.tid >> 7;
@@ -985,16 +1046,26 @@ rcab_group_resident_kernel(const __grid_constant__ CUtensorMap tm_x4,
   r.csize = int(special_reg_nrank());
   r.r0 = r.rank * p.h / r.csize;
   r.nb = (r.rank + 1) * p.h / r.csize - r.r0;
+  r.nb_up = r.r0 - (r.rank - 1) * p.h / r.csize;
+  r.j0 = 2 * r.wg;
   r.q = 0;
   r.ns = 0;
   r.hphase = 0;
   r.halo_bytes = PUSH_BYTES * uint32_t((r.rank > 0) + (r.rank + 1 < r.csize));
+  r.vmask = 0;
+#pragma unroll
+  for (int jb = 0; jb < R_N / 8; ++jb)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * jb + 2 * r.t + e, ro = n / BOX_W, x = n - ro * BOX_W;
+      if (ro < 2 && x < p.w && r.j0 + ro < r.nb) r.vmask |= uint64_t(1) << (2 * jb + e);
+    }
   const int cid = int(special_reg_cluster_id()), ncl = int(special_reg_nclusters());
+  const int B = p.num_blocks, per_img = 2 * B + 1;
 
-  // zero the input rows and halos: their padding columns, the image's
-  // border halos and the pixels past W are never written again
-  for (uint32_t i = r.tid; i < (R_OFF_MISC - R_OFF_S) / 16; i += THREADS)
-    st_smem_zero16(r.s + 16 * i);
+  // zero the input rows and the slack after them: the halo columns, the
+  // image's border rows and the pixels past W are never written again
+  for (uint32_t i = r.tid; i < R_BUF_BYTES / 16; i += THREADS) st_smem_zero16(r.s + 16 * i);
   if (r.tid == 0) {
     for (int i = 0; i < N_BARS; ++i) mbar_init(r.m.bar + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -1002,88 +1073,101 @@ rcab_group_resident_kernel(const __grid_constant__ CUtensorMap tm_x4,
   fence_proxy_async();
   cluster_sync();  // every block's barriers exist before a multicast lands
   if (r.tid == 0 && cid < p.n) {
-    r.load_weight(&tm_w1, 0, 0);
-    r.load_x(&tm_x4, &tm_x1, cid, 0);
+    for (int c = 0; c < 2 && c < per_img; ++c) {
+      const WeightOf wo = weight_of(c, B, &tm_w1, &tm_w2, &tm_wg);
+      r.load_weight(wo.map, wo.row, uint32_t(c));
+    }
+    r.load_x(&tm_x, cid);
   }
-  cluster_arrive_relaxed();  // what the first conv's barrier waits for
 
-  const int B = p.num_blocks;
-  const size_t img_px = size_t(p.h) * p.w;
+  const int c0 = r.c_lo(), c1 = c0 + 8;
   uint32_t n_img = 0;  // images this block has taken (x barrier parity)
   for (int img = cid; img < p.n; img += ncl, ++n_img) {
-    // feat = float(x) for this warpgroup's tiles, in accumulator layout
-    float feat[R_TILES][32];
-#pragma unroll
-    for (int i = 0; i < R_TILES; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = r.wg + NWG * i, px = r.wq * 16 + r.g + half * 8;
-        const bool ok = j < r.nb && px < p.w;
-        const size_t o = ((size_t(img) * p.h + r.r0 + j) * p.w + px) * C;
-#pragma unroll
-        for (int jn = 0; jn < 8; ++jn) {
-          float2 v = make_float2(0.f, 0.f);
-          if (ok)
-            v = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(p.x + o + jn * 8 + 2 * r.t));
-          feat[i][4 * jn + 2 * half] = v.x;
-          feat[i][4 * jn + 2 * half + 1] = v.y;
-        }
+    const bool more = img + ncl < p.n;
+    // conv c + 2's weight, if there is such a conv (in this image or the next)
+    auto next_weight = [&](int c, int& row) -> const CUtensorMap* {
+      int c2 = c + 2;
+      if (c2 >= per_img) {
+        if (!more) return nullptr;
+        c2 -= per_img;
       }
-    float acc[R_TILES][32];
+      const WeightOf wo = weight_of(c2, B, &tm_w1, &tm_w2, &tm_wg);
+      row = wo.row;
+      return wo.map;
+    };
+
+    // feat = float(x) for this warpgroup's columns, in accumulator layout
+    float feat[R_ACC];
+#pragma unroll
+    for (int jb = 0; jb < R_N / 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float lo = 0.f, hi = 0.f;
+        if (r.col_valid(jb, e)) {
+          const int n = 8 * jb + 2 * r.t + e, ro = n / BOX_W, x = n - ro * BOX_W;
+          const size_t o = ((size_t(img) * p.h + r.r0 + r.j0 + ro) * p.w + x) * C;
+          lo = __bfloat162float(p.x[o + c0]);
+          hi = __bfloat162float(p.x[o + c1]);
+        }
+        feat[4 * jb + e] = lo;
+        feat[4 * jb + 2 + e] = hi;
+      }
+    float acc[R_ACC];
 
     for (int k = 0; k < B; ++k) {
+      int row = 0;
+      const CUtensorMap* nw;
       // conv1 + PReLU: t1 goes straight into the next conv's input rows
-      r.conv(acc, p.b1 + k * C, p.a + k * C, &tm_w2, k * KROWS, k > 0, n_img & 1);
+      r.conv(acc, p.b1 + k * C, p.a + k * C, k > 0, n_img & 1);
       {
-        float bias[8][2], alpha[8][2];  // this thread's channels, read once
-        r.channels(r.m.bias, bias);
-        r.channels(r.m.alpha, alpha);
+        const float b[2] = {r.m.bias[c0], r.m.bias[c1]}, a[2] = {r.m.alpha[c0], r.m.alpha[c1]};
 #pragma unroll
-        for (int i = 0; i < R_TILES; ++i) {
-          const int j = r.wg + NWG * i;
-          if (j >= r.nb) continue;
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const float v = acc[i][e] + bias[e >> 2][e & 1];
-            acc[i][e] = v >= 0.f ? v : alpha[e >> 2][e & 1] * v;
-          }
-          r.put_tile(j, acc[i], p.w, int((r.q + 1) & 1));
+        for (int i = 0; i < R_ACC; ++i) {
+          const int h = (i >> 1) & 1;
+          const float v = acc[i] + b[h];
+          acc[i] = v >= 0.f ? v : a[h] * v;
         }
+        r.store_rows(acc);
       }
-      ++r.q;
-      r.finish_rows();
+      nw = next_weight(2 * k, row);
+      r.finish(true, nw, row);
 
-      // conv2: t2 stays in the accumulators across the SE barrier
-      r.conv(acc, p.b2 + k * C, nullptr, k + 1 < B ? &tm_w1 : &tm_wg,
-             k + 1 < B ? (k + 1) * KROWS : 0, true, 0);
+      // conv2: t2 stays in the accumulators across the SE exchange
+      r.conv(acc, p.b2 + k * C, nullptr, true, 0);
       {
-        float csum[8][2];
+        const float b[2] = {r.m.bias[c0], r.m.bias[c1]};
+        float s[2] = {0.f, 0.f};
 #pragma unroll
-        for (int jn = 0; jn < 8; ++jn) csum[jn][0] = csum[jn][1] = 0.f;
+        for (int jb = 0; jb < R_N / 8; ++jb)
 #pragma unroll
-        for (int i = 0; i < R_TILES; ++i) {
-          const int j = r.wg + NWG * i;
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const bool ok = j < r.nb && r.wq * 16 + r.g + half * 8 < p.w;
+            for (int e = 0; e < 2; ++e) {
+              const float v = acc[4 * jb + 2 * h + e] + b[h];
+              acc[4 * jb + 2 * h + e] = v;
+              if (r.col_valid(jb, e)) s[h] += v;
+            }
 #pragma unroll
-            for (int jn = 0; jn < 8; ++jn)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float v = acc[i][4 * jn + 2 * half + e] + r.m.bias[jn * 8 + 2 * r.t + e];
-                acc[i][4 * jn + 2 * half + e] = v;
-                if (ok) csum[jn][e] += v;
-              }
-          }
+        for (int h = 0; h < 2; ++h) {  // the four lanes of a g (they differ in t)
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
         }
-        // into row `rank` of sums buffer ns & 1 in every block
-        const uint4 s = block_channel_sums(r.m, csum, r.tid);
+        if (r.t == 0) {
+          r.wgsum[r.wg * C + c0] = s[0];
+          r.wgsum[r.wg * C + c1] = s[1];
+        }
+        __syncthreads();
+        // the block's sums (warpgroup 0 then 1) into row `rank` of sums
+        // buffer ns & 1 in every block
         if (r.tid < SUM_THREADS) {
+          const float4 s0 = *reinterpret_cast<const float4*>(r.wgsum + 4 * r.tid);
+          const float4 s1 = *reinterpret_cast<const float4*>(r.wgsum + C + 4 * r.tid);
+          const uint4 v = make_uint4(__float_as_uint(s0.x + s1.x), __float_as_uint(s0.y + s1.y),
+                                     __float_as_uint(s0.z + s1.z), __float_as_uint(s0.w + s1.w));
           const int buf = int(r.ns & 1);
           const uint32_t addr = smem_u32(r.allsum(buf) + r.rank * C + 4 * r.tid);
           for (int dst = 0; dst < r.csize; ++dst)
-            st_async_v4(addr, r.bar_sum(buf), uint32_t(dst), s);
+            st_async_v4(addr, r.bar_sum(buf), uint32_t(dst), v);
         }
       }
       {
@@ -1099,56 +1183,44 @@ rcab_group_resident_kernel(const __grid_constant__ CUtensorMap tm_x4,
       }
       // feat += (t2 * gate) * res_scale; bf16(feat) is the next conv's input
       {
-        float gate[8][2];
-        r.channels(r.m.gate, gate);
+        const float gt[2] = {r.m.gate[c0], r.m.gate[c1]};
 #pragma unroll
-        for (int i = 0; i < R_TILES; ++i) {
-          const int j = r.wg + NWG * i;
-          if (j >= r.nb) continue;
-#pragma unroll
-          for (int e = 0; e < 32; ++e)
-            feat[i][e] += (acc[i][e] * gate[e >> 2][e & 1]) * p.res_scale;
-          r.put_tile(j, feat[i], p.w, int((r.q + 1) & 1));
-        }
+        for (int i = 0; i < R_ACC; ++i) feat[i] += (acc[i] * gt[(i >> 1) & 1]) * p.res_scale;
+        r.store_rows(feat);
       }
-      ++r.q;
-      r.finish_rows();
+      nw = next_weight(2 * k + 1, row);
+      r.finish(true, nw, row);
     }
 
     // tail conv: out = bf16(conv + bg + x); then the next image's x loads
     // into the rows this conv read
-    const bool more = img + ncl < p.n;
-    r.conv(acc, p.bg, nullptr, more ? &tm_w1 : nullptr, 0, true, 0);
+    r.conv(acc, p.bg, nullptr, true, 0);
     fence_proxy_async();  // the rows TMA overwrites now were written by every thread
     __syncthreads();
-    if (r.tid == 0 && more) r.load_x(&tm_x4, &tm_x1, img + ncl, int((r.q + 1) & 1));
+    if (r.tid == 0 && more) r.load_x(&tm_x, img + ncl);
+    {
+      const float b[2] = {r.m.bias[c0], r.m.bias[c1]};
+      // the columns' offsets again (not kept in registers from feat's loads)
+      int t = r.t;
+      asm volatile("" : "+r"(t));
 #pragma unroll
-    for (int i = 0; i < R_TILES; ++i) {
-      const int j = r.wg + NWG * i;
-      if (j >= r.nb) continue;
+      for (int jb = 0; jb < R_N / 8; ++jb)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int px = r.wq * 16 + r.g + half * 8;
-        if (px >= p.w) continue;
-        const size_t o = (size_t(img) * img_px + size_t(r.r0 + j) * p.w + px) * C;
-#pragma unroll
-        for (int jn = 0; jn < 8; ++jn) {
-          const int c = jn * 8 + 2 * r.t;
-          const float2 xv =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.x + o + c));
-          *reinterpret_cast<__nv_bfloat162*>(p.out + o + c) = __floats2bfloat162_rn(
-              acc[i][4 * jn + 2 * half] + r.m.bias[c] + xv.x,
-              acc[i][4 * jn + 2 * half + 1] + r.m.bias[c + 1] + xv.y);
+        for (int e = 0; e < 2; ++e) {
+          if (!r.col_valid(jb, e)) continue;
+          const int n = 8 * jb + 2 * t + e, ro = n / BOX_W, x = n - ro * BOX_W;
+          const size_t o = ((size_t(img) * p.h + r.r0 + r.j0 + ro) * p.w + x) * C;
+          p.out[o + c0] = __float2bfloat16_rn(acc[4 * jb + e] + b[0] + __bfloat162float(p.x[o + c0]));
+          p.out[o + c1] =
+              __float2bfloat16_rn(acc[4 * jb + 2 + e] + b[1] + __bfloat162float(p.x[o + c1]));
         }
-      }
     }
-    ++r.q;
-    __syncthreads();  // the bias is read: the next conv may replace it
-    // the next image's first conv pushes into halos the slowest block may
-    // still be reading: it waits on this arrive
-    cluster_arrive_relaxed();
+    {
+      int row = 0;
+      const CUtensorMap* nw = next_weight(2 * B, row);
+      r.finish(false, nw, row);  // also: the bias is read before the next conv replaces it
+    }
   }
-  cluster_wait();  // no block leaves while another may still read its shared memory
 }
 
 // ---- host side -----------------------------------------------------------
@@ -1330,16 +1402,15 @@ extern "C" int rcab_group_forward(
 
   CUtensorMap tm_w1, tm_w2, tm_wg;
   if (rc > 0) {
-    CUtensorMap tm_x4, tm_x1;
-    RETURN_IF_ERR(act_map(enc, &tm_x4, x, n, h, w, RES_ROWS));
-    RETURN_IF_ERR(act_map(enc, &tm_x1, x, n, h, w, 1));
+    CUtensorMap tm_x6;
+    RETURN_IF_ERR(act_map(enc, &tm_x6, x, n, h, w, R_BUF_ROWS));
     RETURN_IF_ERR(weight_map(enc, &tm_w1, w1, num_blocks * KROWS, 8));
     RETURN_IF_ERR(weight_map(enc, &tm_w2, w2, num_blocks * KROWS, 8));
     RETURN_IF_ERR(weight_map(enc, &tm_wg, wg, KROWS, 8));
     RETURN_IF_ERR(set_attributes(rcab_group_resident_kernel, R_SMEM_BYTES));
     cudaLaunchConfig_t cfg = launch_config(clusters, cluster_size, R_SMEM_BYTES, stream, &attr);
-    RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, rcab_group_resident_kernel, tm_x4, tm_x1, tm_w1,
-                                     tm_w2, tm_wg, p));
+    RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, rcab_group_resident_kernel, tm_x6, tm_w1, tm_w2,
+                                     tm_wg, p));
   } else {
     CUtensorMap tm_x, tm_featb, tm_t1;
     RETURN_IF_ERR(act_map(enc, &tm_x, x, n, h, w, BOX_H));

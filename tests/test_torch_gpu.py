@@ -43,10 +43,11 @@ def _excess(got, want):
 
 # the resident variant at the production shape and a ragged one (bands of 2
 # and 3 rows), each with one image a cluster and with clusters looping over
-# several; the scratch variant at a tiny image and at a width past one
-# 64-pixel tile with an H the band count does not divide; a lone image
+# several, and with bands of 1 and 2 rows at an odd width; the scratch
+# variant at a tiny image and at a width past one 64-pixel tile with an H
+# the band count does not divide; a lone image
 _SHAPES = [((4, 64, 64, 64), 10), ((3, 20, 36, 64), 3), ((1, 7, 5, 64), 1),
-           ((128, 64, 64, 64), 10), ((40, 20, 36, 64), 3),
+           ((128, 64, 64, 64), 10), ((40, 20, 36, 64), 3), ((2, 12, 17, 64), 2),
            ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10)]
 
 
