@@ -25,7 +25,17 @@ catches an error and goes on):
 6. times on this card (CUDA events for kernels, host clock ending in
    synchronize for requests and the batch-1 forward), peak memory, the
    profiler's kernels of one group call and of two forwards, and the
-   ptxas register/spill lines.
+   ptxas register/spill lines;
+7. stage-1 content training, the second path: one small f32 step on the
+   card against the same step on the CPU (loss, every gradient, every
+   updated parameter), with a control that forces TF32 convs and must be
+   rejected; the production step (6x10x64 f32, batch 48, HR 256, L1 + VGG19
+   conv3_4, AdamW) for 2 warm-up and 6 timed steps on one batch, whose
+   losses must be finite and fall and which must launch no kernel of the
+   port (the group kernel is forward-only); its ms/step, images/s, peak
+   memory, host syncs, profiler breakdown and the VGG and trunk shares;
+   then `Trainer.train()` for 2 epochs with its checkpoints written,
+   resumed bitwise and reloaded weights-only.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -40,6 +50,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -74,6 +85,13 @@ CHECK_SHAPES = (((4, 64, 64, 64), 10), ((128, 64, 64, 64), 10),
 # them (its reading is printed) and the kernel tolerance must reject it
 WIRING_FAULTS = ("no_gate", "half_res_scale")
 ROUNDING_FAULT = "bf16_feat"
+# training: the stage-1 batch (48 images of HR 256x256), warm-up and timed
+# steps on one repeated batch; the Trainer phase's smaller batches
+TRAIN_BATCH, TRAIN_HR, TRAIN_WARMUP, TRAIN_TIMED = 48, 256, 2, 6
+TRAINER_BATCH = 8
+# CUDA step vs CPU step in f32, relative L2 per tensor: other summation
+# orders give ~1e-7-1e-6; TF32 convs (10-bit mantissa) ~3e-4 and more
+STEP_RTOL = 1e-4
 
 
 def log(msg=""):
@@ -250,6 +268,258 @@ def production_model(dev, nonzero_last):
     return model
 
 
+def stage1_loss(dev):
+    """The stage-1 loss (L1 1.0 + VGG19 perceptual 1.0 at conv3_4, ImageNet
+    normalisation), random VGG from seed 0."""
+    from facesr_torch.losses.combined import CombinedLoss, LossConfig
+
+    cfg = LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
+                     perceptual_layers=["conv3_4"])
+    return CombinedLoss(cfg, seed=0, device=dev)
+
+
+def smooth_hr(n, size, seed, dev):
+    """Smooth HR images in [0, 1]: seeded 8x8 noise, bicubic up to size."""
+    from facesr_torch.ops.resize import bicubic_up
+
+    lo = np.random.default_rng(seed).random((n, 8, 8, 3), dtype=np.float32)
+    return bicubic_up(torch.from_numpy(lo).to(dev), size // 8).clamp(0.0, 1.0).contiguous()
+
+
+def train_step_conv_flops(cfg, n, hr_size):
+    """3x3 conv work of one stage-1 step, from the shapes: the model's
+    forward, its input and weight gradients (none for conv_first's input),
+    the remat recompute of every RCAB's two convs, the VGG19 pred sweep to
+    conv3_4 forward and input gradient (its weights are frozen) and the
+    target sweep forward."""
+    def conv(h, cin, cout):
+        return 2.0 * n * h * h * 9 * cin * cout
+
+    lr_size, c = hr_size // 4, cfg.num_channels
+    trunk = cfg.num_groups * (2 * cfg.blocks_per_group + 1) * conv(lr_size, c, c)
+    rcab_convs = cfg.num_groups * 2 * cfg.blocks_per_group * conv(lr_size, c, c)
+    first = conv(lr_size, cfg.in_channels, c)
+    rest = (conv(lr_size, c, c) + conv(lr_size, c, 4 * c) + conv(2 * lr_size, c, 4 * c)
+            + conv(hr_size, c, cfg.out_channels))
+    vgg = (conv(hr_size, 3, 64) + conv(hr_size, 64, 64) + conv(hr_size // 2, 64, 128)
+           + conv(hr_size // 2, 128, 128) + conv(hr_size // 4, 128, 256)
+           + 3 * conv(hr_size // 4, 256, 256))
+    model = first + trunk + rest
+    return 3 * model - first + rcab_convs + 3 * vgg
+
+
+F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def production_step_fn(dev):
+    """Stage-1 training at the production width, the YAML's values written
+    out (the card has no PyYAML): FaceEnhanceNet 6x10x64 (remat save_ca),
+    f32, L1 + perceptual conv3_4, AdamW lr 1e-4, wd 0, clip 0.5,
+    vgg_remat off. conv_last is redrawn non-zero: from the zero init the
+    output is the bicubic skip, and the first steps move away from it
+    before the loss falls. Returns (state, step, loss)."""
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.ops.init import kaiming_normal
+    from facesr_torch.training import steps
+    from facesr_torch.training.optim import AdamW
+
+    model = FaceEnhanceNet(production_config().replace(remat="save_ca"), seed=0, device="cpu")
+    with torch.no_grad():
+        model.conv_last.weight.copy_(kaiming_normal(model.conv_last.weight.shape,
+                                                    torch.Generator().manual_seed(1), scale=0.1))
+    model.to(dev)
+    loss = stage1_loss(dev)
+    opt = AdamW(weight_decay=0.0, gradient_clip=0.5)
+    state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
+                             loss_params=loss.params)
+    step = steps.make_train_step(lambda lp, p, t: loss.apply(lp, p, t, vgg_remat=False), opt,
+                                 compute_dtype=None)
+    return state, step, loss
+
+
+def trainer_phase(dev):
+    """`Trainer.train()` on the production model: 2 epochs of 2 batches,
+    one validation batch; checkpoints written, resumed and reloaded."""
+    import tempfile
+
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.training.trainer import Trainer, TrainerConfig
+
+    train = [{"hr": smooth_hr(TRAINER_BATCH, TRAIN_HR, seed=20 + i, dev="cpu").numpy()}
+             for i in range(2)]
+    val = [{"hr": smooth_hr(TRAINER_BATCH, TRAIN_HR, seed=30, dev="cpu").numpy()}]
+
+    def trainer(ckpt_dir, epochs, seed):
+        cfg = TrainerConfig(epochs=epochs, learning_rate=1e-4, weight_decay=0.0,
+                            gradient_clip=0.5, use_amp=False, scheduler_T_max=100,
+                            save_every=1, checkpoint_dir=ckpt_dir, ema_decay=0.999,
+                            early_stopping_metric="val_loss", early_stopping_mode="min")
+        model = FaceEnhanceNet(production_config(), seed=seed, device="cpu")
+        return Trainer(model, train, val, stage1_loss("cpu"), cfg, device=dev)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        return torch.equal(a, b)
+
+    with tempfile.TemporaryDirectory(prefix="facesr_torch_ckpt_") as d:
+        tr = trainer(d, epochs=2, seed=0)
+        t0 = time.perf_counter()
+        history = tr.train()
+        train_s = time.perf_counter() - t0
+        files = sorted(p.name for p in Path(d).iterdir())
+        log(f"  Trainer.train(): 2 epochs x 2 batches of {TRAINER_BATCH} + 1 validation batch "
+            f"in {train_s:.2f} s; history {json.dumps(history)}; files {files}")
+        want_files = ["best_model.pth", "epoch_1.pth", "epoch_2.pth", "final_model.pth"]
+        if files != want_files:
+            raise AssertionError(f"checkpoint files {files}, want {want_files}")
+        if tr._ckpt_pool is not None or tr._ckpt_futures:
+            raise AssertionError("the async checkpoint writer did not flush in train()")
+        if tr.global_step != 4 or not all(len(v) == 2 and all(math.isfinite(x) for x in v)
+                                          for v in history.values()):
+            raise AssertionError(f"trainer history or step count wrong: {tr.global_step}")
+        resumed = trainer(d, epochs=3, seed=1)
+        resumed.load_checkpoint(str(Path(d) / "final_model.pth"))
+        full = (same(resumed.model.state_dict(), tr.model.state_dict())
+                and same(resumed.state.opt_state, tr.state.opt_state)
+                and same(resumed.state.ema_params, tr.state.ema_params)
+                and resumed.current_epoch == 2 and resumed.global_step == 4)
+        fresh = trainer(d, epochs=1, seed=2)
+        fresh.load_checkpoint(str(Path(d) / "final_model.pth"), weights_only=True)
+        weights = (same(fresh.model.state_dict(), tr.model.state_dict())
+                   and same(fresh.state.ema_params, dict(tr.model.named_parameters()))
+                   and int(fresh.state.opt_state["count"]) == 0 and fresh.global_step == 0)
+        log(f"  full resume: params, optimiser state and EMA bitwise equal, epoch 2, "
+            f"step 4: {full}; weights-only load: params equal, EMA = params, fresh "
+            f"optimiser: {weights}")
+        if not (full and weights):
+            raise AssertionError("a checkpoint did not round-trip")
+
+
+def training_phase(dev, card):
+    """Phase 7: the stage-1 content-training path on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from facesr_torch.losses.perceptual import perceptual_loss
+    from facesr_torch.models import blocks
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.ops.conv import full_f32
+    from facesr_torch.ops.resize import bicubic_down, bicubic_up
+
+    from facesr_torch.cli.step_numerics import small_step, step_errors
+
+    log(f"== 7. stage-1 training (f32, TF32 off): CUDA step vs CPU step, relative L2 "
+        f"error <= {STEP_RTOL} for the loss and each tensor of the gradients and of "
+        "the updated parameters")
+    cpu = small_step("cpu")
+    gpu = small_step(dev)
+    errs = step_errors(gpu, cpu)
+    # a smooth loss: with the stage-1 loss (L1 criterion) the CUDA step's
+    # gradients sit ~6e-4 from the CPU's under cuDNN and ~7e-7 without it,
+    # a cause not yet found (python -m facesr_torch.cli.step_numerics)
+    log(f"  G=2 B=2 C=16, batch 2, HR 32, L2 + perceptual (L2) + 0.1 SSIM: loss "
+        f"{cpu[0].item():.6g}; relative L2 of the loss "
+        f"{errs[0]:.3g}, worst gradient {errs[1]:.3g}, worst param {errs[2]:.3g}")
+    if max(errs) > STEP_RTOL:
+        raise AssertionError(f"the CUDA training step disagrees with the CPU step: {errs}")
+    tf32 = step_errors(small_step(dev, tf32_forced=True), cpu)
+    log(f"  control, cuDNN TF32 forced around the same CUDA step: loss {tf32[0]:.3g}, "
+        f"worst gradient {tf32[1]:.3g}, worst param {tf32[2]:.3g} -> "
+        f"{'rejected' if max(tf32) > STEP_RTOL else 'within'}")
+    if max(tf32) <= STEP_RTOL:
+        raise AssertionError("the step tolerance cannot see TF32 convs")
+
+    n = TRAIN_BATCH
+    log(f"  production step: 6x10x64 f32 remat save_ca, batch {n} HR {TRAIN_HR}x{TRAIN_HR}, "
+        "L1 + VGG19 conv3_4, AdamW lr 1e-4 wd 0 clip 0.5, one repeated batch")
+    state, step, loss = production_step_fn(dev)
+    hr = smooth_hr(n, TRAIN_HR, seed=7, dev=dev)
+    rg.fused_residual_group.launches = 0  # just before the training path
+    losses, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, metrics = step(state, hr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, metrics = step(state, hr)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    torch.cuda.synchronize()
+    losses.append(metrics["loss"])
+    launches = rg.fused_residual_group.launches  # just after
+    losses = [v.item() for v in losses]
+    ms = statistics.median(times[TRAIN_WARMUP:]) * 1e3
+    log(f"  losses {['%.6f' % v for v in losses]}")
+    log(f"  step time median of {TRAIN_TIMED}: {ms:.3f} ms/step = {n / ms * 1e3:.2f} images/s; "
+        f"all {len(times)}: {['%.1f' % (t * 1e3) for t in times]} ms; peak device memory "
+        f"{peak_gib:.3f} GiB; host syncs in one step: {len(syncs)} "
+        f"{[f'{w.filename}:{w.lineno} {str(w.message)[:80]}' for w in syncs]}; other "
+        f"warnings {[str(w.message)[:80] for w in caught if w not in syncs]} [{card}]")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite or not falling: {losses}")
+    if launches != 0:
+        raise AssertionError(f"the training path launched the forward-only group kernel "
+                             f"{launches} times")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, hr)
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+    total_us = sum(dev_us(e) for e in events)
+    port_kernels = [e.key for e in events if "rcab_group" in e.key]
+    flops = train_step_conv_flops(state.model.config, n, TRAIN_HR)
+    log(f"  profiler, one production step: {total_us / 1e3:.3f} ms device time, "
+        f"{len(events)} device op kinds, port kernels {port_kernels}; 3x3 conv work "
+        f"{flops / 1e12:.3f} TFLOP = {flops / max(total_us, 1) / 1e6:.2f} TFLOP/s over the "
+        f"device time, {flops / max(total_us, 1) * 1e6 / F32_PEAK_FLOPS * 100:.1f}% of the "
+        f"f32 peak [{card}]")
+    for e in sorted(events, key=lambda e: -dev_us(e))[:15]:
+        log(f"    {dev_us(e) / max(total_us, 1) * 100:6.2f}%  {dev_us(e) / 1e3:9.3f} ms"
+            f"  x{e.count:<5} {e.key[:90]}")
+    if port_kernels:
+        raise AssertionError(f"the training step ran a kernel of the port: {port_kernels}")
+
+    # the shares of the step's two big parts, each forward + backward alone
+    lr_img = bicubic_down(hr, 4)
+    sr = bicubic_up(lr_img, 4).requires_grad_(True)
+    feat = torch.randn((n, TRAIN_HR // 4, TRAIN_HR // 4, state.model.config.num_channels),
+                       device=dev).requires_grad_(True)
+    trunk_params = [feat] + list(state.model.residual_groups.parameters())
+
+    def vgg_part():
+        with full_f32():
+            v = perceptual_loss(loss.params["vgg"], sr, hr, layers=("conv3_4",), remat=False)
+            torch.autograd.grad(v, sr)
+
+    def trunk_part():
+        with full_f32():
+            out, _ = blocks.residual_groups(state.model.residual_groups, feat, 0.2, 1,
+                                            remat="save_ca")
+            torch.autograd.grad(out.sum(), trunk_params)
+
+    vgg_ms = cuda_ms(vgg_part, iters=3, warmup=1)
+    trunk_ms = cuda_ms(trunk_part, iters=3, warmup=1)
+    log(f"  alone, forward + backward: VGG19 perceptual (pred + target sweeps) {vgg_ms:.3f} ms "
+        f"= {vgg_ms / ms * 100:.1f}% of the step; trunk (6x10 RCABs, save_ca) "
+        f"{trunk_ms:.3f} ms = {trunk_ms / ms * 100:.1f}% [{card}]")
+    del state, step, loss, hr, sr, feat, trunk_params, lr_img
+    torch.cuda.empty_cache()
+
+    trainer_phase(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -305,8 +575,11 @@ def main() -> int:
         return trunk
 
     plain_trunk = trunk_of(lambda f, gw: rcab_group_reference(f, gw, res_scale))
+    # train=True for the unclamped output; the trunk is named, since a
+    # training forward runs the plain trunk
+    kernel_trunk = trunk_of(lambda f, gw: fused_residual_group(f, gw, res_scale))
     with torch.inference_mode():
-        out_k = model(x4, train=True, dtype=torch.bfloat16)
+        out_k = model(x4, train=True, dtype=torch.bfloat16, trunk_fn=kernel_trunk)
         out_p = model(x4, train=True, dtype=torch.bfloat16, trunk_fn=plain_trunk)
         resid = (out_p - bicubic_up(x4, 4)).abs()
         limit_max = MODEL_RTOL * resid.max().item()
@@ -346,7 +619,7 @@ def main() -> int:
             raise AssertionError(f"the kernel tolerance lets the planted fault "
                                  f"{ROUNDING_FAULT} pass")
         zero_last = production_model(dev, nonzero_last=False)
-        out_z = zero_last(x4, train=True, dtype=torch.bfloat16)
+        out_z = zero_last(x4, train=True, dtype=torch.bfloat16, trunk_fn=kernel_trunk)
         if not torch.equal(out_z, bicubic_up(x4, 4)):
             raise AssertionError("zero conv_last model does not equal bicubic_up")
         log("  zero conv_last model == bicubic_up: exact")
@@ -493,6 +766,10 @@ def main() -> int:
                 f"  x{e.count // 2:<4} {e.key[:90]}")
     else:
         log("  profiler: no device time recorded")
+
+    del fwd, pred, model, xg, x128
+    torch.cuda.empty_cache()
+    training_phase(dev, card)
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

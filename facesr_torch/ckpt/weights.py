@@ -5,6 +5,8 @@
   (conv HWIO -> OIHW, dense [in, out] -> [out, in], stacks unrolled into
   the reference key names). An own copy of the layout rules of the JAX
   package's torch exporter; it reads numpy only.
+- `vgg_params_from_jax`: the JAX package's VGG19 conv list -> the port's,
+  so the loss tests run both packages on the same frozen VGG.
 - `load_reference_pth`: a reference-format ``{'model_state_dict',
   'config'}`` checkpoint -> a `FaceEnhanceNet`, loaded with ``strict=True``.
 """
@@ -12,7 +14,7 @@
 from __future__ import annotations
 
 from dataclasses import fields
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -20,7 +22,7 @@ import torch
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
 
-__all__ = ["state_dict_from_jax_params", "load_reference_pth"]
+__all__ = ["state_dict_from_jax_params", "vgg_params_from_jax", "load_reference_pth"]
 
 
 def _oihw(a) -> torch.Tensor:
@@ -63,6 +65,12 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
         sd[f"upsample.stages.{s}.prelu.weight"] = _t(stage["prelu_a"])
     conv("conv_last", params["conv_last"])
     return sd
+
+
+def vgg_params_from_jax(params: List[Dict[str, Any]]) -> List[Dict[str, torch.Tensor]]:
+    """The JAX package's VGG19 conv list (numpy leaves, HWIO) -> this
+    port's (``{"w": OIHW, "b"}`` tensors, depth order)."""
+    return [{"w": _oihw(p["w"]), "b": _t(p["b"])} for p in params]
 
 
 def load_reference_pth(path: str, device: DeviceLike = None) -> FaceEnhanceNet:

@@ -16,12 +16,16 @@ filled from an explicit `torch.Generator` by the ``init_*`` functions.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn.utils import skip_init
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from facesr_torch.ops import init as finit
 from facesr_torch.ops.conv import conv2d, prelu
@@ -29,7 +33,7 @@ from facesr_torch.ops.pixel_shuffle import pixel_shuffle
 
 __all__ = ["reduced_channels", "ChannelAttention", "RCAB", "ResidualGroup",
            "UpsampleStage", "Upsample", "make_conv", "channel_attention", "rcab",
-           "residual_groups", "upsample", "make_residual_groups",
+           "residual_groups", "REMAT_MODES", "upsample", "make_residual_groups",
            "make_upsample", "init_conv", "init_rcab", "init_residual_group",
            "init_upsample"]
 
@@ -161,17 +165,57 @@ def rcab(blk: RCAB, x: torch.Tensor, res_scale: float,
     return x + out * res_scale, attn
 
 
+def _save_only(ops):
+    """Selective-checkpoint policy: keep the outputs of ``ops``, recompute
+    every other op of the block in the backward pass."""
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+# what each selective remat mode keeps of an RCAB (the JAX package's
+# checkpoint names): "save_ca" the SE squeeze (mean) and gate (sigmoid),
+# [N, C] each; "save_convs" the two conv outputs (the bias add, elementwise,
+# is recomputed)
+_SAVED_OPS = {
+    "save_ca": (torch.ops.aten.mean.dim, torch.ops.aten.sigmoid.default),
+    "save_convs": (torch.ops.aten.convolution.default,),
+}
+REMAT_MODES = ("rcab", "save_ca", "save_convs", "none")
+
+
 def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
                     padding: int, collect_attention: bool = False,
+                    remat: str = "rcab",
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain trunk: each group runs its RCABs, then the tail conv and
     the group skip. Returns (features, attention [G, B, N, C] if
-    ``collect_attention`` else None)."""
+    ``collect_attention`` else None).
+
+    ``remat`` trades backward-pass memory for recompute, per RCAB:
+    "rcab" keeps only each block's input and recomputes the block;
+    "save_ca" also keeps the SE squeeze and gate, so the recompute skips
+    the global mean over the feature map; "save_convs" keeps the two conv
+    outputs and recomputes only the elementwise tail; "none" keeps what
+    autograd saves. All four give the same gradients."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"Unknown remat mode: {remat!r}")
+    block_fn = rcab
+    if remat != "none":
+        context_fn = noop_context_fn
+        if remat in _SAVED_OPS:
+            context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                           _save_only(_SAVED_OPS[remat]))
+
+        def block_fn(blk, h, scale, pad):
+            return checkpoint(rcab, blk, h, scale, pad, use_reentrant=False,
+                              preserve_rng_state=False, context_fn=context_fn)
+
     attns: List[torch.Tensor] = []
     for g in groups:
         res = x
         for blk in g.blocks:
-            x, attn = rcab(blk, x, res_scale, padding)
+            x, attn = block_fn(blk, x, res_scale, padding)
             if collect_attention:
                 attns.append(attn)
         x = conv2d(x, g.conv.weight, g.conv.bias, padding=padding) + res

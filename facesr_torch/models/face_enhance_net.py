@@ -6,10 +6,13 @@ Port of `facesr/models/face_enhance_net.py`:
   conv_after_body + feature skip -> log2(scale) PixelShuffle stages ->
   conv_last (C -> 3, zero-init) -> + f32 global bicubic skip -> clamp at eval.
 
-``forward`` takes and returns NHWC. With ``dtype=torch.bfloat16`` the
-trunk is `fused_residual_group`, one call per group: the Hopper kernel on
-a CUDA tensor, its plain version on a CPU tensor. With ``dtype=None`` the
-trunk is the plain f32 path (the kernel is bf16-only).
+``forward`` takes and returns NHWC. The eval forward with
+``dtype=torch.bfloat16`` (serving) runs the trunk as `fused_residual_group`,
+one call per group: the Hopper kernel on a CUDA tensor, its plain version
+on a CPU tensor. Every other forward runs the plain trunk
+(`blocks.residual_groups`) in the compute dtype: ``dtype=None`` is f32, and
+``train=True`` always takes it, with the config's ``remat`` mode, because
+the kernel is forward-only (the JAX package trains through XLA too).
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ class FaceEnhanceNetConfig:
     in_channels: int = 3
     out_channels: int = 3
     init_scale: float = 0.1
+    # backward-pass memory/recompute trade of the trunk in training:
+    # "rcab" | "save_ca" | "save_convs" | "none" (blocks.residual_groups);
+    # eval forwards use "none"
+    remat: str = "save_ca"
 
     def replace(self, **kwargs) -> "FaceEnhanceNetConfig":
         d = asdict(self)
@@ -100,7 +107,9 @@ class FaceEnhanceNet(nn.Module):
         clamped to [0, 1] only when ``train`` is False.
 
         ``trunk_fn(residual_groups, feat) -> feat`` overrides the trunk (the
-        JAX ``trunk_fn`` hook); by default the trunk follows ``dtype``."""
+        JAX ``trunk_fn`` hook). By default the eval forward in bf16 runs
+        the group kernel and every other forward the plain trunk, with
+        ``config.remat`` when ``train``."""
         cfg = self.config
         pad = cfg.kernel_size // 2
         skip = bicubic_up(x.float(), cfg.scale_factor)
@@ -111,13 +120,14 @@ class FaceEnhanceNet(nn.Module):
         residual = feat
         if trunk_fn is not None:
             feat = trunk_fn(self.residual_groups, feat)
-        elif dtype == torch.bfloat16:
+        elif dtype == torch.bfloat16 and not train:
             feat = feat.contiguous()
             for gw in self.kernel_group_weights():
                 feat = fused_residual_group(feat, gw, cfg.res_scale)
         else:
             feat, _ = blocks.residual_groups(self.residual_groups, feat,
-                                             cfg.res_scale, pad)
+                                             cfg.res_scale, pad,
+                                             remat=cfg.remat if train else "none")
         feat = conv2d(feat, self.conv_after_body.weight,
                       self.conv_after_body.bias, padding=pad)
         feat = feat + residual
@@ -137,7 +147,7 @@ class FaceEnhanceNet(nn.Module):
         feat = conv2d(x, self.conv_first.weight, self.conv_first.bias, padding=pad)
         _, attn = blocks.residual_groups(self.residual_groups, feat,
                                          cfg.res_scale, pad,
-                                         collect_attention=True)
+                                         collect_attention=True, remat="none")
         return {f"group{g}_rcab{b}": attn[g, b]
                 for g in range(cfg.num_groups)
                 for b in range(cfg.blocks_per_group)}

@@ -8,14 +8,16 @@ result permutes back to contiguous NHWC. Weights are torch OIHW.
 Precision: the JAX package forces ``Precision.HIGHEST`` for f32 convs
 (reduced precision broke SSIM's E[x^2]-E[x]^2). cuDNN runs f32 convs in
 TF32 by default on Hopper, so f32 convs here run with TF32 off. The bf16
-path is the explicit ``dtype=torch.bfloat16`` policy.
+path is the explicit ``dtype=torch.bfloat16`` policy. cuDNN reads the flag
+when a conv runs, and autograd runs the backward convs after `conv2d` has
+returned, so a training step holds `full_f32()` around its backward too.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -49,21 +51,37 @@ def full_f32() -> Iterator[None]:
                 torch.backends.cudnn.allow_tf32 = _tf32_saved
 
 
+Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
+
+
+def _pad_arg(padding: Padding) -> Union[int, Tuple[int, int]]:
+    if isinstance(padding, int):
+        return padding
+    (top, bottom), (left, right) = padding
+    if top != bottom or left != right:
+        raise ValueError(f"conv2d takes symmetric padding per axis, got {padding}")
+    return top, left
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           padding: int = 1, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Stride-1 2-D convolution, NHWC x OIHW -> NHWC, symmetric int
-    ``padding`` (PyTorch ``padding=k``). ``dtype`` casts the input first;
-    the weight follows the input's dtype. The bias is added after the
-    convolution in the output dtype, as in the JAX package."""
+           padding: Padding = 1, dtype: Optional[torch.dtype] = None,
+           groups: int = 1) -> torch.Tensor:
+    """Stride-1 2-D convolution, NHWC x OIHW -> NHWC. ``padding`` is an int
+    (PyTorch ``padding=k``) or per axis ``((ph, ph), (pw, pw))``; ``groups``
+    is the JAX ``feature_group_count`` (``groups=C`` with a [C, 1, kh, kw]
+    weight is depthwise). ``dtype`` casts the input first; the weight
+    follows the input's dtype. The bias is added after the convolution in
+    the output dtype, as in the JAX package."""
     if dtype is not None:
         x = x.to(dtype)
     w = w.to(x.dtype)
     xc = x.permute(0, 3, 1, 2)
+    pad = _pad_arg(padding)
     if x.dtype == torch.float32:
         with full_f32():
-            out = F.conv2d(xc, w, padding=padding)
+            out = F.conv2d(xc, w, padding=pad, groups=groups)
     else:
-        out = F.conv2d(xc, w, padding=padding)
+        out = F.conv2d(xc, w, padding=pad, groups=groups)
     out = out.permute(0, 2, 3, 1)
     if b is not None:
         out = out + b.to(out.dtype)

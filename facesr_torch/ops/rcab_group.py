@@ -166,7 +166,15 @@ def fused_residual_group(x: torch.Tensor, gw: GroupWeights,
 
     CUDA tensor: launches the Hopper kernel (counted in
     ``fused_residual_group.launches``) or raises; the kernel takes C=64
-    only. CPU tensor: the plain version, any C. Forward only."""
+    only. CPU tensor: the plain version, any C. Forward only: the weights
+    are detached and the kernel's output has no graph, so with grad mode on
+    and ``x`` requiring grad it raises rather than drop the gradient (the
+    training trunk is `blocks.residual_groups`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            "fused_residual_group is forward-only and would cut the graph: "
+            "call it under torch.no_grad()/inference_mode, or train through "
+            "the plain trunk (FaceEnhanceNet.forward(train=True))")
     _check(x, gw)
     if x.device.type == "cpu":
         return rcab_group_reference(x, gw, res_scale)

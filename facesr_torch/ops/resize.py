@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["resize_matrix", "resize2d", "bicubic_resize", "bicubic_up",
-           "bicubic_down"]
+           "bicubic_down", "avg_pool2"]
 
 # Keys cubic convolution constant used by PyTorch (and OpenCV) bicubic.
 _A = -0.75
@@ -76,9 +76,14 @@ def resize_matrix(in_size: int, out_size: int, method: str = "bicubic") -> np.nd
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
 def _matrix(in_size: int, out_size: int, method: str,
             device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(resize_matrix(in_size, out_size, method)).to(device)
+    """`resize_matrix` on ``device``, kept: a copy from pageable host memory
+    waits for the card, so a copy per call would sync every step. Made
+    outside inference mode, so an autograd forward may save it later."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_matrix(in_size, out_size, method)).to(device)
 
 
 def resize2d(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -113,3 +118,12 @@ def bicubic_up(x: torch.Tensor, scale: int) -> torch.Tensor:
 def bicubic_down(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Integer-scale bicubic downsample (LR synthesis)."""
     return bicubic_resize(x, 1.0 / float(scale))
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool on NHWC (MS-SSIM pyramid), dropping the
+    trailing row/column of odd dims like `F.avg_pool2d(kernel_size=2)`."""
+    n, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    x = x[:, : h2 * 2, : w2 * 2, :]
+    return x.reshape(n, h2, 2, w2, 2, c).mean(dim=(2, 4))

@@ -114,11 +114,12 @@ def test_kernel_weights_prepared_once_and_refreshed_on_change():
         assert torch.equal(fresh[1]["w2"], want)
         assert not torch.equal(gws[1]["w2"], want)
         assert not torch.equal(model(x, dtype=torch.bfloat16), first)
-    # the refreshed weights were prepared outside inference mode, so an
-    # autograd forward on the CPU can use them
+    # a bf16 training forward after the serving ones trains the trunk (the
+    # plain trunk: the kernel is forward-only)
     model.zero_grad()
     model(x, train=True, dtype=torch.bfloat16).sum().backward()
     assert model.conv_first.weight.grad is not None
+    assert model.residual_groups[1].blocks[0].conv2.weight.grad.abs().max() > 0
     model.to(torch.device("cpu"))
     assert model.kernel_group_weights() is not fresh
 
