@@ -35,7 +35,19 @@ catches an error and goes on):
    port (the group kernel is forward-only); its ms/step, images/s, peak
    memory, host syncs, profiler breakdown and the VGG and trunk shares;
    then `Trainer.train()` for 2 epochs with its checkpoints written,
-   resumed bitwise and reloaded weights-only.
+   resumed bitwise and reloaded weights-only;
+8. the training entry point on PNG files: a set of 240 training HR images
+   (256x256, HR-only) and 48 validation HR + LR pairs written with the
+   port's PNG encoder, 48 of them decoded back bitwise; the stage-1
+   training loader alone as the CLI builds it, with and without
+   ``--fast-loader`` (images/s, single-thread decode ms an image); then
+   ``python -m facesr_torch.cli.train`` in this process with
+   ``configs/stages/stage1_psnr_config.yaml`` and then
+   ``stage2_ssim_config.yaml``, both unchanged, for one epoch each (its
+   ms/step and loader wait against phase 7's step alone); stage 2 must
+   chain from stage 1's ``best_model.pth`` bitwise; controls: a corrupt
+   PNG stops the loader with its name, and the CLI without ``--device``
+   on a process that sees no card raises.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -396,8 +408,9 @@ def trainer_phase(dev):
             raise AssertionError("a checkpoint did not round-trip")
 
 
-def training_phase(dev, card):
-    """Phase 7: the stage-1 content-training path on the card."""
+def training_phase(dev, card) -> float:
+    """Phase 7: the stage-1 content-training path on the card; returns the
+    step's median ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from facesr_torch.losses.perceptual import perceptual_loss
@@ -518,6 +531,217 @@ def training_phase(dev, card):
     torch.cuda.empty_cache()
 
     trainer_phase(dev)
+    return ms
+
+
+# phase 8: the stage YAMLs' sizes (batch 48 of HR 256), the PNG set
+CLI_TRAIN, CLI_VAL, CLI_HR, CLI_LR, CLI_BATCH = 240, 48, 256, 64, 48
+CLI_DECODE_CHECK = 48
+REPO = Path(__file__).resolve().parent
+STAGE1_YAML = REPO / "configs/stages/stage1_psnr_config.yaml"
+STAGE2_YAML = REPO / "configs/stages/stage2_ssim_config.yaml"
+
+
+def write_png_set(root: Path) -> dict:
+    """Smooth seeded faces as PNG files: ``train/HR`` (HR-only) and
+    ``val/HR`` + ``val/LR`` (LR made as the JAX package's prepare_data makes
+    it: cv2's bicubic, here the port's copy). Rows use filter i % 5, so
+    every PNG filter occurs. Returns {path: array} of the first files."""
+    from facesr_torch.data import png
+    from facesr_torch.data.cv_compat import resize_cubic
+
+    rng = np.random.default_rng(8)
+    written = {}
+    for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+        (root / split / "HR").mkdir(parents=True)
+        if split == "val":
+            (root / split / "LR").mkdir()
+        for i in range(n):
+            lo = (rng.random((8, 8, 3)) * 255).astype(np.uint8)
+            img = resize_cubic(lo, (CLI_HR, CLI_HR))
+            path = root / split / "HR" / f"{i:05d}.png"
+            png.write_png(path, img, level=6, filter_type=i % 5)
+            if len(written) < CLI_DECODE_CHECK:
+                written[path] = img
+            if split == "val":
+                png.write_png(root / split / "LR" / f"{i:05d}.png",
+                              resize_cubic(img, (CLI_LR, CLI_LR)), level=6)
+    return written
+
+
+class _Tee:
+    """stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def isatty(self):
+        return False
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def cli_phase(card: str, step_alone_ms: float) -> None:
+    """Phase 8: the training entry point on the card, from PNG files."""
+    import contextlib
+    import os
+    import tempfile
+
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.config import load_config
+    from facesr_torch.data import png
+    from facesr_torch.data.dataset import get_dataloader
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.training.trainer import Trainer
+
+    log(f"== 8. training entry point: PNG set, loaders, the train CLI on the stage YAMLs "
+        f"[{card}]")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="facesr_torch_cli_") as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        t0 = time.perf_counter()
+        written = write_png_set(data)
+        write_s = time.perf_counter() - t0
+        same = all(np.array_equal(png.read_rgb(p), img) for p, img in written.items())
+        t0 = time.perf_counter()
+        for p in written:
+            png.read_rgb(p)
+        decode_ms = (time.perf_counter() - t0) / len(written) * 1e3
+        log(f"  wrote {CLI_TRAIN} train HR + {CLI_VAL} val HR/LR PNGs ({CLI_HR}x{CLI_HR}) in "
+            f"{write_s:.2f} s; {len(written)} decoded back bitwise equal: {same}; "
+            f"single-thread decode {decode_ms:.3f} ms an image; os.cpu_count() "
+            f"{os.cpu_count()} [{card}]")
+        if not same:
+            raise AssertionError("a decoded PNG differs from the array written")
+
+        cfg1 = load_config(str(STAGE1_YAML))
+        rates = {}
+        for fast in (False, True):
+            argv = ["--config", str(STAGE1_YAML)] + (["--fast-loader"] if fast else [])
+            train_loader, _ = train_cli.make_loaders(train_cli.parse_args(argv), cfg1,
+                                                     str(data), CLI_BATCH, seed=42)
+            n, t0 = 0, time.perf_counter()
+            for _ in range(2):
+                for batch in train_loader:
+                    hr = batch["hr"]
+                    if hr.shape != (CLI_BATCH, CLI_HR, CLI_HR, 3) or hr.dtype != np.float32:
+                        raise AssertionError(f"loader batch {hr.shape} {hr.dtype}")
+                    n += len(hr)
+            rates[fast] = n / (time.perf_counter() - t0)
+            log(f"  stage-1 training loader{' --fast-loader' if fast else ''} (batch "
+                f"{CLI_BATCH}, {cfg1['data']['num_workers']} workers, 2 epochs): "
+                f"{rates[fast]:.1f} images/s [{card}]")
+
+        # the CLI, in this process, from the temporary directory (the YAMLs'
+        # ./checkpoints lands there)
+        loaded = {}
+        real_load = Trainer.load_checkpoint
+
+        def load_and_record(self, path, weights_only=False):
+            real_load(self, path, weights_only)
+            loaded["path"] = path
+            loaded["state"] = {k: v.detach().cpu().clone()
+                               for k, v in self.model.state_dict().items()}
+
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        Trainer.load_checkpoint = load_and_record
+        try:
+            results = {}
+            for stage, yaml_path in ((1, STAGE1_YAML), (2, STAGE2_YAML)):
+                tee = _Tee(sys.stdout)
+                rg.fused_residual_group.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(tee):
+                    trainer = train_cli.run(["--config", str(yaml_path), "--data-root",
+                                             str(data), "--epochs", "1"])
+                torch.cuda.synchronize()
+                results[stage] = (trainer, tee.text(), time.perf_counter() - t0,
+                                  rg.fused_residual_group.launches)
+                if stage == 1:
+                    best = torch.load(tmp / "checkpoints/best_model.pth", map_location="cpu",
+                                      weights_only=True)["model_state_dict"]
+        finally:
+            Trainer.load_checkpoint = real_load
+            os.chdir(cwd)
+
+        for stage in (1, 2):
+            trainer, text, wall_s, launches = results[stage]
+            m = trainer.last_train_metrics
+            steady = trainer.last_step_times[1:]
+            ms = statistics.median(steady) * 1e3
+            history = trainer.training_history
+            log(f"  stage {stage} CLI: {len(trainer.last_step_times)} steps of {CLI_BATCH}, "
+                f"{ms:.3f} ms/step (median host interval after the first) = "
+                f"{CLI_BATCH / ms * 1e3:.2f} images/s against {CLI_BATCH / step_alone_ms * 1e3:.2f} "
+                f"for phase 7's step alone ({step_alone_ms:.3f} ms); the step loop waited "
+                f"{m['loader_wait_s']:.3f} s on next(loader); steps "
+                f"{['%.1f' % (t * 1e3) for t in trainer.last_step_times]} ms; epoch "
+                f"{m['time_s']:.2f} s, whole run {wall_s:.2f} s; train losses {m}; history "
+                f"{json.dumps(history)}; group-kernel launches {launches} [{card}]")
+            values = [v for v in m.values()] + [v for h in history.values() for v in h]
+            if not all(math.isfinite(v) for v in values):
+                raise AssertionError(f"stage {stage}: a loss or metric is not finite")
+            if len(trainer.last_step_times) != CLI_TRAIN // CLI_BATCH or launches != 0:
+                raise AssertionError(f"stage {stage}: {len(trainer.last_step_times)} steps, "
+                                     f"{launches} group-kernel launches")
+        files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
+        if not {"best_model.pth", "final_model.pth"} <= set(files):
+            raise AssertionError(f"checkpoint files {files}")
+        text2 = results[2][1]
+        mapped = ("best_model.fckpt not found" in text2
+                  and "Chaining from stage checkpoint checkpoints/best_model.pth" in text2)
+        bitwise = (loaded.get("path", "").endswith("best_model.pth")
+                   and set(loaded["state"]) == set(best)
+                   and all(torch.equal(loaded["state"][k], best[k]) for k in best))
+        ssim_in = "ssim" in results[2][0].loss_fn.weights and "ssim" in results[2][0].last_train_metrics
+        log(f"  stage 2 resolved ./checkpoints/best_model.fckpt to stage 1's best_model.pth and "
+            f"said so: {mapped}; weights right after the load bitwise equal to that file's "
+            f"model_state_dict: {bitwise}; SSIM term in the loss: {ssim_in}; files {files}")
+        if not (mapped and bitwise and ssim_in):
+            raise AssertionError("stage 2 did not chain from stage 1's best weights")
+
+        # controls
+        bad = tmp / "bad"
+        (bad / "train" / "HR").mkdir(parents=True)
+        for i in range(4):
+            (bad / "train" / "HR" / f"{i:05d}.png").write_bytes(
+                (data / "train" / "HR" / f"{i:05d}.png").read_bytes())
+        victim = bad / "train" / "HR" / "00002.png"
+        raw = bytearray(victim.read_bytes())
+        raw[len(raw) // 2] ^= 0xFF
+        victim.write_bytes(bytes(raw))
+        try:
+            for _ in get_dataloader(str(bad), mode="train", batch_size=2, num_workers=2,
+                                    hr_patch_size=CLI_HR, seed=0):
+                pass
+            named = False
+        except IOError as e:
+            named = victim.name in str(e)
+            log(f"  control, a corrupt PNG in the training set: {type(e).__name__}: "
+                f"{str(e)[:160]}")
+        if not named:
+            raise AssertionError("a corrupt PNG did not stop the loader with its name")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+        proc = subprocess.run([sys.executable, "-m", "facesr_torch.cli.train", "--config",
+                               str(STAGE1_YAML), "--data-root", str(data), "--epochs", "1"],
+                              cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        refused = proc.returncode != 0 and "no CUDA device is available" in proc.stderr
+        log(f"  control, the CLI without --device where no card is visible: exit "
+            f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1][:140] if proc.stderr.strip() else ''}")
+        if not refused:
+            raise AssertionError("the CLI without --device did not refuse to run without a card")
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 def main() -> int:
@@ -769,7 +993,8 @@ def main() -> int:
 
     del fwd, pred, model, xg, x128
     torch.cuda.empty_cache()
-    training_phase(dev, card)
+    step_alone_ms = training_phase(dev, card)
+    cli_phase(card, step_alone_ms)
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

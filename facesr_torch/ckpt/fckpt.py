@@ -1,0 +1,240 @@
+"""Read the JAX package's ``.fckpt`` checkpoints without flax or msgpack.
+
+A ``.fckpt`` file is flax's ``msgpack_serialize`` of ``{"meta": <JSON
+string>, "tree": <pytree>}`` (`facesr/ckpt/checkpoint.py`). This module
+holds a msgpack reader of its own for what that writes:
+
+- nil, booleans, ints, floats, str, bin, arrays and maps of every width;
+- ext type 1, an ndarray: a packed ``[shape, dtype name, C-order bytes]``
+  (numpy arrays; the name ``bfloat16``, which numpy lacks, becomes a
+  ``torch.bfloat16`` tensor);
+- ext type 3, a numpy scalar (the same payload, shape ``[]``);
+- ext type 2, a complex number (a packed ``[real, imag]``);
+- flax's chunked arrays (``{"__msgpack_chunked_array__": True, "shape",
+  "chunks"}``, which it writes for arrays above 2^30 bytes), joined back;
+  a malformed one raises and names it.
+
+Lists come back from flax as digit-keyed maps; `load_model` restores them
+(`restore_list_nodes`) and maps the parameters to this port's state
+dict through `state_dict_from_jax_params`.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from dataclasses import fields
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from facesr_torch.ckpt.weights import state_dict_from_jax_params
+from facesr_torch.models.face_enhance_net import FaceEnhanceNetConfig
+
+__all__ = ["FckptError", "unpackb", "is_fckpt", "load_checkpoint", "load_model",
+           "restore_list_nodes", "infer_model_config_from_params"]
+
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+class FckptError(ValueError):
+    pass
+
+
+class _Reader:
+    def __init__(self, data: bytes, name: str):
+        self.buf = memoryview(data)
+        self.pos = 0
+        self.name = name
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise FckptError(f"{self.name}: truncated msgpack data at byte {self.pos}")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def uint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big")
+
+    def value(self, raw: bool = False) -> Any:
+        b = self.uint(1)
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F, raw)
+        if 0x90 <= b <= 0x9F:
+            return [self.value(raw) for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return self.str(b & 0x1F, raw)
+        if b == 0xC0:
+            return None
+        if b == 0xC2:
+            return False
+        if b == 0xC3:
+            return True
+        if b in (0xC4, 0xC5, 0xC6):
+            return bytes(self.take(self.uint(1 << (b - 0xC4))))
+        if b in (0xC7, 0xC8, 0xC9):
+            n = self.uint(1 << (b - 0xC7))
+            return self.ext(n)
+        if b == 0xCA:
+            return struct.unpack(">f", self.take(4))[0]
+        if b == 0xCB:
+            return struct.unpack(">d", self.take(8))[0]
+        if 0xCC <= b <= 0xCF:
+            return self.uint(1 << (b - 0xCC))
+        if 0xD0 <= b <= 0xD3:
+            n = 1 << (b - 0xD0)
+            return int.from_bytes(self.take(n), "big", signed=True)
+        if 0xD4 <= b <= 0xD8:
+            return self.ext(1 << (b - 0xD4))
+        if 0xD9 <= b <= 0xDB:
+            return self.str(self.uint(1 << (b - 0xD9)), raw)
+        if b in (0xDC, 0xDD):
+            return [self.value(raw) for _ in range(self.uint(2 if b == 0xDC else 4))]
+        if b in (0xDE, 0xDF):
+            return self.map(self.uint(2 if b == 0xDE else 4), raw)
+        raise FckptError(f"{self.name}: byte 0x{b:02x} at {self.pos - 1} is not msgpack")
+
+    def str(self, n: int, raw: bool):
+        data = bytes(self.take(n))
+        return data if raw else data.decode("utf-8")
+
+    def map(self, n: int, raw: bool) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value(raw)
+            out[key] = self.value(raw)
+        return out
+
+    def ext(self, n: int) -> Any:
+        code = int.from_bytes(self.take(1), "big", signed=True)
+        payload = bytes(self.take(n))
+        if code in (1, 3):
+            arr = _ndarray(payload, self.name)
+            return arr[()] if code == 3 and isinstance(arr, np.ndarray) else arr
+        if code == 2:
+            re_im = _Reader(payload, self.name).value()
+            return complex(re_im[0], re_im[1])
+        raise FckptError(f"{self.name}: msgpack ext type {code} is not one flax writes")
+
+
+def _ndarray(payload: bytes, name: str):
+    shape, dtype_name, data = _Reader(payload, name).value(raw=True)
+    dtype_name = dtype_name.decode() if isinstance(dtype_name, bytes) else dtype_name
+    shape = tuple(shape)
+    if dtype_name == "bfloat16":
+        flat = torch.frombuffer(bytearray(data), dtype=torch.bfloat16) if data \
+            else torch.empty(0, dtype=torch.bfloat16)
+        return flat.reshape(shape)
+    try:
+        dtype = np.dtype(dtype_name)
+    except TypeError as e:
+        raise FckptError(f"{name}: array dtype {dtype_name!r} is not readable") from e
+    return np.frombuffer(data, dtype=dtype).reshape(shape)
+
+
+def _unchunk(tree: Any, where: str = "tree") -> Any:
+    if isinstance(tree, dict):
+        if _CHUNKED in tree:
+            try:
+                shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+                chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+                if any(isinstance(c, torch.Tensor) for c in chunks):
+                    return torch.cat([c.reshape(-1) for c in chunks]).reshape(shape)
+                return np.concatenate([np.asarray(c).reshape(-1) for c in chunks]).reshape(shape)
+            except (KeyError, TypeError, ValueError, RuntimeError) as e:
+                raise FckptError(f"malformed chunked array at {where}: {e}") from e
+        return {k: _unchunk(v, f"{where}.{k}") for k, v in tree.items()}
+    return tree
+
+
+def unpackb(data: bytes, name: str = "<msgpack>") -> Any:
+    """flax's ``msgpack_restore``: the tree in ``data``, chunked arrays
+    joined."""
+    reader = _Reader(data, name)
+    out = reader.value()
+    if reader.pos != len(data):
+        raise FckptError(f"{name}: {len(data) - reader.pos} bytes after the msgpack object")
+    return _unchunk(out)
+
+
+def is_fckpt(head: bytes) -> bool:
+    """Whether a file's first bytes open a msgpack map (a ``.fckpt``)."""
+    return bool(head) and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF))
+
+
+def load_checkpoint(path: str) -> Tuple[Any, Dict[str, Any]]:
+    """(tree, meta) of a ``.fckpt`` file, as the JAX package's
+    ``load_checkpoint(path)`` returns them (lists still digit-keyed)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    payload = unpackb(data, str(path))
+    if not isinstance(payload, dict) or "meta" not in payload or "tree" not in payload:
+        raise FckptError(f"{path}: not a facesr checkpoint (no 'meta' and 'tree')")
+    return payload["tree"], json.loads(payload["meta"])
+
+
+def restore_list_nodes(tree: Any) -> Any:
+    """flax writes lists as {'0': ..., '1': ...}; turn every all-digit-keyed
+    map back into a list."""
+    if isinstance(tree, dict):
+        if tree and all(isinstance(k, str) and k.isdigit() for k in tree):
+            return [restore_list_nodes(tree[k]) for k in sorted(tree, key=int)]
+        return {k: restore_list_nodes(v) for k, v in tree.items()}
+    return tree
+
+
+def infer_model_config_from_params(params: Any) -> FaceEnhanceNetConfig:
+    """A FaceEnhanceNetConfig from the JAX parameter shapes, for a
+    checkpoint without config metadata."""
+    first_w = np.asarray(params["conv_first"]["w"])
+    num_channels = int(first_w.shape[-1])
+    kernel_size = int(first_w.shape[0])  # [kh, kw, I, O]
+    rcab_w = np.asarray(params["groups"]["rcab"]["conv1_w"])
+    num_groups, blocks_per_group = int(rcab_w.shape[0]), int(rcab_w.shape[1])
+    reduced = int(np.asarray(params["groups"]["rcab"]["ca"]["fc1_w"]).shape[-1])
+    if reduced < 8:
+        # the SE bottleneck is max(C // r, 8): a narrower one is not this model
+        raise ValueError(f"Cannot infer reduction_ratio: SE bottleneck width {reduced} is "
+                         "below the floor of 8; checkpoint is not a FaceEnhanceNet.")
+    return FaceEnhanceNetConfig(num_channels=num_channels, num_groups=num_groups,
+                                blocks_per_group=blocks_per_group,
+                                reduction_ratio=max(num_channels // reduced, 1),
+                                scale_factor=2 ** len(params["upsample"]),
+                                kernel_size=kernel_size)
+
+
+def _model_params(tree: Any, path: str, prefer_ema: bool) -> Any:
+    if prefer_ema and tree.get("ema_params") is not None:
+        return tree["ema_params"]
+    if "params" in tree:
+        return tree["params"]
+    if "state" in tree and "params" in tree["state"]:
+        return tree["state"]["params"]
+    raise ValueError(f"No model params found in checkpoint {path}")
+
+
+def load_model(path: str, model_type: str = "custom", prefer_ema: bool = True,
+               ) -> Tuple[FaceEnhanceNetConfig, Dict[str, torch.Tensor]]:
+    """(config, state dict) of the FaceEnhanceNet in a model or trainer
+    ``.fckpt`` (the JAX package's ``load_model``). ``prefer_ema`` takes
+    the EMA weights when the checkpoint has them. Only ``custom`` models
+    are ported (the transfer and ESRGAN models are ROADMAP A.12)."""
+    tree, meta = load_checkpoint(path)
+    mtype = meta.get("model_type", model_type)
+    if mtype not in ("custom", "lite"):
+        raise NotImplementedError(f"{path}: model_type {mtype!r} is not ported yet "
+                                  "(ROADMAP A.12); only 'custom' FaceEnhanceNet loads")
+    params = restore_list_nodes(_model_params(tree, path, prefer_ema))
+    # trainer checkpoints carry the architecture under 'model_config'
+    # ('config' is the TrainerConfig); model-only ones under 'config'
+    cfg_dict = meta.get("model_config") or meta.get("config") or {}
+    names = {f.name for f in fields(FaceEnhanceNetConfig)}
+    known = {k: v for k, v in cfg_dict.items() if k in names}
+    cfg = FaceEnhanceNetConfig(**known) if known else infer_model_config_from_params(params)
+    return cfg, state_dict_from_jax_params(params)

@@ -18,10 +18,18 @@ worst one over the tensors of the gradients and of the updated params:
 
 Each for the stage-1 loss (L1 + VGG19 perceptual, L1 criterion) and for a
 smooth loss with the same ops (L2 + perceptual with the L2 criterion +
-0.1 SSIM). Then, on a CUDA device, single f32 convs at the shapes of
-that step against f64: forward, input gradient and weight gradient,
-for an upstream gradient drawn N(0, 1) and for its sign (what an L1
-criterion sends back).
+0.1 SSIM). Then the sign flips: the elements where the device's forward
+and the CPU's disagree in the sign of ``pred - target``, which is the
+gradient an L1 criterion sends back, for the pixel L1 term (the model's
+output against the HR batch) and for the perceptual term (the VGG19
+conv3_4 features of the output against those of the HR batch); and the
+device step against the CPU step with those signs pinned to the CPU
+forward's on both (`pinned_sign_loss_apply`): if the flips are what
+moves the stage-1 gradients, this row falls to the smooth loss's level;
+and, the other way round, the CPU step with the one conv3_4 sign nearest
+to zero flipped against the CPU step. Then, on a CUDA device, single f32
+convs at the shapes of that step against f64: forward, input gradient and
+weight gradient, for an upstream gradient drawn N(0, 1) and for its sign.
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ from facesr_torch.ops.resize import bicubic_up
 from facesr_torch.training import steps
 from facesr_torch.training.optim import AdamW
 
-__all__ = ["stage1_loss_apply", "smooth_loss_apply", "small_step", "step_errors", "rel_l2"]
+__all__ = ["stage1_loss_apply", "smooth_loss_apply", "small_step", "step_errors", "rel_l2",
+           "sign_flips", "pinned_sign_loss_apply"]
 
 StepResult = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -76,12 +85,9 @@ class _Recording(AdamW):
         super().update(grads, state, params)
 
 
-def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool = False,
-               weight_noise: float = 0.0) -> StepResult:
-    """One train step of the small model on ``dev``; returns (loss, grads,
-    updated params) on the CPU. ``tf32_forced`` lets cuDNN use TF32 and
-    bypasses `full_f32`; ``weight_noise`` multiplies every weight by
-    (1 + weight_noise * N(0, 1)) first."""
+def _small_model(weight_noise: float = 0.0) -> FaceEnhanceNet:
+    """The step's model on the CPU: G=2, B=2, C=16, conv_last redrawn
+    non-zero, every weight times (1 + weight_noise * N(0, 1))."""
     model = FaceEnhanceNet(FaceEnhanceNetConfig(num_groups=2, blocks_per_group=2,
                                                 num_channels=16), seed=0, device="cpu")
     with torch.no_grad():
@@ -91,15 +97,28 @@ def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool 
             gen = torch.Generator().manual_seed(9)
             for p in model.parameters():
                 p.mul_(1 + weight_noise * torch.randn(p.shape, generator=gen))
-    model.to(dev)
+    return model
+
+
+def _small_hr() -> torch.Tensor:
+    lo = np.random.default_rng(6).random((2, 8, 8, 3), dtype=np.float32)
+    return bicubic_up(torch.from_numpy(lo), 4).clamp(0.0, 1.0).contiguous()
+
+
+def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool = False,
+               weight_noise: float = 0.0) -> StepResult:
+    """One train step of the small model on ``dev``; returns (loss, grads,
+    updated params) on the CPU. ``tf32_forced`` lets cuDNN use TF32 and
+    bypasses `full_f32`; ``weight_noise`` multiplies every weight by
+    (1 + weight_noise * N(0, 1)) first."""
+    model = _small_model(weight_noise).to(dev)
     loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
                                    perceptual_layers=["conv3_4"]), seed=0, device=dev)
     opt = _Recording(weight_decay=0.0, gradient_clip=0.5)
     state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
                              loss_params=loss.params)
     step = steps.make_train_step(loss_apply, opt)
-    lo = np.random.default_rng(6).random((2, 8, 8, 3), dtype=np.float32)
-    hr = bicubic_up(torch.from_numpy(lo), 4).clamp(0.0, 1.0).contiguous().to(dev)
+    hr = _small_hr().to(dev)
     with contextlib.ExitStack() as stack:
         if tf32_forced:
             plain = contextlib.nullcontext
@@ -127,6 +146,57 @@ def step_errors(got: StepResult, want: StepResult) -> Tuple[float, float, float]
     return (rel_l2(got[0], want[0]),
             max(rel_l2(got[1][k], want[1][k]) for k in want[1]),
             max(rel_l2(got[2][k], want[2][k]) for k in want[2]))
+
+
+def _l1_diffs(dev) -> Dict[str, torch.Tensor]:
+    """``pred - target`` of the pixel L1 term (``l1``: the model's output
+    against the HR batch) and of the perceptual term (``conv3_4``: the VGG19
+    conv3_4 features of both), from the small step's forward on ``dev``,
+    returned on the CPU."""
+    from facesr_torch.models import vgg
+    from facesr_torch.ops.conv import full_f32
+    from facesr_torch.ops.resize import bicubic_down
+
+    loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
+                                   perceptual_layers=["conv3_4"]), seed=0, device="cpu")
+    idx = vgg.LAYER_MAP["conv3_4"]
+    model = _small_model().to(dev)
+    vgg_params = [{k: v.to(dev) for k, v in p.items()} for p in loss.params["vgg"]]
+    hr = _small_hr().to(dev)
+    with torch.no_grad(), full_f32():
+        sr = model(bicubic_down(hr, 4), train=True)
+        feats = [vgg.extract_features(vgg_params, x, [idx])[idx] for x in (sr, hr)]
+    return {"l1": (sr - hr).cpu(), "conv3_4": (feats[0] - feats[1]).cpu()}
+
+
+def sign_flips(dev) -> Dict[str, Tuple[int, int]]:
+    """For each L1 term of `_l1_diffs`: (elements whose sign of ``pred -
+    target`` differs between the forward on ``dev`` and on the CPU,
+    elements). A zero on one side and not on the other counts as a flip."""
+    cpu, other = _l1_diffs("cpu"), _l1_diffs(dev)
+    return {k: (int((torch.sign(other[k]) != torch.sign(cpu[k])).sum()), cpu[k].numel())
+            for k in cpu}
+
+
+def pinned_sign_loss_apply(signs: Dict[str, torch.Tensor]) -> Callable:
+    """The stage-1 loss with its L1 gradients pinned: ``mean(s * (pred -
+    target))`` for the pixel term and the conv3_4 term, with ``s`` the given
+    signs (`_l1_diffs` keys) in place of ``sign(pred - target)``. Its
+    gradient is the stage-1 loss's wherever the signs agree, and the same
+    on every device."""
+    from facesr_torch.models import vgg
+
+    idx = vgg.LAYER_MAP["conv3_4"]
+
+    def apply(loss_params, sr, hr):
+        f_sr = vgg.extract_features(loss_params["vgg"], sr, [idx])[idx]
+        with torch.no_grad():
+            f_hr = vgg.extract_features(loss_params["vgg"], hr, [idx])[idx]
+        comps = {"l1": (signs["l1"].to(sr.device) * (sr - hr)).mean(),
+                 "perceptual": (signs["conv3_4"].to(sr.device) * (f_sr - f_hr)).mean()}
+        return comps["l1"] + comps["perceptual"], comps
+
+    return apply
 
 
 # (N, C_in, C_out, H) of the step's convs: the model's (conv_first, the
@@ -186,6 +256,23 @@ def main() -> int:
         for row, result in rows:
             errs = step_errors(result, cpu)
             print(f"{label:13s} {row:33s} " + " ".join(f"{e:.3g}" for e in errs))
+    for term, (flips, total) in sign_flips(dev).items():
+        print(f"sign flips of pred - target, {term} term, device vs CPU: {flips} of {total}")
+    diffs = _l1_diffs("cpu")
+    signs = {k: torch.sign(v) for k, v in diffs.items()}
+    pinned = pinned_sign_loss_apply(signs)
+    cpu_pinned = small_step("cpu", pinned)
+    errs = step_errors(small_step(dev, pinned), cpu_pinned)
+    print(f"{'stage-1 loss, L1 signs pinned to the CPU forward':47s} device "
+          + " ".join(f"{e:.3g}" for e in errs))
+    # the reverse: one flip alone, on the CPU, at the conv3_4 element
+    # nearest to zero (the one a rounding difference flips first)
+    nearest = int(diffs["conv3_4"].abs().argmin())
+    signs["conv3_4"].view(-1)[nearest] *= -1
+    errs = step_errors(small_step("cpu", pinned_sign_loss_apply(signs)), cpu_pinned)
+    print(f"{'stage-1 loss, CPU, the nearest-zero conv3_4 sign flipped':56s} "
+          f"(|pred - target| {diffs['conv3_4'].abs().min().item():.3g}) "
+          + " ".join(f"{e:.3g}" for e in errs))
     if dev.type == "cuda":
         conv_probe(dev)
     return 0

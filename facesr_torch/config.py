@@ -1,8 +1,9 @@
 """YAML config loading and seeding (port of `facesr/config/config.py`).
 
-The machine with the card has no PyYAML, so `load_config` imports it only
-when called; `validate_config` and `set_seed` need nothing beyond numpy
-and torch.
+The machine with the card has no PyYAML, so `load_config` reads the YAML
+with the port's own reader (`facesr_torch.yaml_lite`), which resolves
+scalars as PyYAML's ``safe_load`` does and raises outside the subset the
+repo's configs use.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from facesr_torch import yaml_lite
 
 __all__ = ["load_config", "set_seed", "validate_config"]
 
@@ -49,11 +52,8 @@ def validate_config(config: Dict[str, Any], path: str = "<config>") -> List[str]
 
 
 def load_config(config_path: str) -> Dict[str, Any]:
-    """Read and validate a YAML config (needs PyYAML)."""
-    import yaml
-
-    with open(config_path, "r") as f:
-        cfg = yaml.safe_load(f) or {}
+    """Read and validate a YAML config."""
+    cfg = yaml_lite.load_file(config_path) or {}
     validate_config(cfg, config_path)
     return cfg
 

@@ -7,6 +7,10 @@ written into the optimiser state, every batch runs one train step, the
 epoch's metrics come to the host in one read, validation runs the eval
 step, and checkpoints follow ``save_every`` / ``save_best``.
 
+Every ``step_log_every`` steps the loss is printed, the one host read
+between epochs; the epoch line adds the seconds the step loop waited on
+the loader and the median host interval between step dispatches.
+
 Checkpoints are ``torch.save`` files with the JAX Trainer's payload:
 ``model_state_dict`` under the reference key names and ``config`` (the
 model config in the reference field set), so `facesr_torch.ckpt.
@@ -16,6 +20,8 @@ them; plus ``model_config``, ``trainer_config``, ``optimizer_state``,
 ``training_history``, ``scheduler_state``, ``model_type`` and
 ``use_gan``. With ``async_checkpoint`` one writer thread writes them; the
 tensors are copied to the host before the step loop goes on.
+`Trainer.load_checkpoint` also reads the JAX package's ``.fckpt`` files
+(told apart by content), weights only.
 
 Not in this slice: mesh axes, GAN, QAT, W&B, the validation image grid and
 the gradient monitor.
@@ -24,7 +30,10 @@ the gradient monitor.
 from __future__ import annotations
 
 import copy
+import math
 import os
+import statistics
+import sys
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import asdict, dataclass
@@ -33,13 +42,16 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from facesr_torch.ckpt import fckpt
+from facesr_torch.ckpt.weights import state_dict_from_jax_params
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.training import schedules
 from facesr_torch.training.optim import AdamW, set_learning_rate
 from facesr_torch.training.steps import (TrainState, init_ema, make_eval_step,
                                          make_train_step)
 
-__all__ = ["TrainerConfig", "EarlyStopping", "Trainer", "REFERENCE_CONFIG_FIELDS"]
+__all__ = ["TrainerConfig", "EarlyStopping", "Trainer", "REFERENCE_CONFIG_FIELDS",
+           "overfit_test"]
 
 # the reference FaceEnhanceNetConfig's fields: the checkpoint's ``config``
 # holds only these, so the reference constructor accepts it verbatim
@@ -73,6 +85,9 @@ class TrainerConfig:
     early_stopping_patience: int = 10
     early_stopping_metric: str = "val_psnr"
     early_stopping_mode: str = "max"
+
+    # print the loss every this many steps (one host read each), 0 = off
+    step_log_every: int = 24
 
     checkpoint_dir: str = "checkpoints"
     save_every: int = 10
@@ -210,6 +225,8 @@ class Trainer:
         self.training_history: Dict[str, List] = {k: [] for k in HISTORY_KEYS}
         self._ckpt_pool: Optional[ThreadPoolExecutor] = None
         self._ckpt_futures: List[Future] = []
+        self.last_step_times: List[float] = []
+        self.last_train_metrics: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
     def _epoch_lr(self, epoch: int) -> float:
@@ -258,7 +275,7 @@ class Trainer:
             self.current_epoch = epoch
             self._set_lr(self._epoch_lr(epoch))
 
-            train_metrics = self._train_epoch()
+            train_metrics = self.last_train_metrics = self._train_epoch()
             val_metrics = self._validate_epoch()
 
             if self.plateau is not None and self._last_val_batches > 0:
@@ -285,11 +302,29 @@ class Trainer:
     def _train_epoch(self) -> Dict[str, float]:
         pending: List[Dict[str, torch.Tensor]] = []
         t0 = time.time()
-        for batch in self.train_loader:
+        every = self.config.step_log_every
+        total = f"/{len(self.train_loader)}" if hasattr(self.train_loader, "__len__") else ""
+        loader_wait = 0.0
+        dispatched = [time.perf_counter()]
+        batches = iter(self.train_loader)
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            loader_wait += time.perf_counter() - t_wait
+            if batch is None:
+                break
             hr = self._batch_to_device(batch["hr"])
             self.state, metrics = self._train_step(self.state, hr)
             pending.append(metrics)
             self.global_step += 1
+            dispatched.append(time.perf_counter())
+            if every > 0 and len(pending) % every == 0:
+                print(f"  step {len(pending)}{total} loss {metrics['loss'].item():.4f}",
+                      end="\r" if sys.stdout.isatty() else "\n", flush=True)
+        # host intervals between step dispatches: once the card's queue is
+        # full the host waits for it, so after the first step these follow
+        # the device's step time
+        self.last_step_times = [b - a for a, b in zip(dispatched, dispatched[1:])]
         if not pending:
             print("WARNING: train loader yielded 0 batches this epoch — is "
                   "batch_size larger than the training split? No optimization "
@@ -300,6 +335,9 @@ class Trainer:
         if rows and "opt_notfinite" in rows[-1]:
             out["opt_notfinite"] = rows[-1]["opt_notfinite"]
         out["time_s"] = time.time() - t0
+        out["loader_wait_s"] = loader_wait
+        steady = self.last_step_times[1:] or self.last_step_times
+        out["step_ms"] = statistics.median(steady) * 1e3 if steady else 0.0
         out.setdefault("loss", 0.0)
         return out
 
@@ -330,6 +368,9 @@ class Trainer:
         print(f"  Val PSNR:   {val_metrics['psnr']:.2f} dB")
         print(f"  Val SSIM:   {val_metrics['ssim']:.4f}")
         print(f"  LR:         {lr:.2e}  ({train_metrics.get('time_s', 0):.1f}s)")
+        print(f"  Steps:      {train_metrics.get('step_ms', 0):.1f} ms/step (median host "
+              f"interval after the first), loader wait "
+              f"{train_metrics.get('loader_wait_s', 0):.3f} s")
 
     def _is_best(self, metric_value: float) -> bool:
         if self.best_metric is None:
@@ -411,14 +452,33 @@ class Trainer:
     def load_checkpoint(self, path: str, weights_only: bool = False) -> None:
         """Full resume (epoch + 1, global_step, optimiser and EMA state,
         history) or, with ``weights_only``, the model weights alone and a
-        fresh EMA (a new stage)."""
+        fresh EMA (a new stage). The format is told by content: a
+        ``torch.save`` zip file, or a JAX ``.fckpt`` (flax msgpack), which
+        loads weights only: its tree's ``params``, as the JAX package's
+        weights-only path takes them."""
         self.flush_checkpoints()  # the file may still be in the write queue
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        with open(path, "rb") as f:
+            head = f.read(4)
+        if fckpt.is_fckpt(head):
+            if not weights_only:
+                raise NotImplementedError(
+                    f"{path}: a full resume from a JAX .fckpt needs its optax state mapped "
+                    "to the port's optimiser (ROADMAP A.5); load it weights only")
+            tree, meta = fckpt.load_checkpoint(path)
+            if "params" not in tree:
+                raise ValueError(f"{path}: no 'params' in the checkpoint tree")
+            sd = state_dict_from_jax_params(fckpt.restore_list_nodes(tree["params"]))
+            epoch = meta.get("epoch")
+        elif head == b"PK\x03\x04":
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            sd, epoch = ckpt["model_state_dict"], ckpt.get("epoch")
+        else:
+            raise ValueError(f"{path} is neither a torch checkpoint nor a JAX .fckpt")
         with torch.no_grad():
-            self.model.load_state_dict(ckpt["model_state_dict"], strict=True)
+            self.model.load_state_dict(sd, strict=True)
         if weights_only:
             self.state.ema_params = init_ema(self.model) if self.use_ema else None
-            print(f"Loaded model weights from epoch {ckpt.get('epoch')} (fine-tuning mode)")
+            print(f"Loaded model weights from epoch {epoch} (fine-tuning mode)")
             print(f"  Starting fresh with LR={self.config.learning_rate}")
             return
 
@@ -445,3 +505,43 @@ class Trainer:
         if self.plateau is not None and ckpt.get("scheduler_state"):
             self.plateau.load_state_dict(ckpt["scheduler_state"])
         print(f"Loaded checkpoint from epoch {ckpt['epoch'] + 1}")
+
+
+def overfit_test(model, dataloader, loss_fn=None, num_images: int = 10,
+                 num_iterations: int = 1000, learning_rate: float = 2e-4,
+                 device: DeviceLike = None) -> Dict[str, Any]:
+    """Overfit ``num_images`` HR crops of the loader's first batch with pure
+    MSE on the clamped output (``loss_fn`` is accepted and unused, as in the
+    JAX package) and plain Adam; converged iff the final PSNR > 35 dB. The
+    loss is read every 50 iterations and at the last."""
+    from facesr_torch.ops.conv import full_f32
+    from facesr_torch.ops.resize import bicubic_down
+
+    print(f"\nOverfitting test on {num_images} images...")
+    dev = resolve_device(device)
+    model = model.to(dev)
+    hr = torch.as_tensor(next(iter(dataloader))["hr"][:num_images],
+                         dtype=torch.float32).to(dev)
+    scale = model.config.scale_factor
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = torch.optim.Adam(params, lr=learning_rate, eps=1e-8, foreach=False)
+    losses, psnrs = [], []
+    for i in range(num_iterations):
+        with full_f32():
+            sr = model(bicubic_down(hr, scale), train=True).clamp(0.0, 1.0)
+            mse = ((sr - hr) ** 2).mean()
+            opt.zero_grad(set_to_none=True)
+            mse.backward()
+        opt.step()
+        if i % 50 == 0 or i == num_iterations - 1:
+            m = mse.item()
+            losses.append(m)
+            psnrs.append(10.0 * math.log10(1.0 / max(m, 1e-12)))
+            print(f"  iter {i}: loss={losses[-1]:.6f} psnr={psnrs[-1]:.2f}")
+    results = {"final_loss": losses[-1], "final_psnr": psnrs[-1], "loss_history": losses,
+               "psnr_history": psnrs, "converged": psnrs[-1] > 35}
+    print("\nOverfit test results:")
+    print(f"  Final loss: {results['final_loss']:.6f}")
+    print(f"  Final PSNR: {results['final_psnr']:.2f} dB")
+    print(f"  Converged: {results['converged']}")
+    return results

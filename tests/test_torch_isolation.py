@@ -1,5 +1,6 @@
 """The port stands alone: nothing under facesr_torch/ and nothing in
-chip_smoke.py imports jax, flax, optax or the JAX package `facesr`."""
+chip_smoke.py imports jax, flax, optax or the JAX package `facesr`, nor
+a package the card's machine lacks (cv2, PIL, PyYAML, h5py, msgpack)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "facesr")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "facesr", "cv2", "PIL", "yaml", "h5py",
+             "msgpack")
 FILES = sorted((ROOT / "facesr_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

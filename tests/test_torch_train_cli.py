@@ -1,0 +1,261 @@
+"""The port's training CLI (`python -m facesr_torch.cli.train`) on the
+stage YAMLs cut to a tiny model (G=1, B=2, C=16, HR 32, batch 2) on the
+CPU: stage 1 then stage 2 with the `.fckpt` -> `.pth` name mapping,
+chaining from a JAX-written `.fckpt`, the refusals of what is not ported,
+SIGTERM, and `overfit_test` against the JAX package's."""
+
+import math
+import os
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from facesr.ckpt import checkpoint as jckpt
+from facesr.models import face_enhance_net as fen
+from facesr.training.trainer import overfit_test as jax_overfit_test
+from facesr_torch.ckpt.weights import state_dict_from_jax_params
+from facesr_torch.cli import train as train_cli
+from facesr_torch.data import png
+from facesr_torch.data.cv_compat import resize_cubic
+from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
+from facesr_torch.training.trainer import Trainer, overfit_test
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+STAGES = ROOT / "configs" / "stages"
+SMALL = fen.FaceEnhanceNetConfig(num_channels=16, num_groups=1, blocks_per_group=2)
+# the stage YAMLs' sizes, cut: (text in the YAML, its tiny replacement)
+CUTS = (("num_channels: 64", "num_channels: 16"), ("num_groups: 6", "num_groups: 1"),
+        ("blocks_per_group: 10", "blocks_per_group: 2"), ("batch_size: 48", "batch_size: 2"),
+        ("num_workers: 16", "num_workers: 1"), ("hr_patch_size: 256", "hr_patch_size: 32"))
+
+
+def _tiny_yaml(stage_file: str, dest: Path) -> Path:
+    text = (STAGES / stage_file).read_text()
+    for old, new in CUTS:
+        assert old in text, old
+        text = text.replace(old, new)
+    path = dest / stage_file
+    path.write_text(text)
+    return path
+
+
+@pytest.fixture()
+def workdir(tmp_path, monkeypatch):
+    """A run directory with the tiny stage YAMLs and a PNG set: 6 HR-only
+    training faces of 40x40 and 2 validation HR 32x32 + LR 8x8 pairs. The
+    YAMLs' relative ./checkpoints lands here."""
+    rng = np.random.default_rng(0)
+    for split, n, size in (("train", 6, 40), ("val", 2, 32)):
+        (tmp_path / "data" / split / "HR").mkdir(parents=True)
+        if split == "val":
+            (tmp_path / "data" / split / "LR").mkdir()
+        for i in range(n):
+            img = resize_cubic((rng.random((5, 5, 3)) * 255).astype(np.uint8), (size, size))
+            png.write_png(tmp_path / "data" / split / "HR" / f"{i:03d}.png", img,
+                          filter_type=i % 5)
+            if split == "val":
+                png.write_png(tmp_path / "data" / split / "LR" / f"{i:03d}.png",
+                              resize_cubic(img, (8, 8)))
+    for stage in ("stage1_psnr_config.yaml", "stage2_ssim_config.yaml"):
+        _tiny_yaml(stage, tmp_path)
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+@pytest.fixture()
+def record_loads(monkeypatch):
+    """The path and the model weights right after each
+    `Trainer.load_checkpoint`."""
+    loads = []
+    real = Trainer.load_checkpoint
+
+    def load(self, path, weights_only=False):
+        real(self, path, weights_only)
+        loads.append((path, {k: v.clone() for k, v in self.model.state_dict().items()}))
+
+    monkeypatch.setattr(Trainer, "load_checkpoint", load)
+    return loads
+
+
+def _run(stage_file, *flags):
+    return train_cli.run(["--config", stage_file, "--data-root", "data", "--device", "cpu",
+                          *flags])
+
+
+def _finite(trainer):
+    values = list(trainer.last_train_metrics.values())
+    values += [v for h in trainer.training_history.values() for v in h]
+    return values and all(math.isfinite(v) for v in values)
+
+
+def test_stage1_then_stage2_chains_through_the_pth_beside_the_fckpt_name(
+        workdir, record_loads, capsys):
+    # stage 1 also prints the loss every step (logging.console.step_log_every)
+    s1 = workdir / "stage1_psnr_config.yaml"
+    s1.write_text(s1.read_text().replace("  console:\n", "  console:\n    step_log_every: 1\n"))
+    t1 = _run("stage1_psnr_config.yaml", "--epochs", "1")
+    out1 = capsys.readouterr().out
+    assert "Effective augmentation: horizontal_flip=0.5" in out1 and "W&B: off" in out1
+    assert all(f"  step {i}/3 loss " in out1 for i in (1, 2, 3))
+    assert len(t1.last_step_times) == 3 and _finite(t1)
+    assert t1.last_train_metrics["loader_wait_s"] >= 0 and t1.last_train_metrics["step_ms"] > 0
+    assert t1.loss_fn.get_weights() == {"l1": 1.0, "perceptual": 1.0}
+    assert {"best_model.pth", "final_model.pth"} <= {
+        p.name for p in (workdir / "checkpoints").iterdir()}
+    assert not record_loads
+    best = torch.load(workdir / "checkpoints" / "best_model.pth", map_location="cpu",
+                      weights_only=True)["model_state_dict"]
+
+    t2 = _run("stage2_ssim_config.yaml", "--epochs", "1")
+    out2 = capsys.readouterr().out
+    assert ("checkpoint.resume ./checkpoints/best_model.fckpt not found; loading the port's "
+            "checkpoints/best_model.pth in its place") in out2
+    assert "Chaining from stage checkpoint checkpoints/best_model.pth (weights only)" in out2
+    (path, loaded), = record_loads
+    assert path == "checkpoints/best_model.pth"
+    assert set(loaded) == set(best) and all(torch.equal(loaded[k], best[k]) for k in best)
+    assert t2.loss_fn.get_weights() == {"l1": 1.0, "perceptual": 0.5, "ssim": 0.2}
+    assert "ssim" in t2.last_train_metrics and _finite(t2)
+    assert "  step 1/3 loss " not in out2  # the default: every 24 steps
+    assert t2.config.learning_rate == 1e-5 and t2.config.scheduler_type == "step"
+
+
+def test_stage2_chains_from_a_jax_written_fckpt(workdir, record_loads):
+    params = jax.tree.map(np.asarray, fen.init(jax.random.PRNGKey(3), SMALL))
+    rng = np.random.default_rng(3)
+    params = jax.tree.map(lambda a: (a + rng.standard_normal(a.shape) * 0.02).astype(np.float32),
+                          params)
+    (workdir / "checkpoints").mkdir()
+    jckpt.save_model(str(workdir / "checkpoints" / "best_model.fckpt"), params, SMALL)
+    (workdir / "checkpoints" / "best_model.pth").write_bytes(b"not read")
+    _run("stage2_ssim_config.yaml", "--epochs", "0")
+    (path, loaded), = record_loads
+    assert path == "./checkpoints/best_model.fckpt"
+    want = state_dict_from_jax_params(params)
+    assert set(loaded) == set(want) and all(torch.equal(loaded[k], want[k]) for k in want)
+    model = FaceEnhanceNet(FaceEnhanceNetConfig(num_channels=16, num_groups=1,
+                                                blocks_per_group=2), device="cpu")
+    model.load_state_dict(loaded)
+    x = np.random.default_rng(1).random((2, 16, 16, 3), dtype=np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    want_out = np.asarray(fen.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x), SMALL))
+    np.testing.assert_allclose(got, want_out, atol=2e-5, rtol=1e-4)
+
+
+def test_a_missing_chain_checkpoint_raises(workdir):
+    with pytest.raises(SystemExit, match="checkpoint.resume not found"):
+        _run("stage2_ssim_config.yaml", "--epochs", "1")
+    with pytest.raises(SystemExit, match="--resume checkpoint not found"):
+        _run("stage1_psnr_config.yaml", "--resume", "nowhere.pth")
+
+
+# (config, flags, the ROADMAP item the refusal names)
+REFUSED = {
+    "gan": ("stage3_gan_config.yaml", [], "ROADMAP A.9"),
+    "qat_scales": ("stage1_psnr_config.yaml", ["--qat-scales", "x.npz"], "ROADMAP A.10"),
+    "mesh_axes": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,model"], "ROADMAP A.13"),
+    "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-shape", "4,2"], "ROADMAP A.13"),
+    "print_memory": ("stage1_psnr_config.yaml", ["--print-memory"], "ROADMAP A.13"),
+    "transfer": ("stage1_psnr_config.yaml", ["--model", "transfer"], "ROADMAP A.12"),
+    "esrgan": ("stage1_psnr_config.yaml", ["--model", "esrgan"], "ROADMAP A.12"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(REFUSED))
+def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
+    config, flags, item = REFUSED[what]
+    if what == "gan":
+        _tiny_yaml(config, workdir)
+    with pytest.raises(train_cli.NotPorted, match=item):
+        _run(config, *flags)
+
+
+@pytest.mark.parametrize("section", ["qat: true", "mesh_axes: data,space",
+                                     "pp_microbatches: 4"])
+def test_what_is_not_ported_in_the_yaml_raises(workdir, section):
+    text = (workdir / "stage1_psnr_config.yaml").read_text()
+    text = text.replace("training:\n", f"training:\n  {section}\n", 1)
+    (workdir / "s.yaml").write_text(text)
+    with pytest.raises(train_cli.NotPorted, match="ROADMAP A.1[03]"):
+        _run("s.yaml")
+
+
+def test_without_device_it_runs_on_cuda_or_raises(workdir):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default would train on it")
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        train_cli.run(["--config", "stage1_psnr_config.yaml", "--data-root", "data"])
+
+
+def test_fast_loader_builds_the_native_hr_loader(workdir, capsys):
+    args = train_cli.parse_args(["--config", "stage1_psnr_config.yaml", "--fast-loader"])
+    cfg = train_cli.load_config("stage1_psnr_config.yaml")
+    loader, val = train_cli.make_loaders(args, cfg, "data", 2, seed=42)
+    out = capsys.readouterr().out
+    assert "Fast loader: native assembler built" in out
+    assert "WARNING: --fast-loader drops augmentations: color_jitter (p=0.3)" in out
+    batches = list(loader)
+    assert len(batches) == 3 and all(set(b) == {"hr"} and b["hr"].shape == (2, 32, 32, 3)
+                                     for b in batches)
+    assert [b["hr"].shape for b in val] == [(2, 32, 32, 3)]
+
+
+def test_sigterm_saves_interrupted_pth(workdir):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "facesr_torch.cli.train", "--config",
+         "stage1_psnr_config.yaml", "--data-root", "data", "--device", "cpu"],
+        cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        started = False
+        for line in proc.stdout:
+            if "Epoch 1/" in line:
+                started = True
+                break
+            if time.monotonic() > deadline:
+                break
+        assert started, "training never started"
+        proc.send_signal(signal.SIGTERM)
+        out = proc.stdout.read()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert rc == 0, out[-2000:]
+    assert "Training interrupted (SIGTERM)" in out, out[-2000:]
+    ckpt = torch.load(workdir / "checkpoints" / "interrupted.pth", map_location="cpu",
+                      weights_only=True)
+    assert set(ckpt["model_state_dict"]) == set(FaceEnhanceNet(FaceEnhanceNetConfig(
+        num_channels=16, num_groups=1, blocks_per_group=2), device="cpu").state_dict())
+
+
+def test_overfit_test_follows_the_jax_package():
+    params = jax.tree.map(np.asarray, fen.init(jax.random.PRNGKey(4), SMALL))
+    rng = np.random.default_rng(4)
+    params = jax.tree.map(lambda a: (a + rng.standard_normal(a.shape) * 0.02).astype(np.float32),
+                          params)
+    hr = resize_cubic((rng.random((6, 6, 3)) * 255).astype(np.uint8), (32, 32))
+    batch = {"hr": np.stack([np.roll(hr, 3 * i, axis=1) for i in range(8)]
+                            ).astype(np.float32) / 255}
+    kw = dict(num_images=8, num_iterations=3, learning_rate=2e-4)
+    want = jax_overfit_test(fen.FaceEnhanceNet(SMALL, params=params), [batch], **kw)
+    model = FaceEnhanceNet(FaceEnhanceNetConfig(num_channels=16, num_groups=1,
+                                                blocks_per_group=2), device="cpu")
+    model.load_state_dict(state_dict_from_jax_params(params))
+    got = overfit_test(model, [batch], device="cpu", **kw)
+    assert got["converged"] == want["converged"]
+    np.testing.assert_allclose(got["loss_history"], want["loss_history"], rtol=1e-4)
+    np.testing.assert_allclose(got["psnr_history"], want["psnr_history"], rtol=1e-5)
