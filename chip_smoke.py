@@ -47,19 +47,35 @@ catches an error and goes on):
    ms/step and loader wait against phase 7's step alone); stage 2 must
    chain from stage 1's ``best_model.pth`` bitwise; controls: a corrupt
    PNG stops the loader with its name, and the CLI without ``--device``
-   on a process that sees no card raises.
+   on a process that sees no card raises;
+9. evaluation, the third path: seeded random LPIPS and FID-Inception
+   weights written as ``.fckpt`` by the port's writer; Inception
+   activations, LPIPS and FID on the card against the CPU, with a control
+   that forces TF32 and must be rejected; ``python -m
+   facesr_torch.cli.test_model`` in this process on phase 8's 48
+   validation PNGs with stage 1's ``best_model.pth``, batched and
+   ``--per-image``; ``python -m facesr_torch.cli.compare_two_models`` on
+   them with stage 1's two checkpoints, LPIPS and FID on, once with
+   ``--serve-dtype f32`` (no kernel launch) and once with ``bf16`` (the
+   group kernel, the launch counters zeroed just before and read just
+   after; under the CUDA profiler for the device-busy share): baseline
+   rows bitwise equal across the two, the models' bf16 PSNR within 0.1 dB
+   of f32; seconds by stage, images/s, Inception images/s at batch 32 and
+   LPIPS ms a pair.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
 CUDA card it exits non-zero and prints no result.
 """
 
+import contextlib
 import ctypes
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -352,8 +368,6 @@ def production_step_fn(dev):
 def trainer_phase(dev):
     """`Trainer.train()` on the production model: 2 epochs of 2 batches,
     one validation batch; checkpoints written, resumed and reloaded."""
-    import tempfile
-
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet
     from facesr_torch.training.trainer import Trainer, TrainerConfig
 
@@ -589,11 +603,12 @@ class _Tee:
         return "".join(self.parts)
 
 
-def cli_phase(card: str, step_alone_ms: float) -> None:
-    """Phase 8: the training entry point on the card, from PNG files."""
-    import contextlib
+def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
+    """Phase 8: the training entry point on the card, from PNG files
+    written under ``tmp``; leaves the PNG set in ``tmp/data`` and stage
+    1's checkpoints in ``tmp/stage1_checkpoints`` for phase 9."""
     import os
-    import tempfile
+    import shutil
 
     from facesr_torch.cli import train as train_cli
     from facesr_torch.config import load_config
@@ -605,143 +620,373 @@ def cli_phase(card: str, step_alone_ms: float) -> None:
     log(f"== 8. training entry point: PNG set, loaders, the train CLI on the stage YAMLs "
         f"[{card}]")
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="facesr_torch_cli_") as tmp:
-        tmp = Path(tmp)
-        data = tmp / "data"
-        t0 = time.perf_counter()
-        written = write_png_set(data)
-        write_s = time.perf_counter() - t0
-        same = all(np.array_equal(png.read_rgb(p), img) for p, img in written.items())
-        t0 = time.perf_counter()
-        for p in written:
-            png.read_rgb(p)
-        decode_ms = (time.perf_counter() - t0) / len(written) * 1e3
-        log(f"  wrote {CLI_TRAIN} train HR + {CLI_VAL} val HR/LR PNGs ({CLI_HR}x{CLI_HR}) in "
-            f"{write_s:.2f} s; {len(written)} decoded back bitwise equal: {same}; "
-            f"single-thread decode {decode_ms:.3f} ms an image; os.cpu_count() "
-            f"{os.cpu_count()} [{card}]")
-        if not same:
-            raise AssertionError("a decoded PNG differs from the array written")
+    data = tmp / "data"
+    t0 = time.perf_counter()
+    written = write_png_set(data)
+    write_s = time.perf_counter() - t0
+    same = all(np.array_equal(png.read_rgb(p), img) for p, img in written.items())
+    t0 = time.perf_counter()
+    for p in written:
+        png.read_rgb(p)
+    decode_ms = (time.perf_counter() - t0) / len(written) * 1e3
+    log(f"  wrote {CLI_TRAIN} train HR + {CLI_VAL} val HR/LR PNGs ({CLI_HR}x{CLI_HR}) in "
+        f"{write_s:.2f} s; {len(written)} decoded back bitwise equal: {same}; "
+        f"single-thread decode {decode_ms:.3f} ms an image; os.cpu_count() "
+        f"{os.cpu_count()} [{card}]")
+    if not same:
+        raise AssertionError("a decoded PNG differs from the array written")
 
-        cfg1 = load_config(str(STAGE1_YAML))
-        rates = {}
-        for fast in (False, True):
-            argv = ["--config", str(STAGE1_YAML)] + (["--fast-loader"] if fast else [])
-            train_loader, _ = train_cli.make_loaders(train_cli.parse_args(argv), cfg1,
-                                                     str(data), CLI_BATCH, seed=42)
-            n, t0 = 0, time.perf_counter()
-            for _ in range(2):
-                for batch in train_loader:
-                    hr = batch["hr"]
-                    if hr.shape != (CLI_BATCH, CLI_HR, CLI_HR, 3) or hr.dtype != np.float32:
-                        raise AssertionError(f"loader batch {hr.shape} {hr.dtype}")
-                    n += len(hr)
-            rates[fast] = n / (time.perf_counter() - t0)
-            log(f"  stage-1 training loader{' --fast-loader' if fast else ''} (batch "
-                f"{CLI_BATCH}, {cfg1['data']['num_workers']} workers, 2 epochs): "
-                f"{rates[fast]:.1f} images/s [{card}]")
+    cfg1 = load_config(str(STAGE1_YAML))
+    rates = {}
+    for fast in (False, True):
+        argv = ["--config", str(STAGE1_YAML)] + (["--fast-loader"] if fast else [])
+        train_loader, _ = train_cli.make_loaders(train_cli.parse_args(argv), cfg1,
+                                                 str(data), CLI_BATCH, seed=42)
+        n, t0 = 0, time.perf_counter()
+        for _ in range(2):
+            for batch in train_loader:
+                hr = batch["hr"]
+                if hr.shape != (CLI_BATCH, CLI_HR, CLI_HR, 3) or hr.dtype != np.float32:
+                    raise AssertionError(f"loader batch {hr.shape} {hr.dtype}")
+                n += len(hr)
+        rates[fast] = n / (time.perf_counter() - t0)
+        log(f"  stage-1 training loader{' --fast-loader' if fast else ''} (batch "
+            f"{CLI_BATCH}, {cfg1['data']['num_workers']} workers, 2 epochs): "
+            f"{rates[fast]:.1f} images/s [{card}]")
 
-        # the CLI, in this process, from the temporary directory (the YAMLs'
-        # ./checkpoints lands there)
-        loaded = {}
-        real_load = Trainer.load_checkpoint
+    # the CLI, in this process, from the temporary directory (the YAMLs'
+    # ./checkpoints lands there)
+    loaded = {}
+    real_load = Trainer.load_checkpoint
 
-        def load_and_record(self, path, weights_only=False):
-            real_load(self, path, weights_only)
-            loaded["path"] = path
-            loaded["state"] = {k: v.detach().cpu().clone()
-                               for k, v in self.model.state_dict().items()}
+    def load_and_record(self, path, weights_only=False):
+        real_load(self, path, weights_only)
+        loaded["path"] = path
+        loaded["state"] = {k: v.detach().cpu().clone()
+                           for k, v in self.model.state_dict().items()}
 
-        cwd = os.getcwd()
-        os.chdir(tmp)
-        Trainer.load_checkpoint = load_and_record
-        try:
-            results = {}
-            for stage, yaml_path in ((1, STAGE1_YAML), (2, STAGE2_YAML)):
-                tee = _Tee(sys.stdout)
-                rg.fused_residual_group.launches = 0
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(tee):
-                    trainer = train_cli.run(["--config", str(yaml_path), "--data-root",
-                                             str(data), "--epochs", "1"])
-                torch.cuda.synchronize()
-                results[stage] = (trainer, tee.text(), time.perf_counter() - t0,
-                                  rg.fused_residual_group.launches)
-                if stage == 1:
-                    best = torch.load(tmp / "checkpoints/best_model.pth", map_location="cpu",
-                                      weights_only=True)["model_state_dict"]
-        finally:
-            Trainer.load_checkpoint = real_load
-            os.chdir(cwd)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    Trainer.load_checkpoint = load_and_record
+    try:
+        results = {}
+        for stage, yaml_path in ((1, STAGE1_YAML), (2, STAGE2_YAML)):
+            tee = _Tee(sys.stdout)
+            rg.fused_residual_group.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                trainer = train_cli.run(["--config", str(yaml_path), "--data-root",
+                                         str(data), "--epochs", "1"])
+            torch.cuda.synchronize()
+            results[stage] = (trainer, tee.text(), time.perf_counter() - t0,
+                              rg.fused_residual_group.launches)
+            if stage == 1:
+                best = torch.load(tmp / "checkpoints/best_model.pth", map_location="cpu",
+                                  weights_only=True)["model_state_dict"]
+                (tmp / "stage1_checkpoints").mkdir()
+                for name in ("best_model.pth", "final_model.pth"):
+                    shutil.copy(tmp / "checkpoints" / name, tmp / "stage1_checkpoints")
+    finally:
+        Trainer.load_checkpoint = real_load
+        os.chdir(cwd)
 
-        for stage in (1, 2):
-            trainer, text, wall_s, launches = results[stage]
-            m = trainer.last_train_metrics
-            steady = trainer.last_step_times[1:]
-            ms = statistics.median(steady) * 1e3
-            history = trainer.training_history
-            log(f"  stage {stage} CLI: {len(trainer.last_step_times)} steps of {CLI_BATCH}, "
-                f"{ms:.3f} ms/step (median host interval after the first) = "
-                f"{CLI_BATCH / ms * 1e3:.2f} images/s against {CLI_BATCH / step_alone_ms * 1e3:.2f} "
-                f"for phase 7's step alone ({step_alone_ms:.3f} ms); the step loop waited "
-                f"{m['loader_wait_s']:.3f} s on next(loader); steps "
-                f"{['%.1f' % (t * 1e3) for t in trainer.last_step_times]} ms; epoch "
-                f"{m['time_s']:.2f} s, whole run {wall_s:.2f} s; train losses {m}; history "
-                f"{json.dumps(history)}; group-kernel launches {launches} [{card}]")
-            values = [v for v in m.values()] + [v for h in history.values() for v in h]
-            if not all(math.isfinite(v) for v in values):
-                raise AssertionError(f"stage {stage}: a loss or metric is not finite")
-            if len(trainer.last_step_times) != CLI_TRAIN // CLI_BATCH or launches != 0:
-                raise AssertionError(f"stage {stage}: {len(trainer.last_step_times)} steps, "
-                                     f"{launches} group-kernel launches")
-        files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
-        if not {"best_model.pth", "final_model.pth"} <= set(files):
-            raise AssertionError(f"checkpoint files {files}")
-        text2 = results[2][1]
-        mapped = ("best_model.fckpt not found" in text2
-                  and "Chaining from stage checkpoint checkpoints/best_model.pth" in text2)
-        bitwise = (loaded.get("path", "").endswith("best_model.pth")
-                   and set(loaded["state"]) == set(best)
-                   and all(torch.equal(loaded["state"][k], best[k]) for k in best))
-        ssim_in = "ssim" in results[2][0].loss_fn.weights and "ssim" in results[2][0].last_train_metrics
-        log(f"  stage 2 resolved ./checkpoints/best_model.fckpt to stage 1's best_model.pth and "
-            f"said so: {mapped}; weights right after the load bitwise equal to that file's "
-            f"model_state_dict: {bitwise}; SSIM term in the loss: {ssim_in}; files {files}")
-        if not (mapped and bitwise and ssim_in):
-            raise AssertionError("stage 2 did not chain from stage 1's best weights")
+    for stage in (1, 2):
+        trainer, text, wall_s, launches = results[stage]
+        m = trainer.last_train_metrics
+        steady = trainer.last_step_times[1:]
+        ms = statistics.median(steady) * 1e3
+        history = trainer.training_history
+        log(f"  stage {stage} CLI: {len(trainer.last_step_times)} steps of {CLI_BATCH}, "
+            f"{ms:.3f} ms/step (median host interval after the first) = "
+            f"{CLI_BATCH / ms * 1e3:.2f} images/s against {CLI_BATCH / step_alone_ms * 1e3:.2f} "
+            f"for phase 7's step alone ({step_alone_ms:.3f} ms); the step loop waited "
+            f"{m['loader_wait_s']:.3f} s on next(loader); steps "
+            f"{['%.1f' % (t * 1e3) for t in trainer.last_step_times]} ms; epoch "
+            f"{m['time_s']:.2f} s, whole run {wall_s:.2f} s; train losses {m}; history "
+            f"{json.dumps(history)}; group-kernel launches {launches} [{card}]")
+        values = [v for v in m.values()] + [v for h in history.values() for v in h]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"stage {stage}: a loss or metric is not finite")
+        if len(trainer.last_step_times) != CLI_TRAIN // CLI_BATCH or launches != 0:
+            raise AssertionError(f"stage {stage}: {len(trainer.last_step_times)} steps, "
+                                 f"{launches} group-kernel launches")
+    files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
+    if not {"best_model.pth", "final_model.pth"} <= set(files):
+        raise AssertionError(f"checkpoint files {files}")
+    text2 = results[2][1]
+    mapped = ("best_model.fckpt not found" in text2
+              and "Chaining from stage checkpoint checkpoints/best_model.pth" in text2)
+    bitwise = (loaded.get("path", "").endswith("best_model.pth")
+               and set(loaded["state"]) == set(best)
+               and all(torch.equal(loaded["state"][k], best[k]) for k in best))
+    ssim_in = "ssim" in results[2][0].loss_fn.weights and "ssim" in results[2][0].last_train_metrics
+    log(f"  stage 2 resolved ./checkpoints/best_model.fckpt to stage 1's best_model.pth and "
+        f"said so: {mapped}; weights right after the load bitwise equal to that file's "
+        f"model_state_dict: {bitwise}; SSIM term in the loss: {ssim_in}; files {files}")
+    if not (mapped and bitwise and ssim_in):
+        raise AssertionError("stage 2 did not chain from stage 1's best weights")
 
-        # controls
-        bad = tmp / "bad"
-        (bad / "train" / "HR").mkdir(parents=True)
-        for i in range(4):
-            (bad / "train" / "HR" / f"{i:05d}.png").write_bytes(
-                (data / "train" / "HR" / f"{i:05d}.png").read_bytes())
-        victim = bad / "train" / "HR" / "00002.png"
-        raw = bytearray(victim.read_bytes())
-        raw[len(raw) // 2] ^= 0xFF
-        victim.write_bytes(bytes(raw))
-        try:
-            for _ in get_dataloader(str(bad), mode="train", batch_size=2, num_workers=2,
-                                    hr_patch_size=CLI_HR, seed=0):
-                pass
-            named = False
-        except IOError as e:
-            named = victim.name in str(e)
-            log(f"  control, a corrupt PNG in the training set: {type(e).__name__}: "
-                f"{str(e)[:160]}")
-        if not named:
-            raise AssertionError("a corrupt PNG did not stop the loader with its name")
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
-                   PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
-        proc = subprocess.run([sys.executable, "-m", "facesr_torch.cli.train", "--config",
-                               str(STAGE1_YAML), "--data-root", str(data), "--epochs", "1"],
-                              cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
-        refused = proc.returncode != 0 and "no CUDA device is available" in proc.stderr
-        log(f"  control, the CLI without --device where no card is visible: exit "
-            f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1][:140] if proc.stderr.strip() else ''}")
-        if not refused:
-            raise AssertionError("the CLI without --device did not refuse to run without a card")
+    # controls
+    bad = tmp / "bad"
+    (bad / "train" / "HR").mkdir(parents=True)
+    for i in range(4):
+        (bad / "train" / "HR" / f"{i:05d}.png").write_bytes(
+            (data / "train" / "HR" / f"{i:05d}.png").read_bytes())
+    victim = bad / "train" / "HR" / "00002.png"
+    raw = bytearray(victim.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    victim.write_bytes(bytes(raw))
+    try:
+        for _ in get_dataloader(str(bad), mode="train", batch_size=2, num_workers=2,
+                                hr_patch_size=CLI_HR, seed=0):
+            pass
+        named = False
+    except IOError as e:
+        named = victim.name in str(e)
+        log(f"  control, a corrupt PNG in the training set: {type(e).__name__}: "
+            f"{str(e)[:160]}")
+    if not named:
+        raise AssertionError("a corrupt PNG did not stop the loader with its name")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-m", "facesr_torch.cli.train", "--config",
+                           str(STAGE1_YAML), "--data-root", str(data), "--epochs", "1"],
+                          cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+    refused = proc.returncode != 0 and "no CUDA device is available" in proc.stderr
+    log(f"  control, the CLI without --device where no card is visible: exit "
+        f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1][:140] if proc.stderr.strip() else ''}")
+    if not refused:
+        raise AssertionError("the CLI without --device did not refuse to run without a card")
     log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+# phase 9: the evaluation networks' card-vs-CPU checks (images, pairs, set
+# size) and the CLIs' image count (phase 8's validation HR set)
+EVAL_CHECK_IMAGES, EVAL_LPIPS_PAIRS, EVAL_FID_SET, EVAL_IMAGES = 8, 4, 32, 48
+# f32 with TF32 off on both sides: other summation orders give ~1e-6;
+# TF32 convs (10-bit mantissa) ~1e-3 (the control must exceed the limit)
+EVAL_RTOL, FID_RTOL = 1e-4, 1e-3
+# test_model batched vs --per-image (cuDNN may pick other algorithms at
+# batch 1 than at 128); bf16 kernel trunk vs f32 in the compare run
+PER_IMAGE_PSNR_DB, BF16_GAP_DB = 0.01, 0.1
+
+
+@contextlib.contextmanager
+def tf32_forced():
+    """cuDNN convs and cuBLAS matmuls in TF32: stands in for `full_f32`
+    in the control that the f32 limits must reject."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def inception_acts_tf32(images, weights, dev):
+    """The card's activations with TF32 forced around the network."""
+    from facesr_torch.evaluation import fid
+    from facesr_torch.models import inception
+
+    real = inception.full_f32
+    inception.full_f32 = tf32_forced
+    try:
+        return fid.inception_activations(images, weights, len(images), dev)
+    finally:
+        inception.full_f32 = real
+
+
+def eval_cli(module, argv):
+    """Run an evaluation CLI in this process with its per-image lines kept
+    off the log; returns (result, printed text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = module.run(argv)
+    return result, buf.getvalue()
+
+
+def eval_phase(dev, card: str, tmp: Path) -> int:
+    """Phase 9: evaluation on the card, on phase 8's PNG set and stage 1's
+    checkpoints under ``tmp``. Returns the group-kernel launches of the
+    bf16 compare run."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from facesr_torch.cli import compare_two_models, test_model
+    from facesr_torch.data import png
+    from facesr_torch.evaluation import fid
+    from facesr_torch.models import inception, lpips
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.ops.resize import resize2d
+
+    log(f"== 9. evaluation: LPIPS and FID-Inception card vs CPU, the test_model and "
+        f"compare_two_models CLIs [{card}]")
+    t_phase = time.perf_counter()
+    wdir = tmp / "eval_weights"
+    wdir.mkdir()
+    lp_w = lpips.init_random_alexnet(torch.Generator().manual_seed(90))
+    inc_w = inception.init_random_inception(torch.Generator().manual_seed(91))
+    lpips.save_lpips_weights(str(wdir / "lpips_alex.fckpt"), lp_w)
+    inception.save_inception_weights(str(wdir / "inception_fid.fckpt"), inc_w)
+    saved_env = {k: os.environ.get(k) for k in (lpips.ENV_WEIGHTS, inception.ENV_WEIGHTS)}
+    os.environ[lpips.ENV_WEIGHTS] = str(wdir / "lpips_alex.fckpt")
+    os.environ[inception.ENV_WEIGHTS] = str(wdir / "inception_fid.fckpt")
+    try:
+        val = sorted((tmp / "data" / "val" / "HR").iterdir())
+        train = sorted((tmp / "data" / "train" / "HR").iterdir())
+        imgs_a = [png.read_rgb(p) for p in val[:EVAL_FID_SET]]
+        imgs_b = [png.read_rgb(p) for p in train[:EVAL_FID_SET]]
+        inc_card = {n: {k: t.to(dev) for k, t in p.items()} for n, p in inc_w.items()}
+
+        # card vs CPU: Inception, its TF32 control, LPIPS, FID
+        check = imgs_a[:EVAL_CHECK_IMAGES]
+        got = fid.inception_activations(check, inc_card, len(check), dev)
+        want = fid.inception_activations(check, inc_w, len(check), "cpu")
+        err, tf32_err = rel_l2(got, want), rel_l2(inception_acts_tf32(check, inc_card, dev), want)
+        log(f"  Inception activations of {len(check)} images (256x256 uint8 -> 299): relative L2 "
+            f"card vs CPU {err:.3g} (limit {EVAL_RTOL}); control with TF32 forced "
+            f"{tf32_err:.3g} -> {'rejected' if tf32_err > EVAL_RTOL else 'within'}")
+        if not np.isfinite(got).all() or err > EVAL_RTOL:
+            raise AssertionError(f"Inception on the card disagrees with the CPU: {err}")
+        if tf32_err <= EVAL_RTOL:
+            raise AssertionError("the Inception limit cannot see TF32 convs")
+        lp_card = {k: [{n: t.to(dev) for n, t in p.items()} for p in v] for k, v in lp_w.items()}
+        lp_errs = []
+        for i in range(EVAL_LPIPS_PAIRS):
+            a = torch.from_numpy(imgs_a[i][None].astype(np.float32) / 255.0) * 2 - 1
+            b = torch.from_numpy(imgs_b[i][None].astype(np.float32) / 255.0) * 2 - 1
+            want_lp = lpips.lpips_distance(lp_w, a, b).item()
+            got_lp = lpips.lpips_distance(lp_card, a.to(dev), b.to(dev)).item()
+            lp_errs.append(abs(got_lp - want_lp) / abs(want_lp))
+        log(f"  LPIPS of {EVAL_LPIPS_PAIRS} pairs: relative difference card vs CPU "
+            f"{['%.3g' % e for e in lp_errs]} (limit {EVAL_RTOL})")
+        if max(lp_errs) > EVAL_RTOL:
+            raise AssertionError(f"LPIPS on the card disagrees with the CPU: {lp_errs}")
+        fids = {}
+        for side, w, d in (("card", inc_card, dev), ("cpu", inc_w, "cpu")):
+            fids[side] = fid.fid_from_activations(
+                fid.inception_activations(imgs_a, w, EVAL_FID_SET, d),
+                fid.inception_activations(imgs_b, w, EVAL_FID_SET, d))
+        fid_err = abs(fids["card"] - fids["cpu"]) / abs(fids["cpu"])
+        log(f"  FID of two sets of {EVAL_FID_SET}: card {fids['card']:.6f}, CPU "
+            f"{fids['cpu']:.6f}, relative difference {fid_err:.3g} (limit {FID_RTOL})")
+        if fid_err > FID_RTOL:
+            raise AssertionError(f"FID from card activations disagrees with the CPU: {fid_err}")
+
+        # test_model: batched and --per-image, stage 1's best_model.pth, on the card
+        best = str(tmp / "stage1_checkpoints" / "best_model.pth")
+        rows = {}
+        for mode in ("batched", "per_image"):
+            argv = ["--checkpoint", best, "--input", str(tmp / "data" / "val" / "HR"),
+                    "--output", str(tmp / f"test_model_{mode}"), "--no-comparison"]
+            rg.fused_residual_group.launches = 0
+            t0 = time.perf_counter()
+            rows[mode], _ = eval_cli(test_model, argv + (["--per-image"] if mode == "per_image"
+                                                         else []))
+            log(f"  test_model {mode}: {len(rows[mode])} images in "
+                f"{time.perf_counter() - t0:.2f} s, group-kernel launches "
+                f"{rg.fused_residual_group.launches} [{card}]")
+            if rg.fused_residual_group.launches:
+                raise AssertionError("the f32 test_model run launched the bf16 group kernel")
+        gap = max(abs(b["model"]["psnr"] - s["model"]["psnr"])
+                  for b, s in zip(rows["batched"], rows["per_image"]))
+        most, differing = 0, 0
+        for r in rows["batched"]:
+            name = Path(r["file"]).stem + "_sr.png"
+            x = png.read_rgb(tmp / "test_model_batched" / name).astype(int)
+            y = png.read_rgb(tmp / "test_model_per_image" / name)
+            most, differing = max(most, int(np.abs(x - y).max())), differing + int((x != y).sum())
+        log(f"  test_model batched vs --per-image: largest per-image PSNR gap {gap:.3g} dB "
+            f"(limit {PER_IMAGE_PSNR_DB}); SR values differing {differing} of "
+            f"{len(rows['batched']) * CLI_HR * CLI_HR * 3}, largest {most} uint8 level(s); "
+            f"model PSNR {np.mean([r['model']['psnr'] for r in rows['batched']]):.4f} dB, "
+            f"bicubic {np.mean([r['bicubic']['psnr'] for r in rows['batched']]):.4f} dB")
+        if len(rows["batched"]) != CLI_VAL or gap > PER_IMAGE_PSNR_DB:
+            raise AssertionError(f"test_model batched and --per-image disagree: {gap} dB")
+
+        # compare_two_models: f32, then bf16 (the kernel trunk) under the profiler
+        runs = {}
+        for sd in ("f32", "bf16"):
+            argv = ["--checkpoint-dir", str(tmp / "stage1_checkpoints"),
+                    "--test-dir", str(tmp / "data" / "val" / "HR"),
+                    "--output", str(tmp / f"compare_{sd}"), "--num-images", str(EVAL_IMAGES),
+                    "--save-every", "8", "--serve-dtype", sd]
+            rg.fused_residual_group.launches = 0  # just before
+            t0 = time.perf_counter()
+            if sd == "bf16":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    res, text = eval_cli(compare_two_models, argv)
+                    torch.cuda.synchronize()
+            else:
+                res, text = eval_cli(compare_two_models, argv)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[sd] = (res, text, wall, rg.fused_residual_group.launches)  # just after
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0))
+        events = [e for e in prof.key_averages()
+                  if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+        busy_s = sum(dev_us(e) for e in events) / 1e6
+        for sd, (res, text, wall, launches) in runs.items():
+            t = res["timings"]
+            log(f"  compare_two_models --serve-dtype {sd}: {res['images']} images, methods "
+                f"{res['methods']}, {wall:.2f} s = {res['images'] / wall:.2f} images/s end to "
+                f"end{' (under the CUDA profiler)' if sd == 'bf16' else ''}; group-kernel "
+                f"launches {launches} [{card}]")
+            log(f"    seconds by stage: {json.dumps({k: round(v, 4) for k, v in t.items()})}; "
+                f"other {wall - sum(t.values()):.3f}")
+            for line in text.splitlines():
+                if line.startswith(tuple(res["methods"]) + ("Method", "Best baseline")):
+                    log(f"    {line}")
+        f32, bf16 = runs["f32"][0]["summary"], runs["bf16"][0]["summary"]
+        baselines = list(compare_two_models.OPENCV_BASELINES)
+        same_baselines = all(f32[m] == bf16[m] for m in baselines)
+        models = [m for m in runs["f32"][0]["methods"] if m not in baselines]
+        gaps = {m: bf16[m]["psnr"] - f32[m]["psnr"] for m in models}
+        top = sorted(events, key=lambda e: -dev_us(e))[:8]
+        log(f"  device busy in the bf16 run: {busy_s:.3f} s of {runs['bf16'][2]:.2f} s wall = "
+            f"{busy_s / runs['bf16'][2] * 100:.1f}%; top device ops: "
+            f"{[(e.key[:40], round(dev_us(e) / 1e3, 1)) for e in top]} ms [{card}]")
+        log(f"  baseline rows bitwise equal between the f32 and bf16 runs: {same_baselines}; "
+            f"bf16 - f32 model PSNR {json.dumps({m: round(g, 5) for m, g in gaps.items()})} dB "
+            f"(limit {BF16_GAP_DB}); launches f32 {runs['f32'][3]}, bf16 {runs['bf16'][3]}")
+        if runs["f32"][3] != 0 or runs["bf16"][3] == 0:
+            raise AssertionError(f"group-kernel launches f32 {runs['f32'][3]}, bf16 "
+                                 f"{runs['bf16'][3]}: want 0 and more than 0")
+        if not same_baselines or len(models) != 2:
+            raise AssertionError(f"baseline rows differ or models missing: {models}")
+        if not all(abs(g) <= BF16_GAP_DB for g in gaps.values()):
+            raise AssertionError(f"bf16 model PSNR strays from f32: {gaps}")
+        if not all(math.isfinite(v) for r in f32.values() for v in r.values()) \
+                or not {"lpips", "fid"} <= set(f32[models[0]]):
+            raise AssertionError("a compare metric is missing or not finite")
+
+        # the evaluation networks alone
+        x32 = resize2d(torch.from_numpy(np.stack(imgs_a).astype(np.float32) / 255).to(dev),
+                       (inception.INPUT_SIZE, inception.INPUT_SIZE), method="bilinear")
+        inc_ms = cuda_ms(lambda: inception.apply(inc_card, x32, resize_input=False), iters=5)
+        a1 = torch.from_numpy(imgs_a[0][None].astype(np.float32) / 255.0).to(dev) * 2 - 1
+        b1 = torch.from_numpy(imgs_b[0][None].astype(np.float32) / 255.0).to(dev) * 2 - 1
+        lp_ms = cuda_ms(lambda: lpips.lpips_distance(lp_card, a1, b1), iters=20)
+        log(f"  Inception batch {EVAL_FID_SET} at 299: {inc_ms:.3f} ms = "
+            f"{EVAL_FID_SET / inc_ms * 1e3:.1f} images/s; LPIPS one pair at 256x256: "
+            f"{lp_ms:.3f} ms (CUDA events) [{card}]")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return runs["bf16"][3]
 
 
 def main() -> int:
@@ -994,7 +1239,10 @@ def main() -> int:
     del fwd, pred, model, xg, x128
     torch.cuda.empty_cache()
     step_alone_ms = training_phase(dev, card)
-    cli_phase(card, step_alone_ms)
+    with tempfile.TemporaryDirectory(prefix="facesr_torch_cli_") as tmp:
+        cli_phase(card, step_alone_ms, Path(tmp))
+        eval_launches = eval_phase(dev, card, Path(tmp))
+    launches["fused_residual_group"] += eval_launches  # phase 5's and phase 9's main paths
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

@@ -1,8 +1,13 @@
-"""Read the JAX package's ``.fckpt`` checkpoints without flax or msgpack.
+"""Read and write the JAX package's ``.fckpt`` checkpoints without flax or
+msgpack.
 
 A ``.fckpt`` file is flax's ``msgpack_serialize`` of ``{"meta": <JSON
 string>, "tree": <pytree>}`` (`facesr/ckpt/checkpoint.py`). This module
-holds a msgpack reader of its own for what that writes:
+holds a msgpack writer (`packb`, `save_checkpoint`) that writes what the
+JAX package's ``save_checkpoint`` writes for the same tree, byte for
+byte (maps in sorted key order, every numeric leaf an ndarray; an array
+above flax's 2^30-byte chunk size raises), and a msgpack reader of its
+own for what that writes:
 
 - nil, booleans, ints, floats, str, bin, arrays and maps of every width;
 - ext type 1, an ndarray: a packed ``[shape, dtype name, C-order bytes]``
@@ -22,9 +27,10 @@ dict through `state_dict_from_jax_params`.
 from __future__ import annotations
 
 import json
+import os
 import struct
 from dataclasses import fields
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +38,134 @@ import torch
 from facesr_torch.ckpt.weights import state_dict_from_jax_params
 from facesr_torch.models.face_enhance_net import FaceEnhanceNetConfig
 
-__all__ = ["FckptError", "unpackb", "is_fckpt", "load_checkpoint", "load_model",
-           "restore_list_nodes", "infer_model_config_from_params"]
+__all__ = ["FckptError", "packb", "save_checkpoint", "unpackb", "is_fckpt",
+           "load_checkpoint", "load_model", "restore_list_nodes",
+           "infer_model_config_from_params"]
 
 _CHUNKED = "__msgpack_chunked_array__"
+_MAX_CHUNK_BYTES = 2 ** 30  # flax's MAX_CHUNK_SIZE: larger arrays it writes in chunks
 
 
 class FckptError(ValueError):
     pass
+
+
+def _head(n: int, small: Tuple[int, int], wide: Tuple[int, ...]) -> bytes:
+    """A msgpack length header: the fix form (``small`` = (base, limit))
+    or the first of the 1-, 2- and 4-byte forms (``wide`` markers, None
+    where the form does not exist) that holds ``n``."""
+    if n < small[1]:
+        return bytes([small[0] | n])
+    for marker, size in zip(wide, (1, 2, 4)):
+        if marker is not None and n < 1 << (8 * size):
+            return bytes([marker]) + n.to_bytes(size, "big")
+    raise FckptError(f"msgpack length {n} is too large")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    if v >= 0:
+        for marker, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")):
+            if v < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([marker]) + struct.pack(fmt, v)
+    else:
+        for marker, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")):
+            if v >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                return bytes([marker]) + struct.pack(fmt, v)
+    raise FckptError(f"integer {v} does not fit msgpack's 64 bits")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = (bytes([fixed[len(data)]]) if len(data) in fixed
+            else _head(len(data), (0, 0), (0xC7, 0xC8, 0xC9)))
+    return head + struct.pack(">b", code) + data
+
+
+def _ndarray_bytes(arr) -> bytes:
+    """flax's ``_ndarray_to_bytes``: a packed [shape, dtype name, C-order
+    bytes]; a bfloat16 tensor keeps the name numpy lacks."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            shape, name, data = tuple(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes()
+        else:
+            a = t.numpy()
+            shape, name, data = a.shape, a.dtype.name, a.tobytes("C")
+    else:
+        if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+            raise FckptError(f"object and structured dtypes are not written: {arr.dtype}")
+        shape, name, data = arr.shape, arr.dtype.name, arr.tobytes("C")
+    return packb([list(shape), name, data])
+
+
+def packb(obj: Any) -> bytes:
+    """msgpack bytes of ``obj`` as ``msgpack.packb(obj, use_bin_type=True,
+    strict_types=True, default=<flax's ext hook>)`` gives them, for
+    None, bool, int, float, str, bytes, lists (and tuples), dicts and
+    ndarrays or tensors (ext type 1)."""
+    if obj is None:
+        return b"\xc0"
+    if obj is True or obj is False:
+        return b"\xc3" if obj else b"\xc2"
+    if type(obj) is int:
+        return _pack_int(obj)
+    if type(obj) is float:
+        return b"\xcb" + struct.pack(">d", obj)
+    if type(obj) is str:
+        data = obj.encode("utf-8")
+        return _head(len(data), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + data
+    if type(obj) in (bytes, bytearray):
+        return _head(len(obj), (0, 0), (0xC4, 0xC5, 0xC6)) + bytes(obj)
+    if type(obj) in (list, tuple):
+        return (_head(len(obj), (0x90, 16), (None, 0xDC, 0xDD))
+                + b"".join(packb(v) for v in obj))
+    if type(obj) is dict:
+        return (_head(len(obj), (0x80, 16), (None, 0xDE, 0xDF))
+                + b"".join(packb(k) + packb(v) for k, v in obj.items()))
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        nbytes = obj.numel() * obj.element_size() if isinstance(obj, torch.Tensor) else obj.nbytes
+        if nbytes > _MAX_CHUNK_BYTES:
+            # flax splits such an array into chunks; no port caller writes one
+            raise FckptError(f"an array of {nbytes} bytes is above flax's chunk size "
+                             f"({_MAX_CHUNK_BYTES}); chunked writing is not ported")
+        return _pack_ext(1, _ndarray_bytes(obj))
+    raise FckptError(f"cannot write a {type(obj).__name__} into a .fckpt")
+
+
+def _prepare(tree: Any) -> Any:
+    """The tree as `facesr.ckpt.save_checkpoint` hands it to msgpack: maps
+    with sorted keys (a jax tree map rebuilds them so), numeric leaves as
+    ndarrays (``np.asarray``), tensors on the host."""
+    if isinstance(tree, dict):
+        return {k: _prepare(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_prepare(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, (bool, int, float, np.generic, np.ndarray)):
+        return np.asarray(tree)
+    return tree
+
+
+def save_checkpoint(path: str, tree: Any, meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``{"meta": json(meta), "tree": tree}`` as a ``.fckpt`` that
+    `facesr.ckpt.load_checkpoint` and `load_checkpoint` read; written to
+    a per-process temporary name and renamed into place."""
+    data = packb(_prepare({"meta": json.dumps(meta or {}), "tree": tree}))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 class _Reader:

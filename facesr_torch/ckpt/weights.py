@@ -7,6 +7,9 @@
   package's torch exporter; it reads numpy only.
 - `vgg_params_from_jax`: the JAX package's VGG19 conv list -> the port's,
   so the loss tests run both packages on the same frozen VGG.
+- `lpips_params_from_jax`, `inception_params_from_jax`: the evaluation
+  networks' weights as the JAX package and its ``.fckpt`` files hold
+  them (HWIO) -> the port's (OIHW); the weight loaders use them too.
 - `load_reference_pth`: a reference-format ``{'model_state_dict',
   'config'}`` checkpoint -> a `FaceEnhanceNet`, loaded with ``strict=True``.
 """
@@ -22,7 +25,8 @@ import torch
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
 
-__all__ = ["state_dict_from_jax_params", "vgg_params_from_jax", "load_reference_pth"]
+__all__ = ["state_dict_from_jax_params", "vgg_params_from_jax", "lpips_params_from_jax",
+           "inception_params_from_jax", "load_reference_pth"]
 
 
 def _oihw(a) -> torch.Tensor:
@@ -71,6 +75,24 @@ def vgg_params_from_jax(params: List[Dict[str, Any]]) -> List[Dict[str, torch.Te
     """The JAX package's VGG19 conv list (numpy leaves, HWIO) -> this
     port's (``{"w": OIHW, "b"}`` tensors, depth order)."""
     return [{"w": _oihw(p["w"]), "b": _t(p["b"])} for p in params]
+
+
+def lpips_params_from_jax(tree: Dict[str, Any]) -> Dict[str, List[Dict[str, torch.Tensor]]]:
+    """The JAX package's LPIPS weights (``{"convs": [{"w": HWIO, "b"}],
+    "lins": [{"w": [C, 1]}]}``, lists possibly digit-keyed as a ``.fckpt``
+    holds them) -> this port's (conv weights OIHW, lins kept [C, 1])."""
+    def as_list(node):
+        return [node[k] for k in sorted(node, key=int)] if isinstance(node, dict) else list(node)
+
+    return {"convs": [{"w": _oihw(p["w"]), "b": _t(p["b"])} for p in as_list(tree["convs"])],
+            "lins": [{"w": _t(p["w"])} for p in as_list(tree["lins"])]}
+
+
+def inception_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's FID-InceptionV3 weights (``{name: {"w": HWIO,
+    "scale", "bias"}}``, BatchNorm folded) -> this port's (``w`` OIHW)."""
+    return {name: {"w": _oihw(p["w"]), "scale": _t(p["scale"]), "bias": _t(p["bias"])}
+            for name, p in tree.items()}
 
 
 def load_reference_pth(path: str, device: DeviceLike = None) -> FaceEnhanceNet:

@@ -1,9 +1,12 @@
-"""Copies of the two OpenCV uint8 functions the input pipeline calls, in
-numpy, so the port needs no cv2:
+"""Copies of the OpenCV uint8 functions the input pipeline and the
+evaluation CLIs call, in numpy, so the port needs no cv2:
 
 - `resize_cubic`: ``cv2.resize(img, (w, h), interpolation=INTER_CUBIC)``
-  (the JAX package's HR-only LR synthesis and the fast loader's upscale of
-  undersized images);
+  (the JAX package's HR-only LR synthesis, the fast loader's upscale of
+  undersized images and the evaluation's bicubic baseline);
+- `resize_linear`, `resize_lanczos4`, `resize_nearest`: ``INTER_LINEAR``,
+  ``INTER_LANCZOS4`` and ``INTER_NEAREST`` (the evaluation's baselines
+  and comparison strips); `resize` picks one by name;
 - `rgb_to_hsv` / `hsv_to_rgb`: ``cv2.cvtColor`` ``RGB2HSV`` /
   ``HSV2RGB`` on uint8 (the colour jitter; H in [0, 180)).
 
@@ -15,16 +18,31 @@ round-half-even to uint8; RGB2HSV's integer division tables with 12-bit
 shifts; HSV2RGB through f32 H, S, V with ``1 - s*h`` fused (one
 rounding), truncated to uint8 in whole vectors of 32 pixels (its AVX2
 path) and rounded half to even in the rest of a row (its scalar tail).
-RGB2HSV and HSV2RGB match it on every input; the resize matches it
+RGB2HSV and HSV2RGB match it on every input; the cubic resize matches it
 exactly at the x1/4 downscale and within 1 elsewhere (tests/
-test_torch_data.py prints the counts).
+test_torch_data.py and tests/test_torch_evaluation.py print the counts).
+
+The linear and Lanczos-4 resizes follow OpenCV's 8-bit fixed point:
+taps at f32 half-pixel positions, weights rounded to 11 bits
+(x 2048), an exact integer horizontal pass. Lanczos-4 then sums the
+vertical pass in integers and rounds at bit 22. Linear takes OpenCV's
+SIMD vertical pass: each row >> 4 to int16, times the weight keeping the
+high 16 bits, the two terms added and rounded at bit 2. Linear clamps a
+border column's position (weight 0 on the outside tap) but not a border
+row's (both taps read the edge row with their own weights). Nearest
+takes ``floor(i * src / dst)``. All three match it on every input tried
+(the tests print the counts).
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 
-__all__ = ["resize_cubic", "rgb_to_hsv", "hsv_to_rgb"]
+__all__ = ["resize", "resize_cubic", "resize_linear", "resize_lanczos4",
+           "resize_nearest", "rgb_to_hsv", "hsv_to_rgb"]
 
 
 def _taps(dst: int, src: int):
@@ -68,6 +86,124 @@ def resize_cubic(img: np.ndarray, size) -> np.ndarray:
         acc = acc + t[:, k] * wy[:, k, None, None]
     out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
     return out[:, :, 0] if squeeze else out
+
+
+_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+
+
+def _positions(dst: int, src: int):
+    """(floor, f32 fraction) of OpenCV's source position of each output
+    index: ``(float)((i + 0.5) * scale - 0.5)``, scale = 1 / (dst / src)."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    return s.astype(np.int64), (f - s).astype(np.float32)
+
+
+def _lanczos4_weights(x: float) -> list:
+    """OpenCV's ``interpolateLanczos4`` for one f32 fraction: sines in
+    f64, the 8 weights in f32, normalised by the f32 reciprocal of their
+    f32 sum."""
+    s45 = 0.70710678118654752440084436210485
+    cs = ((1, 0), (-s45, -s45), (0, 1), (s45, -s45), (-1, 0), (s45, s45), (0, -1), (-s45, s45))
+    f32 = np.float32
+    y0 = -float(f32(x) + f32(3)) * math.pi * 0.25
+    s0, c0 = math.sin(y0), math.cos(y0)
+    coeffs, total = [], f32(0)
+    for i in range(8):
+        yi = f32(f32(x) + f32(3 - i))
+        if abs(yi) >= 1e-6:
+            y = -float(yi) * math.pi * 0.25
+            c = f32((cs[i][0] * s0 + cs[i][1] * c0) / (y * y))
+        else:
+            c = f32(1e30)
+        coeffs.append(c)
+        total = f32(total + c)
+    inv = f32(f32(1) / total)
+    return [f32(c * inv) for c in coeffs]
+
+
+@functools.lru_cache(maxsize=64)
+def _fixed_taps(dst: int, src: int, kind: str, clamp: bool):
+    """(source indices [dst, k], int weights [dst, k] scaled by 2^11) of
+    one axis. ``clamp`` pins a linear border tap's fraction to 0 (OpenCV
+    does so along x only)."""
+    s, fx = _positions(dst, src)
+    if kind == "linear":
+        if clamp:
+            fx = np.where((s < 0) | (s >= src - 1), np.float32(0), fx)
+            s = np.clip(s, 0, src - 1)
+        w = np.stack([np.float32(1) - fx, fx], axis=1)
+        first = s
+    else:  # lanczos4
+        w = np.array([_lanczos4_weights(x) for x in fx], np.float32)
+        first = s - 3
+    idx = np.clip(first[:, None] + np.arange(w.shape[1]), 0, src - 1)
+    return idx, np.rint(w * np.float32(1 << _COEF_BITS)).astype(np.int64)
+
+
+def _check(img: np.ndarray, size, name: str):
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"{name} takes an [H, W] or [H, W, C] uint8 image, got "
+                         f"{img.shape} {img.dtype}")
+    dw, dh = int(size[0]), int(size[1])
+    if dw <= 0 or dh <= 0:
+        raise ValueError(f"bad size {size}")
+    return (img[:, :, None] if img.ndim == 2 else img), dw, dh
+
+
+def _horizontal(src: np.ndarray, dw: int, kind: str) -> np.ndarray:
+    """The exact integer horizontal pass, [h, dw, c] int64 scaled by 2^11."""
+    idx, w = _fixed_taps(dw, src.shape[1], kind, True)
+    g = src.astype(np.int64)[:, idx, :]                  # [h, dw, k, c]
+    return np.einsum("hdkc,dk->hdc", g, w)
+
+
+def resize_linear(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for an
+    [H, W] or [H, W, C] uint8 image; ``size`` is (width, height)."""
+    src, dw, dh = _check(img, size, "resize_linear")
+    buf = _horizontal(src, dw, "linear")
+    idx, w = _fixed_taps(dh, src.shape[0], "linear", False)
+    s0, s1 = buf[idx[:, 0]] >> 4, buf[idx[:, 1]] >> 4
+    t = ((s0 * w[:, 0, None, None]) >> 16) + ((s1 * w[:, 1, None, None]) >> 16)
+    out = np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
+    return out[:, :, 0] if img.ndim == 2 else out
+
+
+def resize_lanczos4(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LANCZOS4)`` for an
+    [H, W] or [H, W, C] uint8 image; ``size`` is (width, height)."""
+    src, dw, dh = _check(img, size, "resize_lanczos4")
+    buf = _horizontal(src, dw, "lanczos4")
+    idx, w = _fixed_taps(dh, src.shape[0], "lanczos4", False)
+    acc = np.einsum("ykdc,yk->ydc", buf[idx], w)
+    out = np.clip((acc + (1 << (2 * _COEF_BITS - 1))) >> (2 * _COEF_BITS), 0, 255)
+    out = out.astype(np.uint8)
+    return out[:, :, 0] if img.ndim == 2 else out
+
+
+def resize_nearest(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_NEAREST)`` for an
+    [H, W] or [H, W, C] uint8 image; ``size`` is (width, height)."""
+    src, dw, dh = _check(img, size, "resize_nearest")
+    h, w = src.shape[:2]
+    cols = np.minimum(np.floor(np.arange(dw) * (1.0 / (dw / w))).astype(np.int64), w - 1)
+    rows = np.minimum(np.floor(np.arange(dh) * (1.0 / (dh / h))).astype(np.int64), h - 1)
+    out = src[rows][:, cols]
+    return out[:, :, 0] if img.ndim == 2 else out
+
+
+_RESIZES = {"linear": resize_linear, "cubic": resize_cubic, "lanczos4": resize_lanczos4,
+            "nearest": resize_nearest}
+
+
+def resize(img: np.ndarray, size, interpolation: str) -> np.ndarray:
+    """``cv2.resize`` with ``interpolation`` one of "linear", "cubic",
+    "lanczos4", "nearest" (``INTER_*``)."""
+    if interpolation not in _RESIZES:
+        raise ValueError(f"unknown interpolation {interpolation!r}; one of {sorted(_RESIZES)}")
+    return _RESIZES[interpolation](img, size)
 
 
 _HSV_SHIFT = 12

@@ -65,8 +65,8 @@ def _pad_arg(padding: Padding) -> Union[int, Tuple[int, int]]:
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            padding: Padding = 1, dtype: Optional[torch.dtype] = None,
-           groups: int = 1) -> torch.Tensor:
-    """Stride-1 2-D convolution, NHWC x OIHW -> NHWC. ``padding`` is an int
+           groups: int = 1, stride: int = 1) -> torch.Tensor:
+    """2-D convolution, NHWC x OIHW -> NHWC. ``padding`` is an int
     (PyTorch ``padding=k``) or per axis ``((ph, ph), (pw, pw))``; ``groups``
     is the JAX ``feature_group_count`` (``groups=C`` with a [C, 1, kh, kw]
     weight is depthwise). ``dtype`` casts the input first; the weight
@@ -79,9 +79,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     pad = _pad_arg(padding)
     if x.dtype == torch.float32:
         with full_f32():
-            out = F.conv2d(xc, w, padding=pad, groups=groups)
+            out = F.conv2d(xc, w, stride=stride, padding=pad, groups=groups)
     else:
-        out = F.conv2d(xc, w, padding=pad, groups=groups)
+        out = F.conv2d(xc, w, stride=stride, padding=pad, groups=groups)
     out = out.permute(0, 2, 3, 1)
     if b is not None:
         out = out + b.to(out.dtype)

@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels; they need a card and skip without one.
+"""Tests of the port's CUDA kernels and of its f32 evaluation networks on
+the card; they need a card and skip without one.
 
 This file imports no JAX (the card's machine has none), so it runs there
 without the repo's conftest:
@@ -6,10 +7,12 @@ without the repo's conftest:
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 """
 
+import contextlib
+
 import pytest
 import torch
 
-from facesr_torch.models import blocks
+from facesr_torch.models import blocks, inception, lpips
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
 from facesr_torch.ops import rcab_group as tgroup
 
@@ -102,3 +105,43 @@ def test_bf16_model_trunk_runs_the_kernel(cuda_device):
     torch.cuda.synchronize()
     assert tgroup.fused_residual_group.launches == before + 2
     assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@contextlib.contextmanager
+def _tf32_forced():
+    """cuDNN convs and cuBLAS matmuls in TF32, the control a f32 limit must
+    reject."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+def test_lpips_on_cuda_matches_cpu(cuda_device):
+    w = lpips.init_random_alexnet(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    a, b = torch.rand(4, 256, 256, 3, generator=gen), torch.rand(4, 256, 256, 3, generator=gen)
+    want = lpips.lpips_distance(w, a * 2 - 1, b * 2 - 1)
+    wc = {k: [{n: t.to(cuda_device) for n, t in p.items()} for p in v] for k, v in w.items()}
+    got = lpips.lpips_distance(wc, (a * 2 - 1).to(cuda_device), (b * 2 - 1).to(cuda_device))
+    assert abs(got.item() - want.item()) <= 1e-4 * abs(want.item())
+
+
+@pytest.mark.gpu
+def test_inception_on_cuda_matches_cpu_and_rejects_tf32(cuda_device, monkeypatch):
+    params = inception.init_random_inception(torch.Generator().manual_seed(2))
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(3))
+    want = inception.apply(params, x)
+    pc = {n: {k: t.to(cuda_device) for k, t in p.items()} for n, p in params.items()}
+    got = inception.apply(pc, x.to(cuda_device))
+    assert got.shape == (2, 2048) and _rel(got, want) <= 1e-4
+    monkeypatch.setattr(inception, "full_f32", _tf32_forced)
+    assert _rel(inception.apply(pc, x.to(cuda_device)), want) > 1e-4
