@@ -42,10 +42,12 @@ catches an error and goes on):
    training loader alone as the CLI builds it, with and without
    ``--fast-loader`` (images/s, single-thread decode ms an image); then
    ``python -m facesr_torch.cli.train`` in this process with
-   ``configs/stages/stage1_psnr_config.yaml`` and then
-   ``stage2_ssim_config.yaml``, both unchanged, for one epoch each (its
-   ms/step and loader wait against phase 7's step alone); stage 2 must
-   chain from stage 1's ``best_model.pth`` bitwise; controls: a corrupt
+   ``configs/stages/stage1_psnr_config.yaml``, then
+   ``stage2_ssim_config.yaml`` and ``stage3_gan_config.yaml`` (GAN), all
+   unchanged, for one epoch each (its ms/step and loader wait against
+   phase 7's step alone); stage 2 must chain from stage 1's
+   ``best_model.pth`` bitwise and stage 3 from stage 2's, whose
+   discriminator loss history must be finite; controls: a corrupt
    PNG stops the loader with its name, and the CLI without ``--device``
    on a process that sees no card raises;
 9. evaluation, the third path: seeded random LPIPS and FID-Inception
@@ -61,7 +63,21 @@ catches an error and goes on):
    after; under the CUDA profiler for the device-busy share): baseline
    rows bitwise equal across the two, the models' bf16 PSNR within 0.1 dB
    of f32; seconds by stage, images/s, Inception images/s at batch 32 and
-   LPIPS ms a pair.
+   LPIPS ms a pair;
+10. GAN training (stage 3), the fourth path: one small GAN step on the
+   card against the same step on the CPU (losses, every G and D gradient,
+   every updated parameter, the BatchNorm running stats), with a control
+   that forces TF32 and must be rejected; the production GAN step
+   (6x10x64 f32, batch 48, HR 256, L1 0.01 + VGG19 conv3_4 1.0 + vanilla
+   GAN 0.005, the discriminator at 256 with 64 channels and BatchNorm; G
+   AdamW lr 1e-5 clip 0.5, D lr 1e-4) for 2 warm-up and 6 timed steps on
+   one batch, whose losses must be finite and which must launch no kernel
+   of the port (the counters zeroed just before and read just after); its
+   ms/step, images/s, profiler device time, the discriminator's share and
+   peak memory; then `Trainer.train()` with the GAN from epoch 1 of 2,
+   resumed bitwise (G, D, BatchNorm stats, both optimisers), and a
+   content checkpoint resumed into a GAN trainer (a fresh D, the GAN
+   history backfilled).
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -450,7 +466,7 @@ def training_phase(dev, card) -> float:
     if max(errs) > STEP_RTOL:
         raise AssertionError(f"the CUDA training step disagrees with the CPU step: {errs}")
     tf32 = step_errors(small_step(dev, tf32_forced=True), cpu)
-    log(f"  control, cuDNN TF32 forced around the same CUDA step: loss {tf32[0]:.3g}, "
+    log(f"  control, cuDNN and cuBLAS TF32 forced around the same CUDA step: loss {tf32[0]:.3g}, "
         f"worst gradient {tf32[1]:.3g}, worst param {tf32[2]:.3g} -> "
         f"{'rejected' if max(tf32) > STEP_RTOL else 'within'}")
     if max(tf32) <= STEP_RTOL:
@@ -554,6 +570,7 @@ CLI_DECODE_CHECK = 48
 REPO = Path(__file__).resolve().parent
 STAGE1_YAML = REPO / "configs/stages/stage1_psnr_config.yaml"
 STAGE2_YAML = REPO / "configs/stages/stage2_ssim_config.yaml"
+STAGE3_YAML = REPO / "configs/stages/stage3_gan_config.yaml"
 
 
 def write_png_set(root: Path) -> dict:
@@ -656,21 +673,20 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
 
     # the CLI, in this process, from the temporary directory (the YAMLs'
     # ./checkpoints lands there)
-    loaded = {}
+    loaded = []  # (path, the weights right after the load) of each load
     real_load = Trainer.load_checkpoint
 
     def load_and_record(self, path, weights_only=False):
         real_load(self, path, weights_only)
-        loaded["path"] = path
-        loaded["state"] = {k: v.detach().cpu().clone()
-                           for k, v in self.model.state_dict().items()}
+        loaded.append((path, {k: v.detach().cpu().clone()
+                              for k, v in self.model.state_dict().items()}))
 
     cwd = os.getcwd()
     os.chdir(tmp)
     Trainer.load_checkpoint = load_and_record
     try:
-        results = {}
-        for stage, yaml_path in ((1, STAGE1_YAML), (2, STAGE2_YAML)):
+        results, best, chained = {}, {}, {}
+        for stage, yaml_path in ((1, STAGE1_YAML), (2, STAGE2_YAML), (3, STAGE3_YAML)):
             tee = _Tee(sys.stdout)
             rg.fused_residual_group.launches = 0
             t0 = time.perf_counter()
@@ -680,9 +696,10 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
             torch.cuda.synchronize()
             results[stage] = (trainer, tee.text(), time.perf_counter() - t0,
                               rg.fused_residual_group.launches)
+            chained[stage] = loaded[-1] if stage > 1 and loaded else None
+            best[stage] = torch.load(tmp / "checkpoints/best_model.pth", map_location="cpu",
+                                     weights_only=True)["model_state_dict"]
             if stage == 1:
-                best = torch.load(tmp / "checkpoints/best_model.pth", map_location="cpu",
-                                  weights_only=True)["model_state_dict"]
                 (tmp / "stage1_checkpoints").mkdir()
                 for name in ("best_model.pth", "final_model.pth"):
                     shutil.copy(tmp / "checkpoints" / name, tmp / "stage1_checkpoints")
@@ -690,7 +707,7 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
         Trainer.load_checkpoint = real_load
         os.chdir(cwd)
 
-    for stage in (1, 2):
+    for stage in (1, 2, 3):
         trainer, text, wall_s, launches = results[stage]
         m = trainer.last_train_metrics
         steady = trainer.last_step_times[1:]
@@ -699,7 +716,9 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
         log(f"  stage {stage} CLI: {len(trainer.last_step_times)} steps of {CLI_BATCH}, "
             f"{ms:.3f} ms/step (median host interval after the first) = "
             f"{CLI_BATCH / ms * 1e3:.2f} images/s against {CLI_BATCH / step_alone_ms * 1e3:.2f} "
-            f"for phase 7's step alone ({step_alone_ms:.3f} ms); the step loop waited "
+            f"for phase 7's content step alone ({step_alone_ms:.3f} ms"
+            f"{'; this stage runs the GAN step, phase 10 times it alone' if stage == 3 else ''}); "
+            f"the step loop waited "
             f"{m['loader_wait_s']:.3f} s on next(loader); steps "
             f"{['%.1f' % (t * 1e3) for t in trainer.last_step_times]} ms; epoch "
             f"{m['time_s']:.2f} s, whole run {wall_s:.2f} s; train losses {m}; history "
@@ -713,18 +732,30 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
     files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
     if not {"best_model.pth", "final_model.pth"} <= set(files):
         raise AssertionError(f"checkpoint files {files}")
-    text2 = results[2][1]
-    mapped = ("best_model.fckpt not found" in text2
-              and "Chaining from stage checkpoint checkpoints/best_model.pth" in text2)
-    bitwise = (loaded.get("path", "").endswith("best_model.pth")
-               and set(loaded["state"]) == set(best)
-               and all(torch.equal(loaded["state"][k], best[k]) for k in best))
+    for stage in (2, 3):
+        text = results[stage][1]
+        mapped = ("best_model.fckpt not found" in text
+                  and "Chaining from stage checkpoint checkpoints/best_model.pth" in text)
+        path, state = chained[stage] or ("", {})
+        want = best[stage - 1]
+        bitwise = (path.endswith("best_model.pth") and set(state) == set(want)
+                   and all(torch.equal(state[k], want[k]) for k in want))
+        log(f"  stage {stage} resolved ./checkpoints/best_model.fckpt to stage {stage - 1}'s "
+            f"best_model.pth and said so: {mapped}; weights right after the load bitwise equal "
+            f"to that file's model_state_dict: {bitwise}")
+        if not (mapped and bitwise):
+            raise AssertionError(f"stage {stage} did not chain from stage {stage - 1}'s best "
+                                 "weights")
     ssim_in = "ssim" in results[2][0].loss_fn.weights and "ssim" in results[2][0].last_train_metrics
-    log(f"  stage 2 resolved ./checkpoints/best_model.fckpt to stage 1's best_model.pth and "
-        f"said so: {mapped}; weights right after the load bitwise equal to that file's "
-        f"model_state_dict: {bitwise}; SSIM term in the loss: {ssim_in}; files {files}")
-    if not (mapped and bitwise and ssim_in):
-        raise AssertionError("stage 2 did not chain from stage 1's best weights")
+    t3 = results[3][0]
+    d_hist = t3.training_history.get("d_loss", [])
+    gan_ok = (t3.use_gan and "GAN Training Configuration:" in results[3][1]
+              and len(d_hist) == 1 and all(math.isfinite(v) and v > 0 for v in d_hist)
+              and t3.disc.config.input_size == CLI_HR)
+    log(f"  SSIM term in stage 2's loss: {ssim_in}; stage 3 trained the GAN (D at "
+        f"{t3.disc.config.input_size}, d_loss history {d_hist}): {gan_ok}; files {files}")
+    if not (ssim_in and gan_ok):
+        raise AssertionError("stage 2 lacks its SSIM term or stage 3 did not train the GAN")
 
     # controls
     bad = tmp / "bad"
@@ -989,6 +1020,241 @@ def eval_phase(dev, card: str, tmp: Path) -> int:
     return runs["bf16"][3]
 
 
+# phase 10: the stage-3 GAN step at the production size (batch 48, HR 256;
+# the discriminator at 256 with 64 base channels), warm-up and timed steps
+GAN_BATCH, GAN_HR, GAN_D_BASE, GAN_WARMUP, GAN_TIMED = 48, 256, 64, 2, 6
+
+
+def gan_step_fn(dev):
+    """Stage 3's GAN step at the production width, the YAML's values written
+    out: FaceEnhanceNet 6x10x64 (remat save_ca, conv_last redrawn
+    non-zero), f32, L1 0.01 + perceptual 1.0 at conv3_4, vanilla GAN
+    0.005, G AdamW lr 1e-5 wd 0 clip 0.5, D AdamW lr 1e-4 wd 0 (no clip),
+    one D update a step. Returns (state, step, loss)."""
+    from facesr_torch.losses.combined import CombinedLoss, LossConfig
+    from facesr_torch.models.discriminator import create_discriminator
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.ops.init import kaiming_normal
+    from facesr_torch.training import steps
+    from facesr_torch.training.optim import AdamW
+
+    model = FaceEnhanceNet(production_config().replace(remat="save_ca"), seed=0, device="cpu")
+    with torch.no_grad():
+        model.conv_last.weight.copy_(kaiming_normal(model.conv_last.weight.shape,
+                                                    torch.Generator().manual_seed(1), scale=0.1))
+    model.to(dev)
+    disc = create_discriminator(input_size=GAN_HR, base_channels=GAN_D_BASE, use_bn=True,
+                                seed=0, device=dev)
+    loss = CombinedLoss(LossConfig(l1_weight=0.01, perceptual_weight=1.0, ssim_weight=0.0,
+                                   perceptual_layers=["conv3_4"]), seed=0, device=dev)
+    opt, d_opt = AdamW(weight_decay=0.0, gradient_clip=0.5), AdamW(weight_decay=0.0,
+                                                                   gradient_clip=0.0)
+    state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-5),
+                             loss_params=loss.params, disc=disc,
+                             d_opt_state=d_opt.init(dict(disc.named_parameters()), 1e-4))
+    step = steps.make_gan_train_step(lambda lp, p, t: loss.apply(lp, p, t, vgg_remat=False),
+                                     opt, d_opt, gan_weight=0.005, gan_type="vanilla")
+    return state, step, loss
+
+
+def disc_work_flops(n, size, base):
+    """Operations of one discriminator forward on n images: its 10 convs
+    and 2 dense layers (2 per multiply-add)."""
+    from facesr_torch.models.discriminator import _BLOCKS
+
+    flops, cin, s = 0.0, 3, size
+    for mult, stride, _ in _BLOCKS:
+        s = (s + 1) // 2 if stride == 2 else s
+        flops += 2.0 * n * s * s * 9 * cin * base * mult
+        cin = base * mult
+    flops += 2.0 * n * (cin * s * s * 1024 + 1024)
+    return flops
+
+
+def gan_trainer_phase(dev):
+    """`Trainer.train()` with the GAN on the production model: 2 epochs of 2
+    batches, the GAN from epoch 1; a full resume and a content checkpoint
+    resumed into a GAN trainer."""
+    from facesr_torch.models.discriminator import create_discriminator
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.training.trainer import Trainer, TrainerConfig
+
+    train = [{"hr": smooth_hr(TRAINER_BATCH, GAN_HR, seed=60 + i, dev="cpu").numpy()}
+             for i in range(2)]
+    val = [{"hr": smooth_hr(TRAINER_BATCH, GAN_HR, seed=70, dev="cpu").numpy()}]
+
+    def trainer(ckpt_dir, epochs, seed, gan=True):
+        cfg = TrainerConfig(epochs=epochs, learning_rate=1e-5, weight_decay=0.0,
+                            gradient_clip=0.5, use_amp=False, scheduler_type="step",
+                            scheduler_step_size=20, scheduler_gamma=1.0, save_every=1,
+                            checkpoint_dir=ckpt_dir, early_stopping_metric="val_loss",
+                            early_stopping_mode="min", gan_weight=0.005 if gan else 0.0,
+                            d_learning_rate=1e-4, gan_start_epoch=1)
+        loss = stage1_loss("cpu")
+        model = FaceEnhanceNet(production_config(), seed=seed, device="cpu")
+        disc = (create_discriminator(input_size=GAN_HR, base_channels=GAN_D_BASE, seed=seed,
+                                     device="cpu") if gan else None)
+        return Trainer(model, train, val, loss, cfg, device=dev, discriminator=disc)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        return torch.equal(a, b)
+
+    with tempfile.TemporaryDirectory(prefix="facesr_torch_gan_") as d:
+        tr = trainer(d, epochs=2, seed=0)
+        t0 = time.perf_counter()
+        history = tr.train()
+        train_s = time.perf_counter() - t0
+        log(f"  Trainer.train() with the GAN from epoch 1: 2 epochs x 2 batches of "
+            f"{TRAINER_BATCH} + 1 validation batch in {train_s:.2f} s; history "
+            f"{json.dumps(history)}")
+        gan_keys = ("d_loss", "g_loss", "d_real", "d_fake")
+        aligned = all(len(history[k]) == 2 and history[k][0] == 0.0 and history[k][1] != 0.0
+                      and math.isfinite(history[k][1]) for k in gan_keys)
+        if not aligned or tr.global_step != 4:
+            raise AssertionError("the GAN history is not 0.0 then the GAN step's, or the "
+                                 f"step count is {tr.global_step}")
+        resumed = trainer(d, epochs=3, seed=1)
+        resumed.load_checkpoint(str(Path(d) / "final_model.pth"))
+        full = (same(resumed.model.state_dict(), tr.model.state_dict())
+                and same(resumed.disc.state_dict(), tr.disc.state_dict())
+                and same(resumed.state.opt_state, tr.state.opt_state)
+                and same(resumed.state.d_opt_state, tr.state.d_opt_state)
+                and resumed.current_epoch == 2 and resumed.training_history == history)
+        c = Path(d) / "content"
+        content = trainer(str(c), epochs=1, seed=2, gan=False)
+        content.train()
+        into = trainer(str(Path(d) / "into"), epochs=2, seed=3)
+        fresh_d = {k: v.clone() for k, v in into.disc.state_dict().items()}
+        into.load_checkpoint(str(c / "final_model.pth"))
+        backfilled = (same(into.model.state_dict(), content.model.state_dict())
+                      and same(into.disc.state_dict(), fresh_d)
+                      and all(into.training_history.get(k) == [] for k in gan_keys))
+        log(f"  full resume: G, D (params and BatchNorm stats), both optimisers bitwise "
+            f"equal, epoch 2, history equal: {full}; a content checkpoint resumed into a GAN "
+            f"trainer: G restored, D fresh, GAN history backfilled: {backfilled}")
+        if not (full and backfilled):
+            raise AssertionError("a GAN checkpoint did not round-trip")
+
+
+def gan_phase(dev, card: str) -> None:
+    """Phase 10: GAN training (stage 3) on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from facesr_torch.cli.step_numerics import gan_step_errors, small_gan_step
+    from facesr_torch.losses.gan import gan_loss
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.ops.conv import full_f32
+    from facesr_torch.ops.resize import bicubic_down
+
+    log(f"== 10. GAN training (stage 3, f32, TF32 off): CUDA step vs CPU step, relative L2 "
+        f"<= {STEP_RTOL} for the losses and each tensor of the G and D gradients, the "
+        f"updated parameters and the BatchNorm running stats [{card}]")
+    t_phase = time.perf_counter()
+    cpu = small_gan_step("cpu")
+    errs = gan_step_errors(small_gan_step(dev), cpu)
+    log(f"  G=2 B=2 C=16, D at 64 (8 base channels, BN), batch 4, smooth loss + 0.005 GAN: "
+        f"d_loss {cpu['losses']['d_loss'].item():.6g}, g_adv {cpu['losses']['g_adv'].item():.6g}; "
+        f"worst relative L2 by part {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+    if max(errs.values()) > STEP_RTOL:
+        raise AssertionError(f"the CUDA GAN step disagrees with the CPU step: {errs}")
+    tf32 = gan_step_errors(small_gan_step(dev, tf32_forced=True), cpu)
+    log(f"  control, TF32 forced for cuDNN and cuBLAS around the same CUDA step: "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in tf32.items()})} -> "
+        f"{'rejected' if max(tf32.values()) > STEP_RTOL else 'within'}")
+    if max(tf32.values()) <= STEP_RTOL:
+        raise AssertionError("the GAN step tolerance cannot see TF32")
+
+    n = GAN_BATCH
+    cfg = production_config()
+    log(f"  production GAN step: {cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels} f32 "
+        f"remat save_ca, batch {n} HR {GAN_HR}x{GAN_HR}, L1 0.01 + VGG19 conv3_4 1.0 + vanilla "
+        f"GAN 0.005, D {GAN_D_BASE} channels with BN at {GAN_HR}, G AdamW lr 1e-5 clip 0.5, "
+        "D AdamW lr 1e-4, one repeated batch")
+    state, step, loss = gan_step_fn(dev)
+    hr = smooth_hr(n, GAN_HR, seed=9, dev=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rg.fused_residual_group.launches = 0  # just before the GAN path
+    rows, times = [], []
+    for i in range(GAN_WARMUP + GAN_TIMED):
+        t0 = time.perf_counter()
+        _, metrics = step(state, hr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append({k: metrics[k] for k in ("loss", "g_adv", "d_loss", "d_real", "d_fake")})
+    launches = rg.fused_residual_group.launches  # just after
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = [{k: v.item() for k, v in r.items()} for r in rows]
+    ms = statistics.median(times[GAN_WARMUP:]) * 1e3
+    log(f"  metrics by step {json.dumps([{k: round(v, 6) for k, v in r.items()} for r in rows])}")
+    log(f"  step time median of {GAN_TIMED}: {ms:.3f} ms/step = {n / ms * 1e3:.2f} images/s; "
+        f"all {len(times)}: {['%.1f' % (t * 1e3) for t in times]} ms; peak device memory "
+        f"{peak_gib:.3f} GiB; group-kernel launches {launches} [{card}]")
+    if not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"GAN losses not finite: {rows}")
+    if launches != 0:
+        raise AssertionError(f"the GAN step launched the forward-only group kernel "
+                             f"{launches} times")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, hr)
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+    total_us = sum(dev_us(e) for e in events)
+    port_kernels = [e.key for e in events if "rcab_group" in e.key]
+    g_flops = train_step_conv_flops(state.model.config, n, GAN_HR)
+    # the D update: forwards on hr and sr, backward to inputs and weights
+    # (the input gradient of the first conv is skipped); the G head: one
+    # forward on sr and its backward to the input only
+    d_fwd = disc_work_flops(n, GAN_HR, GAN_D_BASE)
+    d_flops = 2 * 3 * d_fwd + 2 * d_fwd
+    log(f"  profiler, one production GAN step: {total_us / 1e3:.3f} ms device time, "
+        f"{len(events)} device op kinds, port kernels {port_kernels}; work: G content step "
+        f"3x3 convs {g_flops / 1e12:.3f} TFLOP + D {d_flops / 1e12:.3f} TFLOP = "
+        f"{(g_flops + d_flops) / max(total_us, 1) / 1e6:.2f} TFLOP/s over the device time, "
+        f"{(g_flops + d_flops) / max(total_us, 1) * 1e6 / F32_PEAK_FLOPS * 100:.1f}% of the f32 "
+        f"peak [{card}]")
+    for e in sorted(events, key=lambda e: -dev_us(e))[:15]:
+        log(f"    {dev_us(e) / max(total_us, 1) * 100:6.2f}%  {dev_us(e) / 1e3:9.3f} ms"
+            f"  x{e.count:<5} {e.key[:90]}")
+    if port_kernels:
+        raise AssertionError(f"the GAN step ran a kernel of the port: {port_kernels}")
+
+    # the discriminator's two parts, each forward + backward alone
+    disc = state.disc
+    d_params = list(disc.parameters())
+    with torch.no_grad():
+        sr = state.model(bicubic_down(hr, 4), train=True)
+    sr_g = sr.clone().requires_grad_(True)
+
+    def d_update_part():
+        with full_f32():
+            d_loss = (gan_loss(disc(hr, train=True), True) + gan_loss(disc(sr, train=True), False)) / 2
+            torch.autograd.grad(d_loss, d_params)
+
+    def g_head_part():
+        with full_f32():
+            torch.autograd.grad(gan_loss(disc(sr_g, train=True), True), sr_g)
+
+    stats = {k: v.clone() for k, v in disc.named_buffers()}
+    d_ms = cuda_ms(d_update_part, iters=3, warmup=1)
+    head_ms = cuda_ms(g_head_part, iters=3, warmup=1)
+    disc.load_stats(stats)
+    log(f"  alone, forward + backward: the D update (D on hr and sr, gradients of D's "
+        f"weights) {d_ms:.3f} ms = {d_ms / ms * 100:.1f}% of the step; the G head's D "
+        f"(forward on sr, gradient of sr) {head_ms:.3f} ms = {head_ms / ms * 100:.1f}%; D's "
+        f"work {d_flops / 1e12:.3f} TFLOP in {d_ms + head_ms:.3f} ms = "
+        f"{d_flops / (d_ms + head_ms) / 1e9:.2f} TFLOP/s [{card}]")
+    del state, step, loss, hr, sr, sr_g, disc, d_params
+    torch.cuda.empty_cache()
+    gan_trainer_phase(dev)
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1243,6 +1509,7 @@ def main() -> int:
         cli_phase(card, step_alone_ms, Path(tmp))
         eval_launches = eval_phase(dev, card, Path(tmp))
     launches["fused_residual_group"] += eval_launches  # phase 5's and phase 9's main paths
+    gan_phase(dev, card)
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

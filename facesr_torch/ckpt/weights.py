@@ -10,6 +10,10 @@
 - `lpips_params_from_jax`, `inception_params_from_jax`: the evaluation
   networks' weights as the JAX package and its ``.fckpt`` files hold
   them (HWIO) -> the port's (OIHW); the weight loaders use them too.
+- `discriminator_state_dict_from_jax`: the JAX discriminator's ``(params,
+  batch_stats)`` -> the port's `Discriminator` state dict (conv HWIO ->
+  OIHW, dense [in, out] -> [out, in], gamma/beta and the running stats
+  under the BatchNorm names).
 - `load_reference_pth`: a reference-format ``{'model_state_dict',
   'config'}`` checkpoint -> a `FaceEnhanceNet`, loaded with ``strict=True``.
 """
@@ -26,7 +30,8 @@ from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
 
 __all__ = ["state_dict_from_jax_params", "vgg_params_from_jax", "lpips_params_from_jax",
-           "inception_params_from_jax", "load_reference_pth"]
+           "inception_params_from_jax", "discriminator_state_dict_from_jax",
+           "load_reference_pth"]
 
 
 def _oihw(a) -> torch.Tensor:
@@ -93,6 +98,28 @@ def inception_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Dict[str, torch
     "scale", "bias"}}``, BatchNorm folded) -> this port's (``w`` OIHW)."""
     return {name: {"w": _oihw(p["w"]), "scale": _t(p["scale"]), "bias": _t(p["bias"])}
             for name, p in tree.items()}
+
+
+def discriminator_state_dict_from_jax(params: Dict[str, Any],
+                                      batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX discriminator's params and BatchNorm stats (numpy leaves; a
+    block without BatchNorm has a conv bias ``b`` and empty stats ``{}``)
+    -> this port's `Discriminator` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, (block, stat) in enumerate(zip(params["blocks"], batch_stats["blocks"])):
+        pre = f"blocks.{i}"
+        sd[f"{pre}.conv.weight"] = _oihw(block["w"])
+        if "b" in block:
+            sd[f"{pre}.conv.bias"] = _t(block["b"])
+        if "gamma" in block:
+            sd[f"{pre}.bn.weight"] = _t(block["gamma"])
+            sd[f"{pre}.bn.bias"] = _t(block["beta"])
+            sd[f"{pre}.bn.running_mean"] = _t(stat["mean"])
+            sd[f"{pre}.bn.running_var"] = _t(stat["var"])
+    for fc in ("fc1", "fc2"):
+        sd[f"{fc}.weight"] = _t(np.asarray(params[f"{fc}_w"]).T)
+        sd[f"{fc}.bias"] = _t(params[f"{fc}_b"])
+    return sd
 
 
 def load_reference_pth(path: str, device: DeviceLike = None) -> FaceEnhanceNet:

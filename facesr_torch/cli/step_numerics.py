@@ -9,8 +9,8 @@ row is the relative L2 error (||a - b|| / ||b||) of the loss and the
 worst one over the tensors of the gradients and of the updated params:
 
 - ``device``: the step on ``--device`` against the CPU step;
-- ``TF32 forced``: the same with cuDNN TF32 allowed and `full_f32`
-  bypassed (the control `chip_smoke.py` must reject);
+- ``TF32 forced``: the same with cuDNN and cuBLAS TF32 allowed and
+  `full_f32` bypassed (the control `chip_smoke.py` must reject);
 - ``cuDNN off``: the device step with cuDNN disabled;
 - ``weights * (1 + 1e-7 noise), CPU``: the CPU step after moving every
   weight by f32-rounding-sized noise, i.e. how well conditioned the
@@ -52,8 +52,8 @@ from facesr_torch.ops.resize import bicubic_up
 from facesr_torch.training import steps
 from facesr_torch.training.optim import AdamW
 
-__all__ = ["stage1_loss_apply", "smooth_loss_apply", "small_step", "step_errors", "rel_l2",
-           "sign_flips", "pinned_sign_loss_apply"]
+__all__ = ["stage1_loss_apply", "smooth_loss_apply", "small_step", "small_gan_step",
+           "step_errors", "gan_step_errors", "rel_l2", "sign_flips", "pinned_sign_loss_apply"]
 
 StepResult = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -105,12 +105,29 @@ def _small_hr() -> torch.Tensor:
     return bicubic_up(torch.from_numpy(lo), 4).clamp(0.0, 1.0).contiguous()
 
 
+@contextlib.contextmanager
+def _tf32_forced():
+    """cuDNN convs and cuBLAS matmuls allowed TF32, and `full_f32` bypassed
+    wherever a step reaches it."""
+    plain = contextlib.nullcontext
+    with contextlib.ExitStack() as stack:
+        for where in ("facesr_torch.ops.conv", "facesr_torch.training.steps",
+                      "facesr_torch.models.discriminator"):
+            stack.enter_context(mock.patch(f"{where}.full_f32", plain))
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool = False,
                weight_noise: float = 0.0) -> StepResult:
     """One train step of the small model on ``dev``; returns (loss, grads,
-    updated params) on the CPU. ``tf32_forced`` lets cuDNN use TF32 and
-    bypasses `full_f32`; ``weight_noise`` multiplies every weight by
-    (1 + weight_noise * N(0, 1)) first."""
+    updated params) on the CPU. ``tf32_forced`` lets cuDNN and cuBLAS use
+    TF32 and bypasses `full_f32`; ``weight_noise`` multiplies every weight
+    by (1 + weight_noise * N(0, 1)) first."""
     model = _small_model(weight_noise).to(dev)
     loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
                                    perceptual_layers=["conv3_4"]), seed=0, device=dev)
@@ -119,17 +136,55 @@ def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool 
                              loss_params=loss.params)
     step = steps.make_train_step(loss_apply, opt)
     hr = _small_hr().to(dev)
-    with contextlib.ExitStack() as stack:
-        if tf32_forced:
-            plain = contextlib.nullcontext
-            stack.enter_context(mock.patch("facesr_torch.ops.conv.full_f32", plain))
-            stack.enter_context(mock.patch("facesr_torch.training.steps.full_f32", plain))
-            saved = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = True
-            stack.callback(setattr, torch.backends.cudnn, "allow_tf32", saved)
+    with _tf32_forced() if tf32_forced else contextlib.nullcontext():
         _, metrics = step(state, hr)
     params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     return metrics["loss"].cpu(), opt.grads, params
+
+
+GAN_BATCH, GAN_HR, GAN_D_BASE = 4, 64, 8
+
+
+def small_gan_step(dev, tf32_forced: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One GAN step (`make_gan_train_step`) of the small model (G=2, B=2,
+    C=16) and a discriminator at 64 with 8 base channels and BatchNorm, on
+    a batch of 4 smooth HR 64x64 images, the smooth loss + 0.005 vanilla
+    GAN, AdamW for G (clip 0.5, lr 1e-4) and D (lr 1e-4); returns on the
+    CPU {"losses", "g_grads", "d_grads", "g_params", "d_params", "d_stats"}.
+    ``tf32_forced`` lets cuDNN and cuBLAS use TF32 and bypasses
+    `full_f32`."""
+    from facesr_torch.models.discriminator import create_discriminator
+
+    model = _small_model().to(dev)
+    disc = create_discriminator(input_size=GAN_HR, base_channels=GAN_D_BASE, seed=0,
+                                device=dev)
+    loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
+                                   perceptual_layers=["conv3_4"]), seed=0, device=dev)
+    opt, d_opt = _Recording(weight_decay=0.0, gradient_clip=0.5), _Recording(gradient_clip=0.0,
+                                                                             weight_decay=0.0)
+    state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
+                             loss_params=loss.params, disc=disc,
+                             d_opt_state=d_opt.init(dict(disc.named_parameters()), 1e-4))
+    step = steps.make_gan_train_step(smooth_loss_apply, opt, d_opt, gan_weight=0.005)
+    lo = np.random.default_rng(7).random((GAN_BATCH, 8, 8, 3), dtype=np.float32)
+    hr = bicubic_up(torch.from_numpy(lo), GAN_HR // 8).clamp(0.0, 1.0).contiguous().to(dev)
+    with _tf32_forced() if tf32_forced else contextlib.nullcontext():
+        _, metrics = step(state, hr)
+
+    def host(named):
+        return {k: v.detach().cpu().clone() for k, v in named}
+
+    return {"losses": {k: v.cpu() for k, v in metrics.items()}, "g_grads": opt.grads,
+            "d_grads": d_opt.grads, "g_params": host(model.named_parameters()),
+            "d_params": host(disc.named_parameters()), "d_stats": host(disc.named_buffers())}
+
+
+def gan_step_errors(got: Dict[str, Dict[str, torch.Tensor]],
+                    want: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """The worst relative L2 error over the tensors of each part of two
+    `small_gan_step` results."""
+    return {part: max(rel_l2(got[part][k], want[part][k]) for k in want[part])
+            for part in want}
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:

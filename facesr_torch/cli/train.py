@@ -3,6 +3,7 @@
 
     python -m facesr_torch.cli.train --config configs/stages/stage1_psnr_config.yaml
     python -m facesr_torch.cli.train --config configs/stages/stage2_ssim_config.yaml
+    python -m facesr_torch.cli.train --config configs/stages/stage3_gan_config.yaml
 
 CLI flags override the YAML, which overrides the coded defaults. It trains
 on one CUDA card unless ``--device cpu`` is given, and raises when there
@@ -16,8 +17,13 @@ exists it is read (weights only); when it does not and ``best_model.pth``,
 the port's file, lies beside it, that is loaded and both names are
 printed.
 
+A ``loss.gan.weight > 0`` (stage 3) trains with the VGG-style
+discriminator sized for the training HR crop (``hr_patch_size``), with
+``loss.gan``'s ``d_channels`` and ``d_use_bn``; the other ``loss.gan``
+fields set the adversarial term and D's optimiser.
+
 What is not ported raises and names its ROADMAP item: the transfer and
-ESRGAN models (A.12), a GAN loss weight (A.9), QAT and ``--qat-scales``
+ESRGAN models (A.12), QAT and ``--qat-scales``
 (A.10), mesh axes other than ``data``, ``--mesh-shape``,
 ``pp_microbatches`` and ``--print-memory`` (A.13), the gradient monitor
 (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
@@ -78,8 +84,6 @@ def resolve_chain_path(path: str) -> str:
 def _refuse_unported(args, config: dict) -> None:
     training = config.get("training", {})
     logging_config = config.get("logging", {})
-    if config.get("loss", {}).get("gan", {}).get("weight", 0.0) > 0:
-        raise NotPorted("loss.gan.weight > 0: the GAN stage is not ported yet (ROADMAP A.9)")
     if training.get("qat", False) or args.qat_scales:
         raise NotPorted("training.qat / --qat-scales: QAT is not ported yet (ROADMAP A.10)")
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
@@ -282,6 +286,8 @@ def run(argv: Optional[List[str]] = None):
     scheduler_config = training_config.get("scheduler", {})
     wandb_config = logging_config.get("wandb", {})
     console_config = logging_config.get("console", {})
+    gan_config = loss_config.get("gan", {})
+    gan_weight = gan_config.get("weight", 0.0)
     if not args.no_wandb and wandb_config.get("enabled", False):
         print("W&B: logging.wandb.enabled is set, but W&B is not ported (ROADMAP A.14); "
               "it stays off")
@@ -311,8 +317,30 @@ def run(argv: Optional[List[str]] = None):
         step_log_every=console_config.get("step_log_every", 24),
         scale_factor=data_config.get("scale_factor", 4),
         skip_nonfinite_updates=training_config.get("skip_nonfinite_updates", 0),
+        gan_weight=gan_weight,
+        gan_type=gan_config.get("type", "vanilla"),
+        d_learning_rate=gan_config.get("d_lr", 1e-4),
+        d_weight_decay=gan_config.get("d_weight_decay", 0.0),
+        d_updates_per_g=gan_config.get("d_updates_per_g", 1),
+        gan_start_epoch=gan_config.get("start_epoch", 0),
     )
-    trainer = Trainer(model, train_loader, val_loader, loss_fn, trainer_config, device=device)
+
+    discriminator = None
+    if gan_weight > 0:
+        from facesr_torch.models.discriminator import create_discriminator
+
+        print("\nGAN Training Configuration:")
+        print(f"  GAN weight: {gan_weight}, type: {trainer_config.gan_type}")
+        print(f"  D LR: {trainer_config.d_learning_rate}, "
+              f"D updates/G: {trainer_config.d_updates_per_g}")
+        # D sees the training HR crops: size it for them
+        hr_patch = config.get("augmentation", {}).get("random_crop", {}).get("hr_patch_size", 128)
+        discriminator = create_discriminator(input_size=hr_patch,
+                                             base_channels=gan_config.get("d_channels", 64),
+                                             use_bn=gan_config.get("d_use_bn", True),
+                                             device="cpu")
+    trainer = Trainer(model, train_loader, val_loader, loss_fn, trainer_config, device=device,
+                      discriminator=discriminator)
 
     # --resume is a full resume (unless --fine-tune); a `resume:` path in the
     # stage YAML chains stages and loads weights only

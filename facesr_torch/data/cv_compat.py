@@ -10,17 +10,23 @@ evaluation CLIs call, in numpy, so the port needs no cv2:
 - `rgb_to_hsv` / `hsv_to_rgb`: ``cv2.cvtColor`` ``RGB2HSV`` /
   ``HSV2RGB`` on uint8 (the colour jitter; H in [0, 180)).
 
-Both follow the arithmetic of the OpenCV these were held against
-(5.0, x86-64): the resize's separable Keys kernel (a = -0.75) at
-half-pixel centres with a replicated border, positions and weights in
-f64 rounded to f32, an f32 horizontal then vertical pass and a
-round-half-even to uint8; RGB2HSV's integer division tables with 12-bit
-shifts; HSV2RGB through f32 H, S, V with ``1 - s*h`` fused (one
-rounding), truncated to uint8 in whole vectors of 32 pixels (its AVX2
-path) and rounded half to even in the rest of a row (its scalar tail).
-RGB2HSV and HSV2RGB match it on every input; the cubic resize matches it
-exactly at the x1/4 downscale and within 1 elsewhere (tests/
-test_torch_data.py and tests/test_torch_evaluation.py print the counts).
+These follow the arithmetic of the OpenCV they were held against (5.0,
+x86-64, with Intel IPP). Its uint8 ``INTER_CUBIC`` runs through IPP's
+float kernel (``cv2.ipp.setUseIPP(False)`` gives OpenCV's own 11-bit
+fixed-point path and other values): the Keys kernel (a = -0.75) at
+half-pixel centres with a replicated border, positions and weights in f64
+rounded to f32, an f32 horizontal pass that sums the four taps by a chain
+of fused multiply-adds, a vertical pass of two fused pairs ``fma(t0, w0,
+t1*w1) + fma(t2, w2, t3*w3)`` and a round-half-even to uint8. It matches
+cv2 on every case of the tests and at every x4/x2 upscale and x1/2, x1/4
+downscale tried; at other ratios about 1 value in 100,000 lands one
+level off, at sums within 1e-4 of a rounding midpoint, where IPP's
+weights evidently differ from these in the last f32 bit
+(tests/test_torch_data.py prints the counts). RGB2HSV's
+integer division tables with 12-bit shifts; HSV2RGB through f32 H, S, V
+with ``1 - s*h`` fused (one rounding), truncated to uint8 in whole vectors
+of 32 pixels (its AVX2 path) and rounded half to even in the rest of a
+row (its scalar tail). RGB2HSV and HSV2RGB match it on every input.
 
 The linear and Lanczos-4 resizes follow OpenCV's 8-bit fixed point:
 taps at f32 half-pixel positions, weights rounded to 11 bits
@@ -76,16 +82,25 @@ def resize_cubic(img: np.ndarray, size) -> np.ndarray:
     y0, wy = _taps(dh, h)
     cols = np.clip(x0[:, None] + np.arange(4), 0, w - 1)   # [dw, 4]
     g = src.astype(np.float32)[:, cols, :]                # [h, dw, 4, c]
+    # horizontal: a chain of fused multiply-adds over the taps in order
     buf = g[:, :, 0] * wx[None, :, 0, None]
     for k in (1, 2, 3):
-        buf = buf + g[:, :, k] * wx[None, :, k, None]
+        buf = _fma(g[:, :, k], wx[None, :, k, None], buf)
     rows = np.clip(y0[:, None] + np.arange(4), 0, h - 1)  # [dh, 4]
     t = buf[rows]                                         # [dh, 4, dw, c]
-    acc = t[:, 0] * wy[:, 0, None, None]
-    for k in (1, 2, 3):
-        acc = acc + t[:, k] * wy[:, k, None, None]
+    wy = wy[:, :, None, None]
+    # vertical: two fused pairs, then their sum
+    acc = (_fma(t[:, 0], wy[:, 0], t[:, 1] * wy[:, 1])
+           + _fma(t[:, 2], wy[:, 2], t[:, 3] * wy[:, 3]))
     out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
     return out[:, :, 0] if squeeze else out
+
+
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """``a * b + c`` of f32 arrays with one rounding to f32: the product is
+    exact in f64 and the sum is rounded twice only where it lies within
+    2^-53 of an f32 rounding midpoint."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
 
 
 _COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS

@@ -7,12 +7,16 @@ Port of `facesr/models/face_enhance_net.py`:
   conv_last (C -> 3, zero-init) -> + f32 global bicubic skip -> clamp at eval.
 
 ``forward`` takes and returns NHWC. The eval forward with
-``dtype=torch.bfloat16`` (serving) runs the trunk as `fused_residual_group`,
-one call per group: the Hopper kernel on a CUDA tensor, its plain version
-on a CPU tensor. Every other forward runs the plain trunk
-(`blocks.residual_groups`) in the compute dtype: ``dtype=None`` is f32, and
-``train=True`` always takes it, with the config's ``remat`` mode, because
-the kernel is forward-only (the JAX package trains through XLA too).
+``dtype=torch.bfloat16`` (serving) of a config the group kernel takes
+(`kernel_trunk_fits`: C = 64, 3x3 convs) runs the trunk as
+`fused_residual_group`, one call per group: the Hopper kernel on a CUDA
+tensor, its plain version on a CPU tensor. The choice is made once, from
+the config. Every other forward runs the plain trunk
+(`blocks.residual_groups`) in the compute dtype, as the JAX package's
+``apply`` does: ``dtype=None`` is f32, a bf16 model of another width or
+kernel size runs it in bf16, and ``train=True`` always takes it, with the
+config's ``remat`` mode, because the kernel is forward-only (the JAX
+package trains through XLA too).
 """
 
 from __future__ import annotations
@@ -26,11 +30,11 @@ from torch import nn
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models import blocks
 from facesr_torch.ops.conv import conv2d
-from facesr_torch.ops.rcab_group import (GroupWeights, fused_residual_group,
-                                         prepare_group_weights)
+from facesr_torch.ops.rcab_group import (KERNEL_CHANNELS, GroupWeights,
+                                         fused_residual_group, prepare_group_weights)
 from facesr_torch.ops.resize import bicubic_up
 
-__all__ = ["FaceEnhanceNetConfig", "FaceEnhanceNet", "param_count",
+__all__ = ["FaceEnhanceNetConfig", "FaceEnhanceNet", "kernel_trunk_fits", "param_count",
            "get_model_info"]
 
 
@@ -68,6 +72,15 @@ class FaceEnhanceNetConfig:
 TrunkFn = Callable[[nn.ModuleList, torch.Tensor], torch.Tensor]
 
 
+def kernel_trunk_fits(cfg: FaceEnhanceNetConfig) -> bool:
+    """Whether the group kernel takes this config's trunk: C =
+    `KERNEL_CHANNELS`, 3x3 convs and an SE width within 1..C (the checks
+    of `fused_residual_group` and of the kernel's entry)."""
+    c = cfg.num_channels
+    return (c == KERNEL_CHANNELS and cfg.kernel_size == 3
+            and 1 <= blocks.reduced_channels(c, cfg.reduction_ratio) <= c)
+
+
 class FaceEnhanceNet(nn.Module):
     """FaceEnhanceNet on NHWC tensors. Weights are drawn from a CPU
     `torch.Generator` seeded with ``seed`` (Kaiming fan_out/relu, PReLU
@@ -81,6 +94,8 @@ class FaceEnhanceNet(nn.Module):
         if kwargs:
             cfg = cfg.replace(**kwargs)
         self.config = cfg
+        # the bf16 eval trunk, chosen once from the config
+        self.kernel_trunk = kernel_trunk_fits(cfg)
         self._kernel_weights = None  # (key, per-group kernel-layout weights)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -108,8 +123,9 @@ class FaceEnhanceNet(nn.Module):
 
         ``trunk_fn(residual_groups, feat) -> feat`` overrides the trunk (the
         JAX ``trunk_fn`` hook). By default the eval forward in bf16 runs
-        the group kernel and every other forward the plain trunk, with
-        ``config.remat`` when ``train``."""
+        the group kernel where the config fits it (``self.kernel_trunk``)
+        and every other forward the plain trunk, with ``config.remat`` when
+        ``train``."""
         cfg = self.config
         pad = cfg.kernel_size // 2
         skip = bicubic_up(x.float(), cfg.scale_factor)
@@ -120,7 +136,7 @@ class FaceEnhanceNet(nn.Module):
         residual = feat
         if trunk_fn is not None:
             feat = trunk_fn(self.residual_groups, feat)
-        elif dtype == torch.bfloat16 and not train:
+        elif dtype == torch.bfloat16 and not train and self.kernel_trunk:
             feat = feat.contiguous()
             for gw in self.kernel_group_weights():
                 feat = fused_residual_group(feat, gw, cfg.res_scale)

@@ -7,7 +7,8 @@ result permutes back to contiguous NHWC. Weights are torch OIHW.
 
 Precision: the JAX package forces ``Precision.HIGHEST`` for f32 convs
 (reduced precision broke SSIM's E[x^2]-E[x]^2). cuDNN runs f32 convs in
-TF32 by default on Hopper, so f32 convs here run with TF32 off. The bf16
+TF32 by default on Hopper, so f32 convs here run with TF32 off (and f32
+matmuls, which cuBLAS runs in IEEE float32 unless a caller allows TF32). The bf16
 path is the explicit ``dtype=torch.bfloat16`` policy. cuDNN reads the flag
 when a conv runs, and autograd runs the backward convs after `conv2d` has
 returned, so a training step holds `full_f32()` around its backward too.
@@ -27,20 +28,23 @@ __all__ = ["conv2d", "prelu", "leaky_relu", "global_avg_pool", "full_f32"]
 
 _tf32_lock = threading.Lock()
 _tf32_users = 0
-_tf32_saved = True
+_tf32_saved = (True, False)
 
 
 @contextlib.contextmanager
 def full_f32() -> Iterator[None]:
-    """cuDNN float32 convs in IEEE float32, not TF32. The flag is
-    process-wide, so overlapping users (serving threads) are counted: the
-    first turns TF32 off and the last out restores the caller's setting.
-    f32 convs on other threads meanwhile only become more exact."""
+    """cuDNN float32 convs and cuBLAS float32 matmuls in IEEE float32, not
+    TF32. The flags are process-wide, so overlapping users (serving
+    threads) are counted: the first turns TF32 off and the last out
+    restores the caller's settings. f32 ops on other threads meanwhile only
+    become more exact."""
     global _tf32_users, _tf32_saved
     with _tf32_lock:
         if _tf32_users == 0:
-            _tf32_saved = torch.backends.cudnn.allow_tf32
+            _tf32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         _tf32_users += 1
     try:
         yield
@@ -48,7 +52,8 @@ def full_f32() -> Iterator[None]:
         with _tf32_lock:
             _tf32_users -= 1
             if _tf32_users == 0:
-                torch.backends.cudnn.allow_tf32 = _tf32_saved
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _tf32_saved
 
 
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]

@@ -1,11 +1,20 @@
-"""Single-card Trainer of the content path (port of
-`facesr/training/trainer.py`: TrainerConfig, EarlyStopping, Trainer).
+"""Single-card Trainer (port of `facesr/training/trainer.py`:
+TrainerConfig, EarlyStopping, Trainer), content and GAN training.
 
 Loaders are iterables of ``{'hr': NHWC float32 [0, 1]}`` batches (numpy
 or torch), the JAX Trainer's contract. Per epoch: the schedule's LR is
 written into the optimiser state, every batch runs one train step, the
 epoch's metrics come to the host in one read, validation runs the eval
 step, and checkpoints follow ``save_every`` / ``save_best``.
+
+With ``gan_weight > 0`` and a `Discriminator`, an epoch from
+``gan_start_epoch`` on runs the GAN step (`make_gan_train_step`), earlier
+ones the content step. D's optimiser is the port's AdamW without clipping,
+with ``d_weight_decay`` and the same non-finite guard as G's; its learning
+rate stays ``d_learning_rate`` (the epoch schedule writes G's only). The
+history then gains ``d_loss``, ``g_loss`` (the adversarial term),
+``d_real`` and ``d_fake``, appended every epoch (0.0 before the GAN
+starts) so they stay index-aligned with the others.
 
 Every ``step_log_every`` steps the loss is printed, the one host read
 between epochs; the epoch line adds the seconds the step loop waited on
@@ -18,13 +27,17 @@ load_reference_pth` and the JAX package's `facesr/ckpt/convert.py` read
 them; plus ``model_config``, ``trainer_config``, ``optimizer_state``,
 ``ema_state_dict``, ``step``, ``epoch``, ``global_step``, ``best_metric``,
 ``training_history``, ``scheduler_state``, ``model_type`` and
-``use_gan``. With ``async_checkpoint`` one writer thread writes them; the
-tensors are copied to the host before the step loop goes on.
+``use_gan``; a GAN trainer adds ``discriminator_state_dict`` (its
+parameters and BatchNorm running stats), ``discriminator_config`` and
+``d_optimizer_state``. With ``async_checkpoint`` one writer thread writes
+them; the tensors are copied to the host before the step loop goes on.
 `Trainer.load_checkpoint` also reads the JAX package's ``.fckpt`` files
-(told apart by content), weights only.
+(told apart by content), weights only. A full resume of a non-GAN
+checkpoint into a GAN trainer restores G and keeps the fresh D; a
+weights-only load always keeps the fresh D.
 
-Not in this slice: mesh axes, GAN, QAT, W&B, the validation image grid and
-the gradient monitor.
+Not in this slice: mesh axes, QAT, W&B, the validation image grid and the
+gradient monitor.
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.training import schedules
 from facesr_torch.training.optim import AdamW, set_learning_rate
 from facesr_torch.training.steps import (TrainState, init_ema, make_eval_step,
-                                         make_train_step)
+                                         make_gan_train_step, make_train_step)
 
 __all__ = ["TrainerConfig", "EarlyStopping", "Trainer", "REFERENCE_CONFIG_FIELDS",
            "overfit_test"]
@@ -61,11 +74,16 @@ REFERENCE_CONFIG_FIELDS = (
     "out_channels", "init_scale", "num_rcab_blocks",
 )
 HISTORY_KEYS = ("train_loss", "val_loss", "val_psnr", "val_ssim", "learning_rate")
+# a GAN trainer's history keys, and the epoch metric each one reads
+GAN_HISTORY_KEYS = {"d_loss": "d_loss", "g_loss": "g_adv", "d_real": "d_real",
+                    "d_fake": "d_fake"}
+# running counts of skipped steps: an epoch's value is its last step's
+COUNTERS = ("opt_notfinite", "d_opt_notfinite")
 
 
 @dataclass
 class TrainerConfig:
-    """The JAX TrainerConfig's fields of the single-card content path."""
+    """The JAX TrainerConfig's fields of single-card training."""
 
     epochs: int = 50
     learning_rate: float = 1e-4
@@ -104,6 +122,16 @@ class TrainerConfig:
     ema_decay: float = 0.0
     # consecutive non-finite steps the optimiser skips (0 = off)
     skip_nonfinite_updates: int = 0
+
+    # GAN (stage 3): the adversarial term's weight (0 = off), its loss, the
+    # discriminator's optimiser and updates a step, and the first epoch
+    # that runs the GAN step
+    gan_weight: float = 0.0
+    gan_type: str = "vanilla"
+    d_learning_rate: float = 1e-4
+    d_weight_decay: float = 0.0
+    d_updates_per_g: int = 1
+    gan_start_epoch: int = 0
 
 
 class EarlyStopping:
@@ -175,10 +203,13 @@ class Trainer:
         train_loader / val_loader: iterables of {'hr': NHWC float32 [0, 1]}.
         loss_fn: a `CombinedLoss` (moved to ``device``).
         device: CUDA unless the caller names one.
+        discriminator: a `Discriminator` (moved to ``device``), needed when
+            ``config.gan_weight > 0``.
     """
 
     def __init__(self, model, train_loader, val_loader, loss_fn,
-                 config: Optional[TrainerConfig] = None, device: DeviceLike = None):
+                 config: Optional[TrainerConfig] = None, device: DeviceLike = None,
+                 discriminator=None):
         self.config = cfg = config or TrainerConfig()
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -211,6 +242,29 @@ class Trainer:
         self._eval_step = make_eval_step(loss_apply_eval, scale_factor=cfg.scale_factor,
                                          use_ema=self.use_ema)
 
+        if cfg.gan_weight > 0 and discriminator is None:
+            # dropping the adversarial term would train a "GAN" stage as
+            # stage 1 with no trace of why
+            raise ValueError("gan_weight > 0 but no discriminator was provided: pass one "
+                             "from create_discriminator, or set gan_weight to 0")
+        self.use_gan = cfg.gan_weight > 0
+        self.disc = None
+        self._gan_step = None
+        if self.use_gan:
+            self.disc = self.state.disc = discriminator.to(self.device)
+            # no clipping; the same non-finite guard as G's
+            self.d_optimizer = AdamW(weight_decay=cfg.d_weight_decay, gradient_clip=0.0,
+                                     skip_nonfinite=cfg.skip_nonfinite_updates)
+            self.state.d_opt_state = self.d_optimizer.init(
+                dict(self.disc.named_parameters()), cfg.d_learning_rate)
+            self._gan_step = make_gan_train_step(
+                loss_apply, self.optimizer, self.d_optimizer, scale_factor=cfg.scale_factor,
+                gan_weight=cfg.gan_weight, gan_type=cfg.gan_type,
+                d_updates_per_g=cfg.d_updates_per_g, compute_dtype=self.compute_dtype,
+                ema_decay=cfg.ema_decay,
+                # the BN running stats sit outside the optimiser's guard
+                guard_stats=cfg.skip_nonfinite_updates > 0)
+
         self.plateau = (schedules.ReduceLROnPlateau(cfg.learning_rate)
                         if cfg.scheduler_type == "plateau" else None)
         self.early_stopping = EarlyStopping(patience=cfg.early_stopping_patience,
@@ -222,11 +276,14 @@ class Trainer:
         self.current_epoch = 0
         self.global_step = 0
         self.current_lr: Optional[float] = cfg.learning_rate
-        self.training_history: Dict[str, List] = {k: [] for k in HISTORY_KEYS}
+        self.training_history: Dict[str, List] = {k: [] for k in self._history_keys()}
         self._ckpt_pool: Optional[ThreadPoolExecutor] = None
         self._ckpt_futures: List[Future] = []
         self.last_step_times: List[float] = []
         self.last_train_metrics: Dict[str, float] = {}
+
+    def _history_keys(self) -> List[str]:
+        return list(HISTORY_KEYS) + (list(GAN_HISTORY_KEYS) if self.use_gan else [])
 
     # ------------------------------------------------------------------
     def _epoch_lr(self, epoch: int) -> float:
@@ -300,6 +357,8 @@ class Trainer:
         return self.training_history
 
     def _train_epoch(self) -> Dict[str, float]:
+        gan_active = self.use_gan and self.current_epoch >= self.config.gan_start_epoch
+        step_fn = self._gan_step if gan_active else self._train_step
         pending: List[Dict[str, torch.Tensor]] = []
         t0 = time.time()
         every = self.config.step_log_every
@@ -314,7 +373,7 @@ class Trainer:
             if batch is None:
                 break
             hr = self._batch_to_device(batch["hr"])
-            self.state, metrics = self._train_step(self.state, hr)
+            self.state, metrics = step_fn(self.state, hr)
             pending.append(metrics)
             self.global_step += 1
             dispatched.append(time.perf_counter())
@@ -331,9 +390,9 @@ class Trainer:
                   "happened.")
         rows = self._host_values(pending)  # the epoch's one host read
         out = {k: sum(r[k] for r in rows) / len(rows) for k in (rows[0] if rows else ())}
-        # a running count: the epoch's value is the last step's
-        if rows and "opt_notfinite" in rows[-1]:
-            out["opt_notfinite"] = rows[-1]["opt_notfinite"]
+        for k in COUNTERS:
+            if rows and k in rows[-1]:
+                out[k] = rows[-1][k]
         out["time_s"] = time.time() - t0
         out["loader_wait_s"] = loader_wait
         steady = self.last_step_times[1:] or self.last_step_times
@@ -362,12 +421,19 @@ class Trainer:
         h["val_psnr"].append(val_metrics["psnr"])
         h["val_ssim"].append(val_metrics["ssim"])
         h["learning_rate"].append(lr)
+        if self.use_gan:
+            for key, metric in GAN_HISTORY_KEYS.items():
+                h[key].append(train_metrics.get(metric, 0.0))
         print(f"\nEpoch {epoch + 1}/{self.config.epochs}")
         print(f"  Train Loss: {train_metrics['loss']:.4f}")
         print(f"  Val Loss:   {val_metrics['loss']:.4f}")
         print(f"  Val PSNR:   {val_metrics['psnr']:.2f} dB")
         print(f"  Val SSIM:   {val_metrics['ssim']:.4f}")
         print(f"  LR:         {lr:.2e}  ({train_metrics.get('time_s', 0):.1f}s)")
+        if "d_loss" in train_metrics:
+            print(f"  GAN:        D loss {train_metrics['d_loss']:.4f}, G adversarial "
+                  f"{train_metrics['g_adv']:.4f}, D(real) {train_metrics['d_real']:.3f}, "
+                  f"D(fake) {train_metrics['d_fake']:.3f}")
         print(f"  Steps:      {train_metrics.get('step_ms', 0):.1f} ms/step (median host "
               f"interval after the first), loader wait "
               f"{train_metrics.get('loader_wait_s', 0):.3f} s")
@@ -387,6 +453,11 @@ class Trainer:
     def _checkpoint_payload(self) -> Dict[str, Any]:
         """What a checkpoint file holds, every tensor copied to the host."""
         model_config = asdict(self.model_cfg)
+        gan = {}
+        if self.use_gan:
+            gan = {"discriminator_state_dict": _to_host(self.disc.state_dict()),
+                   "discriminator_config": asdict(self.disc.config),
+                   "d_optimizer_state": _to_host(self.state.d_opt_state)}
         return {
             "model_state_dict": _to_host(self.model.state_dict()),
             "config": {k: v for k, v in model_config.items()
@@ -402,7 +473,8 @@ class Trainer:
             "training_history": copy.deepcopy(self.training_history),
             "scheduler_state": self.plateau.state_dict() if self.plateau else None,
             "model_type": "custom",
-            "use_gan": False,
+            "use_gan": self.use_gan,
+            **gan,
         }
 
     def save_checkpoint(self, filename: str, is_best: bool = False) -> None:
@@ -492,6 +564,14 @@ class Trainer:
         else:
             self.state.ema_params = _to_device(ema, self.state.ema_params, self.device,
                                                "ema_state_dict")
+        if self.use_gan and ckpt.get("use_gan"):
+            with torch.no_grad():
+                self.disc.load_state_dict(ckpt["discriminator_state_dict"], strict=True)
+            self.state.d_opt_state = _to_device(ckpt["d_optimizer_state"],
+                                                self.state.d_opt_state, self.device,
+                                                "d_optimizer_state")
+        elif self.use_gan:
+            print("  Checkpoint has no discriminator state; D starts fresh")
         self.state.step = ckpt["step"]
         # the restored state carries the checkpoint's LR: mark ours unknown
         # so the first epoch writes the schedule's
@@ -500,7 +580,7 @@ class Trainer:
         self.global_step = ckpt["global_step"]
         self.best_metric = ckpt["best_metric"]
         self.training_history = ckpt["training_history"]
-        for k in HISTORY_KEYS:  # a checkpoint of another trainer may lack some
+        for k in self._history_keys():  # a checkpoint of another trainer may lack some
             self.training_history.setdefault(k, [])
         if self.plateau is not None and ckpt.get("scheduler_state"):
             self.plateau.load_state_dict(ckpt["scheduler_state"])

@@ -105,8 +105,7 @@ _CV2 = {"linear": cv2.INTER_LINEAR, "cubic": cv2.INTER_CUBIC,
 @pytest.mark.parametrize("interp", ["linear", "cubic", "lanczos4", "nearest"])
 def test_baseline_resizes_against_cv2(interp):
     """The baselines' 64->256 RGB upscale (and a few other sizes) against
-    cv2. Linear, Lanczos-4 and nearest are exact; the cubic copy differs
-    in a handful of values by 1 (its count is printed and bounded)."""
+    cv2: every copy is exact (the per-case counts are printed)."""
     rng = np.random.default_rng(11)
     counts = []
     for shape, size in (((64, 64, 3), (256, 256)), ((64, 64, 3), (256, 256)),
@@ -123,10 +122,7 @@ def test_baseline_resizes_against_cv2(interp):
         counts.append(int((diff > 0).sum()))
         assert diff.max() <= 1
     print(f"{interp}: values differing from cv2 per case {counts}")
-    if interp != "cubic":
-        assert sum(counts) == 0
-    else:  # 1 value in ~2e5 at 64->256 (tests/test_torch_data.py holds x1/4 exact)
-        assert counts[0] <= 4 and counts[1] <= 4
+    assert sum(counts) == 0
 
 
 def test_resize_rejects_what_it_cannot_do():

@@ -12,18 +12,21 @@ from facesr.models import face_enhance_net as fen
 from facesr.ops.pallas import rcab_group as jgroup
 from facesr_torch.ckpt.weights import load_reference_pth, state_dict_from_jax_params
 from facesr_torch.models import face_enhance_net as tfen
+from facesr_torch.ops import rcab_group as tgroup
 from facesr_torch.ops.rcab_group import prepare_group_weights
 from facesr_torch.ops.resize import bicubic_up
 
 torch.set_num_threads(1)
 
 G, B, C = 2, 2, 16
+KC = tgroup.KERNEL_CHANNELS  # the group kernel's width: the bf16 eval trunk's tests
 
 
-def _params(seed=0, zero_last=False):
+def _params(seed=0, zero_last=False, c=C, k=3):
     """JAX params (numpy leaves), every leaf perturbed off its init so biases,
     PReLU slopes and a non-zero conv_last all count."""
-    cfg = fen.FaceEnhanceNetConfig(num_channels=C, num_groups=G, blocks_per_group=B)
+    cfg = fen.FaceEnhanceNetConfig(num_channels=c, num_groups=G, blocks_per_group=B,
+                                   kernel_size=k)
     params = jax.tree.map(np.asarray, fen.init(jax.random.PRNGKey(seed), cfg))
     rng = np.random.default_rng(seed)
     params = jax.tree.map(
@@ -33,10 +36,10 @@ def _params(seed=0, zero_last=False):
     return cfg, params
 
 
-def _port(params):
+def _port(params, c=C, k=3):
     model = tfen.FaceEnhanceNet(
-        tfen.FaceEnhanceNetConfig(num_channels=C, num_groups=G, blocks_per_group=B),
-        device="cpu")
+        tfen.FaceEnhanceNetConfig(num_channels=c, num_groups=G, blocks_per_group=B,
+                                  kernel_size=k), device="cpu")
     model.load_state_dict(state_dict_from_jax_params(params), strict=True)
     return model
 
@@ -82,13 +85,13 @@ def _jax_kernel_trunk(res_scale):
 
 
 def test_bf16_forward_matches_jax_kernel_trunk():
-    cfg, params = _params(seed=4)
+    cfg, params = _params(seed=4, c=KC)
     x = _x(seed=5)
     want = np.asarray(fen.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x), cfg,
                                 dtype=jnp.bfloat16,
                                 trunk_fn=_jax_kernel_trunk(cfg.res_scale)))
     with torch.no_grad():
-        got = _port(params)(torch.from_numpy(x), dtype=torch.bfloat16)
+        got = _port(params, c=KC)(torch.from_numpy(x), dtype=torch.bfloat16)
     assert got.dtype == torch.float32
     # bf16 convs outside the trunk round in both frameworks, in other
     # accumulation orders; one bf16 ulp of a residual output near 0.5 is
@@ -98,9 +101,63 @@ def test_bf16_forward_matches_jax_kernel_trunk():
     assert err < 1e-2, err
 
 
+def _count_group_calls(monkeypatch):
+    """Calls of `fused_residual_group` made through the model module."""
+    calls = []
+    real = tfen.fused_residual_group
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tfen, "fused_residual_group", counted)
+    return calls
+
+
+@pytest.mark.parametrize("c,k", [(32, 3), (16, 5)])
+def test_bf16_eval_forward_of_a_config_off_the_kernel_matches_jax_apply(monkeypatch, c, k):
+    """C != 64 or k != 3: the bf16 eval forward takes the plain trunk in
+    bf16, as the JAX package's ``apply``, and never the group kernel. Both
+    round every conv, PReLU and SE op to bf16 in other summation orders, so
+    the outputs (in [0, 1]) sit some bf16 ulps of 0.5 (2e-3) apart: max abs
+    <= 3e-2, mean abs <= 3e-3 (measured over three seeds: max 1.1e-2-2.4e-2,
+    mean 1.0e-3-2.2e-3). And the port's bf16 output is nearer to JAX's bf16
+    output than JAX's f32 output is, in the mean (measured 0.68-0.77 of
+    it): an f32 trunk would not be."""
+    cfg, params = _params(seed=18, c=c, k=k)
+    x = _x(seed=19)
+    jparams, jx = jax.tree.map(jnp.asarray, params), jnp.asarray(x)
+    want = np.asarray(fen.apply(jparams, jx, cfg, dtype=jnp.bfloat16))
+    jax_f32 = np.asarray(fen.apply(jparams, jx, cfg))
+    model = _port(params, c=c, k=k)
+    assert not model.kernel_trunk
+    calls = _count_group_calls(monkeypatch)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), dtype=torch.bfloat16).numpy()
+    assert not calls
+    diff = np.abs(got - want)
+    print(f"C={c} k={k}: max abs {diff.max():.3g}, mean abs {diff.mean():.3g}; JAX bf16 vs "
+          f"f32 mean abs {np.abs(want - jax_f32).mean():.3g}")
+    assert got.shape == want.shape and diff.max() <= 3e-2 and diff.mean() <= 3e-3
+    assert diff.mean() < np.abs(want - jax_f32).mean()
+
+
+def test_bf16_eval_forward_of_a_64_channel_3x3_config_runs_the_group_kernel(monkeypatch):
+    cfg, params = _params(seed=20, c=KC)
+    model = _port(params, c=KC)
+    assert model.kernel_trunk
+    assert not tfen.kernel_trunk_fits(model.config.replace(reduction_ratio=0.5))
+    calls = _count_group_calls(monkeypatch)
+    with torch.no_grad():
+        model(torch.from_numpy(_x(seed=21)), dtype=torch.bfloat16)
+        assert len(calls) == G
+        model(torch.from_numpy(_x(seed=21)))  # f32: the plain trunk
+    assert len(calls) == G
+
+
 def test_kernel_weights_prepared_once_and_refreshed_on_change():
-    _, params = _params(seed=14)
-    model = _port(params)
+    _, params = _params(seed=14, c=KC)
+    model = _port(params, c=KC)
     x = torch.from_numpy(_x(seed=15))
     with torch.inference_mode():
         first = model(x, dtype=torch.bfloat16)
@@ -125,12 +182,12 @@ def test_kernel_weights_prepared_once_and_refreshed_on_change():
 
 
 def test_bf16_forward_of_a_model_built_in_inference_mode():
-    _, params = _params(seed=16)
+    _, params = _params(seed=16, c=KC)
     x = torch.from_numpy(_x(seed=17))
     with torch.no_grad():
-        want = _port(params)(x, dtype=torch.bfloat16)
+        want = _port(params, c=KC)(x, dtype=torch.bfloat16)
     with torch.inference_mode():
-        model = _port(params)  # inference-tensor parameters: no version counter
+        model = _port(params, c=KC)  # inference-tensor parameters: no version counter
         assert torch.equal(model(x, dtype=torch.bfloat16), want)
         with torch.no_grad():
             model.residual_groups[0].blocks[1].conv1.bias.add_(0.5)

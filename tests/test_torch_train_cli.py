@@ -1,6 +1,7 @@
 """The port's training CLI (`python -m facesr_torch.cli.train`) on the
-stage YAMLs cut to a tiny model (G=1, B=2, C=16, HR 32, batch 2) on the
-CPU: stage 1 then stage 2 with the `.fckpt` -> `.pth` name mapping,
+stage YAMLs cut to a tiny model (G=1, B=2, C=16, HR 32, batch 2; stage 3's
+discriminator at 8 base channels) on the CPU: stage 1 then stage 2 with
+the `.fckpt` -> `.pth` name mapping, stage 3 (GAN) chained from stage 2,
 chaining from a JAX-written `.fckpt`, the refusals of what is not ported,
 SIGTERM, and `overfit_test` against the JAX package's."""
 
@@ -41,7 +42,8 @@ CUTS = (("num_channels: 64", "num_channels: 16"), ("num_groups: 6", "num_groups:
 
 def _tiny_yaml(stage_file: str, dest: Path) -> Path:
     text = (STAGES / stage_file).read_text()
-    for old, new in CUTS:
+    cuts = CUTS + ((("d_channels: 64", "d_channels: 8"),) if "gan" in stage_file else ())
+    for old, new in cuts:
         assert old in text, old
         text = text.replace(old, new)
     path = dest / stage_file
@@ -66,7 +68,8 @@ def workdir(tmp_path, monkeypatch):
             if split == "val":
                 png.write_png(tmp_path / "data" / split / "LR" / f"{i:03d}.png",
                               resize_cubic(img, (8, 8)))
-    for stage in ("stage1_psnr_config.yaml", "stage2_ssim_config.yaml"):
+    for stage in ("stage1_psnr_config.yaml", "stage2_ssim_config.yaml",
+                  "stage3_gan_config.yaml"):
         _tiny_yaml(stage, tmp_path)
     monkeypatch.chdir(tmp_path)
     return tmp_path
@@ -160,9 +163,67 @@ def test_a_missing_chain_checkpoint_raises(workdir):
         _run("stage1_psnr_config.yaml", "--resume", "nowhere.pth")
 
 
+def test_stage3_chains_from_stage2_and_trains_the_gan(workdir, record_loads, capsys):
+    _run("stage1_psnr_config.yaml", "--epochs", "1")
+    _run("stage2_ssim_config.yaml", "--epochs", "1")
+    best2 = torch.load(workdir / "checkpoints" / "best_model.pth", map_location="cpu",
+                       weights_only=True)["model_state_dict"]
+    capsys.readouterr()
+    t3 = _run("stage3_gan_config.yaml", "--epochs", "1")
+    out = capsys.readouterr().out
+    assert "GAN Training Configuration:" in out and "GAN weight: 0.005, type: vanilla" in out
+    assert "D LR: 0.0001, D updates/G: 1" in out
+    assert "Chaining from stage checkpoint checkpoints/best_model.pth (weights only)" in out
+    path, loaded = record_loads[-1]
+    assert path == "checkpoints/best_model.pth"
+    assert set(loaded) == set(best2) and all(torch.equal(loaded[k], best2[k]) for k in best2)
+    h = t3.training_history
+    assert len(h["d_loss"]) == 1 and _finite(t3) and h["d_loss"][0] > 0
+    assert all(math.isfinite(v) and v != 0 for k in ("g_loss", "d_real", "d_fake")
+               for v in h[k])
+    assert t3.loss_fn.get_weights() == {"l1": 0.01, "perceptual": 1.0}
+    ckpt = torch.load(workdir / "checkpoints" / "final_model.pth", map_location="cpu",
+                      weights_only=True)
+    assert ckpt["use_gan"] is True and ckpt["discriminator_config"]["input_size"] == 32
+
+
+# edits of stage 3's loss.gan section and what they must set
+GAN_FIELDS = {
+    "unchanged": ((), dict(gan_weight=0.005, gan_type="vanilla", d_learning_rate=1e-4,
+                           d_weight_decay=0.0, d_updates_per_g=1, gan_start_epoch=0),
+                  dict(input_size=32, base_channels=8, use_bn=True)),
+    "edited": ((("type: vanilla", "type: lsgan"), ("d_updates_per_g: 1", "d_updates_per_g: 2"),
+                ("start_epoch: 0", "start_epoch: 3"), ("d_use_bn: true", "d_use_bn: false"),
+                ("d_weight_decay: 0.0", "d_weight_decay: 0.01"), ("d_lr: 0.0001", "d_lr: 0.0003"),
+                ("hr_patch_size: 32", "hr_patch_size: 64")),
+               dict(gan_weight=0.005, gan_type="lsgan", d_learning_rate=3e-4,
+                    d_weight_decay=0.01, d_updates_per_g=2, gan_start_epoch=3),
+               dict(input_size=64, base_channels=8, use_bn=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GAN_FIELDS))
+def test_stage3_gan_fields_reach_the_trainer_and_the_discriminator(workdir, case):
+    edits, want_cfg, want_disc = GAN_FIELDS[case]
+    text = (workdir / "stage3_gan_config.yaml").read_text()
+    for old, new in edits:
+        assert old in text, old
+        text = text.replace(old, new)
+    (workdir / "s3.yaml").write_text(text)
+    params = jax.tree.map(np.asarray, fen.init(jax.random.PRNGKey(5), SMALL))
+    (workdir / "checkpoints").mkdir()
+    jckpt.save_model(str(workdir / "checkpoints" / "best_model.fckpt"), params, SMALL)
+    trainer = _run("s3.yaml", "--epochs", "0")
+    for k, v in want_cfg.items():
+        assert getattr(trainer.config, k) == v, k
+    d = trainer.disc
+    assert {k: getattr(d.config, k) for k in want_disc} == want_disc
+    assert d.blocks[1].bn is None if not want_disc["use_bn"] else d.blocks[1].bn is not None
+    assert trainer.use_gan and int(trainer.state.d_opt_state["count"]) == 0
+
+
 # (config, flags, the ROADMAP item the refusal names)
 REFUSED = {
-    "gan": ("stage3_gan_config.yaml", [], "ROADMAP A.9"),
     "qat_scales": ("stage1_psnr_config.yaml", ["--qat-scales", "x.npz"], "ROADMAP A.10"),
     "mesh_axes": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,model"], "ROADMAP A.13"),
     "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-shape", "4,2"], "ROADMAP A.13"),
@@ -175,8 +236,6 @@ REFUSED = {
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
     config, flags, item = REFUSED[what]
-    if what == "gan":
-        _tiny_yaml(config, workdir)
     with pytest.raises(train_cli.NotPorted, match=item):
         _run(config, *flags)
 

@@ -147,10 +147,12 @@ def test_fused_residual_group_refuses_to_drop_a_gradient():
         tgroup.fused_residual_group(x, gw)
     with torch.no_grad():
         assert tgroup.fused_residual_group(x, gw).shape == x.shape
-    # an eval forward in bf16 with trainable weights is refused the same way
-    _, params = _params(seed=2)
+    # an eval forward in bf16 with trainable weights of a config the kernel
+    # takes (C = 64) is refused the same way
+    model = tfen.FaceEnhanceNet(tfen.FaceEnhanceNetConfig(
+        num_channels=tgroup.KERNEL_CHANNELS, num_groups=1, blocks_per_group=1), device="cpu")
     with pytest.raises(RuntimeError, match="forward-only"):
-        _port(params)(torch.from_numpy(_hr(3)[:, ::4, ::4]), dtype=torch.bfloat16)
+        model(torch.from_numpy(_hr(3)[:, ::4, ::4]), dtype=torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
