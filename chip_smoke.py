@@ -79,6 +79,30 @@ catches an error and goes on):
    content checkpoint resumed into a GAN trainer (a fresh D, the GAN
    history backfilled).
 
+11. the serving stack, the fifth path: `Predictor(bf16, max_batch=128)` on
+   one 130-image request (chunks of 128 and 2 at their true sizes, 12
+   launches), each chunk bitwise equal to the model's direct forward,
+   with its pinned upload and download times beside phase 6's;
+   `SpatialPredictor` at 1x256x256 (the group kernel's scratch variant)
+   and 1x96x96, bitwise equal to the direct forward, whose unclamped
+   output is held to phase 4's limits of the plain trunk, 6 launches a
+   call, its time and peak memory, and one group call at N=1 256x256
+   timed against the plain version, cuDNN (eager, and replayed from a
+   CUDA graph) and the bound; `export_serving` in bf16 with a symbolic
+   batch written as a ``.pt2``, loaded and run at batch 1 and 8, bitwise
+   equal to `Predictor` (the kernel through the custom op, 6 launches a
+   call); the HTTP API in this process on a ``.fckpt`` of the model
+   written by the port, three ways (``--dtype bf16``, with
+   ``--batch-window-ms 20 --max-batch 16``, and ``--exported``), each
+   driven by 16 keep-alive clients x 8 64x64 PNGs plus 4 256x256 PNGs:
+   every response exactly `Predictor`'s uint8 output on its LR at batch 1
+   (micro-batched: at its cohort's batch size, every cohort recorded by
+   the server and recomputed), launches = 6 x forwards,
+   requests/s, p50/p99 latency and the batching factor from ``/health``;
+   controls (an f32 server launches nothing, a JPEG body gets 400, ``--dtype
+   int8`` raises at startup); one request's host time split into PNG
+   decode, `prepare_inputs`, the forward and PNG encode.
+
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
 CUDA card it exits non-zero and prints no result.
@@ -86,6 +110,7 @@ CUDA card it exits non-zero and prints no result.
 
 import contextlib
 import ctypes
+import http.client
 import json
 import math
 import statistics
@@ -113,7 +138,7 @@ KERNEL_ATOL, KERNEL_RTOL = 2e-2, 2.0 ** -7
 MODEL_RTOL = 2.0 ** -5
 DEVICE = "cuda"
 MAX_BATCH = 128                   # serving chunk, the production batch
-REQUEST = 130                     # one full chunk plus a padded remainder
+REQUEST = 130                     # one full chunk and a remainder of 2
 GROUP_TIMING = (128, 64, 64, 64, 10)  # N, H, W, C, B of the timed group call
 # kernel vs plain: the production shape and a ragged one (bands of 2 and 3
 # rows), each at a batch where every cluster takes one image and at one
@@ -162,6 +187,32 @@ def cuda_ms(fn, iters, warmup=2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters) -> float:
+    """Mean device time of fn() in ms, replayed from one CUDA graph, so the
+    host's launch rate does not set it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def host_ms(fn, reps) -> float:
+    """Median host time of fn() in ms, each call ending in synchronize."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def seeded_group(B, seed):
@@ -1255,6 +1306,430 @@ def gan_phase(dev, card: str) -> None:
     log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# phase 11: the serving stack. A request of two chunks at MAX_BATCH (128
+# and 2); SpatialPredictor shapes (the first reaches the group kernel's
+# scratch variant) and its timed group call (N, H, W, C, B); the exported
+# artifact's batches; HTTP: keep-alive clients x 64x64 requests each, the
+# first HTTP_HR_CLIENTS clients adding one 256x256 request (the crop and
+# synthesise branch); distinct request images; host-split repetitions
+SERVE_REQUEST = 130
+SPATIAL_SHAPES = ((1, 256, 256, 3), (1, 96, 96, 3))
+SCRATCH_TIMING = (1, 256, 256, 64, 10)
+EXPORT_BATCHES = (1, 8)
+HTTP_CLIENTS, HTTP_REQUESTS, HTTP_HR_CLIENTS = 16, 8, 4
+HTTP_LR_IMAGES, HTTP_HR_IMAGES = 16, 4
+HTTP_TIMEOUT = 120  # seconds, every socket and join
+HTTP_WINDOW_MS, HTTP_MAX_BATCH = 20.0, 16
+SPLIT_REPS = 20
+
+
+def model_limits(model, x, dev):
+    """Phase 4's reference and limits on input ``x``: the plain trunk's
+    output (unclamped) and MODEL_RTOL times the max and mean of its
+    residual |out - bicubic|."""
+    from facesr_torch.ops.rcab_group import rcab_group_reference
+    from facesr_torch.ops.resize import bicubic_up
+
+    def trunk(groups, feat):
+        for g in groups:
+            feat = rcab_group_reference(feat, group_weights(g, dev), model.config.res_scale)
+        return feat
+
+    with torch.inference_mode():
+        out = model(x, train=True, dtype=torch.bfloat16, trunk_fn=trunk)
+        resid = (out - bicubic_up(x, 4)).abs()
+        return (out.float().cpu().numpy(), MODEL_RTOL * resid.max().item(),
+                MODEL_RTOL * resid.mean().item())
+
+
+def check_within(name, got, want, limit_max, limit_mean):
+    d = np.abs(got - want)
+    log(f"  {name}: bitwise equal {np.array_equal(got, want)}, max_abs={d.max():.6g} "
+        f"(limit {limit_max:.6g}) mean_abs={d.mean():.6g} (limit {limit_mean:.6g})")
+    if got.shape != want.shape or d.max() > limit_max or d.mean() > limit_mean:
+        raise AssertionError(f"{name} disagrees with its reference beyond phase 4's limits")
+
+
+def check_equal(name, got, want):
+    """Bitwise equality, where the same computation ran at the same shape."""
+    same = got.shape == want.shape and np.array_equal(got, want)
+    log(f"  {name}: bitwise equal {same}")
+    if not same:
+        d = np.abs(got.astype(np.float64) - want) if got.shape == want.shape else None
+        raise AssertionError(f"{name}: not bitwise equal (shapes {got.shape} {want.shape}, "
+                             f"max_abs {None if d is None else d.max()})")
+
+
+def smooth_u8(n, h, w, seed):
+    """Face-like smooth uint8 images (a coarse random field upsampled with
+    the port's cubic resize, plus noise)."""
+    from facesr_torch.data.cv_compat import resize_cubic
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        lo = (rng.random((6, 6, 3)) * 255).astype(np.uint8)
+        img = resize_cubic(lo, (w, h)).astype(int) + rng.integers(-10, 11, (h, w, 3))
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def drive_http(port, bodies, plan):
+    """Run ``plan`` (one list of body indices a client) from one keep-alive
+    ``http.client`` connection a client thread. Each client's first request
+    warms its connection's server thread (its CUDA library handles) and is
+    timed apart; the rest start together after a barrier. Returns (timed
+    wall s, timed latencies s, warm-up latencies s, [(body index, status,
+    data)] of every request, errors)."""
+    lat, warm, results, errors = [], [], [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(len(plan) + 1)
+    timing = {}
+
+    def client(indices):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+        try:
+            for k, i in enumerate(indices):
+                if k == 1:
+                    barrier.wait(timeout=HTTP_TIMEOUT)
+                t0 = time.perf_counter()
+                conn.request("POST", "/super-resolve", body=bodies[i])
+                resp = conn.getresponse()
+                data = resp.read()
+                with lock:
+                    (warm if k == 0 else lat).append(time.perf_counter() - t0)
+                    results.append((i, resp.status, data))
+        except Exception as e:  # noqa: BLE001 — reported and failed by the caller
+            with lock:
+                errors.append(repr(e))
+            barrier.abort()
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(p,)) for p in plan]
+    for t in threads:
+        t.start()
+    try:
+        barrier.wait(timeout=HTTP_TIMEOUT)
+        timing["t0"] = time.perf_counter()
+    except threading.BrokenBarrierError:
+        timing["t0"] = time.perf_counter()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT)
+    wall = time.perf_counter() - timing["t0"]
+    if any(t.is_alive() for t in threads):
+        errors.append("a client thread did not finish")
+    return wall, lat, warm, results, errors
+
+
+def http_get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> dict:
+    """Phase 11: the serving stack on the card. Returns the group-kernel
+    launches of its main paths and the scratch variant's timings."""
+    from facesr_torch.app import api
+    from facesr_torch.app.demo import prepare_inputs
+    from facesr_torch.ckpt import fckpt
+    from facesr_torch.ckpt.export import export_serving, input_shape, load_exported
+    from facesr_torch.data import png
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.parallel.serving import Predictor, SpatialPredictor, build_serving_fn
+
+    log(f"== 11. serving stack: Predictor, SpatialPredictor, torch.export, HTTP API "
+        f"(bitwise against the same computation; the unclamped forward within phase 4's "
+        f"limits, MODEL_RTOL={MODEL_RTOL} of the residual) [{card}]")
+    t_phase = time.perf_counter()
+    cfg = production_config()
+    per_fwd = cfg.num_groups
+    model = production_model(dev, nonzero_last=True)
+    launches = 0
+
+    def counted(fn):
+        """fn() with every kernel's count zeroed just before and read just
+        after; returns (result, launches)."""
+        nonlocal launches
+        rg.fused_residual_group.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = rg.fused_residual_group.launches
+        launches += n
+        return out, n
+
+    # 11a: Predictor, one request of two chunks at their true sizes
+    pred = Predictor(model, dtype=torch.bfloat16, max_batch=MAX_BATCH, device=dev)
+    request = np.random.default_rng(11).random((SERVE_REQUEST, 64, 64, 3), dtype=np.float32)
+    chunks = []
+    inner = pred._forward
+    pred._forward = lambda x: (chunks.append(x.shape[0]), inner(x))[1]
+    out, n = counted(lambda: pred(request))
+    pred._forward = inner
+    want_chunks = [min(MAX_BATCH, SERVE_REQUEST - s) for s in range(0, SERVE_REQUEST, MAX_BATCH)]
+    log(f"  Predictor(max_batch={MAX_BATCH}) on {SERVE_REQUEST} images: chunks {chunks}, "
+        f"{n} launches")
+    if chunks != want_chunks or n != per_fwd * len(want_chunks):
+        raise AssertionError(f"expected chunks {want_chunks} and {per_fwd * len(want_chunks)} "
+                             f"launches, got {chunks} and {n}")
+    fwd = build_serving_fn(model, torch.bfloat16)
+    for start, size in zip(np.cumsum([0] + want_chunks[:-1]), want_chunks):
+        x = torch.from_numpy(request[start:start + size]).to(dev)
+        check_equal(f"chunk of {size} vs the model's direct forward", out[start:start + size],
+                    fwd(x).float().cpu().numpy())
+    x128 = request[:MAX_BATCH]
+    xd = torch.from_numpy(x128).to(dev)
+    y = fwd(xd)
+    up_ms = host_ms(lambda: torch.from_numpy(x128).pin_memory().to(dev, non_blocking=True), 5)
+    down_ms = host_ms(lambda: torch.empty(y.shape, pin_memory=True).copy_(y), 5)
+    log(f"  Predictor at {MAX_BATCH}, numpy in and out: {pred_ms:.3f} ms = "
+        f"{MAX_BATCH / pred_ms * 1e3:.1f} images/s against the forward alone {fwd_ms:.3f} ms = "
+        f"{MAX_BATCH / fwd_ms * 1e3:.1f} images/s (phase 6); pinned upload of the input "
+        f"{up_ms:.3f} ms, pinned download of the output {down_ms:.3f} ms, medians of 5 [{card}]")
+    del y, xd
+
+    # 11b: SpatialPredictor, one forward at the input's own shape
+
+    def kernel_trunk(groups, feat):  # the eval forward's bf16 trunk
+        feat = feat.contiguous()
+        for gw in model.kernel_group_weights():
+            feat = rg.fused_residual_group(feat, gw, model.config.res_scale)
+        return feat
+
+    sp = SpatialPredictor(model, dtype=torch.bfloat16, device=dev)
+    for k, shape in enumerate(SPATIAL_SHAPES):
+        x = np.random.default_rng(12 + k).random(shape, dtype=np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, n = counted(lambda: sp(x))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        variant = kernel_variant((shape[0], shape[1], shape[2], cfg.num_channels))
+        log(f"  SpatialPredictor {shape} -> {got.shape}: {n} launches, group kernel {variant}, "
+            f"peak device memory {peak:.3f} GiB [{card}]")
+        if n != per_fwd or got.shape != (shape[0], 4 * shape[1], 4 * shape[2], 3):
+            raise AssertionError(f"SpatialPredictor {shape}: {n} launches, output {got.shape}")
+        xd = torch.from_numpy(x).to(dev)
+        with torch.inference_mode():  # train=True: unclamped, through the serving trunk
+            raw = model(xd, train=True, dtype=torch.bfloat16, trunk_fn=kernel_trunk)
+        check_equal(f"SpatialPredictor {shape} vs the direct forward", got,
+                    raw.clamp(0.0, 1.0).cpu().numpy())
+        want, lmax, lmean = model_limits(model, xd, dev)
+        check_within(f"the direct forward {shape}, unclamped, vs the plain trunk",
+                     raw.cpu().numpy(), want, lmax, lmean)
+        del raw, xd
+        log(f"  SpatialPredictor {shape} numpy in and out: median of 3 "
+            f"{host_ms(lambda: sp(x), 3):.3f} ms [{card}]")
+    n_, h, w, c, B = SCRATCH_TIMING
+    gw = group_weights(seeded_group(B, seed=13), dev)
+    xs = torch.rand((n_, h, w, c), generator=torch.Generator().manual_seed(14)).to(
+        torch.bfloat16).to(dev)
+    variant = kernel_variant(xs.shape)
+    if not variant.startswith("scratch"):
+        raise AssertionError(f"{tuple(xs.shape)} should take the scratch variant, got {variant}")
+    mx, mean, share, excess = group_diff(rg.fused_residual_group(xs, gw, 0.2),
+                                         rg.rcab_group_reference(xs, gw, 0.2))
+    if excess > 0:
+        raise AssertionError(f"scratch variant disagrees with its plain version: max_abs {mx}")
+    scratch = {"ms": cuda_ms(lambda: rg.fused_residual_group(xs, gw, 0.2), iters=10),
+               "plain_ms": cuda_ms(lambda: rg.rcab_group_reference(xs, gw, 0.2), iters=3,
+                                   warmup=1),
+               "library_ms": cuda_ms(lambda: library_group(xs, gw, 0.2), iters=10)}
+    # the library chain is ~100 small launches at N=1; replayed from a CUDA
+    # graph the host's dispatch rate drops out of its time
+    library_graph_ms = graph_ms(lambda: library_group(xs, gw, 0.2), iters=10)
+    scratch["bound_ms"], scratch["bound_by"] = group_bound(n_, h, w, c, B, gw["fc1"].shape[-1])
+    log(f"  one group call N={n_} {h}x{w} C={c} B={B} ({variant}): kernel "
+        f"{scratch['ms']:.4f} ms, plain {scratch['plain_ms']:.4f} ms, library (cuDNN bf16) "
+        f"{scratch['library_ms']:.4f} ms eager and {library_graph_ms:.4f} ms from a CUDA "
+        f"graph, bound {scratch['bound_ms']:.4f} ms ({scratch['bound_by']}); vs plain "
+        f"max_abs={mx:.6g} differing={share:.6g} [{card}]")
+    del xs, gw
+
+    # 11c: torch.export, a symbolic batch, the group kernel as a custom op
+    art = tmp / "face_sr_bf16.pt2"
+    t0 = time.perf_counter()
+    art.write_bytes(export_serving(model, torch.bfloat16))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = load_exported(str(art), device=dev)
+    load_s = time.perf_counter() - t0
+    batch_dim = input_shape(served.exported)[0]
+    ops = sum(1 for nd in served.exported.graph.nodes
+              if nd.target is torch.ops.facesr_torch.rcab_group.default)
+    log(f"  export_serving(bf16): {art.stat().st_size / 1e6:.2f} MB in {export_s:.1f} s, "
+        f"loaded in {load_s:.1f} s; batch dim {batch_dim}, {ops} rcab_group nodes")
+    if isinstance(batch_dim, int) or ops != per_fwd:
+        raise AssertionError(f"artifact: batch dim {batch_dim}, {ops} custom-op nodes")
+    for batch in EXPORT_BATCHES:
+        x = request[:batch]
+        got, n = counted(lambda: served(x))
+        want = pred(x)
+        log(f"  artifact at batch {batch}: {n} launches")
+        if n != per_fwd:
+            raise AssertionError(f"the artifact launched the kernel {n} times, want {per_fwd}")
+        check_equal(f"artifact at batch {batch} vs Predictor", got, want)
+
+    # 11d: the HTTP API in this process, three ways, on a .fckpt of the model
+    ckdir = tmp / "serve_checkpoints"
+    fckpt.save_model(str(ckdir / "production.fckpt"), model)
+    bodies = ([png.encode(im) for im in smooth_u8(HTTP_LR_IMAGES, 64, 64, seed=15)]
+              + [png.encode(im) for im in smooth_u8(HTTP_HR_IMAGES, 256, 256, seed=16)])
+    lrs = np.stack([prepare_inputs(png.decode_rgb(body))[0] for body in bodies])
+    ref_u8 = [(pred(lr[None])[0] * 255).round().astype(np.uint8)  # Predictor at batch 1
+              for lr in lrs]
+    plan = [[c % HTTP_LR_IMAGES]  # the warm-up request
+            + [(c * HTTP_REQUESTS + r) % HTTP_LR_IMAGES for r in range(HTTP_REQUESTS)]
+            + ([HTTP_LR_IMAGES + c % HTTP_HR_IMAGES] if c < HTTP_HR_CLIENTS else [])
+            for c in range(HTTP_CLIENTS)]
+    n_req = sum(len(p) for p in plan)
+    n_timed = n_req - len(plan)
+    servers = (("bf16", dict(dtype="bf16")),
+               (f"bf16 --batch-window-ms {HTTP_WINDOW_MS:g} --max-batch {HTTP_MAX_BATCH}",
+                dict(dtype="bf16", batch_window_ms=HTTP_WINDOW_MS, max_batch=HTTP_MAX_BATCH)),
+               ("--exported", dict(exported=str(art))))
+    for label, kw in servers:
+        root = str(tmp / "no_checkpoints") if "exported" in kw else str(ckdir)
+        srv = api.serve(root, port=0, host="127.0.0.1", device=dev, **kw)
+        cohorts = []  # (input batch, output) of every micro-batched forward
+
+        def recorded(fn):
+            def run(batch):
+                out = fn(batch)
+                cohorts.append((batch, out))
+                return out
+            return run
+
+        for b in srv.service.batchers.values():
+            b.fn = recorded(b.fn)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            port = srv.server_address[1]
+            (wall, lat, warm, results, errors), n = counted(
+                lambda: drive_http(port, bodies, plan))
+            status, health = http_get(port, "/health")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.service.close()
+        if errors or len(results) != n_req or any(s != 200 for _, s, _ in results):
+            failed = [(s, data[:300]) for _, s, data in results if s != 200]
+            raise AssertionError(f"HTTP {label}: errors {errors[:3]}, {len(results)} of {n_req} "
+                                 f"answered, statuses {sorted({s for _, s, _ in results})}; "
+                                 f"{len(failed)} failed, the first: {failed[:3]}")
+        batching = health.get("batching", {})
+        calls = sum(b["calls"] for b in batching.values()) if batching else n_req
+        images = sum(b["images"] for b in batching.values()) if batching else n_req
+        # each body's exact references: Predictor's uint8 output at batch 1,
+        # or, micro-batched, at the batch size of each cohort that held it
+        # (every cohort's output recomputed by Predictor, bitwise)
+        want_u8 = {i: [ref_u8[i]] for i in range(len(bodies))}
+        if batching:
+            want_u8 = {i: [] for i in range(len(bodies))}
+            for batch, got in cohorts:
+                if not np.array_equal(got, pred(batch)):
+                    raise AssertionError(f"HTTP {label}: a cohort of {len(batch)} is not "
+                                         "Predictor's output at its size")
+                for row, lr in enumerate(batch):
+                    i = next(i for i in range(len(lrs)) if np.array_equal(lr, lrs[i]))
+                    want_u8[i].append((got[row] * 255).round().astype(np.uint8))
+            log(f"  HTTP {label}: {len(cohorts)} cohorts of "
+                f"{[len(batch) for batch, _ in cohorts]} images, each bitwise equal to "
+                "Predictor at its size")
+        exact, matched, worst, off = 0, 0, 0, {}
+        for i, _, data in results:
+            img = png.decode_rgb(data)
+            if img.shape != (256, 256, 3):
+                raise AssertionError(f"HTTP {label}: a response decodes to {img.shape}")
+            d = int(np.abs(img.astype(int) - ref_u8[i].astype(int)).max())
+            exact += d == 0
+            worst = max(worst, d)
+            if d:
+                off[i] = max(off.get(i, 0), d)
+            matched += any(np.array_equal(img, w) for w in want_u8[i])
+        lat_ms = sorted(v * 1e3 for v in lat)
+        p50 = lat_ms[len(lat_ms) // 2]
+        p99 = lat_ms[min(len(lat_ms) - 1, int(math.ceil(0.99 * len(lat_ms))) - 1)]
+        warm_ms = sorted(v * 1e3 for v in warm)
+        log(f"  HTTP {label}: {n_timed} timed requests from {HTTP_CLIENTS} keep-alive clients "
+            f"in {wall:.3f} s = {n_timed / wall:.1f} requests/s, latency p50 {p50:.3f} ms p99 "
+            f"{p99:.3f} ms; each connection's first request (a new server thread) p50 "
+            f"{warm_ms[len(warm_ms) // 2]:.3f} ms max {warm_ms[-1]:.3f} ms; {n_req} requests, "
+            f"{calls} forwards, batching factor {images / calls:.3f} (/health "
+            f"{json.dumps(batching) if batching else 'none'}); {n} launches; {matched} of "
+            f"{n_req} responses exactly Predictor's uint8 output "
+            f"{'at their cohort size' if batching else 'at batch 1'}; against Predictor at "
+            f"batch 1: {exact} of {n_req} exact, worst {worst} level(s) (body: levels {off}; "
+            f"bodies {HTTP_LR_IMAGES}+ are 256x256) [{card}]")
+        if matched != n_req:
+            raise AssertionError(f"HTTP {label}: {n_req - matched} of {n_req} responses are not "
+                                 "Predictor's output on their own LR")
+        if batching and len(cohorts) != calls:
+            raise AssertionError(f"HTTP {label}: {len(cohorts)} cohorts recorded, /health "
+                                 f"counts {calls} forwards")
+        if n != per_fwd * calls:
+            raise AssertionError(f"HTTP {label}: {n} launches for {calls} forwards "
+                                 f"(want {per_fwd} a forward)")
+
+    # controls: an f32 server launches no kernel; a JPEG body is a 400;
+    # int8 raises at startup
+    srv = api.serve(str(ckdir), port=0, host="127.0.0.1", device=dev, dtype="f32")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        port = srv.server_address[1]
+        (_, _, _, results, errors), n = counted(lambda: drive_http(port, bodies, [[0, 1]]))
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+        try:
+            conn.request("POST", "/super-resolve", body=b"\xff\xd8\xff\xe0\x00\x10JFIF" + b"\0" * 64)
+            resp = conn.getresponse()
+            jpeg_status, jpeg_body = resp.status, resp.read()
+        finally:
+            conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.service.close()
+    if errors or [s for _, s, _ in results] != [200, 200] or n != 0:
+        raise AssertionError(f"f32 server: errors {errors}, statuses "
+                             f"{[s for _, s, _ in results]}, {n} launches (want 0)")
+    if jpeg_status != 400 or b"A.7.2" not in jpeg_body:
+        raise AssertionError(f"a JPEG body got {jpeg_status} {jpeg_body[:120]!r}")
+    try:
+        api.SRService(str(ckdir), dtype="int8", device=dev)
+    except NotImplementedError as e:
+        int8_msg = str(e)
+    else:
+        raise AssertionError("--dtype int8 started a server")
+    log(f"  controls: f32 server 2 requests, 200, 0 launches; JPEG body -> {jpeg_status} "
+        f"{json.loads(jpeg_body)['error'][:60]!r}...; --dtype int8 -> NotImplementedError "
+        f"{int8_msg[:50]!r}...")
+
+    # how one request's host time splits (one thread, no server)
+    server_pred = Predictor(model, dtype=torch.bfloat16, max_batch=1, device=dev)
+    for label, body in (("64x64", bodies[0]), ("256x256", bodies[HTTP_LR_IMAGES])):
+        rgb = png.decode_rgb(body)
+        lr, _ = prepare_inputs(rgb)
+        sr = server_pred(lr[None])[0]
+        u8 = (sr * 255).round().astype(np.uint8)
+        split = {"PNG decode": host_ms(lambda: png.decode_rgb(body), SPLIT_REPS),
+                 "prepare_inputs": host_ms(lambda: prepare_inputs(rgb), SPLIT_REPS),
+                 "forward (Predictor, numpy in and out)":
+                     host_ms(lambda: server_pred(lr[None]), SPLIT_REPS),
+                 "PNG encode": host_ms(lambda: png.encode(u8, level=api.PNG_LEVEL), SPLIT_REPS)}
+        log(f"  one {label} request's host work, medians of {SPLIT_REPS}: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+            + f"; sum {sum(split.values()):.3f} ms [{card}]")
+    log(f"  {launches} group launches on phase 11's main paths; phase 11 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    del pred, sp, server_pred, served, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "scratch": scratch}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1436,15 +1911,6 @@ def main() -> int:
     log(f"  Predictor {MAX_BATCH} images numpy in/out: median of 3 "
         f"{pred_med * 1e3:.3f} ms = {MAX_BATCH / pred_med:.1f} images/s [{card}]")
 
-    def host_ms(fn, reps):
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     x1 = x128[:1].contiguous()
     fwd(x1)
     one_ms = host_ms(lambda: fwd(x1), reps=5)
@@ -1510,6 +1976,9 @@ def main() -> int:
         eval_launches = eval_phase(dev, card, Path(tmp))
     launches["fused_residual_group"] += eval_launches  # phase 5's and phase 9's main paths
     gan_phase(dev, card)
+    with tempfile.TemporaryDirectory(prefix="facesr_torch_serve_") as tmp:
+        serving = serving_phase(dev, card, Path(tmp), fwd_med * 1e3, pred_med * 1e3)
+    launches["fused_residual_group"] += serving["launches"]  # and phase 11's
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{
@@ -1524,6 +1993,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "scratch_ms": serving["scratch"]["ms"],
+        "scratch_bound_ms": serving["scratch"]["bound_ms"],
     }]}
     print(json.dumps(table), flush=True)
     print(card, flush=True)

@@ -38,7 +38,7 @@ import torch
 from facesr_torch.ckpt.weights import state_dict_from_jax_params
 from facesr_torch.models.face_enhance_net import FaceEnhanceNetConfig
 
-__all__ = ["FckptError", "packb", "save_checkpoint", "unpackb", "is_fckpt",
+__all__ = ["FckptError", "packb", "save_checkpoint", "save_model", "unpackb", "is_fckpt",
            "load_checkpoint", "load_model", "restore_list_nodes",
            "infer_model_config_from_params"]
 
@@ -166,6 +166,18 @@ def save_checkpoint(path: str, tree: Any, meta: Optional[Dict[str, Any]] = None)
         except OSError:
             pass
         raise
+
+
+def save_model(path: str, model, model_type: str = "custom") -> None:
+    """Write a FaceEnhanceNet's weights as a model ``.fckpt`` (the JAX
+    package's ``save_model``: ``{"params": tree}`` with the model type and
+    config in the meta), which `load_model` and the JAX loaders read."""
+    from dataclasses import asdict
+
+    from facesr_torch.ckpt.weights import jax_params_from_state_dict
+
+    save_checkpoint(path, {"params": jax_params_from_state_dict(model.state_dict())},
+                    {"model_type": model_type, "config": asdict(model.config)})
 
 
 class _Reader:

@@ -14,24 +14,25 @@
   batch_stats)`` -> the port's `Discriminator` state dict (conv HWIO ->
   OIHW, dense [in, out] -> [out, in], gamma/beta and the running stats
   under the BatchNorm names).
+- `jax_params_from_state_dict`: the inverse of `state_dict_from_jax_params`
+  (the `.fckpt` model writer's layout).
 - `load_reference_pth`: a reference-format ``{'model_state_dict',
   'config'}`` checkpoint -> a `FaceEnhanceNet`, loaded with ``strict=True``.
 """
 
 from __future__ import annotations
 
-from dataclasses import fields
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from facesr_torch.device import DeviceLike, resolve_device
-from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
+from facesr_torch.models.face_enhance_net import FaceEnhanceNet
 
-__all__ = ["state_dict_from_jax_params", "vgg_params_from_jax", "lpips_params_from_jax",
-           "inception_params_from_jax", "discriminator_state_dict_from_jax",
-           "load_reference_pth"]
+__all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict", "vgg_params_from_jax",
+           "lpips_params_from_jax", "inception_params_from_jax",
+           "discriminator_state_dict_from_jax", "load_reference_pth"]
 
 
 def _oihw(a) -> torch.Tensor:
@@ -74,6 +75,50 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
         sd[f"upsample.stages.{s}.prelu.weight"] = _t(stage["prelu_a"])
     conv("conv_last", params["conv_last"])
     return sd
+
+
+def jax_params_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """This port's FaceEnhanceNet state dict -> JAX params (numpy leaves),
+    the inverse of `state_dict_from_jax_params`."""
+    def arr(name: str) -> np.ndarray:
+        return sd[name].detach().cpu().float().numpy()
+
+    def hwio(name: str) -> np.ndarray:
+        return np.ascontiguousarray(arr(name).transpose(2, 3, 1, 0))
+
+    def conv(name: str) -> Dict[str, np.ndarray]:
+        return {"w": hwio(f"{name}.weight"), "b": arr(f"{name}.bias")}
+
+    num_groups = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("residual_groups."))
+    blocks_per_group = 1 + max(int(k.split(".")[3]) for k in sd
+                               if k.startswith("residual_groups.0.blocks."))
+    pre = [[f"residual_groups.{g}.blocks.{b}" for b in range(blocks_per_group)]
+           for g in range(num_groups)]
+
+    def stacked(fn) -> np.ndarray:
+        return np.stack([np.stack([fn(p) for p in row]) for row in pre])
+
+    rcab = {"conv1_w": stacked(lambda p: hwio(f"{p}.conv1.weight")),
+            "conv1_b": stacked(lambda p: arr(f"{p}.conv1.bias")),
+            "prelu_a": stacked(lambda p: arr(f"{p}.prelu.weight")),
+            "conv2_w": stacked(lambda p: hwio(f"{p}.conv2.weight")),
+            "conv2_b": stacked(lambda p: arr(f"{p}.conv2.bias")),
+            "ca": {"fc1_w": stacked(lambda p: arr(f"{p}.channel_attention.fc.0.weight").T),
+                   "fc2_w": stacked(lambda p: arr(f"{p}.channel_attention.fc.2.weight").T)}}
+    stages = sorted({int(k.split(".")[2]) for k in sd if k.startswith("upsample.stages.")})
+    return {
+        "conv_first": conv("conv_first"),
+        "groups": {"rcab": rcab,
+                   "conv_w": np.stack([hwio(f"residual_groups.{g}.conv.weight")
+                                       for g in range(num_groups)]),
+                   "conv_b": np.stack([arr(f"residual_groups.{g}.conv.bias")
+                                       for g in range(num_groups)])},
+        "conv_after_body": conv("conv_after_body"),
+        "upsample": [{"conv_w": hwio(f"upsample.stages.{s}.conv.weight"),
+                      "conv_b": arr(f"upsample.stages.{s}.conv.bias"),
+                      "prelu_a": arr(f"upsample.stages.{s}.prelu.weight")} for s in stages],
+        "conv_last": conv("conv_last"),
+    }
 
 
 def vgg_params_from_jax(params: List[Dict[str, Any]]) -> List[Dict[str, torch.Tensor]]:
@@ -125,14 +170,8 @@ def discriminator_state_dict_from_jax(params: Dict[str, Any],
 def load_reference_pth(path: str, device: DeviceLike = None) -> FaceEnhanceNet:
     """Load a reference-format FaceEnhanceNet ``.pth`` (``{'model_state_dict':
     ..., 'config': ...}``, as the JAX package's ``export_pth`` writes it)
-    with ``strict=True``. Runs on CUDA unless ``device`` names another."""
-    dev = resolve_device(device)
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(ckpt, dict) or "model_state_dict" not in ckpt:
-        raise ValueError(f"{path} is not a reference FaceEnhanceNet checkpoint "
-                         f"(no 'model_state_dict')")
-    known = {f.name for f in fields(FaceEnhanceNetConfig)}
-    cfg_dict = {k: v for k, v in (ckpt.get("config") or {}).items() if k in known}
-    model = FaceEnhanceNet(FaceEnhanceNetConfig(**cfg_dict), device="cpu")
-    model.load_state_dict(ckpt["model_state_dict"], strict=True)
-    return model.to(dev)
+    with ``strict=True`` (`models.load.load_any_model`). Runs on CUDA
+    unless ``device`` names another."""
+    from facesr_torch.models.load import load_any_model
+
+    return load_any_model(path, device=resolve_device(device))

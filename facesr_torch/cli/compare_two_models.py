@@ -108,7 +108,7 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
 
     import torch
 
-    from facesr_torch.cli.test_model import compute_metrics, load_model
+    from facesr_torch.cli.test_model import compute_metrics
     from facesr_torch.data.cv_compat import resize
     from facesr_torch.data.dataset import _list_images
     from facesr_torch.data.png import read_rgb, write_png
@@ -118,6 +118,7 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
     from facesr_torch.evaluation.fid import fid_from_activations, inception_activations
     from facesr_torch.evaluation.metrics import LPIPS
     from facesr_torch.models.inception import load_inception_weights
+    from facesr_torch.models.load import load_any_model
 
     device = resolve_device(args.device)
     timings: Dict[str, float] = defaultdict(float)
@@ -125,7 +126,7 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
     models = {}
     for name, path in find_checkpoints(args.checkpoint_dir).items():
         try:
-            models[name] = load_model(str(path), device=device)
+            models[name] = load_any_model(path, device=device)
             print(f"Loaded {name} from {path}")
         except Exception as e:  # noqa: BLE001 — an unloadable file is skipped, as in JAX
             print(f"Skipping {path}: {e}")

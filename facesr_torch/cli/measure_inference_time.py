@@ -74,9 +74,9 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     if args.checkpoint:
-        from facesr_torch.ckpt.weights import load_reference_pth
+        from facesr_torch.models.load import load_any_model
 
-        model = load_reference_pth(args.checkpoint, device=dev)
+        model = load_any_model(args.checkpoint, device=dev)
     else:
         cfg = FaceEnhanceNetConfig(num_groups=6, blocks_per_group=10, num_channels=64)
         model = FaceEnhanceNet(cfg, seed=0, device=dev)

@@ -11,9 +11,10 @@ data_range 255; a bicubic baseline (the port's copy of cv2's
 unless ``--device cpu`` is given and raises when there is no card and no
 ``--device``. ``--checkpoint`` takes a JAX ``.fckpt`` (EMA weights when
 it has them) or the port's ``.pth``; only FaceEnhanceNet is ported.
-Images are PNG files (any other file raises with its name).
-``--exported`` (an AOT serving artifact) is not ported: ROADMAP A.11
-(``torch.export``).
+``--exported`` evaluates a ``.pt2`` serving artifact
+(`cli.export_serving`) in place of a checkpoint: the deployed program,
+batched straight through its symbolic batch. Images are PNG files (any
+other file raises with its name).
 """
 
 from __future__ import annotations
@@ -31,39 +32,18 @@ EVAL_CHUNK = 256  # images decoded and scored at a time on the batched path
 
 
 def load_model(checkpoint_path: str, config_yaml: Optional[str] = None, device=None):
-    """A FaceEnhanceNet from a ``.fckpt`` (`fckpt.load_model`, EMA
-    preferred) or a port ``.pth`` (its ``ema_state_dict`` when it has
-    one, else ``model_state_dict``), told apart by content, on ``device``.
+    """The FaceEnhanceNet of a ``.fckpt`` or a port ``.pth``
+    (`models.load.load_any_model`, EMA weights preferred), on ``device``.
 
     ``config_yaml``: the ``model.custom`` section of a training YAML (or a
     bare mapping) overrides the architecture, as ``--config`` does in the
     JAX CLI."""
-    import torch
-
-    from facesr_torch.ckpt import fckpt
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
+    from facesr_torch.models.load import load_any_model
 
-    path = Path(checkpoint_path)
-    if not path.exists():
+    if not Path(checkpoint_path).exists():
         sys.exit(f"Error: checkpoint not found: {checkpoint_path}")
-    with open(path, "rb") as f:
-        head = f.read(4)
-    if fckpt.is_fckpt(head):
-        cfg, sd = fckpt.load_model(str(path))
-    elif head == b"PK\x03\x04":
-        ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
-        if not isinstance(ckpt, dict) or "model_state_dict" not in ckpt:
-            raise ValueError(f"{path} is not a FaceEnhanceNet checkpoint (no 'model_state_dict')")
-        mtype = ckpt.get("model_type", "custom")
-        if mtype not in ("custom", "lite"):
-            raise NotImplementedError(f"{path}: model_type {mtype!r} is not ported yet "
-                                      "(ROADMAP A.12); only 'custom' FaceEnhanceNet loads")
-        known = set(FaceEnhanceNetConfig.__dataclass_fields__)
-        cfg_dict = ckpt.get("model_config") or ckpt.get("config") or {}
-        cfg = FaceEnhanceNetConfig(**{k: v for k, v in cfg_dict.items() if k in known})
-        sd = ckpt.get("ema_state_dict") or ckpt["model_state_dict"]
-    else:
-        raise ValueError(f"{path} is neither a torch checkpoint nor a JAX .fckpt")
+    model = load_any_model(checkpoint_path)
     if config_yaml:
         from facesr_torch.yaml_lite import load_file
 
@@ -73,11 +53,11 @@ def load_model(checkpoint_path: str, config_yaml: Optional[str] = None, device=N
         if "upscale_factor" in section:  # the reference YAML's spelling
             known["scale_factor"] = section["upscale_factor"]
         if known:
-            cfg = FaceEnhanceNetConfig(**known)
-    model = FaceEnhanceNet(cfg, device="cpu")
-    model.load_state_dict(sd, strict=True)
+            sd = model.state_dict()
+            model = FaceEnhanceNet(FaceEnhanceNetConfig(**known), device="cpu").eval()
+            model.load_state_dict(sd, strict=True)
     print(f"Loaded model: {type(model).__name__} ({model.config})")
-    return model.eval().to(device) if device is not None else model.eval()
+    return model.to(device) if device is not None else model
 
 
 def generate_lr(hr_uint8: np.ndarray, scale: int, device) -> np.ndarray:
@@ -129,7 +109,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                                                  "(PyTorch port)")
     parser.add_argument("--checkpoint", type=str, default=None)
     parser.add_argument("--exported", type=str, default=None,
-                        help="an AOT serving artifact: not ported (ROADMAP A.11)")
+                        help="evaluate a .pt2 serving artifact "
+                             "(python -m facesr_torch.cli.export_serving) instead of a "
+                             "checkpoint; its input size must be the LR size (HR / scale)")
     parser.add_argument("--config", type=str, default=None,
                         help="Explicit model config YAML override")
     parser.add_argument("--input", "--image", "--hr-dir", dest="input", type=str,
@@ -155,10 +137,7 @@ def run(argv: Optional[List[str]] = None) -> List[dict]:
     """Parse ``argv``, evaluate, print the table; returns the per-image
     rows."""
     args = parse_args(argv)
-    if args.exported:
-        raise NotImplementedError("--exported (AOT serving artifacts) is not ported yet "
-                                  "(ROADMAP A.11: torch.export)")
-    if not args.checkpoint:
+    if not args.checkpoint and not args.exported:
         raise SystemExit("one of --checkpoint / --exported is required")
 
     from facesr_torch.data.dataset import _list_images, _read_rgb
@@ -167,7 +146,15 @@ def run(argv: Optional[List[str]] = None) -> List[dict]:
                                                  synthesize_lr_batched, to_uint8)
 
     device = resolve_device(args.device)
-    model = load_model(args.checkpoint, config_yaml=args.config, device=device)
+    artifact = model = None
+    if args.exported:
+        from facesr_torch.ckpt.export import load_exported
+
+        art_fn = load_exported(args.exported, device=device)
+        artifact = lambda b: np.clip(art_fn(b), 0, 1)  # noqa: E731
+        print(f"Evaluating exported artifact {args.exported}")
+    else:
+        model = load_model(args.checkpoint, config_yaml=args.config, device=device)
     input_path = Path(args.input)
     output_dir = Path(args.output)
 
@@ -189,15 +176,21 @@ def run(argv: Optional[List[str]] = None) -> List[dict]:
         for f in files:
             hr = _read_rgb(f)
             lr = generate_lr(hr, args.scale, device)
-            with torch.inference_mode():
-                sr = model(torch.from_numpy(lr[None]).to(device)).cpu().numpy()[0]
+            if artifact is not None:
+                sr = artifact(lr[None])[0]
+            else:
+                with torch.inference_mode():
+                    sr = model(torch.from_numpy(lr[None]).to(device)).cpu().numpy()[0]
             r = _score(f, hr, lr, to_uint8(sr), save_dir, not args.no_comparison)
             results.append(r)
             _print_row(r)
     else:
         # one predictor, chunked forwards per image shape; macro-chunks
         # bound host memory on large directories
-        predictor = make_predictor(model, max_batch=args.batch_size, device=device)
+        # an artifact batches straight through its symbolic batch; a
+        # checkpoint goes through the Predictor
+        predictor = (artifact if artifact is not None
+                     else make_predictor(model, max_batch=args.batch_size, device=device))
         for start in range(0, len(files), EVAL_CHUNK):
             chunk_files = files[start:start + EVAL_CHUNK]
             hrs = [_read_rgb(f) for f in chunk_files]

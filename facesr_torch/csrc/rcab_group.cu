@@ -85,7 +85,10 @@
 // Plain C entries: `rcab_group_plan` picks the variant, the cluster size
 // and the number of clusters (the scratch extent), `rcab_group_forward`
 // makes the one launch on the caller's stream and returns the first
-// cudaError_t.
+// cudaError_t of its own calls. Both may be called from many host threads
+// at once. Each sets the kernel's attributes in the calling thread before
+// it queries or launches: set once from one thread, they did not hold for
+// launches from other threads on the H100 (cudaErrorInvalidValue).
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
@@ -1230,20 +1233,24 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the CUDA driver API's tensor-map encoder, through the runtime (no -lcuda)
+// the CUDA driver API's tensor-map encoder, through the runtime (no -lcuda),
+// fetched once (a function-local static is initialised by one thread)
 cudaError_t get_encoder(EncodeTiledFn* fn) {
-  static EncodeTiledFn cached = nullptr;
-  if (cached == nullptr) {
+  struct Found {
+    cudaError_t err;
+    EncodeTiledFn fn;
+  };
+  static const Found found = [] {
     void* ptr = nullptr;
     cudaDriverEntryPointQueryResult status;
     cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
                                               &status);
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorNotSupported;
-    cached = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  *fn = cached;
-  return cudaSuccess;
+    if (err == cudaSuccess && (status != cudaDriverEntryPointSuccess || ptr == nullptr))
+      err = cudaErrorNotSupported;
+    return Found{err, reinterpret_cast<EncodeTiledFn>(ptr)};
+  }();
+  *fn = found.fn;
+  return found.err;
 }
 
 // [imgs, h, w, C] bf16, read in boxes of `rows` x BOX_W pixels, zero fill
@@ -1322,10 +1329,15 @@ int resident_cluster(int h, int w) {
 
 }  // namespace
 
-#define RETURN_IF_ERR(expr)                \
-  do {                                     \
-    cudaError_t e_ = (expr);               \
-    if (e_ != cudaSuccess) return int(e_); \
+// returns the error, and clears it from the thread's last error, so a
+// failed call is not reported again by the thread's next call
+#define RETURN_IF_ERR(expr)      \
+  do {                           \
+    cudaError_t e_ = (expr);     \
+    if (e_ != cudaSuccess) {     \
+      cudaGetLastError();        \
+      return int(e_);            \
+    }                            \
   } while (0)
 
 // The launch for n images of h x w: the cluster size, the number of
@@ -1430,4 +1442,9 @@ extern "C" int rcab_group_forward(
 // Bytes of dynamic shared memory a block of each variant asks for.
 extern "C" int rcab_group_smem_bytes(int resident) {
   return int(resident ? R_SMEM_BYTES : SMEM_BYTES);
+}
+
+// The name of a cudaError_t the entries above returned.
+extern "C" const char* rcab_group_error_name(int err) {
+  return cudaGetErrorName(cudaError_t(err));
 }

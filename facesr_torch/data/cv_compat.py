@@ -7,6 +7,8 @@ evaluation CLIs call, in numpy, so the port needs no cv2:
 - `resize_linear`, `resize_lanczos4`, `resize_nearest`: ``INTER_LINEAR``,
   ``INTER_LANCZOS4`` and ``INTER_NEAREST`` (the evaluation's baselines
   and comparison strips); `resize` picks one by name;
+- `resize_area`: ``INTER_AREA`` on uint8 and float32 (the demo's and the
+  API's input sizing);
 - `rgb_to_hsv` / `hsv_to_rgb`: ``cv2.cvtColor`` ``RGB2HSV`` /
   ``HSV2RGB`` on uint8 (the colour jitter; H in [0, 180)).
 
@@ -47,7 +49,7 @@ import math
 
 import numpy as np
 
-__all__ = ["resize", "resize_cubic", "resize_linear", "resize_lanczos4",
+__all__ = ["resize", "resize_area", "resize_cubic", "resize_linear", "resize_lanczos4",
            "resize_nearest", "rgb_to_hsv", "hsv_to_rgb"]
 
 
@@ -178,12 +180,18 @@ def resize_linear(img: np.ndarray, size) -> np.ndarray:
     """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for an
     [H, W] or [H, W, C] uint8 image; ``size`` is (width, height)."""
     src, dw, dh = _check(img, size, "resize_linear")
-    buf = _horizontal(src, dw, "linear")
-    idx, w = _fixed_taps(dh, src.shape[0], "linear", False)
+    out = _linear_vertical(_horizontal(src, dw, "linear"),
+                           *_fixed_taps(dh, src.shape[0], "linear", False))
+    return out[:, :, 0] if img.ndim == 2 else out
+
+
+def _linear_vertical(buf: np.ndarray, idx: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """OpenCV's SIMD vertical pass of the 8-bit linear resize over the
+    horizontal pass ``buf`` (scaled by 2^11): each row >> 4, times its
+    weight keeping the high 16 bits, the two added and rounded at bit 2."""
     s0, s1 = buf[idx[:, 0]] >> 4, buf[idx[:, 1]] >> 4
     t = ((s0 * w[:, 0, None, None]) >> 16) + ((s1 * w[:, 1, None, None]) >> 16)
-    out = np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
-    return out[:, :, 0] if img.ndim == 2 else out
+    return np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def resize_lanczos4(img: np.ndarray, size) -> np.ndarray:
@@ -209,13 +217,156 @@ def resize_nearest(img: np.ndarray, size) -> np.ndarray:
     return out[:, :, 0] if img.ndim == 2 else out
 
 
+_DBL_EPSILON = 2.220446049250313e-16
+_F32_LANES = 4  # f32 lanes of OpenCV's baseline (SSE3) vector code
+
+
+def _area_integer(src: np.ndarray, kx: int, ky: int) -> np.ndarray:
+    """The integer-factor box path: each output the sum of its kx x ky
+    block (row-major) times the f32 ``1 / area``, rounded half to even to
+    uint8; uint8 at 2x2 takes ``(sum + 2) >> 2``. f32 sums groups of four
+    left to right, and its one-channel 2x2 vector lanes ``(a + b) + (c +
+    d)``."""
+    h, w, c = src.shape
+    dh, dw, area = h // ky, w // kx, kx * ky
+    taps = src.reshape(dh, ky, dw, kx, c).transpose(0, 2, 4, 1, 3).reshape(dh, dw, c, area)
+    if src.dtype == np.uint8:
+        total = taps.astype(np.int64).sum(axis=-1)
+        if area == 4 and kx == 2:
+            return ((total + 2) >> 2).astype(np.uint8)
+        v = total.astype(np.float32) * np.float32(1.0 / area)
+        return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+    total = None
+    for k in range(0, area - area % 4, 4):
+        group = ((taps[..., k] + taps[..., k + 1]) + taps[..., k + 2]) + taps[..., k + 3]
+        total = group if total is None else total + group
+    for k in range(area - area % 4, area):
+        total = taps[..., k] if total is None else total + taps[..., k]
+    out = total * np.float32(1.0 / area)
+    if area == 4 and kx == 2 and c == 1:
+        lanes = dw - dw % _F32_LANES
+        pair = ((taps[..., 0] + taps[..., 1]) + (taps[..., 2] + taps[..., 3])) * np.float32(0.25)
+        out[:, :lanes] = pair[:, :lanes]
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _area_weights(src: int, dst: int):
+    """OpenCV's ``computeResizeAreaTab`` of one axis as dense arrays:
+    (source index, f32 weight, valid) [dst, m], each output's entries in
+    OpenCV's order."""
+    scale = 1.0 / (dst / src)
+    cells = []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        width = min(scale, src - f1)
+        s2 = min(math.floor(f2), src - 1)
+        s1 = min(math.ceil(f1), s2)
+        cell = []
+        if s1 - f1 > 1e-3:
+            cell.append((s1 - 1, (s1 - f1) / width))
+        cell += [(s, 1.0 / width) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            cell.append((s2, min(min(f2 - s2, 1.0), width) / width))
+        cells.append(cell)
+    m = max(len(cell) for cell in cells)
+    idx = np.zeros((dst, m), np.int64)
+    wt = np.zeros((dst, m), np.float32)
+    valid = np.zeros((dst, m), bool)
+    for d, cell in enumerate(cells):
+        for j, (s, a) in enumerate(cell):
+            idx[d, j], wt[d, j], valid[d, j] = s, a, True
+    return idx, wt, valid
+
+
+def _area_fractional(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """The fractional downscale: f32 area weights, a horizontal sum of
+    ``S * alpha`` in entry order, then a vertical one of ``beta * row``."""
+    h, w, c = src.shape
+    xi, xw, xv = _area_weights(w, dw)
+    yi, yw, yv = _area_weights(h, dh)
+    s = src.astype(np.float32)
+    buf = np.zeros((h, dw, c), np.float32)
+    for j in range(xi.shape[1]):
+        buf = np.where(xv[None, :, j, None], buf + s[:, xi[:, j]] * xw[None, :, j, None], buf)
+    acc = yw[:, 0, None, None] * buf[yi[:, 0]]
+    for j in range(1, yi.shape[1]):
+        acc = np.where(yv[:, j, None, None], acc + yw[:, j, None, None] * buf[yi[:, j]], acc)
+    if src.dtype == np.uint8:
+        return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    return acc
+
+
+def _area_linear_taps(dst: int, src: int, clamp: bool):
+    """(source indices [dst, 2], f32 weights [dst, 2]) of the linear
+    resize OpenCV runs for an area upscale: position ``floor(i * scale)``,
+    fraction ``(i + 1) - (s + 1) / scale`` wrapped to [0, 1). ``clamp``
+    pins the last column's fraction to 0 (x only, as for linear)."""
+    inv = dst / src
+    d = np.arange(dst)
+    s = np.floor(d * (1.0 / inv)).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    if clamp:
+        f = np.where(s >= src - 1, np.float32(0), f)
+        s = np.minimum(s, src - 1)
+    idx = np.clip(s[:, None] + np.arange(2), 0, src - 1)
+    return idx, np.stack([np.float32(1) - f, f], axis=1)
+
+
+def _area_upscale(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """An upscale along either axis: OpenCV's linear resize (uint8 in its
+    11-bit fixed point, f32 as two products and a sum) with area-style
+    coefficients."""
+    xi, xw = _area_linear_taps(dw, src.shape[1], True)
+    yi, yw = _area_linear_taps(dh, src.shape[0], False)
+    if src.dtype == np.uint8:
+        one = np.float32(1 << _COEF_BITS)
+        xw_i, yw_i = (np.rint(t * one).astype(np.int64) for t in (xw, yw))
+        buf = np.einsum("hdkc,dk->hdc", src.astype(np.int64)[:, xi, :], xw_i)
+        return _linear_vertical(buf, yi, yw_i)
+    g = src[:, xi, :]
+    buf = g[:, :, 0] * xw[None, :, 0, None] + g[:, :, 1] * xw[None, :, 1, None]
+    return buf[yi[:, 0]] * yw[:, 0, None, None] + buf[yi[:, 1]] * yw[:, 1, None, None]
+
+
+def resize_area(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_AREA)`` for an
+    [H, W] or [H, W, C] (C 1 or 3) uint8 or float32 image; ``size`` is
+    (width, height); one channel comes back [H, W], as from cv2. OpenCV's three paths: an integer factor on both axes
+    (box sums), another downscale (area weights) and an upscale along
+    either axis (linear with area coefficients). cv2 runs its own code
+    here with IPP on or off (IPP's area resize is not bit-exact, so
+    OpenCV leaves it off)."""
+    if img.dtype not in (np.uint8, np.float32) or img.ndim not in (2, 3) \
+            or (img.ndim == 3 and img.shape[2] not in (1, 3)):
+        raise ValueError(f"resize_area takes an [H, W] or [H, W, 1|3] uint8 or float32 "
+                         f"image, got {img.shape} {img.dtype}")
+    src = img[:, :, None] if img.ndim == 2 else img
+    h, w = src.shape[:2]
+    dw, dh = int(size[0]), int(size[1])
+    if dw <= 0 or dh <= 0:
+        raise ValueError(f"bad size {size}")
+    scale_x, scale_y = 1.0 / (dw / w), 1.0 / (dh / h)
+    if scale_x >= 1 and scale_y >= 1:
+        kx, ky = round(scale_x), round(scale_y)
+        if abs(scale_x - kx) < _DBL_EPSILON and abs(scale_y - ky) < _DBL_EPSILON:
+            out = _area_integer(src, kx, ky)
+        else:
+            out = _area_fractional(src, dw, dh)
+    else:
+        out = _area_upscale(src, dw, dh)
+    return out[:, :, 0] if out.shape[2] == 1 else out  # cv2 drops a single channel
+
+
 _RESIZES = {"linear": resize_linear, "cubic": resize_cubic, "lanczos4": resize_lanczos4,
             "nearest": resize_nearest}
 
 
 def resize(img: np.ndarray, size, interpolation: str) -> np.ndarray:
     """``cv2.resize`` with ``interpolation`` one of "linear", "cubic",
-    "lanczos4", "nearest" (``INTER_*``)."""
+    "lanczos4", "nearest" (``INTER_*``) on uint8."""
     if interpolation not in _RESIZES:
         raise ValueError(f"unknown interpolation {interpolation!r}; one of {sorted(_RESIZES)}")
     return _RESIZES[interpolation](img, size)

@@ -24,7 +24,7 @@ import numpy as np
 
 from facesr_torch import native
 
-__all__ = ["PNGError", "read_rgb", "decode", "encode", "write_png"]
+__all__ = ["PNGError", "read_rgb", "decode", "decode_rgb", "encode", "write_png"]
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
@@ -103,7 +103,15 @@ def read_rgb(path: PathLike, unfilter: Callable = native.png_unfilter) -> np.nda
         data = Path(path).read_bytes()
     except OSError as e:
         raise PNGError(f"Could not read image {path}: {e}") from e
-    img = decode(data, str(path), unfilter)
+    return decode_rgb(data, str(path), unfilter)
+
+
+def decode_rgb(data: bytes, name: str = "<png>",
+               unfilter: Callable = native.png_unfilter) -> np.ndarray:
+    """A PNG file's bytes as HWC RGB uint8, as ``cv2.imdecode`` with
+    ``IMREAD_COLOR`` + ``cvtColor(BGR2RGB)`` give it: grey replicated to
+    three channels, alpha dropped."""
+    img = decode(data, name, unfilter)
     c = img.shape[2]
     if c <= 2:
         return np.repeat(img[:, :, :1], 3, axis=2)

@@ -7,6 +7,13 @@ the note there for its design and what bounds it) and raises for anything
 the kernel does not take; on a CPU tensor it computes the plain version,
 `rcab_group_reference`. There is no fallback between the two.
 
+The call goes through the custom op ``torch.ops.facesr_torch.rcab_group``
+(``torch.library.custom_op``: a CUDA kernel that launches the Hopper
+kernel, a CPU kernel that is the plain version, a fake that gives
+``empty_like(x)``), so ``torch.export`` keeps the group as one node of the
+exported graph and the loaded artifact launches the same kernel. The op
+takes the ten weight tensors one by one (a custom op takes no dict).
+
 Precision (the Pallas kernel's rounding points): the feature accumulator
 stays f32 for the whole group, every conv input is the f32 buffer rounded
 to bf16, conv products are bf16 x bf16 accumulated in f32 with the bias
@@ -17,6 +24,7 @@ added in f32, PReLU and the SE path run in f32, and the output is
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import torch
@@ -24,8 +32,8 @@ import torch.nn.functional as F
 
 from facesr_torch.ops.conv import conv2d
 
-__all__ = ["fused_residual_group", "rcab_group_reference",
-           "prepare_group_weights", "KERNEL_CHANNELS"]
+__all__ = ["fused_residual_group", "rcab_group_reference", "rcab_group",
+           "prepare_group_weights", "group_weight_args", "KERNEL_CHANNELS"]
 
 KERNEL_CHANNELS = 64  # the CUDA kernel's only channel width
 
@@ -99,17 +107,29 @@ _ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+_lib_lock = threading.Lock()  # serving threads reach the first call together
+
+
 def _lib() -> ctypes.CDLL:
     from facesr_torch.ops._build import load_library
 
     lib = load_library("rcab_group")
-    if lib.rcab_group_forward.argtypes is None:
-        lib.rcab_group_forward.argtypes = _ARGTYPES
-        lib.rcab_group_forward.restype = ctypes.c_int
-        lib.rcab_group_plan.argtypes = ([ctypes.c_int] * 3
-                                        + [ctypes.POINTER(ctypes.c_int)] * 3)
-        lib.rcab_group_plan.restype = ctypes.c_int
+    with _lib_lock:
+        if lib.rcab_group_error_name.restype is not ctypes.c_char_p:
+            lib.rcab_group_forward.argtypes = _ARGTYPES
+            lib.rcab_group_forward.restype = ctypes.c_int
+            lib.rcab_group_plan.argtypes = ([ctypes.c_int] * 3
+                                            + [ctypes.POINTER(ctypes.c_int)] * 3)
+            lib.rcab_group_plan.restype = ctypes.c_int
+            lib.rcab_group_error_name.argtypes = [ctypes.c_int]
+            lib.rcab_group_error_name.restype = ctypes.c_char_p  # set last: the flag
     return lib
+
+
+def cuda_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
+    """The error an entry of the library returned, by its CUDA name."""
+    name = lib.rcab_group_error_name(err).decode()
+    return RuntimeError(f"{entry} failed: {name} (cudaError_t {err})")
 
 
 def _plan(lib: ctypes.CDLL, n: int, h: int, w: int):
@@ -119,7 +139,7 @@ def _plan(lib: ctypes.CDLL, n: int, h: int, w: int):
     out = [ctypes.c_int(0) for _ in range(3)]
     err = lib.rcab_group_plan(n, h, w, *(ctypes.byref(v) for v in out))
     if err != 0:
-        raise RuntimeError(f"rcab_group_plan failed: cudaError_t {err}")
+        raise cuda_error(lib, "rcab_group_plan", err)
     return tuple(v.value for v in out)
 
 
@@ -159,27 +179,26 @@ def _check(x: torch.Tensor, gw: GroupWeights) -> None:
             raise ValueError(f"group weight {name} must be contiguous on {x.device}")
 
 
-def fused_residual_group(x: torch.Tensor, gw: GroupWeights,
-                         res_scale: float = 0.2) -> torch.Tensor:
-    """One residual group over NHWC bf16 features ``x`` [N, H, W, C] with
-    weights from `prepare_group_weights`; returns bf16 [N, H, W, C].
+def group_weight_args(gw: GroupWeights) -> tuple:
+    """The ten weight tensors of ``gw`` in the custom op's argument order."""
+    return tuple(gw[k] for k in _WEIGHT_SPECS)
 
-    CUDA tensor: launches the Hopper kernel (counted in
-    ``fused_residual_group.launches``) or raises; the kernel takes C=64
-    only. CPU tensor: the plain version, any C. Forward only: the weights
-    are detached and the kernel's output has no graph, so with grad mode on
-    and ``x`` requiring grad it raises rather than drop the gradient (the
-    training trunk is `blocks.residual_groups`)."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            "fused_residual_group is forward-only and would cut the graph: "
-            "call it under torch.no_grad()/inference_mode, or train through "
-            "the plain trunk (FaceEnhanceNet.forward(train=True))")
+
+def _weights(*tensors: torch.Tensor) -> GroupWeights:
+    return dict(zip(_WEIGHT_SPECS, tensors))
+
+
+_launch_lock = threading.Lock()  # serving threads launch concurrently
+
+
+@torch.library.custom_op("facesr_torch::rcab_group", mutates_args=(), device_types="cuda")
+def rcab_group(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, a: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
+               wg: torch.Tensor, bg: torch.Tensor, res_scale: float) -> torch.Tensor:
+    """One residual group on the card: launches the Hopper kernel (counted
+    in ``fused_residual_group.launches``) or raises."""
+    gw = _weights(w1, b1, a, w2, b2, fc1, fc2, wg, bg)
     _check(x, gw)
-    if x.device.type == "cpu":
-        return rcab_group_reference(x, gw, res_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_residual_group runs on cuda or cpu, not {x.device}")
     n, h, w, c = x.shape
     if c != KERNEL_CHANNELS:
         raise ValueError(f"the fused_residual_group kernel takes C={KERNEL_CHANNELS}, got C={c}")
@@ -201,9 +220,44 @@ def fused_residual_group(x: torch.Tensor, gw: GroupWeights,
             n, h, w, gw["w1"].shape[0], gw["fc1"].shape[-1],
             float(res_scale), clusters, cluster_size, stream)
     if err != 0:
-        raise RuntimeError(f"rcab_group_forward failed: cudaError_t {err}")
-    fused_residual_group.launches += 1
+        raise cuda_error(lib, "rcab_group_forward", err)
+    with _launch_lock:
+        fused_residual_group.launches += 1
     return out
+
+
+@rcab_group.register_kernel("cpu")
+def _rcab_group_cpu(x, w1, b1, a, w2, b2, fc1, fc2, wg, bg, res_scale):
+    gw = _weights(w1, b1, a, w2, b2, fc1, fc2, wg, bg)
+    _check(x, gw)
+    return rcab_group_reference(x, gw, res_scale)
+
+
+@rcab_group.register_fake
+def _rcab_group_fake(x, w1, b1, a, w2, b2, fc1, fc2, wg, bg, res_scale):
+    return torch.empty_like(x)
+
+
+def fused_residual_group(x: torch.Tensor, gw: GroupWeights,
+                         res_scale: float = 0.2) -> torch.Tensor:
+    """One residual group over NHWC bf16 features ``x`` [N, H, W, C] with
+    weights from `prepare_group_weights`; returns bf16 [N, H, W, C].
+
+    Calls the custom op `rcab_group`. CUDA tensor: launches the Hopper
+    kernel (counted in ``fused_residual_group.launches``, exactly under
+    concurrent callers) or raises; the kernel takes C=64 only. CPU tensor:
+    the plain version, any C, not counted. Forward only: the weights are
+    detached and the kernel's output has no graph, so with grad mode on and
+    ``x`` requiring grad it raises rather than drop the gradient (the
+    training trunk is `blocks.residual_groups`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            "fused_residual_group is forward-only and would cut the graph: "
+            "call it under torch.no_grad()/inference_mode, or train through "
+            "the plain trunk (FaceEnhanceNet.forward(train=True))")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_residual_group runs on cuda or cpu, not {x.device}")
+    return rcab_group(x, *group_weight_args(gw), float(res_scale))
 
 
 fused_residual_group.launches = 0

@@ -81,8 +81,12 @@ def _matrix(in_size: int, out_size: int, method: str,
             device: torch.device) -> torch.Tensor:
     """`resize_matrix` on ``device``, kept: a copy from pageable host memory
     waits for the card, so a copy per call would sync every step. Made
-    outside inference mode, so an autograd forward may save it later."""
-    with torch.inference_mode(False):
+    outside inference mode, so an autograd forward may save it later, and
+    outside any fake-tensor mode, so a `torch.export` trace takes it as a
+    constant and the cache never keeps a fake tensor for later eager calls."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with torch.inference_mode(False), unset_fake_temporarily():
         return torch.from_numpy(resize_matrix(in_size, out_size, method)).to(device)
 
 

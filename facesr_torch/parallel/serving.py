@@ -1,13 +1,20 @@
-"""Single-card serving: a chunking predictor and a request micro-batcher.
+"""Single-card serving: a chunking predictor, a per-shape predictor and a
+request micro-batcher.
 
 Port of `facesr/parallel/serving.py` for one CUDA card:
 
 - `build_serving_fn`: the serving precision dispatch (f32 or bf16; the
   int8 modes are not ported yet).
+- `pad_to_multiple`: the JAX module's batch-padding helper (the port's
+  predictors run every chunk at its true size and do not pad).
 - `Predictor`: the single-card counterpart of the JAX ``ShardedPredictor``
-  — chunks a request at ``max_batch``, pads the last chunk to
-  ``max_batch`` by repeating its last image (one batch shape for the
-  predictor's lifetime), clips to [0, 1] and returns numpy.
+  — chunks a request at ``max_batch`` and runs each chunk at its true
+  size (eager PyTorch keeps no compiled batch shape, and the group kernel
+  masks any N), clips to [0, 1] and returns numpy. On a card the copies
+  go through pinned host memory and the chunks are pipelined at depth 2.
+- `SpatialPredictor`: one forward per call at the input's own shape (the
+  JAX class splits rows over a mesh; on one card it is a per-shape
+  forward).
 - `MicroBatcher`: coalesces concurrent single-image requests into one
   batched forward (an own copy of the JAX package's threading logic).
 """
@@ -16,6 +23,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -23,7 +31,8 @@ import torch
 
 from facesr_torch.device import DeviceLike, resolve_device
 
-__all__ = ["build_serving_fn", "Predictor", "MicroBatcher", "pad_to_multiple"]
+__all__ = ["build_serving_fn", "pad_to_multiple", "Predictor", "SpatialPredictor",
+           "MicroBatcher"]
 
 ServingDtype = Optional[Union[torch.dtype, str]]
 
@@ -64,9 +73,21 @@ class Predictor:
     """Serve a FaceEnhanceNet on one device.
 
     ``__call__(images)`` takes an NHWC float batch of any size and returns
-    the clipped SR batch as float32 numpy. Every forward runs at
-    ``max_batch`` images: larger requests are chunked, the last chunk is
-    padded. The model is moved to ``device`` (CUDA unless named)."""
+    the clipped SR batch as float32 numpy. Requests larger than
+    ``max_batch`` are chunked; every chunk runs at its true size, so a
+    lone image pays a batch-1 forward, and the JAX class's
+    ``remainder_sizes`` (extra compiled sizes for a request's last chunk)
+    have no counterpart. The model is moved to ``device`` (CUDA unless
+    named).
+
+    On a card, each chunk is copied up from pinned host memory, and its
+    result is copied down on a side stream straight into one pinned
+    output buffer, which the returned array views: chunk i+1 is uploaded
+    and run while chunk i downloads, and a chunk is waited for once two
+    newer ones are in flight (the JAX class's depth-2 pipeline). Each call
+    takes its own pinned buffers and stream, so concurrent callers (the
+    HTTP server's threads) share nothing; the result is returned only
+    after every download's event has completed."""
 
     def __init__(self, model: torch.nn.Module, dtype: ServingDtype = torch.bfloat16,
                  max_batch: int = 128, device: DeviceLike = None):
@@ -76,16 +97,64 @@ class Predictor:
         self._forward = build_serving_fn(self.model, dtype)
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
+        return self._serve(images, self.max_batch)
+
+    def _serve(self, images: np.ndarray, chunk: int) -> np.ndarray:
         images = np.asarray(images, np.float32)
-        if len(images) == 0:
-            raise ValueError("Predictor called with 0 images")
-        outs = []
-        for i in range(0, len(images), self.max_batch):
-            chunk, valid = pad_to_multiple(images[i:i + self.max_batch],
-                                           self.max_batch)
-            x = torch.from_numpy(chunk).to(self.device)
-            outs.append(self._forward(x)[:valid].float().cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        n = len(images)
+        if n == 0:
+            raise ValueError(f"{type(self).__name__} called with 0 images")
+        cuda = self.device.type == "cuda"
+        download = torch.cuda.Stream(self.device) if cuda else None
+        out = None  # the whole result, pinned on a card
+        in_flight: deque = deque()  # download events not yet waited for
+        for start in range(0, n, chunk):
+            x = torch.from_numpy(np.require(images[start:start + chunk], requirements="CW"))
+            if cuda:
+                x = x.pin_memory().to(self.device, non_blocking=True)
+            y = self._forward(x)
+            if out is None:
+                out = torch.empty((n, *y.shape[1:]), dtype=torch.float32, pin_memory=cuda)
+            dst = out[start:start + len(x)]
+            if not cuda:
+                dst.copy_(y)
+                continue
+            download.wait_stream(torch.cuda.current_stream(self.device))
+            y.record_stream(download)  # y's memory is reused only after its copy
+            with torch.cuda.stream(download):
+                dst.copy_(y, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            in_flight.append(done)
+            if len(in_flight) > 2:
+                in_flight.popleft().synchronize()
+        for done in in_flight:
+            done.synchronize()
+        return out.numpy()
+
+
+class SpatialPredictor(Predictor):
+    """Serve inputs of any H and W, one forward per call at the input's
+    own shape: no padding and no chunking.
+
+    The JAX class splits the image rows over a mesh of devices (halo
+    exchanges by XLA's partitioner) and falls back to the largest device
+    count that divides H. On one card that count is 1 for every H, so the
+    class is a per-shape forward; large inputs reach the group kernel's
+    scratch variant (W > 64, or H outside 8..64). A ``mesh`` raises: row
+    splitting over several cards is ROADMAP A.13."""
+
+    def __init__(self, model: torch.nn.Module, mesh=None,
+                 dtype: ServingDtype = torch.bfloat16, device: DeviceLike = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SpatialPredictor over a mesh of cards is not ported yet (ROADMAP "
+                "A.13: parallelism); with mesh=None one card serves every H")
+        super().__init__(model, dtype=dtype, max_batch=1, device=device)
+
+    def __call__(self, images: np.ndarray) -> np.ndarray:
+        """NHWC float batch (usually N=1) -> SR batch, one forward."""
+        return self._serve(images, max(1, len(images)))
 
 
 class MicroBatcher:

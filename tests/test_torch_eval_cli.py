@@ -301,8 +301,11 @@ def test_compare_refuses_what_is_not_ported(evalset, flags, err, match):
 
 def test_test_model_refusals(evalset, tmp_path, monkeypatch, no_eval_weights):
     ckpt = str(evalset / "ckpt" / "best_model.fckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        port_test.run(["--exported", "x.pt2", "--input", str(evalset / "hr")])
+    # --exported serves a .pt2 artifact now (tests/test_torch_export.py); a
+    # missing one raises with its name
+    with pytest.raises(FileNotFoundError, match="x.pt2"):
+        port_test.run(["--exported", str(tmp_path / "x.pt2"), "--input", str(evalset / "hr"),
+                       "--device", "cpu"])
     (tmp_path / "face.jpg").write_bytes(b"\xff\xd8\xff\xe0 not a png")
     with pytest.raises(IOError, match="face.jpg"):
         port_test.run(["--checkpoint", ckpt, "--input", str(tmp_path / "face.jpg"),

@@ -107,6 +107,110 @@ def test_bf16_model_trunk_runs_the_kernel(cuda_device):
     assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
 
 
+@pytest.mark.gpu
+def test_custom_op_on_cuda_matches_plain_at_the_scratch_shape(cuda_device):
+    """The op itself (what an exported graph calls) at (2, 40, 80, 64): a
+    width past one 64-pixel tile, the kernel's scratch variant."""
+    gw = _group_weights(2, seed=8, device=cuda_device)
+    x = torch.rand((2, 40, 80, 64), generator=torch.Generator().manual_seed(3))
+    x = x.to(torch.bfloat16).to(cuda_device)
+    before = tgroup.fused_residual_group.launches
+    got = torch.ops.facesr_torch.rcab_group(x, *tgroup.group_weight_args(gw), 0.2)
+    torch.cuda.synchronize()
+    assert tgroup.fused_residual_group.launches == before + 1
+    assert _excess(got, tgroup.rcab_group_reference(x, gw, 0.2)) <= 0
+
+
+@pytest.mark.gpu
+def test_exported_bf16_artifact_launches_the_kernel(cuda_device):
+    from facesr_torch.ckpt.export import export_serving, load_exported
+    from facesr_torch.parallel.serving import Predictor
+
+    model = FaceEnhanceNet(FaceEnhanceNetConfig(num_groups=2, blocks_per_group=2,
+                                                num_channels=64), device=cuda_device)
+    fn = load_exported(export_serving(model, torch.bfloat16, input_size=16), device=cuda_device)
+    x = torch.rand(3, 16, 16, 3, generator=torch.Generator().manual_seed(4)).numpy()
+    before = tgroup.fused_residual_group.launches
+    got = fn(x)
+    assert tgroup.fused_residual_group.launches == before + 2
+    want = Predictor(model, dtype=torch.bfloat16, max_batch=8, device=cuda_device)(x)
+    assert got.shape == (3, 64, 64, 3)
+    assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+
+
+@pytest.mark.gpu
+def test_predictor_pipeline_on_cuda_under_concurrency(cuda_device):
+    """11 images at max_batch 4 (chunks 4, 4, 3 through the depth-2
+    pipeline and pinned buffers) equal each chunk's own forward, also with
+    four threads calling one Predictor at once; the launch count is exact."""
+    import threading
+
+    import numpy as np
+
+    from facesr_torch.parallel.serving import Predictor
+
+    model = FaceEnhanceNet(FaceEnhanceNetConfig(num_groups=2, blocks_per_group=2,
+                                                num_channels=64), device=cuda_device)
+    pred = Predictor(model, dtype=torch.bfloat16, max_batch=4, device=cuda_device)
+    images = np.random.default_rng(5).random((11, 16, 16, 3), dtype=np.float32)
+    with torch.inference_mode():
+        want = np.concatenate([
+            model(torch.from_numpy(images[i:i + 4]).to(cuda_device),
+                  dtype=torch.bfloat16).clamp(0, 1).cpu().numpy() for i in range(0, 11, 4)])
+    before = tgroup.fused_residual_group.launches
+    results = [None] * 4
+
+    def client(i):
+        results[i] = pred(images)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for r in results:
+        np.testing.assert_array_equal(r, want)
+    assert tgroup.fused_residual_group.launches == before + 4 * 3 * 2
+
+
+@pytest.mark.gpu
+def test_kernel_from_many_new_threads_on_cuda(cuda_device):
+    """Both variants launched from 16 threads at once, new threads each
+    round as a threading HTTP server makes them: every output equals the
+    serial one bitwise and the launch count is exact."""
+    import threading
+
+    gw = _group_weights(2, 11, cuda_device)
+    gen = torch.Generator().manual_seed(12)
+    inputs = [torch.rand(shape, generator=gen).to(torch.bfloat16).to(cuda_device)
+              for shape in ((1, 64, 64, 64), (1, 40, 80, 64))]  # resident, scratch
+    with torch.inference_mode():
+        want = [tgroup.fused_residual_group(x, gw, 0.2) for x in inputs]
+    before = tgroup.fused_residual_group.launches
+    failures = []
+
+    def client():
+        try:
+            with torch.inference_mode():
+                for _ in range(5):
+                    for x, w in zip(inputs, want):
+                        if not torch.equal(tgroup.fused_residual_group(x, gw, 0.2), w):
+                            failures.append("output differs from the serial one")
+        except Exception as e:  # noqa: BLE001 — reported by the assert below
+            failures.append(repr(e))
+
+    for _ in range(3):
+        threads = [threading.Thread(target=client) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    assert failures == []
+    assert tgroup.fused_residual_group.launches == before + 3 * 16 * 5 * 2
+
+
 def _rel(a, b):
     a, b = a.double().cpu(), b.double().cpu()
     return ((a - b).norm() / b.norm()).item()

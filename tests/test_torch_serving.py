@@ -14,7 +14,7 @@ import torch
 
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
 from facesr_torch.parallel.serving import (
-    MicroBatcher, Predictor, build_serving_fn, pad_to_multiple,
+    MicroBatcher, Predictor, SpatialPredictor, build_serving_fn, pad_to_multiple,
 )
 
 torch.set_num_threads(1)
@@ -48,15 +48,37 @@ def test_predictor_chunks_and_pads_like_one_forward(dtype):
 
 
 def test_predictor_forward_always_sees_max_batch():
+    # chunks run at their true size: a 5-image request at max_batch 4 is a
+    # forward of 4 and one of 1 (no padding to max_batch)
     seen = []
     model = _model()
     pred = Predictor(model, dtype=None, max_batch=4, device="cpu")
     inner = pred._forward
     pred._forward = lambda x: (seen.append(x.shape[0]), inner(x))[1]
     pred(np.zeros((5, 8, 8, 3), np.float32))
-    assert seen == [4, 4]
+    assert seen == [4, 1]
     with pytest.raises(ValueError):
         pred(np.zeros((0, 8, 8, 3), np.float32))
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_predictor_pipeline_equals_a_serial_run(dtype):
+    # 11 images at max_batch 4: three chunks (4, 4, 3) through the depth-2
+    # pipeline, each equal to a serial forward of the same chunk (bitwise:
+    # the same computation at the same batch size)
+    model = _model()
+    images = np.random.default_rng(5).random((11, 8, 8, 3), dtype=np.float32)
+    pred = Predictor(model, dtype=dtype, max_batch=4, device="cpu")
+    seen = []
+    inner = pred._forward
+    pred._forward = lambda x: (seen.append(x.shape[0]), inner(x))[1]
+    got = pred(images)
+    assert seen == [4, 4, 3] and got.shape == (11, 32, 32, 3)
+    with torch.no_grad():
+        want = np.concatenate([
+            model(torch.from_numpy(images[i:i + 4]), dtype=dtype).clamp(0, 1).float().numpy()
+            for i in range(0, 11, 4)])
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pad_to_multiple_repeats_last():
@@ -65,6 +87,26 @@ def test_pad_to_multiple_repeats_last():
     assert valid == 5 and padded[:, 0].tolist() == [0, 1, 2, 3, 4, 4, 4, 4]
     same, valid = pad_to_multiple(a[:4], 4)
     assert valid == 4 and same.shape[0] == 4
+
+
+def test_spatial_predictor_is_one_forward_at_any_shape():
+    model = _model()
+    sp = SpatialPredictor(model, dtype=None, device="cpu")
+    images = np.random.default_rng(6).random((1, 40, 80, 3), dtype=np.float32)
+    seen = []
+    inner = sp._forward
+    sp._forward = lambda x: (seen.append(tuple(x.shape)), inner(x))[1]
+    got = sp(images)
+    with torch.no_grad():
+        want = model(torch.from_numpy(images)).clamp(0, 1).numpy()
+    assert seen == [(1, 40, 80, 3)] and got.shape == (1, 160, 320, 3)
+    np.testing.assert_array_equal(got, want)
+    assert sp(np.concatenate([images, images]))[1].shape == (160, 320, 3)  # one forward of 2
+    assert seen[-1] == (2, 40, 80, 3)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        SpatialPredictor(model, mesh=object(), device="cpu")
+    with pytest.raises(ValueError):
+        sp(np.zeros((0, 8, 8, 3), np.float32))
 
 
 def test_predictor_without_card_raises(monkeypatch):
