@@ -11,13 +11,17 @@ catches an error and goes on):
 2. build: every kernel of the serving path from the sources in this
    checkout (nvcc, sm_90a), with the ptxas register/smem/spill lines;
 3. each kernel against its plain PyTorch version on the card, at the
-   production shape, ragged ones, a width past one tile and a lone image,
-   and two calls on the same input must agree bitwise;
+   production shape, ragged ones, a width past one tile, a lone image and
+   the scratch variant spread over many clusters (one 256x256 image over
+   every SM, ragged units, several images sharing the clusters), on
+   inputs whose rows darken towards the top; two calls on the same input
+   must agree bitwise;
 4. the full 6x10x64 FaceEnhanceNet in bf16: kernel trunk against the plain
    trunk (conv_last redrawn non-zero), plain trunks with a planted fault
    as controls (the model limits must reject a dropped SE gate and a
    halved res_scale; the kernel tolerance must reject a bf16-rounded
-   feature buffer at one group), and zero conv_last == bicubic;
+   feature buffer at one group, and an SE mean over half the rows at
+   phase 3's 256x256 check), and zero conv_last == bicubic;
 5. serving, the main path: `Predictor(bf16, max_batch=128)` on one request
    of 130 images and eight concurrent single-image requests through
    `MicroBatcher`; the launch counters are zeroed just before and read
@@ -87,8 +91,10 @@ catches an error and goes on):
    and 1x96x96, bitwise equal to the direct forward, whose unclamped
    output is held to phase 4's limits of the plain trunk, 6 launches a
    call, its time and peak memory, and one group call at N=1 256x256
-   timed against the plain version, cuDNN (eager, and replayed from a
-   CUDA graph) and the bound; `export_serving` in bf16 with a symbolic
+   (the scratch variant over every SM), eager and replayed from a CUDA
+   graph, against the plain version, cuDNN (eager and graphed), the bound
+   and the design's scratch traffic at the HBM rate: the kernel must be
+   ahead of graphed cuDNN both ways; `export_serving` in bf16 with a symbolic
    batch written as a ``.pt2``, loaded and run at batch 1 and 8, bitwise
    equal to `Predictor` (the kernel through the custom op, 6 launches a
    call); the HTTP API in this process on a ``.fckpt`` of the model
@@ -145,15 +151,28 @@ GROUP_TIMING = (128, 64, 64, 64, 10)  # N, H, W, C, B of the timed group call
 # where clusters loop over several (the grid holds 7 to 15 clusters), so
 # the next image's loads behind a tail conv run; a width past one 64-pixel
 # tile with an H the band count does not divide (the scratch variant); a
-# lone image (one cluster); and bands of 1 and 2 rows at an odd width
+# lone image (one cluster); bands of 1 and 2 rows at an odd width; and the
+# scratch variant spread over many clusters: one 256x256 image over every
+# cluster (SpatialPredictor's shape), ragged 4-row units and a partial
+# column tile, several images sharing the card's clusters, and more images
+# than it keeps in flight (16), so each slot loops over five. Uniform
+# noise, and from entry RAMP_FROM on the rows darken towards the top
+# (`check_input`), so that an SE mean over part of an image shows
 CHECK_SHAPES = (((4, 64, 64, 64), 10), ((128, 64, 64, 64), 10),
                 ((3, 20, 36, 64), 3), ((40, 20, 36, 64), 3),
-                ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10), ((2, 12, 17, 64), 2))
+                ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10), ((2, 12, 17, 64), 2),
+                ((1, 256, 256, 64), 10), ((1, 130, 200, 64), 2), ((3, 96, 96, 64), 3),
+                ((80, 40, 80, 64), 2))
+RAMP_FROM = 7
 # plain groups with a planted fault, the controls for the limits: the
 # model limits must reject the wiring faults; the rounding fault passes
-# them (its reading is printed) and the kernel tolerance must reject it
+# them (its reading is printed) and the kernel tolerance must reject it;
+# so must it reject an SE mean over the first half of the rows only (what
+# an image spread over clusters computes without the image-wide sum), at
+# the shape and input of the 256x256 check
 WIRING_FAULTS = ("no_gate", "half_res_scale")
 ROUNDING_FAULT = "bf16_feat"
+SPLIT_FAULT, SPLIT_CHECK = "half_image_se", 7  # the fault and its CHECK_SHAPES entry
 # training: the stage-1 batch (48 images of HR 256x256), warm-up and timed
 # steps on one repeated batch; the Trainer phase's smaller batches
 TRAIN_BATCH, TRAIN_HR, TRAIN_WARMUP, TRAIN_TIMED = 48, 256, 2, 6
@@ -189,9 +208,9 @@ def cuda_ms(fn, iters, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters) -> float:
-    """Mean device time of fn() in ms, replayed from one CUDA graph, so the
-    host's launch rate does not set it."""
+def graph_ms(fn, iters, reps=1) -> float:
+    """Device time of fn() in ms, replayed from one CUDA graph, so the
+    host's launch rate does not set it: the median of `reps` means."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -201,7 +220,7 @@ def graph_ms(fn, iters) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    return cuda_ms(graph.replay, iters)
+    return statistics.median(cuda_ms(graph.replay, iters) for _ in range(reps))
 
 
 def host_ms(fn, reps) -> float:
@@ -248,6 +267,15 @@ def group_bound(n, h, w, c, B, cr):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def scratch_traffic_bytes(n, h, w, c, B):
+    """Bytes of global scratch that the scratch variant's design moves in a
+    group call: an RCAB reads bf16(feat) and writes t1 (conv1), reads t1
+    and writes f32 t2 (conv2), reads feat and t2 and writes feat and
+    bf16(feat) (the update): 24 bytes a pixel-channel; the tail conv reads
+    bf16(feat) and x and writes out."""
+    return n * h * w * c * (24 * B + 3 * 2)
+
+
 def library_group(x, gw, res_scale):
     """The same group with cuDNN bf16 channels_last convolutions and torch
     elementwise ops: the yardstick `library_ms` (the port never calls it)."""
@@ -278,19 +306,29 @@ def group_diff(got, want):
             excess)
 
 
-def check_kernel(dev, shape, B, seed):
+def check_input(shape, seed, dev, ramp=True):
+    """bf16 NHWC uniform noise; with `ramp`, its rows darken towards the top
+    (times a ramp from 0.1 to 1 over the rows), so that channel means over
+    part of the rows differ from the image's, as in a face crop."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(seed))
+    if ramp:
+        x = x * torch.linspace(0.1, 1.0, shape[1]).reshape(1, -1, 1, 1)
+    return x.to(torch.bfloat16).to(dev)
+
+
+def check_kernel(dev, shape, B, seed, ramp):
     from facesr_torch.ops.rcab_group import fused_residual_group, rcab_group_reference
 
     gw = group_weights(seeded_group(B, seed), dev)
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.rand(shape, generator=gen).to(torch.bfloat16).to(dev)
+    x = check_input(shape, seed, dev, ramp)
     got = fused_residual_group(x, gw, 0.2)
     again = fused_residual_group(x, gw, 0.2)
     torch.cuda.synchronize()
     want = rcab_group_reference(x, gw, 0.2)
     max_abs, mean_abs, share, excess = group_diff(got, want)
     repeat = torch.equal(got, again)
-    log(f"  {tuple(shape)} B={B} ({kernel_variant(shape)}): max_abs={max_abs:.6g} "
+    log(f"  {tuple(shape)} B={B} {'ramp' if ramp else 'uniform'} ({kernel_variant(shape)}): "
+        f"max_abs={max_abs:.6g} "
         f"mean_abs={mean_abs:.6g} differing={share:.6g} "
         f"max|ref|={want.float().abs().max().item():.4g} "
         f"finite={bool(torch.isfinite(got).all())} repeat bitwise equal={repeat}")
@@ -309,15 +347,17 @@ def kernel_variant(shape):
     from facesr_torch.ops import rcab_group as rg
 
     n, h, w, _ = shape
-    clusters, size, scratch = rg._plan(rg._lib(), n, h, w)
-    return (f"{'scratch' if scratch else 'resident'}, {clusters} cluster(s) of {size}")
+    clusters, size, scratch, per_image = rg._plan(rg._lib(), n, h, w)
+    return (f"{'scratch' if scratch else 'resident'}, {clusters} cluster(s) of {size}, "
+            f"{per_image} an image, {clusters * size} SMs")
 
 
 def planted_fault_group(x, gw, res_scale, fault):
     """`rcab_group_reference` with one planted fault, the control that shows
     a check rejects a wrong trunk: "no_gate" drops the SE gate,
     "half_res_scale" halves res_scale, "bf16_feat" rounds the f32 feature
-    accumulator to bf16 after every RCAB."""
+    accumulator to bf16 after every RCAB, "half_image_se" takes the SE mean
+    over the first half of the rows only."""
     from facesr_torch.ops.conv import conv2d
 
     def bf(t):
@@ -335,7 +375,8 @@ def planted_fault_group(x, gw, res_scale, fault):
         t = torch.where(t >= 0, t, gw["a"][k] * t)
         t = conv(t, gw["w2"][k], gw["b2"][k])
         if fault != "no_gate":
-            y = torch.sigmoid(torch.relu(t.mean(dim=(1, 2)) @ gw["fc1"][k]) @ gw["fc2"][k])
+            part = t[:, :t.shape[1] // 2] if fault == "half_image_se" else t
+            y = torch.sigmoid(torch.relu(part.mean(dim=(1, 2)) @ gw["fc1"][k]) @ gw["fc2"][k])
             t = t * y[:, None, None, :]
         feat = feat + t * scale
         if fault == "bf16_feat":
@@ -1315,6 +1356,7 @@ def gan_phase(dev, card: str) -> None:
 SERVE_REQUEST = 130
 SPATIAL_SHAPES = ((1, 256, 256, 3), (1, 96, 96, 3))
 SCRATCH_TIMING = (1, 256, 256, 64, 10)
+SCRATCH_REPS = 5
 EXPORT_BATCHES = (1, 8)
 HTTP_CLIENTS, HTTP_REQUESTS, HTTP_HR_CLIENTS = 16, 8, 4
 HTTP_LR_IMAGES, HTTP_HR_IMAGES = 16, 4
@@ -1522,8 +1564,8 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
         check_within(f"the direct forward {shape}, unclamped, vs the plain trunk",
                      raw.cpu().numpy(), want, lmax, lmean)
         del raw, xd
-        log(f"  SpatialPredictor {shape} numpy in and out: median of 3 "
-            f"{host_ms(lambda: sp(x), 3):.3f} ms [{card}]")
+        log(f"  SpatialPredictor {shape} numpy in and out: median of 5 "
+            f"{host_ms(lambda: sp(x), 5):.3f} ms [{card}]")
     n_, h, w, c, B = SCRATCH_TIMING
     gw = group_weights(seeded_group(B, seed=13), dev)
     xs = torch.rand((n_, h, w, c), generator=torch.Generator().manual_seed(14)).to(
@@ -1535,19 +1577,38 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
                                          rg.rcab_group_reference(xs, gw, 0.2))
     if excess > 0:
         raise AssertionError(f"scratch variant disagrees with its plain version: max_abs {mx}")
-    scratch = {"ms": cuda_ms(lambda: rg.fused_residual_group(xs, gw, 0.2), iters=10),
+    kernel = lambda: rg.fused_residual_group(xs, gw, 0.2)  # noqa: E731
+    library = lambda: library_group(xs, gw, 0.2)  # noqa: E731
+    # medians of SCRATCH_REPS means; eager, and replayed from one CUDA graph
+    # so that the host's dispatch rate drops out (cuDNN's chain at N=1 is
+    # ~100 small launches)
+    scratch = {"ms": statistics.median(cuda_ms(kernel, iters=20) for _ in range(SCRATCH_REPS)),
+               "graph_ms": graph_ms(kernel, iters=20, reps=SCRATCH_REPS),
                "plain_ms": cuda_ms(lambda: rg.rcab_group_reference(xs, gw, 0.2), iters=3,
                                    warmup=1),
-               "library_ms": cuda_ms(lambda: library_group(xs, gw, 0.2), iters=10)}
-    # the library chain is ~100 small launches at N=1; replayed from a CUDA
-    # graph the host's dispatch rate drops out of its time
-    library_graph_ms = graph_ms(lambda: library_group(xs, gw, 0.2), iters=10)
+               "library_ms": statistics.median(cuda_ms(library, iters=10)
+                                               for _ in range(SCRATCH_REPS)),
+               "library_graph_ms": graph_ms(library, iters=10, reps=SCRATCH_REPS)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kernel()
+    host_call_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
     scratch["bound_ms"], scratch["bound_by"] = group_bound(n_, h, w, c, B, gw["fc1"].shape[-1])
-    log(f"  one group call N={n_} {h}x{w} C={c} B={B} ({variant}): kernel "
-        f"{scratch['ms']:.4f} ms, plain {scratch['plain_ms']:.4f} ms, library (cuDNN bf16) "
-        f"{scratch['library_ms']:.4f} ms eager and {library_graph_ms:.4f} ms from a CUDA "
-        f"graph, bound {scratch['bound_ms']:.4f} ms ({scratch['bound_by']}); vs plain "
-        f"max_abs={mx:.6g} differing={share:.6g} [{card}]")
+    floor_bytes = scratch_traffic_bytes(n_, h, w, c, B)
+    log(f"  one group call N={n_} {h}x{w} C={c} B={B} ({variant}), medians of {SCRATCH_REPS}: "
+        f"kernel {scratch['ms']:.4f} ms eager and {scratch['graph_ms']:.4f} ms from a CUDA "
+        f"graph (host enqueue {host_call_ms:.4f} ms a call), plain {scratch['plain_ms']:.4f} "
+        f"ms, library (cuDNN bf16) {scratch['library_ms']:.4f} ms eager and "
+        f"{scratch['library_graph_ms']:.4f} ms from a CUDA graph; bound "
+        f"{scratch['bound_ms']:.4f} ms ({scratch['bound_by']}); the design's scratch traffic "
+        f"{floor_bytes / 1e9:.4f} GB = {floor_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
+        f"rate; vs plain max_abs={mx:.6g} differing={share:.6g} [{card}]")
+    for key in ("ms", "graph_ms"):
+        if scratch[key] >= scratch["library_graph_ms"]:
+            raise AssertionError(f"the scratch variant ({key} {scratch[key]:.4f}) is not ahead "
+                                 f"of graphed cuDNN ({scratch['library_graph_ms']:.4f} ms)")
     del xs, gw
 
     # 11c: torch.export, a symbolic batch, the group kernel as a custom op
@@ -1766,7 +1827,7 @@ def main() -> int:
 
     log(f"== 3. kernel vs plain (|diff| <= {KERNEL_ATOL} + 2^-7*|ref|: bf16 output, "
         "another f32 summation order)")
-    max_err = max(check_kernel(dev, shape, B, seed=i)
+    max_err = max(check_kernel(dev, shape, B, seed=i, ramp=i >= RAMP_FROM)
                   for i, (shape, B) in enumerate(CHECK_SHAPES))
 
     cfg = production_config()
@@ -1828,6 +1889,18 @@ def main() -> int:
         if excess <= 0:
             raise AssertionError(f"the kernel tolerance lets the planted fault "
                                  f"{ROUNDING_FAULT} pass")
+        # the split fault against the kernel tolerance, at phase 3's 256x256 check
+        shape, B = CHECK_SHAPES[SPLIT_CHECK]
+        gw = group_weights(seeded_group(B, SPLIT_CHECK), dev)
+        xg = check_input(shape, SPLIT_CHECK, dev)
+        mx, mean, share, excess = group_diff(
+            planted_fault_group(xg, gw, 0.2, SPLIT_FAULT), rcab_group_reference(xg, gw, 0.2))
+        log(f"  planted fault {SPLIT_FAULT}, one group {shape} B={B} vs plain: "
+            f"max_abs={mx:.6g} mean_abs={mean:.6g} differing={share:.6g} -> "
+            f"{'rejected' if excess > 0 else 'within'} the kernel tolerance")
+        if excess <= 0:
+            raise AssertionError(f"the kernel tolerance lets the planted fault "
+                                 f"{SPLIT_FAULT} pass")
         zero_last = production_model(dev, nonzero_last=False)
         out_z = zero_last(x4, train=True, dtype=torch.bfloat16, trunk_fn=kernel_trunk)
         if not torch.equal(out_z, bicubic_up(x4, 4)):
@@ -1994,6 +2067,10 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "scratch_ms": serving["scratch"]["ms"],
+        "scratch_graph_ms": serving["scratch"]["graph_ms"],
+        "scratch_plain_ms": serving["scratch"]["plain_ms"],
+        "scratch_library_ms": serving["scratch"]["library_ms"],
+        "scratch_library_graph_ms": serving["scratch"]["library_graph_ms"],
         "scratch_bound_ms": serving["scratch"]["bound_ms"],
     }]}
     print(json.dumps(table), flush=True)

@@ -1,13 +1,24 @@
 """Phase timeline inside one residual-group kernel call, on the card.
 
     python -m facesr_torch.cli.profile_group [--n 128] [--h 64] [--w 64]
+    python -m facesr_torch.cli.profile_group --n 1 --h 256 --w 256
 
 A group call is one launch, so the profiler sees one kernel. This builds a
 copy of ``facesr_torch/csrc/rcab_group.cu`` with ``clock64()`` marks at the
-phase points of the resident variant (rank 0 of cluster 0, its first
-image, RCAB k=1), runs one call (weights from a seed, 10 RCABs) and prints
-the SM cycles from the start of that RCAB to each mark, three times. The
-marks are inserted by text substitution; when the source moves on, a
+phase points of the variant the shape takes, runs one call (weights from a
+seed, 10 RCABs) and prints the SM cycles of RCAB k=1, three times:
+
+* resident: rank 0 of cluster 0, its first image; cycles from the start
+  of that RCAB to each mark;
+* scratch: every block of the first image, thread 0; cycles of each
+  phase (conv MMAs, the waits for input units, the epilogues, the
+  image-wide barrier waits, the SE mean and gate, the residual update),
+  the MMA and unit-wait shares summed over the conv's units (warpgroup
+  0's tiles): block 0's, then the minimum, median and maximum over the
+  image's blocks. A barrier's shortest wait is the last block's, so it is
+  the barrier's own cost; the longer ones wait for the slowest block.
+
+The marks are inserted by text substitution; when the source moves on, a
 missing anchor stops the tool with its text. The copy and its library go
 to the gitignored ``facesr_torch/_build/profile_group/``.
 """
@@ -16,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import statistics
 import subprocess
 import sys
 
@@ -52,6 +64,55 @@ ANCHORS = [
      "      r.dbg = marks != nullptr && cid == 0 && r.rank == 0 && img == cid && k == 1"
      " ? marks : nullptr;\n      r.nmark = 0;\n", "", 1),
 ]
+# the scratch variant: timestamps into dbg[0..], conv durations into dbg[48..]
+S_MARK = "if (b.dbg != nullptr && b.tid == 0) b.dbg[b.nmark++] = clock64();"
+S_ANCHORS = [
+    ("  uint32_t q;   // convs started so far (weight barrier parity q & 1)\n",
+     "", "  long long* dbg;\n  int nmark, nsum;\n  long long t_wait, t_mma;\n", 1),
+    ("namespace {\n", "", "__device__ long long* g_marks;\n", 1),
+    ("  b.q = 0;\n", "", "  b.dbg = nullptr;\n  b.nmark = b.nsum = 0;\n", 1),
+    ("  mbar_wait(b.bar_w, b.q & 1);\n", S_MARK + "\n  b.t_wait = b.t_mma = 0;\n",
+     S_MARK + "\n", 1),
+    ("    mbar_wait(b.bar_s(b.it), (b.it >> 1) & 1);\n", "    long long tw = clock64();\n",
+     "    b.t_wait += clock64() - tw;\n", 1),
+    ("      conv_tile(acc, rows, l0, b.wsm, b.wq, b.lane);\n", "      long long tm = clock64();\n",
+     "      b.t_mma += clock64() - tm;\n", 1),
+    ("  __syncthreads();  // every MMA of this conv is done with the weight buffer\n",
+     S_MARK + "\n  if (b.dbg != nullptr && b.tid == 0) {\n"
+     "    b.dbg[48 + b.nsum++] = b.t_wait;\n    b.dbg[48 + b.nsum++] = b.t_mma;\n  }\n", "", 1),
+    ("  fence_proxy_async();  // t1 / out writes before other blocks' TMA reads\n", "",
+     S_MARK + "\n", 1),
+    ("      conv_phase<PRELU_T1>(b, p, k == 0 ? &tm_x : &tm_featb",
+     "      b.dbg = g_marks != nullptr && slot == 0 && img == slot && k == 1"
+     " ? g_marks + 64 * b.bi : nullptr;\n      b.nmark = b.nsum = 0;\n", "", 1),
+    ("      b.image_barrier();  // every block's t1 units are written\n", "", S_MARK + "\n", 1),
+    ("      b.image_barrier();  // every block's channel sums are written\n",
+     S_MARK + "\n", S_MARK + "\n", 1),
+    ("      gate_from_mean(b.m, p, gw, b.tid);\n", "", S_MARK + "\n", 1),
+    ("      fence_proxy_async();\n      b.image_barrier();  // every block's bf16(feat) units are written\n",
+     S_MARK + "\n", S_MARK + "\n", 1),
+    ("extern \"C\" int rcab_group_barrier_bytes()",
+     "extern \"C\" int rcab_group_set_marks(void* marks) {\n"
+     "  return int(cudaMemcpyToSymbol(g_marks, &marks, sizeof(marks)));\n}\n\n", "", 1),
+]
+S_CONV = ["start", "weight ready", "units done", "stored"]
+S_NAMES = (["conv1 " + m for m in S_CONV] + ["t1 barrier passed"]
+           + ["conv2 " + m for m in S_CONV] + ["sums barrier arrive", "sums barrier passed",
+                                               "gate", "update done", "feat barrier passed"])
+# phases of the scratch variant's RCAB: (name, first mark, last mark)
+S_PHASES = [("conv1 weight wait", "conv1 start", "conv1 weight ready"),
+            ("conv1 units", "conv1 weight ready", "conv1 units done"),
+            ("conv1 tail", "conv1 units done", "conv1 stored"),
+            ("t1 barrier", "conv1 stored", "t1 barrier passed"),
+            ("conv2 weight wait", "conv2 start", "conv2 weight ready"),
+            ("conv2 units", "conv2 weight ready", "conv2 units done"),
+            ("conv2 sums", "conv2 units done", "conv2 stored"),
+            ("gate weights", "conv2 stored", "sums barrier arrive"),
+            ("sums barrier", "sums barrier arrive", "sums barrier passed"),
+            ("SE mean + gate", "sums barrier passed", "gate"),
+            ("update", "gate", "update done"),
+            ("feat barrier", "update done", "feat barrier passed")]
+
 CONV_MARKS = ["start", "weight ready", "own-row MMAs queued", "halo rows in", "MMAs done",
               "arrived"]
 FINISH_MARKS = ["rows stored", "barrier passed", "edge rows pushed"]
@@ -62,7 +123,7 @@ NAMES = (["conv1 " + m for m in CONV_MARKS] + ["t1 " + m for m in FINISH_MARKS]
 
 def build_probe() -> ctypes.CDLL:
     src = (_build.CSRC / "rcab_group.cu").read_text()
-    for anchor, before, after, count in ANCHORS:
+    for anchor, before, after, count in ANCHORS + S_ANCHORS:
         if src.count(anchor) != count:
             raise SystemExit(f"profile_group: anchor not found {count}x in rcab_group.cu:\n{anchor}")
         src = src.replace(anchor, before + anchor + after)
@@ -75,6 +136,39 @@ def build_probe() -> ctypes.CDLL:
     if res.returncode != 0:
         raise SystemExit(f"profile_group: nvcc failed\n{res.stdout}{res.stderr}")
     return ctypes.CDLL(str(lib_path))
+
+
+def profile_scratch(lib, card, x, gw, clusters, size, per_image) -> int:
+    """The scratch variant's phases of RCAB k=1 in every block of the first
+    image, through the wrapper (which launches the marked copy), the marks'
+    buffer set by the copy's extra entry."""
+    lib.rcab_group_set_marks.argtypes = [ctypes.c_void_p]
+    lib.rcab_group_set_marks.restype = ctypes.c_int
+    n, h, w, _ = x.shape
+    blocks = per_image * size
+    print(f"{card}; N={n} {h}x{w}, {clusters} cluster(s) of {size}, {per_image} an image, "
+          f"{clusters * size} SMs; SM cycles of RCAB k=1 in the first image's {blocks} blocks "
+          "(thread 0): block 0, then min / median / max over the blocks")
+    names = [name for name, _, _ in S_PHASES] + ["conv1 unit waits", "conv1 MMAs",
+                                                 "conv2 unit waits", "conv2 MMAs", "RCAB"]
+    for rep in range(3):
+        marks = torch.zeros(64 * blocks, dtype=torch.int64, device=x.device)
+        err = lib.rcab_group_set_marks(marks.data_ptr())
+        if err != 0:
+            raise SystemExit(f"profile_group: rcab_group_set_marks failed: cudaError_t {err}")
+        rg.fused_residual_group(x, gw, 0.2)
+        torch.cuda.synchronize()
+        rows = []
+        for v in marks.view(blocks, 64).cpu().tolist():
+            at = dict(zip(S_NAMES, v[:len(S_NAMES)]))
+            rows.append([at[b] - at[a] for _, a, b in S_PHASES] + v[48:52]
+                        + [at["feat barrier passed"] - at["conv1 start"]])
+        cols = list(zip(*rows))
+        print(f"  run {rep}: " + "; ".join(
+            f"{name} {col[0]} ({min(col)} / {statistics.median(col):.0f} / {max(col)})"
+            for name, col in zip(names, cols)))
+    lib.rcab_group_set_marks(None)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -95,13 +189,11 @@ def main(argv=None) -> int:
     gw = {k: v.to(dev) for k, v in rg.prepare_group_weights(group).items()}
     x = torch.rand((args.n, args.h, args.w, 64), generator=torch.Generator().manual_seed(5))
     x = x.to(torch.bfloat16).to(dev)
-    clusters, size, scratch = rg._plan(rg._lib(), args.n, args.h, args.w)
-    if scratch:
-        print("profile_group: this shape takes the scratch variant, which has no marks",
-              file=sys.stderr)
-        return 1
+    clusters, size, scratch, per_image = rg._plan(rg._lib(), args.n, args.h, args.w)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
+    if scratch:
+        return profile_scratch(lib, card.strip(), x, gw, clusters, size, per_image)
     print(f"{card.strip()}; N={args.n} {args.h}x{args.w}, {clusters} cluster(s) of {size}; "
           "SM cycles from the start of RCAB k=1 (rank 0 of cluster 0, first image)")
     for rep in range(3):
@@ -109,8 +201,9 @@ def main(argv=None) -> int:
         out = torch.empty_like(x)
         err = lib.rcab_group_forward(
             x.data_ptr(), out.data_ptr(), *(gw[k].data_ptr() for k in rg._WEIGHT_SPECS),
-            marks.data_ptr(), None, None, None, args.n, args.h, args.w, 10,
-            gw["fc1"].shape[-1], 0.2, clusters, size, torch.cuda.current_stream().cuda_stream)
+            marks.data_ptr(), None, None, None, None, None, args.n, args.h, args.w, 10,
+            gw["fc1"].shape[-1], 0.2, clusters, size, per_image,
+            torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if err != 0:
             raise SystemExit(f"profile_group: rcab_group_forward failed: cudaError_t {err}")

@@ -21,11 +21,10 @@
 // memory, and the SE mean needs every pixel of an image before the update.
 //
 // Design: one launch a group call. A persistent grid of thread-block
-// clusters walks the images, one image a cluster at a time; the blocks of
-// a cluster own row bands of it. Every RCAB stage is separated by a wait on
-// the other blocks, not by a launch. The SE mean is the only cross-block
-// reduction: each block stores its per-channel sums into every block of the
-// cluster (DSMEM) and every block sums them in rank order, so the gate is
+// clusters walks the images; the blocks that share an image own parts of
+// it. Every RCAB stage is separated by a wait on the other blocks, not by a
+// launch. The SE mean is the only cross-block reduction: each block's
+// per-channel sums are summed by every block in block order, so the gate is
 // computed without atomics and the same every run. The residual update
 // runs in the same kernel and also produces bf16(feat), so every conv reads
 // bf16. Two variants of this design, by image size:
@@ -50,12 +49,31 @@
 //    that took ~1,000 SM cycles an arrive. HBM sees x, out and the weights.
 //  * scratch (any other H x W): the same phases with feat, t2 (f32) and
 //    bf16(feat), t1 (bf16) in global scratch sized for the images in
-//    flight, one per cluster (~3 MB at 64x64), not for the batch; a larger
-//    image only loses L2 residency. Input bands come by TMA as a 4-D box
-//    over NHWC whose out-of-bounds zero fill is the SAME padding, in a
-//    two-stage ring; the residual update is a pass over the band. Its
-//    stages are separated by release/acquire cluster barriers, which
-//    publish the global scratch and the SE sums.
+//    flight, not for the batch: at most 16 (MAX_SLOTS), each over
+//    max(1, m / min(N, 16)) of the m clusters the card holds at once. A
+//    lone large image (the SpatialPredictor's) keeps every SM busy; a
+//    large batch keeps ~8 SMs an image and ~0.8 GB of scratch at 256x256
+//    (66 images in flight, one a cluster of 2, would take 3.3 GB). A
+//    block's unit of work is 4 rows x one 64-pixel column tile; the
+//    image's units are dealt out to its blocks in contiguous runs. Input
+//    units come by TMA as a 4-D box over NHWC whose out-of-bounds zero
+//    fill is the SAME padding, in a two-stage ring, so a halo row of
+//    another block (of any cluster) needs only the barrier that published
+//    it; the residual update is a pass over the block's units. Each block
+//    stores its channel sums of t2 into a global row [block of the image,
+//    C]; after the barrier every block sums those rows in block order. The
+//    barriers that order the stages are over the image's blocks, on a
+//    global counter and generation (release/acquire, a bounded spin that
+//    traps). Such a barrier holds only if every block is resident: the
+//    launch is cooperative (beside the cluster dimension; CUDA on the H100
+//    takes the pair), which places the whole grid at once or refuses it.
+//    What bounds it: at 256x256 the image's scratch (50.3 MB) overflows
+//    the 50 MB L2, and a group call moves ~1.03 GB of it (~0.31 ms at the
+//    HBM rate), about 3x the operations
+//    bound. Measured on an H100 (profile_group): the residual update runs
+//    at about the HBM rate summed over the blocks and takes ~28% of an
+//    RCAB, the conv MMAs ~23%, their epilogues ~20%; an image-wide barrier
+//    costs ~2 us (~30 a call).
 //
 // Conv mainloops: implicit GEMMs over K = 9 taps x 64 input channels with
 // f32 accumulators; the [576, 64] weight sits in 128-byte-swizzled shared
@@ -82,13 +100,16 @@
 //    output channels, wgmma m64n64k16 with A from registers (ldmatrix; the
 //    dx shift is a per-lane row address) and the weight as B.
 //
-// Plain C entries: `rcab_group_plan` picks the variant, the cluster size
-// and the number of clusters (the scratch extent), `rcab_group_forward`
+// Plain C entries: `rcab_group_plan` picks the variant, the cluster size,
+// the number of clusters and the clusters an image, `rcab_group_forward`
 // makes the one launch on the caller's stream and returns the first
-// cudaError_t of its own calls. Both may be called from many host threads
-// at once. Each sets the kernel's attributes in the calling thread before
-// it queries or launches: set once from one thread, they did not hold for
-// launches from other threads on the H100 (cudaErrorInvalidValue).
+// cudaError_t of its own calls (`rcab_group_error_site` names the call).
+// Both may be called from many host threads at once. Each sets the
+// kernel's attributes, a runtime call, before anything else: that makes the
+// device's context current in the calling thread, which the tensor-map
+// encoder (not a runtime call) needs. A server's new thread that PyTorch
+// has launched nothing from has none, and its first encode failed
+// (cudaErrorInvalidValue on the H100).
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
@@ -115,6 +136,10 @@ constexpr uint32_t STAGE_BYTES = BOX_H * ROW_BYTES;
 constexpr uint32_t STAGE_STRIDE = (STAGE_BYTES + 1023) / 1024 * 1024;
 constexpr int STAGES = 2;
 constexpr int UPDATE_BATCH = 8;    // residual-update vectors in flight a thread
+// an image-wide barrier: the arrival count at word 0 and the generation at
+// word 32 of a slot's row, on separate 128-byte lines
+constexpr int BAR_WORDS = 64;
+constexpr int MAX_SLOTS = 16;      // images in flight at most (the barrier rows)
 constexpr int STG_LD = C + 8;      // row stride of the epilogue staging, in elements
 
 // shared memory of the scratch variant, from a 1024-byte-aligned base
@@ -170,12 +195,20 @@ struct Params {
   const float* fc1;
   const float* fc2;
   const float* bg;
-  float* feat;            // scratch variant: [clusters, H, W, C] f32
-  float* t2;              // [clusters, H, W, C] f32
-  __nv_bfloat16* t1;      // [clusters, H, W, C]
-  __nv_bfloat16* featb;   // [clusters, H, W, C]: bf16(feat)
+  float* feat;            // scratch variant: [slots, H, W, C] f32 (a slot: an image in flight)
+  float* t2;              // [slots, H, W, C] f32
+  __nv_bfloat16* t1;      // [slots, H, W, C]
+  __nv_bfloat16* featb;   // [slots, H, W, C]: bf16(feat)
   int n, h, w, num_blocks, cr;
   float res_scale;
+};
+
+// what only the scratch variant reads (the resident kernel's parameters
+// stay as they were)
+struct ScratchParams : Params {
+  float* partial;         // [slots, blocks an image, C]: each block's channel sums of t2
+  unsigned* bar;          // [slots, BAR_WORDS]: image-wide barrier count and generation
+  int clusters_per_image;
 };
 
 // ---- PTX wrappers -------------------------------------------------------
@@ -311,12 +344,6 @@ __device__ __forceinline__ uint32_t dsmem_addr(uint32_t addr, uint32_t rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
   return remote;
-}
-
-__device__ __forceinline__ void st_dsmem_v4(uint32_t addr, uint32_t rank, const uint4& v) {
-  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(dsmem_addr(addr, rank)),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
 }
 
 // 16 bytes into block `rank`'s shared memory at (its) `addr`, counted as
@@ -539,17 +566,10 @@ __device__ __forceinline__ GateWeights load_gate_weights(const Params& p, int k,
   return gw;
 }
 
-// SE gate of RCAB k, the same in every block: the cluster's channel sums
-// (`allsum`, one row a block) in rank order, then fc1, ReLU, fc2, sigmoid,
-// each output summed by GATE_LANES adjacent lanes. Leaves m.gate ready for
-// every thread.
-__device__ __forceinline__ void se_gate(const Misc& m, const float* allsum, const Params& p,
-                                        const GateWeights& gw, int csize, int tid) {
-  if (tid < C) {
-    float s = 0.f;
-    for (int r = 0; r < csize; ++r) s += allsum[r * C + tid];
-    m.mean[tid] = s / float(p.h * p.w);
-  }
+// The SE gate from m.mean: fc1, ReLU, fc2, sigmoid, each output summed by
+// GATE_LANES adjacent lanes. Leaves m.gate ready for every thread.
+__device__ __forceinline__ void gate_from_mean(const Misc& m, const Params& p,
+                                               const GateWeights& gw, int tid) {
   __syncthreads();
   const int o = tid / GATE_LANES, part = tid % GATE_LANES;
   {
@@ -574,19 +594,43 @@ __device__ __forceinline__ void se_gate(const Misc& m, const float* allsum, cons
   __syncthreads();
 }
 
+// SE gate of RCAB k, the same in every block: the cluster's channel sums
+// (`allsum`, one row a block) in rank order, then the gate.
+__device__ __forceinline__ void se_gate(const Misc& m, const float* allsum, const Params& p,
+                                        const GateWeights& gw, int csize, int tid) {
+  if (tid < C) {
+    float s = 0.f;
+    for (int r = 0; r < csize; ++r) s += allsum[r * C + tid];
+    m.mean[tid] = s / float(p.h * p.w);
+  }
+  gate_from_mean(m, p, gw, tid);
+}
+
 // ---- scratch variant ------------------------------------------------------
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* ptr) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ptr) : "memory");
+  return v;
+}
 
 struct Block {
   uint32_t wsm, stage0, bar_w, bar_s0;
   Misc m;
   float* stg;
   int tid, wq, lane, warp, wg;
-  int rank, csize, r0, r1, col_tiles, n_st;
+  int col_tiles;    // 64-pixel column tiles a row
+  int u0, n_st;     // the block's units u0 .. u0 + n_st - 1 (row band u / col_tiles, tile u % col_tiles)
+  int bi, nbi;      // the block's index among its image's blocks, and their number
+  float* partial;   // the image's rows of channel sums, [nbi, C]
+  unsigned* bar;    // the image's barrier: count at word 0, generation at word 32
   uint32_t it;  // stages consumed so far (ring slot it & 1, parity (it >> 1) & 1)
   uint32_t q;   // convs started so far (weight barrier parity q & 1)
 
   __device__ uint32_t stage(uint32_t i) const { return stage0 + (i & 1) * STAGE_STRIDE; }
   __device__ uint32_t bar_s(uint32_t i) const { return bar_s0 + (i & 1) * 8; }
+  __device__ int unit_y(int s) const { return ((u0 + s) / col_tiles) * ROWS; }
+  __device__ int unit_x(int s) const { return ((u0 + s) % col_tiles) * TILE; }
 
   __device__ void load_weight(const CUtensorMap* map, int row0) const {
     mbar_expect_tx(bar_w, W_BYTES);
@@ -595,14 +639,41 @@ struct Block {
       tma_load_2d(wsm + part * W_BOX_ROWS * C * 2, map, bar_w, 0, row0 + part * W_BOX_ROWS);
   }
 
+  // the input rows of unit s (its rows and one halo row each side) into ring slot i
   __device__ void load_stage(uint32_t i, int s, const CUtensorMap* map, int img) const {
-    const int y0 = r0 + (s / col_tiles) * ROWS, x0 = (s % col_tiles) * TILE;
     mbar_expect_tx(bar_s(i), STAGE_BYTES);
-    tma_load_4d(stage(i), map, bar_s(i), 0, x0 - 1, y0 - 1, img);
+    tma_load_4d(stage(i), map, bar_s(i), 0, unit_x(s) - 1, unit_y(s) - 1, img);
+  }
+
+  // Returns once every block of the image has arrived, with what each
+  // stored before it visible to all (to their TMA reads too: writers fence
+  // the async proxy before they arrive). The last block to arrive resets
+  // the count and bumps the generation that the others wait on, so the
+  // counters are left as they were found and need no reset between calls;
+  // a wait that never ends (a block that is not resident) traps, and the
+  // launch reports it.
+  __device__ void image_barrier() const {
+    __syncthreads();
+    if (tid == 0) {
+      unsigned* count = bar;
+      unsigned* gen = bar + 32;
+      const unsigned g = ld_acquire_gpu(gen);
+      __threadfence();
+      if (atomicAdd(count, 1u) == unsigned(nbi) - 1) {
+        *reinterpret_cast<volatile unsigned*>(count) = 0;
+        __threadfence();
+        atomicAdd(gen, 1u);
+      } else {
+        for (uint32_t spins = 0; ld_acquire_gpu(gen) == g; ++spins)
+          if (spins > (1u << 22)) __trap();
+      }
+      __threadfence();
+    }
+    __syncthreads();
   }
 };
 
-// One 3x3 conv over the block's band, input `in_map` image `in_img`; then
+// One 3x3 conv over the block's units, input `in_map` image `in_img`; then
 // the next conv's weight (`next_w`, or none) starts loading.
 template <int MODE>
 __device__ __forceinline__ void conv_phase(Block& b, const Params& p, const CUtensorMap* in_map,
@@ -634,12 +705,12 @@ __device__ __forceinline__ void conv_phase(Block& b, const Params& p, const CUte
     __syncthreads();  // stage s-1 is done, so its ring slot may be refilled
     if (b.tid == 0 && s + 1 < b.n_st) b.load_stage(b.it + 1, s + 1, in_map, in_img);
     mbar_wait(b.bar_s(b.it), (b.it >> 1) & 1);
-    const int y0 = b.r0 + (s / b.col_tiles) * ROWS, x0 = (s % b.col_tiles) * TILE;
+    const int y0 = b.unit_y(s), x0 = b.unit_x(s);
 #pragma unroll 1
     for (int jj = 0; jj < ROWS / NWG; ++jj) {
       const int j = b.wg + jj * NWG;
       const int y = y0 + j;
-      if (y >= b.r1) break;  // uniform over the warpgroup
+      if (y >= p.h) break;  // uniform over the warpgroup
       float acc[32];
       const uint32_t st = b.stage(b.it);
       const uint32_t rows[3] = {st, st, st};
@@ -717,15 +788,31 @@ __device__ __forceinline__ void conv_phase(Block& b, const Params& p, const CUte
   if (b.tid == 0 && next_w != nullptr) b.load_weight(next_w, next_row);
   ++b.q;
   if (MODE == BIAS_T2_SUMS) {
-    // into row `rank` of allsum in every block; the cluster barrier after
-    // this conv publishes them
+    // row bi of the image's channel sums (through L2, where every block
+    // reads them); the image barrier after this conv publishes it
     const uint4 s = block_channel_sums(b.m, csum, b.tid);
-    if (b.tid < SUM_THREADS) {
-      const uint32_t addr = smem_u32(b.m.allsum + b.rank * C + 4 * b.tid);
-      for (int r = 0; r < b.csize; ++r) st_dsmem_v4(addr, uint32_t(r), s);
-    }
+    if (b.tid < SUM_THREADS)
+      __stcg(reinterpret_cast<float4*>(b.partial + b.bi * C) + b.tid,
+             make_float4(__uint_as_float(s.x), __uint_as_float(s.y), __uint_as_float(s.z),
+                         __uint_as_float(s.w)));
   }
-  fence_proxy_async();  // t1 / out writes before neighbours' TMA reads
+  fence_proxy_async();  // t1 / out writes before other blocks' TMA reads
+}
+
+// The image's mean of t2 a channel, bitwise the same in every block and in
+// every run: the blocks' rows of sums in a fixed order, four lanes a
+// channel (lane j takes rows j, j + 4, ..), then their four sums as
+// (s0 + s1) + (s2 + s3). Read through L2 (another block wrote them).
+static_assert(THREADS == 4 * C, "four lanes a channel");
+__device__ __forceinline__ void image_mean(const Block& b, const Params& p) {
+  const int c = b.tid >> 2, j = b.tid & 3;
+  const float* src = b.partial + c;
+  float s = 0.f;
+#pragma unroll 4
+  for (int r = j; r < b.nbi; r += 4) s += __ldcg(src + r * C);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  if (j == 0) b.m.mean[c] = s / float(p.h * p.w);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -734,7 +821,7 @@ rcab_group_scratch_kernel(const __grid_constant__ CUtensorMap tm_x,
                           const __grid_constant__ CUtensorMap tm_t1,
                           const __grid_constant__ CUtensorMap tm_w1,
                           const __grid_constant__ CUtensorMap tm_w2,
-                          const __grid_constant__ CUtensorMap tm_wg, const Params p) {
+                          const __grid_constant__ CUtensorMap tm_wg, const ScratchParams p) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -755,89 +842,104 @@ rcab_group_scratch_kernel(const __grid_constant__ CUtensorMap tm_x,
   b.it = 0;
   b.q = 0;
 
-  b.rank = int(special_reg_rank());
-  b.csize = int(special_reg_nrank());
+  // clusters cid = slot * cpi + sub share image slot, slot + slots, ..;
+  // block bi = sub * csize + rank of them takes a contiguous run of units
+  const int rank = int(special_reg_rank()), csize = int(special_reg_nrank());
   const int cid = int(special_reg_cluster_id()), ncl = int(special_reg_nclusters());
-  b.r0 = b.rank * p.h / b.csize;
-  b.r1 = (b.rank + 1) * p.h / b.csize;
+  const int cpi = p.clusters_per_image;
+  const int slot = cid / cpi, slots = ncl / cpi;
+  b.nbi = cpi * csize;
+  b.bi = (cid % cpi) * csize + rank;
   b.col_tiles = (p.w + TILE - 1) / TILE;
-  b.n_st = ((b.r1 - b.r0 + ROWS - 1) / ROWS) * b.col_tiles;
+  const int units = ((p.h + ROWS - 1) / ROWS) * b.col_tiles;
+  b.u0 = int(int64_t(b.bi) * units / b.nbi);
+  b.n_st = int(int64_t(b.bi + 1) * units / b.nbi) - b.u0;
+  b.partial = p.partial + size_t(slot) * b.nbi * C;
+  b.bar = p.bar + size_t(slot) * BAR_WORDS;
 
   if (b.tid == 0) {
     mbar_init(b.bar_w, 1);
     for (int i = 0; i < STAGES; ++i) mbar_init(b.bar_s(i), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    if (cid < p.n) b.load_weight(&tm_w1, 0);
+    if (slot < p.n) b.load_weight(&tm_w1, 0);
   }
   __syncthreads();
 
-  const int B = p.num_blocks, slot = cid;
+  const int B = p.num_blocks;
   const size_t img_elems = size_t(p.h) * p.w * C;
-  const size_t band_off = size_t(b.r0) * p.w * C;
-  const int band_vec4 = (b.r1 - b.r0) * p.w * (C / 4);
-  float* feat = p.feat + size_t(slot) * img_elems + band_off;
-  const float* t2 = p.t2 + size_t(slot) * img_elems + band_off;
-  __nv_bfloat16* featb = p.featb + size_t(slot) * img_elems + band_off;
+  float4* feat = reinterpret_cast<float4*>(p.feat + size_t(slot) * img_elems);
+  const float4* t2 = reinterpret_cast<const float4*>(p.t2 + size_t(slot) * img_elems);
+  uint2* featb = reinterpret_cast<uint2*>(p.featb + size_t(slot) * img_elems);
 
-  for (int img = cid; img < p.n; img += ncl) {
-    const __nv_bfloat16* xb = p.x + size_t(img) * img_elems + band_off;
+  for (int img = slot; img < p.n; img += slots) {
+    const uint2* xb = reinterpret_cast<const uint2*>(p.x + size_t(img) * img_elems);
     for (int k = 0; k < B; ++k) {
       conv_phase<PRELU_T1>(b, p, k == 0 ? &tm_x : &tm_featb, k == 0 ? img : slot,
                            p.b1 + k * C, p.a + k * C, img, slot, &tm_w2, k * KROWS);
-      cluster_sync();  // every block's t1 band is written
+      b.image_barrier();  // every block's t1 units are written
       conv_phase<BIAS_T2_SUMS>(b, p, &tm_t1, slot, p.b2 + k * C, nullptr, img, slot,
                                k + 1 < B ? &tm_w1 : &tm_wg, k + 1 < B ? (k + 1) * KROWS : 0);
       const GateWeights gw = load_gate_weights(p, k, b.tid);
-      cluster_sync();  // every block's channel sums are in its shared memory
-      se_gate(b.m, b.m.allsum, p, gw, b.csize, b.tid);
+      b.image_barrier();  // every block's channel sums are written
+      image_mean(b, p);
+      gate_from_mean(b.m, p, gw, b.tid);
 
-      // residual update of the band: feat += (t2 * gate) * res_scale in f32
-      // (feat starts as float(x)), and bf16(feat) for the next conv
-      // (UPDATE_BATCH vectors of loads in flight a thread: one block an SM
-      // has too few threads to cover the L2 latency otherwise)
-      for (int i0 = b.tid; i0 < band_vec4; i0 += THREADS * UPDATE_BATCH) {
-        float4 f[UPDATE_BATCH], tv[UPDATE_BATCH];
+      // residual update of the block's units: feat += (t2 * gate) *
+      // res_scale in f32 (feat starts as float(x)), and bf16(feat) for the
+      // next conv (UPDATE_BATCH vectors of loads in flight a thread: one
+      // block an SM has too few threads to cover the L2 latency otherwise)
+      for (int s = 0; s < b.n_st; ++s) {
+        const int y0 = b.unit_y(s), x0 = b.unit_x(s);
+        const int row_vec = min(TILE, p.w - x0) * (C / 4);  // float4s of one row of the unit
+        const int nvec = min(ROWS, p.h - y0) * row_vec;
+        const size_t v0 = (size_t(y0) * p.w + x0) * (C / 4);
+        const size_t row_stride = size_t(p.w) * (C / 4);
+        for (int i0 = b.tid; i0 < nvec; i0 += THREADS * UPDATE_BATCH) {
+          float4 f[UPDATE_BATCH], tv[UPDATE_BATCH];
 #pragma unroll
-        for (int u = 0; u < UPDATE_BATCH; ++u) {
-          const int i = i0 + u * THREADS;
-          if (i >= band_vec4) break;
-          if (k == 0) {
-            const uint2 xv = reinterpret_cast<const uint2*>(xb)[i];
-            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.x));
-            const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.y));
-            f[u] = make_float4(lo.x, lo.y, hi.x, hi.y);
-          } else {
-            f[u] = reinterpret_cast<const float4*>(feat)[i];
+          for (int u = 0; u < UPDATE_BATCH; ++u) {
+            const int i = i0 + u * THREADS;
+            if (i >= nvec) break;
+            const int r = i / row_vec;
+            const size_t e = v0 + r * row_stride + (i - r * row_vec);
+            if (k == 0) {
+              const uint2 xv = xb[e];
+              const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.x));
+              const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.y));
+              f[u] = make_float4(lo.x, lo.y, hi.x, hi.y);
+            } else {
+              f[u] = feat[e];
+            }
+            tv[u] = t2[e];
           }
-          tv[u] = reinterpret_cast<const float4*>(t2)[i];
-        }
 #pragma unroll
-        for (int u = 0; u < UPDATE_BATCH; ++u) {
-          const int i = i0 + u * THREADS;
-          if (i >= band_vec4) break;
-          const int c = (i * 4) % C;
-          f[u].x += (tv[u].x * b.m.gate[c]) * p.res_scale;
-          f[u].y += (tv[u].y * b.m.gate[c + 1]) * p.res_scale;
-          f[u].z += (tv[u].z * b.m.gate[c + 2]) * p.res_scale;
-          f[u].w += (tv[u].w * b.m.gate[c + 3]) * p.res_scale;
-          reinterpret_cast<float4*>(feat)[i] = f[u];
-          const __nv_bfloat162 lo = __floats2bfloat162_rn(f[u].x, f[u].y);
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(f[u].z, f[u].w);
-          uint2 packed;
-          packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-          packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-          reinterpret_cast<uint2*>(featb)[i] = packed;
+          for (int u = 0; u < UPDATE_BATCH; ++u) {
+            const int i = i0 + u * THREADS;
+            if (i >= nvec) break;
+            const int r = i / row_vec;
+            const size_t e = v0 + r * row_stride + (i - r * row_vec);
+            const int c = (i & (C / 4 - 1)) * 4;  // a row of the unit starts at channel 0
+            f[u].x += (tv[u].x * b.m.gate[c]) * p.res_scale;
+            f[u].y += (tv[u].y * b.m.gate[c + 1]) * p.res_scale;
+            f[u].z += (tv[u].z * b.m.gate[c + 2]) * p.res_scale;
+            f[u].w += (tv[u].w * b.m.gate[c + 3]) * p.res_scale;
+            feat[e] = f[u];
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(f[u].x, f[u].y);
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(f[u].z, f[u].w);
+            uint2 packed;
+            packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+            packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+            featb[e] = packed;
+          }
         }
       }
       fence_proxy_async();
-      cluster_sync();  // every block's bf16(feat) band is written
+      b.image_barrier();  // every block's bf16(feat) units are written
     }
-    const bool more = img + ncl < p.n;
+    const bool more = img + slots < p.n;
     conv_phase<SKIP_OUT>(b, p, &tm_featb, slot, p.bg, nullptr, img, slot,
                          more ? &tm_w1 : nullptr, 0);
   }
-  // no block leaves while another may still read its shared memory
-  cluster_sync();
 }
 
 // ---- resident variant -------------------------------------------------------
@@ -1280,19 +1382,24 @@ cudaError_t weight_map(EncodeTiledFn enc, CUtensorMap* m, const void* ptr, int r
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// `attr` holds two attributes. A cooperative launch (the scratch variant,
+// whose image-wide barriers need every block resident) is placed whole or
+// refused (cudaErrorCooperativeLaunchTooLarge).
 cudaLaunchConfig_t launch_config(int clusters, int csize, size_t smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
+                                 bool cooperative, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * csize, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = csize;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cooperative ? 2 : 1;
   return cfg;
 }
 
@@ -1306,9 +1413,9 @@ cudaError_t set_attributes(Kernel kernel, size_t smem) {
 
 // clusters of `csize` blocks of `kernel` that fit on the card at once (0 if none)
 template <typename Kernel>
-int max_clusters(Kernel kernel, size_t smem, int csize) {
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(1, csize, smem, nullptr, &attr);
+int max_clusters(Kernel kernel, size_t smem, int csize, bool cooperative) {
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = launch_config(1, csize, smem, nullptr, cooperative, attr);
   int count = 0;
   if (cudaOccupancyMaxActiveClusters(&count, kernel, &cfg) != cudaSuccess) {
     cudaGetLastError();  // an unsupported size is not an error of the launch
@@ -1329,68 +1436,97 @@ int resident_cluster(int h, int w) {
 
 }  // namespace
 
+// the call that returned the calling thread's last error
+static thread_local const char* error_site = "";
+
 // returns the error, and clears it from the thread's last error, so a
 // failed call is not reported again by the thread's next call
 #define RETURN_IF_ERR(expr)      \
   do {                           \
     cudaError_t e_ = (expr);     \
     if (e_ != cudaSuccess) {     \
+      error_site = #expr;        \
       cudaGetLastError();        \
       return int(e_);            \
     }                            \
   } while (0)
 
 // The launch for n images of h x w: the cluster size, the number of
-// clusters, and the images of scratch the launch needs (0 for the resident
-// variant; else one a cluster, the leading extent of the scratch buffers).
-// The scratch variant's clusters have 8 blocks, or 16 where that keeps more
-// SMs busy, as for a lone image.
+// clusters, the images in flight (0 for the resident variant; else the
+// leading extent of the scratch buffers) and the clusters an image. The
+// resident variant has one cluster of 8 or 16 an image. The scratch
+// variant keeps min(n, MAX_SLOTS) images in flight, gives each max(1, m /
+// that) of the m clusters of its size that the card holds at once, and
+// takes the size (16, 8, 4, 2 or 1) that keeps the most SMs busy, the
+// larger of a tie.
 extern "C" int rcab_group_plan(int n, int h, int w, int* clusters, int* cluster_size,
-                               int* scratch_images) {
+                               int* scratch_images, int* clusters_per_image) {
+  error_site = "the arguments";
   if (n <= 0 || h <= 0 || w <= 0) return int(cudaErrorInvalidValue);
   const int rc = resident_cluster(h, w);
+  error_site = "the occupancy query";
   if (rc > 0) {
     RETURN_IF_ERR(set_attributes(rcab_group_resident_kernel, R_SMEM_BYTES));
-    const int m = max_clusters(rcab_group_resident_kernel, R_SMEM_BYTES, rc);
+    const int m = max_clusters(rcab_group_resident_kernel, R_SMEM_BYTES, rc, false);
     if (m <= 0) return int(cudaErrorInvalidConfiguration);
     *cluster_size = rc;
     *clusters = n < m ? n : m;
     *scratch_images = 0;
+    *clusters_per_image = 1;
     return int(cudaSuccess);
   }
   RETURN_IF_ERR(set_attributes(rcab_group_scratch_kernel, SMEM_BYTES));
-  const int m8 = max_clusters(rcab_group_scratch_kernel, SMEM_BYTES, 8);
-  const int m16 = max_clusters(rcab_group_scratch_kernel, SMEM_BYTES, 16);
-  if (m8 <= 0 && m16 <= 0) return int(cudaErrorInvalidConfiguration);
-  const int busy8 = (n < m8 ? n : m8) * 8, busy16 = (n < m16 ? n : m16) * 16;
-  *cluster_size = busy16 > busy8 ? 16 : 8;
-  const int m = busy16 > busy8 ? m16 : m8;
-  *clusters = n < m ? n : m;
-  *scratch_images = *clusters;
-  return int(cudaSuccess);
+  const int in_flight = n < MAX_SLOTS ? n : MAX_SLOTS;
+  int best_busy = 0;
+  for (int size = 16; size >= 1; size /= 2) {
+    const int m = max_clusters(rcab_group_scratch_kernel, SMEM_BYTES, size, true);
+    if (m <= 0) continue;
+    const int per = m / in_flight > 1 ? m / in_flight : 1;
+    const int slots = in_flight < m / per ? in_flight : m / per;
+    if (slots * per * size > best_busy) {
+      best_busy = slots * per * size;
+      *cluster_size = size;
+      *clusters = slots * per;
+      *scratch_images = slots;
+      *clusters_per_image = per;
+    }
+  }
+  return best_busy > 0 ? int(cudaSuccess) : int(cudaErrorInvalidConfiguration);
 }
 
 // x, out: [N, H, W, 64] bf16. w1, w2: [B, 9*64, 64] bf16; b1, a, b2: [B, 64]
 // f32; fc1: [B, 64, Cr] f32; fc2: [B, Cr, 64] f32; wg: [9*64, 64] bf16;
-// bg: [64] f32. clusters, cluster_size from rcab_group_plan; scratch (null
-// when it asked for none): feat, t2 [scratch_images, H, W, 64] f32; featb,
-// t1 [scratch_images, H, W, 64] bf16.
+// bg: [64] f32. clusters, cluster_size, clusters_per_image from
+// rcab_group_plan; scratch (null when it asked for none; S = scratch_images
+// = clusters / clusters_per_image): feat, t2 [S, H, W, 64] f32; featb, t1
+// [S, H, W, 64] bf16; partial [S, clusters_per_image * cluster_size, 64]
+// f32; bar: rcab_group_barrier_bytes() bytes that were zero before the
+// first call that used them, used by no call in flight on another stream
+// (each call leaves them as it found them).
 extern "C" int rcab_group_forward(
     const void* x, void* out, const void* w1, const void* b1, const void* a,
     const void* w2, const void* b2, const void* fc1, const void* fc2,
     const void* wg, const void* bg, void* feat, void* featb, void* t1, void* t2,
-    int n, int h, int w, int num_blocks, int cr, float res_scale, int clusters,
-    int cluster_size, void* stream_ptr) {
+    void* partial, void* bar, int n, int h, int w, int num_blocks, int cr, float res_scale,
+    int clusters, int cluster_size, int clusters_per_image, void* stream_ptr) {
   const int rc = resident_cluster(h, w);
+  const bool sizes_ok =
+      rc > 0 ? cluster_size == rc && clusters_per_image == 1 && clusters <= n
+             : cluster_size >= 1 && cluster_size <= 16 && (cluster_size & (cluster_size - 1)) == 0 &&
+                   clusters_per_image >= 1 && clusters % clusters_per_image == 0 &&
+                   clusters / clusters_per_image <= n &&
+                   clusters / clusters_per_image <= MAX_SLOTS && feat != nullptr &&
+                   featb != nullptr && t1 != nullptr && t2 != nullptr && partial != nullptr &&
+                   bar != nullptr;
   if (n <= 0 || h <= 0 || w <= 0 || num_blocks <= 0 || cr <= 0 || cr > C || clusters <= 0 ||
-      clusters > n || (cluster_size != 8 && cluster_size != 16) ||
-      (rc > 0 && cluster_size != rc) ||
-      (rc == 0 && (feat == nullptr || featb == nullptr || t1 == nullptr || t2 == nullptr)))
+      !sizes_ok) {
+    error_site = "the arguments";
     return int(cudaErrorInvalidValue);
+  }
   EncodeTiledFn enc;
   RETURN_IF_ERR(get_encoder(&enc));
 
-  Params p;
+  ScratchParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.b1 = static_cast<const float*>(b1);
@@ -1403,6 +1539,9 @@ extern "C" int rcab_group_forward(
   p.t2 = static_cast<float*>(t2);
   p.t1 = static_cast<__nv_bfloat16*>(t1);
   p.featb = static_cast<__nv_bfloat16*>(featb);
+  p.partial = static_cast<float*>(partial);
+  p.bar = static_cast<unsigned*>(bar);
+  p.clusters_per_image = clusters_per_image;
   p.n = n;
   p.h = h;
   p.w = w;
@@ -1410,39 +1549,47 @@ extern "C" int rcab_group_forward(
   p.cr = cr;
   p.res_scale = res_scale;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaLaunchAttribute attr;
+  cudaLaunchAttribute attr[2];
 
   CUtensorMap tm_w1, tm_w2, tm_wg;
   if (rc > 0) {
+    RETURN_IF_ERR(set_attributes(rcab_group_resident_kernel, R_SMEM_BYTES));  // first: see above
     CUtensorMap tm_x6;
     RETURN_IF_ERR(act_map(enc, &tm_x6, x, n, h, w, R_BUF_ROWS));
     RETURN_IF_ERR(weight_map(enc, &tm_w1, w1, num_blocks * KROWS, 8));
     RETURN_IF_ERR(weight_map(enc, &tm_w2, w2, num_blocks * KROWS, 8));
     RETURN_IF_ERR(weight_map(enc, &tm_wg, wg, KROWS, 8));
-    RETURN_IF_ERR(set_attributes(rcab_group_resident_kernel, R_SMEM_BYTES));
-    cudaLaunchConfig_t cfg = launch_config(clusters, cluster_size, R_SMEM_BYTES, stream, &attr);
+    cudaLaunchConfig_t cfg =
+        launch_config(clusters, cluster_size, R_SMEM_BYTES, stream, false, attr);
     RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, rcab_group_resident_kernel, tm_x6, tm_w1, tm_w2,
-                                     tm_wg, p));
+                                     tm_wg, static_cast<const Params&>(p)));
   } else {
+    RETURN_IF_ERR(set_attributes(rcab_group_scratch_kernel, SMEM_BYTES));  // first: see above
+    const int slots = clusters / clusters_per_image;
     CUtensorMap tm_x, tm_featb, tm_t1;
     RETURN_IF_ERR(act_map(enc, &tm_x, x, n, h, w, BOX_H));
-    RETURN_IF_ERR(act_map(enc, &tm_featb, featb, clusters, h, w, BOX_H));
-    RETURN_IF_ERR(act_map(enc, &tm_t1, t1, clusters, h, w, BOX_H));
+    RETURN_IF_ERR(act_map(enc, &tm_featb, featb, slots, h, w, BOX_H));
+    RETURN_IF_ERR(act_map(enc, &tm_t1, t1, slots, h, w, BOX_H));
     RETURN_IF_ERR(weight_map(enc, &tm_w1, w1, num_blocks * KROWS, W_BOX_ROWS));
     RETURN_IF_ERR(weight_map(enc, &tm_w2, w2, num_blocks * KROWS, W_BOX_ROWS));
     RETURN_IF_ERR(weight_map(enc, &tm_wg, wg, KROWS, W_BOX_ROWS));
-    RETURN_IF_ERR(set_attributes(rcab_group_scratch_kernel, SMEM_BYTES));
-    cudaLaunchConfig_t cfg = launch_config(clusters, cluster_size, SMEM_BYTES, stream, &attr);
+    cudaLaunchConfig_t cfg = launch_config(clusters, cluster_size, SMEM_BYTES, stream, true, attr);
     RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, rcab_group_scratch_kernel, tm_x, tm_featb, tm_t1,
                                      tm_w1, tm_w2, tm_wg, p));
   }
   return int(cudaGetLastError());
 }
 
+// Bytes of the scratch variant's barrier counters (`bar` of the forward).
+extern "C" int rcab_group_barrier_bytes() { return int(MAX_SLOTS * BAR_WORDS * sizeof(unsigned)); }
+
 // Bytes of dynamic shared memory a block of each variant asks for.
 extern "C" int rcab_group_smem_bytes(int resident) {
   return int(resident ? R_SMEM_BYTES : SMEM_BYTES);
 }
+
+// The call in which the calling thread's last failed entry above failed.
+extern "C" const char* rcab_group_error_site() { return error_site; }
 
 // The name of a cudaError_t the entries above returned.
 extern "C" const char* rcab_group_error_name(int err) {

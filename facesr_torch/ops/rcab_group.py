@@ -103,8 +103,8 @@ def rcab_group_reference(x: torch.Tensor, gw: GroupWeights,
     return out.to(torch.bfloat16).to(x.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 _lib_lock = threading.Lock()  # serving threads reach the first call together
@@ -119,28 +119,84 @@ def _lib() -> ctypes.CDLL:
             lib.rcab_group_forward.argtypes = _ARGTYPES
             lib.rcab_group_forward.restype = ctypes.c_int
             lib.rcab_group_plan.argtypes = ([ctypes.c_int] * 3
-                                            + [ctypes.POINTER(ctypes.c_int)] * 3)
+                                            + [ctypes.POINTER(ctypes.c_int)] * 4)
             lib.rcab_group_plan.restype = ctypes.c_int
+            lib.rcab_group_barrier_bytes.argtypes = []
+            lib.rcab_group_barrier_bytes.restype = ctypes.c_int
+            lib.rcab_group_error_site.argtypes = []
+            lib.rcab_group_error_site.restype = ctypes.c_char_p
             lib.rcab_group_error_name.argtypes = [ctypes.c_int]
             lib.rcab_group_error_name.restype = ctypes.c_char_p  # set last: the flag
     return lib
 
 
 def cuda_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
-    """The error an entry of the library returned, by its CUDA name."""
+    """The error an entry of the library returned, by its CUDA name and the
+    call that returned it (in the calling thread)."""
     name = lib.rcab_group_error_name(err).decode()
-    return RuntimeError(f"{entry} failed: {name} (cudaError_t {err})")
+    site = lib.rcab_group_error_site().decode()
+    return RuntimeError(f"{entry} failed: {name} (cudaError_t {err}) in {site}")
+
+
+_plans: Dict[tuple, tuple] = {}
 
 
 def _plan(lib: ctypes.CDLL, n: int, h: int, w: int):
-    """(clusters, cluster size, scratch images) of the launch for n images
-    of h x w on the current device: the kernel keeps an image on chip where
-    it fits, else in scratch for the images in flight, one a cluster."""
-    out = [ctypes.c_int(0) for _ in range(3)]
-    err = lib.rcab_group_plan(n, h, w, *(ctypes.byref(v) for v in out))
-    if err != 0:
-        raise cuda_error(lib, "rcab_group_plan", err)
-    return tuple(v.value for v in out)
+    """(clusters, cluster size, scratch images, clusters an image) of the
+    launch for n images of h x w on the current device: the kernel keeps an
+    image on chip where it fits, else in scratch for the images in flight
+    (at most 16), each over max(1, m / min(n, 16)) of the m clusters the
+    card holds. Kept per
+    device and shape: the plan's occupancy queries are the same every call
+    (the forward entry sets the kernel's attributes in its own thread)."""
+    key = (torch.cuda.current_device(), n, h, w)
+    plan = _plans.get(key)
+    if plan is None:
+        out = [ctypes.c_int(0) for _ in range(4)]
+        err = lib.rcab_group_plan(n, h, w, *(ctypes.byref(v) for v in out))
+        if err != 0:
+            raise cuda_error(lib, "rcab_group_plan", err)
+        plan = _plans[key] = tuple(v.value for v in out)
+    return plan
+
+
+_barriers: Dict[tuple, torch.Tensor] = {}
+
+
+def _barrier_counters(lib: ctypes.CDLL, device: torch.device) -> torch.Tensor:
+    """The scratch variant's barrier counters for a launch on the current
+    stream. They must be zero before their first use and never shared by
+    two launches in flight at once; a launch leaves them zero, so one
+    buffer a stream serves every launch on it (stream order). A launch
+    being captured into a CUDA graph gets its own, zeroed inside the graph
+    (a graph replays apart from the stream it was captured on)."""
+    stream = torch.cuda.current_stream(device)
+    nbytes = lib.rcab_group_barrier_bytes()
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    key = (device.index, stream.cuda_stream)
+    buf = _barriers.get(key)
+    if buf is None:
+        with _lib_lock:
+            buf = _barriers.get(key)
+            if buf is None:
+                buf = _barriers[key] = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    return buf
+
+
+def _scratch(n_slots: int, h: int, w: int, c: int, blocks: int, device: torch.device):
+    """One allocation for the scratch variant's buffers, in the forward
+    entry's order: feat, featb, t1, t2, partial (data pointers, each
+    256-byte aligned) and the tensor that owns them."""
+    px = n_slots * h * w * c
+    sizes = [px * 4, px * 2, px * 2, px * 4, n_slots * blocks * c * 4]
+    offsets, total = [], 0
+    for nbytes in sizes:
+        offsets.append(total)
+        total += (nbytes + 255) // 256 * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return [base + o for o in offsets], buf
 
 
 _WEIGHT_SPECS = {  # name -> (dtype, shape given C, B, Cr)
@@ -204,21 +260,21 @@ def rcab_group(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, a: torch.Ten
         raise ValueError(f"the fused_residual_group kernel takes C={KERNEL_CHANNELS}, got C={c}")
     lib = _lib()
     with torch.cuda.device(x.device):
-        clusters, cluster_size, scratch_images = _plan(lib, n, h, w)
-        # scratch for the images in flight (one a cluster), not the batch
-        scratch = [None] * 4
+        clusters, cluster_size, scratch_images, per_image = _plan(lib, n, h, w)
+        # scratch for the images in flight, not the batch (`owner` keeps it
+        # alive past the launch)
+        ptrs, bar, owner = [None] * 5, None, None
         if scratch_images:
-            shape = (scratch_images, h, w, c)
-            scratch = [torch.empty(shape, device=x.device, dtype=dt) for dt in
-                       (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32)]
+            ptrs, owner = _scratch(scratch_images, h, w, c, per_image * cluster_size, x.device)
+            bar = _barrier_counters(lib, x.device).data_ptr()
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rcab_group_forward(
             x.data_ptr(), out.data_ptr(),
             *(gw[k].data_ptr() for k in _WEIGHT_SPECS),
-            *(None if t is None else t.data_ptr() for t in scratch),  # feat, featb, t1, t2
+            *ptrs, bar,  # feat, featb, t1, t2, partial; the barrier counters
             n, h, w, gw["w1"].shape[0], gw["fc1"].shape[-1],
-            float(res_scale), clusters, cluster_size, stream)
+            float(res_scale), clusters, cluster_size, per_image, stream)
     if err != 0:
         raise cuda_error(lib, "rcab_group_forward", err)
     with _launch_lock:

@@ -48,18 +48,33 @@ def _excess(got, want):
 # and 3 rows), each with one image a cluster and with clusters looping over
 # several, and with bands of 1 and 2 rows at an odd width; the scratch
 # variant at a tiny image and at a width past one 64-pixel tile with an H
-# the band count does not divide; a lone image
+# the band count does not divide; a lone image (all on uniform noise); the
+# scratch variant spread over many clusters: one 256x256 image over every
+# cluster, ragged 4-row units with a partial column tile, several images
+# sharing the clusters, more images than it keeps in flight (16), so each
+# slot loops over five (on rows that darken towards the top, `_features`)
+_SPLIT_SHAPES = [((1, 256, 256, 64), 10), ((1, 130, 200, 64), 2), ((3, 96, 96, 64), 3),
+                 ((80, 40, 80, 64), 2)]
 _SHAPES = [((4, 64, 64, 64), 10), ((3, 20, 36, 64), 3), ((1, 7, 5, 64), 1),
            ((128, 64, 64, 64), 10), ((40, 20, 36, 64), 3), ((2, 12, 17, 64), 2),
-           ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10)]
+           ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10)] + _SPLIT_SHAPES
+
+
+def _features(shape, seed, device):
+    """bf16 NHWC uniform noise; for the split shapes its rows darken
+    towards the top, so that a channel mean over part of the rows differs
+    from the image's."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(seed))
+    if any(tuple(shape) == split for split, _ in _SPLIT_SHAPES):
+        x = x * torch.linspace(0.1, 1.0, shape[1]).reshape(1, -1, 1, 1)
+    return x.to(torch.bfloat16).to(device)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,B", _SHAPES)
 def test_kernel_matches_plain_on_cuda(cuda_device, shape, B):
     gw = _group_weights(B, seed=6, device=cuda_device)
-    x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
-    x = x.to(torch.bfloat16).to(cuda_device)
+    x = _features(shape, 1, cuda_device)
     before = tgroup.fused_residual_group.launches
     got = tgroup.fused_residual_group(x, gw, 0.2)
     torch.cuda.synchronize()
@@ -71,13 +86,13 @@ def test_kernel_matches_plain_on_cuda(cuda_device, shape, B):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,B", [((4, 64, 64, 64), 10), ((40, 20, 36, 64), 3),
-                                     ((2, 40, 80, 64), 2)])
+                                     ((2, 40, 80, 64), 2)] + _SPLIT_SHAPES)
 def test_kernel_repeats_bitwise_on_cuda(cuda_device, shape, B):
-    """The SE mean is summed in a fixed order (no atomics), so two calls on
-    the same input agree to the bit."""
+    """The SE mean is summed in a fixed order (no atomics), also over the
+    blocks of many clusters, so two calls on the same input agree to the
+    bit."""
     gw = _group_weights(B, seed=7, device=cuda_device)
-    x = torch.rand(shape, generator=torch.Generator().manual_seed(2))
-    x = x.to(torch.bfloat16).to(cuda_device)
+    x = _features(shape, 2, cuda_device)
     first = tgroup.fused_residual_group(x, gw, 0.2)
     second = tgroup.fused_residual_group(x, gw, 0.2)
     torch.cuda.synchronize()
@@ -177,26 +192,33 @@ def test_predictor_pipeline_on_cuda_under_concurrency(cuda_device):
 @pytest.mark.gpu
 def test_kernel_from_many_new_threads_on_cuda(cuda_device):
     """Both variants launched from 16 threads at once, new threads each
-    round as a threading HTTP server makes them: every output equals the
-    serial one bitwise and the launch count is exact."""
+    round as a threading HTTP server makes them, each thread on its own
+    stream: the resident variant, the scratch variant in one cluster and a
+    lone 256x256 image over every cluster (whole-card launches whose
+    image-wide barriers would deadlock if two were placed in part; the
+    join timeout fails the test instead of hanging). Every output equals
+    the serial one bitwise and the launch count is exact."""
     import threading
 
     gw = _group_weights(2, 11, cuda_device)
     gen = torch.Generator().manual_seed(12)
     inputs = [torch.rand(shape, generator=gen).to(torch.bfloat16).to(cuda_device)
-              for shape in ((1, 64, 64, 64), (1, 40, 80, 64))]  # resident, scratch
+              for shape in ((1, 64, 64, 64), (1, 40, 80, 64), (1, 256, 256, 64))]
     with torch.inference_mode():
         want = [tgroup.fused_residual_group(x, gw, 0.2) for x in inputs]
+    torch.cuda.synchronize()
     before = tgroup.fused_residual_group.launches
     failures = []
 
     def client():
         try:
-            with torch.inference_mode():
+            stream = torch.cuda.Stream()
+            with torch.inference_mode(), torch.cuda.stream(stream):
                 for _ in range(5):
                     for x, w in zip(inputs, want):
                         if not torch.equal(tgroup.fused_residual_group(x, gw, 0.2), w):
                             failures.append("output differs from the serial one")
+            stream.synchronize()
         except Exception as e:  # noqa: BLE001 — reported by the assert below
             failures.append(repr(e))
 
@@ -208,7 +230,47 @@ def test_kernel_from_many_new_threads_on_cuda(cuda_device):
             t.join(timeout=120)
         assert not any(t.is_alive() for t in threads)
     assert failures == []
-    assert tgroup.fused_residual_group.launches == before + 3 * 16 * 5 * 2
+    assert tgroup.fused_residual_group.launches == before + 3 * 16 * 5 * len(inputs)
+
+
+@pytest.mark.gpu
+def test_scratch_variant_spreads_a_lone_image_over_the_card(cuda_device):
+    """A lone 256x256 image takes the scratch variant over many clusters
+    (at least 100 of the H100's 132 SMs), several images share them, and
+    a large batch keeps at most 16 images in flight, each over several
+    SMs, with the card as busy."""
+    lib = tgroup._lib()
+    clusters, size, slots, per_image = tgroup._plan(lib, 1, 256, 256)
+    assert slots == 1 and per_image == clusters and clusters * size >= 100
+    clusters3, size3, slots3, per3 = tgroup._plan(lib, 3, 96, 96)
+    assert slots3 == 3 and clusters3 == 3 * per3 and per3 > 1
+    clusters_m, size_m, slots_m, per_m = tgroup._plan(lib, 256, 96, 96)
+    assert slots_m == 16 and clusters_m == 16 * per_m and per_m * size_m >= 4
+    assert clusters_m * size_m >= 100
+
+
+@pytest.mark.gpu
+def test_scratch_variant_in_a_cuda_graph(cuda_device):
+    """The cooperative launch is captured into a CUDA graph and replays to
+    the eager output bitwise, with eager calls on the capturing side stream
+    before and after."""
+    gw = _group_weights(2, 13, cuda_device)
+    x = _features((1, 256, 256, 64), 14, cuda_device)
+    with torch.inference_mode():
+        want = tgroup.fused_residual_group(x, gw, 0.2)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tgroup.fused_residual_group(x, gw, 0.2)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = tgroup.fused_residual_group(x, gw, 0.2)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert torch.equal(tgroup.fused_residual_group(x, gw, 0.2), want)
 
 
 def _rel(a, b):

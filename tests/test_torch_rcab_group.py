@@ -38,9 +38,11 @@ def _one_group(B, C=64, seed=0):
     return model.residual_groups[0], gp
 
 
-# the last case is wider than one 64-pixel tile of the CUDA kernel
+# the third case is wider than one 64-pixel tile of the CUDA kernel; the
+# last one also has an H that its 4-row units do not divide and a partial
+# last column tile, as the scratch variant spread over clusters cuts it
 @pytest.mark.parametrize("shape,B,seed", [((2, 16, 16, 64), 3, 0), ((1, 8, 8, 64), 1, 1),
-                                          ((1, 32, 80, 64), 1, 2)])
+                                          ((1, 32, 80, 64), 1, 2), ((1, 18, 72, 64), 1, 3)])
 def test_plain_group_matches_pallas_interpret(shape, B, seed):
     group, gp = _one_group(B, seed=seed)
     x = np.random.default_rng(seed).random(shape, dtype=np.float32)
@@ -98,3 +100,35 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tgroup.fused_residual_group(x, bad)
     with pytest.raises(ValueError):
         tgroup.fused_residual_group(x.to("meta"), gw)
+
+
+def test_half_image_se_control_is_rejected_by_the_kernel_tolerance():
+    """The control of chip_smoke.py's split check has teeth: a plain group
+    whose SE mean covers the first half of the rows only (what an image
+    spread over clusters computes without the image-wide sum) differs from
+    the plain version by more than the kernel tolerance, on the check's
+    input, whose rows darken towards the top; the kernel's own tolerance
+    (one bf16 ulp) is what holds it."""
+    import chip_smoke
+
+    gw = chip_smoke.group_weights(chip_smoke.seeded_group(2, 7), "cpu")
+    x = chip_smoke.check_input((1, 32, 40, 64), 7, "cpu")
+    want = tgroup.rcab_group_reference(x, gw, 0.2)
+    *_, excess = chip_smoke.group_diff(
+        chip_smoke.planted_fault_group(x, gw, 0.2, chip_smoke.SPLIT_FAULT), want)
+    assert excess > 0
+    *_, same = chip_smoke.group_diff(chip_smoke.planted_fault_group(x, gw, 0.2, None), want)
+    assert same <= 0
+
+
+def test_profile_group_anchors_match_the_kernel_source():
+    """profile_group marks a copy of the kernel source by text: every anchor
+    is found as often as it expects, for both variants."""
+    from facesr_torch.cli import profile_group
+    from facesr_torch.ops import _build
+
+    src = (_build.CSRC / "rcab_group.cu").read_text()
+    for anchor, before, after, count in profile_group.ANCHORS + profile_group.S_ANCHORS:
+        assert src.count(anchor) == count, anchor
+        src = src.replace(anchor, before + anchor + after)
+    assert len(profile_group.S_NAMES) < 48  # the durations' slots start at 48
