@@ -105,9 +105,30 @@ catches an error and goes on):
    (micro-batched: at its cohort's batch size, every cohort recorded by
    the server and recomputed), launches = 6 x forwards,
    requests/s, p50/p99 latency and the batching factor from ``/health``;
-   controls (an f32 server launches nothing, a JPEG body gets 400, ``--dtype
-   int8`` raises at startup); one request's host time split into PNG
-   decode, `prepare_inputs`, the forward and PNG encode.
+   controls (an f32 server launches nothing, a JPEG body gets 400); one
+   request's host time split into PNG decode, `prepare_inputs`, the
+   forward and PNG encode;
+12. int8 serving and QAT, the sixth path: the s8 conv (im2col +
+   ``torch._int_mm``) at every shape the 6x10x64 model gives it, its s32
+   product bitwise against the f64 conv and its output against the CPU's,
+   the packed conv_last against the conv on the shuffled map; at batch 128
+   ``int8`` (weight-only) through `Predictor`, the counts zeroed just
+   before and read just after: 6 group launches a forward, bitwise the
+   bf16 forward of a model holding the dequantized weights; ``int8_full``
+   with dynamic and with calibrated scales (phase 8's val LR PNGs): no
+   launch, and at a 2x2x64 depth on 4 images the card's PSNR against the
+   CPU f32 forward within 1 dB of the CPU port's; forward ms, Predictor
+   images/s and peak memory of bf16, int8 and both int8_full modes, and
+   the profiler's split of the int8_full forwards between the ``_int_mm``
+   GEMMs, the im2col and the rest, and one trunk conv's stages timed
+   apart; `SpatialPredictor` int8_full at 1x256x256 (time, peak memory); ``cli.export_quantized`` on phase 8's
+   val HR PNGs, then the HTTP API with ``--dtype int8_full --quant-cache``
+   and with ``--dtype int8``, every response exactly `Predictor`'s uint8
+   output; the control: that cache on other weights is refused at
+   startup; one small QAT step on the card against the CPU with the TF32
+   control, phase 7's production step fake-quantized (ms/step); and the
+   train CLI on ``configs/rehearsal/stage1_qat_ft.yaml``
+   with ``--qat-scales`` on phase 8's PNG set for one epoch.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -447,15 +468,17 @@ def train_step_conv_flops(cfg, n, hr_size):
 F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 
-def production_step_fn(dev):
+def production_step_fn(dev, qat: bool = False):
     """Stage-1 training at the production width, the YAML's values written
     out (the card has no PyYAML): FaceEnhanceNet 6x10x64 (remat save_ca),
     f32, L1 + perceptual conv3_4, AdamW lr 1e-4, wd 0, clip 0.5,
-    vgg_remat off. conv_last is redrawn non-zero: from the zero init the
-    output is the bicubic skip, and the first steps move away from it
-    before the loss falls. Returns (state, step, loss)."""
+    vgg_remat off; with ``qat`` every int8 site fake-quantized. conv_last
+    is redrawn non-zero: from the zero init the output is the bicubic
+    skip, and the first steps move away from it before the loss falls.
+    Returns (state, step, loss)."""
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet
     from facesr_torch.ops.init import kaiming_normal
+    from facesr_torch.ops.quant import fake_quant_params
     from facesr_torch.training import steps
     from facesr_torch.training.optim import AdamW
 
@@ -468,8 +491,9 @@ def production_step_fn(dev):
     opt = AdamW(weight_decay=0.0, gradient_clip=0.5)
     state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
                              loss_params=loss.params)
+    sites = fake_quant_params(model) if qat else None
     step = steps.make_train_step(lambda lp, p, t: loss.apply(lp, p, t, vgg_remat=False), opt,
-                                 compute_dtype=None)
+                                 compute_dtype=None, quant_fn=(lambda: sites) if qat else None)
     return state, step, loss
 
 
@@ -1127,6 +1151,7 @@ def gan_step_fn(dev):
     from facesr_torch.models.discriminator import create_discriminator
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet
     from facesr_torch.ops.init import kaiming_normal
+    from facesr_torch.ops.quant import fake_quant_params
     from facesr_torch.training import steps
     from facesr_torch.training.optim import AdamW
 
@@ -1736,8 +1761,7 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
             raise AssertionError(f"HTTP {label}: {n} launches for {calls} forwards "
                                  f"(want {per_fwd} a forward)")
 
-    # controls: an f32 server launches no kernel; a JPEG body is a 400;
-    # int8 raises at startup
+    # controls: an f32 server launches no kernel; a JPEG body is a 400
     srv = api.serve(str(ckdir), port=0, host="127.0.0.1", device=dev, dtype="f32")
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     try:
@@ -1759,15 +1783,8 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
                              f"{[s for _, s, _ in results]}, {n} launches (want 0)")
     if jpeg_status != 400 or b"A.7.2" not in jpeg_body:
         raise AssertionError(f"a JPEG body got {jpeg_status} {jpeg_body[:120]!r}")
-    try:
-        api.SRService(str(ckdir), dtype="int8", device=dev)
-    except NotImplementedError as e:
-        int8_msg = str(e)
-    else:
-        raise AssertionError("--dtype int8 started a server")
     log(f"  controls: f32 server 2 requests, 200, 0 launches; JPEG body -> {jpeg_status} "
-        f"{json.loads(jpeg_body)['error'][:60]!r}...; --dtype int8 -> NotImplementedError "
-        f"{int8_msg[:50]!r}...")
+        f"{json.loads(jpeg_body)['error'][:60]!r}... (the int8 startup control is phase 12's)")
 
     # how one request's host time splits (one thread, no server)
     server_pred = Predictor(model, dtype=torch.bfloat16, max_batch=1, device=dev)
@@ -1789,6 +1806,401 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
     del pred, sp, server_pred, served, model
     torch.cuda.empty_cache()
     return {"launches": launches, "scratch": scratch}
+
+
+# phase 12: int8 serving and QAT. The int8 conv's shapes in the 6x10x64
+# model at a 64x64 input (batch 4): conv_first (K 27 -> 32), a trunk conv,
+# the two upsample convs, conv_last (N 3 -> 8) and the subpixel-packed
+# conv_last on the packed 128x128 map (K 2304, N 12 -> 16)
+INT8_CONV_SHAPES = (("conv_first", (4, 64, 64, 3), 64), ("trunk conv", (4, 64, 64, 64), 64),
+                    ("upsample conv 1", (4, 64, 64, 64), 256),
+                    ("upsample conv 2", (4, 128, 128, 64), 256),
+                    ("conv_last", (4, 256, 256, 64), 3),
+                    ("packed conv_last", (4, 128, 128, 256), 12))
+INT8_TIMED = 5                    # timed forwards / Predictor calls a mode
+INT8_CHECK_IMAGES = 4             # card against the CPU port (bf16: bitwise), at
+INT8_CHECK_DEPTH = (2, 2)         # groups, blocks of that comparison's model
+INT8_CALIB_IMAGES = 32            # phase 8's val LR PNGs that calibrate int8_full
+INT8_HTTP_CLIENTS, INT8_HTTP_REQUESTS = 8, 4
+INT8_SPATIAL = (1, 256, 256, 3)   # SpatialPredictor's int8_full input
+QAT_WARMUP, QAT_TIMED = 1, 3      # the production QAT step
+QAT_YAML = REPO / "configs/rehearsal/stage1_qat_ft.yaml"
+
+
+def int8_conv_exact(dev, name, shape, cout, seed) -> str:
+    """The int8 conv's s32 product on the card against the f64 conv of the
+    same integers (exact: every partial sum is an integer below 2^53), and
+    its dequantized bf16 and f32 outputs against the CPU's, all bitwise; at
+    the packed shape also the packed conv against the shuffled one."""
+    import torch.nn.functional as F
+
+    from facesr_torch.ops import conv as tconv
+    from facesr_torch.ops.pixel_shuffle import pixel_shuffle
+    from facesr_torch.ops.quant import Int8Weight
+
+    gen = torch.Generator().manual_seed(seed)
+    n, h, w, cin = shape
+    q = torch.randint(-127, 128, (cout, cin, 3, 3), generator=gen).to(torch.int8)
+    scale = torch.rand(cout, generator=gen) * 1e-3 + 1e-4
+    b = torch.randn(cout, generator=gen) * 0.1
+    x = torch.randn(shape, generator=gen)
+    wt = Int8Weight(q, scale).to(dev)
+    xq = tconv.quantize_act(x.to(dev), x.abs().amax().to(dev) / 127)
+    y = torch.cat([c.reshape(-1, cout) for c, *_ in
+                   tconv._int8_gemm_conv(xq, wt, 1, (1, 1))]).reshape(n, h, w, cout)
+    want = F.conv2d(xq.permute(0, 3, 1, 2).double(), q.to(dev).double(), padding=1)
+    exact = torch.equal(y, want.permute(0, 2, 3, 1).to(torch.int32))
+    same = all(torch.equal(tconv.conv2d(x.to(dev), wt, b.to(dev), padding=1, dtype=dt).cpu(),
+                           tconv.conv2d(x, Int8Weight(q, scale), b, padding=1, dtype=dt))
+               for dt in (torch.bfloat16, None))
+    k = 9 * cin
+    note = (f"  int8 conv {name} {shape} -> {cout}: K {k} -> {-(-k // 8) * 8}, N {cout} -> "
+            f"{-(-cout // 8) * 8}; s32 == f64 conv {exact}; bf16 and f32 outputs == the "
+            f"CPU's {same}")
+    if not (exact and same):
+        raise AssertionError(note)
+    if cin == 4 * cout:  # the packed conv_last: == the conv on the shuffled map
+        wl = Int8Weight(q[:, :cin // 4], scale, torch.tensor(0.02)).to(dev)
+        unpacked = tconv.conv2d(pixel_shuffle(xq, 2), wl, b.to(dev), padding=1)
+        packed = pixel_shuffle(tconv.conv2d(xq, wl.subpixel_packed(),
+                                            b.to(dev).repeat_interleave(4), padding=1), 2)
+        if not torch.equal(packed, unpacked):
+            raise AssertionError(f"packed conv_last != the conv on the shuffled map: "
+                                 f"{(packed - unpacked).abs().max().item()}")
+        note += "; packed == unpacked on the card"
+    return note
+
+
+def int8_profile_split(fn) -> str:
+    """The profiler's device time of one call of ``fn``, split by aten op:
+    the ``_int_mm`` GEMMs, the im2col (pad, slices, cat) and the rest
+    (quantize, dequant, PReLU, SE, bicubic)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::") and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in ops)
+    if total <= 0:
+        return "profiler: no device time recorded"
+    groups = {"_int_mm": ("aten::_int_mm",),
+              "im2col": ("aten::cat", "aten::constant_pad_nd", "aten::zeros", "aten::fill_",
+                         "aten::new_zeros")}
+    split = {g: sum(dev_us(e) for e in ops if e.key in keys) for g, keys in groups.items()}
+    split["other (quantize, dequant, casts, PReLU, SE, bicubic)"] = total - sum(split.values())
+    top = sorted(ops, key=lambda e: -dev_us(e))[:8]
+    return (f"device time {total / 1e3:.3f} ms: "
+            + ", ".join(f"{g} {v / 1e3:.3f} ms ({v / total * 100:.1f}%)" for g, v in split.items())
+            + "; top ops: " + ", ".join(f"{e.key[6:]} {dev_us(e) / 1e3:.3f}" for e in top))
+
+
+def int8_conv_split(dev, n) -> str:
+    """CUDA-event times of the stages of one trunk conv (n x 64x64x64 ->
+    64, bf16 in and out, dynamic scales) as `_conv2d_int8` runs them:
+    the scale and the quantize, the pad and the im2col, the `_int_mm`
+    GEMM, the dequant (scale, bias, bf16 cast); and the whole call."""
+    from facesr_torch.ops import conv as tconv
+    from facesr_torch.ops.quant import Int8Weight, over_127
+
+    gen = torch.Generator().manual_seed(40)
+    x = torch.randn((n, 64, 64, 64), generator=gen).to(torch.bfloat16).to(dev)
+    w = Int8Weight(torch.randint(-127, 128, (64, 64, 3, 3), generator=gen).to(torch.int8),
+                   torch.rand(64, generator=gen) * 1e-3).to(dev)
+    b = (torch.randn(64, generator=gen) * 0.1).to(dev)
+
+    def scale():
+        lo, hi = torch.aminmax(x.reshape(n, -1), dim=1)
+        return over_127(torch.maximum(-lo, hi).float().reshape(-1, 1, 1, 1))
+
+    a = scale()
+    xq = tconv.quantize_act(x, a)
+    wmat = w.gemm_weight(576, 64).t()
+
+    def im2col():
+        xp = torch.nn.functional.pad(xq, (0, 0, 1, 1, 1, 1)).view(torch.int64)
+        return torch.cat([xp[:, dy:dy + 64, dx:dx + 64] for dy in range(3) for dx in range(3)],
+                         dim=-1).view(torch.int8).reshape(-1, 576)
+
+    cols = im2col()
+    y = torch._int_mm(cols, wmat)
+    dq = a * w.scale.reshape(1, 1, 1, -1)
+    times = {"scale + quantize": cuda_ms(lambda: tconv.quantize_act(x, scale()), iters=10),
+             "pad + im2col": cuda_ms(im2col, iters=10),
+             "_int_mm": cuda_ms(lambda: torch._int_mm(cols, wmat), iters=10),
+             "dequant": cuda_ms(lambda: torch.mul(y.reshape(n, 64, 64, 64), dq).add_(b)
+                                .to(torch.bfloat16), iters=10)}
+    whole = cuda_ms(lambda: tconv.conv2d(x, w, b, padding=1), iters=10)
+    gop = 2 * n * 64 * 64 * 576 * 64 / 1e9
+    return (f"one trunk conv at N={n}, CUDA events, means of 10: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f" (sum {sum(times.values()):.4f}); the call {whole:.4f} ms; the GEMM's "
+            f"{gop:.2f} GOP at {gop / times['_int_mm']:.1f} TOP/s")
+
+
+def int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
+    """Phase 12: int8 serving and QAT on the card, on phase 8's PNG set in
+    ``tmp/data``. Returns the group-kernel launches of its main paths (the
+    weight-only int8 Predictor and HTTP server)."""
+    import copy
+
+    from facesr_torch.app import api
+    from facesr_torch.app.demo import prepare_inputs
+    from facesr_torch.ckpt import fckpt
+    from facesr_torch.cli import export_quantized
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.cli.step_numerics import small_step, step_errors
+    from facesr_torch.data import png
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.ops.quant import dequantize_pytree
+    from facesr_torch.ops.conv import INT8_CHUNK_BYTES, full_f32
+    from facesr_torch.parallel.serving import (Predictor, SpatialPredictor, build_serving_fn,
+                                               load_calibration_images)
+
+    log(f"== 12. int8 serving and QAT: the s8 conv (im2col + torch._int_mm) bitwise "
+        f"against the f64 conv, the 6x10x64 model in int8 and int8_full, export_quantized, "
+        f"the HTTP API, a QAT step and the QAT YAML [{card}]")
+    t_phase = time.perf_counter()
+    for i, (name, shape, cout) in enumerate(INT8_CONV_SHAPES):
+        log(int8_conv_exact(dev, name, shape, cout, seed=30 + i))
+
+    cfg = production_config()
+    per_fwd = cfg.num_groups
+    model = production_model(dev, nonzero_last=True)
+    calib = load_calibration_images(str(tmp / "data" / "val" / "LR"), size=64,
+                                    limit=INT8_CALIB_IMAGES)
+    x = np.random.default_rng(12).random((MAX_BATCH, 64, 64, 3), dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    t0 = time.perf_counter()
+    modes = {"bf16": build_serving_fn(model, torch.bfloat16),
+             "int8": build_serving_fn(model, "int8"),
+             "int8_full dynamic": build_serving_fn(model, "int8_full"),
+             "int8_full calibrated": build_serving_fn(model, "int8_full", calibration=calib,
+                                                      max_batch=MAX_BATCH)}
+    log(f"  serving functions built, int8_full calibrated on {len(calib)} of phase 8's "
+        f"64x64 val LR PNGs, in {time.perf_counter() - t0:.2f} s")
+
+    # the main path: weight-only int8 through Predictor, counted just around it
+    pred8 = Predictor(model, dtype="int8", max_batch=MAX_BATCH, device=dev)
+    rg.fused_residual_group.launches = 0
+    out8 = pred8(x)
+    torch.cuda.synchronize()
+    launches = rg.fused_residual_group.launches
+    deq = copy.deepcopy(model)
+    with torch.no_grad():
+        for pname, wq in dequantize_pytree(pred8._forward.sites).items():
+            deq.get_parameter(f"{pname}.weight").copy_(wq.float())
+    want8 = Predictor(deq, dtype=torch.bfloat16, max_batch=MAX_BATCH, device=dev)(x)
+    log(f"  int8 Predictor at {MAX_BATCH}: {launches} group launches (want {per_fwd}); "
+        f"== the bf16 Predictor of a model holding the dequantized weights: "
+        f"{np.array_equal(out8, want8)}")
+    if launches != per_fwd or not np.array_equal(out8, want8):
+        raise AssertionError("int8 serving is not the kernel-trunk bf16 forward of the "
+                             "dequantized weights")
+    del deq, want8
+    for label in ("int8_full dynamic", "int8_full calibrated"):
+        rg.fused_residual_group.launches = 0
+        y = modes[label](xd)
+        torch.cuda.synchronize()
+        n = rg.fused_residual_group.launches
+        if n or y.shape != (MAX_BATCH, 256, 256, 3) or not torch.isfinite(y).all():
+            raise AssertionError(f"{label}: {n} group launches, {tuple(y.shape)}")
+    log(f"  int8_full dynamic and calibrated: 0 group launches, finite [{MAX_BATCH}, 256, 256, 3]")
+
+    # the card against the CPU port at a small depth, on the same sites. The
+    # served bf16 forward is held bitwise. In f32 compute the SE's float
+    # sums (mean, gate) round differently on the card and the CPU, and a
+    # last-bit difference in front of an int8 conv moves a level, which
+    # then spreads; bf16 rounding absorbs those differences, so that
+    # difference is printed, not held
+    small_cfg = cfg.replace(num_groups=INT8_CHECK_DEPTH[0], blocks_per_group=INT8_CHECK_DEPTH[1])
+    small_cpu = FaceEnhanceNet(small_cfg, seed=0, device="cpu").eval()
+    with torch.no_grad():
+        small_cpu.conv_last.weight.copy_(model.conv_last.weight.cpu())
+    small = copy.deepcopy(small_cpu).to(dev)
+    xc = x[:INT8_CHECK_IMAGES]
+    with torch.inference_mode():
+        f32 = small_cpu(torch.from_numpy(xc)).numpy()
+    for label in ("int8_full dynamic", "int8_full calibrated"):
+        kw = {"calibration": calib, "max_batch": MAX_BATCH} if "calibrated" in label else {}
+        on_card = build_serving_fn(small, "int8_full", **kw)
+        sites_cpu = {k: s.to("cpu") for k, s in on_card.sites.items()}
+        xt = torch.from_numpy(xc)
+        with torch.inference_mode():
+            got = on_card(xt.to(dev)).float().cpu().numpy()
+            want = small_cpu(xt, dtype=torch.bfloat16, quant=sites_cpu).float().numpy()
+            with full_f32():
+                d32 = np.abs(small(xt.to(dev), quant=on_card.sites).cpu().numpy()
+                             - small_cpu(xt, quant=sites_cpu).numpy())
+        p_card = 10 * np.log10(1 / np.mean((got.astype(np.float64) - f32) ** 2))
+        same = np.array_equal(got, want)
+        log(f"  {label} {small_cfg.num_groups}x{small_cfg.blocks_per_group}x64, "
+            f"{INT8_CHECK_IMAGES} images, served bf16: card == CPU port {same} (max |card - "
+            f"CPU| {np.abs(got - want).max():.4g}), PSNR against the CPU f32 forward "
+            f"{p_card:.3f} dB; f32 compute (not held): max |card - CPU| {d32.max():.4g} at "
+            f"{int((d32 > 0).sum())} of {d32.size} elements")
+        if not (np.isfinite(got).all() and same):
+            raise AssertionError(f"{label}: the card's int8_full is not the CPU port's")
+    del small, small_cpu
+
+    # times at batch 128, peak memory, the profiler's split
+    for label, fn in modes.items():
+        fn(xd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: fn(xd), iters=INT8_TIMED, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        pred = Predictor(model, dtype="int8_full" if "int8_full" in label else
+                         torch.bfloat16 if label == "bf16" else "int8", max_batch=MAX_BATCH,
+                         device=dev)
+        pred._forward = fn
+        pred_ms = host_ms(lambda: pred(x), INT8_TIMED)
+        log(f"  {label} batch {MAX_BATCH} 64x64: forward {ms:.3f} ms = "
+            f"{MAX_BATCH / ms * 1e3:.1f} images/s (CUDA events, mean of {INT8_TIMED}); "
+            f"Predictor numpy in and out {pred_ms:.3f} ms = {MAX_BATCH / pred_ms * 1e3:.1f} "
+            f"images/s (median of {INT8_TIMED}); peak device memory {peak:.3f} GiB [{card}]")
+    for label in ("int8_full dynamic", "int8_full calibrated"):
+        log(f"  profiler, one {label} forward at {MAX_BATCH}: "
+            f"{int8_profile_split(lambda: modes[label](xd))} [{card}]")
+    log(f"  {int8_conv_split(dev, MAX_BATCH // 2)} [{card}]")
+    del modes, pred8, xd
+
+    # a large input: SpatialPredictor's rows chunked under INT8_CHUNK_BYTES
+    sp = SpatialPredictor(model, dtype="int8_full", device=dev, calibration=calib[:4])
+    big = np.random.default_rng(13).random(INT8_SPATIAL, dtype=np.float32)
+    sp(big)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = sp(big)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sp_ms = host_ms(lambda: sp(big), 3)
+    log(f"  SpatialPredictor int8_full (calibrated on 4 images, one at a time) {INT8_SPATIAL} -> "
+        f"{got.shape}: median of 3 {sp_ms:.3f} ms, peak device memory {peak:.3f} GiB "
+        f"(column chunks under {INT8_CHUNK_BYTES >> 20} MiB) [{card}]")
+    if got.shape != (1, 4 * INT8_SPATIAL[1], 4 * INT8_SPATIAL[2], 3) or not np.isfinite(got).all():
+        raise AssertionError(f"SpatialPredictor int8_full: {got.shape}")
+    del sp, got
+
+    # export_quantized on phase 8's PNGs, then the HTTP API on its cache
+    ckdir = tmp / "int8_checkpoints"
+    fckpt.save_model(str(ckdir / "production.fckpt"), model)
+    prefix = tmp / "quant" / "int8"
+    cache = Path(f"{prefix}.production.fckpt")
+    t0 = time.perf_counter()
+    if export_quantized.main(["--checkpoint", str(ckdir / "production.fckpt"), "--calib-dir",
+                              str(tmp / "data" / "val" / "HR"), "--calib-hr", "--num-images",
+                              str(INT8_CALIB_IMAGES), "--output", str(cache)]) != 0:
+        raise AssertionError("export_quantized failed")
+    log(f"  export_quantized on {INT8_CALIB_IMAGES} of phase 8's val HR PNGs (--calib-hr): "
+        f"{cache.stat().st_size / 1e6:.2f} MB in {time.perf_counter() - t0:.2f} s")
+    bodies = [png.encode(im) for im in smooth_u8(INT8_HTTP_CLIENTS, 64, 64, seed=17)]
+    lrs = [prepare_inputs(png.decode_rgb(b))[0] for b in bodies]
+    plan = [[c] + [(c + r) % len(bodies) for r in range(INT8_HTTP_REQUESTS)]
+            for c in range(INT8_HTTP_CLIENTS)]
+    n_req = sum(len(p) for p in plan)
+    for label, kw in (("--dtype int8_full --quant-cache", dict(dtype="int8_full",
+                                                               quant_cache=str(prefix))),
+                      ("--dtype int8", dict(dtype="int8"))):
+        ref = Predictor(model, dtype=kw["dtype"], max_batch=1, device=dev,
+                        quant_cache=str(cache) if "quant_cache" in kw else None)
+        want_u8 = [(ref(lr[None])[0] * 255).round().astype(np.uint8) for lr in lrs]
+        srv = api.serve(str(ckdir), port=0, host="127.0.0.1", device=dev, **kw)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            rg.fused_residual_group.launches = 0
+            wall, lat, _, results, errors = drive_http(srv.server_address[1], bodies, plan)
+            torch.cuda.synchronize()
+            n = rg.fused_residual_group.launches
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.service.close()
+        exact = sum(s == 200 and np.array_equal(png.decode_rgb(d), want_u8[i])
+                    for i, s, d in results)
+        lat_ms = sorted(v * 1e3 for v in lat)
+        log(f"  HTTP {label}: {n_req} requests from {INT8_HTTP_CLIENTS} keep-alive clients, "
+            f"{exact} exactly Predictor's uint8 output; {n_req / wall:.1f} requests/s, p50 "
+            f"{lat_ms[len(lat_ms) // 2]:.3f} ms; {n} group launches [{card}]")
+        launches += n
+        if errors or exact != n_req or n != (per_fwd * n_req if kw["dtype"] == "int8" else 0):
+            failed = [(s, d[:200]) for _, s, d in results if s != 200]
+            raise AssertionError(f"HTTP {label}: errors {errors[:3]}, {exact} of {n_req} "
+                                 f"exact, {n} launches; failed {failed[:3]}")
+    # control: a quant cache calibrated from other weights is refused at startup
+    other = tmp / "other_checkpoints"
+    fckpt.save_model(str(other / "production.fckpt"), production_model(dev, nonzero_last=False))
+    try:
+        api.SRService(str(other), dtype="int8_full", quant_cache=str(prefix), device=dev)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a quant cache of other weights was served")
+    log(f"  control: the cache on another checkpoint -> ValueError {msg[:70]!r}...")
+
+    # QAT: one small step on the card against the CPU, with a TF32 control
+    cpu = small_step("cpu", qat=True)
+    errs = step_errors(small_step(dev, qat=True), cpu)
+    tf32 = step_errors(small_step(dev, qat=True, tf32_forced=True), cpu)
+    log(f"  QAT step (G=2 B=2 C=16 fake-quant, f32, smooth loss) card vs CPU: loss "
+        f"{errs[0]:.3g}, worst gradient {errs[1]:.3g}, worst param {errs[2]:.3g}; TF32 forced: "
+        f"{tf32[0]:.3g} / {tf32[1]:.3g} / {tf32[2]:.3g} -> "
+        f"{'rejected' if max(tf32) > STEP_RTOL else 'within'} (limit {STEP_RTOL})")
+    if max(errs) > STEP_RTOL:
+        raise AssertionError(f"the card's QAT step disagrees with the CPU's: {errs}")
+    if max(tf32) <= STEP_RTOL:
+        raise AssertionError("the QAT step tolerance cannot see TF32 convs")
+    # the production step of phase 7, fake-quantized
+    state, step, _ = production_step_fn(dev, qat=True)
+    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)
+    losses, times = [], []
+    for i in range(QAT_WARMUP + QAT_TIMED):
+        if i == QAT_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, metrics = step(state, hr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+    qat_ms = statistics.median(times[QAT_WARMUP:]) * 1e3
+    log(f"  QAT step 6x10x64 f32 fake-quant, batch {TRAIN_BATCH} HR {TRAIN_HR}, L1 + VGG19 "
+        f"conv3_4 (phase 7's step): median of {QAT_TIMED} {qat_ms:.3f} ms/step = "
+        f"{TRAIN_BATCH / qat_ms * 1e3:.2f} images/s against phase 7's {step_alone_ms:.3f} ms; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; losses "
+        f"{['%.6f' % v for v in losses]} [{card}]")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("the QAT step's losses are not finite")
+    del state, step, hr
+
+    # the train CLI on the QAT YAML, data_root on phase 8's PNGs, one epoch
+    text = QAT_YAML.read_text().replace("save_dir: /tmp/rehearsal/ckpt_s1_qat",
+                                        f"save_dir: {tmp / 'qat_checkpoints'}")
+    yaml = tmp / "stage1_qat_ft.yaml"
+    yaml.write_text(text)
+    rg.fused_residual_group.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_cli.run(["--config", str(yaml), "--data-root", str(tmp / "data"),
+                             "--epochs", "1", "--qat-scales", str(cache)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    hist = trainer.training_history
+    ok = (trainer.config.qat and (tmp / "qat_checkpoints" / "final_model.pth").exists()
+          and all(math.isfinite(v) for h in hist.values() for v in h))
+    log(f"  train CLI {QAT_YAML.relative_to(REPO)} with --qat-scales, 1 epoch: "
+        f"{cli_s:.1f} s, {trainer.last_train_metrics.get('step_ms', 0):.1f} ms/step, train loss "
+        f"{hist['train_loss']}, val PSNR {hist['val_psnr']}; "
+        f"{rg.fused_residual_group.launches} group launches [{card}]")
+    if not ok or rg.fused_residual_group.launches:
+        raise AssertionError("the QAT CLI run failed")
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2047,11 +2459,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="facesr_torch_cli_") as tmp:
         cli_phase(card, step_alone_ms, Path(tmp))
         eval_launches = eval_phase(dev, card, Path(tmp))
-    launches["fused_residual_group"] += eval_launches  # phase 5's and phase 9's main paths
-    gan_phase(dev, card)
-    with tempfile.TemporaryDirectory(prefix="facesr_torch_serve_") as tmp:
-        serving = serving_phase(dev, card, Path(tmp), fwd_med * 1e3, pred_med * 1e3)
-    launches["fused_residual_group"] += serving["launches"]  # and phase 11's
+        launches["fused_residual_group"] += eval_launches  # phase 5's and phase 9's main paths
+        gan_phase(dev, card)
+        with tempfile.TemporaryDirectory(prefix="facesr_torch_serve_") as stmp:
+            serving = serving_phase(dev, card, Path(stmp), fwd_med * 1e3, pred_med * 1e3)
+        launches["fused_residual_group"] += serving["launches"]  # and phase 11's
+        launches["fused_residual_group"] += int8_phase(dev, card, Path(tmp),
+                                                       step_alone_ms)  # and phase 12's
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

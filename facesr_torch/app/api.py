@@ -20,7 +20,13 @@ Usage:
 
 ``--dtype bf16`` serves every model through `Predictor` (the group-kernel
 trunk: 6 kernel launches a forward of the production 6x10x64 model);
-without it (or with ``f32``) the raw f32 forward. ``--batch-window-ms``
+without it (or with ``f32``) the raw f32 forward. ``--dtype int8`` serves
+per-channel int8 weights dequantized to bf16 (the kernel trunk too);
+``--dtype int8_full`` s8 convs with static activation scales calibrated
+on ``--calib-dir`` images or read from the per-model quant cache
+``<--quant-cache>.<model name>.fckpt`` (`cli.export_quantized`), else
+per-image dynamic scales. A cache calibrated from other weights is refused
+at startup. ``--batch-window-ms``
 coalesces concurrent requests into one forward of up to ``--max-batch``
 images (`MicroBatcher`). Each cohort runs at its true size: eager PyTorch
 compiles nothing per batch size, so the JAX server's power-of-two padding
@@ -30,8 +36,7 @@ ladder has no work to do. ``--exported`` serves ``.pt2`` artifacts
 nothing: the port compiles no programs, and its one CUDA build is kept in
 ``facesr_torch/_build/`` across restarts already.
 
-Not ported: JPEG bodies (400, ROADMAP A.7.2) and the int8 dtypes with
-``--calib-dir``/``--quant-cache`` (raise at startup, ROADMAP A.10).
+Not ported: JPEG bodies (400, ROADMAP A.7.2).
 """
 
 from __future__ import annotations
@@ -62,9 +67,10 @@ class SRService:
                  calib_dir: Optional[str] = None, quant_cache: Optional[str] = None,
                  batch_window_ms: float = 0.0, max_batch: int = 0,
                  exported: Optional[str] = None, device: DeviceLike = None):
-        """dtype: None/'f32' raw f32 forwards; 'bf16' through `Predictor`
-        (the group-kernel trunk); 'int8'/'int8_full', ``calib_dir`` and
-        ``quant_cache`` raise (ROADMAP A.10). batch_window_ms > 0
+        """dtype: None/'f32' raw f32 forwards; 'bf16', 'int8' and
+        'int8_full' through `Predictor` (`app.demo.wrap_predictors`, with
+        ``calib_dir`` and the per-model ``quant_cache`` for int8_full).
+        batch_window_ms > 0
         coalesces concurrent requests into one forward (`MicroBatcher`) of
         up to ``max_batch`` images (0 = 4). exported: comma-separated
         ``.pt2`` artifacts served under their file stems; with only
@@ -84,7 +90,8 @@ class SRService:
         mb = (max_batch or 4) if batch_window_ms > 0 else 0
         self.predictors = {}
         if dtype and dtype != "f32":
-            self.predictors = wrap_predictors(self.models, dtype, max_batch=max(1, max_batch, mb))
+            self.predictors = wrap_predictors(self.models, dtype, calib_dir, quant_cache,
+                                              max_batch=max(1, max_batch, mb))
         self.batchers = {}
         if batch_window_ms > 0:
             servables = {**self.models, **self.exported, **self.predictors}
@@ -235,12 +242,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="torch device; CUDA when omitted (raises without a card)")
     parser.add_argument("--dtype", type=str, default=None,
                         choices=["f32", "bf16", "int8", "int8_full"],
-                        help="serving precision: bf16 runs the group-kernel trunk; "
-                             "int8 and int8_full are not ported (ROADMAP A.10)")
+                        help="serving precision: bf16 runs the group-kernel trunk; int8 = "
+                             "int8 weights (bf16 compute), int8_full = s8 convs")
     parser.add_argument("--calib-dir", type=str, default=None,
-                        help="int8_full calibration images: not ported (ROADMAP A.10)")
+                        help="representative LR images for int8_full's static "
+                             "activation-scale calibration")
     parser.add_argument("--quant-cache", type=str, default=None,
-                        help="int8 calibration cache: not ported (ROADMAP A.10)")
+                        help="path prefix of the calibrated int8 caches (per model) so "
+                             "restarts skip calibration")
     parser.add_argument("--batch-window-ms", type=float, default=0.0,
                         help="coalesce concurrent requests arriving within this window "
                              "into one forward; 0 = one forward per request")

@@ -14,14 +14,16 @@ the reference's: an image of at most 128 px is already LR (resized to 64
 with ``INTER_AREA`` when it is not 64x64, no ground truth); a larger one
 is centre-cropped to a square, resized to 256 with ``INTER_AREA`` and its
 64 px LR synthesised with the trainer's bicubic. ``--dtype bf16`` serves
-through `Predictor` (the group-kernel trunk). It runs on CUDA unless
+through `Predictor` (the group-kernel trunk), ``int8`` with int8 weights
+dequantized to bf16, ``int8_full`` with s8 convs: static activation
+scales calibrated on ``--calib-dir`` images, or loaded from the per-model
+quant cache ``<--quant-cache>.<model name>.fckpt`` (written there after a
+calibration), else per-image dynamic scales. It runs on CUDA unless
 ``--device cpu`` is given.
 
 Not ported: the gradio UI and its ``--port``/``--share``/``--sample-dir``
 (gradio is not installed, so ``main`` without ``--image`` prints the JAX
-demo's message), the int8 serve dtypes with
-``--calib-dir``/``--quant-cache`` (ROADMAP A.10) and JPEG input (PNG
-only, ROADMAP A.7.2).
+demo's message) and JPEG input (PNG only, ROADMAP A.7.2).
 """
 
 from __future__ import annotations
@@ -46,11 +48,6 @@ __all__ = ["LR_SIZE", "HR_SIZE", "load_models_from_checkpoints", "load_exported_
 LR_SIZE = 64
 HR_SIZE = 256
 GRADIO_MESSAGE = "gradio is not installed; use --image for headless mode."
-
-
-def _not_ported_int8(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A.10: int8 serving "
-                               "and QAT)")
 
 
 def load_models_from_checkpoints(checkpoint_dir: str = "checkpoints",
@@ -103,10 +100,10 @@ def load_servables(checkpoint_dir: str, dtype: Optional[str] = None,
                    exported: Optional[str] = None, device: DeviceLike = None,
                    require_symbolic_batch: bool = False) -> tuple:
     """(checkpoint models, exported artifacts), the one assembly policy of
-    this demo and `app.api.SRService`: a serving dtype that is not ported
-    raises before anything loads; the checkpoint directory is optional
-    when artifacts are given; a name in both raises."""
-    _check_serving_dtype(dtype, calib_dir, quant_cache)
+    this demo and `app.api.SRService`: an unknown serving dtype raises
+    before anything loads; the checkpoint directory is optional when
+    artifacts are given; a name in both raises."""
+    _check_serving_dtype(dtype)
     artifacts = (load_exported_servables(exported, device, require_symbolic_batch)
                  if exported else {})
     models = (load_models_from_checkpoints(checkpoint_dir, device)
@@ -125,33 +122,45 @@ def _assemble_models(checkpoint_dir: str, dtype: Optional[str] = None,
     predictors -> exported artifacts, in one dict."""
     models, artifacts = load_servables(checkpoint_dir, dtype, calib_dir, quant_cache,
                                        exported, device)
-    return {**wrap_predictors(models, dtype), **artifacts}
+    return {**wrap_predictors(models, dtype, calib_dir, quant_cache), **artifacts}
 
 
-def _check_serving_dtype(dtype: Optional[str], calib_dir: Optional[str] = None,
-                         quant_cache: Optional[str] = None) -> None:
-    if dtype in ("int8", "int8_full"):
-        raise _not_ported_int8(f"serving dtype {dtype!r}")
-    if calib_dir or quant_cache:
-        raise _not_ported_int8("--calib-dir / --quant-cache (int8_full calibration)")
-    if dtype not in (None, "f32", "bf16"):
-        raise ValueError(f"unknown serving dtype {dtype!r}; one of f32, bf16")
+SERVING_DTYPES = (None, "f32", "bf16", "int8", "int8_full")
+
+
+def _check_serving_dtype(dtype: Optional[str]) -> None:
+    if dtype not in SERVING_DTYPES:
+        raise ValueError(f"unknown serving dtype {dtype!r}; one of f32, bf16, int8, int8_full")
 
 
 def wrap_predictors(models: dict, dtype: Optional[str] = None,
                     calib_dir: Optional[str] = None, quant_cache: Optional[str] = None,
                     max_batch: int = 8) -> dict:
     """Every model through a `Predictor` when a serving dtype is asked
-    for (``bf16``: the group-kernel trunk); f32 (or none) keeps the raw
-    models. The int8 dtypes, ``calib_dir`` and ``quant_cache`` raise
-    (ROADMAP A.10)."""
-    from facesr_torch.parallel.serving import Predictor
+    for: ``bf16`` the group-kernel trunk, ``int8`` int8 weights dequantized
+    to bf16, ``int8_full`` s8 convs with static scales calibrated on
+    ``calib_dir`` images or loaded from the model's quant cache
+    (`per_model_quant_cache` of ``quant_cache``), else dynamic scales. f32
+    (or none) keeps the raw models. ``calib_dir``/``quant_cache`` under
+    another dtype print a warning and are ignored."""
+    from facesr_torch.parallel.serving import (Predictor, load_calibration_images,
+                                               per_model_quant_cache)
 
-    _check_serving_dtype(dtype, calib_dir, quant_cache)
+    _check_serving_dtype(dtype)
+    if dtype != "int8_full" and (calib_dir or quant_cache):
+        print(f"Warning: --calib-dir/--quant-cache only apply to --dtype int8_full "
+              f"(got {dtype or 'f32'}); ignoring them")
     if not dtype or dtype == "f32":
         return models
-    return {name: Predictor(m, dtype=torch.bfloat16, max_batch=max_batch,
-                            device=next(m.parameters()).device)
+    calibration = None
+    if calib_dir and dtype == "int8_full":
+        calibration = load_calibration_images(calib_dir)
+    serve_dtype = torch.bfloat16 if dtype == "bf16" else dtype
+    return {name: Predictor(
+                m, dtype=serve_dtype, max_batch=max_batch, device=next(m.parameters()).device,
+                calibration=calibration,
+                quant_cache=per_model_quant_cache(quant_cache if dtype == "int8_full" else None,
+                                                  name))
             for name, m in models.items()}
 
 
@@ -241,11 +250,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--dtype", type=str, default=None,
                         choices=["f32", "bf16", "int8", "int8_full"],
                         help="serving dtype: bf16 routes through Predictor (the group "
-                             "kernel); int8 and int8_full are not ported (ROADMAP A.10)")
+                             "kernel); int8 = int8 weights, int8_full = s8 convs")
     parser.add_argument("--calib-dir", type=str, default=None,
-                        help="int8_full calibration images: not ported (ROADMAP A.10)")
+                        help="images that calibrate int8_full's static activation scales")
     parser.add_argument("--quant-cache", type=str, default=None,
-                        help="int8 calibration cache: not ported (ROADMAP A.10)")
+                        help="path prefix of the per-model calibrated int8 caches "
+                             "(<prefix>.<model>.fckpt), read when present, else written "
+                             "after calibration")
     parser.add_argument("--exported", type=str, default=None,
                         help="comma-separated .pt2 serving artifacts "
                              "(python -m facesr_torch.cli.export_serving)")

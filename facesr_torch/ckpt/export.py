@@ -9,7 +9,8 @@ one artifact serves every batch size; an int pins it. In bf16 a config
 the group kernel takes (C = 64, k = 3) keeps each residual group as one
 node of the custom op ``facesr_torch::rcab_group``: the loaded program
 launches the Hopper kernel on a card and runs the plain version on the
-CPU. f32 and bf16 are exported; the int8 modes are ROADMAP A.10.
+CPU. f32 and bf16 are exported; the int8 modes raise (their `.pt2`
+variants are ROADMAP A.10.1).
 
 Where the JAX package lists target platforms, a ``.pt2`` holds tensors on
 the device it was traced on, and `load_exported` moves it to the device
@@ -36,6 +37,9 @@ __all__ = ["ServingModule", "build_serving_fn", "export_serving", "export_built"
            "input_shape", "load_exported", "load_exported_many", "MAX_EXPORT_BATCH"]
 
 MAX_EXPORT_BATCH = 4096  # the symbolic batch's upper bound
+INT8_EXPORT_NOT_PORTED = ("the int8 .pt2 export (dtype int8/int8_full, --calib-dir, "
+                          "--quant-cache) is not ported yet (ROADMAP A.10.1: int8 .pt2 "
+                          "export); serve int8 through Predictor or the API")
 
 
 class ServingModule(nn.Module):
@@ -47,7 +51,9 @@ class ServingModule(nn.Module):
 
     def __init__(self, model: nn.Module, dtype: ServingDtype = torch.bfloat16):
         super().__init__()
-        _check_dtype(model, dtype)  # the serving dtype dispatch (int8 raises)
+        if dtype in ("int8", "int8_full"):
+            raise NotImplementedError(INT8_EXPORT_NOT_PORTED)
+        _check_dtype(model, dtype)  # the serving dtype dispatch
         self.model = model.eval()
         self.dtype = dtype
         self.kernel_trunk = dtype == torch.bfloat16 and model.kernel_trunk

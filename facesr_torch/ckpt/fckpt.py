@@ -39,6 +39,7 @@ from facesr_torch.ckpt.weights import state_dict_from_jax_params
 from facesr_torch.models.face_enhance_net import FaceEnhanceNetConfig
 
 __all__ = ["FckptError", "packb", "save_checkpoint", "save_model", "unpackb", "is_fckpt",
+           "QUANT_CACHE_KIND", "params_fingerprint", "save_quant_cache", "load_quant_cache",
            "load_checkpoint", "load_model", "restore_list_nodes",
            "infer_model_config_from_params"]
 
@@ -178,6 +179,61 @@ def save_model(path: str, model, model_type: str = "custom") -> None:
 
     save_checkpoint(path, {"params": jax_params_from_state_dict(model.state_dict())},
                     {"model_type": model_type, "config": asdict(model.config)})
+
+
+QUANT_CACHE_KIND = "facesr-int8-calibrated"
+
+
+def _tree_leaves(tree: Any):
+    """Leaves in JAX tree-flatten order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def params_fingerprint(model) -> str:
+    """sha256 of the model's JAX-layout float32 leaves in JAX tree order:
+    the JAX package's ``_params_fingerprint`` of the same weights."""
+    import hashlib
+
+    from facesr_torch.ckpt.weights import jax_params_from_state_dict
+
+    h = hashlib.sha256()
+    for leaf in _tree_leaves(jax_params_from_state_dict(model.state_dict())):
+        h.update(np.asarray(leaf).tobytes())
+    return h.hexdigest()
+
+
+def _state_dict(tree: Any) -> Any:
+    """flax's ``to_state_dict``: every list a map keyed '0', '1', ..."""
+    if isinstance(tree, dict):
+        return {k: _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def save_quant_cache(path: str, model, sites: Dict[str, Any]) -> None:
+    """Write calibrated int8 sites as the JAX package's quant cache."""
+    from facesr_torch.ckpt.weights import jax_qtree_from_sites
+
+    tree = jax_qtree_from_sites(model, sites)
+    save_checkpoint(path, _state_dict(tree),
+                    {"kind": QUANT_CACHE_KIND, "params_sha256": params_fingerprint(model)})
+
+
+def load_quant_cache(path: str) -> Tuple[Any, Dict[str, Any]]:
+    """(tree, meta) of a quant cache; raises when the file is another kind
+    of ``.fckpt``."""
+    tree, meta = load_checkpoint(path)
+    if meta.get("kind") != QUANT_CACHE_KIND:
+        raise ValueError(f"{path} is not a calibrated-int8 cache")
+    return tree, meta
 
 
 class _Reader:

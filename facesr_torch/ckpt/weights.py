@@ -16,6 +16,12 @@
   under the BatchNorm names).
 - `jax_params_from_state_dict`: the inverse of `state_dict_from_jax_params`
   (the `.fckpt` model writer's layout).
+- `jax_qtree_from_sites` / `sites_from_jax_qtree`: a quantized model as
+  the JAX package's int8 tree (a conv leaf becomes ``{"q": int8 HWIO,
+  "scale": [..., 1, 1, 1, O], "a": [..., 1, 1, 1, 1]}``, stacked over
+  [G, B] or [G] in the trunk) and back to the port's per-site
+  `ops.quant.Int8Weight` (q OIHW, scale [O], a a scalar), checked leaf by
+  leaf against the model (the quant cache's layout).
 - `load_reference_pth`: a reference-format ``{'model_state_dict',
   'config'}`` checkpoint -> a `FaceEnhanceNet`, loaded with ``strict=True``.
 """
@@ -30,7 +36,8 @@ import torch
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet
 
-__all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict", "vgg_params_from_jax",
+__all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict", "jax_qtree_from_sites",
+           "sites_from_jax_qtree", "vgg_params_from_jax",
            "lpips_params_from_jax", "inception_params_from_jax",
            "discriminator_state_dict_from_jax", "load_reference_pth"]
 
@@ -119,6 +126,103 @@ def jax_params_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
                       "prelu_a": arr(f"upsample.stages.{s}.prelu.weight")} for s in stages],
         "conv_last": conv("conv_last"),
     }
+
+
+def _node(tree: Any, path) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set_node(tree: Any, path, value: Any) -> None:
+    _node(tree, path[:-1])[path[-1]] = value
+
+
+def jax_qtree_from_sites(model: FaceEnhanceNet, sites: Dict[str, Any]) -> Dict[str, Any]:
+    """The model's JAX parameter tree (numpy) with every quantized leaf as
+    the JAX package's int8 dict: ``q`` int8 HWIO and ``scale`` [..., 1, 1,
+    1, O] stacked over the leaf's stack axes, plus ``a`` [..., 1, 1, 1, 1]
+    when the sites are calibrated and ``sid`` (int32, stack-shaped) when
+    they carry site ids."""
+    from facesr_torch.ops.quant import quant_leaves
+
+    tree = jax_params_from_state_dict(model.state_dict())
+    for leaf in quant_leaves(model):
+        ws = [sites[n] for n in leaf.names]
+        o = leaf.shape[0]
+        node = {"q": np.stack([w.q.cpu().numpy().transpose(2, 3, 1, 0) for w in ws])
+                .reshape(leaf.stack + tuple(ws[0].q.shape[i] for i in (2, 3, 1, 0))),
+                "scale": np.stack([w.scale.detach().cpu().float().numpy() for w in ws])
+                .reshape(leaf.stack + (1, 1, 1, o))}
+        if all(w.a is not None for w in ws):
+            node["a"] = np.asarray([float(w.a) for w in ws], np.float32).reshape(
+                leaf.stack + (1, 1, 1, 1))
+        if all(w.sid is not None for w in ws):
+            node["sid"] = np.asarray([w.sid for w in ws], np.int32).reshape(leaf.stack)
+        _set_node(tree, leaf.path, node)
+    return tree
+
+
+def sites_from_jax_qtree(tree: Dict[str, Any], model: FaceEnhanceNet,
+                         where: str = "quant tree") -> Dict[str, Any]:
+    """A JAX int8 tree (lists as lists or digit-keyed maps) -> this
+    model's ``{site: Int8Weight}`` on the model's device. The tree must
+    have this model's structure: an int8 dict exactly at the sites the
+    predicate selects (with ``q``, ``scale`` and ``a``) and every other
+    leaf of the parameter shapes; anything else raises ValueError."""
+    from facesr_torch.ckpt.fckpt import restore_list_nodes
+    from facesr_torch.ops.quant import Int8Weight, quant_leaves
+
+    tree = restore_list_nodes(tree)
+    want = jax_params_from_state_dict(model.state_dict())
+    device = model.conv_first.weight.device
+    qpaths = {leaf.path: leaf for leaf in quant_leaves(model)}
+
+    def mismatch(path, got, exp) -> ValueError:
+        return ValueError(f"{where} does not match this model: leaf "
+                          f"{'/'.join(map(str, path))} is {got}, expected {exp}")
+
+    def walk(node, ref, path) -> None:
+        if path in qpaths:
+            if not (isinstance(node, dict) and {"q", "scale", "a"} <= set(node)):
+                raise mismatch(path, type(node).__name__, "a calibrated int8 dict")
+            leaf = qpaths[path]
+            for key, shape in (("q", np.shape(ref)), ("scale", leaf.stack + (1, 1, 1, leaf.shape[0])),
+                               ("a", leaf.stack + (1, 1, 1, 1))):
+                if tuple(np.shape(node[key])) != tuple(shape):
+                    raise mismatch(path + (key,), f"shape {tuple(np.shape(node[key]))}",
+                                   f"{tuple(shape)}")
+            if np.asarray(node["q"]).dtype != np.int8:
+                raise mismatch(path + ("q",), np.asarray(node["q"]).dtype, "int8")
+            return
+        if isinstance(ref, dict):
+            if not isinstance(node, dict) or set(node) != set(ref):
+                raise mismatch(path, sorted(node) if isinstance(node, dict) else
+                               type(node).__name__, sorted(ref))
+            for k in ref:
+                walk(node[k], ref[k], path + (k,))
+        elif isinstance(ref, list):
+            if not isinstance(node, list) or len(node) != len(ref):
+                raise mismatch(path, type(node).__name__, f"a list of {len(ref)}")
+            for i, (n, r) in enumerate(zip(node, ref)):
+                walk(n, r, path + (i,))
+        elif isinstance(node, dict) or tuple(np.shape(node)) != tuple(np.shape(ref)):
+            raise mismatch(path, f"shape {np.shape(node)}" if not isinstance(node, dict)
+                           else "an int8 dict", f"shape {np.shape(ref)}")
+
+    walk(tree, want, ())
+    sites = {}
+    for leaf in qpaths.values():
+        node = _node(tree, leaf.path)
+        q = np.asarray(node["q"]).reshape((-1,) + np.shape(node["q"])[-4:])
+        scale = np.asarray(node["scale"], np.float32).reshape(q.shape[0], -1)
+        a = np.asarray(node["a"], np.float32).reshape(-1)
+        for j, name in enumerate(leaf.names):
+            sites[name] = Int8Weight(
+                torch.from_numpy(q[j].transpose(3, 2, 0, 1).copy()).to(device),
+                torch.from_numpy(scale[j].copy()).to(device),
+                torch.tensor(a[j], dtype=torch.float32, device=device))
+    return sites
 
 
 def vgg_params_from_jax(params: List[Dict[str, Any]]) -> List[Dict[str, torch.Tensor]]:

@@ -17,8 +17,10 @@ deltas against the best baseline. It runs on one CUDA card unless
 
 Only FaceEnhanceNet checkpoints load; a transfer or ESRGAN checkpoint is
 skipped with its reason (ROADMAP A.12). ``--serve-dtype`` f32 (the
-default) or bf16 (the hand-written group-kernel trunk); int8, int8_full
-and ``--calibrate`` are not ported (ROADMAP A.10).
+default), bf16 (the hand-written group-kernel trunk), int8 (weight-only)
+or int8_full (s8 convs); with int8_full, ``--calibrate N`` calibrates
+static activation scales on LR synthesised from the first N evaluation
+images (else the scales are per-image dynamic).
 """
 
 from __future__ import annotations
@@ -77,10 +79,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--serve-dtype", type=str, default=None,
                         choices=["f32", "bf16", "int8", "int8_full"],
                         help="Precision of the model forwards: f32 (default, the per-image "
-                             "computation) or bf16 (the group-kernel trunk); the int8 modes "
-                             "are not ported (ROADMAP A.10)")
+                             "computation), bf16 (the group-kernel trunk), int8 or int8_full "
+                             "(the quantized serving paths' quality against the baselines)")
     parser.add_argument("--calibrate", type=int, default=0, metavar="N",
-                        help="int8_full calibration: not ported (ROADMAP A.10)")
+                        help="with --serve-dtype int8_full: calibrate static activation "
+                             "scales on LR synthesised from the first N eval images")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; CUDA when omitted (raises without a card)")
     return parser.parse_args(argv)
@@ -93,14 +96,31 @@ def _center_crop(h: np.ndarray, scale: int) -> np.ndarray:
     return h[oy:oy + h.shape[0] // scale * scale, ox:ox + h.shape[1] // scale * scale]
 
 
+def _calibration_lrs(files, scale: int, device) -> np.ndarray:
+    """LR synthesised (the trainer's bicubic) from the readable ones of
+    ``files``, as one batch of the first image's shape: the distribution
+    the predictor serves."""
+    from facesr_torch.data.png import read_rgb
+    from facesr_torch.evaluation.batched import synthesize_lr_batched
+
+    hrs = []
+    for f in files:
+        try:
+            hrs.append(_center_crop(read_rgb(f), scale))
+        except IOError:
+            continue
+    if not hrs:
+        raise SystemExit(f"--calibrate: none of the first {len(files)} eval images were "
+                         "readable")
+    lrs = synthesize_lr_batched(hrs, scale, device=device)
+    return np.stack([lr for lr in lrs if lr.shape == lrs[0].shape])
+
+
 def run(argv: Optional[List[str]] = None) -> Optional[dict]:
     """Parse ``argv`` and evaluate. Returns ``{"summary": {method: {metric:
     value}}, "methods", "images", "timings": {stage: s}}``, or None when
     there are no test images."""
     args = parse_args(argv)
-    if args.serve_dtype in ("int8", "int8_full") or args.calibrate:
-        raise NotImplementedError("--serve-dtype int8/int8_full and --calibrate: int8 serving "
-                                  "is not ported yet (ROADMAP A.10)")
     if args.per_image and args.serve_dtype:
         raise SystemExit("--serve-dtype routes through the batched serving path; drop "
                          "--per-image (the per-image loop runs plain f32 forwards and would "
@@ -153,7 +173,8 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
     hr_acts = []
     out_dir = Path(args.output)
     (out_dir / "samples").mkdir(parents=True, exist_ok=True)
-    dtype = torch.bfloat16 if args.serve_dtype == "bf16" else None
+    dtype = {"bf16": torch.bfloat16, "int8": "int8",
+             "int8_full": "int8_full"}.get(args.serve_dtype)
     predictors = None
     n_images = 0
 
@@ -187,8 +208,11 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
                                                 .cpu().numpy()[0]) for lr in lrs]
         else:
             if predictors is None:  # once, even with zero models
+                calibration = None
+                if args.calibrate > 0 and args.serve_dtype == "int8_full":
+                    calibration = _calibration_lrs(files[:args.calibrate], args.scale, device)
                 predictors = {name: make_predictor(m, max_batch=args.batch_size, dtype=dtype,
-                                                   device=device)
+                                                   device=device, calibration=calibration)
                               for name, m in models.items()}
             model_srs = {name: sr_batched(None, lrs, predictor=predictors[name])
                          for name in models}

@@ -9,7 +9,7 @@ The trace runs on ``--device`` (CUDA unless named) and the artifact is
 moved to the serving device when it is loaded. ``--verify`` loads it back
 and compares it with the live forward on seeded inputs (tolerance 1e-5
 in f32, 1e-2 in bf16, as in JAX). The int8 dtypes, ``--calib-dir`` and
-``--quant-cache`` raise (ROADMAP A.10). The JAX flag ``--platforms`` has
+``--quant-cache`` raise (ROADMAP A.10.1: the int8 ``.pt2`` export). The JAX flag ``--platforms`` has
 no counterpart: a ``.pt2`` moves to the serving device when loaded.
 """
 
@@ -32,13 +32,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--output", required=True)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32", "int8", "int8_full"],
                    help="serving mode (same semantics as the HTTP API); int8 and "
-                        "int8_full are not ported (ROADMAP A.10)")
+                        "int8_full are not exported yet (ROADMAP A.10.1)")
     p.add_argument("--batch", type=int, default=None,
                    help="pin the batch dimension (default: symbolic — one artifact serves "
                         "every batch size)")
     p.add_argument("--input-size", type=int, default=64)
-    p.add_argument("--calib-dir", default=None, help="not ported (ROADMAP A.10)")
-    p.add_argument("--quant-cache", default=None, help="not ported (ROADMAP A.10)")
+    p.add_argument("--calib-dir", default=None, help="not exported yet (ROADMAP A.10.1)")
+    p.add_argument("--quant-cache", default=None, help="not exported yet (ROADMAP A.10.1)")
     p.add_argument("--verify", action="store_true",
                    help="load the artifact back and compare it with the live forward")
     p.add_argument("--device", default=None,
@@ -49,14 +49,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
-    from facesr_torch.ckpt.export import build_serving_fn, export_built, load_exported
+    from facesr_torch.ckpt.export import (INT8_EXPORT_NOT_PORTED, build_serving_fn,
+                                          export_built, load_exported)
     from facesr_torch.device import resolve_device
     from facesr_torch.models.load import load_any_model
 
     args = parse_args(argv)
     if args.dtype in ("int8", "int8_full") or args.calib_dir or args.quant_cache:
-        raise NotImplementedError("int8 export (--dtype int8|int8_full, --calib-dir, "
-                                  "--quant-cache) is not ported yet (ROADMAP A.10)")
+        raise NotImplementedError(INT8_EXPORT_NOT_PORTED)
     device = resolve_device(args.device)
     model = load_any_model(args.checkpoint, device=device)
     dtype = torch.bfloat16 if args.dtype == "bf16" else None

@@ -6,6 +6,9 @@ Times the 64x64 -> 256x256 FaceEnhanceNet forward (6x10x64 with seeded
 random weights, or a reference ``.pth``) after warm-up, each run bracketed
 by CUDA events, and reports avg/min/max/p50 ms and images/s. The same
 report as ``scripts/measure_inference_time.py`` of the JAX package.
+``--int8`` times the full-int8 forward (s8 convs, per-image dynamic
+activation scales), ``--int8 --calibrate N`` with static scales
+calibrated on N seeded random images of the input size.
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=10)
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute (the trunk runs the Hopper group kernel)")
-    p.add_argument("--int8", action="store_true", help="not ported yet")
+    p.add_argument("--int8", action="store_true",
+                   help="full-int8 serving path (s8 convs, per-image activation scales)")
     p.add_argument("--calibrate", type=int, default=0, metavar="N",
-                   help="not ported yet (int8 static scales)")
+                   help="with --int8: static activation scales calibrated on N random "
+                        "images")
     p.add_argument("--profile", default=None,
                    help="write a torch.profiler Chrome trace to this file")
     p.add_argument("--device", default=None,
@@ -58,9 +63,6 @@ def _device_banner(dev: torch.device) -> str:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    if args.int8 or args.calibrate:
-        raise SystemExit("--int8/--calibrate: int8 serving is not ported yet "
-                         "(ROADMAP A.10)")
     if args.transfer_checkpoint:
         raise SystemExit("--transfer-checkpoint: the transfer model is not "
                          "ported yet (ROADMAP A.12)")
@@ -81,16 +83,25 @@ def main(argv=None) -> None:
         cfg = FaceEnhanceNetConfig(num_groups=6, blocks_per_group=10, num_channels=64)
         model = FaceEnhanceNet(cfg, seed=0, device=dev)
     cfg = model.config
-    dtype = torch.bfloat16 if args.bf16 else None
-    fwd = build_serving_fn(model.eval(), dtype)
+    if args.int8:
+        dtype = "int8_full"
+        prec = "int8_full/calibrated" if args.calibrate > 0 else "int8_full"
+    else:
+        dtype = torch.bfloat16 if args.bf16 else None
+        prec = "bf16" if args.bf16 else "f32"
+    calibration = None
+    if args.int8 and args.calibrate > 0:
+        calibration = np.random.default_rng(1).random(
+            (args.calibrate, args.input_size, args.input_size, 3), dtype=np.float32)
+    fwd = build_serving_fn(model.eval(), dtype, calibration=calibration,
+                           max_batch=max(args.batch_size, 1))
     x = torch.from_numpy(np.random.default_rng(0).random(
         (args.batch_size, args.input_size, args.input_size, 3),
         dtype=np.float32)).to(dev)
 
     print(f"Device: {_device_banner(dev)} | model {cfg.num_groups}x"
           f"{cfg.blocks_per_group}x{cfg.num_channels} | batch {args.batch_size} | "
-          f"input {args.input_size}x{args.input_size} | "
-          f"{'bf16' if args.bf16 else 'f32'}")
+          f"input {args.input_size}x{args.input_size} | {prec}")
 
     cuda = dev.type == "cuda"
 

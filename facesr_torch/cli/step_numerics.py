@@ -48,6 +48,7 @@ from facesr_torch.losses.perceptual import perceptual_loss
 from facesr_torch.losses.ssim import ssim_loss
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
 from facesr_torch.ops.init import kaiming_normal
+from facesr_torch.ops.quant import fake_quant_params
 from facesr_torch.ops.resize import bicubic_up
 from facesr_torch.training import steps
 from facesr_torch.training.optim import AdamW
@@ -123,18 +124,20 @@ def _tf32_forced():
 
 
 def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool = False,
-               weight_noise: float = 0.0) -> StepResult:
+               weight_noise: float = 0.0, qat: bool = False) -> StepResult:
     """One train step of the small model on ``dev``; returns (loss, grads,
     updated params) on the CPU. ``tf32_forced`` lets cuDNN and cuBLAS use
     TF32 and bypasses `full_f32`; ``weight_noise`` multiplies every weight
-    by (1 + weight_noise * N(0, 1)) first."""
+    by (1 + weight_noise * N(0, 1)) first; ``qat`` runs the forward
+    fake-quantized on the int8 serving grid (dynamic scales)."""
     model = _small_model(weight_noise).to(dev)
     loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
                                    perceptual_layers=["conv3_4"]), seed=0, device=dev)
     opt = _Recording(weight_decay=0.0, gradient_clip=0.5)
     state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
                              loss_params=loss.params)
-    step = steps.make_train_step(loss_apply, opt)
+    sites = fake_quant_params(model) if qat else None
+    step = steps.make_train_step(loss_apply, opt, quant_fn=(lambda: sites) if qat else None)
     hr = _small_hr().to(dev)
     with _tf32_forced() if tf32_forced else contextlib.nullcontext():
         _, metrics = step(state, hr)

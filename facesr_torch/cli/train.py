@@ -22,9 +22,16 @@ discriminator sized for the training HR crop (``hr_patch_size``), with
 ``loss.gan``'s ``d_channels`` and ``d_use_bn``; the other ``loss.gan``
 fields set the adversarial term and D's optimiser.
 
+``training.qat: true`` trains with every int8 serving site fake-quantized
+(QAT; checkpoints keep the float weights). ``--qat-scales <quant cache>``
+(`cli.export_quantized`'s artifact) pins its activation grid to the
+cache's static scales; it needs ``training.qat`` and is checked against
+the weights training starts from, after any checkpoint load, where a
+weights mismatch is a note (QAT moves the weights away from the
+calibration source on purpose).
+
 What is not ported raises and names its ROADMAP item: the transfer and
-ESRGAN models (A.12), QAT and ``--qat-scales``
-(A.10), mesh axes other than ``data``, ``--mesh-shape``,
+ESRGAN models (A.12), mesh axes other than ``data``, ``--mesh-shape``,
 ``pp_microbatches`` and ``--print-memory`` (A.13), the gradient monitor
 (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
 with random weights drawn from seed 0 (no pretrained file is in the repo).
@@ -84,8 +91,6 @@ def resolve_chain_path(path: str) -> str:
 def _refuse_unported(args, config: dict) -> None:
     training = config.get("training", {})
     logging_config = config.get("logging", {})
-    if training.get("qat", False) or args.qat_scales:
-        raise NotPorted("training.qat / --qat-scales: QAT is not ported yet (ROADMAP A.10)")
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
     if mesh_axes != "data" or args.mesh_shape or training.get("mesh_shape") \
             or training.get("pp_microbatches", 0):
@@ -123,7 +128,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="torch device; CUDA when omitted (raises without a card)")
     parser.add_argument("--platform", type=str, default=None,
                         help="the JAX CLI's spelling: 'cpu' means --device cpu")
-    parser.add_argument("--qat-scales", type=str, default=None)
+    parser.add_argument("--qat-scales", type=str, default=None,
+                        help="calibrated int8 artifact (cli.export_quantized) pinning QAT's "
+                             "activation grid to the static serving scales "
+                             "(training.qat must be on)")
     parser.add_argument("--mesh-axes", type=str, default=None)
     parser.add_argument("--mesh-shape", type=str, default=None)
     parser.add_argument("--print-memory", action="store_true")
@@ -323,7 +331,12 @@ def run(argv: Optional[List[str]] = None):
         d_weight_decay=gan_config.get("d_weight_decay", 0.0),
         d_updates_per_g=gan_config.get("d_updates_per_g", 1),
         gan_start_epoch=gan_config.get("start_epoch", 0),
+        qat=training_config.get("qat", False),
     )
+    if args.qat_scales and not trainer_config.qat:
+        raise SystemExit("--qat-scales requires training.qat: true")
+    if trainer_config.qat:
+        print("QAT: every int8 serving conv site trains fake-quantized")
 
     discriminator = None
     if gan_weight > 0:
@@ -353,6 +366,15 @@ def run(argv: Optional[List[str]] = None):
         path = resolve_chain_path(checkpoint_config["resume"])
         print(f"\nChaining from stage checkpoint {path} (weights only)")
         trainer.load_checkpoint(path, weights_only=True)
+
+    if args.qat_scales:
+        # after any load, so the provenance check sees the weights training
+        # starts from; a weights mismatch is only a note here
+        from facesr_torch.parallel.serving import load_calibrated_qparams
+
+        trainer.set_qat_scales(load_calibrated_qparams(trainer.model, args.qat_scales,
+                                                       require_weight_match=False))
+        print(f"QAT pinned to calibrated activation scales from {args.qat_scales}")
 
     print("\n" + "=" * 60)
     print("Starting training...")

@@ -50,15 +50,19 @@ def synthesize_lr_batched(hr_uint8_list: Sequence[np.ndarray], scale: int, chunk
 
 
 def make_predictor(model: torch.nn.Module, max_batch: Optional[int] = None, dtype=None,
-                   device: DeviceLike = None) -> Predictor:
+                   device: DeviceLike = None,
+                   calibration: Optional[np.ndarray] = None) -> Predictor:
     """A `Predictor` with the evaluation defaults: ``dtype`` None is f32
-    (the per-image computation), ``torch.bfloat16`` the kernel trunk;
-    ``max_batch`` 128 on CUDA and 8 on the CPU. Build it once a model and
-    reuse it across chunks."""
+    (the per-image computation), ``torch.bfloat16`` the kernel trunk,
+    "int8"/"int8_full" the quantized paths (``calibration``: LR images
+    that calibrate int8_full's static activation scales); ``max_batch``
+    128 on CUDA and 8 on the CPU. Build it once a model and reuse it
+    across chunks."""
     dev = resolve_device(device)
     if max_batch is None:
         max_batch = 128 if dev.type == "cuda" else 8
-    return Predictor(model, dtype=dtype, max_batch=max_batch, device=dev)
+    return Predictor(model, dtype=dtype, max_batch=max_batch, device=dev,
+                     calibration=calibration)
 
 
 def sr_batched(model: Optional[torch.nn.Module], lr_float_list: Sequence[np.ndarray],

@@ -1,6 +1,6 @@
 """FaceEnhanceNet building blocks as nn.Modules over NHWC tensors.
 
-Port of `facesr/models/blocks.py` (float path). Module and parameter
+Port of `facesr/models/blocks.py`. Module and parameter
 names follow the reference state dict (`residual_groups.{g}.blocks.{b}.
 conv1.weight`, `...channel_attention.fc.0.weight`, `upsample.stages.{s}.
 conv.weight`, ...), so reference `.pth` files load with ``strict=True``.
@@ -12,6 +12,10 @@ filled from an explicit `torch.Generator` by the ``init_*`` functions.
   - RCAB: conv3x3 -> PReLU -> conv3x3 -> CA -> * res_scale + skip
   - ResidualGroup: B RCABs -> conv3x3 -> + group skip
   - Upsample stage: conv C -> 4C (ICNR) -> PixelShuffle(2) -> PReLU
+
+The forward functions take ``quant``, a map from conv site (module path)
+to its int8 serving or QAT site (`ops.quant`), as the JAX functions take
+a transformed parameter tree.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from facesr_torch.ops import init as finit
-from facesr_torch.ops.conv import conv2d, prelu
+from facesr_torch.ops.conv import conv2d, prelu, quantize_act
 from facesr_torch.ops.pixel_shuffle import pixel_shuffle
+from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 
 __all__ = ["reduced_channels", "ChannelAttention", "RCAB", "ResidualGroup",
            "UpsampleStage", "Upsample", "make_conv", "channel_attention", "rcab",
@@ -155,12 +160,16 @@ def channel_attention(ca: ChannelAttention,
     return x * y[:, None, None, :], y
 
 
-def rcab(blk: RCAB, x: torch.Tensor, res_scale: float,
-         padding: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One residual channel-attention block. Returns (out, attention [N, C])."""
-    out = conv2d(x, blk.conv1.weight, blk.conv1.bias, padding=padding)
+def rcab(blk: RCAB, x: torch.Tensor, res_scale: float, padding: int,
+         quant: Optional[QuantSites] = None,
+         name: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+    """One residual channel-attention block (module path ``name``).
+    Returns (out, attention [N, C])."""
+    out = conv2d(x, site_weight(quant, f"{name}.conv1", blk.conv1.weight), blk.conv1.bias,
+                 padding=padding)
     out = prelu(out, blk.prelu.weight)
-    out = conv2d(out, blk.conv2.weight, blk.conv2.bias, padding=padding)
+    out = conv2d(out, site_weight(quant, f"{name}.conv2", blk.conv2.weight), blk.conv2.bias,
+                 padding=padding)
     out, attn = channel_attention(blk.channel_attention, out)
     return x + out * res_scale, attn
 
@@ -186,7 +195,7 @@ REMAT_MODES = ("rcab", "save_ca", "save_convs", "none")
 
 def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
                     padding: int, collect_attention: bool = False,
-                    remat: str = "rcab",
+                    remat: str = "rcab", quant: Optional[QuantSites] = None,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain trunk: each group runs its RCABs, then the tail conv and
     the group skip. Returns (features, attention [G, B, N, C] if
@@ -197,7 +206,8 @@ def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
     "save_ca" also keeps the SE squeeze and gate, so the recompute skips
     the global mean over the feature map; "save_convs" keeps the two conv
     outputs and recomputes only the elementwise tail; "none" keeps what
-    autograd saves. All four give the same gradients."""
+    autograd saves. All four give the same gradients. ``quant`` holds the
+    sites under the module path ``residual_groups.{g}...``."""
     if remat not in REMAT_MODES:
         raise ValueError(f"Unknown remat mode: {remat!r}")
     block_fn = rcab
@@ -207,26 +217,50 @@ def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
             context_fn = functools.partial(create_selective_checkpoint_contexts,
                                            _save_only(_SAVED_OPS[remat]))
 
-        def block_fn(blk, h, scale, pad):
-            return checkpoint(rcab, blk, h, scale, pad, use_reentrant=False,
+        def block_fn(blk, h, scale, pad, quant, name):
+            return checkpoint(rcab, blk, h, scale, pad, quant, name, use_reentrant=False,
                               preserve_rng_state=False, context_fn=context_fn)
 
     attns: List[torch.Tensor] = []
-    for g in groups:
+    for gi, g in enumerate(groups):
         res = x
-        for blk in g.blocks:
-            x, attn = block_fn(blk, x, res_scale, padding)
+        for bi, blk in enumerate(g.blocks):
+            x, attn = block_fn(blk, x, res_scale, padding, quant,
+                               f"residual_groups.{gi}.blocks.{bi}")
             if collect_attention:
                 attns.append(attn)
-        x = conv2d(x, g.conv.weight, g.conv.bias, padding=padding) + res
+        x = conv2d(x, site_weight(quant, f"residual_groups.{gi}.conv", g.conv.weight),
+                   g.conv.bias, padding=padding) + res
     if not collect_attention:
         return x, None
     return x, torch.stack(attns).reshape(len(groups), -1, *attns[0].shape)
 
 
-def upsample(up: Upsample, x: torch.Tensor) -> torch.Tensor:
-    """Cascaded conv -> PixelShuffle(2) -> PReLU stages (float path)."""
-    for st in up.stages:
-        x = pixel_shuffle(conv2d(x, st.conv.weight, st.conv.bias, padding=1), 2)
-        x = prelu(x, st.prelu.weight)
+def upsample(up: Upsample, x: torch.Tensor, next_w=None, keep_last_packed: bool = False,
+             quant: Optional[QuantSites] = None) -> torch.Tensor:
+    """Cascaded conv -> PixelShuffle(2) -> PReLU stages.
+
+    ``next_w`` is the weight that consumes the result (conv_last's). When
+    the conv after a stage is a calibrated int8 site, the stage applies
+    the PReLU in the packed layout (each slope repeated 4 times,
+    channel-major: packed channel c*4 + phase is channel c) and quantizes
+    onto that conv's static grid before the shuffle, which then moves
+    int8. Both commute with the shuffle, so this equals the float order
+    bitwise on the same grid. ``keep_last_packed`` skips the last shuffle
+    and returns the packed int8 tensor [N, H, W, 4C] for a
+    subpixel-packed conv_last."""
+    stages = list(up.stages)
+    for i, st in enumerate(stages):
+        y = conv2d(x, site_weight(quant, f"upsample.stages.{i}.conv", st.conv.weight),
+                   st.conv.bias, padding=1)
+        nxt = (site_weight(quant, f"upsample.stages.{i + 1}.conv", stages[i + 1].conv.weight)
+               if i + 1 < len(stages) else next_w)
+        if is_int8_kernel(nxt) and y.dtype.is_floating_point:
+            y = prelu(y, st.prelu.weight.repeat_interleave(4))
+            y = quantize_act(y, nxt.a)
+            if keep_last_packed and i + 1 == len(stages):
+                return y
+            x = pixel_shuffle(y, 2)
+        else:
+            x = prelu(pixel_shuffle(y, 2), st.prelu.weight)
     return x

@@ -17,6 +17,15 @@ the config. Every other forward runs the plain trunk
 kernel size runs it in bf16, and ``train=True`` always takes it, with the
 config's ``remat`` mode, because the kernel is forward-only (the JAX
 package trains through XLA too).
+
+``forward(..., quant=sites)`` runs the int8 serving or QAT forward
+(`ops.quant`): every conv site in ``sites`` takes the s8 conv or the
+fake-quant conv, through the plain trunk. With calibrated scales the
+upsample feeds conv_last in the packed layout and conv_last runs
+subpixel-packed, as the JAX ``apply`` does on a transformed tree.
+Weight-only int8 serving is the bf16 forward of a copy of the model that
+holds the dequantized weights (`parallel.serving.build_serving_fn`), so it
+takes the kernel trunk.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from torch import nn
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models import blocks
 from facesr_torch.ops.conv import conv2d
+from facesr_torch.ops.pixel_shuffle import pixel_shuffle
+from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import (KERNEL_CHANNELS, GroupWeights,
                                          fused_residual_group, prepare_group_weights)
 from facesr_torch.ops.resize import bicubic_up
@@ -117,7 +128,8 @@ class FaceEnhanceNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 dtype: Optional[torch.dtype] = None,
-                trunk_fn: Optional[TrunkFn] = None) -> torch.Tensor:
+                trunk_fn: Optional[TrunkFn] = None,
+                quant: Optional[QuantSites] = None) -> torch.Tensor:
         """NHWC LR image in [0, 1] -> NHWC SR image (scale x spatial),
         clamped to [0, 1] only when ``train`` is False.
 
@@ -125,31 +137,44 @@ class FaceEnhanceNet(nn.Module):
         JAX ``trunk_fn`` hook). By default the eval forward in bf16 runs
         the group kernel where the config fits it (``self.kernel_trunk``)
         and every other forward the plain trunk, with ``config.remat`` when
-        ``train``."""
+        ``train``. ``quant`` maps conv sites to int8 or QAT sites
+        (`ops.quant`), which take the plain trunk."""
         cfg = self.config
         pad = cfg.kernel_size // 2
         skip = bicubic_up(x.float(), cfg.scale_factor)
 
         h = x.to(dtype) if dtype is not None else x
-        feat = conv2d(h, self.conv_first.weight, self.conv_first.bias,
-                      padding=pad, dtype=dtype)
+        feat = conv2d(h, site_weight(quant, "conv_first", self.conv_first.weight),
+                      self.conv_first.bias, padding=pad, dtype=dtype)
         residual = feat
         if trunk_fn is not None:
             feat = trunk_fn(self.residual_groups, feat)
-        elif dtype == torch.bfloat16 and not train and self.kernel_trunk:
+        elif dtype == torch.bfloat16 and not train and self.kernel_trunk and quant is None:
             feat = feat.contiguous()
             for gw in self.kernel_group_weights():
                 feat = fused_residual_group(feat, gw, cfg.res_scale)
         else:
             feat, _ = blocks.residual_groups(self.residual_groups, feat,
                                              cfg.res_scale, pad,
-                                             remat=cfg.remat if train else "none")
-        feat = conv2d(feat, self.conv_after_body.weight,
+                                             remat=cfg.remat if train else "none",
+                                             quant=quant)
+        feat = conv2d(feat, site_weight(quant, "conv_after_body", self.conv_after_body.weight),
                       self.conv_after_body.bias, padding=pad)
         feat = feat + residual
-        feat = blocks.upsample(self.upsample, feat)
-        out = conv2d(feat, self.conv_last.weight, self.conv_last.bias,
-                     padding=pad).float() + skip
+        w_last = site_weight(quant, "conv_last", self.conv_last.weight)
+        # calibrated int8: conv_last reads the upsample's packed int8 output
+        # through the subpixel-repacked kernel (bitwise the same: integer
+        # sums commute with the shuffle), and the shuffle moves 3 channels
+        subpixel = (is_int8_kernel(w_last) and cfg.kernel_size == 3
+                    and cfg.scale_factor in (2, 4))
+        feat = blocks.upsample(self.upsample, feat, next_w=w_last,
+                               keep_last_packed=subpixel, quant=quant)
+        if subpixel and feat.dtype == torch.int8:
+            res = pixel_shuffle(conv2d(feat, w_last.subpixel_packed(),
+                                       self.conv_last.bias.repeat_interleave(4), padding=1), 2)
+        else:
+            res = conv2d(feat, w_last, self.conv_last.bias, padding=pad)
+        out = res.float() + skip
         if not train:
             out = out.clamp(0.0, 1.0)
         return out

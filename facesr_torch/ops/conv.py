@@ -1,6 +1,6 @@
 """NHWC convolution and activation primitives.
 
-Port of the float path of `facesr/ops/conv.py`. Tensors are NHWC at the
+Port of `facesr/ops/conv.py`. Tensors are NHWC at the
 API; ``x.permute(0, 3, 1, 2)`` of a contiguous NHWC tensor is already a
 ``channels_last`` NCHW tensor, so cuDNN sees NHWC with no copy, and the
 result permutes back to contiguous NHWC. Weights are torch OIHW.
@@ -12,6 +12,13 @@ matmuls, which cuBLAS runs in IEEE float32 unless a caller allows TF32). The bf1
 path is the explicit ``dtype=torch.bfloat16`` policy. cuDNN reads the flag
 when a conv runs, and autograd runs the backward convs after `conv2d` has
 returned, so a training step holds `full_f32()` around its backward too.
+
+`conv2d` dispatches on the weight, as the JAX one does on its dict:
+an `ops.quant.Int8Weight` takes the s8 x s8 -> s32 conv (`_conv2d_int8`:
+an im2col of nine shifted slices of the zero-padded int8 input, and
+``torch._int_mm``, cuBLASLt's int8 tensor-core GEMM on a card), a
+`FakeQuantWeight` the differentiable fake-quant conv of QAT
+(`_conv2d_fakequant`).
 """
 
 from __future__ import annotations
@@ -23,7 +30,11 @@ from typing import Iterator, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d", "prelu", "leaky_relu", "global_avg_pool", "full_f32"]
+from facesr_torch.ops import quant as _quant
+from facesr_torch.ops.quant import FakeQuantWeight, Int8Weight
+
+__all__ = ["conv2d", "quantize_act", "prelu", "leaky_relu", "global_avg_pool", "full_f32",
+           "INT8_CHUNK_BYTES"]
 
 
 _tf32_lock = threading.Lock()
@@ -68,7 +79,7 @@ def _pad_arg(padding: Padding) -> Union[int, Tuple[int, int]]:
     return top, left
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+def conv2d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            padding: Padding = 1, dtype: Optional[torch.dtype] = None,
            groups: int = 1, stride: int = 1) -> torch.Tensor:
     """2-D convolution, NHWC x OIHW -> NHWC. ``padding`` is an int
@@ -76,7 +87,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     is the JAX ``feature_group_count`` (``groups=C`` with a [C, 1, kh, kw]
     weight is depthwise). ``dtype`` casts the input first; the weight
     follows the input's dtype. The bias is added after the convolution in
-    the output dtype, as in the JAX package."""
+    the output dtype, as in the JAX package. An `Int8Weight` or a
+    `FakeQuantWeight` takes the int8 or the fake-quant conv."""
+    if isinstance(w, Int8Weight):
+        return _conv2d_int8(x, w, b, stride, padding, groups, dtype)
+    if isinstance(w, FakeQuantWeight):
+        return _conv2d_fakequant(x, w, b, stride, padding, groups, dtype)
     if dtype is not None:
         x = x.to(dtype)
     w = w.to(x.dtype)
@@ -91,6 +107,177 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if b is not None:
         out = out + b.to(out.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# int8 convs
+# ---------------------------------------------------------------------------
+
+# the im2col rows of one int8 GEMM are chunked so that the int8 columns and
+# the s32 product of a chunk stay under this many bytes each (a 256x256
+# SpatialPredictor forward or a batch of 128 stays bounded)
+INT8_CHUNK_BYTES = 1 << 28
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _out_size(size: int, k: int, pad: int, stride: int) -> int:
+    return (size + 2 * pad - k) // stride + 1
+
+
+def _int8_gemm_conv(xq: torch.Tensor, w: Int8Weight, stride: int, pad: Tuple[int, int]):
+    """The s8 conv of NHWC int8 ``xq`` in row chunks: yields ``(y, n0, n1,
+    h0, h1)``, ``y`` the s32 [n1 - n0, h1 - h0, Wo, O] product for images
+    n0..n1 and output rows h0..h1. Each chunk is an im2col (nine shifted
+    slices of the zero-padded input, K ordered (kh, kw, I)) times the
+    kernel matrix. ``torch._int_mm`` wants more than 16 rows and K and N
+    multiples of 8 on a card: zero rows, K columns and N columns are
+    padded in, which keeps the integer sums exact."""
+    n, h, wd, c = xq.shape
+    o, i, kh, kw = w.q.shape
+    if i != c:
+        raise ValueError(f"int8 conv: input has {c} channels, the kernel takes {i}")
+    ph, pw = pad
+    ho, wo = _out_size(h, kh, ph, stride), _out_size(wd, kw, pw, stride)
+    k = kh * kw * c
+    k_pad, n_pad = _round_up(k, 8), _round_up(o, 8)
+    wmat = w.gemm_weight(k_pad, n_pad).t()
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph)) if ph or pw else xq.contiguous()
+    rows = max(1, INT8_CHUNK_BYTES // (wo * max(k_pad, 4 * n_pad)))  # output rows a chunk
+    nb = max(1, min(n, rows // ho))  # whole images a chunk
+    hb = ho if rows >= ho else rows  # or a band of one image's rows
+    for n0 in range(0, n, nb):
+        n1 = min(n, n0 + nb)
+        for h0 in range(0, ho, hb):
+            h1 = min(ho, h0 + hb)
+            band = xp[n0:n1, h0 * stride:(h1 - 1) * stride + kh]
+            if k_pad == k and c % 8 == 0:
+                # move the taps as int64 words: an 8x smaller copy than bytes
+                band = band.view(torch.int64)
+            taps = [band[:, dy:dy + (h1 - h0 - 1) * stride + 1:stride,
+                         dx:dx + (wo - 1) * stride + 1:stride]
+                    for dy in range(kh) for dx in range(kw)]
+            if k_pad > k:
+                taps.append(band.new_zeros((n1 - n0, h1 - h0, wo, k_pad - k)))
+            cols = torch.cat(taps, dim=-1).view(torch.int8).reshape(-1, k_pad)
+            m = cols.shape[0]
+            if m <= 16:
+                cols = torch.cat([cols, cols.new_zeros((24 - m, k_pad))])
+            y = torch._int_mm(cols, wmat)[:m, :o]
+            yield y.reshape(n1 - n0, h1 - h0, wo, o), n0, n1, h0, h1
+
+
+def _conv2d_int8(x: torch.Tensor, w: Int8Weight, b: Optional[torch.Tensor], stride: int,
+                 padding: Padding, groups: int, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """s8 x s8 -> s32 conv with per-tensor activation quantization:
+    ``out = conv(round(x / a), q) * (a * scale) + b``, assembled in f32 in
+    that order (then cast), as the JAX package does. ``a`` is the site's
+    static scale, or per image max|x| / 127 (0 -> 1), recorded while a
+    calibration window is open. An int8 ``x`` is already on this conv's
+    static grid (the packed upsample quantizes before the shuffle) and
+    needs ``w.a``. The output takes x's float dtype (``dtype``, or f32 for
+    an int8 x)."""
+    if groups != 1:
+        raise NotImplementedError("the int8 conv takes groups=1 only")
+    if x.dtype == torch.int8:
+        if w.a is None:
+            raise ValueError("int8 conv input requires a static scale "
+                             "(a calibrated Int8Weight with 'a')")
+        a = w.a.reshape(1, 1, 1, 1)
+        xq = x
+        out_dtype = dtype if dtype is not None else torch.float32
+    else:
+        if dtype is not None:
+            x = x.to(dtype)
+        out_dtype = x.dtype if x.dtype.is_floating_point else torch.float32
+        if w.a is not None:
+            # static scale: out-of-range activations saturate at +-127
+            a = w.a.reshape(1, 1, 1, 1)
+        else:
+            # per image, so an image's grid does not depend on its batchmates;
+            # max|x| = max(-min x, max x), without an |x| pass
+            lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
+            a = _quant.over_127(torch.maximum(-lo, hi).float().reshape(-1, 1, 1, 1))
+            a = torch.where(a == 0, torch.ones_like(a), a)
+            _quant.record_act_scale(w, a)
+        xq = quantize_act(x, a)
+    dq = a * w.scale.reshape(1, 1, 1, -1)  # [N or 1, 1, 1, O]
+    bias = None if b is None else b.float()
+    pad = _pad_arg(padding)
+    pad = (pad, pad) if isinstance(pad, int) else pad
+    n, h, wd, _ = xq.shape
+    o, _, kh, kw = w.q.shape
+    ho, wo = _out_size(h, kh, pad[0], stride), _out_size(wd, kw, pad[1], stride)
+    out = None
+    for y, n0, n1, h0, h1 in _int8_gemm_conv(xq, w, stride, pad):
+        # the s32 product times the f32 scales (int32 * f32 promotes each
+        # element to f32 first, as y.float() would), then the bias
+        part = torch.mul(y, dq if dq.shape[0] == 1 else dq[n0:n1])
+        if bias is not None:
+            part.add_(bias)
+        if (n1 - n0, h1 - h0) == (n, ho):  # one chunk: the whole output
+            return part.to(out_dtype)
+        if out is None:
+            out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=xq.device)
+        out[n0:n1, h0:h1].copy_(part)  # the cast on the way
+    return out
+
+
+def quantize_act(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Activations on the s8 grid of scale ``a``: round-half-even(x / a) in
+    f32, clipped to +-127. Producers quantize before a pure permutation
+    (the pixel shuffle) with it: per-tensor quantization commutes with one."""
+    # the quotient in f32, as JAX's: a 0-d ``a`` would not promote a bf16 x
+    # (the quotient would round to bf16 first), so it takes x's rank; on
+    # x's device, since a CPU scalar divisor of a CUDA tensor becomes a
+    # multiply by its reciprocal
+    a = a.to(device=x.device, dtype=torch.float32)
+    q = torch.round(torch.div(x, a.reshape((1,) * x.dim()) if a.dim() == 0 else a))
+    return q.clamp_(-127, 127).to(torch.int8)
+
+
+def _ste_round(v: torch.Tensor) -> torch.Tensor:
+    """round() with a straight-through gradient (d/dv = 1)."""
+    return v + (torch.round(v) - v).detach()
+
+
+def _clip127(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(v, -127, 127)`` with its gradient: max then min, each
+    splitting the gradient evenly at a tie, as torch.maximum/minimum and
+    JAX's max/min do (so an element exactly at the grid edge passes half)."""
+    lo = torch.full((), -127.0, dtype=v.dtype, device=v.device)
+    hi = torch.full((), 127.0, dtype=v.dtype, device=v.device)
+    return torch.minimum(hi, torch.maximum(lo, v))
+
+
+def _conv2d_fakequant(x: torch.Tensor, w: FakeQuantWeight, b: Optional[torch.Tensor],
+                      stride: int, padding: Padding, groups: int,
+                      dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """Differentiable mirror of `_conv2d_int8` for QAT: the conv of the
+    weight and the input snapped onto the int8 serving grid (the same
+    per-output-channel weight scales, per-image or static activation
+    scales, round and clip) but kept float, with straight-through
+    gradients to the latent weights; the scales are detached. The conv
+    runs in the policy dtype (x's, after ``dtype``)."""
+    if dtype is not None:
+        x = x.to(dtype)
+    out_dtype = x.dtype if x.dtype.is_floating_point else torch.float32
+    wf = w.w.float()
+    s = _quant.amax_scale(wf, (1, 2, 3)).detach()
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    wq = _clip127(_ste_round(wf / s)) * s
+    xf = x.float()
+    if w.a is not None:
+        # the calibrated serving grid, saturation included
+        a = w.a.reshape(1, 1, 1, 1)
+    else:
+        a = _quant.amax_scale(xf, (1, 2, 3)).detach()
+        a = torch.where(a == 0, torch.ones_like(a), a)
+    xq = _clip127(_ste_round(xf / a)) * a
+    return conv2d(xq.to(out_dtype), wq.to(out_dtype), b, padding=padding, groups=groups,
+                  stride=stride)
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ One content step: the HR batch in f32 -> LR made on the device by
 adds the discriminator updates and the adversarial term around one
 generator forward. The whole step, backward included, runs under
 `full_f32()`, so every f32 conv and matmul runs without TF32. Metrics stay
-device tensors: a step adds no host sync.
+device tensors: a step adds no host sync. ``quant_fn`` (QAT) returns the
+fake-quant sites each forward runs with (`ops.quant.fake_quant_params`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ __all__ = ["TrainState", "init_ema", "ema_update", "make_train_step", "make_gan_
 LossApply = Callable[[Dict[str, Any], torch.Tensor, torch.Tensor],
                      Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 Metrics = Dict[str, torch.Tensor]
+QuantFn = Optional[Callable[[], Dict[str, Any]]]
+
+
+def _quant(quant_fn: QuantFn):
+    return None if quant_fn is None else quant_fn()
 
 
 @dataclass
@@ -63,8 +69,8 @@ def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> 
 
 def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int = 4,
                     compute_dtype: Optional[torch.dtype] = None,
-                    ema_decay: float = 0.0) -> Callable[[TrainState, torch.Tensor],
-                                                        Tuple[TrainState, Metrics]]:
+                    ema_decay: float = 0.0, quant_fn: QuantFn = None,
+                    ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Content-only (no GAN) step: ``train_step(state, hr) -> (state,
     metrics)``, ``hr`` an NHWC batch in [0, 1] on the model's device. The
     state is updated in place and returned; metrics are the loss
@@ -76,7 +82,7 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
         with full_f32():
             hr = hr.float()
             lr_img = bicubic_down(hr, scale_factor)
-            sr = state.model(lr_img, train=True, dtype=compute_dtype)
+            sr = state.model(lr_img, train=True, dtype=compute_dtype, quant=_quant(quant_fn))
             loss, comps = loss_apply(state.loss_params, sr, hr)
             grads = torch.autograd.grad(loss, list(params.values()))
         optimizer.update(dict(zip(params, grads)), state.opt_state, params)
@@ -96,7 +102,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                         scale_factor: int = 4, gan_weight: float = 0.005,
                         gan_type: str = "vanilla", d_updates_per_g: int = 1,
                         compute_dtype: Optional[torch.dtype] = None, ema_decay: float = 0.0,
-                        guard_stats: bool = False,
+                        guard_stats: bool = False, quant_fn: QuantFn = None,
                         ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Adversarial step: ``d_updates_per_g`` discriminator updates on
     (hr, detached sr), then one generator update with content +
@@ -125,7 +131,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
         with full_f32():
             hr = hr.float()
             lr_img = bicubic_down(hr, scale_factor)
-            sr = state.model(lr_img, train=True, dtype=compute_dtype)
+            sr = state.model(lr_img, train=True, dtype=compute_dtype, quant=_quant(quant_fn))
             sr_for_d = sr.detach()
             for _ in range(d_updates_per_g):
                 d_real = disc(hr, train=True, dtype=compute_dtype)
@@ -159,6 +165,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
 
 
 def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool = False,
+                   quant_fn: QuantFn = None,
                    ) -> Callable[[TrainState, torch.Tensor],
                                  Tuple[Metrics, torch.Tensor, torch.Tensor]]:
     """Validation step: the f32 eval forward (clamped), the f32 loss, batch
@@ -173,11 +180,12 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
         with torch.no_grad(), full_f32():
             hr = hr.float()
             lr_img = bicubic_down(hr, scale_factor)
+            quant = _quant(quant_fn)
             if use_ema:
                 sr = functional_call(state.model, state.ema_params, (lr_img,),
-                                     {"train": False})
+                                     {"train": False, "quant": quant})
             else:
-                sr = state.model(lr_img, train=False)
+                sr = state.model(lr_img, train=False, quant=quant)
             loss, _ = loss_apply(state.loss_params, sr, hr)
             mse = ((sr - hr) ** 2).mean()
             psnr = 10.0 * torch.log10(1.0 / mse.clamp_min(1e-12))

@@ -36,7 +36,15 @@ them; the tensors are copied to the host before the step loop goes on.
 checkpoint into a GAN trainer restores G and keeps the fresh D; a
 weights-only load always keeps the fresh D.
 
-Not in this slice: mesh axes, QAT, W&B, the validation image grid and the
+With ``qat`` every conv site the int8 serving path quantizes runs
+fake-quantized (`ops.quant.fake_quant_params`: the serving grid, with
+straight-through gradients) in training and in validation, so val PSNR
+and early stopping follow the quantized model; ``qat_scales`` (calibrated
+int8 sites, or `set_qat_scales` before the first step) pins the
+activation grid to static serving scales. Checkpoints keep the latent
+float weights; quantize at export (`cli.export_quantized`).
+
+Not in this slice: mesh axes, W&B, the validation image grid and the
 gradient monitor.
 """
 
@@ -58,6 +66,7 @@ import torch
 from facesr_torch.ckpt import fckpt
 from facesr_torch.ckpt.weights import state_dict_from_jax_params
 from facesr_torch.device import DeviceLike, resolve_device
+from facesr_torch.ops.quant import fake_quant_params
 from facesr_torch.training import schedules
 from facesr_torch.training.optim import AdamW, set_learning_rate
 from facesr_torch.training.steps import (TrainState, init_ema, make_eval_step,
@@ -132,6 +141,9 @@ class TrainerConfig:
     d_weight_decay: float = 0.0
     d_updates_per_g: int = 1
     gan_start_epoch: int = 0
+    # quantization-aware training: every int8 serving site runs fake-quant
+    # (train and validation); checkpoints keep the latent float weights
+    qat: bool = False
 
 
 class EarlyStopping:
@@ -205,11 +217,14 @@ class Trainer:
         device: CUDA unless the caller names one.
         discriminator: a `Discriminator` (moved to ``device``), needed when
             ``config.gan_weight > 0``.
+        qat_scales: with ``config.qat``, calibrated int8 sites of the same
+            architecture whose static activation scales pin the fake-quant
+            grid (`set_qat_scales` sets them later, before the first step).
     """
 
     def __init__(self, model, train_loader, val_loader, loss_fn,
                  config: Optional[TrainerConfig] = None, device: DeviceLike = None,
-                 discriminator=None):
+                 discriminator=None, qat_scales=None):
         self.config = cfg = config or TrainerConfig()
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -224,6 +239,13 @@ class Trainer:
         # validation stays f32 end to end; no backward runs, so no remat
         loss_apply_eval = lambda lp, p, t: loss_fn.apply(lp, p, t, compute_dtype=None,
                                                          vgg_remat=False)
+        self._qat_sites = None
+        self._qat_frozen = False
+        if cfg.qat:
+            self._qat_sites = fake_quant_params(self.model, act_scales=qat_scales)
+        elif qat_scales is not None:
+            raise ValueError("qat_scales requires config.qat")
+        quant_fn = self._qat_quant if cfg.qat else None
         self.optimizer = AdamW(weight_decay=cfg.weight_decay,
                                gradient_clip=cfg.gradient_clip,
                                accumulation_steps=cfg.accumulation_steps,
@@ -238,9 +260,9 @@ class Trainer:
         self._train_step = make_train_step(loss_apply, self.optimizer,
                                            scale_factor=cfg.scale_factor,
                                            compute_dtype=self.compute_dtype,
-                                           ema_decay=cfg.ema_decay)
+                                           ema_decay=cfg.ema_decay, quant_fn=quant_fn)
         self._eval_step = make_eval_step(loss_apply_eval, scale_factor=cfg.scale_factor,
-                                         use_ema=self.use_ema)
+                                         use_ema=self.use_ema, quant_fn=quant_fn)
 
         if cfg.gan_weight > 0 and discriminator is None:
             # dropping the adversarial term would train a "GAN" stage as
@@ -263,7 +285,7 @@ class Trainer:
                 d_updates_per_g=cfg.d_updates_per_g, compute_dtype=self.compute_dtype,
                 ema_decay=cfg.ema_decay,
                 # the BN running stats sit outside the optimiser's guard
-                guard_stats=cfg.skip_nonfinite_updates > 0)
+                guard_stats=cfg.skip_nonfinite_updates > 0, quant_fn=quant_fn)
 
         self.plateau = (schedules.ReduceLROnPlateau(cfg.learning_rate)
                         if cfg.scheduler_type == "plateau" else None)
@@ -281,6 +303,23 @@ class Trainer:
         self._ckpt_futures: List[Future] = []
         self.last_step_times: List[float] = []
         self.last_train_metrics: Dict[str, float] = {}
+
+    def _qat_quant(self):
+        # the first step that reads the sites fixes them (set_qat_scales refuses after)
+        self._qat_frozen = True
+        return self._qat_sites
+
+    def set_qat_scales(self, qat_scales) -> None:
+        """Pin the fake-quant grid to calibrated scales after construction
+        but before any step has run: the provenance check of a quant cache
+        must see the weights training starts from, which a checkpoint load
+        after ``__init__`` sets (the train CLI's ``--qat-scales``)."""
+        if not self.config.qat:
+            raise ValueError("set_qat_scales requires config.qat")
+        if self._qat_frozen:
+            raise RuntimeError("a training/eval step already ran with the previous "
+                               "qat_scales; set them before the first step")
+        self._qat_sites = fake_quant_params(self.model, act_scales=qat_scales)
 
     def _history_keys(self) -> List[str]:
         return list(HISTORY_KEYS) + (list(GAN_HISTORY_KEYS) if self.use_gan else [])

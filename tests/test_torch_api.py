@@ -259,9 +259,29 @@ def test_exported_artifact_serving(ckpt_dir, tmp_path):
 @pytest.mark.parametrize("kw", [{"dtype": "int8"}, {"dtype": "int8_full"},
                                 {"dtype": "bf16", "calib_dir": "calib"},
                                 {"dtype": "bf16", "quant_cache": "cache"}])
-def test_int8_serving_raises_at_startup(ckpt_dir, kw):
-    with pytest.raises(NotImplementedError, match="A.10"):
-        port_api.SRService(str(ckpt_dir), device="cpu", **kw)
+def test_int8_serving_raises_at_startup(ckpt_dir, kw, tmp_path, capsys):
+    """These once raised at startup; now each comes up and serves: int8 and
+    int8_full answer what their `Predictor` gives, bitwise, and bf16 with
+    a calibration argument warns that it ignores it and serves bf16."""
+    from facesr_torch.app.demo import prepare_inputs
+    from facesr_torch.parallel.serving import Predictor
+
+    if "calib_dir" in kw:
+        (tmp_path / "calib").mkdir()
+        png.write_png(tmp_path / "calib" / "a.png", _images(seed=9)[0])
+        kw = dict(kw, calib_dir=str(tmp_path / "calib"))
+    if "quant_cache" in kw:
+        kw = dict(kw, quant_cache=str(tmp_path / "cache"))
+    svc = port_api.SRService(str(ckpt_dir), device="cpu", **kw)
+    if kw["dtype"] == "bf16":
+        assert "ignoring them" in capsys.readouterr().out
+    img = _images(seed=8)[2]
+    got = png.decode_rgb(svc.super_resolve(png.encode(img)))
+    serve_dtype = torch.bfloat16 if kw["dtype"] == "bf16" else kw["dtype"]
+    pred = Predictor(load_any_model(ckpt_dir / "best_model.fckpt"), dtype=serve_dtype,
+                     max_batch=1, device="cpu")
+    want = pred(prepare_inputs(img)[0][None])[0]
+    assert np.array_equal(got, (want * 255).round().astype(np.uint8))
 
 
 def test_service_startup_errors(ckpt_dir, tmp_path, monkeypatch):

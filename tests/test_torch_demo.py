@@ -189,5 +189,8 @@ def test_checkpoint_stem_in_both_formats_raises(checkpoints, tmp_path):
     (tmp_path / "best_model.pth").write_bytes((root / "pth" / "exported.pth").read_bytes())
     with pytest.raises(ValueError, match="best_model.fckpt.*best_model.pth"):
         port_demo.load_models_from_checkpoints(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        port_demo.wrap_predictors(models, "int8")
+    # the int8 dtypes (once refused) wrap every model in a Predictor
+    wrapped = port_demo.wrap_predictors(models, "int8")
+    assert sorted(wrapped) == sorted(models)
+    lr = np.random.default_rng(3).random((1, 8, 8, 3), dtype=np.float32)
+    assert wrapped["Best Model"](lr).shape == (1, 32, 32, 3)

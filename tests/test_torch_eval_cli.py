@@ -289,14 +289,38 @@ def test_find_checkpoints_names_like_jax(tmp_path):
     assert got["Best Model (model)"].name == "best_model.pth"
 
 
-@pytest.mark.parametrize("flags,err,match", [
-    (["--serve-dtype", "int8"], NotImplementedError, "ROADMAP A.10"),
-    (["--serve-dtype", "int8_full", "--calibrate", "2"], NotImplementedError, "ROADMAP A.10"),
-    (["--serve-dtype", "bf16", "--per-image"], SystemExit, "drop --per-image"),
+@pytest.mark.parametrize("flags", [
+    ["--serve-dtype", "int8"],
+    ["--serve-dtype", "int8_full", "--calibrate", "2"],
+    ["--serve-dtype", "bf16", "--per-image"],
 ])
-def test_compare_refuses_what_is_not_ported(evalset, flags, err, match):
-    with pytest.raises(err, match=match):
-        port_compare.run(["--checkpoint-dir", str(evalset / "ckpt"), "--device", "cpu"] + flags)
+def test_compare_refuses_what_is_not_ported(evalset, flags, monkeypatch, no_eval_weights,
+                                            tmp_path):
+    """A serve dtype with --per-image is refused. The int8 serve dtypes
+    were refused until they were ported; now they serve, and the model's
+    mean PSNR and SSIM sit within 0.05 dB and 1e-3 of the JAX script's with
+    the same flags (the baselines within the baseline tolerance: the LR
+    synthesis differs in the last bits). The quantized
+    forwards' bf16 float ops round differently in the two packages
+    (test_torch_quant.py), which moves single uint8 levels."""
+    args = ["--checkpoint-dir", str(evalset / "ckpt"), "--test-dir", str(evalset / "hr"),
+            "--num-images", "6", "--save-every", "100"] + flags
+    if "--per-image" in flags:
+        with pytest.raises(SystemExit, match="drop --per-image"):
+            port_compare.run(args + ["--device", "cpu"])
+        return
+    mod = _jax_script("compare_two_models")
+    jax_calls = _record_compare(monkeypatch, mod, "compute_metrics")
+    monkeypatch.setattr(sys, "argv", ["compare_two_models.py"] + args
+                        + ["--output", str(tmp_path / "jax"), "--platform", "cpu"])
+    mod.main()
+    res = port_compare.run(args + ["--output", str(tmp_path / "port"), "--device", "cpu"])
+    want = {k: np.mean([c[k] for c in jax_calls[3::4]]) for k in ("psnr", "ssim")}
+    got = res["summary"]["Best Model"]
+    assert abs(got["psnr"] - want["psnr"]) <= 0.05 and abs(got["ssim"] - want["ssim"]) <= 1e-3
+    for j, m in enumerate(("Bilinear", "Bicubic", "Lanczos4")):
+        want_m = np.mean([c["psnr"] for c in jax_calls[j::4]])
+        assert abs(res["summary"][m]["psnr"] - want_m) <= BASELINE_PSNR_TOL
 
 
 def test_test_model_refusals(evalset, tmp_path, monkeypatch, no_eval_weights):

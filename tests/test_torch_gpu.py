@@ -122,6 +122,71 @@ def test_bf16_model_trunk_runs_the_kernel(cuda_device):
     assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
 
 
+# the int8 conv's shapes of the 6x10x64 model at a 16x16 input: conv_first
+# (K 27 -> 32), a trunk conv, both upsample convs, conv_last (N 3 -> 8) and
+# the packed conv_last (K 2304, N 12 -> 16); and a batch of one 2x2 image
+# (4 rows, padded past cuBLASLt's 16)
+_INT8_SHAPES = [(4, 16, 16, 3, 64), (4, 16, 16, 64, 64), (4, 16, 16, 64, 256),
+                (4, 32, 32, 64, 256), (4, 64, 64, 64, 3), (4, 32, 32, 256, 12),
+                (1, 2, 2, 64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _INT8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_on_cuda_is_bitwise_the_cpu_conv(cuda_device, shape):
+    """The s8 x s8 -> s32 GEMM is exact on both devices, and the f32 dequant
+    is the same elementwise order: the card's output equals the CPU's."""
+    from facesr_torch.ops.conv import conv2d, quantize_act
+    from facesr_torch.ops.quant import Int8Weight
+
+    n, h, w, cin, cout = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    q = torch.randint(-127, 128, (cout, cin, 3, 3), generator=gen).to(torch.int8)
+    scale = torch.rand(cout, generator=gen) * 1e-3 + 1e-4
+    b = torch.randn(cout, generator=gen) * 0.1
+    x = torch.randn(n, h, w, cin, generator=gen)
+    for a in (None, torch.tensor(0.02)):
+        cpu_w = Int8Weight(q, scale, a)
+        cuda_w = cpu_w.to(cuda_device)
+        for xin in ([x, x.bfloat16()] if a is None else [quantize_act(x, a)]):
+            want = conv2d(xin, cpu_w, b, padding=1)
+            got = conv2d(xin.to(cuda_device), cuda_w, b.to(cuda_device), padding=1)
+            assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_int8_weight_only_serving_launches_the_group_kernel(cuda_device):
+    """Weight-only int8 runs the bf16 forward on dequantized weights: one
+    group-kernel launch a group, and the output of the bf16 forward of a
+    model holding those weights; int8_full launches none."""
+    from facesr_torch.ops.quant import dequantize_pytree, quantize_conv_kernels
+    from facesr_torch.parallel.serving import build_serving_fn
+
+    cfg = FaceEnhanceNetConfig(num_groups=2, blocks_per_group=2, num_channels=64)
+    model = FaceEnhanceNet(cfg, device=cuda_device).eval()
+    x = torch.rand(2, 16, 16, 3, device=cuda_device)
+    int8 = build_serving_fn(model, "int8")
+    on_cpu = quantize_conv_kernels(FaceEnhanceNet(cfg, device="cpu"))  # the same seeded weights
+    for name, site in int8.sites.items():
+        assert torch.equal(site.q.cpu(), on_cpu[name].q), name
+        assert torch.equal(site.scale.cpu(), on_cpu[name].scale), name
+    before = tgroup.fused_residual_group.launches
+    got = int8(x)
+    torch.cuda.synchronize()
+    assert tgroup.fused_residual_group.launches == before + 2
+    deq = FaceEnhanceNet(cfg, device=cuda_device).eval()
+    with torch.no_grad():
+        for name, w in dequantize_pytree(int8.sites).items():
+            deq.get_parameter(f"{name}.weight").copy_(w.float())
+    assert torch.equal(got, build_serving_fn(deq, torch.bfloat16)(x))
+    full = build_serving_fn(model, "int8_full")
+    before = tgroup.fused_residual_group.launches
+    out = full(x)
+    torch.cuda.synchronize()
+    assert tgroup.fused_residual_group.launches == before
+    assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
+
+
 @pytest.mark.gpu
 def test_custom_op_on_cuda_matches_plain_at_the_scratch_shape(cuda_device):
     """The op itself (what an exported graph calls) at (2, 40, 80, 64): a

@@ -119,9 +119,22 @@ def test_predictor_without_card_raises(monkeypatch):
 
 
 def test_int8_serving_not_ported():
+    """Once refused; both int8 modes now build and serve the model's
+    quantized forward (clipped)."""
+    from facesr_torch.ops.quant import quantize_conv_kernels
+
+    model = _model()
+    x = torch.from_numpy(np.random.default_rng(1).random((2, 8, 8, 3), dtype=np.float32))
     for mode in ("int8", "int8_full"):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            build_serving_fn(_model(), mode)
+        fwd = build_serving_fn(model, mode)
+        assert fwd.sites and set(fwd.sites) == set(quantize_conv_kernels(model))
+        got = fwd(x)
+        assert got.shape == (2, 32, 32, 3) and got.min() >= 0 and got.max() <= 1
+    with torch.no_grad():
+        want = model(x, dtype=torch.bfloat16, quant=fwd.sites).clamp(0, 1)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="unsupported serving dtype"):
+        build_serving_fn(model, "int4")
 
 
 def test_microbatcher_returns_each_callers_slice():

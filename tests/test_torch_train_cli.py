@@ -222,9 +222,11 @@ def test_stage3_gan_fields_reach_the_trainer_and_the_discriminator(workdir, case
     assert trainer.use_gan and int(trainer.state.d_opt_state["count"]) == 0
 
 
-# (config, flags, the ROADMAP item the refusal names)
+# (config, flags, the ROADMAP item the refusal names); --qat-scales is
+# ported and refused, as in JAX, only without training.qat
 REFUSED = {
-    "qat_scales": ("stage1_psnr_config.yaml", ["--qat-scales", "x.npz"], "ROADMAP A.10"),
+    "qat_scales": ("stage1_psnr_config.yaml", ["--qat-scales", "x.npz"],
+                   "requires training.qat"),
     "mesh_axes": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,model"], "ROADMAP A.13"),
     "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-shape", "4,2"], "ROADMAP A.13"),
     "print_memory": ("stage1_psnr_config.yaml", ["--print-memory"], "ROADMAP A.13"),
@@ -236,18 +238,60 @@ REFUSED = {
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
     config, flags, item = REFUSED[what]
-    with pytest.raises(train_cli.NotPorted, match=item):
+    with pytest.raises(SystemExit if what == "qat_scales" else train_cli.NotPorted,
+                       match=item):
         _run(config, *flags)
 
 
-@pytest.mark.parametrize("section", ["qat: true", "mesh_axes: data,space",
+@pytest.mark.parametrize("section", ["mesh_shape: [4, 2]", "mesh_axes: data,space",
                                      "pp_microbatches: 4"])
 def test_what_is_not_ported_in_the_yaml_raises(workdir, section):
     text = (workdir / "stage1_psnr_config.yaml").read_text()
     text = text.replace("training:\n", f"training:\n  {section}\n", 1)
     (workdir / "s.yaml").write_text(text)
-    with pytest.raises(train_cli.NotPorted, match="ROADMAP A.1[03]"):
+    with pytest.raises(train_cli.NotPorted, match="ROADMAP A.13"):
         _run("s.yaml")
+
+
+# the QAT rehearsal YAML's sizes, cut as the stage YAMLs are
+QAT_CUTS = CUTS[:3] + (("batch_size: 64", "batch_size: 2"), ("num_workers: 4", "num_workers: 1"),
+                       ("hr_patch_size: 128", "hr_patch_size: 32"),
+                       ("lr_patch_size: 32", "lr_patch_size: 8"), ("hr_size: 128", "hr_size: 32"),
+                       ("lr_size: 32", "lr_size: 8"), ("epochs: 8", "epochs: 1"),
+                       ("data_root: /tmp/rehearsal/processed", "data_root: data"),
+                       ("save_dir: /tmp/rehearsal/ckpt_s1_qat", "save_dir: ./ckpt_qat"))
+
+
+def test_qat_yaml_trains_and_qat_scales_pin_its_grid(workdir, capsys):
+    """configs/rehearsal/stage1_qat_ft.yaml (training.qat: true) trains
+    fake-quantized; a quant cache exported from its best checkpoint then
+    pins the next run's activation grid (--qat-scales; that run starts
+    from other weights, which is only a note)."""
+    from facesr_torch.cli import export_quantized
+    from facesr_torch.ops.quant import FakeQuant
+
+    text = (ROOT / "configs" / "rehearsal" / "stage1_qat_ft.yaml").read_text()
+    for old, new in QAT_CUTS:
+        assert old in text, old
+        text = text.replace(old, new)
+    (workdir / "qat.yaml").write_text(text)
+    t1 = _run("qat.yaml")
+    assert t1.config.qat and _finite(t1) and len(t1.training_history["val_psnr"]) == 1
+    assert all(isinstance(s, FakeQuant) and s.a is None for s in t1._qat_sites.values())
+    assert (workdir / "ckpt_qat" / "best_model.pth").exists()
+    assert export_quantized.main(["--checkpoint", "ckpt_qat/best_model.pth", "--calib-dir",
+                                  "data/val/HR", "--calib-hr", "--output", "q/int8.fckpt",
+                                  "--device", "cpu"]) == 0
+    from facesr_torch.models.load import load_any_model
+    from facesr_torch.parallel.serving import load_calibrated_qparams
+
+    cal = load_calibrated_qparams(load_any_model("ckpt_qat/best_model.pth"), "q/int8.fckpt")
+    capsys.readouterr()
+    t2 = _run("qat.yaml", "--qat-scales", "q/int8.fckpt")
+    out = capsys.readouterr().out
+    assert "calibrated from different weights" in out and "QAT pinned" in out
+    assert set(t2._qat_sites) == set(cal)
+    assert all(torch.equal(t2._qat_sites[k].a, cal[k].a) for k in cal) and _finite(t2)
 
 
 def test_without_device_it_runs_on_cuda_or_raises(workdir):
