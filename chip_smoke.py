@@ -11,9 +11,10 @@ catches an error and goes on):
 2. build: every kernel of the serving path from the sources in this
    checkout (nvcc, sm_90a), with the ptxas register/smem/spill lines;
 3. each kernel against its plain PyTorch version on the card, at the
-   production shape, ragged ones, a width past one tile, a lone image and
+   production shape, ragged ones, a width past one tile, a lone image,
    the scratch variant spread over many clusters (one 256x256 image over
-   every SM, ragged units, several images sharing the clusters), on
+   every SM, ragged units, several images sharing the clusters) and the
+   transfer head's B = 4 at 128x64x64 and 1x256x256, on
    inputs whose rows darken towards the top; two calls on the same input
    must agree bitwise;
 4. the full 6x10x64 FaceEnhanceNet in bf16: kernel trunk against the plain
@@ -129,6 +130,31 @@ catches an error and goes on):
    control, phase 7's production step fake-quantized (ms/step); and the
    train CLI on ``configs/rehearsal/stage1_qat_ft.yaml``
    with ``--qat-scales`` on phase 8's PNG set for one epoch.
+13. the model zoo, the seventh path, at full width with seeded random
+   weights (RRDBNet x4plus: 23 RRDBs, 64 features, growth 32; the
+   transfer model: 16 RRDBs and a head of 4 RCABs at 64 channels): each
+   in f32 on the card against the CPU port on 2 images (TF32 off; a
+   TF32-forced control must be rejected); the bf16 forward at batch 128
+   (CUDA events, median of 3: ms, images/s, TFLOP/s from the conv MACs,
+   peak memory, the profiler's split into cuDNN convs, concatenation
+   copies, the group kernel and the rest); the transfer head on the group
+   kernel (one launch a forward) against the plain head, held to phase
+   4's share (2^-5) of the head's own effect on the output, with a dropped
+   SE gate as the control; one group call at B = 4 timed against its
+   plain version, cuDNN and the bound; `Predictor(bf16, 128)` of each,
+   bitwise ``clamp(forward)``, the counts zeroed just before and read
+   just after; `.pth` and `.fckpt` files written by the port and read back
+   by `load_any_model`, bitwise the same forward;
+   ``configs/transfer_config.yaml`` through the train CLI on phase 8's PNG
+   set (its batch 32, one epoch: the backbone bitwise unchanged, every
+   head weight changed) against the transfer step alone, and ``--model
+   esrgan`` with the stage-1 YAML at its batch 48 (or the largest that
+   fits); the small transfer steps of stages 1-3 and the ESRGAN step, card
+   against CPU in f32 (frozen tensors bitwise unchanged; a TF32 control);
+   ``test_model`` on the trained transfer checkpoint, ``compare_two_models``
+   with a FaceEnhanceNet, a transfer and an RRDBNet row, and the HTTP API
+   serving the transfer ``.fckpt`` in bf16, every response bitwise
+   `Predictor`'s batch-1 output.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -178,12 +204,14 @@ GROUP_TIMING = (128, 64, 64, 64, 10)  # N, H, W, C, B of the timed group call
 # column tile, several images sharing the card's clusters, and more images
 # than it keeps in flight (16), so each slot loops over five. Uniform
 # noise, and from entry RAMP_FROM on the rows darken towards the top
-# (`check_input`), so that an SE mean over part of an image shows
+# (`check_input`), so that an SE mean over part of an image shows; last,
+# the transfer head's shape class (B = 4) at the serving batch and at
+# SpatialPredictor's 256x256
 CHECK_SHAPES = (((4, 64, 64, 64), 10), ((128, 64, 64, 64), 10),
                 ((3, 20, 36, 64), 3), ((40, 20, 36, 64), 3),
                 ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10), ((2, 12, 17, 64), 2),
                 ((1, 256, 256, 64), 10), ((1, 130, 200, 64), 2), ((3, 96, 96, 64), 3),
-                ((80, 40, 80, 64), 2))
+                ((80, 40, 80, 64), 2), ((128, 64, 64, 64), 4), ((1, 256, 256, 64), 4))
 RAMP_FROM = 7
 # plain groups with a planted fault, the controls for the limits: the
 # model limits must reject the wiring faults; the rounding fault passes
@@ -2203,6 +2231,431 @@ def int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
     return launches
 
 
+# phase 13: the model zoo at full width (RealESRGAN x4plus: 23 RRDBs, 64
+# features, growth 32; transfer: 16 RRDBs + a 4-RCAB head at 64 channels)
+ZOO_CHECK_IMAGES, ZOO_BATCH, ZOO_TIMED = 2, 128, 3
+ZOO_HEAD_IMAGES = 8            # the whole-model check of the head on the kernel
+ZOO_HTTP_REQUESTS = 8          # single-image requests to the transfer API
+ZOO_ESRGAN_BATCHES = (48, 32, 24, 16)  # the stage-1 YAML's batch, then the fallbacks
+ZOO_STEP_TIMED = 4
+TRANSFER_YAML = REPO / "configs/transfer_config.yaml"
+
+
+def zoo_macs(model, h, w) -> int:
+    """Multiply-accumulates of one forward on an h x w LR image, counted
+    from the conv weights: each conv's (cout * cin * k * k) times its
+    output pixels (the upsample convs at 2x and 4x, the PixelShuffle stage
+    convs at their input's size); SE and elementwise ops left out."""
+    out_scale = {"conv_up1": 4, "conv_up2": 16, "conv_hr": 16, "conv_last": 16,
+                 "face_head.upsample.stages.1.conv": 4, "face_head.conv_last": 16}
+    total = 0
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            total += mod.weight.numel() * h * w * out_scale.get(name, 1)
+    return total
+
+
+def zoo_model(name, dev):
+    """A full-width zoo model from seeded random weights, in eval mode on
+    ``dev`` (the transfer model's conv_last is drawn non-zero already)."""
+    from facesr_torch.models.esrgan import RRDBNet
+    from facesr_torch.models.transfer import TransferSRModel
+
+    cls = RRDBNet if name == "esrgan" else TransferSRModel
+    return cls(seed=0, device=dev).eval()
+
+
+def zoo_profile_split(fn) -> str:
+    """The profiler's device time of one call of ``fn``, split by aten op:
+    cuDNN convs, the dense concatenation copies (``aten::cat``), the group
+    kernel and the rest (bias adds, LeakyReLU/PReLU, casts, residuals)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if (e.key.startswith("aten::") or "rcab_group" in e.key) and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in ops)
+    if total <= 0:
+        return "profiler: no device time recorded"
+    split = {"cuDNN convs": sum(dev_us(e) for e in ops if "conv" in e.key),
+             "concatenation copies": sum(dev_us(e) for e in ops if e.key == "aten::cat"),
+             "group kernel": sum(dev_us(e) for e in ops if "rcab_group" in e.key)}
+    split["elementwise and the rest"] = total - sum(split.values())
+    top = sorted(ops, key=lambda e: -dev_us(e))[:6]
+    return (f"device time {total / 1e3:.3f} ms: "
+            + ", ".join(f"{g} {v / 1e3:.3f} ms ({v / total * 100:.1f}%)" for g, v in split.items())
+            + "; top ops: " + ", ".join(f"{e.key} {dev_us(e) / 1e3:.3f}" for e in top))
+
+
+def zoo_phase(dev, card: str, tmp: Path) -> dict:
+    """Phase 13: the model zoo on the card. Returns the group-kernel
+    launches of its main paths (the transfer Predictor and API) and the
+    B=4 group call's times."""
+    import os
+
+    from facesr_torch.app import api as port_api
+    from facesr_torch.app.demo import prepare_inputs
+    from facesr_torch.ckpt import fckpt
+    from facesr_torch.ckpt.weights import save_reference_pth
+    from facesr_torch.cli import compare_two_models, test_model
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.cli.step_numerics import small_zoo_step, step_errors
+    from facesr_torch.config import load_config
+    from facesr_torch.data import png
+    from facesr_torch.losses.combined import create_loss_function
+    from facesr_torch.models import transfer as ttr
+    from facesr_torch.models.load import load_any_model
+    from facesr_torch.ops import conv as tconv
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.parallel.serving import Predictor, build_serving_fn
+    from facesr_torch.training import steps
+    from facesr_torch.training.optim import AdamW
+
+    log(f"== 13. model zoo: RRDBNet x4plus and TransferSRModel 16+4 at 64 channels, seeded "
+        f"random weights [{card}]")
+    t_phase = time.perf_counter()
+    models = {name: zoo_model(name, dev) for name in ("esrgan", "transfer")}
+    launches = 0
+    for name, m in models.items():
+        log(f"  {name}: {type(m).__name__} {m.config}, {sum(p.numel() for p in m.parameters()):,} "
+            f"parameters, {zoo_macs(m, 64, 64) / 1e9:.3f} GMAC a 64x64 image")
+
+    # 13.1 card vs CPU in f32, TF32 off, and the TF32 control
+    x2 = torch.rand((ZOO_CHECK_IMAGES, 64, 64, 3), generator=torch.Generator().manual_seed(130))
+    for name, m in models.items():
+        cpu = zoo_model(name, "cpu")
+        with torch.inference_mode():
+            want = cpu(x2).numpy()
+            got = m(x2.to(dev)).cpu().numpy()
+            real = tconv.full_f32
+            tconv.full_f32 = tf32_forced
+            try:
+                forced = m(x2.to(dev)).cpu().numpy()
+            finally:
+                tconv.full_f32 = real
+        err, tf32_err = rel_l2(got, want), rel_l2(forced, want)
+        log(f"  13.1 {name} f32 card vs CPU on {ZOO_CHECK_IMAGES} 64x64 images: relative L2 "
+            f"{err:.3g} (limit {STEP_RTOL}); TF32 forced {tf32_err:.3g} -> "
+            f"{'rejected' if tf32_err > STEP_RTOL else 'within'}")
+        if not (np.isfinite(got).all() and err <= STEP_RTOL):
+            raise AssertionError(f"{name}: the card's f32 forward is off the CPU's")
+        if tf32_err <= STEP_RTOL:
+            raise AssertionError(f"{name}: the f32 limit lets TF32 convs pass")
+        del cpu
+
+    # 13.2 bf16 forward at batch 128
+    xb = torch.rand((ZOO_BATCH, 64, 64, 3), generator=torch.Generator().manual_seed(131)).to(dev)
+    fwd_ms = {}
+    for name, m in models.items():
+        fwd = build_serving_fn(m, torch.bfloat16)
+        for _ in range(2):
+            fwd(xb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(ZOO_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fwd(xb)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = fwd_ms[name] = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tflops = 2.0 * zoo_macs(m, 64, 64) * ZOO_BATCH / (ms * 1e-3) / 1e12
+        log(f"  13.2 {name} bf16 forward batch {ZOO_BATCH}: median of {ZOO_TIMED} {ms:.3f} ms "
+            f"(CUDA events) = {ZOO_BATCH / ms * 1e3:.1f} images/s, {tflops:.1f} TFLOP/s "
+            f"({tflops / (BF16_PEAK_FLOPS / 1e12) * 100:.1f}% of the bf16 peak), peak memory "
+            f"{peak:.3f} GiB [{card}]")
+        log(f"  13.2 {name} profiler, one forward: {zoo_profile_split(lambda: fwd(xb))} [{card}]")
+
+    # 13.3 the transfer head on the kernel against the plain head, whole model
+    tm = models["transfer"]
+    xh = torch.rand((ZOO_HEAD_IMAGES, 64, 64, 3),
+                    generator=torch.Generator().manual_seed(132)).to(dev)
+
+    def no_gate_head(head, feat):
+        residual = feat
+        for blk in head.rcab_blocks:
+            out = tconv.conv2d(feat, blk.conv1.weight, blk.conv1.bias, padding=1)
+            out = tconv.prelu(out, blk.prelu.weight)
+            out = tconv.conv2d(out, blk.conv2.weight, blk.conv2.bias, padding=1)
+            feat = feat + out * ttr.HEAD_RES_SCALE
+        return tconv.conv2d(feat, head.conv_after.weight, head.conv_after.bias,
+                            padding=1) + residual
+
+    with torch.inference_mode():
+        before = rg.fused_residual_group.launches
+        out_k = tm(xh, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        per_fwd = rg.fused_residual_group.launches - before
+        out_p = tm(xh, dtype=torch.bfloat16, head_fn=ttr.plain_head)
+        out_0 = tm(xh, dtype=torch.bfloat16, head_fn=lambda head, f: f)
+        out_f = tm(xh, dtype=torch.bfloat16, head_fn=no_gate_head)
+        ref = (out_p - out_0).abs()
+        lim_max, lim_mean = MODEL_RTOL * ref.max().item(), MODEL_RTOL * ref.mean().item()
+        results = {}
+        for what, out in (("kernel head", out_k), ("planted fault: SE gate dropped", out_f)):
+            d = (out - out_p).abs()
+            results[what] = d.max().item() <= lim_max and d.mean().item() <= lim_mean
+            log(f"  13.3 {what} vs plain head, {ZOO_HEAD_IMAGES} images bf16: max_abs="
+                f"{d.max().item():.6g} (limit {lim_max:.6g}) mean_abs={d.mean().item():.6g} "
+                f"(limit {lim_mean:.6g}) -> {'within' if results[what] else 'rejected'}")
+    log(f"  13.3 group-kernel launches a bf16 eval forward: {per_fwd}")
+    if not results["kernel head"] or per_fwd != 1 or not torch.isfinite(out_k).all():
+        raise AssertionError("the transfer head on the kernel disagrees or did not launch once")
+    if results["planted fault: SE gate dropped"]:
+        raise AssertionError("the head limits let a dropped SE gate pass")
+    del out_k, out_p, out_0, out_f
+
+    # the kernel at the head's shape class (B = 4) against its plain version
+    n, h, w, c, B = GROUP_TIMING[:4] + (4,)
+    gw4 = {k: v.to(dev) for k, v in tm.kernel_head_weights().items()}
+    x4 = check_input((n, h, w, c), 133, dev, ramp=False)
+    b4 = {"ms": cuda_ms(lambda: rg.fused_residual_group(x4, gw4, 0.2), iters=10),
+          "plain_ms": cuda_ms(lambda: rg.rcab_group_reference(x4, gw4, 0.2), iters=3, warmup=1),
+          "library_ms": cuda_ms(lambda: library_group(x4, gw4, 0.2), iters=10)}
+    b4["bound_ms"], b4["bound_by"] = group_bound(n, h, w, c, B, gw4["fc1"].shape[-1])
+    log(f"  13.3 one group call at the head's shape N={n} {h}x{w} C={c} B={B}: kernel "
+        f"{b4['ms']:.4f} ms, plain {b4['plain_ms']:.4f}, library (cuDNN bf16) "
+        f"{b4['library_ms']:.4f}, bound {b4['bound_ms']:.4f} ({b4['bound_by']}) [{card}]")
+
+    # 13.4 Predictor at 128 in bf16: the main path, the counts zeroed just before
+    request = np.random.default_rng(134).random((ZOO_BATCH, 64, 64, 3), dtype=np.float32)
+    xr = torch.from_numpy(request).to(dev)
+    for name, m in models.items():
+        pred = Predictor(m, dtype=torch.bfloat16, max_batch=ZOO_BATCH, device=dev)
+        pred(request)
+        rg.fused_residual_group.launches = 0
+        t0 = time.perf_counter()
+        out = pred(request)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        got_launches = rg.fused_residual_group.launches
+        launches += got_launches
+        with torch.inference_mode():
+            direct = m(xr, dtype=torch.bfloat16).clamp(0.0, 1.0).cpu().numpy()
+        check_equal(f"13.4 {name} Predictor(bf16, {ZOO_BATCH}) vs clamp(forward) at batch "
+                    f"{ZOO_BATCH}", out, direct)
+        log(f"  13.4 {name} Predictor numpy in/out: {pred_s * 1e3:.3f} ms = "
+            f"{ZOO_BATCH / pred_s:.1f} images/s; group-kernel launches {got_launches} [{card}]")
+        if got_launches != (1 if name == "transfer" else 0):
+            raise AssertionError(f"{name}: {got_launches} group-kernel launches in one chunk")
+    del xr, xb
+
+    # 13.5 checkpoints written by the port, read back
+    ck = tmp / "zoo_ckpt"
+    ck.mkdir()
+    x8 = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(135)).to(dev)
+    for name, m in models.items():
+        save_reference_pth(str(ck / f"{name}.pth"), m)
+        fckpt.save_model(str(ck / f"{name}.fckpt"), m)
+        with torch.inference_mode():
+            want = m(x8, dtype=torch.bfloat16).cpu().numpy()
+            for ext in ("pth", "fckpt"):
+                back = load_any_model(ck / f"{name}.{ext}", device=dev)
+                if type(back) is not type(m) or back.config != m.config:
+                    raise AssertionError(f"{name}.{ext} loads as {type(back).__name__}")
+                check_equal(f"13.5 {name}.{ext} read back, bf16 forward",
+                            back(x8, dtype=torch.bfloat16).cpu().numpy(), want)
+                del back
+
+    # 13.6 the train CLI: transfer_config.yaml, then --model esrgan
+    data = tmp / "data"
+    run_dir = tmp / "zoo_cli"
+    run_dir.mkdir()
+    created = {}
+    real_create = train_cli.create_model
+
+    def create_and_record(*a, **k):
+        model = real_create(*a, **k)
+        created["start"] = {n: v.detach().clone() for n, v in model.state_dict().items()}
+        return model
+
+    tm.cpu()
+    del models
+    torch.cuda.empty_cache()
+    # the transfer step alone: the YAML's loss, batch and AMP on one batch
+    tcfg = load_config(str(TRANSFER_YAML))
+    lc, bs = tcfg["loss"], tcfg["data"]["batch_size"]
+    step_model = zoo_model("transfer", dev).train()
+    loss = create_loss_function(l1_weight=lc["l1_weight"],
+                                perceptual_weight=lc["perceptual_weight"],
+                                ssim_weight=lc["ssim_weight"],
+                                perceptual_layers=lc["perceptual"]["layers"], device=dev)
+    opt = AdamW(weight_decay=0.0, gradient_clip=tcfg["training"]["gradient_clip"])
+    st = steps.TrainState(model=step_model, loss_params=loss.params,
+                          opt_state=opt.init(steps.trainable_parameters(step_model), 2e-4))
+    step = steps.make_train_step(
+        lambda lp, p, t: loss.apply(lp, p, t, compute_dtype=torch.bfloat16), opt,
+        compute_dtype=torch.bfloat16)
+    hr = smooth_hr(bs, CLI_HR, 136, dev)
+    for _ in range(2):
+        step(st, hr)
+    torch.cuda.synchronize()
+    step_ms = statistics.median(host_ms(lambda: step(st, hr), reps=1)
+                                for _ in range(ZOO_STEP_TIMED))
+    log(f"  13.6 transfer step alone (stage 1, bf16, batch {bs}, HR {CLI_HR}, the YAML's loss): "
+        f"median of {ZOO_STEP_TIMED} {step_ms:.3f} ms = {bs / step_ms * 1e3:.2f} images/s [{card}]")
+    del st, step, step_model, hr
+    torch.cuda.empty_cache()
+
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    train_cli.create_model = create_and_record
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            trainer = train_cli.run(["--config", str(TRANSFER_YAML), "--data-root", str(data),
+                                     "--epochs", "1"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        now = trainer.model.state_dict()
+        start = created["start"]
+        bb_same = all(torch.equal(now[k].cpu(), start[k].cpu()) for k in now
+                      if k.startswith("backbone."))
+        head_moved = all(not torch.equal(now[k].cpu(), start[k].cpu()) for k in now
+                         if k.startswith("face_head.") and k.endswith("weight"))
+        ms = statistics.median(trainer.last_step_times[1:]) * 1e3
+        m = trainer.last_train_metrics
+        log(f"  13.6 transfer_config.yaml through the CLI (data_root -> phase 8's PNGs, "
+            f"--epochs 1): {len(trainer.last_step_times)} steps of {bs}, {ms:.3f} ms/step "
+            f"(median host interval after the first) against {step_ms:.3f} for the step alone; "
+            f"loader wait {m['loader_wait_s']:.3f} s; peak memory {peak:.3f} GiB; losses {m}; "
+            f"backbone bitwise unchanged {bb_same}; every head weight changed {head_moved} "
+            f"[{card}]")
+        if not (bb_same and head_moved and math.isfinite(m["loss"])
+                and trainer.model_type == "transfer"):
+            raise AssertionError("the transfer YAML's stage 1 moved the backbone or not the head")
+        (ck / "transfer_trained.pth").write_bytes(
+            (run_dir / "checkpoints" / "best_model.pth").read_bytes())
+        del trainer
+        torch.cuda.empty_cache()
+        train_cli.create_model = real_create
+        esrgan_run = None
+        for batch in ZOO_ESRGAN_BATCHES:
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with contextlib.redirect_stdout(_Tee(sys.stdout)):
+                    trainer = train_cli.run(["--config", str(STAGE1_YAML), "--data-root",
+                                             str(data), "--epochs", "1", "--model", "esrgan",
+                                             "--batch-size", str(batch)])
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError as e:
+                log(f"  13.6 --model esrgan at batch {batch}: out of memory ({str(e)[:120]})")
+                trainer = None
+                torch.cuda.empty_cache()
+                continue
+            esrgan_run = (batch, trainer, torch.cuda.max_memory_allocated() / 2 ** 30)
+            break
+    finally:
+        train_cli.create_model = real_create
+        os.chdir(cwd)
+    if esrgan_run is None:
+        raise AssertionError("--model esrgan did not fit at any batch")
+    batch, trainer, peak = esrgan_run
+    m = trainer.last_train_metrics
+    ms = statistics.median(trainer.last_step_times[1:]) * 1e3
+    log(f"  13.6 --model esrgan with {STAGE1_YAML.name} (f32, random x4plus weights) at batch "
+        f"{batch}{'' if batch == ZOO_ESRGAN_BATCHES[0] else ' (the YAML batch did not fit)'}: "
+        f"{len(trainer.last_step_times)} steps, {ms:.3f} ms/step = {batch / ms * 1e3:.2f} "
+        f"images/s; peak memory {peak:.3f} GiB; losses {m} [{card}]")
+    if not all(math.isfinite(v) for v in m.values()) or trainer.model_type != "esrgan":
+        raise AssertionError("the ESRGAN CLI run has a non-finite loss")
+    del trainer, esrgan_run
+    torch.cuda.empty_cache()
+
+    # 13.7 the small zoo steps, card vs CPU in f32
+    worst = 0.0
+    for kind, stage in (("transfer", 1), ("transfer", 2), ("transfer", 3), ("esrgan", 1)):
+        got, start = small_zoo_step(dev, kind, stage)
+        want, _ = small_zoo_step("cpu", kind, stage)
+        errs = step_errors(got, want)
+        labels = (ttr.param_labels(ttr.TransferSRModel(ttr.TransferModelConfig(
+            backbone_blocks=5, head_blocks=2, head_channels=16), device="cpu"),
+            ttr.TrainingStage(stage)) if kind == "transfer" else {})
+        frozen = [k for k, v in labels.items() if v == "frozen"]
+        still = all(torch.equal(got[2][k], start[k]) for k in frozen)
+        log(f"  13.7 small {kind} step{f' stage {stage}' if kind == 'transfer' else ''} card vs "
+            f"CPU (f32): loss {errs[0]:.3g}, worst gradient {errs[1]:.3g}, worst updated param "
+            f"{errs[2]:.3g} (limit {STEP_RTOL}); {len(got[1])} trained tensors, {len(frozen)} "
+            f"frozen bitwise unchanged {still}")
+        worst = max(worst, *errs)
+        if max(errs) > STEP_RTOL or not still:
+            raise AssertionError(f"the small {kind} step on the card is off the CPU's")
+    forced, _ = small_zoo_step(dev, "transfer", 3, tf32_forced=True)
+    want, _ = small_zoo_step("cpu", "transfer", 3)
+    errs = step_errors(forced, want)
+    log(f"  13.7 control, the stage-3 step with TF32 forced: {errs} -> "
+        f"{'rejected' if max(errs) > STEP_RTOL else 'within'}")
+    if max(errs) <= STEP_RTOL:
+        raise AssertionError("the step limit lets TF32 convs pass")
+
+    # 13.8 the entry points on zoo checkpoints
+    val_hr = data / "val" / "HR"
+    rows, _ = eval_cli(test_model, ["--checkpoint", str(ck / "transfer_trained.pth"), "--input",
+                                    str(val_hr), "--output", str(tmp / "zoo_test"), "--no-save"])
+    psnr = float(np.mean([r["model"]["psnr"] for r in rows]))
+    log(f"  13.8 test_model on the trained transfer checkpoint: {len(rows)} images, model PSNR "
+        f"{psnr:.3f} dB, bicubic {np.mean([r['bicubic']['psnr'] for r in rows]):.3f} dB")
+    if len(rows) != CLI_VAL or not math.isfinite(psnr):
+        raise AssertionError("test_model on the transfer checkpoint")
+    cmp_dir = tmp / "zoo_compare"
+    cmp_dir.mkdir()
+    for src, dst in ((tmp / "stage1_checkpoints" / "best_model.pth", "face_enhance_net.pth"),
+                     (ck / "transfer_trained.pth", "transfer.pth"),
+                     (ck / "esrgan.pth", "rrdbnet.pth")):
+        (cmp_dir / dst).write_bytes(src.read_bytes())
+    t0 = time.perf_counter()
+    res, _ = eval_cli(compare_two_models, ["--checkpoint-dir", str(cmp_dir), "--test-dir",
+                                           str(val_hr), "--output", str(tmp / "zoo_cmp_out"),
+                                           "--save-every", "0"])
+    log(f"  13.8 compare_two_models, {res['images']} images, {time.perf_counter() - t0:.2f} s: "
+        + "; ".join(f"{k} {v['psnr']:.3f} dB / {v['ssim']:.4f}" for k, v in res["summary"].items()))
+    if res["methods"][3:] != ["Face Enhance Net", "Rrdbnet", "Transfer"]:
+        raise AssertionError(f"compare rows {res['methods']}")
+
+    api_dir = tmp / "zoo_api"
+    api_dir.mkdir()
+    (api_dir / "transfer.fckpt").write_bytes((ck / "transfer.fckpt").read_bytes())
+    srv = port_api.serve(str(api_dir), port=0, host="127.0.0.1", dtype="bf16")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        imgs = smooth_u8(ZOO_HTTP_REQUESTS, 64, 64, 137)
+        bodies = [png.encode(im) for im in imgs]
+        pred = srv.service.predictors["Transfer"]
+        rg.fused_residual_group.launches = 0
+        half = ZOO_HTTP_REQUESTS // 2  # two keep-alive clients
+        wall, lat, warm, results, errors = drive_http(
+            srv.server_address[1], bodies, [list(range(half)),
+                                            list(range(half, ZOO_HTTP_REQUESTS))])
+        http_launches = rg.fused_residual_group.launches
+        launches += http_launches
+        bad = [(i, s, d[:200]) for i, s, d in results if s != 200]
+        same = all(np.array_equal(png.decode_rgb(d, "response"),
+                                  (pred(prepare_inputs(imgs[i])[0][None])[0] * 255).round()
+                                  .astype(np.uint8)) for i, s, d in results if s == 200)
+        log(f"  13.8 API (--dtype bf16) on the transfer .fckpt: {len(results)} requests, errors "
+            f"{errors or bad}; every response bitwise Predictor's batch-1 output {same}; "
+            f"launches {http_launches}; p50 {statistics.median(warm + lat) * 1e3:.1f} ms [{card}]")
+        if errors or bad or not same or len(results) != ZOO_HTTP_REQUESTS \
+                or http_launches != ZOO_HTTP_REQUESTS:
+            raise AssertionError("the API serving the transfer model")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.service.close()
+    log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"launches": launches, "b4": b4}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2466,6 +2919,8 @@ def main() -> int:
         launches["fused_residual_group"] += serving["launches"]  # and phase 11's
         launches["fused_residual_group"] += int8_phase(dev, card, Path(tmp),
                                                        step_alone_ms)  # and phase 12's
+        zoo = zoo_phase(dev, card, Path(tmp))
+        launches["fused_residual_group"] += zoo["launches"]  # and phase 13's
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{
@@ -2486,6 +2941,10 @@ def main() -> int:
         "scratch_library_ms": serving["scratch"]["library_ms"],
         "scratch_library_graph_ms": serving["scratch"]["library_graph_ms"],
         "scratch_bound_ms": serving["scratch"]["bound_ms"],
+        "b4_ms": zoo["b4"]["ms"],
+        "b4_plain_ms": zoo["b4"]["plain_ms"],
+        "b4_library_ms": zoo["b4"]["library_ms"],
+        "b4_bound_ms": zoo["b4"]["bound_ms"],
     }]}
     print(json.dumps(table), flush=True)
     print(card, flush=True)

@@ -165,9 +165,9 @@ def wrap_predictors(models: dict, dtype: Optional[str] = None,
 
 
 def serve_batch(model, batch: np.ndarray) -> np.ndarray:
-    """A servable — a raw model (its f32 eval forward, clamped), a
-    `Predictor` or an artifact callable — on an NHWC float batch; float32
-    numpy."""
+    """A servable — a raw model (its f32 eval forward: FaceEnhanceNet's is
+    clamped, the zoo's is not), a `Predictor` or an artifact callable — on
+    an NHWC float batch; float32 numpy."""
     if isinstance(model, torch.nn.Module):
         dev = next(model.parameters()).device
         with torch.inference_mode():

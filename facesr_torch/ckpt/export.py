@@ -42,6 +42,11 @@ INT8_EXPORT_NOT_PORTED = ("the int8 .pt2 export (dtype int8/int8_full, --calib-d
                           "export); serve int8 through Predictor or the API")
 
 
+ZOO_EXPORT_NOT_PORTED = ("the .pt2 export of the model zoo (transfer, esrgan) is not ported "
+                         "yet (ROADMAP A.12.1: int8 and .pt2 of the zoo); serve it through "
+                         "Predictor or the API")
+
+
 class ServingModule(nn.Module):
     """The serving forward of a FaceEnhanceNet as a module `torch.export`
     traces. The kernel trunk reads each group's kernel-layout weights from
@@ -51,6 +56,8 @@ class ServingModule(nn.Module):
 
     def __init__(self, model: nn.Module, dtype: ServingDtype = torch.bfloat16):
         super().__init__()
+        if getattr(model, "model_type", "custom") not in ("custom", "lite"):
+            raise NotImplementedError(ZOO_EXPORT_NOT_PORTED)
         if dtype in ("int8", "int8_full"):
             raise NotImplementedError(INT8_EXPORT_NOT_PORTED)
         _check_dtype(model, dtype)  # the serving dtype dispatch

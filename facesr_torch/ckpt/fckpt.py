@@ -20,8 +20,10 @@ own for what that writes:
   a malformed one raises and names it.
 
 Lists come back from flax as digit-keyed maps; `load_model` restores them
-(`restore_list_nodes`) and maps the parameters to this port's state
-dict through `state_dict_from_jax_params`.
+(`restore_list_nodes`), restacks scanned bodies saved per block, and maps
+the parameters of a FaceEnhanceNet (``custom``/``lite``), a transfer model
+or an RRDBNet (``esrgan``) to this port's state dict
+(`weights.state_dict_from_jax`); `save_model` writes any of the three.
 """
 
 from __future__ import annotations
@@ -35,13 +37,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from facesr_torch.ckpt.weights import state_dict_from_jax_params
+from facesr_torch.ckpt.weights import state_dict_from_jax
+from facesr_torch.models.esrgan import RRDBNetConfig, infer_rrdbnet_config
 from facesr_torch.models.face_enhance_net import FaceEnhanceNetConfig
+from facesr_torch.models.transfer import TransferModelConfig
 
 __all__ = ["FckptError", "packb", "save_checkpoint", "save_model", "unpackb", "is_fckpt",
            "QUANT_CACHE_KIND", "params_fingerprint", "save_quant_cache", "load_quant_cache",
            "load_checkpoint", "load_model", "restore_list_nodes",
-           "infer_model_config_from_params"]
+           "infer_model_config_from_params", "infer_transfer_config", "prepare_params",
+           "MODEL_CONFIGS"]
 
 _CHUNKED = "__msgpack_chunked_array__"
 _MAX_CHUNK_BYTES = 2 ** 30  # flax's MAX_CHUNK_SIZE: larger arrays it writes in chunks
@@ -169,16 +174,19 @@ def save_checkpoint(path: str, tree: Any, meta: Optional[Dict[str, Any]] = None)
         raise
 
 
-def save_model(path: str, model, model_type: str = "custom") -> None:
-    """Write a FaceEnhanceNet's weights as a model ``.fckpt`` (the JAX
-    package's ``save_model``: ``{"params": tree}`` with the model type and
-    config in the meta), which `load_model` and the JAX loaders read."""
+def save_model(path: str, model, model_type: Optional[str] = None) -> None:
+    """Write a model's weights as a model ``.fckpt`` (the JAX package's
+    ``save_model``: ``{"params": tree}`` with the model type and config in
+    the meta), which `load_model` and the JAX loaders read. The type is
+    the model's own (``custom``, ``transfer`` or ``esrgan``) unless
+    ``model_type`` names one."""
     from dataclasses import asdict
 
-    from facesr_torch.ckpt.weights import jax_params_from_state_dict
+    from facesr_torch.ckpt.weights import jax_params_from
 
-    save_checkpoint(path, {"params": jax_params_from_state_dict(model.state_dict())},
-                    {"model_type": model_type, "config": asdict(model.config)})
+    mtype = model_type or getattr(model, "model_type", "custom")
+    save_checkpoint(path, {"params": jax_params_from(model)},
+                    {"model_type": mtype, "config": asdict(model.config)})
 
 
 QUANT_CACHE_KIND = "facesr-int8-calibrated"
@@ -413,22 +421,82 @@ def _model_params(tree: Any, path: str, prefer_ema: bool) -> Any:
     raise ValueError(f"No model params found in checkpoint {path}")
 
 
+def _restack(node: Any) -> Any:
+    """A scanned body saved per block (a list of per-block trees once the
+    lists are restored) stacked on a leading axis, as the JAX package's
+    `restack_scanned`; a stacked body or None is returned as is."""
+    if not isinstance(node, list):
+        return node
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack([np.asarray(x) for x in xs])
+
+    return stack(*node)
+
+
+def prepare_params(params: Any, model_type: str) -> Any:
+    """A parameter tree as a ``.fckpt`` holds it -> the JAX layout: lists
+    restored, and a scanned body saved per block (an RRDBNet's ``body``, a
+    transfer model's ``body_main``/``body_tail``) restacked."""
+    params = restore_list_nodes(params)
+    if model_type == "esrgan":
+        params["body"] = _restack(params["body"])
+    elif model_type == "transfer":
+        bb = params["backbone"]
+        for k in ("body_main", "body_tail"):
+            bb[k] = _restack(bb.get(k))
+    return params
+
+
+def infer_transfer_config(params: Any) -> TransferModelConfig:
+    """A TransferModelConfig from the JAX parameter shapes (the JAX
+    package's `infer_transfer_config`), for a checkpoint without config
+    metadata."""
+    bb, hd = params["backbone"], params["face_head"]
+    n_main, n_tail = (0 if bb[k] is None else int(np.shape(bb[k]["rdb1"]["conv1_w"])[0])
+                      for k in ("body_main", "body_tail"))
+    return TransferModelConfig(backbone_blocks=n_main + n_tail,
+                               head_blocks=int(np.shape(hd["rcabs"]["conv1_w"])[0]),
+                               head_channels=int(np.shape(bb["conv_first"]["w"])[-1]),
+                               scale_factor=2 ** len(hd["upsample"]))
+
+
+# each model type's config class
+MODEL_CONFIGS = {"custom": FaceEnhanceNetConfig, "lite": FaceEnhanceNetConfig,
+                 "transfer": TransferModelConfig, "esrgan": RRDBNetConfig}
+
+
 def load_model(path: str, model_type: str = "custom", prefer_ema: bool = True,
-               ) -> Tuple[FaceEnhanceNetConfig, Dict[str, torch.Tensor]]:
-    """(config, state dict) of the FaceEnhanceNet in a model or trainer
-    ``.fckpt`` (the JAX package's ``load_model``). ``prefer_ema`` takes
-    the EMA weights when the checkpoint has them. Only ``custom`` models
-    are ported (the transfer and ESRGAN models are ROADMAP A.12)."""
+               ) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """(config, state dict) of the model in a model or trainer ``.fckpt``
+    (the JAX package's ``load_model``): a FaceEnhanceNet (``custom`` or
+    ``lite``), a transfer model or an RRDBNet (``esrgan``), by the file's
+    ``model_type`` (``model_type`` when it has none). ``prefer_ema``
+    takes the EMA weights when the checkpoint has them. The config is the
+    file's ``model_config`` or ``config``, else inferred from the shapes.
+    A tree that is not the model it says raises ValueError naming the
+    file."""
     tree, meta = load_checkpoint(path)
     mtype = meta.get("model_type", model_type)
-    if mtype not in ("custom", "lite"):
-        raise NotImplementedError(f"{path}: model_type {mtype!r} is not ported yet "
-                                  "(ROADMAP A.12); only 'custom' FaceEnhanceNet loads")
-    params = restore_list_nodes(_model_params(tree, path, prefer_ema))
+    if mtype not in MODEL_CONFIGS:
+        raise ValueError(f"{path}: unsupported model_type {mtype!r}")
+    params = _model_params(tree, path, prefer_ema)
     # trainer checkpoints carry the architecture under 'model_config'
     # ('config' is the TrainerConfig); model-only ones under 'config'
     cfg_dict = meta.get("model_config") or meta.get("config") or {}
-    names = {f.name for f in fields(FaceEnhanceNetConfig)}
-    known = {k: v for k, v in cfg_dict.items() if k in names}
-    cfg = FaceEnhanceNetConfig(**known) if known else infer_model_config_from_params(params)
-    return cfg, state_dict_from_jax_params(params)
+    cls = MODEL_CONFIGS[mtype]
+    known = {k: v for k, v in cfg_dict.items() if k in {f.name for f in fields(cls)}}
+    try:
+        params = prepare_params(params, mtype)
+        if mtype == "esrgan":
+            cfg = RRDBNetConfig(**known) if known else infer_rrdbnet_config(params)
+        elif mtype == "transfer":
+            cfg = TransferModelConfig(**known) if known else infer_transfer_config(params)
+        else:
+            cfg = cls(**known) if known else infer_model_config_from_params(params)
+        return cfg, state_dict_from_jax(params, mtype)
+    except (KeyError, IndexError, TypeError, AttributeError) as e:
+        raise ValueError(f"{path}: not a {mtype!r} model checkpoint "
+                         f"({type(e).__name__}: {e})") from e

@@ -22,8 +22,21 @@
   [G, B] or [G] in the trunk) and back to the port's per-site
   `ops.quant.Int8Weight` (q OIHW, scale [O], a a scalar), checked leaf by
   leaf against the model (the quant cache's layout).
-- `load_reference_pth`: a reference-format ``{'model_state_dict',
-  'config'}`` checkpoint -> a `FaceEnhanceNet`, loaded with ``strict=True``.
+- `esrgan_state_dict_from_jax_params` / `jax_params_from_esrgan_state_dict`
+  and `transfer_state_dict_from_jax_params` /
+  `jax_params_from_transfer_state_dict`: the model zoo's weights between
+  the JAX layout (scan-stacked HWIO bodies; the transfer body split into
+  ``body_main`` and ``body_tail``, its head's RCABs stacked) and the
+  reference key names; both directions are bitwise.
+- `read_state_dict`: a ``.pth`` state dict, unwrapped from
+  ``model_state_dict`` / ``state_dict`` / ``params_ema`` / ``params`` as
+  `facesr/ckpt/convert.py` does, read with ``weights_only=True``.
+- `save_reference_pth`: a model as the reference-format ``.pth`` the JAX
+  package's ``export_pth`` writes (and its ``convert_pth`` reads).
+- `load_reference_pth`: a reference-format ``.pth`` (a FaceEnhanceNet
+  ``{'model_state_dict', 'config'}``, a transfer model's, or an RRDBNet
+  state dict in its RealESRGAN container) -> the model, loaded with
+  ``strict=True``.
 """
 
 from __future__ import annotations
@@ -35,11 +48,30 @@ import torch
 
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+from facesr_torch.models.transfer import STAGE2_UNFREEZE_BLOCKS
 
 __all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict", "jax_qtree_from_sites",
            "sites_from_jax_qtree", "vgg_params_from_jax",
            "lpips_params_from_jax", "inception_params_from_jax",
-           "discriminator_state_dict_from_jax", "load_reference_pth"]
+           "discriminator_state_dict_from_jax", "esrgan_state_dict_from_jax_params",
+           "jax_params_from_esrgan_state_dict", "transfer_state_dict_from_jax_params",
+           "jax_params_from_transfer_state_dict", "state_dict_from_jax", "jax_params_from",
+           "read_state_dict", "reference_config", "save_reference_pth", "load_reference_pth",
+           "REFERENCE_CONFIG_FIELDS", "REFERENCE_TRANSFER_CONFIG_FIELDS"]
+
+# the reference FaceEnhanceNetConfig's and TransferModelConfig's fields
+# (src/models/custom.py:23-43, src/models/transfer.py:24-43): a reference
+# checkpoint's ``config`` holds only these, so the reference constructors
+# accept it verbatim
+REFERENCE_CONFIG_FIELDS = (
+    "num_channels", "num_groups", "blocks_per_group", "kernel_size",
+    "reduction_ratio", "scale_factor", "res_scale", "in_channels",
+    "out_channels", "init_scale", "num_rcab_blocks",
+)
+REFERENCE_TRANSFER_CONFIG_FIELDS = (
+    "backbone_blocks", "freeze_blocks", "head_blocks", "head_channels",
+    "scale_factor", "stage1_lr", "stage2_lr", "stage3_lr",
+)
 
 
 def _oihw(a) -> torch.Tensor:
@@ -271,11 +303,236 @@ def discriminator_state_dict_from_jax(params: Dict[str, Any],
     return sd
 
 
-def load_reference_pth(path: str, device: DeviceLike = None) -> FaceEnhanceNet:
-    """Load a reference-format FaceEnhanceNet ``.pth`` (``{'model_state_dict':
-    ..., 'config': ...}``, as the JAX package's ``export_pth`` writes it)
-    with ``strict=True`` (`models.load.load_any_model`). Runs on CUDA
-    unless ``device`` names another."""
+# ---------------------------------------------------------------------------
+# The model zoo (RRDBNet, TransferSRModel)
+# ---------------------------------------------------------------------------
+
+_RDB_CONVS = [f"conv{c}" for c in range(1, 6)]
+
+
+def _per_block(node: Any) -> List[Dict[str, Any]]:
+    """A stacked RRDB body (``{rdb{j}: {conv{c}_w: [N, ...]}}``) or a list
+    of per-block trees (a legacy per-block save, lists restored) ->
+    per-block trees; None -> []."""
+    if node is None:
+        return []
+    if isinstance(node, list):
+        return node
+    n = np.shape(node["rdb1"]["conv1_w"])[0]
+    return [{r: {k: np.asarray(v)[i] for k, v in node[r].items()} for r in node}
+            for i in range(n)]
+
+
+def _rrdb_to_sd(sd: Dict[str, torch.Tensor], pre: str, blk: Dict[str, Any]) -> None:
+    for j in (1, 2, 3):
+        for c in _RDB_CONVS:
+            sd[f"{pre}.rdb{j}.{c}.weight"] = _oihw(blk[f"rdb{j}"][f"{c}_w"])
+            sd[f"{pre}.rdb{j}.{c}.bias"] = _t(blk[f"rdb{j}"][f"{c}_b"])
+
+
+def _sd_reader(sd: Dict[str, torch.Tensor]):
+    def arr(name: str) -> np.ndarray:
+        return sd[name].detach().cpu().float().numpy()
+
+    def hwio(name: str) -> np.ndarray:
+        return np.ascontiguousarray(arr(name).transpose(2, 3, 1, 0))
+
+    def conv(name: str) -> Dict[str, np.ndarray]:
+        return {"w": hwio(f"{name}.weight"), "b": arr(f"{name}.bias")}
+
+    return arr, hwio, conv
+
+
+def _stacked_body(sd: Dict[str, torch.Tensor], pres: List[str]):
+    """The RRDB blocks at module paths ``pres`` stacked as the JAX body
+    (``{rdb{j}: {conv{c}_w: [N, ...], conv{c}_b}}``); None when empty."""
+    if not pres:
+        return None
+    arr, hwio, _ = _sd_reader(sd)
+    return {f"rdb{j}": {k: np.stack([fn(f"{p}.rdb{j}.{c}.{suffix}") for p in pres])
+                        for c in _RDB_CONVS
+                        for k, fn, suffix in ((f"{c}_w", hwio, "weight"),
+                                              (f"{c}_b", arr, "bias"))}
+            for j in (1, 2, 3)}
+
+
+def _block_count(sd: Dict[str, Any], prefix: str) -> int:
+    idx = {int(k[len(prefix):].split(".")[0]) for k in sd if k.startswith(prefix)}
+    if sorted(idx) != list(range(len(idx))):
+        raise ValueError(f"blocks under {prefix!r} are not numbered 0..N-1: {sorted(idx)[:8]}")
+    return len(idx)
+
+
+def esrgan_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX RRDBNet params (numpy leaves, stacked or per-block body) ->
+    the RealESRGAN state dict (`models.esrgan.RRDBNet`)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(name: str) -> None:
+        sd[f"{name}.weight"] = _oihw(params[name]["w"])
+        sd[f"{name}.bias"] = _t(params[name]["b"])
+
+    conv("conv_first")
+    for i, blk in enumerate(_per_block(params["body"])):
+        _rrdb_to_sd(sd, f"body.{i}", blk)
+    for name in ("conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        conv(name)
+    return sd
+
+
+def jax_params_from_esrgan_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `esrgan_state_dict_from_jax_params` (a stacked body)."""
+    _, _, conv = _sd_reader(sd)
+    n = _block_count(sd, "body.")
+    out = {name: conv(name) for name in ("conv_first", "conv_body", "conv_up1", "conv_up2",
+                                         "conv_hr", "conv_last")}
+    out["body"] = _stacked_body(sd, [f"body.{i}" for i in range(n)])
+    return out
+
+
+def _rcab_leaves(fn) -> Dict[str, Any]:
+    """An RCAB leaf tree, each leaf ``fn(leaf name)``."""
+    return {"conv1_w": fn("conv1_w"), "conv1_b": fn("conv1_b"), "prelu_a": fn("prelu_a"),
+            "conv2_w": fn("conv2_w"), "conv2_b": fn("conv2_b"),
+            "ca": {"fc1_w": fn("fc1_w"), "fc2_w": fn("fc2_w")}}
+
+
+def transfer_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX TransferSRModel params (numpy leaves; ``body_main`` then
+    ``body_tail``, either None, stacked or per-block; stacked ``rcabs``)
+    -> the reference state dict (`models.transfer.TransferSRModel`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    bb, hd = params["backbone"], params["face_head"]
+
+    def conv(name: str, p: Dict[str, Any]) -> None:
+        sd[f"{name}.weight"] = _oihw(p["w"])
+        sd[f"{name}.bias"] = _t(p["b"])
+
+    conv("backbone.conv_first", bb["conv_first"])
+    body = _per_block(bb.get("body_main")) + _per_block(bb.get("body_tail"))
+    for i, blk in enumerate(body):
+        _rrdb_to_sd(sd, f"backbone.body.{i}", blk)
+    conv("backbone.conv_body", bb["conv_body"])
+    rcabs = hd["rcabs"]
+    for b in range(np.shape(rcabs["conv1_w"])[0]):
+        pre = f"face_head.rcab_blocks.{b}"
+        leaf = lambda a: np.asarray(a)[b]  # noqa: E731
+        sd[f"{pre}.conv1.weight"] = _oihw(leaf(rcabs["conv1_w"]))
+        sd[f"{pre}.conv1.bias"] = _t(leaf(rcabs["conv1_b"]))
+        sd[f"{pre}.prelu.weight"] = _t(leaf(rcabs["prelu_a"]))
+        sd[f"{pre}.conv2.weight"] = _oihw(leaf(rcabs["conv2_w"]))
+        sd[f"{pre}.conv2.bias"] = _t(leaf(rcabs["conv2_b"]))
+        sd[f"{pre}.channel_attention.fc.0.weight"] = _t(leaf(rcabs["ca"]["fc1_w"]).T)
+        sd[f"{pre}.channel_attention.fc.2.weight"] = _t(leaf(rcabs["ca"]["fc2_w"]).T)
+    conv("face_head.conv_after", hd["conv_after"])
+    for s, stage in enumerate(hd["upsample"]):
+        sd[f"face_head.upsample.stages.{s}.conv.weight"] = _oihw(stage["conv_w"])
+        sd[f"face_head.upsample.stages.{s}.conv.bias"] = _t(stage["conv_b"])
+        sd[f"face_head.upsample.stages.{s}.prelu.weight"] = _t(stage["prelu_a"])
+    conv("face_head.conv_last", hd["conv_last"])
+    return sd
+
+
+def jax_params_from_transfer_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `transfer_state_dict_from_jax_params`: the body
+    split into ``body_main`` and the last ``min(4, N)`` blocks as
+    ``body_tail`` (an empty part is None), the head's RCABs stacked."""
+    arr, hwio, conv = _sd_reader(sd)
+    n = _block_count(sd, "backbone.body.")
+    n_main = n - min(STAGE2_UNFREEZE_BLOCKS, n)
+    pres = [f"backbone.body.{i}" for i in range(n)]
+    heads = [f"face_head.rcab_blocks.{b}"
+             for b in range(_block_count(sd, "face_head.rcab_blocks."))]
+    keys = {"conv1_w": ("conv1.weight", hwio), "conv1_b": ("conv1.bias", arr),
+            "prelu_a": ("prelu.weight", arr), "conv2_w": ("conv2.weight", hwio),
+            "conv2_b": ("conv2.bias", arr),
+            "fc1_w": ("channel_attention.fc.0.weight", lambda k: arr(k).T),
+            "fc2_w": ("channel_attention.fc.2.weight", lambda k: arr(k).T)}
+    rcabs = _rcab_leaves(lambda leaf: np.stack([keys[leaf][1](f"{p}.{keys[leaf][0]}")
+                                                for p in heads]))
+    stages = range(_block_count(sd, "face_head.upsample.stages."))
+    return {
+        "backbone": {"conv_first": conv("backbone.conv_first"),
+                     "body_main": _stacked_body(sd, pres[:n_main]),
+                     "body_tail": _stacked_body(sd, pres[n_main:]),
+                     "conv_body": conv("backbone.conv_body")},
+        "face_head": {"rcabs": rcabs, "conv_after": conv("face_head.conv_after"),
+                      "upsample": [{"conv_w": hwio(f"face_head.upsample.stages.{s}.conv.weight"),
+                                    "conv_b": arr(f"face_head.upsample.stages.{s}.conv.bias"),
+                                    "prelu_a": arr(f"face_head.upsample.stages.{s}.prelu.weight")}
+                                   for s in stages],
+                      "conv_last": conv("face_head.conv_last")},
+    }
+
+
+def state_dict_from_jax(params: Dict[str, Any], model_type: str) -> Dict[str, torch.Tensor]:
+    """JAX params of a ``custom``/``lite``, ``transfer`` or ``esrgan``
+    model -> the port's state dict."""
+    if model_type in ("custom", "lite"):
+        return state_dict_from_jax_params(params)
+    if model_type == "transfer":
+        return transfer_state_dict_from_jax_params(params)
+    if model_type == "esrgan":
+        return esrgan_state_dict_from_jax_params(params)
+    raise ValueError(f"Unsupported model_type: {model_type!r}")
+
+
+def jax_params_from(model) -> Dict[str, Any]:
+    """A model's weights as the JAX package's parameter tree, by its type."""
+    mtype = getattr(model, "model_type", "custom")
+    sd = model.state_dict()
+    if mtype == "transfer":
+        return jax_params_from_transfer_state_dict(sd)
+    if mtype == "esrgan":
+        return jax_params_from_esrgan_state_dict(sd)
+    return jax_params_from_state_dict(sd)
+
+
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` state dict, unwrapped from the first of
+    ``model_state_dict``, ``state_dict``, ``params_ema`` and ``params`` it
+    has (`facesr/ckpt/convert.py`), read with ``weights_only=True``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model_state_dict", "state_dict", "params_ema", "params"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    if not isinstance(ckpt, dict) or not all(isinstance(v, torch.Tensor) for v in ckpt.values()):
+        raise ValueError(f"{path} holds no state dict of tensors")
+    return ckpt
+
+
+def reference_config(model) -> Dict[str, Any]:
+    """A model's config as a reference checkpoint's ``config`` holds it:
+    the reference fields of a FaceEnhanceNet or a transfer model, every
+    field of an RRDBNet's."""
+    from dataclasses import asdict
+
+    keep = {"custom": REFERENCE_CONFIG_FIELDS, "transfer": REFERENCE_TRANSFER_CONFIG_FIELDS}.get(
+        getattr(model, "model_type", "custom"))
+    return {k: v for k, v in asdict(model.config).items() if keep is None or k in keep}
+
+
+def save_reference_pth(path: str, model) -> None:
+    """Write ``model`` as the JAX package's ``export_pth`` does: an
+    RRDBNet as ``{"params": state dict}`` (RealESRGAN's container); a
+    FaceEnhanceNet or transfer model as ``{"model_state_dict", "config"}``
+    with the reference config fields."""
+    sd = {k: v.detach().cpu().float().clone() for k, v in model.state_dict().items()}
+    if getattr(model, "model_type", "custom") == "esrgan":
+        payload: Dict[str, Any] = {"params": sd}
+    else:
+        payload = {"model_state_dict": sd, "config": reference_config(model)}
+    torch.save(payload, path)
+
+
+def load_reference_pth(path: str, device: DeviceLike = None):
+    """Load a reference-format ``.pth`` (a FaceEnhanceNet or transfer
+    ``{'model_state_dict': ..., 'config': ...}`` as the JAX package's
+    ``export_pth`` writes it, or an RRDBNet state dict in its
+    ``{'params': ...}`` container) with ``strict=True``
+    (`models.load.load_any_model`). Runs on CUDA unless ``device`` names
+    another."""
     from facesr_torch.models.load import load_any_model
 
     return load_any_model(path, device=resolve_device(device))

@@ -54,7 +54,8 @@ from facesr_torch.training import steps
 from facesr_torch.training.optim import AdamW
 
 __all__ = ["stage1_loss_apply", "smooth_loss_apply", "small_step", "small_gan_step",
-           "step_errors", "gan_step_errors", "rel_l2", "sign_flips", "pinned_sign_loss_apply"]
+           "small_zoo_step", "step_errors", "gan_step_errors", "rel_l2", "sign_flips",
+           "pinned_sign_loss_apply"]
 
 StepResult = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -143,6 +144,51 @@ def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool 
         _, metrics = step(state, hr)
     params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     return metrics["loss"].cpu(), opt.grads, params
+
+
+def _small_zoo_model(kind: str, stage: int):
+    """The zoo step's model on the CPU: the transfer model of the CPU tests
+    (5 backbone blocks, 2 head RCABs, 16 channels) in ``stage``, or an
+    RRDBNet of 2 blocks, 16 features, growth 8; every weight moved off its
+    init by seeded noise (the zero biases count)."""
+    from facesr_torch.models.esrgan import RRDBNet, RRDBNetConfig
+    from facesr_torch.models.transfer import TrainingStage, TransferModelConfig, TransferSRModel
+
+    if kind == "transfer":
+        model = TransferSRModel(TransferModelConfig(backbone_blocks=5, head_blocks=2,
+                                                    head_channels=16), seed=0, device="cpu")
+        model.current_stage = TrainingStage(stage)
+        model._apply_stage()
+    else:
+        model = RRDBNet(RRDBNetConfig(num_feat=16, num_blocks=2, num_grow_ch=8), seed=0,
+                        device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model
+
+
+def small_zoo_step(dev, kind: str = "transfer", stage: int = 1,
+                   tf32_forced: bool = False) -> Tuple[StepResult, Dict[str, torch.Tensor]]:
+    """One train step of a small zoo model (``kind`` "transfer" in
+    ``stage`` 1-3, or "esrgan") on ``dev`` with the smooth loss and AdamW
+    (clip 0.5, lr 1e-4), batch 2 of HR 32x32; returns ((loss, grads,
+    updated params) on the CPU, the params before the step). Only the
+    stage's trained parameters get gradients."""
+    model = _small_zoo_model(kind, stage)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model = model.to(dev)
+    loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
+                                   perceptual_layers=["conv3_4"]), seed=0, device=dev)
+    opt = _Recording(weight_decay=0.0, gradient_clip=0.5)
+    state = steps.TrainState(model=model, loss_params=loss.params,
+                             opt_state=opt.init(steps.trainable_parameters(model), 1e-4))
+    step = steps.make_train_step(smooth_loss_apply, opt)
+    with _tf32_forced() if tf32_forced else contextlib.nullcontext():
+        _, metrics = step(state, _small_hr().to(dev))
+    params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return (metrics["loss"].cpu(), opt.grads, params), start
 
 
 GAN_BATCH, GAN_HR, GAN_D_BASE = 4, 64, 8

@@ -10,7 +10,9 @@ data_range 255; a bicubic baseline (the port's copy of cv2's
 ``INTER_CUBIC``) is reported beside the model. It runs on one CUDA card
 unless ``--device cpu`` is given and raises when there is no card and no
 ``--device``. ``--checkpoint`` takes a JAX ``.fckpt`` (EMA weights when
-it has them) or the port's ``.pth``; only FaceEnhanceNet is ported.
+it has them) or a ``.pth`` of FaceEnhanceNet, the transfer model or
+RRDBNet (`models.load.load_any_model`); ``--config`` overrides a
+FaceEnhanceNet's architecture only, as in the JAX CLI.
 ``--exported`` evaluates a ``.pt2`` serving artifact
 (`cli.export_serving`) in place of a checkpoint: the deployed program,
 batched straight through its symbolic batch. Images are PNG files (any
@@ -32,8 +34,8 @@ EVAL_CHUNK = 256  # images decoded and scored at a time on the batched path
 
 
 def load_model(checkpoint_path: str, config_yaml: Optional[str] = None, device=None):
-    """The FaceEnhanceNet of a ``.fckpt`` or a port ``.pth``
-    (`models.load.load_any_model`, EMA weights preferred), on ``device``.
+    """The model of a ``.fckpt`` or a ``.pth`` (`models.load.load_any_model`,
+    EMA weights preferred), on ``device``.
 
     ``config_yaml``: the ``model.custom`` section of a training YAML (or a
     bare mapping) overrides the architecture, as ``--config`` does in the

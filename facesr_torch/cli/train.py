@@ -30,8 +30,15 @@ the weights training starts from, after any checkpoint load, where a
 weights mismatch is a note (QAT moves the weights away from the
 calibration source on purpose).
 
-What is not ported raises and names its ROADMAP item: the transfer and
-ESRGAN models (A.12), mesh axes other than ``data``, ``--mesh-shape``,
+``--model transfer`` (or ``model.type: transfer``, as
+``configs/transfer_config.yaml`` sets) trains the transfer model of the
+``model.transfer`` section in stage 1 (head only; the backbone from
+``pretrained_path`` when it names one); ``--model esrgan`` trains the
+RRDBNet of `ESRGANBaseline`, its weights resolved from
+``checkpoints/pretrained/`` (local files only; random when absent).
+
+What is not ported raises and names its ROADMAP item: QAT of the model zoo
+(A.12.1), mesh axes other than ``data``, ``--mesh-shape``,
 ``pp_microbatches`` and ``--print-memory`` (A.13), the gradient monitor
 (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
 with random weights drawn from seed 0 (no pretrained file is in the repo).
@@ -57,11 +64,25 @@ class NotPorted(NotImplementedError):
 
 
 def create_model(model_type: str, config: dict, seed: int = 0):
-    """The model of the config's ``model`` section (``custom`` only)."""
+    """The model of the config's ``model`` section, on the CPU (the JAX
+    CLI's factory): ``custom``, ``transfer`` or ``esrgan``."""
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetConfig
 
-    if model_type in ("transfer", "esrgan"):
-        raise NotPorted(f"model type {model_type!r} is not ported yet (ROADMAP A.12)")
+    if model_type == "transfer":
+        from facesr_torch.models.transfer import create_transfer_model
+
+        tc = config.get("model", {}).get("transfer", {})
+        return create_transfer_model(pretrained_path=tc.get("pretrained_path"),
+                                     backbone_blocks=tc.get("backbone_blocks", 16),
+                                     freeze_blocks=tc.get("freeze_blocks", 16),
+                                     head_blocks=tc.get("head_blocks", 4),
+                                     head_channels=tc.get("head_channels", 64),
+                                     scale_factor=tc.get("scale_factor", 4),
+                                     seed=seed, device="cpu")
+    if model_type == "esrgan":
+        from facesr_torch.models.esrgan import create_esrgan_baseline
+
+        return create_esrgan_baseline(seed=seed, device="cpu")
     if model_type != "custom":
         raise ValueError(f"Unknown model type: {model_type}")
     mc = config.get("model", {}).get("custom", {})
@@ -88,8 +109,11 @@ def resolve_chain_path(path: str) -> str:
     raise SystemExit(f"checkpoint.resume not found: {path}")
 
 
-def _refuse_unported(args, config: dict) -> None:
+def _refuse_unported(args, config: dict, model_type: str) -> None:
     training = config.get("training", {})
+    if model_type in ("transfer", "esrgan") and (training.get("qat") or args.qat_scales):
+        raise NotPorted(f"QAT of the {model_type!r} model is not ported yet (ROADMAP A.12.1: "
+                        "int8 and .pt2 of the zoo)")
     logging_config = config.get("logging", {})
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
     if mesh_axes != "data" or args.mesh_shape or training.get("mesh_shape") \
@@ -213,9 +237,7 @@ def run(argv: Optional[List[str]] = None):
     checkpoint_config = config.get("checkpoint", {})
     logging_config = config.get("logging", {})
     model_type = args.model or config.get("model", {}).get("type", "custom")
-    if model_type in ("transfer", "esrgan"):
-        raise NotPorted(f"model type {model_type!r} is not ported yet (ROADMAP A.12)")
-    _refuse_unported(args, config)
+    _refuse_unported(args, config, model_type)
 
     import torch
 

@@ -36,7 +36,7 @@ from facesr_torch.ops.conv import conv2d, prelu, quantize_act
 from facesr_torch.ops.pixel_shuffle import pixel_shuffle
 from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 
-__all__ = ["reduced_channels", "ChannelAttention", "RCAB", "ResidualGroup",
+__all__ = ["reduced_channels", "KernelWeightCache", "ChannelAttention", "RCAB", "ResidualGroup",
            "UpsampleStage", "Upsample", "make_conv", "channel_attention", "rcab",
            "residual_groups", "REMAT_MODES", "upsample", "make_residual_groups",
            "make_upsample", "init_conv", "init_rcab", "init_residual_group",
@@ -46,6 +46,32 @@ __all__ = ["reduced_channels", "ChannelAttention", "RCAB", "ResidualGroup",
 def reduced_channels(num_channels: int, reduction_ratio: int) -> int:
     """SE bottleneck width: max(C // r, 8)."""
     return max(num_channels // reduction_ratio, 8)
+
+
+class KernelWeightCache:
+    """Mixin of a model that runs residual groups on the group kernel:
+    their weights in the kernel layout, prepared once and reused until a
+    parameter they come from changes. An in-place edit or `load_state_dict`
+    bumps a parameter's version; a device or dtype move clears the cache
+    (`_apply`). Parameters made under `torch.inference_mode` track no
+    version, so theirs are prepared on every call."""
+
+    _kernel_weights = None  # (key, prepared weights)
+
+    def cached_kernel_weights(self, params, prepare):
+        """``prepare()``'s result for the current state of ``params``, as
+        plain tensors even under inference_mode (a later autograd forward
+        on the CPU may save them for backward)."""
+        key = None if any(p.is_inference() for p in params) else tuple(
+            (p.data_ptr(), p._version) for p in params)
+        if key is None or self._kernel_weights is None or self._kernel_weights[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._kernel_weights = (key, prepare())
+        return self._kernel_weights[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_weights = None
+        return super()._apply(fn, *args, **kwargs)
 
 
 def make_conv(cin: int, cout: int, k: int) -> nn.Conv2d:

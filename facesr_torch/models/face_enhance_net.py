@@ -92,11 +92,13 @@ def kernel_trunk_fits(cfg: FaceEnhanceNetConfig) -> bool:
             and 1 <= blocks.reduced_channels(c, cfg.reduction_ratio) <= c)
 
 
-class FaceEnhanceNet(nn.Module):
+class FaceEnhanceNet(blocks.KernelWeightCache, nn.Module):
     """FaceEnhanceNet on NHWC tensors. Weights are drawn from a CPU
     `torch.Generator` seeded with ``seed`` (Kaiming fan_out/relu, PReLU
     0.25, ICNR upsample convs, zero conv_last), then placed on ``device``
     (CUDA unless the caller names one)."""
+
+    model_type = "custom"
 
     def __init__(self, config: Optional[FaceEnhanceNetConfig] = None,
                  seed: int = 0, device: DeviceLike = None, **kwargs):
@@ -107,7 +109,6 @@ class FaceEnhanceNet(nn.Module):
         self.config = cfg
         # the bf16 eval trunk, chosen once from the config
         self.kernel_trunk = kernel_trunk_fits(cfg)
-        self._kernel_weights = None  # (key, per-group kernel-layout weights)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         c, k = cfg.num_channels, cfg.kernel_size
@@ -198,25 +199,10 @@ class FaceEnhanceNet(nn.Module):
 
     def kernel_group_weights(self) -> List[GroupWeights]:
         """Each residual group's weights in the kernel layout, for the bf16
-        trunk. Prepared once and reused until a trunk parameter changes: an
-        in-place edit or `load_state_dict` bumps its version, a device or
-        dtype move clears the cache (`_apply`). Parameters made under
-        `torch.inference_mode` track no version, so theirs are prepared on
-        every call."""
-        params = list(self.residual_groups.parameters())
-        key = None if any(p.is_inference() for p in params) else tuple(
-            (p.data_ptr(), p._version) for p in params)
-        if key is None or self._kernel_weights is None or self._kernel_weights[0] != key:
-            # plain tensors even when called under inference_mode, so a
-            # later autograd forward on the CPU can save them for backward
-            with torch.inference_mode(False), torch.no_grad():
-                gws = [prepare_group_weights(g) for g in self.residual_groups]
-            self._kernel_weights = (key, gws)
-        return self._kernel_weights[1]
-
-    def _apply(self, fn, *args, **kwargs):
-        self._kernel_weights = None
-        return super()._apply(fn, *args, **kwargs)
+        trunk (cached, `blocks.KernelWeightCache`)."""
+        return self.cached_kernel_weights(
+            list(self.residual_groups.parameters()),
+            lambda: [prepare_group_weights(g) for g in self.residual_groups])
 
 
 def param_count(model: nn.Module) -> int:

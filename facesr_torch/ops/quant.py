@@ -23,6 +23,9 @@ every width. `conv_leaves` lists the leaves in JAX tree-flatten order
 Weight-only ``int8`` serving quantizes the same sites and serves the bf16
 forward of the weights `dequantize_pytree` gives back, kernel trunk
 included.
+
+Only FaceEnhanceNet is quantized: the model zoo's int8 serving,
+calibration and QAT raise (`ZOO_INT8_NOT_PORTED`, ROADMAP A.12.1).
 """
 
 from __future__ import annotations
@@ -39,7 +42,12 @@ __all__ = ["MIN_QUANT_SIZE", "Int8Weight", "FakeQuant", "FakeQuantWeight", "Quan
            "ConvLeaf", "conv_leaves", "is_int8_kernel", "site_weight", "over_127", "amax_scale",
            "dequantize_pytree", "quantize_conv_kernels", "collecting_act_stats",
            "record_act_scale", "attach_act_scales", "calibrate_act_scales",
-           "fake_quant_params", "quantization_summary"]
+           "fake_quant_params", "quantization_summary", "ZOO_INT8_NOT_PORTED",
+           "require_int8_model"]
+
+ZOO_INT8_NOT_PORTED = ("int8 and int8_full serving, calibration and QAT of the model zoo "
+                       "(transfer, esrgan) are not ported yet (ROADMAP A.12.1: int8 and .pt2 "
+                       "of the zoo); serve it in f32 or bf16")
 
 # Leaves smaller than this stay float: per-channel scales on tiny tensors
 # cost accuracy for no footprint (the JAX package's MIN_QUANT_SIZE).
@@ -156,9 +164,18 @@ def _is_conv_kernel(path, shape, dtype) -> bool:
             and dtype in (torch.float32, torch.bfloat16))
 
 
+def require_int8_model(model) -> None:
+    """Raise NotImplementedError (ROADMAP A.12.1) for a model whose int8
+    is not ported: any but FaceEnhanceNet."""
+    if getattr(model, "model_type", "custom") not in ("custom", "lite"):
+        raise NotImplementedError(ZOO_INT8_NOT_PORTED)
+
+
 def conv_leaves(model) -> List[ConvLeaf]:
     """The >= 4-d leaves of a FaceEnhanceNet's JAX parameter tree, in JAX
-    tree-flatten order (sorted keys; the upsample stages a list)."""
+    tree-flatten order (sorted keys; the upsample stages a list). A model
+    of the zoo raises NotImplementedError (ROADMAP A.12.1)."""
+    require_int8_model(model)
     cfg = model.config
     g_n, b_n = cfg.num_groups, cfg.blocks_per_group
 
@@ -190,6 +207,7 @@ def conv_leaves(model) -> List[ConvLeaf]:
 
 def quant_leaves(model) -> List[ConvLeaf]:
     """The leaves the transforms quantize, in JAX tree-flatten order."""
+    require_int8_model(model)
     dtype = model.conv_first.weight.dtype
     return [leaf for leaf in conv_leaves(model)
             if _is_conv_kernel(leaf.path, leaf.stack + leaf.shape, dtype)]

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["resize_matrix", "resize2d", "bicubic_resize", "bicubic_up",
-           "bicubic_down", "avg_pool2"]
+           "bicubic_down", "nearest_up", "avg_pool2"]
 
 # Keys cubic convolution constant used by PyTorch (and OpenCV) bicubic.
 _A = -0.75
@@ -122,6 +122,15 @@ def bicubic_up(x: torch.Tensor, scale: int) -> torch.Tensor:
 def bicubic_down(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Integer-scale bicubic downsample (LR synthesis)."""
     return bicubic_resize(x, 1.0 / float(scale))
+
+
+def nearest_up(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Integer-scale nearest upsample of NHWC ``x`` (the ESRGAN upsampling
+    path): PyTorch's legacy 'nearest' at an integer scale is a pure
+    repeat, a broadcast and a reshape here as in the JAX package."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c)
+    return x.reshape(n, h * scale, w * scale, c)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,10 @@ request micro-batcher.
 
 Port of `facesr/parallel/serving.py` for one CUDA card:
 
-- `build_serving_fn`: the serving precision dispatch: f32, bf16 (the
-  group-kernel trunk), ``int8`` (per-channel int8 weights, dequantized to
+- `build_serving_fn`: the serving precision dispatch of any model the
+  port loads (FaceEnhanceNet, the transfer model, RRDBNet): f32, bf16
+  (the group kernel in FaceEnhanceNet's trunk and the transfer head),
+  ``int8`` (per-channel int8 weights, dequantized to
   bf16 once, the kernel trunk) and ``int8_full`` (s8 convs with
   per-image dynamic or calibrated static activation scales).
 - `calibrated_qparams`, `load_calibrated_qparams`: calibrate static
@@ -172,9 +174,15 @@ def build_serving_fn(model: torch.nn.Module, dtype: ServingDtype = None,
 
     ``calibration``/``quant_cache`` under another dtype print a warning and
     are ignored. The forward's ``sites`` attribute holds the int8 sites
-    (None for the float dtypes)."""
+    (None for the float dtypes). The model zoo (a transfer model, an
+    RRDBNet) serves in f32 and bf16; its int8 dtypes raise
+    NotImplementedError (ROADMAP A.12.1)."""
     if dtype not in (None, torch.float32, torch.bfloat16, "int8", "int8_full"):
         raise ValueError(f"unsupported serving dtype {dtype!r}")
+    if dtype in ("int8", "int8_full"):
+        from facesr_torch.ops.quant import require_int8_model
+
+        require_int8_model(model)
     if dtype != "int8_full" and (calibration is not None or quant_cache):
         print(f"Warning: calibration/quant_cache only apply to dtype='int8_full' "
               f"(got dtype={dtype!r}); ignoring them")
@@ -229,7 +237,8 @@ def pad_to_multiple(array: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
 
 
 class Predictor:
-    """Serve a FaceEnhanceNet on one device.
+    """Serve a model on one device (FaceEnhanceNet, or a model of the zoo
+    in f32 and bf16).
 
     ``__call__(images)`` takes an NHWC float batch of any size and returns
     the clipped SR batch as float32 numpy. Requests larger than

@@ -23,7 +23,20 @@ scales by ``max_norm / (norm + 1e-6)`` on every step, while optax scales by
 
 Every decision is a device tensor (``torch.where``), so an update never
 waits for the card. The state is a dict of tensors (``torch.save`` writes
-it), keyed by parameter name.
+it), keyed by parameter name. The optimiser updates the parameters it is
+given, so a model with frozen parameters (``requires_grad`` False, the
+transfer model's stages) is the JAX package's
+``multi_transform({"frozen": set_to_zero, "train": chain(clip, adamw)})``:
+the global norm, the decay and the moments cover the trained leaves only.
+
+`StageAdamW` is the transfer model's `make_stage_optimizer`
+(`facesr/models/transfer.py:193-212`): ``chain(clip_by_global_norm,
+multi_transform(frozen: set_to_zero, backbone: adamw(backbone_lr) or
+set_to_zero when it is 0, head: adamw(head_lr)))`` with fixed learning
+rates (the epoch schedule does not reach them, as in JAX). Its clip comes
+before the split, so its global norm covers every leaf, frozen ones
+included: with clipping on it asks for their gradients too
+(``needs_frozen_grads``).
 """
 
 from __future__ import annotations
@@ -32,7 +45,7 @@ from typing import Any, Dict
 
 import torch
 
-__all__ = ["AdamW", "set_learning_rate"]
+__all__ = ["AdamW", "StageAdamW", "set_learning_rate"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -74,20 +87,32 @@ class AdamW:
                          total_notfinite=scalar(0))
         return state
 
+    def _clip(self, grads: Tensors) -> Tensors:
+        """optax.clip_by_global_norm over ``grads``."""
+        if not (self.gradient_clip and self.gradient_clip > 0):
+            return grads
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        keep = norm < self.gradient_clip
+        return {n: torch.where(keep, g, (g / norm) * self.gradient_clip)
+                for n, g in grads.items()}
+
+    def _neg_lr(self, name: str, state: Dict[str, Any]):
+        """The negated learning rate of parameter ``name`` (None: no update)."""
+        return -state["lr"]
+
     def _inner(self, grads: Tensors, state: Dict[str, Any], params: Tensors):
         """clip_by_global_norm -> adamw: (updates, new count, mu, nu)."""
-        if self.gradient_clip and self.gradient_clip > 0:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-            keep = norm < self.gradient_clip
-            grads = {n: torch.where(keep, g, (g / norm) * self.gradient_clip)
-                     for n, g in grads.items()}
+        grads = self._clip(grads)
         b1, b2 = self.b1, self.b2
         count = state["count"] + 1
         bc1 = 1 - torch.pow(b1, count.float())
         bc2 = 1 - torch.pow(b2, count.float())
-        neg_lr = -state["lr"]
         mu, nu, updates = {}, {}, {}
         for n, g in grads.items():
+            neg_lr = self._neg_lr(n, state)
+            if neg_lr is None:  # set_to_zero: no update, no moments
+                mu[n], nu[n] = state["mu"][n], state["nu"][n]
+                continue
             mu[n] = (1 - b1) * g + b1 * state["mu"][n]
             nu[n] = (1 - b2) * (g * g) + b2 * state["nu"][n]
             u = (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2) + self.eps)
@@ -129,6 +154,37 @@ class AdamW:
             params[n].add_(u)
 
 
+class StageAdamW(AdamW):
+    """The transfer model's per-group optimiser (`make_stage_optimizer` in
+    `models.transfer`): ``labels`` maps every parameter name to 'frozen',
+    'backbone' or 'head'; 'head' trains at ``head_lr``, 'backbone' at
+    ``backbone_lr`` (no update when it is 0), 'frozen' never. The learning
+    rates are fixed: `set_learning_rate` leaves them alone. With
+    ``gradient_clip`` the global norm covers every parameter given,
+    frozen ones included (``needs_frozen_grads``)."""
+
+    def __init__(self, labels: Dict[str, str], head_lr: float, backbone_lr: float,
+                 weight_decay: float = 0.0, gradient_clip: float = 0.0,
+                 skip_nonfinite: int = 0):
+        super().__init__(weight_decay=weight_decay, gradient_clip=gradient_clip,
+                         skip_nonfinite=skip_nonfinite)
+        self.labels = dict(labels)
+        self.lrs = {"head": head_lr, "backbone": backbone_lr, "frozen": 0.0}
+
+    @property
+    def needs_frozen_grads(self) -> bool:
+        return bool(self.gradient_clip and self.gradient_clip > 0)
+
+    def init(self, params: Tensors, learning_rate: float = 0.0) -> Dict[str, Any]:
+        state = super().init(params, learning_rate)
+        del state["lr"]  # fixed per-group rates, no injected hyperparameter
+        return state
+
+    def _neg_lr(self, name: str, state: Dict[str, Any]):
+        lr = self.lrs[self.labels[name]]
+        return -lr if lr > 0 else None
+
+
 def _select(cond: torch.Tensor, new: Any, old: Any) -> Any:
     """``torch.where(cond, new, old)`` over a tensor or a dict of them."""
     if isinstance(new, dict):
@@ -138,5 +194,8 @@ def _select(cond: torch.Tensor, new: Any, old: Any) -> Any:
 
 def set_learning_rate(state: Dict[str, Any], lr: float) -> None:
     """Write the learning rate of the next steps into ``state`` (in place,
-    on the device: no copy from the host)."""
-    state["lr"].fill_(lr)
+    on the device: no copy from the host). A state without an injected
+    rate (`StageAdamW`'s) is left alone, as the JAX package's
+    `set_learning_rate` finds no hyperparameter there."""
+    if "lr" in state:
+        state["lr"].fill_(lr)

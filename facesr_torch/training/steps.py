@@ -8,6 +8,9 @@ generator forward. The whole step, backward included, runs under
 `full_f32()`, so every f32 conv and matmul runs without TF32. Metrics stay
 device tensors: a step adds no host sync. ``quant_fn`` (QAT) returns the
 fake-quant sites each forward runs with (`ops.quant.fake_quant_params`).
+A step differentiates and updates the parameters that require grad
+(`trainable_parameters`): all of them, except the frozen ones of the
+transfer model's stages.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ from facesr_torch.ops.conv import full_f32
 from facesr_torch.ops.resize import bicubic_down
 from facesr_torch.training.optim import AdamW
 
-__all__ = ["TrainState", "init_ema", "ema_update", "make_train_step", "make_gan_train_step",
-           "make_eval_step"]
+__all__ = ["TrainState", "init_ema", "ema_update", "trainable_parameters", "make_train_step",
+           "make_gan_train_step", "make_eval_step"]
 
 LossApply = Callable[[Dict[str, Any], torch.Tensor, torch.Tensor],
                      Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -55,6 +58,11 @@ class TrainState:
     d_opt_state: Optional[Dict[str, Any]] = None
 
 
+def trainable_parameters(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The parameters a step trains, by name: those that require grad."""
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
 def init_ema(model: nn.Module) -> Dict[str, torch.Tensor]:
     """A fresh EMA: a copy of every parameter, by name."""
     return {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -78,7 +86,7 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
     ``opt_notfinite``."""
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
-        params = dict(state.model.named_parameters())
+        params = trainable_parameters(state.model)
         with full_f32():
             hr = hr.float()
             lr_img = bicubic_down(hr, scale_factor)
@@ -122,7 +130,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     counts ``opt_notfinite`` and ``d_opt_notfinite``."""
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
-        params = dict(state.model.named_parameters())
+        params = trainable_parameters(state.model)
         disc = state.disc
         d_params = dict(disc.named_parameters())
         stats_in = {k: v.clone() for k, v in disc.named_buffers()} if guard_stats else None

@@ -44,6 +44,16 @@ int8 sites, or `set_qat_scales` before the first step) pins the
 activation grid to static serving scales. Checkpoints keep the latent
 float weights; quantize at export (`cli.export_quantized`).
 
+The model is a `FaceEnhanceNet`, a `TransferSRModel` or an `RRDBNet`
+(`ESRGANBaseline`); checkpoints carry its ``model_type`` and
+``model_config``. A transfer model trains the parameters its stage leaves
+unfrozen (``requires_grad``), so frozen tensors stay bitwise unchanged and
+the default optimiser's clip, decay and moments cover the trained ones
+only, as the JAX Trainer's ``param_labels`` multi-transform.
+``optimizer`` takes a custom optimiser in place of the default AdamW, such
+as the transfer model's `make_stage_optimizer`; the config's non-finite
+guard is applied to it too.
+
 Not in this slice: mesh axes, W&B, the validation image grid and the
 gradient monitor.
 """
@@ -64,24 +74,19 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from facesr_torch.ckpt import fckpt
-from facesr_torch.ckpt.weights import state_dict_from_jax_params
+from facesr_torch.ckpt.weights import (REFERENCE_CONFIG_FIELDS,  # noqa: F401 — re-exported
+                                       reference_config, state_dict_from_jax)
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.ops.quant import fake_quant_params
 from facesr_torch.training import schedules
 from facesr_torch.training.optim import AdamW, set_learning_rate
 from facesr_torch.training.steps import (TrainState, init_ema, make_eval_step,
-                                         make_gan_train_step, make_train_step)
+                                         make_gan_train_step, make_train_step,
+                                         trainable_parameters)
 
 __all__ = ["TrainerConfig", "EarlyStopping", "Trainer", "REFERENCE_CONFIG_FIELDS",
            "overfit_test"]
 
-# the reference FaceEnhanceNetConfig's fields: the checkpoint's ``config``
-# holds only these, so the reference constructor accepts it verbatim
-REFERENCE_CONFIG_FIELDS = (
-    "num_channels", "num_groups", "blocks_per_group", "kernel_size",
-    "reduction_ratio", "scale_factor", "res_scale", "in_channels",
-    "out_channels", "init_scale", "num_rcab_blocks",
-)
 HISTORY_KEYS = ("train_loss", "val_loss", "val_psnr", "val_ssim", "learning_rate")
 # a GAN trainer's history keys, and the epoch metric each one reads
 GAN_HISTORY_KEYS = {"d_loss": "d_loss", "g_loss": "g_adv", "d_real": "d_real",
@@ -211,7 +216,8 @@ class Trainer:
     """Single-card training manager.
 
     Args:
-        model: a `FaceEnhanceNet` (moved to ``device``).
+        model: a `FaceEnhanceNet`, `TransferSRModel` or `RRDBNet` (moved to
+            ``device``).
         train_loader / val_loader: iterables of {'hr': NHWC float32 [0, 1]}.
         loss_fn: a `CombinedLoss` (moved to ``device``).
         device: CUDA unless the caller names one.
@@ -220,15 +226,21 @@ class Trainer:
         qat_scales: with ``config.qat``, calibrated int8 sites of the same
             architecture whose static activation scales pin the fake-quant
             grid (`set_qat_scales` sets them later, before the first step).
+        optimizer: an optimiser in place of the default AdamW (the
+            transfer model's `make_stage_optimizer`); one whose clip needs
+            the frozen parameters' gradients (``needs_frozen_grads``) gets
+            them: every parameter then requires grad, and its labels keep
+            the frozen ones unchanged.
     """
 
     def __init__(self, model, train_loader, val_loader, loss_fn,
                  config: Optional[TrainerConfig] = None, device: DeviceLike = None,
-                 discriminator=None, qat_scales=None):
+                 discriminator=None, qat_scales=None, optimizer=None):
         self.config = cfg = config or TrainerConfig()
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.model_cfg = model.config
+        self.model_type = getattr(model, "model_type", "custom")
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.loss_fn = loss_fn.to(self.device)
@@ -246,15 +258,21 @@ class Trainer:
         elif qat_scales is not None:
             raise ValueError("qat_scales requires config.qat")
         quant_fn = self._qat_quant if cfg.qat else None
-        self.optimizer = AdamW(weight_decay=cfg.weight_decay,
-                               gradient_clip=cfg.gradient_clip,
-                               accumulation_steps=cfg.accumulation_steps,
-                               skip_nonfinite=cfg.skip_nonfinite_updates)
+        if optimizer is None:
+            optimizer = AdamW(weight_decay=cfg.weight_decay, gradient_clip=cfg.gradient_clip,
+                              accumulation_steps=cfg.accumulation_steps,
+                              skip_nonfinite=cfg.skip_nonfinite_updates)
+        else:
+            if cfg.skip_nonfinite_updates > 0:  # a custom optimiser keeps the guard
+                optimizer.skip_nonfinite = cfg.skip_nonfinite_updates
+            if getattr(optimizer, "needs_frozen_grads", False):
+                for p in self.model.parameters():
+                    p.requires_grad_(True)
+        self.optimizer = optimizer
         self.use_ema = cfg.ema_decay > 0
         self.state = TrainState(
             model=self.model,
-            opt_state=self.optimizer.init(dict(self.model.named_parameters()),
-                                          cfg.learning_rate),
+            opt_state=self.optimizer.init(trainable_parameters(self.model), cfg.learning_rate),
             loss_params=self.loss_fn.params,
             ema_params=init_ema(self.model) if self.use_ema else None)
         self._train_step = make_train_step(loss_apply, self.optimizer,
@@ -499,8 +517,7 @@ class Trainer:
                    "d_optimizer_state": _to_host(self.state.d_opt_state)}
         return {
             "model_state_dict": _to_host(self.model.state_dict()),
-            "config": {k: v for k, v in model_config.items()
-                       if k in REFERENCE_CONFIG_FIELDS},
+            "config": reference_config(self.model),
             "model_config": model_config,
             "trainer_config": asdict(self.config),
             "optimizer_state": _to_host(self.state.opt_state),
@@ -511,7 +528,7 @@ class Trainer:
             "best_metric": self.best_metric,
             "training_history": copy.deepcopy(self.training_history),
             "scheduler_state": self.plateau.state_dict() if self.plateau else None,
-            "model_type": "custom",
+            "model_type": self.model_type,
             "use_gan": self.use_gan,
             **gan,
         }
@@ -578,7 +595,12 @@ class Trainer:
             tree, meta = fckpt.load_checkpoint(path)
             if "params" not in tree:
                 raise ValueError(f"{path}: no 'params' in the checkpoint tree")
-            sd = state_dict_from_jax_params(fckpt.restore_list_nodes(tree["params"]))
+            mtype = {"lite": "custom"}.get(meta.get("model_type"), meta.get("model_type"))
+            mtype = mtype or self.model_type
+            if mtype != self.model_type:
+                raise ValueError(f"{path} holds a {mtype!r} model; this trainer trains "
+                                 f"a {self.model_type!r} one")
+            sd = state_dict_from_jax(fckpt.prepare_params(tree["params"], mtype), mtype)
             epoch = meta.get("epoch")
         elif head == b"PK\x03\x04":
             ckpt = torch.load(path, map_location="cpu", weights_only=True)
@@ -641,7 +663,7 @@ def overfit_test(model, dataloader, loss_fn=None, num_images: int = 10,
     model = model.to(dev)
     hr = torch.as_tensor(next(iter(dataloader))["hr"][:num_images],
                          dtype=torch.float32).to(dev)
-    scale = model.config.scale_factor
+    scale = getattr(model.config, "scale_factor", getattr(model.config, "scale", 4))
     params = [p for p in model.parameters() if p.requires_grad]
     opt = torch.optim.Adam(params, lr=learning_rate, eps=1e-8, foreach=False)
     losses, psnrs = [], []

@@ -135,9 +135,17 @@ def test_port_written_fckpt_loads_in_both_packages(checkpoints, tmp_path):
 
 
 def test_load_any_model_refuses_what_is_not_ported(tmp_path):
+    """The model zoo loads (tests/test_torch_zoo_cli.py); a zoo checkpoint
+    without its weights is refused and the error names the file."""
+    from facesr_torch.ckpt import fckpt
+
     torch.save({"model_state_dict": {}, "model_type": "transfer"}, tmp_path / "t.pth")
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="t.pth"):
         load_any_model(tmp_path / "t.pth")
+    fckpt.save_checkpoint(str(tmp_path / "e.fckpt"), {"params": {"w": np.zeros(2)}},
+                          {"model_type": "esrgan"})
+    with pytest.raises(ValueError, match="e.fckpt"):
+        load_any_model(tmp_path / "e.fckpt")
     (tmp_path / "x.bin").write_bytes(b"nope")
     with pytest.raises(ValueError, match="neither"):
         load_any_model(tmp_path / "x.bin")

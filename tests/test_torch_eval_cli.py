@@ -270,7 +270,8 @@ def test_compare_skips_unloadable_checkpoints_and_unreadable_images(evalset, no_
     res = port_compare.run(["--checkpoint-dir", str(ckpts), "--test-dir", str(hr),
                             "--output", str(tmp_path / "out"), "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "Skipping" in out and "ROADMAP A.12" in out and "broken.pth" in out
+    # the zoo loads now; a zoo file without its weights is skipped, named
+    assert "Skipping" in out and "esrgan.fckpt" in out and "broken.pth" in out
     assert "skipping unreadable image zz_corrupt.png" in out
     assert res["methods"] == ["Bilinear", "Bicubic", "Lanczos4", "Best Model"]
     assert res["images"] == 2

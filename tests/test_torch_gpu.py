@@ -57,7 +57,9 @@ _SPLIT_SHAPES = [((1, 256, 256, 64), 10), ((1, 130, 200, 64), 2), ((3, 96, 96, 6
                  ((80, 40, 80, 64), 2)]
 _SHAPES = [((4, 64, 64, 64), 10), ((3, 20, 36, 64), 3), ((1, 7, 5, 64), 1),
            ((128, 64, 64, 64), 10), ((40, 20, 36, 64), 3), ((2, 12, 17, 64), 2),
-           ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10)] + _SPLIT_SHAPES
+           ((2, 40, 80, 64), 2), ((1, 64, 64, 64), 10)] + _SPLIT_SHAPES + [
+    # the transfer model's head (B = 4) at the serving batch and at 256x256
+    ((128, 64, 64, 64), 4), ((1, 256, 256, 64), 4)]
 
 
 def _features(shape, seed, device):
@@ -120,6 +122,46 @@ def test_bf16_model_trunk_runs_the_kernel(cuda_device):
     torch.cuda.synchronize()
     assert tgroup.fused_residual_group.launches == before + 2
     assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_bf16_transfer_head_runs_the_kernel_once(cuda_device):
+    """The transfer head (4 RCABs at 64 channels) is one group call a bf16
+    eval forward, within 2^-5 of the plain head's own effect."""
+    from facesr_torch.models import transfer as ttr
+
+    model = ttr.TransferSRModel(ttr.TransferModelConfig(backbone_blocks=1), device=cuda_device)
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    before = tgroup.fused_residual_group.launches
+    with torch.inference_mode():
+        out = model(x, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert tgroup.fused_residual_group.launches == before + 1
+        plain = model(x, dtype=torch.bfloat16, head_fn=ttr.plain_head)
+        none = model(x, dtype=torch.bfloat16, head_fn=lambda head, f: f)
+    ref, d = (plain - none).abs(), (out - plain).abs()
+    assert out.shape == (2, 128, 128, 3) and torch.isfinite(out).all()
+    assert d.max() <= 2.0 ** -5 * ref.max() and d.mean() <= 2.0 ** -5 * ref.mean()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["esrgan", "transfer"])
+def test_zoo_f32_forward_on_cuda_matches_cpu(cuda_device, kind):
+    """f32 with TF32 off: the card's forward within 1e-4 relative L2 of
+    the CPU's (other summation orders give ~1e-7-1e-6)."""
+    from facesr_torch.models import esrgan as tesr
+    from facesr_torch.models import transfer as ttr
+
+    def build(dev):
+        if kind == "esrgan":
+            return tesr.RRDBNet(tesr.RRDBNetConfig(num_blocks=2), device=dev).eval()
+        return ttr.TransferSRModel(ttr.TransferModelConfig(backbone_blocks=2), device=dev).eval()
+
+    x = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        want = build("cpu")(x).double()
+        got = build(cuda_device)(x.to(cuda_device)).cpu().double()
+    assert ((got - want).norm() / want.norm()).item() <= 1e-4
 
 
 # the int8 conv's shapes of the 6x10x64 model at a 16x16 input: conv_first
