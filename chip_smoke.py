@@ -155,6 +155,33 @@ catches an error and goes on):
    with a FaceEnhanceNet, a transfer and an RRDBNet row, and the HTTP API
    serving the transfer ``.fckpt`` in bf16, every response bitwise
    `Predictor`'s batch-1 output.
+14. the zoo's int8 and ``.pt2``, the eighth path, at phase 13's full
+   widths and seeded weights: RRDBNet and TransferSRModel at batch 128
+   in bf16, ``int8``, ``int8_full`` dynamic and ``int8_full`` calibrated
+   (on 32 of phase 8's 64x64 val LR PNGs, written as a quant cache):
+   forward ms (CUDA events, mean of 5), `Predictor` images/s (median of
+   5), peak memory, group launches a forward (the transfer model's bf16
+   and int8: 1) and the profiler's split of each int8 forward; the
+   weight-only int8 transfer forward bitwise the bf16 forward of a copy
+   holding the dequantized weights, its kernel head held to phase 4's
+   share of the plain head's effect, with a dropped SE gate as the
+   control; ``int8_full`` on the card against the CPU port (RRDBNet 2 x 64
+   growth 32, transfer 2+2 at 64, 4 images, both scale modes: bitwise in
+   bf16); ``.pt2`` files with a
+   symbolic batch of RRDBNet (bf16), the transfer model (bf16,
+   ``int8_full`` on the quant cache) and FaceEnhanceNet 6x10x64 (``int8``,
+   ``int8_full``), each loaded back and run at batch 1 and 128 against
+   the live forward (int8 bitwise, bf16 within 1e-2), its custom-op nodes
+   counted (``rcab_group``: 0, 1, 0, 6, 0; one ``int8_conv`` an
+   int8_full site), its MB and export and load seconds; the HTTP API with
+   ``--exported`` on the transfer int8_full artifact, each response
+   bitwise the artifact's batch-1 output; ``configs/transfer_config.yaml``
+   with ``training.qat: true`` through the train CLI (one epoch, phase 8's
+   PNGs) against phase 13's step; the small RRDBNet and transfer (stage 2)
+   QAT steps on the card against the CPU within 1e-4, frozen tensors
+   bitwise, the CPU taking the card's fake-quant level wherever the two
+   round a tie apart (an activation within 1e-3 of a level boundary;
+   counted), each with its TF32 control rejected.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -2293,6 +2320,21 @@ def zoo_profile_split(fn) -> str:
             + "; top ops: " + ", ".join(f"{e.key} {dev_us(e) / 1e3:.3f}" for e in top))
 
 
+def no_gate_head(head, feat):
+    """The transfer head with a planted fault: its SE gates dropped."""
+    from facesr_torch.models.transfer import HEAD_RES_SCALE
+    from facesr_torch.ops import conv as tconv
+
+    residual = feat
+    for blk in head.rcab_blocks:
+        out = tconv.conv2d(feat, blk.conv1.weight, blk.conv1.bias, padding=1)
+        out = tconv.prelu(out, blk.prelu.weight)
+        out = tconv.conv2d(out, blk.conv2.weight, blk.conv2.bias, padding=1)
+        feat = feat + out * HEAD_RES_SCALE
+    return tconv.conv2d(feat, head.conv_after.weight, head.conv_after.bias,
+                        padding=1) + residual
+
+
 def zoo_phase(dev, card: str, tmp: Path) -> dict:
     """Phase 13: the model zoo on the card. Returns the group-kernel
     launches of its main paths (the transfer Predictor and API) and the
@@ -2379,16 +2421,6 @@ def zoo_phase(dev, card: str, tmp: Path) -> dict:
     tm = models["transfer"]
     xh = torch.rand((ZOO_HEAD_IMAGES, 64, 64, 3),
                     generator=torch.Generator().manual_seed(132)).to(dev)
-
-    def no_gate_head(head, feat):
-        residual = feat
-        for blk in head.rcab_blocks:
-            out = tconv.conv2d(feat, blk.conv1.weight, blk.conv1.bias, padding=1)
-            out = tconv.prelu(out, blk.prelu.weight)
-            out = tconv.conv2d(out, blk.conv2.weight, blk.conv2.bias, padding=1)
-            feat = feat + out * ttr.HEAD_RES_SCALE
-        return tconv.conv2d(feat, head.conv_after.weight, head.conv_after.bias,
-                            padding=1) + residual
 
     with torch.inference_mode():
         before = rg.fused_residual_group.launches
@@ -2653,7 +2685,329 @@ def zoo_phase(dev, card: str, tmp: Path) -> dict:
         srv.server_close()
         srv.service.close()
     log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return {"launches": launches, "b4": b4}
+    return {"launches": launches, "b4": b4, "step_ms": step_ms}
+
+
+# phase 14: the zoo's int8 and the .pt2 files at full width (RealESRGAN x4plus;
+# transfer 16+4 at 64 channels), seeded random weights, batch 128 of 64x64
+ZOO8_TIMED = 5                  # forwards (CUDA events, mean) and Predictor calls (median)
+ZOO8_CHECK_IMAGES = 4           # int8_full card against the CPU port, at the small depths:
+ZOO8_SMALL = {"esrgan": dict(num_feat=64, num_blocks=2, num_grow_ch=32),
+              "transfer": dict(backbone_blocks=2, head_blocks=2, head_channels=64)}
+ZOO8_EXPORT_BATCHES = (1, MAX_BATCH)
+EXPORT_BF16_TOL = 1e-2          # cli.export_serving --verify's bf16 tolerance
+ZOO8_HTTP_REQUESTS = 8          # single-image requests to the transfer int8_full .pt2
+
+
+def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
+    """Phase 14: the zoo's int8 and ``.pt2`` on the card, on phase 8's PNG
+    set in ``tmp/data``. Returns the group-kernel launches of its main paths
+    (the transfer model's bf16 and int8 serving and its bf16 artifact,
+    FaceEnhanceNet's int8 artifact)."""
+    import copy
+    import os
+
+    from facesr_torch.app import api as port_api
+    from facesr_torch.app.demo import prepare_inputs
+    from facesr_torch.ckpt import export as ex
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.cli.step_numerics import (LEVEL_TIE, SIGN_TIE, fake_quant_levels,
+                                                small_zoo_step, step_errors)
+    from facesr_torch.data import png
+    from facesr_torch.models import esrgan as tesr
+    from facesr_torch.models import transfer as ttr
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.ops.conv import full_f32
+    from facesr_torch.ops.quant import dequantize_pytree, quantize_conv_kernels
+    from facesr_torch.parallel.serving import (Predictor, build_serving_fn,
+                                               load_calibration_images)
+
+    log(f"== 14. the zoo's int8 and .pt2: RRDBNet x4plus and TransferSRModel 16+4 in bf16, "
+        f"int8 and int8_full, card vs CPU, the .pt2 files of every family, the API on an int8 "
+        f"artifact, zoo QAT [{card}]")
+    t_phase = time.perf_counter()
+    start_launches = rg.fused_residual_group.launches
+    calib = load_calibration_images(str(tmp / "data" / "val" / "LR"), size=64,
+                                    limit=INT8_CALIB_IMAGES)
+    x = np.random.default_rng(140).random((MAX_BATCH, 64, 64, 3), dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    models = {name: zoo_model(name, dev) for name in ("esrgan", "transfer")}
+    caches = {name: tmp / "zoo_quant" / f"int8.{name}.fckpt" for name in models}
+
+    # 14.1 times of the four serving modes at batch 128
+    for name, model in models.items():
+        t0 = time.perf_counter()
+        modes = {"bf16": build_serving_fn(model, torch.bfloat16),
+                 "int8": build_serving_fn(model, "int8"),
+                 "int8_full dynamic": build_serving_fn(model, "int8_full"),
+                 "int8_full calibrated": build_serving_fn(
+                     model, "int8_full", calibration=calib, quant_cache=str(caches[name]),
+                     max_batch=MAX_BATCH)}
+        log(f"  14.1 {name}: serving functions built ({len(modes['int8'].sites)} int8 sites; "
+            f"int8_full calibrated on {len(calib)} of phase 8's 64x64 val LR PNGs, its quant "
+            f"cache {caches[name].stat().st_size / 1e6:.2f} MB) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for label, fn in modes.items():
+            before = rg.fused_residual_group.launches
+            y = fn(xd)
+            torch.cuda.synchronize()
+            per_fwd = rg.fused_residual_group.launches - before
+            want = 1 if name == "transfer" and label in ("bf16", "int8") else 0
+            if per_fwd != want or y.shape != (MAX_BATCH, 256, 256, 3) \
+                    or not torch.isfinite(y).all():
+                raise AssertionError(f"{name} {label}: {per_fwd} group launches (want {want}), "
+                                     f"{tuple(y.shape)}")
+            del y
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: fn(xd), iters=ZOO8_TIMED, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            pred = Predictor(model, dtype=torch.bfloat16, max_batch=MAX_BATCH, device=dev)
+            pred._forward = fn
+            pred_ms = host_ms(lambda: pred(x), ZOO8_TIMED)
+            log(f"  14.1 {name} {label} batch {MAX_BATCH} 64x64: forward {ms:.3f} ms = "
+                f"{MAX_BATCH / ms * 1e3:.1f} images/s (CUDA events, mean of {ZOO8_TIMED}); "
+                f"Predictor numpy in and out {pred_ms:.3f} ms = "
+                f"{MAX_BATCH / pred_ms * 1e3:.1f} images/s (median of {ZOO8_TIMED}); peak device "
+                f"memory {peak:.3f} GiB; {per_fwd} group launch(es) a forward [{card}]")
+            if label != "bf16":
+                log(f"  14.1 {name} {label} profiler, one forward: "
+                    f"{int8_profile_split(lambda: fn(xd))} [{card}]")
+            del pred
+        if name == "transfer":
+            # 14.2 the weight-only int8 head on the kernel, on the served copy's weights
+            fwd8 = modes["int8"]
+            xh = xd[:ZOO_HEAD_IMAGES]
+            deq = copy.deepcopy(model)
+            deq._kernel_weights = None
+            with torch.no_grad():
+                for pname, wq in dequantize_pytree(fwd8.sites).items():
+                    deq.get_parameter(f"{pname}.weight").copy_(wq.float())
+            with torch.inference_mode():
+                before = rg.fused_residual_group.launches
+                got = fwd8(xh)
+                torch.cuda.synchronize()
+                per_fwd = rg.fused_residual_group.launches - before
+                out_k = deq(xh, dtype=torch.bfloat16)
+                out_p = deq(xh, dtype=torch.bfloat16, head_fn=ttr.plain_head)
+                out_0 = deq(xh, dtype=torch.bfloat16, head_fn=lambda head, f: f)
+                out_f = deq(xh, dtype=torch.bfloat16, head_fn=no_gate_head)
+            check_equal("14.2 weight-only int8 serving vs the bf16 forward of a copy holding "
+                        "the dequantized weights", got.cpu().numpy(),
+                        out_k.clamp(0.0, 1.0).cpu().numpy())
+            ref = (out_p - out_0).abs()
+            lim_max, lim_mean = MODEL_RTOL * ref.max().item(), MODEL_RTOL * ref.mean().item()
+            verdict = {}
+            for what, out in (("kernel head", out_k), ("planted fault: SE gate dropped", out_f)):
+                d = (out - out_p).abs()
+                verdict[what] = d.max().item() <= lim_max and d.mean().item() <= lim_mean
+                log(f"  14.2 int8 (dequantized weights) {what} vs plain head, {ZOO_HEAD_IMAGES} "
+                    f"images bf16: max_abs={d.max().item():.6g} (limit {lim_max:.6g}) mean_abs="
+                    f"{d.mean().item():.6g} (limit {lim_mean:.6g}) -> "
+                    f"{'within' if verdict[what] else 'rejected'}")
+            log(f"  14.2 group-kernel launches a weight-only int8 transfer forward: {per_fwd}")
+            if per_fwd != 1 or not verdict["kernel head"]:
+                raise AssertionError("the int8 transfer head on the kernel disagrees with the "
+                                     "plain head or did not launch once")
+            if verdict["planted fault: SE gate dropped"]:
+                raise AssertionError("the int8 head limits let a dropped SE gate pass")
+            del deq, out_k, out_p, out_0, out_f, got
+        del modes
+        torch.cuda.empty_cache()
+
+    # 14.3 int8_full on the card against the CPU port at small depths
+    xc = x[:ZOO8_CHECK_IMAGES]
+    xt = torch.from_numpy(xc)
+    for name, cfg in ZOO8_SMALL.items():
+        cls, ccls = ((tesr.RRDBNet, tesr.RRDBNetConfig) if name == "esrgan"
+                     else (ttr.TransferSRModel, ttr.TransferModelConfig))
+        small_cpu = cls(ccls(**cfg), seed=0, device="cpu").eval()
+        small = copy.deepcopy(small_cpu).to(dev)
+        with torch.inference_mode():
+            f32 = small_cpu(xt).numpy()
+        for label in ("dynamic", "calibrated"):
+            kw = {"calibration": calib, "max_batch": MAX_BATCH} if label == "calibrated" else {}
+            on_card = build_serving_fn(small, "int8_full", **kw)
+            sites_cpu = {k: s.to("cpu") for k, s in on_card.sites.items()}
+            with torch.inference_mode():
+                got = on_card(xt.to(dev)).float().cpu().numpy()
+                want = small_cpu(xt, dtype=torch.bfloat16, quant=sites_cpu).clamp(
+                    0.0, 1.0).float().numpy()
+                want_f32 = small_cpu(xt, quant=sites_cpu).clamp(0.0, 1.0).numpy()
+                with full_f32():
+                    d32 = np.abs(small(xt.to(dev), quant=on_card.sites).clamp(0.0, 1.0)
+                                 .cpu().numpy() - want_f32)
+            p_card = 10 * np.log10(1 / np.mean((got.astype(np.float64) - f32.clip(0, 1)) ** 2))
+            p_cpu = 10 * np.log10(1 / np.mean((want.astype(np.float64) - f32.clip(0, 1)) ** 2))
+            same = np.array_equal(got, want)
+            log(f"  14.3 {name} {cfg} int8_full {label}, {ZOO8_CHECK_IMAGES} images, served "
+                f"bf16: card == CPU port {same} (max |card - CPU| {np.abs(got - want).max():.4g} "
+                f"at {int((got != want).sum())} of {got.size}); PSNR against the CPU f32 forward "
+                f"card {p_card:.3f} dB, CPU port {p_cpu:.3f} dB; f32 compute (not held): max "
+                f"|card - CPU| {d32.max():.4g} at {int((d32 > 0).sum())} of {d32.size}")
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{name} int8_full {label} on the card is not finite")
+            if not same:
+                raise AssertionError(f"{name} int8_full {label}: the card is not the CPU port")
+        del small, small_cpu
+
+    # 14.4 the .pt2 files of every family, loaded back against the live forward
+    fen = production_model(dev, nonzero_last=True)
+    art_dir = tmp / "zoo_pt2"
+    art_dir.mkdir()
+    # (artifact, model, dtype, build kw, rcab_group nodes, int8_conv nodes)
+    n_sites = {k: len(quantize_conv_kernels(m)) for k, m in (("transfer", models["transfer"]),
+                                                              ("fen", fen))}
+    plan = [("rrdbnet_bf16", models["esrgan"], torch.bfloat16, {}, 0, 0),
+            ("transfer_bf16", models["transfer"], torch.bfloat16, {}, 1, 0),
+            ("transfer_int8_full", models["transfer"], "int8_full",
+             {"quant_cache": str(caches["transfer"])}, 0, n_sites["transfer"]),
+            ("fen_int8", fen, "int8", {}, production_config().num_groups, 0),
+            ("fen_int8_full", fen, "int8_full", {}, 0, n_sites["fen"])]
+    artifacts = {}
+    for stem, model, dtype, kw, nodes, int8_nodes in plan:
+        t0 = time.perf_counter()
+        module = ex.build_serving_fn(model, dtype, **kw)
+        blob = ex.export_built(module)
+        export_s = time.perf_counter() - t0
+        path = art_dir / f"{stem}.pt2"
+        path.write_bytes(blob)
+        t0 = time.perf_counter()
+        fn = ex.load_exported(path, device=dev)
+        load_s = time.perf_counter() - t0
+        got_nodes = (ex.custom_op_nodes(fn.exported), ex.custom_op_nodes(fn.exported, "int8_conv"))
+        live = build_serving_fn(model, dtype, **kw)
+        errs = []
+        for n in ZOO8_EXPORT_BATCHES:
+            before = rg.fused_residual_group.launches
+            got = fn(x[:n])
+            torch.cuda.synchronize()
+            runs = rg.fused_residual_group.launches - before
+            with torch.inference_mode():
+                want = live(xd[:n]).float().cpu().numpy()
+            err = float(np.abs(got - want).max())
+            errs.append((n, err, runs))
+            if got.shape != (n, 256, 256, 3) or runs != nodes or (
+                    err != 0.0 if "int8" in stem else err >= EXPORT_BF16_TOL):
+                raise AssertionError(f"{stem}.pt2 at batch {n}: max |artifact - live| {err}, "
+                                     f"{runs} group launches (want {nodes}), {got.shape}")
+        log(f"  14.4 {stem}.pt2: {len(blob) / 1e6:.2f} MB, export {export_s:.1f} s, load "
+            f"{load_s:.1f} s, symbolic batch {input_shape_str(fn.exported)}; rcab_group nodes "
+            f"{got_nodes[0]} (want {nodes}), int8_conv nodes {got_nodes[1]} (want {int8_nodes}); "
+            + "; ".join(f"batch {n}: max |artifact - live| {e:.3g}, {r} group launches"
+                        for n, e, r in errs)
+            + (" (bitwise)" if "int8" in stem else f" (limit {EXPORT_BF16_TOL})") + f" [{card}]")
+        if got_nodes != (nodes, int8_nodes):
+            raise AssertionError(f"{stem}.pt2 holds {got_nodes} custom-op nodes")
+        artifacts[stem] = fn
+        del module, live
+    del fen
+
+    # 14.5 the API serving the transfer int8_full artifact
+    fn = artifacts["transfer_int8_full"]
+    imgs = smooth_u8(ZOO8_HTTP_REQUESTS, 64, 64, 141)
+    bodies = [png.encode(im) for im in imgs]
+    srv = port_api.serve(str(tmp / "zoo_pt2_empty"), port=0, host="127.0.0.1", device=dev,
+                         exported=str(art_dir / "transfer_int8_full.pt2"))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        half = ZOO8_HTTP_REQUESTS // 2
+        wall, lat, warm, results, errors = drive_http(
+            srv.server_address[1], bodies, [list(range(half)),
+                                            list(range(half, ZOO8_HTTP_REQUESTS))])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.service.close()
+    bad = [(i, s, d[:200]) for i, s, d in results if s != 200]
+    same = sum(s == 200 and np.array_equal(
+        png.decode_rgb(d, "response"),
+        (fn(prepare_inputs(imgs[i])[0][None])[0] * 255).round().astype(np.uint8))
+        for i, s, d in results)
+    log(f"  14.5 API --exported transfer_int8_full.pt2: {len(results)} requests from 2 keep-alive "
+        f"clients, {same} bitwise the artifact's batch-1 output; errors {errors}; failed "
+        f"responses {bad}; p50 {statistics.median(warm + lat) * 1e3:.1f} ms [{card}]")
+    if errors or bad or same != ZOO8_HTTP_REQUESTS or len(results) != ZOO8_HTTP_REQUESTS:
+        raise AssertionError("the API serving the transfer int8_full artifact")
+    del artifacts, fn
+    for m in models.values():
+        m.cpu()
+    del models
+    torch.cuda.empty_cache()
+
+    # 14.6 QAT: the transfer YAML through the CLI, and small zoo steps card vs CPU
+    run_dir = tmp / "zoo_qat_cli"
+    run_dir.mkdir()
+    text = TRANSFER_YAML.read_text().replace("training:\n", "training:\n  qat: true\n", 1)
+    (run_dir / "transfer_qat.yaml").write_text(text)
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        before = rg.fused_residual_group.launches
+        with contextlib.redirect_stdout(_Tee(sys.stdout)):
+            trainer = train_cli.run(["--config", "transfer_qat.yaml", "--data-root",
+                                     str(tmp / "data"), "--epochs", "1"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        os.chdir(cwd)
+    m = trainer.last_train_metrics
+    ms = statistics.median(trainer.last_step_times[1:]) * 1e3
+    log(f"  14.6 transfer_config.yaml with training.qat through the CLI (phase 8's PNGs, 1 "
+        f"epoch): {len(trainer.last_step_times)} steps, {ms:.3f} ms/step against phase 13's "
+        f"{step_alone_ms:.3f} ms for the float step alone; peak memory {peak:.3f} GiB; "
+        f"{len(trainer._qat_sites)} fake-quant sites; losses {m}; "
+        f"{rg.fused_residual_group.launches - before} group launches [{card}]")
+    if not (trainer.config.qat and math.isfinite(m["loss"]) and trainer.model_type == "transfer"
+            and rg.fused_residual_group.launches == before):
+        raise AssertionError("the transfer QAT CLI run failed")
+    del trainer
+    torch.cuda.empty_cache()
+    # the CPU step takes the card's fake-quant level wherever the two round
+    # a tie apart (`fake_quant_levels`), so one tie does not spread through
+    # the later sites; a level that differs away from a tie fails the check
+    for kind, stage in (("esrgan", 1), ("transfer", 2)):
+        with fake_quant_levels() as card_lv:
+            got, start = small_zoo_step(dev, kind, stage, qat=True)
+        with fake_quant_levels(lambda i, w: (card_lv["weights"][i], card_lv["levels"][i],
+                                                 card_lv["outputs"][i])) as pin:
+            want, _ = small_zoo_step("cpu", kind, stage, qat=True)
+        errs = step_errors(got, want)
+        frozen = [k for k in start if k not in got[1]]
+        still = all(torch.equal(got[2][k], start[k]) for k in frozen)
+        where = f" stage {stage}" if kind == "transfer" else ""
+        log(f"  14.6 small {kind} QAT step{where} card vs CPU (f32): loss {errs[0]:.3g}, worst "
+            f"gradient {errs[1]:.3g}, worst param {errs[2]:.3g} (limit {STEP_RTOL}); "
+            f"{len(frozen)} frozen tensors bitwise unchanged {still}; of the kernel and "
+            f"activation levels and output signs at {len(pin['levels'])} sites ("
+            f"{sum(t.numel() for k in ('weights', 'levels', 'outputs') for t in pin[k])}), "
+            f"{pin['ties']} taken from the card at a tie "
+            f"(worst level {pin['worst_tie']:.3g} from its boundary, limit {LEVEL_TIE}; signs "
+            f"within {SIGN_TIE} of max|y|), {pin['off_tie']} differ away from a tie")
+        if (max(errs) > STEP_RTOL or pin["off_tie"] or not still
+                or (kind == "transfer") != bool(frozen)):
+            raise AssertionError(f"the small {kind} QAT step on the card is off the CPU's")
+        with fake_quant_levels() as card_lv:
+            forced, _ = small_zoo_step(dev, kind, stage, tf32_forced=True, qat=True)
+        with fake_quant_levels(lambda i, w: (card_lv["weights"][i], card_lv["levels"][i],
+                                                 card_lv["outputs"][i])) as pin:
+            errs = step_errors(forced, small_zoo_step("cpu", kind, stage, qat=True)[0])
+        rejected = max(errs) > STEP_RTOL or pin["off_tie"] > 0
+        log(f"  14.6 control, the {kind} QAT step with TF32 forced: {errs}, {pin['off_tie']} "
+            f"levels and signs off the CPU's away from a tie, {pin['ties']} at a tie -> "
+            f"{'rejected' if rejected else 'within'}")
+        if not rejected:
+            raise AssertionError(f"the {kind} QAT step check lets TF32 convs pass")
+    launches = rg.fused_residual_group.launches - start_launches
+    log(f"  {launches} group launches in phase 14; phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
+def input_shape_str(program) -> str:
+    from facesr_torch.ckpt.export import input_shape
+
+    return str(tuple(input_shape(program)))
 
 
 def main() -> int:
@@ -2921,6 +3275,8 @@ def main() -> int:
                                                        step_alone_ms)  # and phase 12's
         zoo = zoo_phase(dev, card, Path(tmp))
         launches["fused_residual_group"] += zoo["launches"]  # and phase 13's
+        launches["fused_residual_group"] += zoo_int8_phase(
+            dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

@@ -193,26 +193,28 @@ QUANT_CACHE_KIND = "facesr-int8-calibrated"
 
 
 def _tree_leaves(tree: Any):
-    """Leaves in JAX tree-flatten order: dict keys sorted, lists in order."""
+    """Leaves in JAX tree-flatten order: dict keys sorted, lists in order,
+    None (an empty transfer ``body_main``) no leaf."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _tree_leaves(tree[k])
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _tree_leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 
 def params_fingerprint(model) -> str:
-    """sha256 of the model's JAX-layout float32 leaves in JAX tree order:
-    the JAX package's ``_params_fingerprint`` of the same weights."""
+    """sha256 of the model's JAX-layout float32 leaves in JAX tree order
+    (`weights.jax_params_from`, any of the three families): the JAX
+    package's ``_params_fingerprint`` of the same weights."""
     import hashlib
 
-    from facesr_torch.ckpt.weights import jax_params_from_state_dict
+    from facesr_torch.ckpt.weights import jax_params_from
 
     h = hashlib.sha256()
-    for leaf in _tree_leaves(jax_params_from_state_dict(model.state_dict())):
+    for leaf in _tree_leaves(jax_params_from(model)):
         h.update(np.asarray(leaf).tobytes())
     return h.hexdigest()
 

@@ -1,4 +1,4 @@
-"""Carry FaceEnhanceNet weights into the port.
+"""Carry the weights of the three model families into the port.
 
 - `state_dict_from_jax_params`: the JAX package's params pytree, as numpy
   arrays with scan-stacked [G, B, ...] leaves, -> this port's state dict
@@ -16,12 +16,14 @@
   under the BatchNorm names).
 - `jax_params_from_state_dict`: the inverse of `state_dict_from_jax_params`
   (the `.fckpt` model writer's layout).
-- `jax_qtree_from_sites` / `sites_from_jax_qtree`: a quantized model as
-  the JAX package's int8 tree (a conv leaf becomes ``{"q": int8 HWIO,
-  "scale": [..., 1, 1, 1, O], "a": [..., 1, 1, 1, 1]}``, stacked over
-  [G, B] or [G] in the trunk) and back to the port's per-site
-  `ops.quant.Int8Weight` (q OIHW, scale [O], a a scalar), checked leaf by
-  leaf against the model (the quant cache's layout).
+- `jax_qtree_from_sites` / `sites_from_jax_qtree`: a quantized model of
+  any of the three families as the JAX package's int8 tree (a conv leaf
+  becomes ``{"q": int8 HWIO, "scale": [..., 1, 1, 1, O], "a": [..., 1, 1,
+  1, 1]}``, stacked over the leaf's stack axes: [G, B] or [G] in
+  FaceEnhanceNet's trunk, [N] in an RRDB body, [B] in the transfer head)
+  and back to the port's per-site `ops.quant.Int8Weight` (q OIHW, scale
+  [O], a a scalar), checked leaf by leaf against the model (the quant
+  cache's layout).
 - `esrgan_state_dict_from_jax_params` / `jax_params_from_esrgan_state_dict`
   and `transfer_state_dict_from_jax_params` /
   `jax_params_from_transfer_state_dict`: the model zoo's weights between
@@ -47,7 +49,6 @@ import numpy as np
 import torch
 
 from facesr_torch.device import DeviceLike, resolve_device
-from facesr_torch.models.face_enhance_net import FaceEnhanceNet
 from facesr_torch.models.transfer import STAGE2_UNFREEZE_BLOCKS
 
 __all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict", "jax_qtree_from_sites",
@@ -170,15 +171,16 @@ def _set_node(tree: Any, path, value: Any) -> None:
     _node(tree, path[:-1])[path[-1]] = value
 
 
-def jax_qtree_from_sites(model: FaceEnhanceNet, sites: Dict[str, Any]) -> Dict[str, Any]:
-    """The model's JAX parameter tree (numpy) with every quantized leaf as
+def jax_qtree_from_sites(model, sites: Dict[str, Any]) -> Dict[str, Any]:
+    """The model's JAX parameter tree (numpy, `jax_params_from`) with every
+    quantized leaf as
     the JAX package's int8 dict: ``q`` int8 HWIO and ``scale`` [..., 1, 1,
     1, O] stacked over the leaf's stack axes, plus ``a`` [..., 1, 1, 1, 1]
     when the sites are calibrated and ``sid`` (int32, stack-shaped) when
     they carry site ids."""
     from facesr_torch.ops.quant import quant_leaves
 
-    tree = jax_params_from_state_dict(model.state_dict())
+    tree = jax_params_from(model)
     for leaf in quant_leaves(model):
         ws = [sites[n] for n in leaf.names]
         o = leaf.shape[0]
@@ -195,7 +197,7 @@ def jax_qtree_from_sites(model: FaceEnhanceNet, sites: Dict[str, Any]) -> Dict[s
     return tree
 
 
-def sites_from_jax_qtree(tree: Dict[str, Any], model: FaceEnhanceNet,
+def sites_from_jax_qtree(tree: Dict[str, Any], model,
                          where: str = "quant tree") -> Dict[str, Any]:
     """A JAX int8 tree (lists as lists or digit-keyed maps) -> this
     model's ``{site: Int8Weight}`` on the model's device. The tree must
@@ -206,8 +208,8 @@ def sites_from_jax_qtree(tree: Dict[str, Any], model: FaceEnhanceNet,
     from facesr_torch.ops.quant import Int8Weight, quant_leaves
 
     tree = restore_list_nodes(tree)
-    want = jax_params_from_state_dict(model.state_dict())
-    device = model.conv_first.weight.device
+    want = jax_params_from(model)
+    device = next(model.parameters()).device
     qpaths = {leaf.path: leaf for leaf in quant_leaves(model)}
 
     def mismatch(path, got, exp) -> ValueError:

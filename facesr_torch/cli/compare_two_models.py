@@ -21,9 +21,8 @@ its reason. ``--serve-dtype`` f32 (the default), bf16 (the hand-written
 group kernel in FaceEnhanceNet's trunk and the transfer head), int8
 (weight-only) or int8_full (s8 convs); with int8_full, ``--calibrate N``
 calibrates static activation scales on LR synthesised from the first N
-evaluation images (else the scales are per-image dynamic). The int8
-dtypes take FaceEnhanceNet only: a model of the zoo is then skipped with
-its reason (ROADMAP A.12.1).
+evaluation images (else the scales are per-image dynamic); every family
+serves in every dtype.
 """
 
 from __future__ import annotations
@@ -152,11 +151,6 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
             model = load_any_model(path, device=device)
         except Exception as e:  # noqa: BLE001 — an unloadable file is skipped, as in JAX
             print(f"Skipping {path}: {e}")
-            continue
-        if args.serve_dtype in ("int8", "int8_full") and model.model_type != "custom":
-            from facesr_torch.ops.quant import ZOO_INT8_NOT_PORTED
-
-            print(f"Skipping {path}: {ZOO_INT8_NOT_PORTED}")
             continue
         models[name] = model
         print(f"Loaded {name} ({type(model).__name__}) from {path}")

@@ -2,15 +2,22 @@
 flags of the JAX package's `scripts/export_serving.py`:
 
     python -m facesr_torch.cli.export_serving --checkpoint checkpoints/best_model.pth \\
-        --output serve/model.pt2 [--dtype bf16|f32] [--batch 128] [--verify] [--device cpu]
+        --output serve/model.pt2 [--dtype bf16|f32|int8|int8_full] [--batch 128] \\
+        [--calib-dir data/val/LR | --quant-cache quant/int8.best_model.fckpt] \\
+        [--verify] [--device cpu]
 
-One file, weights inside, a symbolic batch by default (`ckpt.export`).
-The trace runs on ``--device`` (CUDA unless named) and the artifact is
-moved to the serving device when it is loaded. ``--verify`` loads it back
-and compares it with the live forward on seeded inputs (tolerance 1e-5
-in f32, 1e-2 in bf16, as in JAX). The int8 dtypes, ``--calib-dir`` and
-``--quant-cache`` raise (ROADMAP A.10.1: the int8 ``.pt2`` export). The JAX flag ``--platforms`` has
-no counterpart: a ``.pt2`` moves to the serving device when loaded.
+One file, weights inside, a symbolic batch by default (`ckpt.export`), for
+a FaceEnhanceNet, a transfer model or an RRDBNet. ``--dtype int8`` holds
+the conv kernels as int8 and dequantizes them inside the graph;
+``int8_full`` runs s8 convs with per-image dynamic scales, or static ones
+calibrated on the LR images of ``--calib-dir`` or read from
+``--quant-cache`` (`cli.export_quantized`'s file; named but missing, with
+no ``--calib-dir``, it raises). The trace runs
+on ``--device`` (CUDA unless named) and the artifact is moved to the
+serving device when it is loaded. ``--verify`` loads it back and compares
+it with the live forward on seeded inputs (tolerance 1e-5 in f32, 1e-2
+otherwise, as in JAX). The JAX flag ``--platforms`` has no counterpart: a
+``.pt2`` moves to the serving device when loaded.
 """
 
 from __future__ import annotations
@@ -31,14 +38,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32", "int8", "int8_full"],
-                   help="serving mode (same semantics as the HTTP API); int8 and "
-                        "int8_full are not exported yet (ROADMAP A.10.1)")
+                   help="serving mode (same semantics as the HTTP API)")
     p.add_argument("--batch", type=int, default=None,
                    help="pin the batch dimension (default: symbolic — one artifact serves "
                         "every batch size)")
     p.add_argument("--input-size", type=int, default=64)
-    p.add_argument("--calib-dir", default=None, help="not exported yet (ROADMAP A.10.1)")
-    p.add_argument("--quant-cache", default=None, help="not exported yet (ROADMAP A.10.1)")
+    p.add_argument("--calib-dir", default=None,
+                   help="with --dtype int8_full: calibrate static activation scales on the LR "
+                        "images in this directory")
+    p.add_argument("--quant-cache", default=None,
+                   help="calibrated-scale artifact to reuse (cli.export_quantized)")
     p.add_argument("--verify", action="store_true",
                    help="load the artifact back and compare it with the live forward")
     p.add_argument("--device", default=None,
@@ -49,18 +58,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
-    from facesr_torch.ckpt.export import (INT8_EXPORT_NOT_PORTED, build_serving_fn,
-                                          export_built, load_exported)
+    from facesr_torch.ckpt.export import build_serving_fn, export_built, load_exported
     from facesr_torch.device import resolve_device
     from facesr_torch.models.load import load_any_model
+    from facesr_torch.parallel.serving import load_calibration_images
 
     args = parse_args(argv)
-    if args.dtype in ("int8", "int8_full") or args.calib_dir or args.quant_cache:
-        raise NotImplementedError(INT8_EXPORT_NOT_PORTED)
     device = resolve_device(args.device)
     model = load_any_model(args.checkpoint, device=device)
-    dtype = torch.bfloat16 if args.dtype == "bf16" else None
-    module = build_serving_fn(model, dtype)
+    calibration = load_calibration_images(args.calib_dir) if args.calib_dir else None
+    dtype = {"bf16": torch.bfloat16, "f32": None}.get(args.dtype, args.dtype)
+    # built once: --verify reuses it (a second build would calibrate again)
+    module = build_serving_fn(model, dtype, calibration=calibration,
+                              quant_cache=args.quant_cache, max_batch=args.batch or 8)
     blob = export_built(module, batch=args.batch, input_size=args.input_size)
     out = Path(args.output)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -68,6 +78,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     shape = (args.batch or "b", args.input_size, args.input_size, 3)
     print(f"Exported {args.dtype} serving forward {shape} on {device} -> {out} "
           f"({len(blob) / 1e6:.2f} MB)")
+    if args.dtype in ("int8", "int8_full"):
+        q_bytes = sum(t.numel() for n, t in module.named_buffers() if t.dtype == torch.int8)
+        f_bytes = 4 * sum(p.numel() for p in model.parameters())
+        print(f"  int8 sites: {q_bytes / 1e6:.2f} MB of int8 buffers; the model's float "
+              f"weights are {f_bytes / 1e6:.2f} MB in f32")
     if args.verify:
         serve = load_exported(blob, device=device)
         x = np.random.default_rng(0).random(

@@ -10,8 +10,8 @@ by CUDA events, and reports avg/min/max/p50 ms and images/s; then, with
 same precision. The same report as ``scripts/measure_inference_time.py``
 of the JAX package. ``--int8`` times the full-int8 forward (s8 convs,
 per-image dynamic activation scales), ``--int8 --calibrate N`` with
-static scales calibrated on N seeded random images of the input size;
-it takes FaceEnhanceNet only (the zoo's int8 is ROADMAP A.12.1).
+static scales calibrated on N seeded random images of the input size,
+for any model the port loads.
 """
 
 from __future__ import annotations
@@ -99,11 +99,6 @@ def main(argv=None) -> None:
     if args.int8:
         dtype = "int8_full"
         prec = "int8_full/calibrated" if args.calibrate > 0 else "int8_full"
-        for m in (model, transfer):
-            if m is not None and getattr(m, "model_type", "custom") != "custom":
-                from facesr_torch.ops.quant import ZOO_INT8_NOT_PORTED
-
-                raise SystemExit(f"--int8 on a {type(m).__name__}: {ZOO_INT8_NOT_PORTED}")
     else:
         dtype = torch.bfloat16 if args.bf16 else None
         prec = "bf16" if args.bf16 else "f32"

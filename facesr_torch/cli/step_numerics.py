@@ -30,13 +30,18 @@ and, the other way round, the CPU step with the one conv3_4 sign nearest
 to zero flipped against the CPU step. Then, on a CUDA device, single f32
 convs at the shapes of that step against f64: forward, input gradient and
 weight gradient, for an upstream gradient drawn N(0, 1) and for its sign.
+
+`small_zoo_step` is the zoo's step (with ``qat``, fake-quantized), and
+`fake_quant_levels` records one run's fake-quant levels and output signs
+and pins another run's to them where the two round a tie apart, so that
+two QAT steps compare without one tie spreading through the step.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 from unittest import mock
 
 import numpy as np
@@ -55,7 +60,8 @@ from facesr_torch.training.optim import AdamW
 
 __all__ = ["stage1_loss_apply", "smooth_loss_apply", "small_step", "small_gan_step",
            "small_zoo_step", "step_errors", "gan_step_errors", "rel_l2", "sign_flips",
-           "pinned_sign_loss_apply"]
+           "pinned_sign_loss_apply", "LEVEL_TIE", "SIGN_TIE", "grid_levels",
+           "fake_quant_levels"]
 
 StepResult = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -124,6 +130,111 @@ def _tf32_forced():
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+# two correct f32 runs of a fake-quant step may part at its discontinuities
+# where their sums or quotients differ in the last bits: a kernel weight or
+# an activation whose quotient t / scale lies within LEVEL_TIE levels of a
+# level boundary (f32 moves it by ~1e-5 levels near |127|, TF32 convs by
+# ~1e-1), and a conv output within SIGN_TIE of its tensor's max|y| of zero,
+# the kink of the LeakyReLU or PReLU that follows it
+LEVEL_TIE = 1e-3
+SIGN_TIE = 1e-5
+
+
+def grid_levels(t: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t / scale, its s8 level) on a fake-quant grid."""
+    v = t / scale
+    return v, torch.round(v).clamp(-127, 127)
+
+
+def _level_ties(t, scale, want, out):
+    """``t`` with the elements whose level ties with the reference's
+    ``want`` moved onto the reference's level (to the boundary, at most
+    `LEVEL_TIE` levels away, then ulps past it); counts in ``out``."""
+    v, lv = grid_levels(t, scale)
+    moved = lv != want
+    gap = v - (lv + want) / 2
+    tie = moved & ((lv - want).abs() == 1) & (gap.abs() <= LEVEL_TIE)
+    out["off_tie"] += int((moved & ~tie).sum())
+    if not bool(tie.any()):
+        return t
+    out["ties"] += int(tie.sum())
+    out["worst_tie"] = max(out["worst_tie"], float(gap[tie].abs().max()))
+    ws, at = want[tie], scale.expand_as(t)[tie]
+    step = torch.where(ws > lv[tie], torch.inf, -torch.inf)
+    ts = (lv[tie] + ws) / 2 * at  # onto the boundary, then ulps past it
+    for _ in range(64):
+        off = grid_levels(ts, at)[1] != ws
+        if not bool(off.any()):
+            break
+        ts = torch.where(off, torch.nextafter(ts, step), ts)
+    else:
+        raise AssertionError("a level tie did not cross its boundary within 64 ulps")
+    nudged = t.clone()
+    nudged[tie] = ts
+    return nudged
+
+
+@contextlib.contextmanager
+def fake_quant_levels(reference: Optional[Callable[[int, torch.Tensor], Tuple[torch.Tensor, ...]]]
+                      = None):
+    """Record, and pin to a reference run's at ties, the kernel and
+    activation levels and the output signs of every fake-quant conv
+    (`ops.conv._conv2d_fakequant`) run inside the block.
+
+    Yields a dict: ``weights``, ``levels`` and ``outputs``, each call's
+    kernel levels (OIHW), activation levels and conv output (the
+    pre-activation) on the CPU, in call order and before pinning;
+    ``ties``, the levels and signs taken from ``reference``;
+    ``worst_tie``, the largest distance of such a level's quotient from the
+    boundary it crossed; ``off_tie``, the levels and signs that differ from
+    the reference's away from a tie (not taken).
+
+    ``reference(i, w)`` gives (kernel levels, activation levels, output)
+    of the i-th call, whose latent kernel is ``w`` (OIHW), in another run.
+    Where a level here is next to the reference's and its quotient within
+    `LEVEL_TIE` of the boundary between them, the latent weight or the
+    input element moves across it onto the reference's level; where an
+    output lies on the other side of zero from the reference's, within
+    `SIGN_TIE` of its max, it takes the reference's value. Gradients pass
+    all three unchanged. The two runs then go on from the same levels and
+    the same activation branches, where one tie would otherwise spread
+    through every later site and the backward pass."""
+    from facesr_torch.ops import conv as conv_ops
+    from facesr_torch.ops.quant import FakeQuantWeight
+
+    real = conv_ops._conv2d_fakequant
+    out = {"weights": [], "levels": [], "outputs": [], "ties": 0, "worst_tie": 0.0,
+           "off_tie": 0}
+
+    def pinned(x, w, b, stride, padding, groups, dtype):
+        if dtype is not None:
+            x = x.to(dtype)
+        wf, xf = w.w.detach().float(), x.detach().float()
+        s, a = conv_ops.fake_quant_scale(wf), conv_ops.fake_quant_scale(xf, w.a)
+        i = len(out["levels"])
+        out["weights"].append(grid_levels(wf, s)[1].cpu())
+        out["levels"].append(grid_levels(xf, a)[1].cpu())
+        ref = None if reference is None else [t.to(x.device) for t in reference(i, w.w)]
+        if ref is not None:
+            w = FakeQuantWeight(w.w + (_level_ties(wf, s, ref[0], out).to(w.w.dtype)
+                                       - w.w).detach(), w.a)
+            x = x + (_level_ties(xf, a, ref[1], out).to(x.dtype) - x).detach()
+        y = real(x, w, b, stride, padding, groups, dtype)
+        out["outputs"].append(y.detach().cpu())
+        if ref is not None:
+            want = ref[2].to(y.dtype)
+            flip = (y >= 0) != (want >= 0)
+            tie = flip & ((y - want).abs() <= SIGN_TIE * want.abs().max())
+            out["off_tie"] += int((flip & ~tie).sum())
+            if bool(tie.any()):
+                out["ties"] += int(tie.sum())
+                y = y + (torch.where(tie, want, y) - y).detach()
+        return y
+
+    with mock.patch.object(conv_ops, "_conv2d_fakequant", pinned):
+        yield out
+
+
 def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool = False,
                weight_noise: float = 0.0, qat: bool = False) -> StepResult:
     """One train step of the small model on ``dev``; returns (loss, grads,
@@ -169,13 +280,14 @@ def _small_zoo_model(kind: str, stage: int):
     return model
 
 
-def small_zoo_step(dev, kind: str = "transfer", stage: int = 1,
-                   tf32_forced: bool = False) -> Tuple[StepResult, Dict[str, torch.Tensor]]:
+def small_zoo_step(dev, kind: str = "transfer", stage: int = 1, tf32_forced: bool = False,
+                   qat: bool = False) -> Tuple[StepResult, Dict[str, torch.Tensor]]:
     """One train step of a small zoo model (``kind`` "transfer" in
     ``stage`` 1-3, or "esrgan") on ``dev`` with the smooth loss and AdamW
     (clip 0.5, lr 1e-4), batch 2 of HR 32x32; returns ((loss, grads,
     updated params) on the CPU, the params before the step). Only the
-    stage's trained parameters get gradients."""
+    stage's trained parameters get gradients. ``qat`` fake-quantizes
+    every int8 site (frozen ones too) on the dynamic grid."""
     model = _small_zoo_model(kind, stage)
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     model = model.to(dev)
@@ -184,7 +296,8 @@ def small_zoo_step(dev, kind: str = "transfer", stage: int = 1,
     opt = _Recording(weight_decay=0.0, gradient_clip=0.5)
     state = steps.TrainState(model=model, loss_params=loss.params,
                              opt_state=opt.init(steps.trainable_parameters(model), 1e-4))
-    step = steps.make_train_step(smooth_loss_apply, opt)
+    sites = fake_quant_params(model) if qat else None
+    step = steps.make_train_step(smooth_loss_apply, opt, quant_fn=(lambda: sites) if qat else None)
     with _tf32_forced() if tf32_forced else contextlib.nullcontext():
         _, metrics = step(state, _small_hr().to(dev))
     params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}

@@ -37,8 +37,13 @@ calibration source on purpose).
 RRDBNet of `ESRGANBaseline`, its weights resolved from
 ``checkpoints/pretrained/`` (local files only; random when absent).
 
-What is not ported raises and names its ROADMAP item: QAT of the model zoo
-(A.12.1), mesh axes other than ``data``, ``--mesh-shape``,
+QAT covers the model zoo too: every int8 site of the tree trains
+fake-quantized, frozen transfer parameters included (their forward is
+what serving quantizes), and the stage optimiser still updates only what
+the stage trains.
+
+What is not ported raises and names its ROADMAP item: mesh axes other
+than ``data``, ``--mesh-shape``,
 ``pp_microbatches`` and ``--print-memory`` (A.13), the gradient monitor
 (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
 with random weights drawn from seed 0 (no pretrained file is in the repo).
@@ -111,9 +116,6 @@ def resolve_chain_path(path: str) -> str:
 
 def _refuse_unported(args, config: dict, model_type: str) -> None:
     training = config.get("training", {})
-    if model_type in ("transfer", "esrgan") and (training.get("qat") or args.qat_scales):
-        raise NotPorted(f"QAT of the {model_type!r} model is not ported yet (ROADMAP A.12.1: "
-                        "int8 and .pt2 of the zoo)")
     logging_config = config.get("logging", {})
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
     if mesh_axes != "data" or args.mesh_shape or training.get("mesh_shape") \

@@ -19,9 +19,9 @@ Each model and the OpenCV baselines (the port's copies of cv2's
 HR PNGs of ``--test-dir`` (LR synthesised on the device, the trainer's
 bicubic) with skimage-compatible PSNR/SSIM at data_range 255, LPIPS and
 FID when their weights came with the artifacts, through the batched
-`Predictor` in f32. ``--int8`` adds each FaceEnhanceNet row's calibrated
-int8_full deltas against its own f32 forward; a model of the zoo prints
-that its int8 deltas are not ported (ROADMAP A.12.1). Targets default to
+`Predictor` in f32. ``--int8`` adds each model row's calibrated
+int8_full agreement with its own f32 forward and its PSNR/SSIM deltas
+(`scripts/validate_parity.py:226-260`). Targets default to
 the published table (baselines by name, models matched on the checkpoint
 stem); ``--targets`` overrides them; ``--emit-targets`` writes the
 measured values as a targets file instead of checking. The exit code is
@@ -272,11 +272,6 @@ def evaluate_methods(inv: dict, test_dir: Path, num_images: int, scale: int, int
         print(f"  {stem}: {rows[stem]}")
         if not int8:
             continue
-        if model.model_type != "custom":
-            from facesr_torch.ops.quant import ZOO_INT8_NOT_PORTED
-
-            print(f"  {stem} [int8]: {ZOO_INT8_NOT_PORTED}")
-            continue
         calib = np.stack([lr for lr in lrs[:max(calibrate, 1)] if lr.shape == lrs[0].shape])
         pred8 = make_predictor(model, max_batch=max_batch, dtype="int8_full", device=dev,
                                calibration=calib)
@@ -388,7 +383,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--emit-targets", default=None, metavar="PATH",
                    help="write the measured values as a targets JSON, no pass/fail")
     p.add_argument("--int8", action="store_true",
-                   help="also measure calibrated int8_full deltas (FaceEnhanceNet rows)")
+                   help="also measure calibrated int8_full deltas (every model row)")
     p.add_argument("--calibrate", type=int, default=8,
                    help="eval LR images that calibrate int8_full")
     p.add_argument("--int8-max-drop", type=float, default=0.5,

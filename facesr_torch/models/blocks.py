@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, Optional, Tuple
+from types import SimpleNamespace
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,6 +36,7 @@ from facesr_torch.ops import init as finit
 from facesr_torch.ops.conv import conv2d, prelu, quantize_act
 from facesr_torch.ops.pixel_shuffle import pixel_shuffle
 from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
+from facesr_torch.ops.rcab_group import GroupWeights, fused_residual_group
 
 __all__ = ["reduced_channels", "KernelWeightCache", "ChannelAttention", "RCAB", "ResidualGroup",
            "UpsampleStage", "Upsample", "make_conv", "channel_attention", "rcab",
@@ -72,6 +74,36 @@ class KernelWeightCache:
     def _apply(self, fn, *args, **kwargs):
         self._kernel_weights = None
         return super()._apply(fn, *args, **kwargs)
+
+
+def group_with(rcabs, conv: nn.Conv2d, weights: Dict[str, torch.Tensor], rcabs_path: str,
+               conv_path: str) -> SimpleNamespace:
+    """A residual group's RCABs and tail conv under a residual group's
+    names (``blocks``, ``conv``), for `prepare_group_weights`, each conv
+    weight taken from ``weights`` (site -> tensor) where it has an entry
+    (``{rcabs_path}.{i}.conv1``, ``{conv_path}``), else the module's."""
+    def with_weight(mod, name):
+        return SimpleNamespace(weight=weights.get(name, mod.weight), bias=mod.bias)
+
+    return SimpleNamespace(
+        blocks=[SimpleNamespace(conv1=with_weight(b.conv1, f"{rcabs_path}.{i}.conv1"),
+                                prelu=b.prelu,
+                                conv2=with_weight(b.conv2, f"{rcabs_path}.{i}.conv2"),
+                                channel_attention=b.channel_attention)
+                for i, b in enumerate(rcabs)],
+        conv=with_weight(conv, conv_path))
+
+
+def run_kernel_groups(feat: torch.Tensor, groups: List[GroupWeights],
+                      res_scale: float) -> torch.Tensor:
+    """``feat`` through `fused_residual_group` once a group of ``groups``
+    (kernel-layout weights). A copy, not ``.contiguous()``: a trace drops
+    ``.contiguous()`` where the example was contiguous, and at another
+    batch (N=1) the conv before the groups may return other strides."""
+    feat = feat.clone(memory_format=torch.contiguous_format)
+    for gw in groups:
+        feat = fused_residual_group(feat, gw, res_scale)
+    return feat
 
 
 def make_conv(cin: int, cout: int, k: int) -> nn.Conv2d:
@@ -263,7 +295,7 @@ def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
 
 
 def upsample(up: Upsample, x: torch.Tensor, next_w=None, keep_last_packed: bool = False,
-             quant: Optional[QuantSites] = None) -> torch.Tensor:
+             quant: Optional[QuantSites] = None, name: str = "upsample") -> torch.Tensor:
     """Cascaded conv -> PixelShuffle(2) -> PReLU stages.
 
     ``next_w`` is the weight that consumes the result (conv_last's). When
@@ -274,12 +306,13 @@ def upsample(up: Upsample, x: torch.Tensor, next_w=None, keep_last_packed: bool 
     int8. Both commute with the shuffle, so this equals the float order
     bitwise on the same grid. ``keep_last_packed`` skips the last shuffle
     and returns the packed int8 tensor [N, H, W, 4C] for a
-    subpixel-packed conv_last."""
+    subpixel-packed conv_last. ``name`` is the module path of ``up``
+    (its sites are ``{name}.stages.{i}.conv``)."""
     stages = list(up.stages)
     for i, st in enumerate(stages):
-        y = conv2d(x, site_weight(quant, f"upsample.stages.{i}.conv", st.conv.weight),
+        y = conv2d(x, site_weight(quant, f"{name}.stages.{i}.conv", st.conv.weight),
                    st.conv.bias, padding=1)
-        nxt = (site_weight(quant, f"upsample.stages.{i + 1}.conv", stages[i + 1].conv.weight)
+        nxt = (site_weight(quant, f"{name}.stages.{i + 1}.conv", stages[i + 1].conv.weight)
                if i + 1 < len(stages) else next_w)
         if is_int8_kernel(nxt) and y.dtype.is_floating_point:
             y = prelu(y, st.prelu.weight.repeat_interleave(4))

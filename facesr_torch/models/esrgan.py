@@ -7,11 +7,16 @@ dict (`conv_first`, `body.{i}.rdb{1,2,3}.conv{1..5}`, `conv_body`,
 `conv_up1`, `conv_up2`, `conv_hr`, `conv_last`), so official and
 reference `.pth` files load with ``strict=True``.
 
-``forward(x, train=False, dtype=None)`` has FaceEnhanceNet's signature, so
-`Predictor`, the Trainer and the evaluation CLIs call it unchanged; like
-the JAX ``apply`` it does not clamp. Every conv is a cuDNN conv (the JAX
-package runs them through XLA, not Pallas). A dense block concatenates
-its growing feature maps with `torch.cat` (four times a block).
+``forward(x, train=False, dtype=None, quant=None)`` has FaceEnhanceNet's
+signature, so `Predictor`, the Trainer and the evaluation CLIs call it
+unchanged; like the JAX ``apply`` it does not clamp. Every conv is a
+cuDNN conv (the JAX package runs them through XLA, not Pallas). A dense
+block concatenates its growing feature maps with `torch.cat` (four times
+a block). ``quant`` maps conv sites (module paths: ``conv_first``,
+``body.{i}.rdb{r}.conv{k}``, ``conv_up1``, ...) to int8 serving or QAT
+sites (`ops.quant`): under ``int8_full`` a dense conv quantizes its whole
+concatenated input with one per-image scale, as the JAX package does.
+There is no packed int8 layout: the upsample is `nearest_up` then a conv.
 
 `ESRGANBaseline` is the frozen pretrained baseline: an `RRDBNet` whose
 eval forward clamps to [0, 1] (the JAX ``__call__``), with uint8
@@ -37,6 +42,7 @@ from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models.blocks import make_conv
 from facesr_torch.ops import init as finit
 from facesr_torch.ops.conv import conv2d, leaky_relu
+from facesr_torch.ops.quant import QuantSites, site_weight
 from facesr_torch.ops.resize import nearest_up
 
 __all__ = ["RRDBNetConfig", "RDB", "RRDB", "RRDBNet", "ESRGANBaseline", "rdb", "rrdb",
@@ -88,21 +94,28 @@ def make_rrdb(nf: int, gc: int, gen: torch.Generator) -> RRDB:
     return blk
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    return conv2d(x, conv.weight, conv.bias, padding=1)
+def _conv(conv: nn.Conv2d, x: torch.Tensor, quant: Optional[QuantSites] = None,
+          name: str = "") -> torch.Tensor:
+    return conv2d(x, site_weight(quant, name, conv.weight), conv.bias, padding=1)
 
 
-def rdb(m: RDB, x: torch.Tensor) -> torch.Tensor:
-    """Five convs with dense concatenation, x0.2 skip (NHWC)."""
+def rdb(m: RDB, x: torch.Tensor, quant: Optional[QuantSites] = None,
+        name: str = "") -> torch.Tensor:
+    """Five convs with dense concatenation, x0.2 skip (NHWC); ``name`` is
+    the block's module path (its sites are ``{name}.conv{k}``)."""
     feats = [x]
     for i in range(1, 5):
-        feats.append(leaky_relu(_conv(getattr(m, f"conv{i}"), torch.cat(feats, -1)), 0.2))
-    return x + 0.2 * _conv(m.conv5, torch.cat(feats, -1))
+        feats.append(leaky_relu(_conv(getattr(m, f"conv{i}"), torch.cat(feats, -1), quant,
+                                      f"{name}.conv{i}"), 0.2))
+    return x + 0.2 * _conv(m.conv5, torch.cat(feats, -1), quant, f"{name}.conv5")
 
 
-def rrdb(m: RRDB, x: torch.Tensor) -> torch.Tensor:
-    """Three RDBs, x0.2 block skip."""
-    out = rdb(m.rdb3, rdb(m.rdb2, rdb(m.rdb1, x)))
+def rrdb(m: RRDB, x: torch.Tensor, quant: Optional[QuantSites] = None,
+         name: str = "") -> torch.Tensor:
+    """Three RDBs, x0.2 block skip (``name``: the block's module path)."""
+    out = x
+    for r in ("rdb1", "rdb2", "rdb3"):
+        out = rdb(getattr(m, r), out, quant, f"{name}.{r}")
     return x + 0.2 * out
 
 
@@ -143,24 +156,22 @@ class RRDBNet(nn.Module):
         self.to(dev)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                dtype: Optional[torch.dtype] = None, quant=None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None,
+                quant: Optional[QuantSites] = None) -> torch.Tensor:
         """NHWC LR image in [0, 1] -> NHWC SR image (4x spatial), f32, not
         clamped (the JAX ``apply``). ``train`` changes nothing (no
-        dropout, no normalisation); ``quant`` (int8) is not ported."""
-        if quant is not None:
-            from facesr_torch.ops.quant import ZOO_INT8_NOT_PORTED
-
-            raise NotImplementedError(ZOO_INT8_NOT_PORTED)
+        dropout, no normalisation); ``quant``: the int8 serving or QAT
+        sites (`ops.quant`)."""
         h = x.to(dtype) if dtype is not None else x
-        feat = _conv(self.conv_first, h)
+        feat = _conv(self.conv_first, h, quant, "conv_first")
         body = feat
-        for blk in self.body:
-            body = rrdb(blk, body)
-        feat = feat + _conv(self.conv_body, body)
-        feat = leaky_relu(_conv(self.conv_up1, nearest_up(feat, 2)), 0.2)
-        feat = leaky_relu(_conv(self.conv_up2, nearest_up(feat, 2)), 0.2)
-        feat = leaky_relu(_conv(self.conv_hr, feat), 0.2)
-        return _conv(self.conv_last, feat).float()
+        for i, blk in enumerate(self.body):
+            body = rrdb(blk, body, quant, f"body.{i}")
+        feat = feat + _conv(self.conv_body, body, quant, "conv_body")
+        feat = leaky_relu(_conv(self.conv_up1, nearest_up(feat, 2), quant, "conv_up1"), 0.2)
+        feat = leaky_relu(_conv(self.conv_up2, nearest_up(feat, 2), quant, "conv_up2"), 0.2)
+        feat = leaky_relu(_conv(self.conv_hr, feat, quant, "conv_hr"), 0.2)
+        return _conv(self.conv_last, feat, quant, "conv_last").float()
 
     def get_model_info(self) -> Dict[str, Any]:
         total = param_count(self)
@@ -268,7 +279,8 @@ class ESRGANBaseline(RRDBNet):
         self.eval().to(resolve_device(device))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                dtype: Optional[torch.dtype] = None, quant=None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None,
+                quant: Optional[QuantSites] = None) -> torch.Tensor:
         out = super().forward(x, train=train, dtype=dtype, quant=quant)
         return out if train else out.clamp(0.0, 1.0)
 

@@ -99,6 +99,7 @@ class FaceEnhanceNet(blocks.KernelWeightCache, nn.Module):
     (CUDA unless the caller names one)."""
 
     model_type = "custom"
+    subpixel_site = "conv_last"  # runs subpixel-packed when calibrated int8
 
     def __init__(self, config: Optional[FaceEnhanceNetConfig] = None,
                  seed: int = 0, device: DeviceLike = None, **kwargs):
@@ -200,9 +201,27 @@ class FaceEnhanceNet(blocks.KernelWeightCache, nn.Module):
     def kernel_group_weights(self) -> List[GroupWeights]:
         """Each residual group's weights in the kernel layout, for the bf16
         trunk (cached, `blocks.KernelWeightCache`)."""
-        return self.cached_kernel_weights(
-            list(self.residual_groups.parameters()),
-            lambda: [prepare_group_weights(g) for g in self.residual_groups])
+        return self.cached_kernel_weights(list(self.residual_groups.parameters()),
+                                          self.kernel_groups)
+
+    def kernel_groups(self, weights: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> List[GroupWeights]:
+        """The kernel-layout weights of the residual groups that the bf16
+        eval forward runs on the group kernel ([] where the config does
+        not fit it), prepared anew: from the parameters, or with the conv
+        weights of ``weights`` (site -> tensor) in their place."""
+        if not self.kernel_trunk:
+            return []
+        return [prepare_group_weights(blocks.group_with(
+                    g.blocks, g.conv, weights or {}, f"residual_groups.{i}.blocks",
+                    f"residual_groups.{i}.conv"))
+                for i, g in enumerate(self.residual_groups)]
+
+    def kernel_forward(self, groups: List[GroupWeights]) -> Dict[str, TrunkFn]:
+        """The `forward` arguments that run the kernel groups on the weights
+        ``groups`` (`kernel_groups`'s layout)."""
+        return {"trunk_fn": lambda _, feat: blocks.run_kernel_groups(feat, groups,
+                                                                     self.config.res_scale)}
 
 
 def param_count(model: nn.Module) -> int:

@@ -24,13 +24,23 @@ in bf16 of a head the group kernel takes (64 channels, SE width within
 1..C; `head_kernel_fits`) runs it as one `fused_residual_group` call: the
 Hopper kernel on a CUDA tensor, its plain version on a CPU tensor.
 Training, f32 and other widths run the plain head, as the JAX ``apply``.
+
+``forward(..., quant=sites)`` runs the int8 serving or QAT forward
+(`ops.quant`; sites under the module paths ``backbone.body.{i}.rdb{r}.
+conv{k}``, ``face_head.rcab_blocks.{b}.conv1``, ...) through the plain
+head. With a calibrated ``conv_last`` the head's int8 arm runs as the JAX
+``apply``'s: the upsample keeps its output packed on conv_last's static
+grid and conv_last runs subpixel-packed, its scale and bias repeated
+channel-major (``repeat_interleave``), then the shuffle. Weight-only
+int8 serves the bf16 forward of a copy that holds the dequantized
+weights (`parallel.serving.build_serving_fn`), so its head takes the
+kernel.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -40,6 +50,8 @@ from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models import blocks
 from facesr_torch.models.esrgan import _init_conv, make_rrdb, rrdb
 from facesr_torch.ops.conv import conv2d
+from facesr_torch.ops.pixel_shuffle import pixel_shuffle
+from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import (KERNEL_CHANNELS, GroupWeights, fused_residual_group,
                                          prepare_group_weights)
 
@@ -97,22 +109,21 @@ class FaceHead(nn.Module):
         self.conv_last = blocks.make_conv(c, 3, 3)
         blocks.init_conv(self.conv_last, gen)
 
-    def as_group(self) -> SimpleNamespace:
-        """The head's RCABs and tail conv under a residual group's names
-        (``blocks``, ``conv``), for `prepare_group_weights`."""
-        return SimpleNamespace(blocks=self.rcab_blocks, conv=self.conv_after)
-
 
 HeadFn = Callable[[FaceHead, torch.Tensor], torch.Tensor]
 
 
-def plain_head(head: FaceHead, feat: torch.Tensor) -> torch.Tensor:
+def plain_head(head: FaceHead, feat: torch.Tensor,
+               quant: Optional[QuantSites] = None) -> torch.Tensor:
     """The head's residual group in the input's dtype: the RCABs, the tail
-    conv and the skip (`facesr/models/transfer.py:130-137`)."""
+    conv and the skip (`facesr/models/transfer.py:130-137`), with the
+    int8 or QAT sites of ``quant`` (module paths ``face_head.*``)."""
     residual = feat
-    for blk in head.rcab_blocks:
-        feat, _ = blocks.rcab(blk, feat, HEAD_RES_SCALE, 1)
-    return conv2d(feat, head.conv_after.weight, head.conv_after.bias, padding=1) + residual
+    for b, blk in enumerate(head.rcab_blocks):
+        feat, _ = blocks.rcab(blk, feat, HEAD_RES_SCALE, 1, quant=quant,
+                              name=f"face_head.rcab_blocks.{b}")
+    return conv2d(feat, site_weight(quant, "face_head.conv_after", head.conv_after.weight),
+                  head.conv_after.bias, padding=1) + residual
 
 
 def head_kernel_fits(cfg: TransferModelConfig) -> bool:
@@ -134,6 +145,7 @@ class TransferSRModel(blocks.KernelWeightCache, nn.Module):
     dict may carry another, which `models.load` reads from its shapes)."""
 
     model_type = "transfer"
+    subpixel_site = "face_head.conv_last"  # runs subpixel-packed when calibrated int8
 
     def __init__(self, config: Optional[TransferModelConfig] = None,
                  pretrained_path: Optional[str] = None, seed: int = 0,
@@ -153,41 +165,69 @@ class TransferSRModel(blocks.KernelWeightCache, nn.Module):
         self.to(dev)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                dtype: Optional[torch.dtype] = None, quant=None,
+                dtype: Optional[torch.dtype] = None, quant: Optional[QuantSites] = None,
                 head_fn: Optional[HeadFn] = None) -> torch.Tensor:
         """NHWC LR image in [0, 1] -> NHWC SR image, f32, not clamped (the
         JAX ``apply``). ``head_fn(face_head, feat) -> feat`` overrides the
-        head's residual group; by default the bf16 eval forward runs the
-        group kernel where the config fits it (``self.kernel_head``), every
-        other forward `plain_head`. ``quant`` (int8) is not ported."""
-        if quant is not None:
-            from facesr_torch.ops.quant import ZOO_INT8_NOT_PORTED
-
-            raise NotImplementedError(ZOO_INT8_NOT_PORTED)
+        head's residual group; by default the bf16 eval forward without
+        ``quant`` runs the group kernel where the config fits it
+        (``self.kernel_head``), every other forward `plain_head`.
+        ``quant``: the int8 serving or QAT sites (`ops.quant`)."""
         bb, hd = self.backbone, self.face_head
         h = x.to(dtype) if dtype is not None else x
-        feat = conv2d(h, bb.conv_first.weight, bb.conv_first.bias, padding=1)
+        feat = conv2d(h, site_weight(quant, "backbone.conv_first", bb.conv_first.weight),
+                      bb.conv_first.bias, padding=1)
         body = feat
-        for blk in bb.body:
-            body = rrdb(blk, body)
-        feat = feat + conv2d(body, bb.conv_body.weight, bb.conv_body.bias, padding=1)
+        for i, blk in enumerate(bb.body):
+            body = rrdb(blk, body, quant, f"backbone.body.{i}")
+        feat = feat + conv2d(body, site_weight(quant, "backbone.conv_body", bb.conv_body.weight),
+                             bb.conv_body.bias, padding=1)
         if head_fn is not None:
             feat = head_fn(hd, feat)
-        elif dtype == torch.bfloat16 and not train and self.kernel_head:
+        elif dtype == torch.bfloat16 and not train and self.kernel_head and quant is None:
             feat = fused_residual_group(feat.contiguous(), self.kernel_head_weights(),
                                         HEAD_RES_SCALE)
         else:
-            feat = plain_head(hd, feat)
-        feat = blocks.upsample(hd.upsample, feat)
-        return conv2d(feat, hd.conv_last.weight, hd.conv_last.bias, padding=1).float()
+            feat = plain_head(hd, feat, quant)
+        w_last = site_weight(quant, "face_head.conv_last", hd.conv_last.weight)
+        # calibrated int8: conv_last reads the upsample's packed int8 output
+        # through the subpixel-repacked kernel (`facesr/models/transfer.py:
+        # 139-156`; bitwise the unpacked order)
+        subpixel = is_int8_kernel(w_last)
+        feat = blocks.upsample(hd.upsample, feat, next_w=w_last, keep_last_packed=subpixel,
+                               quant=quant, name="face_head.upsample")
+        if subpixel and feat.dtype == torch.int8:
+            out = pixel_shuffle(conv2d(feat, w_last.subpixel_packed(),
+                                       hd.conv_last.bias.repeat_interleave(4), padding=1), 2)
+        else:
+            out = conv2d(feat, w_last, hd.conv_last.bias, padding=1)
+        return out.float()
 
     def kernel_head_weights(self) -> GroupWeights:
         """The head's weights in the kernel layout (cached,
         `blocks.KernelWeightCache`)."""
         params = [p for n, p in self.face_head.named_parameters()
                   if n.startswith(("rcab_blocks.", "conv_after."))]
-        return self.cached_kernel_weights(
-            params, lambda: prepare_group_weights(self.face_head.as_group()))
+        return self.cached_kernel_weights(params, lambda: self.kernel_groups()[0])
+
+    def kernel_groups(self, weights: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> List[GroupWeights]:
+        """The head's kernel-layout weights as a list of one group ([] where
+        the config does not fit the kernel), prepared anew: from the
+        parameters, or with the conv weights of ``weights`` (site ->
+        tensor) in their place."""
+        if not self.kernel_head:
+            return []
+        hd = self.face_head
+        return [prepare_group_weights(blocks.group_with(
+            hd.rcab_blocks, hd.conv_after, weights or {}, "face_head.rcab_blocks",
+            "face_head.conv_after"))]
+
+    def kernel_forward(self, groups: List[GroupWeights]) -> Dict[str, HeadFn]:
+        """The `forward` arguments that run the head on the kernel with the
+        weights ``groups`` (`kernel_groups`'s layout)."""
+        return {"head_fn": lambda _, feat: blocks.run_kernel_groups(feat, groups,
+                                                                    HEAD_RES_SCALE)}
 
     # -- stages -------------------------------------------------------------
     def _apply_stage(self) -> None:

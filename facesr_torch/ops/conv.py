@@ -19,13 +19,21 @@ an im2col of nine shifted slices of the zero-padded int8 input, and
 ``torch._int_mm``, cuBLASLt's int8 tensor-core GEMM on a card), a
 `FakeQuantWeight` the differentiable fake-quant conv of QAT
 (`_conv2d_fakequant`).
+
+A serving site's int8 conv is one call of the custom op
+``facesr_torch::int8_conv`` (the same code on every device; a fake that
+gives the output's shape), so `torch.export` keeps each int8 conv as one
+graph node, whose im2col chunking runs at the batch the program is
+called with: an int8 ``.pt2`` keeps a symbolic batch, and the chunks stay
+under `INT8_CHUNK_BYTES` at any batch. A site with a calibration id runs
+the same code outside the op, to record its dynamic scales.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Optional, Tuple, Union
+from typing import Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +42,7 @@ from facesr_torch.ops import quant as _quant
 from facesr_torch.ops.quant import FakeQuantWeight, Int8Weight
 
 __all__ = ["conv2d", "quantize_act", "prelu", "leaky_relu", "global_avg_pool", "full_f32",
-           "INT8_CHUNK_BYTES"]
+           "INT8_CHUNK_BYTES", "int8_gemm_pads", "int8_site_of_gemm", "fake_quant_scale"]
 
 
 _tf32_lock = threading.Lock()
@@ -123,6 +131,13 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def int8_gemm_pads(q_shape) -> Tuple[int, int]:
+    """(K, N) of the im2col GEMM of an OIHW int8 kernel, padded to the
+    multiples of 8 that ``torch._int_mm`` takes on a card."""
+    o, i, kh, kw = q_shape
+    return _round_up(kh * kw * i, 8), _round_up(o, 8)
+
+
 def _out_size(size: int, k: int, pad: int, stride: int) -> int:
     return (size + 2 * pad - k) // stride + 1
 
@@ -142,7 +157,7 @@ def _int8_gemm_conv(xq: torch.Tensor, w: Int8Weight, stride: int, pad: Tuple[int
     ph, pw = pad
     ho, wo = _out_size(h, kh, ph, stride), _out_size(wd, kw, pw, stride)
     k = kh * kw * c
-    k_pad, n_pad = _round_up(k, 8), _round_up(o, 8)
+    k_pad, n_pad = int8_gemm_pads(w.q.shape)
     wmat = w.gemm_weight(k_pad, n_pad).t()
     xp = F.pad(xq, (0, 0, pw, pw, ph, ph)) if ph or pw else xq.contiguous()
     rows = max(1, INT8_CHUNK_BYTES // (wo * max(k_pad, 4 * n_pad)))  # output rows a chunk
@@ -171,6 +186,56 @@ def _int8_gemm_conv(xq: torch.Tensor, w: Int8Weight, stride: int, pad: Tuple[int
 
 def _conv2d_int8(x: torch.Tensor, w: Int8Weight, b: Optional[torch.Tensor], stride: int,
                  padding: Padding, groups: int, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The int8 conv of a site (`_int8_conv`): through the custom op
+    ``facesr_torch::int8_conv``, or, for a site with a calibration id, in
+    Python (it records its dynamic scales)."""
+    if groups != 1:
+        raise NotImplementedError("the int8 conv takes groups=1 only")
+    if w.sid is not None:
+        return _int8_conv(x, w, b, stride, padding, dtype)
+    pad = _pad_arg(padding)
+    pad = [pad, pad] if isinstance(pad, int) else list(pad)
+    if x.dtype == torch.int8:
+        out_dtype = dtype if dtype is not None else torch.float32
+    else:
+        if dtype is not None:
+            x = x.to(dtype)
+        out_dtype = x.dtype if x.dtype.is_floating_point else torch.float32
+    return torch.ops.facesr_torch.int8_conv(x, w.gemm_weight(*int8_gemm_pads(w.q.shape)),
+                                            w.scale, w.a, b, list(w.q.shape), stride, pad,
+                                            out_dtype)
+
+
+def int8_site_of_gemm(wmat: torch.Tensor, scale: torch.Tensor, a: Optional[torch.Tensor],
+                      q_shape: List[int]) -> Int8Weight:
+    """The site of a GEMM matrix ``wmat`` (`Int8Weight.gemm_weight`, its
+    OIHW shape ``q_shape``): its OIHW kernel a view of the matrix."""
+    o, i, kh, kw = q_shape
+    q = wmat[:o, :kh * kw * i].reshape(o, kh, kw, i).permute(0, 3, 1, 2)
+    return Int8Weight(q, scale, a, _memo={("gemm",) + int8_gemm_pads(q_shape): wmat})
+
+
+@torch.library.custom_op("facesr_torch::int8_conv", mutates_args=())
+def _int8_conv_op(x: torch.Tensor, wmat: torch.Tensor, scale: torch.Tensor,
+                  a: Optional[torch.Tensor], b: Optional[torch.Tensor], q_shape: List[int],
+                  stride: int, pad: List[int], out_dtype: torch.dtype) -> torch.Tensor:
+    """`_int8_conv` of the site (``wmat`` its [N_pad, K_pad] GEMM matrix,
+    `Int8Weight.gemm_weight`, ``q_shape`` its OIHW shape); the output in
+    ``out_dtype``."""
+    return _int8_conv(x, int8_site_of_gemm(wmat, scale, a, q_shape), b, stride,
+                      (tuple(pad[:1] * 2), tuple(pad[1:] * 2)), out_dtype)
+
+
+@_int8_conv_op.register_fake
+def _(x, wmat, scale, a, b, q_shape, stride, pad, out_dtype):
+    n, h, wd, _ = x.shape
+    o, _, kh, kw = q_shape
+    return x.new_empty((n, _out_size(h, kh, pad[0], stride), _out_size(wd, kw, pad[1], stride),
+                        o), dtype=out_dtype)
+
+
+def _int8_conv(x: torch.Tensor, w: Int8Weight, b: Optional[torch.Tensor], stride: int,
+               padding: Padding, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """s8 x s8 -> s32 conv with per-tensor activation quantization:
     ``out = conv(round(x / a), q) * (a * scale) + b``, assembled in f32 in
     that order (then cast), as the JAX package does. ``a`` is the site's
@@ -179,8 +244,6 @@ def _conv2d_int8(x: torch.Tensor, w: Int8Weight, b: Optional[torch.Tensor], stri
     static grid (the packed upsample quantizes before the shuffle) and
     needs ``w.a``. The output takes x's float dtype (``dtype``, or f32 for
     an int8 x)."""
-    if groups != 1:
-        raise NotImplementedError("the int8 conv takes groups=1 only")
     if x.dtype == torch.int8:
         if w.a is None:
             raise ValueError("int8 conv input requires a static scale "
@@ -265,19 +328,24 @@ def _conv2d_fakequant(x: torch.Tensor, w: FakeQuantWeight, b: Optional[torch.Ten
         x = x.to(dtype)
     out_dtype = x.dtype if x.dtype.is_floating_point else torch.float32
     wf = w.w.float()
-    s = _quant.amax_scale(wf, (1, 2, 3)).detach()
-    s = torch.where(s == 0, torch.ones_like(s), s)
+    s = fake_quant_scale(wf)
     wq = _clip127(_ste_round(wf / s)) * s
     xf = x.float()
-    if w.a is not None:
-        # the calibrated serving grid, saturation included
-        a = w.a.reshape(1, 1, 1, 1)
-    else:
-        a = _quant.amax_scale(xf, (1, 2, 3)).detach()
-        a = torch.where(a == 0, torch.ones_like(a), a)
+    a = fake_quant_scale(xf, w.a)
     xq = _clip127(_ste_round(xf / a)) * a
     return conv2d(xq.to(out_dtype), wq.to(out_dtype), b, padding=padding, groups=groups,
                   stride=stride)
+
+
+def fake_quant_scale(t: torch.Tensor, static: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The scale the fake-quant conv divides f32 ``t`` by: the calibrated
+    serving grid ``static`` of an activation (saturation included), else
+    max|t| / 127 (0 -> 1) per leading index (an image of an NHWC
+    activation, an output channel of an OIHW kernel), detached."""
+    if static is not None:
+        return static.reshape(1, 1, 1, 1)
+    a = _quant.amax_scale(t, (1, 2, 3)).detach()
+    return torch.where(a == 0, torch.ones_like(a), a)
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

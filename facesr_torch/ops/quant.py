@@ -22,10 +22,14 @@ every width. `conv_leaves` lists the leaves in JAX tree-flatten order
 
 Weight-only ``int8`` serving quantizes the same sites and serves the bf16
 forward of the weights `dequantize_pytree` gives back, kernel trunk
-included.
+(FaceEnhanceNet) and kernel head (the transfer model) included.
 
-Only FaceEnhanceNet is quantized: the model zoo's int8 serving,
-calibration and QAT raise (`ZOO_INT8_NOT_PORTED`, ROADMAP A.12.1).
+The three families have site tables: FaceEnhanceNet, RRDBNet and the
+transfer model. A stacked RRDB body is one leaf per (RDB, conv) of the
+JAX tree, so its site ids are leaf-major (``body.rdb1.conv1_w`` takes one
+id per block, then ``rdb1.conv2_w``, ...); the transfer body is the JAX
+package's two stacks, ``body_main`` and the last ``min(4, N)`` blocks as
+``body_tail`` (no leaves when ``body_main`` is empty).
 """
 
 from __future__ import annotations
@@ -42,12 +46,7 @@ __all__ = ["MIN_QUANT_SIZE", "Int8Weight", "FakeQuant", "FakeQuantWeight", "Quan
            "ConvLeaf", "conv_leaves", "is_int8_kernel", "site_weight", "over_127", "amax_scale",
            "dequantize_pytree", "quantize_conv_kernels", "collecting_act_stats",
            "record_act_scale", "attach_act_scales", "calibrate_act_scales",
-           "fake_quant_params", "quantization_summary", "ZOO_INT8_NOT_PORTED",
-           "require_int8_model"]
-
-ZOO_INT8_NOT_PORTED = ("int8 and int8_full serving, calibration and QAT of the model zoo "
-                       "(transfer, esrgan) are not ported yet (ROADMAP A.12.1: int8 and .pt2 "
-                       "of the zoo); serve it in f32 or bf16")
+           "fake_quant_params", "quantization_summary"]
 
 # Leaves smaller than this stay float: per-channel scales on tiny tensors
 # cost accuracy for no footprint (the JAX package's MIN_QUANT_SIZE).
@@ -112,8 +111,8 @@ class FakeQuantWeight:
     a: Optional[torch.Tensor] = None
 
 
-# a site's entry: int8 serving or QAT
-QuantSites = Dict[str, Union[Int8Weight, FakeQuant]]
+# a site's entry: int8 serving or QAT (or an exported weight-only kernel)
+QuantSites = Dict[str, Union[Int8Weight, FakeQuant, torch.Tensor]]
 
 
 def is_int8_kernel(w) -> bool:
@@ -125,8 +124,9 @@ def is_int8_kernel(w) -> bool:
 
 def site_weight(quant: Optional[QuantSites], name: str, weight: torch.Tensor):
     """What the forward hands `conv2d` for the conv at ``name``: its float
-    ``weight``, the site's `Int8Weight`, or the weight paired with the
-    site's QAT marker."""
+    ``weight``, the site's `Int8Weight`, the weight paired with the site's
+    QAT marker, or a float tensor in the site's place (the dequantized
+    kernel of a weight-only int8 `.pt2`, `ckpt.export`)."""
     site = None if quant is None else quant.get(name)
     if site is None:
         return weight
@@ -164,51 +164,101 @@ def _is_conv_kernel(path, shape, dtype) -> bool:
             and dtype in (torch.float32, torch.bfloat16))
 
 
-def require_int8_model(model) -> None:
-    """Raise NotImplementedError (ROADMAP A.12.1) for a model whose int8
-    is not ported: any but FaceEnhanceNet."""
-    if getattr(model, "model_type", "custom") not in ("custom", "lite"):
-        raise NotImplementedError(ZOO_INT8_NOT_PORTED)
+def _oihw(conv) -> Tuple[int, ...]:
+    return tuple(conv.weight.shape)
 
 
-def conv_leaves(model) -> List[ConvLeaf]:
-    """The >= 4-d leaves of a FaceEnhanceNet's JAX parameter tree, in JAX
-    tree-flatten order (sorted keys; the upsample stages a list). A model
-    of the zoo raises NotImplementedError (ROADMAP A.12.1)."""
-    require_int8_model(model)
+def _face_enhance_net_leaves(model) -> List[ConvLeaf]:
     cfg = model.config
     g_n, b_n = cfg.num_groups, cfg.blocks_per_group
-
-    def oihw(conv) -> Tuple[int, ...]:
-        return tuple(conv.weight.shape)
-
     blk = model.residual_groups[0].blocks[0]
     fc1, fc2 = blk.channel_attention.fc[0].weight, blk.channel_attention.fc[2].weight
     rcab_names = lambda conv: tuple(f"residual_groups.{g}.blocks.{b}.{conv}"  # noqa: E731
                                     for g in range(g_n) for b in range(b_n))
     leaves = [
-        ConvLeaf(("conv_after_body", "w"), (), oihw(model.conv_after_body), ("conv_after_body",)),
-        ConvLeaf(("conv_first", "w"), (), oihw(model.conv_first), ("conv_first",)),
-        ConvLeaf(("conv_last", "w"), (), oihw(model.conv_last), ("conv_last",)),
-        ConvLeaf(("groups", "conv_w"), (g_n,), oihw(model.residual_groups[0].conv),
+        ConvLeaf(("conv_after_body", "w"), (), _oihw(model.conv_after_body), ("conv_after_body",)),
+        ConvLeaf(("conv_first", "w"), (), _oihw(model.conv_first), ("conv_first",)),
+        ConvLeaf(("conv_last", "w"), (), _oihw(model.conv_last), ("conv_last",)),
+        ConvLeaf(("groups", "conv_w"), (g_n,), _oihw(model.residual_groups[0].conv),
                  tuple(f"residual_groups.{g}.conv" for g in range(g_n))),
         # the SE matrices ([G, B, in, out]) are 4-d too; the predicate
         # keeps them float by their path
         ConvLeaf(("groups", "rcab", "ca", "fc1_w"), (g_n, b_n), tuple(fc1.t().shape), ()),
         ConvLeaf(("groups", "rcab", "ca", "fc2_w"), (g_n, b_n), tuple(fc2.t().shape), ()),
-        ConvLeaf(("groups", "rcab", "conv1_w"), (g_n, b_n), oihw(blk.conv1), rcab_names("conv1")),
-        ConvLeaf(("groups", "rcab", "conv2_w"), (g_n, b_n), oihw(blk.conv2), rcab_names("conv2")),
+        ConvLeaf(("groups", "rcab", "conv1_w"), (g_n, b_n), _oihw(blk.conv1), rcab_names("conv1")),
+        ConvLeaf(("groups", "rcab", "conv2_w"), (g_n, b_n), _oihw(blk.conv2), rcab_names("conv2")),
     ]
-    for s, st in enumerate(model.upsample.stages):
-        leaves.append(ConvLeaf(("upsample", s, "conv_w"), (), oihw(st.conv),
-                               (f"upsample.stages.{s}.conv",)))
-    return leaves
+    return leaves + _upsample_leaves(model.upsample, ("upsample",), "upsample")
+
+
+def _upsample_leaves(up, path, prefix) -> List[ConvLeaf]:
+    return [ConvLeaf(path + (s, "conv_w"), (), _oihw(st.conv), (f"{prefix}.stages.{s}.conv",))
+            for s, st in enumerate(up.stages)]
+
+
+def _rrdb_body_leaves(body, path, prefix: str, blocks: range) -> List[ConvLeaf]:
+    """The leaves of the RRDB blocks ``blocks`` of ``body`` stacked at JAX
+    ``path``: one per (RDB, conv), in sorted key order, each with a site a
+    block; none for an empty stack (JAX's None)."""
+    if not len(blocks):
+        return []
+    blk = body[blocks[0]]
+    return [ConvLeaf(path + (r, f"conv{k}_w"), (len(blocks),),
+                     _oihw(getattr(getattr(blk, r), f"conv{k}")),
+                     tuple(f"{prefix}.{i}.{r}.conv{k}" for i in blocks))
+            for r in ("rdb1", "rdb2", "rdb3") for k in range(1, 6)]
+
+
+def _conv_leaf(model, path, name) -> ConvLeaf:
+    return ConvLeaf(path, (), _oihw(model.get_submodule(name)), (name,))
+
+
+def _rrdbnet_leaves(model) -> List[ConvLeaf]:
+    body = _rrdb_body_leaves(model.body, ("body",), "body", range(len(model.body)))
+    return body + [_conv_leaf(model, (name, "w"), name)
+                   for name in ("conv_body", "conv_first", "conv_hr", "conv_last", "conv_up1",
+                                "conv_up2")]
+
+
+def _transfer_leaves(model) -> List[ConvLeaf]:
+    from facesr_torch.models.transfer import STAGE2_UNFREEZE_BLOCKS
+
+    body, hd = model.backbone.body, model.face_head
+    n = len(body)
+    n_main = n - min(STAGE2_UNFREEZE_BLOCKS, n)
+    blk = hd.rcab_blocks[0]
+    b_n = len(hd.rcab_blocks)
+    return (_rrdb_body_leaves(body, ("backbone", "body_main"), "backbone.body", range(n_main))
+            + _rrdb_body_leaves(body, ("backbone", "body_tail"), "backbone.body",
+                                range(n_main, n))
+            + [_conv_leaf(model, ("backbone", "conv_body", "w"), "backbone.conv_body"),
+               _conv_leaf(model, ("backbone", "conv_first", "w"), "backbone.conv_first"),
+               _conv_leaf(model, ("face_head", "conv_after", "w"), "face_head.conv_after"),
+               _conv_leaf(model, ("face_head", "conv_last", "w"), "face_head.conv_last")]
+            # the head's SE matrices ([B, in, out]) are 3-d: not listed
+            + [ConvLeaf(("face_head", "rcabs", f"{conv}_w"), (b_n,),
+                        _oihw(getattr(blk, conv)),
+                        tuple(f"face_head.rcab_blocks.{b}.{conv}" for b in range(b_n)))
+               for conv in ("conv1", "conv2")]
+            + _upsample_leaves(hd.upsample, ("face_head", "upsample"), "face_head.upsample"))
+
+
+def conv_leaves(model) -> List[ConvLeaf]:
+    """The >= 4-d leaves of a model's JAX parameter tree, in JAX
+    tree-flatten order (sorted keys; the upsample stages a list): a
+    FaceEnhanceNet (``custom``/``lite``), an RRDBNet (``esrgan``) or a
+    transfer model, by its ``model_type``."""
+    mtype = getattr(model, "model_type", "custom")
+    if mtype == "esrgan":
+        return _rrdbnet_leaves(model)
+    if mtype == "transfer":
+        return _transfer_leaves(model)
+    return _face_enhance_net_leaves(model)
 
 
 def quant_leaves(model) -> List[ConvLeaf]:
     """The leaves the transforms quantize, in JAX tree-flatten order."""
-    require_int8_model(model)
-    dtype = model.conv_first.weight.dtype
+    dtype = next(model.parameters()).dtype
     return [leaf for leaf in conv_leaves(model)
             if _is_conv_kernel(leaf.path, leaf.stack + leaf.shape, dtype)]
 

@@ -6,9 +6,9 @@ Port of `facesr/parallel/serving.py` for one CUDA card:
 - `build_serving_fn`: the serving precision dispatch of any model the
   port loads (FaceEnhanceNet, the transfer model, RRDBNet): f32, bf16
   (the group kernel in FaceEnhanceNet's trunk and the transfer head),
-  ``int8`` (per-channel int8 weights, dequantized to
-  bf16 once, the kernel trunk) and ``int8_full`` (s8 convs with
-  per-image dynamic or calibrated static activation scales).
+  ``int8`` (per-channel int8 weights, dequantized to bf16 once, the
+  kernel trunk and head) and ``int8_full`` (s8 convs with per-image
+  dynamic or calibrated static activation scales).
 - `calibrated_qparams`, `load_calibrated_qparams`: calibrate static
   scales or restore them from a quant cache (a ``.fckpt`` the JAX
   package's `load_calibrated_qparams` reads too, pinned to its source
@@ -174,15 +174,9 @@ def build_serving_fn(model: torch.nn.Module, dtype: ServingDtype = None,
 
     ``calibration``/``quant_cache`` under another dtype print a warning and
     are ignored. The forward's ``sites`` attribute holds the int8 sites
-    (None for the float dtypes). The model zoo (a transfer model, an
-    RRDBNet) serves in f32 and bf16; its int8 dtypes raise
-    NotImplementedError (ROADMAP A.12.1)."""
+    (None for the float dtypes). Every family serves in every dtype."""
     if dtype not in (None, torch.float32, torch.bfloat16, "int8", "int8_full"):
         raise ValueError(f"unsupported serving dtype {dtype!r}")
-    if dtype in ("int8", "int8_full"):
-        from facesr_torch.ops.quant import require_int8_model
-
-        require_int8_model(model)
     if dtype != "int8_full" and (calibration is not None or quant_cache):
         print(f"Warning: calibration/quant_cache only apply to dtype='int8_full' "
               f"(got dtype={dtype!r}); ignoring them")
@@ -192,6 +186,10 @@ def build_serving_fn(model: torch.nn.Module, dtype: ServingDtype = None,
 
         sites = quantize_conv_kernels(model)
         served = copy.deepcopy(model)
+        if hasattr(served, "_kernel_weights"):
+            # the copy prepares its own kernel-layout weights from the
+            # dequantized ones, never the original's cached layout
+            served._kernel_weights = None
         with torch.no_grad():
             for name, w in dequantize_pytree(sites, torch.bfloat16).items():
                 served.get_parameter(f"{name}.weight").copy_(w)
@@ -237,8 +235,8 @@ def pad_to_multiple(array: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
 
 
 class Predictor:
-    """Serve a model on one device (FaceEnhanceNet, or a model of the zoo
-    in f32 and bf16).
+    """Serve a model on one device (FaceEnhanceNet, a transfer model or an
+    RRDBNet, in any dtype of `build_serving_fn`).
 
     ``__call__(images)`` takes an NHWC float batch of any size and returns
     the clipped SR batch as float32 numpy. Requests larger than

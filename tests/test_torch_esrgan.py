@@ -232,14 +232,22 @@ def test_a_bad_pth_is_quarantined(tmp_path, no_network, capsys):
 
 
 def test_int8_serving_of_the_zoo_raises_and_names_its_item():
+    """Ported since the zoo's int8 (this test asserted its refusal before):
+    an RRDBNet serves in int8 and int8_full through build_serving_fn and
+    Predictor, the two agree, and an empty site map is the float forward.
+    tests/test_torch_zoo_int8.py holds the int8 forwards against JAX."""
     from facesr_torch.parallel.serving import Predictor, build_serving_fn
 
     _, params = _params()
     model = _port(params)
+    x = _x(seed=4, size=8)
     for dtype in ("int8", "int8_full"):
-        with pytest.raises(NotImplementedError, match="A.12.1"):
-            build_serving_fn(model, dtype)
-        with pytest.raises(NotImplementedError, match="A.12.1"):
-            Predictor(model, dtype=dtype, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12.1"):
-        model(torch.rand(1, 4, 4, 3), quant={})
+        fwd = build_serving_fn(model, dtype)
+        with torch.no_grad():
+            want = fwd(torch.from_numpy(x)).numpy()
+        assert want.shape == (2, 32, 32, 3) and np.isfinite(want).all()
+        assert len(fwd.sites) == 2 * 15 + 6
+        np.testing.assert_array_equal(Predictor(model, dtype=dtype, device="cpu")(x), want)
+    with torch.no_grad():
+        xt = torch.rand(1, 4, 4, 3)
+        assert torch.equal(model(xt, quant={}), model(xt))

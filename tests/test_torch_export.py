@@ -83,8 +83,13 @@ def test_load_time_checks(artifacts, tmp_path):
     dup.write_bytes(path.read_bytes())
     with pytest.raises(ValueError, match="duplicate artifact name"):
         ex.load_exported_many(f"{path},{dup}", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ex.export_serving(artifacts[(16, "f32")][1], "int8", input_size=SIZE)
+    # the int8 .pt2 is ported (this asserted its refusal before): an int8
+    # artifact keeps a symbolic batch and serves the live forward
+    model = artifacts[(16, "f32")][1]
+    fn = ex.load_exported(ex.export_serving(model, "int8", input_size=SIZE), device="cpu")
+    assert isinstance(ex.input_shape(fn.exported)[0], torch.SymInt)
+    x = np.random.default_rng(4).random((2, SIZE, SIZE, 3), dtype=np.float32)
+    np.testing.assert_array_equal(fn(x), Predictor(model, dtype="int8", device="cpu")(x))
 
 
 def test_custom_op_passes_opcheck():
@@ -120,6 +125,8 @@ def test_export_cli_and_test_model_exported(tmp_path, capsys):
     got = port_test.run(["--exported", str(art)] + common)
     want = port_test.run(["--checkpoint", str(tmp_path / "m.pth")] + common)
     assert [r["model"] for r in got] == [r["model"] for r in want]
-    with pytest.raises(NotImplementedError, match="A.10"):
-        export_cli.main(["--checkpoint", str(tmp_path / "m.pth"), "--output", str(art),
-                         "--dtype", "int8", "--device", "cpu"])
+    # the int8 .pt2 is ported (this asserted its refusal before)
+    assert export_cli.main(["--checkpoint", str(tmp_path / "m.pth"), "--output", str(art),
+                            "--dtype", "int8", "--input-size", "8", "--verify",
+                            "--device", "cpu"]) == 0
+    assert "verify: max |exported - live| = 0.00e+00" in capsys.readouterr().out

@@ -222,9 +222,9 @@ def test_stage3_gan_fields_reach_the_trainer_and_the_discriminator(workdir, case
     assert trainer.use_gan and int(trainer.state.d_opt_state["count"]) == 0
 
 
-# (config, flags, the ROADMAP item the refusal names); --qat-scales is
-# ported and refused, as in JAX, only without training.qat; the model zoo
-# trains (tests/test_torch_zoo_cli.py), but its QAT is refused
+# (config, flags, what the refusal names); --qat-scales is ported and
+# refused, as in JAX, only without training.qat, for every family (the
+# zoo's QAT is ported: tests/test_torch_zoo_cli.py trains it)
 REFUSED = {
     "qat_scales": ("stage1_psnr_config.yaml", ["--qat-scales", "x.npz"],
                    "requires training.qat"),
@@ -232,17 +232,17 @@ REFUSED = {
     "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-shape", "4,2"], "ROADMAP A.13"),
     "print_memory": ("stage1_psnr_config.yaml", ["--print-memory"], "ROADMAP A.13"),
     "transfer": ("stage1_psnr_config.yaml", ["--model", "transfer", "--qat-scales", "x.npz"],
-                 r"ROADMAP A\.12\.1"),
+                 "requires training.qat"),
     "esrgan": ("stage1_psnr_config.yaml", ["--model", "esrgan", "--qat-scales", "x.npz"],
-               r"ROADMAP A\.12\.1"),
+               "requires training.qat"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
     config, flags, item = REFUSED[what]
-    with pytest.raises(SystemExit if what == "qat_scales" else train_cli.NotPorted,
-                       match=item):
+    with pytest.raises(SystemExit if what in ("qat_scales", "transfer", "esrgan")
+                       else train_cli.NotPorted, match=item):
         _run(config, *flags)
 
 

@@ -393,11 +393,20 @@ def test_load_pretrained_backbone(tmp_path, capsys):
 
 
 def test_int8_and_export_of_the_transfer_model_raise():
+    """Ported since the zoo's int8 and .pt2 (this test asserted their
+    refusal before): the serving and QAT transforms select the same sites
+    (5 RRDBs x 15, the head's 2 x 2 RCAB convs, conv_after, conv_last, the
+    2 upsample convs, conv_first and conv_body), and the export module
+    serves the live bf16 forward. tests/test_torch_zoo_int8.py and
+    tests/test_torch_zoo_export.py hold them against JAX and the artifacts."""
     from facesr_torch.ckpt.export import build_serving_fn as export_fn
     from facesr_torch.ops.quant import fake_quant_params, quantize_conv_kernels
 
     _, params = _params()
     model = _port(params)
-    for fn in (quantize_conv_kernels, fake_quant_params, lambda m: export_fn(m)):
-        with pytest.raises(NotImplementedError, match="A.12.1"):
-            fn(model)
+    sites = quantize_conv_kernels(model)
+    assert list(sites) == list(fake_quant_params(model)) and len(sites) == 5 * 15 + 4 + 6
+    x = torch.from_numpy(_x(seed=5, size=8))
+    with torch.no_grad():
+        want = model(x, dtype=torch.bfloat16).clamp(0, 1)
+        assert torch.equal(export_fn(model)(x), want)
