@@ -51,7 +51,8 @@ catches an error and goes on):
    ``stage2_ssim_config.yaml`` and ``stage3_gan_config.yaml`` (GAN), all
    unchanged, for one epoch each (its ms/step and loader wait against
    phase 7's step alone); stage 2 must chain from stage 1's
-   ``best_model.pth`` bitwise and stage 3 from stage 2's, whose
+   ``best_model.fckpt`` (the Trainer writes it beside ``best_model.pth``)
+   bitwise and stage 3 from stage 2's, whose
    discriminator loss history must be finite; controls: a corrupt
    PNG stops the loader with its name, and the CLI without ``--device``
    on a process that sees no card raises;
@@ -182,6 +183,28 @@ catches an error and goes on):
    bitwise, the CPU taking the card's fake-quant level wherever the two
    round a tie apart (an activation within 1e-3 of a level boundary;
    counted), each with its TF32 control rejected.
+15. explainability, ``stage_panel`` and the checkpoint bridge (no kernel:
+   everything here runs in f32, and the phase fails if the group kernel
+   launches): Grad-CAM of the 6x10x64 model (conv_last non-zero) on 8
+   64x64 images at conv_first, group3 and group6, all four regions, and
+   the SE attention, on the card against the CPU (CAM max abs <= 1e-4,
+   attention <= 1e-5), with a TF32 control that must be rejected; the ms
+   of ``generate_multi_region`` (batch 8) and ``visualize_attention_flow``
+   (one image), CUDA events, median of 5, the peak memory, and
+   ``create_attention_report``'s files; then (15.3) the stage-1 Trainer
+   (batch 48, HR 256, L1 + perceptual, EMA on, epochs of 2 batches) for
+   1 epoch, resumed fully in a new Trainer from its ``.fckpt`` and from
+   its ``.pth``, for 1 more, against 2 uninterrupted epochs (params, EMA,
+   moments, counts bitwise with cuDNN deterministic for this phase only,
+   else within 1e-6 relative L2 a tensor, the reason printed), and the
+   same for the GAN trainer at batch 8, HR 128 (D, its stats and its
+   optimiser too), with the ``.fckpt``'s size and write time; (15.2)
+   ``python -m facesr_torch.cli.stage_panel`` on 15.3's epoch 1 and 2
+   files and 4 256x256 PNGs with ``--device cuda`` and ``--device cpu``
+   (panels at most 1 level apart on at most 0.5% of pixels) and their
+   wall times; (15.4) ``python -m facesr_torch.cli.convert`` of a
+   FaceEnhanceNet 6x10x64 and an RRDBNet x4plus ``.pth`` to ``.fckpt``
+   and back with ``--reverse``: the state dict bitwise, keys in order.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -583,7 +606,9 @@ def trainer_phase(dev):
         files = sorted(p.name for p in Path(d).iterdir())
         log(f"  Trainer.train(): 2 epochs x 2 batches of {TRAINER_BATCH} + 1 validation batch "
             f"in {train_s:.2f} s; history {json.dumps(history)}; files {files}")
-        want_files = ["best_model.pth", "epoch_1.pth", "epoch_2.pth", "final_model.pth"]
+        want_files = sorted(f"{stem}{suffix}" for stem in ("best_model", "epoch_1", "epoch_2",
+                                                             "final_model")
+                            for suffix in (".fckpt", ".pth"))
         if files != want_files:
             raise AssertionError(f"checkpoint files {files}, want {want_files}")
         if tr._ckpt_pool is not None or tr._ckpt_futures:
@@ -901,19 +926,21 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
             raise AssertionError(f"stage {stage}: {len(trainer.last_step_times)} steps, "
                                  f"{launches} group-kernel launches")
     files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
-    if not {"best_model.pth", "final_model.pth"} <= set(files):
+    if not {"best_model.pth", "final_model.pth", "best_model.fckpt",
+            "final_model.fckpt"} <= set(files):
         raise AssertionError(f"checkpoint files {files}")
     for stage in (2, 3):
         text = results[stage][1]
-        mapped = ("best_model.fckpt not found" in text
-                  and "Chaining from stage checkpoint checkpoints/best_model.pth" in text)
+        # the Trainer writes .fckpt beside .pth: the YAML's name is found
+        mapped = ("not found; loading the port's" not in text
+                  and "Chaining from stage checkpoint ./checkpoints/best_model.fckpt" in text)
         path, state = chained[stage] or ("", {})
         want = best[stage - 1]
-        bitwise = (path.endswith("best_model.pth") and set(state) == set(want)
+        bitwise = (path.endswith("best_model.fckpt") and set(state) == set(want)
                    and all(torch.equal(state[k], want[k]) for k in want))
-        log(f"  stage {stage} resolved ./checkpoints/best_model.fckpt to stage {stage - 1}'s "
-            f"best_model.pth and said so: {mapped}; weights right after the load bitwise equal "
-            f"to that file's model_state_dict: {bitwise}")
+        log(f"  stage {stage} chained from stage {stage - 1}'s ./checkpoints/best_model.fckpt "
+            f"(the port's own, no .pth fallback): {mapped}; weights right after the load "
+            f"bitwise equal to best_model.pth's model_state_dict: {bitwise}")
         if not (mapped and bitwise):
             raise AssertionError(f"stage {stage} did not chain from stage {stage - 1}'s best "
                                  "weights")
@@ -3004,6 +3031,311 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. explainability, stage_panel and the checkpoint bridge
+
+EXPLAIN_BATCH = 8
+EXPLAIN_LAYERS = ("conv_first", "group3", "group6")
+# card vs CPU, both the port in f32 with TF32 off. The CAM's channel
+# weights are the spatial mean of dTarget/dA, which f32 conditions poorly:
+# on an H100 the two sit up to 9.16e-05 apart (the CPU as far from f64 as
+# the card), while TF32 convs (10-bit mantissa) move the CAM by 3.0e-03 to
+# 5.8e-03. The limit sits between the two, ~3x above the one and ~10x
+# below the other, so another cuDNN algorithm does not fail a right CAM.
+CAM_ATOL, ATTN_ATOL = 3e-4, 1e-5
+EXPLAIN_TIMED = 5
+PANEL_IMAGES, PANEL_HR = 4, 256
+# stage_panel card vs CPU: each model's f32 forward in other summation
+# orders moves a uint8 value where the output sits near a rounding midpoint
+PANEL_OFF_SHARE = 0.005
+RESUME_BATCH, RESUME_HR = 48, 256
+RESUME_GAN_BATCH, RESUME_GAN_HR = 8, 128
+# a resumed run against the uninterrupted one: bitwise with cuDNN made
+# deterministic; where the card cannot be, per tensor relative L2
+RESUME_RTOL = 1e-6
+
+
+def event_ms(fn, reps) -> float:
+    """Median device time of fn() in ms over ``reps`` calls, each timed by
+    CUDA events and ending in a host read."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _tensors_of(state) -> dict:
+    """A trainer's state as {name: CPU tensor}: params, EMA, the optimisers'
+    moments and counts, and D's params and stats when there is a D."""
+    out = {f"param.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in (state.ema_params or {}).items()})
+    for prefix, opt in (("opt", state.opt_state), ("d_opt", state.d_opt_state)):
+        for k, v in (opt or {}).items():
+            if isinstance(v, dict):
+                out.update({f"{prefix}.{k}.{n}": t for n, t in v.items()})
+            else:
+                out[f"{prefix}.{k}"] = v
+    if state.disc is not None:
+        out.update({f"D.{k}": v for k, v in state.disc.state_dict().items()})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def _compare_runs(got: dict, want: dict):
+    """(bitwise, worst relative L2 of a tensor, its name)."""
+    if set(got) != set(want):
+        raise AssertionError(f"resumed state has other tensors: {set(got) ^ set(want)}")
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        if torch.equal(got[k], w):
+            continue
+        rel = float((got[k].double() - w.double()).norm() / max(float(w.double().norm()), 1e-30))
+        if rel >= worst:
+            worst, where = rel, k
+    return worst == 0.0, worst, where
+
+
+def resume_runs(dev, card, tmp: Path, gan: bool) -> dict:
+    """Two uninterrupted epochs against one epoch, a full resume in a new
+    Trainer (from the .fckpt, and from the .pth) and one more epoch."""
+    from facesr_torch.ckpt import fckpt
+    from facesr_torch.models.discriminator import create_discriminator
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.training.trainer import Trainer, TrainerConfig
+
+    n, hr = (RESUME_GAN_BATCH, RESUME_GAN_HR) if gan else (RESUME_BATCH, RESUME_HR)
+    cfg = production_config()
+    train = [{"hr": smooth_hr(n, hr, seed=150 + i, dev="cpu").numpy()} for i in range(2)]
+    val = [{"hr": smooth_hr(8, hr, seed=160, dev="cpu").numpy()}]
+    gan_kw = dict(gan_weight=0.005, d_learning_rate=1e-4) if gan else {}
+
+    def trainer(d, epochs, seed):
+        # the stage-1 YAML's values (stage 3's GAN term with gan), EMA on
+        cfg = TrainerConfig(epochs=epochs, learning_rate=1e-4, weight_decay=0.0,
+                            gradient_clip=0.5, use_amp=False, scheduler_type="cosine",
+                            scheduler_T_max=100, scheduler_eta_min=1e-7, save_every=1,
+                            checkpoint_dir=str(d), ema_decay=0.999, step_log_every=0,
+                            early_stopping_metric="val_loss", early_stopping_mode="min",
+                            **gan_kw)
+        disc = (create_discriminator(input_size=hr, base_channels=64, device="cpu", seed=seed)
+                if gan else None)
+        return Trainer(FaceEnhanceNet(production_config(), seed=seed, device="cpu"), train, val,
+                       stage1_loss("cpu"), cfg, device=dev, discriminator=disc)
+
+    name = "GAN" if gan else "stage-1"
+    root = tmp / ("resume_gan" if gan else "resume")
+    full = trainer(root / "full", 2, seed=0)
+    t0 = time.perf_counter()
+    full.train()
+    full_s = time.perf_counter() - t0
+    want = _tensors_of(full.state)
+    first = trainer(root / "first", 1, seed=0)
+    first.train()
+    payload = first._checkpoint_payload()
+    t0 = time.perf_counter()
+    tree = fckpt.train_state_tree(
+        first.model_type, payload["model_state_dict"], first.optimizer,
+        payload["optimizer_state"], payload["step"], first._loss_params_tree(),
+        ema=payload["ema_state_dict"],
+        disc_sd=payload.get("discriminator_state_dict"),
+        d_optimizer=first.d_optimizer if gan else None,
+        d_opt_state=payload.get("d_optimizer_state"))
+    tree_s = time.perf_counter() - t0
+    timed = root / "timed.fckpt"
+    t0 = time.perf_counter()
+    fckpt.save_checkpoint(str(timed), tree, {"epoch": payload["epoch"]})
+    write_s = time.perf_counter() - t0
+    size_mb = (root / "first" / "final_model.fckpt").stat().st_size / 1e6
+    log(f"  15.3 {name} .fckpt: {size_mb:.1f} MB, the TrainState tree built in "
+        f"{tree_s * 1e3:.1f} ms and written in {write_s * 1e3:.1f} ms on the host; the .pth "
+        f"{(root / 'first' / 'final_model.pth').stat().st_size / 1e6:.1f} MB [{card}]")
+    del first
+    torch.cuda.empty_cache()
+    results = {}
+    for fmt in ("fckpt", "pth"):
+        resumed = trainer(root / f"resumed_{fmt}", 2, seed=7)
+        resumed.load_checkpoint(str(root / "first" / f"final_model.{fmt}"))
+        if resumed.current_epoch != 1 or resumed.global_step != 2:
+            raise AssertionError(f"{name} resume from .{fmt}: epoch {resumed.current_epoch}, "
+                                 f"step {resumed.global_step}")
+        resumed.train()
+        bitwise, worst, where = _compare_runs(_tensors_of(resumed.state), want)
+        same_meta = (resumed.global_step == full.global_step
+                     and resumed.training_history.keys() == full.training_history.keys())
+        results[fmt] = (bitwise, worst)
+        log(f"  15.3 {name}: 1 epoch, a new Trainer resumed from final_model.{fmt}, 1 more "
+            f"epoch, against 2 uninterrupted epochs ({full_s:.2f} s; batch {n}, HR {hr}, "
+            f"{cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels}, L1 + perceptual, "
+            f"EMA): params, EMA, moments, counts"
+            f"{', D, its stats and its optimiser' if gan else ''} "
+            + ("bitwise equal" if bitwise else
+               f"not bitwise: worst relative L2 {worst:.3g} at {where} (limit {RESUME_RTOL}; "
+               "cudnn.deterministic covers cuDNN's kernels, not every other op's backward)")
+            + f"; steps and history keys equal: {same_meta} [{card}]")
+        if not (same_meta and (bitwise or worst <= RESUME_RTOL)):
+            raise AssertionError(f"{name}: the run resumed from .{fmt} left the "
+                                 "uninterrupted run")
+        del resumed
+        torch.cuda.empty_cache()
+    del full
+    torch.cuda.empty_cache()
+    return {"epochs": [root / "full" / "epoch_1.fckpt", root / "full" / "epoch_2.fckpt"],
+            "results": results}
+
+
+def explain_phase(dev, card, tmp: Path) -> None:
+    """Phase 15: explainability at full width (card against CPU, TF32
+    control, times, the report), full resumes across the two formats,
+    stage_panel on the card and on the CPU, the converter at full width."""
+    from facesr_torch.ckpt.weights import read_state_dict, save_reference_pth
+    from facesr_torch.cli import convert, stage_panel
+    from facesr_torch.data import png
+    from facesr_torch.evaluation import explainability as ex
+    from facesr_torch.models.esrgan import RRDBNet, RRDBNetConfig
+    from facesr_torch.ops import conv as tconv
+    from facesr_torch.ops import rcab_group as rg
+
+    t_phase = time.perf_counter()
+    start_launches = rg.fused_residual_group.launches
+    cfg = production_config()
+    log(f"== 15. explainability, stage_panel and the checkpoint bridge, "
+        f"{cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels} f32 [{card}]")
+    model = production_model(dev, nonzero_last=True)
+    cpu_model = production_model("cpu", nonzero_last=True)
+    x = torch.rand((EXPLAIN_BATCH, 64, 64, 3), generator=torch.Generator().manual_seed(150))
+
+    # 15.1 Grad-CAM and SE attention, card against CPU
+    errs, cpu_cams, cpu_s = {}, {}, 0.0
+    for layer in EXPLAIN_LAYERS:
+        got = ex.GradCAM(model, layer).generate_multi_region(x)
+        t0 = time.perf_counter()
+        cpu_cams[layer] = want = ex.GradCAM(cpu_model, layer).generate_multi_region(x)
+        cpu_s += time.perf_counter() - t0
+        for region in ex.FACE_REGIONS:
+            if got[region].shape != (EXPLAIN_BATCH, 64, 64) or not np.isfinite(got[region]).all():
+                raise AssertionError(f"CAM {layer}/{region}: {got[region].shape}")
+        errs[layer] = max(float(np.abs(got[r] - want[r]).max()) for r in ex.FACE_REGIONS)
+    real = tconv.full_f32, ex.full_f32
+    tconv.full_f32 = ex.full_f32 = tf32_forced
+    try:
+        tf32 = {layer: max(float(np.abs(cams[r] - cpu_cams[layer][r]).max())
+                           for r in ex.FACE_REGIONS)
+                for layer in EXPLAIN_LAYERS
+                for cams in [ex.GradCAM(model, layer).generate_multi_region(x)]}
+    finally:
+        tconv.full_f32, ex.full_f32 = real
+    log(f"  15.1 Grad-CAM, batch {EXPLAIN_BATCH} 64x64, card vs CPU, max abs per target "
+        f"layer over the 4 regions {errs} (limit {CAM_ATOL}); TF32 forced {tf32} -> "
+        f"{'rejected' if max(tf32.values()) > CAM_ATOL else 'within'}; the CPU's three "
+        f"generate_multi_region calls took {cpu_s:.2f} s")
+    if max(errs.values()) > CAM_ATOL:
+        raise AssertionError("Grad-CAM on the card is off the CPU's")
+    if max(tf32.values()) <= CAM_ATOL:
+        raise AssertionError("the CAM limit lets TF32 convs pass")
+    got_a = ex.AttentionExtractor(model).extract(x)
+    want_a = ex.AttentionExtractor(cpu_model).extract(x)
+    attn_err = max(float(np.abs(got_a[k] - want_a[k]).max()) for k in want_a)
+    log(f"  15.1 SE attention, {len(got_a)} RCABs x [{EXPLAIN_BATCH}, {cfg.num_channels}]: card "
+        f"vs CPU max abs "
+        f"{attn_err:.3g} (limit {ATTN_ATOL})")
+    if len(got_a) != cfg.num_groups * cfg.blocks_per_group or attn_err > ATTN_ATOL:
+        raise AssertionError("SE attention on the card is off the CPU's")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cam = ex.GradCAM(model, "group3")
+    multi_ms = event_ms(lambda: cam.generate_multi_region(x), EXPLAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lr = x[0].numpy()
+    flow_ms = event_ms(lambda: ex.visualize_attention_flow(model, lr), EXPLAIN_TIMED)
+    log(f"  15.1 generate_multi_region at group3, batch {EXPLAIN_BATCH}: median of "
+        f"{EXPLAIN_TIMED} {multi_ms:.3f} ms (CUDA events, 4 regions, one head forward), peak "
+        f"memory {peak:.3f} GiB; visualize_attention_flow of one 64x64 image ({cfg.num_groups} "
+        f"CAMs and the panel): {flow_ms:.3f} ms [{card}]")
+    report = ex.create_attention_report(model, lr, str(tmp / "explain_report"))
+    files = sorted(p.name for p in (tmp / "explain_report").iterdir())
+    regions = png.read_rgb(tmp / "explain_report" / "gradcam_regions.png")
+    flow = png.read_rgb(tmp / "explain_report" / "attention_flow.png")
+    ok = (files == ["attention_flow.png", "attention_report.json", "gradcam_regions.png"]
+          and regions.shape == (256, 256 * 5, 3) and flow.shape == (256, 256 * 7, 3)
+          and json.loads((tmp / "explain_report" / "attention_report.json").read_text())
+          == report
+          and len(report["attention_summary"]) == cfg.num_groups * cfg.blocks_per_group)
+    log(f"  15.1 create_attention_report on the card: {files}, panels {regions.shape} and "
+        f"{flow.shape}, most active {report['most_active_block']}, least active "
+        f"{report['least_active_block']}: {ok}")
+    if not ok:
+        raise AssertionError("the attention report's files are not as written")
+    del model, cpu_model, cam
+    torch.cuda.empty_cache()
+
+    # 15.3 full resumes, deterministic cuDNN for this phase only
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        stage1 = resume_runs(dev, card, tmp, gan=False)
+        resume_runs(dev, card, tmp, gan=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+    # 15.2 stage_panel on the card and on the CPU, on 15.3's epoch files
+    hr_dir = tmp / "panel_hr"
+    hr_dir.mkdir()
+    for i in range(PANEL_IMAGES):
+        img = smooth_hr(1, PANEL_HR, seed=170 + i, dev="cpu")[0].numpy()
+        png.write_png(hr_dir / f"face_{i}.png", (img * 255).round().astype(np.uint8))
+    walls = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        stage_panel.main(["--checkpoints", *map(str, stage1["epochs"]), "--labels", "epoch1",
+                          "epoch2", "--test-dir", str(hr_dir), "--output",
+                          str(tmp / f"panel_{device}"), "--device", device])
+        walls[device] = time.perf_counter() - t0
+    names = sorted(p.name for p in (tmp / "panel_cuda").glob("*.png"))
+    worst = 0.0
+    for n in names:
+        a = png.read_rgb(tmp / "panel_cuda" / n).astype(int)
+        b = png.read_rgb(tmp / "panel_cpu" / n).astype(int)
+        d = np.abs(a - b)
+        share = float((d > 0).any(axis=-1).mean())
+        worst = max(worst, share)
+        if a.shape != b.shape or d.max() > 1 or share > PANEL_OFF_SHARE:
+            raise AssertionError(f"stage_panel {n}: card vs CPU max {d.max()}, share {share}")
+    if len(names) != 2 * PANEL_IMAGES + 1:
+        raise AssertionError(f"stage_panel wrote {names}")
+    log(f"  15.2 stage_panel, 2 checkpoints x {PANEL_IMAGES} {PANEL_HR}x{PANEL_HR} PNGs: "
+        f"{len(names)} panels, card vs CPU at most 1 level apart on {worst:.4%} of pixels "
+        f"(limit {PANEL_OFF_SHARE:.1%}); wall {walls['cuda']:.2f} s --device cuda, "
+        f"{walls['cpu']:.2f} s --device cpu [{card}]")
+
+    # 15.4 the converter at full width, both ways
+    for kind, model in (("custom", production_model("cpu", nonzero_last=True)),
+                        ("rrdbnet", RRDBNet(RRDBNetConfig(), seed=0, device="cpu"))):
+        src, mid, back = (tmp / f"conv_{kind}{ext}" for ext in (".pth", ".fckpt", "_back.pth"))
+        save_reference_pth(str(src), model)
+        t0 = time.perf_counter()
+        convert.main(["--input", str(src), "--output", str(mid), "--kind", kind])
+        fwd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        convert.main(["--reverse", "--input", str(mid), "--output", str(back)])
+        rev_s = time.perf_counter() - t0
+        a, b = read_state_dict(str(src)), read_state_dict(str(back))
+        same = list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+        log(f"  15.4 convert {kind} ({sum(v.numel() for v in a.values()):,} params): "
+            f".pth -> .fckpt {mid.stat().st_size / 1e6:.1f} MB in {fwd_s:.2f} s, --reverse in "
+            f"{rev_s:.2f} s; {len(a)} tensors back bitwise, same keys in the same order: {same}")
+        if not same:
+            raise AssertionError(f"convert {kind}: the state dict did not come back bitwise")
+    launches = rg.fused_residual_group.launches - start_launches
+    log(f"  {launches} group launches in phase 15 (f32 throughout); phase 15 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    if launches:
+        raise AssertionError("phase 15 launched the bf16 group kernel")
+
+
 def input_shape_str(program) -> str:
     from facesr_torch.ckpt.export import input_shape
 
@@ -3277,6 +3609,7 @@ def main() -> int:
         launches["fused_residual_group"] += zoo["launches"]  # and phase 13's
         launches["fused_residual_group"] += zoo_int8_phase(
             dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
+        explain_phase(dev, card, Path(tmp))
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

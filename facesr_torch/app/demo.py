@@ -56,12 +56,15 @@ def load_models_from_checkpoints(checkpoint_dir: str = "checkpoints",
     name (the stem, underscores to spaces, title case), loaded by
     `models.load.load_any_model` onto ``device`` (CUDA unless named). A
     file that does not load is skipped with its reason, as in JAX; a stem
-    present in both formats raises and names both files."""
+    present in both formats raises and names both files, unless the two
+    are one save of the port's Trainer (`models.load.checkpoint_files`:
+    the ``.fckpt`` is loaded)."""
     from facesr_torch.models.load import load_any_model
 
+    from facesr_torch.models.load import checkpoint_files
+
     dev = resolve_device(device)
-    paths = sorted(Path(checkpoint_dir).glob("*.fckpt")) + sorted(
-        Path(checkpoint_dir).glob("*.pth"))
+    paths = checkpoint_files(checkpoint_dir)
     by_stem: dict = {}
     for path in paths:
         if path.stem in by_stem:

@@ -24,6 +24,9 @@ Lists come back from flax as digit-keyed maps; `load_model` restores them
 the parameters of a FaceEnhanceNet (``custom``/``lite``), a transfer model
 or an RRDBNet (``esrgan``) to this port's state dict
 (`weights.state_dict_from_jax`); `save_model` writes any of the three.
+`train_state_tree` is a port Trainer's state as the JAX Trainer's
+``TrainState`` tree (`ckpt.optax_state` maps the optimisers), which a JAX
+Trainer resumes from and `training.Trainer.load_checkpoint` reads back.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ from facesr_torch.models.transfer import TransferModelConfig
 
 __all__ = ["FckptError", "packb", "save_checkpoint", "save_model", "unpackb", "is_fckpt",
            "QUANT_CACHE_KIND", "params_fingerprint", "save_quant_cache", "load_quant_cache",
-           "load_checkpoint", "load_model", "restore_list_nodes",
+           "load_checkpoint", "read_meta", "load_model", "restore_list_nodes",
            "infer_model_config_from_params", "infer_transfer_config", "prepare_params",
-           "MODEL_CONFIGS"]
+           "MODEL_CONFIGS", "train_state_tree", "loss_params_tree", "TRAIN_STATE_FIELDS"]
 
 _CHUNKED = "__msgpack_chunked_array__"
 _MAX_CHUNK_BYTES = 2 ** 30  # flax's MAX_CHUNK_SIZE: larger arrays it writes in chunks
@@ -383,6 +386,31 @@ def load_checkpoint(path: str) -> Tuple[Any, Dict[str, Any]]:
     return payload["tree"], json.loads(payload["meta"])
 
 
+def read_meta(path: str) -> Dict[str, Any]:
+    """The meta of a ``.fckpt`` without parsing its tree: both packages
+    write the "meta" entry first (sorted keys), so only the file's head is
+    read (more of it while the entry is cut short)."""
+    size = 1 << 16
+    with open(path, "rb") as f:
+        while True:
+            f.seek(0)
+            data = f.read(size)
+            reader = _Reader(data, str(path))
+            try:
+                b = reader.uint(1)
+                if not (0x80 <= b <= 0x8F or b in (0xDE, 0xDF)):
+                    raise FckptError(f"{path}: not a facesr checkpoint")
+                if b in (0xDE, 0xDF):
+                    reader.uint(2 if b == 0xDE else 4)
+                if reader.value() != "meta":
+                    return load_checkpoint(path)[1]
+                return json.loads(reader.value())
+            except FckptError as e:
+                if "truncated" not in str(e) or len(data) < size:
+                    raise
+                size *= 4
+
+
 def restore_list_nodes(tree: Any) -> Any:
     """flax writes lists as {'0': ..., '1': ...}; turn every all-digit-keyed
     map back into a list."""
@@ -502,3 +530,50 @@ def load_model(path: str, model_type: str = "custom", prefer_ema: bool = True,
     except (KeyError, IndexError, TypeError, AttributeError) as e:
         raise ValueError(f"{path}: not a {mtype!r} model checkpoint "
                          f"({type(e).__name__}: {e})") from e
+
+
+# the JAX Trainer's TrainState fields (facesr/training/steps.py), each a
+# key of a trainer .fckpt's tree
+TRAIN_STATE_FIELDS = ("step", "params", "opt_state", "loss_params", "d_params", "d_stats",
+                      "d_opt_state", "ema_params")
+
+
+def train_state_tree(model_type: str, model_sd: Dict[str, torch.Tensor], optimizer,
+                     opt_state: Dict[str, Any], step: int, loss_params: Any,
+                     ema: Optional[Dict[str, torch.Tensor]] = None,
+                     disc_sd: Optional[Dict[str, torch.Tensor]] = None, d_optimizer=None,
+                     d_opt_state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """A port Trainer's state as flax's ``to_state_dict`` of the JAX
+    Trainer's ``TrainState``: the model's parameters, its optimiser's optax
+    state, ``loss_params`` (the perceptual VGG in the JAX layout, or ``{}``
+    without one, as given: `loss_params_tree`), the discriminator's
+    parameters, BatchNorm stats and optax state (None without a GAN) and
+    the EMA (None when off). Tensors may sit on any device."""
+    from facesr_torch.ckpt import optax_state as ox
+    from facesr_torch.ckpt.weights import jax_discriminator_from_state_dict
+
+    labels = ox.stage_labels(optimizer, opt_state, model_sd, model_type)
+    tree: Dict[str, Any] = {
+        "step": np.asarray(step, np.int32),
+        "params": ox.jax_tree(model_type, model_sd),
+        "opt_state": ox.optax_state_dict(optimizer, opt_state, model_type, model_sd, labels),
+        "loss_params": loss_params,
+        "d_params": None, "d_stats": None, "d_opt_state": None,
+        "ema_params": None if ema is None else ox.jax_tree(model_type, ema),
+    }
+    if disc_sd is not None:
+        d_params, d_stats = jax_discriminator_from_state_dict(disc_sd)
+        d_named = {k: v for k, v in disc_sd.items() if ".running_" not in k}
+        tree.update(d_params=_state_dict(d_params), d_stats=_state_dict(d_stats),
+                    d_opt_state=ox.optax_state_dict(d_optimizer, d_opt_state, "disc", d_named))
+    return tree
+
+
+def loss_params_tree(loss_params: Dict[str, Any]) -> Dict[str, Any]:
+    """A `CombinedLoss`'s params as the JAX loss's ``loss_params``: the VGG
+    conv list in the JAX layout under "vgg", or ``{}`` without one."""
+    from facesr_torch.ckpt.weights import jax_vgg_params_from
+
+    if "vgg" not in loss_params:
+        return {}
+    return {"vgg": _state_dict(jax_vgg_params_from(loss_params["vgg"]))}

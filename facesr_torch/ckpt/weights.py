@@ -5,15 +5,17 @@
   (conv HWIO -> OIHW, dense [in, out] -> [out, in], stacks unrolled into
   the reference key names). An own copy of the layout rules of the JAX
   package's torch exporter; it reads numpy only.
-- `vgg_params_from_jax`: the JAX package's VGG19 conv list -> the port's,
-  so the loss tests run both packages on the same frozen VGG.
+- `vgg_params_from_jax` / `jax_vgg_params_from`: the JAX package's VGG19
+  conv list <-> the port's (the perceptual loss's frozen weights, also
+  the ``loss_params`` of a trainer ``.fckpt``).
 - `lpips_params_from_jax`, `inception_params_from_jax`: the evaluation
   networks' weights as the JAX package and its ``.fckpt`` files hold
   them (HWIO) -> the port's (OIHW); the weight loaders use them too.
 - `discriminator_state_dict_from_jax`: the JAX discriminator's ``(params,
   batch_stats)`` -> the port's `Discriminator` state dict (conv HWIO ->
   OIHW, dense [in, out] -> [out, in], gamma/beta and the running stats
-  under the BatchNorm names).
+  under the BatchNorm names); `jax_discriminator_from_state_dict` is its
+  inverse (also of a parameters-only dict, an optimiser moment's).
 - `jax_params_from_state_dict`: the inverse of `state_dict_from_jax_params`
   (the `.fckpt` model writer's layout).
 - `jax_qtree_from_sites` / `sites_from_jax_qtree`: a quantized model of
@@ -32,7 +34,8 @@
   reference key names; both directions are bitwise.
 - `read_state_dict`: a ``.pth`` state dict, unwrapped from
   ``model_state_dict`` / ``state_dict`` / ``params_ema`` / ``params`` as
-  `facesr/ckpt/convert.py` does, read with ``weights_only=True``.
+  `facesr/ckpt/convert.py` does, read with ``weights_only=True`` unless
+  asked otherwise.
 - `save_reference_pth`: a model as the reference-format ``.pth`` the JAX
   package's ``export_pth`` writes (and its ``convert_pth`` reads).
 - `load_reference_pth`: a reference-format ``.pth`` (a FaceEnhanceNet
@@ -43,7 +46,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -52,7 +55,8 @@ from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.models.transfer import STAGE2_UNFREEZE_BLOCKS
 
 __all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict", "jax_qtree_from_sites",
-           "sites_from_jax_qtree", "vgg_params_from_jax",
+           "sites_from_jax_qtree", "vgg_params_from_jax", "jax_vgg_params_from",
+           "jax_discriminator_from_state_dict",
            "lpips_params_from_jax", "inception_params_from_jax",
            "discriminator_state_dict_from_jax", "esrgan_state_dict_from_jax_params",
            "jax_params_from_esrgan_state_dict", "transfer_state_dict_from_jax_params",
@@ -117,18 +121,12 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     return sd
 
 
-def jax_params_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def jax_params_from_state_dict(sd: Dict[str, torch.Tensor],
+                               keep_dtype: bool = False) -> Dict[str, Any]:
     """This port's FaceEnhanceNet state dict -> JAX params (numpy leaves),
-    the inverse of `state_dict_from_jax_params`."""
-    def arr(name: str) -> np.ndarray:
-        return sd[name].detach().cpu().float().numpy()
-
-    def hwio(name: str) -> np.ndarray:
-        return np.ascontiguousarray(arr(name).transpose(2, 3, 1, 0))
-
-    def conv(name: str) -> Dict[str, np.ndarray]:
-        return {"w": hwio(f"{name}.weight"), "b": arr(f"{name}.bias")}
-
+    the inverse of `state_dict_from_jax_params`. Leaves are float32 unless
+    ``keep_dtype`` keeps the tensors' own."""
+    arr, hwio, conv = _sd_reader(sd, keep_dtype)
     num_groups = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("residual_groups."))
     blocks_per_group = 1 + max(int(k.split(".")[3]) for k in sd
                                if k.startswith("residual_groups.0.blocks."))
@@ -265,6 +263,20 @@ def vgg_params_from_jax(params: List[Dict[str, Any]]) -> List[Dict[str, torch.Te
     return [{"w": _oihw(p["w"]), "b": _t(p["b"])} for p in params]
 
 
+def _hwio(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().float().numpy().transpose(2, 3, 1, 0))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def jax_vgg_params_from(params: List[Dict[str, torch.Tensor]]) -> List[Dict[str, np.ndarray]]:
+    """The port's VGG19 conv list (``{"w": OIHW, "b"}``) -> the JAX
+    package's (numpy, HWIO), the inverse of `vgg_params_from_jax`."""
+    return [{"w": _hwio(p["w"]), "b": _np(p["b"])} for p in params]
+
+
 def lpips_params_from_jax(tree: Dict[str, Any]) -> Dict[str, List[Dict[str, torch.Tensor]]]:
     """The JAX package's LPIPS weights (``{"convs": [{"w": HWIO, "b"}],
     "lins": [{"w": [C, 1]}]}``, lists possibly digit-keyed as a ``.fckpt``
@@ -305,6 +317,36 @@ def discriminator_state_dict_from_jax(params: Dict[str, Any],
     return sd
 
 
+def jax_discriminator_from_state_dict(sd: Dict[str, torch.Tensor]):
+    """The port's `Discriminator` state dict -> the JAX discriminator's
+    ``(params, batch_stats)`` (numpy), the inverse of
+    `discriminator_state_dict_from_jax`. A block with a conv bias has no
+    BatchNorm and empty stats ``{}``; a dict without running stats (an
+    optimiser moment of the parameters) gives stats None."""
+    n = _block_count(sd, "blocks.")
+    has_stats = any(k.endswith(".running_mean") for k in sd)
+    params: Dict[str, Any] = {"blocks": []}
+    stats: Dict[str, Any] = {"blocks": []}
+    for i in range(n):
+        pre = f"blocks.{i}"
+        block = {"w": _hwio(sd[f"{pre}.conv.weight"])}
+        stat: Dict[str, np.ndarray] = {}
+        if f"{pre}.conv.bias" in sd:
+            block["b"] = _np(sd[f"{pre}.conv.bias"])
+        else:
+            block["gamma"] = _np(sd[f"{pre}.bn.weight"])
+            block["beta"] = _np(sd[f"{pre}.bn.bias"])
+            if has_stats:
+                stat = {"mean": _np(sd[f"{pre}.bn.running_mean"]),
+                        "var": _np(sd[f"{pre}.bn.running_var"])}
+        params["blocks"].append(block)
+        stats["blocks"].append(stat)
+    for fc in ("fc1", "fc2"):
+        params[f"{fc}_w"] = np.ascontiguousarray(_np(sd[f"{fc}.weight"]).T)
+        params[f"{fc}_b"] = _np(sd[f"{fc}.bias"])
+    return params, (stats if has_stats else None)
+
+
 # ---------------------------------------------------------------------------
 # The model zoo (RRDBNet, TransferSRModel)
 # ---------------------------------------------------------------------------
@@ -332,9 +374,13 @@ def _rrdb_to_sd(sd: Dict[str, torch.Tensor], pre: str, blk: Dict[str, Any]) -> N
             sd[f"{pre}.rdb{j}.{c}.bias"] = _t(blk[f"rdb{j}"][f"{c}_b"])
 
 
-def _sd_reader(sd: Dict[str, torch.Tensor]):
+def _sd_reader(sd: Dict[str, torch.Tensor], keep_dtype: bool = False):
+    """Leaf readers of a state dict: ``arr`` (numpy), ``hwio`` (a conv
+    weight OIHW -> HWIO) and ``conv`` (``{"w", "b"}``); float32 unless
+    ``keep_dtype``."""
     def arr(name: str) -> np.ndarray:
-        return sd[name].detach().cpu().float().numpy()
+        t = sd[name].detach().cpu()
+        return (t if keep_dtype else t.float()).numpy()
 
     def hwio(name: str) -> np.ndarray:
         return np.ascontiguousarray(arr(name).transpose(2, 3, 1, 0))
@@ -345,12 +391,12 @@ def _sd_reader(sd: Dict[str, torch.Tensor]):
     return arr, hwio, conv
 
 
-def _stacked_body(sd: Dict[str, torch.Tensor], pres: List[str]):
+def _stacked_body(sd: Dict[str, torch.Tensor], pres: List[str], keep_dtype: bool = False):
     """The RRDB blocks at module paths ``pres`` stacked as the JAX body
     (``{rdb{j}: {conv{c}_w: [N, ...], conv{c}_b}}``); None when empty."""
     if not pres:
         return None
-    arr, hwio, _ = _sd_reader(sd)
+    arr, hwio, _ = _sd_reader(sd, keep_dtype)
     return {f"rdb{j}": {k: np.stack([fn(f"{p}.rdb{j}.{c}.{suffix}") for p in pres])
                         for c in _RDB_CONVS
                         for k, fn, suffix in ((f"{c}_w", hwio, "weight"),
@@ -382,13 +428,15 @@ def esrgan_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch
     return sd
 
 
-def jax_params_from_esrgan_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The inverse of `esrgan_state_dict_from_jax_params` (a stacked body)."""
-    _, _, conv = _sd_reader(sd)
+def jax_params_from_esrgan_state_dict(sd: Dict[str, torch.Tensor],
+                                      keep_dtype: bool = False) -> Dict[str, Any]:
+    """The inverse of `esrgan_state_dict_from_jax_params` (a stacked body;
+    float32 leaves unless ``keep_dtype``)."""
+    _, _, conv = _sd_reader(sd, keep_dtype)
     n = _block_count(sd, "body.")
     out = {name: conv(name) for name in ("conv_first", "conv_body", "conv_up1", "conv_up2",
                                          "conv_hr", "conv_last")}
-    out["body"] = _stacked_body(sd, [f"body.{i}" for i in range(n)])
+    out["body"] = _stacked_body(sd, [f"body.{i}" for i in range(n)], keep_dtype)
     return out
 
 
@@ -435,11 +483,13 @@ def transfer_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, tor
     return sd
 
 
-def jax_params_from_transfer_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def jax_params_from_transfer_state_dict(sd: Dict[str, torch.Tensor],
+                                        keep_dtype: bool = False) -> Dict[str, Any]:
     """The inverse of `transfer_state_dict_from_jax_params`: the body
     split into ``body_main`` and the last ``min(4, N)`` blocks as
-    ``body_tail`` (an empty part is None), the head's RCABs stacked."""
-    arr, hwio, conv = _sd_reader(sd)
+    ``body_tail`` (an empty part is None), the head's RCABs stacked;
+    float32 leaves unless ``keep_dtype``."""
+    arr, hwio, conv = _sd_reader(sd, keep_dtype)
     n = _block_count(sd, "backbone.body.")
     n_main = n - min(STAGE2_UNFREEZE_BLOCKS, n)
     pres = [f"backbone.body.{i}" for i in range(n)]
@@ -455,8 +505,8 @@ def jax_params_from_transfer_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str
     stages = range(_block_count(sd, "face_head.upsample.stages."))
     return {
         "backbone": {"conv_first": conv("backbone.conv_first"),
-                     "body_main": _stacked_body(sd, pres[:n_main]),
-                     "body_tail": _stacked_body(sd, pres[n_main:]),
+                     "body_main": _stacked_body(sd, pres[:n_main], keep_dtype),
+                     "body_tail": _stacked_body(sd, pres[n_main:], keep_dtype),
                      "conv_body": conv("backbone.conv_body")},
         "face_head": {"rcabs": rcabs, "conv_after": conv("face_head.conv_after"),
                       "upsample": [{"conv_w": hwio(f"face_head.upsample.stages.{s}.conv.weight"),
@@ -490,11 +540,19 @@ def jax_params_from(model) -> Dict[str, Any]:
     return jax_params_from_state_dict(sd)
 
 
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def read_state_dict(path: str, weights_only: Optional[bool] = True) -> Dict[str, torch.Tensor]:
     """A ``.pth`` state dict, unwrapped from the first of
     ``model_state_dict``, ``state_dict``, ``params_ema`` and ``params`` it
-    has (`facesr/ckpt/convert.py`), read with ``weights_only=True``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    has (`facesr/ckpt/convert.py`). ``weights_only`` None tries the safe
+    mode first and falls back to a full unpickle (reference checkpoints
+    may hold richer pickles)."""
+    if weights_only is None:
+        try:
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        except Exception:  # noqa: BLE001 — a richer pickle: the JAX CLI's fallback
+            ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=weights_only)
     for key in ("model_state_dict", "state_dict", "params_ema", "params"):
         if isinstance(ckpt, dict) and key in ckpt:
             ckpt = ckpt[key]

@@ -47,11 +47,13 @@ STAGES = ("decode", "lr_synthesis", "model_forwards", "baseline_resizes", "skima
 
 
 def find_checkpoints(checkpoint_dir: str) -> Dict[str, Path]:
-    """Every ``.fckpt`` and ``.pth`` checkpoint, under friendly names; a
-    name that a baseline or another checkpoint already has gets
-    " (model)" appended."""
-    paths = sorted(list(Path(checkpoint_dir).glob("*.fckpt"))
-                   + list(Path(checkpoint_dir).glob("*.pth")))
+    """Every ``.fckpt`` and ``.pth`` checkpoint, under friendly names (a
+    ``.pth`` written in one save with a ``.fckpt`` of its stem by the
+    port's Trainer counts once, as the ``.fckpt``); a name that a
+    baseline or another checkpoint already has gets " (model)" appended."""
+    from facesr_torch.models.load import checkpoint_files
+
+    paths = sorted(checkpoint_files(checkpoint_dir))
     names: Dict[str, Path] = {}
     for p in paths:
         friendly = {"best_model": "Best Model", "final_model": "Final Model"}.get(

@@ -11,11 +11,13 @@ is no card and no ``--device``. Images are PNG files under ``data_root``
 (``train/HR`` with or without ``train/LR``, ``val/HR`` + ``val/LR``).
 
 Stage chaining: a ``checkpoint.resume`` path in the YAML loads weights only
-(a new stage); ``--resume`` is a full resume unless ``--fine-tune``. The
-stage YAMLs name ``best_model.fckpt``, the JAX package's file: when it
-exists it is read (weights only); when it does not and ``best_model.pth``,
-the port's file, lies beside it, that is loaded and both names are
-printed.
+(a new stage); ``--resume`` is a full resume unless ``--fine-tune``, from
+a ``.pth`` or a ``.fckpt`` of either package (the JAX Trainer's optax
+state is mapped onto the port's optimiser). The Trainer writes each
+checkpoint as ``.pth`` and ``.fckpt``, so the stage YAMLs'
+``best_model.fckpt`` finds the port's own file; for a run folder holding
+only ``best_model.pth`` (written before the port wrote ``.fckpt``), that
+is loaded in its place and both names are printed.
 
 A ``loss.gan.weight > 0`` (stage 3) trains with the VGG-style
 discriminator sized for the training HR crop (``hr_patch_size``), with
@@ -47,7 +49,8 @@ than ``data``, ``--mesh-shape``,
 ``pp_microbatches`` and ``--print-memory`` (A.13), the gradient monitor
 (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
 with random weights drawn from seed 0 (no pretrained file is in the repo).
-SIGTERM saves ``interrupted.pth`` before the process exits.
+SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
+process exits.
 """
 
 from __future__ import annotations
@@ -420,9 +423,10 @@ def run(argv: Optional[List[str]] = None):
     except KeyboardInterrupt as e:
         print(f"\n\nTraining interrupted ({e or 'user'}).")
         print("Saving checkpoint...")
-        trainer.save_checkpoint("interrupted.pth")
+        trainer.save_checkpoint("interrupted")
         trainer.flush_checkpoints()
-        print(f"Checkpoint saved to {trainer_config.checkpoint_dir}/interrupted.pth")
+        print(f"Checkpoint saved to {trainer_config.checkpoint_dir}/interrupted.pth "
+              "(and .fckpt)")
     finally:
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)

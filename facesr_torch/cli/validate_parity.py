@@ -52,8 +52,6 @@ DEFAULT_TARGETS = {
 }
 DEFAULT_TOLERANCES = {"psnr": 0.1, "ssim": 0.001, "lpips": 0.002}
 BASELINES = {"Bilinear": "linear", "Bicubic": "cubic", "Lanczos4": "lanczos4"}
-_ALEX_CONV_IDX = [0, 3, 6, 8, 10]
-_VGG19_CONV_IDX = [0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34]
 
 
 def classify_state_dict(sd) -> Optional[str]:
@@ -79,75 +77,12 @@ def classify_state_dict(sd) -> Optional[str]:
     return None
 
 
-def _features_prefix(sd) -> str:
-    return "features." if any(k.startswith("features.") for k in sd) else ""
-
-
-def _write_lpips(alexnet_sd, lins_sd, out: Path) -> None:
-    from facesr_torch.models.lpips import save_lpips_weights
-
-    pre = _features_prefix(alexnet_sd)
-    convs = [{"w": alexnet_sd[f"{pre}{i}.weight"].float(),
-              "b": alexnet_sd[f"{pre}{i}.bias"].float()} for i in _ALEX_CONV_IDX]
-    lins = []
-    for i in range(5):
-        for key in (f"lin{i}.model.1.weight", f"lins.{i}.model.1.weight"):
-            if key in lins_sd:
-                w = lins_sd[key].float()
-                lins.append({"w": w.reshape(w.shape[1], 1)})
-                break
-        else:
-            raise KeyError(f"lin{i} weight not found in the LPIPS heads")
-    save_lpips_weights(str(out), {"convs": convs, "lins": lins})
-
-
-def _write_inception(sd, out: Path, bn_eps: float = 1e-3) -> None:
-    """BatchNorm folded into a scale and a bias per conv (eval mode), in
-    numpy f32 as the JAX package's `convert_inception_state_dict` folds it
-    (torch's vectorized f32 sqrt may round the other way)."""
-    import torch
-
-    from facesr_torch.models.inception import CONV_SPECS, save_inception_weights
-
-    def arr(key):
-        return sd[key].float().numpy()
-
-    params = {}
-    for name, (ic, oc, (kh, kw), _, _) in CONV_SPECS.items():
-        w = sd[f"{name}.conv.weight"].float()
-        if tuple(w.shape) != (oc, ic, kh, kw):
-            raise ValueError(f"{name}.conv.weight has shape {tuple(w.shape)}, expected "
-                             f"{(oc, ic, kh, kw)}")
-        scale = arr(f"{name}.bn.weight") / np.sqrt(arr(f"{name}.bn.running_var") + bn_eps)
-        bias = arr(f"{name}.bn.bias") - arr(f"{name}.bn.running_mean") * scale
-        params[name] = {"w": w, "scale": torch.from_numpy(scale.astype(np.float32)),
-                        "bias": torch.from_numpy(bias.astype(np.float32))}
-    save_inception_weights(str(out), params)
-
-
-def _write_vgg19(sd, out: Path) -> None:
-    from facesr_torch.ckpt.fckpt import save_checkpoint
-
-    pre = _features_prefix(sd)
-    convs = [{"w": sd[f"{pre}{i}.weight"].float().permute(2, 3, 1, 0).contiguous().numpy(),
-              "b": sd[f"{pre}{i}.bias"].float().numpy()}
-             for i in _VGG19_CONV_IDX if f"{pre}{i}.weight" in sd]
-    save_checkpoint(str(out), {"convs": convs}, {"model_type": "vgg19"})
-
-
-def _write_model(pth: Path, out: Path) -> None:
-    from facesr_torch.ckpt.fckpt import save_model
-    from facesr_torch.models.load import build_model, read_model_state
-
-    mtype, cfg, sd = read_model_state(pth)
-    save_model(str(out), build_model(mtype, cfg, sd, where=str(pth)))
-
-
 def discover_and_convert(artifacts_dir: Path, work_dir: Path) -> dict:
     """Scan the artifacts, convert each recognised ``.pth``; returns
     ``{"models": {stem: .fckpt}, "lpips", "inception", "vgg19": path or
     None, "skipped": [names]}``."""
     from facesr_torch.ckpt.weights import read_state_dict
+    from facesr_torch.cli.convert import convert_pth
 
     work_dir.mkdir(parents=True, exist_ok=True)
     inv = {"models": {}, "lpips": None, "inception": None, "vgg19": None, "skipped": []}
@@ -165,22 +100,18 @@ def discover_and_convert(artifacts_dir: Path, work_dir: Path) -> dict:
             inv["skipped"].append(pth.name)
             continue
         if kind == "alexnet":
-            alexnet = sd
+            alexnet = pth
             continue
         if kind == "lpips_lins":
-            lins = sd
+            lins = pth
             continue
         out = work_dir / f"{pth.stem}.fckpt"
         try:
+            convert_pth(str(pth), str(out), kind=kind)
             if kind in ("custom", "transfer", "rrdbnet"):
-                _write_model(pth, out)
                 inv["models"][pth.stem] = out
-            elif kind == "vgg19":
-                _write_vgg19(sd, out)
-                inv["vgg19"] = out
             else:
-                _write_inception(sd, out)
-                inv["inception"] = out
+                inv[kind] = out
         except Exception as e:  # noqa: BLE001 — a malformed artifact is skipped
             print(f"  SKIP {pth.name}: conversion failed ({e})")
             inv["skipped"].append(pth.name)
@@ -188,7 +119,7 @@ def discover_and_convert(artifacts_dir: Path, work_dir: Path) -> dict:
         print(f"  converted {pth.name} ({kind}) -> {out}")
     if alexnet is not None and lins is not None:
         out = work_dir / "lpips_alex.fckpt"
-        _write_lpips(alexnet, lins, out)
+        convert_pth(str(alexnet), str(out), kind="lpips", extra_pth=str(lins))
         inv["lpips"] = out
     elif alexnet is not None or lins is not None:
         have = "alexnet backbone" if alexnet is not None else "lpips lin heads"

@@ -10,7 +10,10 @@ evaluation CLIs call, in numpy, so the port needs no cv2:
 - `resize_area`: ``INTER_AREA`` on uint8 and float32 (the demo's and the
   API's input sizing);
 - `rgb_to_hsv` / `hsv_to_rgb`: ``cv2.cvtColor`` ``RGB2HSV`` /
-  ``HSV2RGB`` on uint8 (the colour jitter; H in [0, 180)).
+  ``HSV2RGB`` on uint8 (the colour jitter; H in [0, 180));
+- `resize_linear_float`: ``cv2.resize(img, (w, h))`` (``INTER_LINEAR``) on
+  float32, and `apply_colormap_jet`: ``cv2.applyColorMap(u8,
+  COLORMAP_JET)`` then ``COLOR_BGR2RGB`` (the explainability heatmaps).
 
 These follow the arithmetic of the OpenCV they were held against (5.0,
 x86-64, with Intel IPP). Its uint8 ``INTER_CUBIC`` runs through IPP's
@@ -40,6 +43,17 @@ border column's position (weight 0 on the outside tap) but not a border
 row's (both taps read the edge row with their own weights). Nearest
 takes ``floor(i * src / dst)``. All three match it on every input tried
 (the tests print the counts).
+
+The float32 linear resize follows IPP's: source positions ``(i + 0.5) *
+src / dst - 0.5`` in f64, their fractions rounded to f32, both taps
+clamped to the image, and each pass a fused ``s0 + (s1 - s0) * t``,
+horizontal first. It matches cv2 bitwise on every source of at least 2x2
+pixels tried (a source one pixel wide or high takes another path in cv2).
+JET is OpenCV's own construction: the piecewise-linear basemap sampled at
+i / 255 and stored in f32, resampled by ``interp1`` at an f32
+``linspace(0, 1, 256)`` (every point is interpolated from its left
+neighbour, in f32) and converted with ``round(v * 255)``; all 256 levels
+equal cv2's.
 """
 
 from __future__ import annotations
@@ -50,7 +64,8 @@ import math
 import numpy as np
 
 __all__ = ["resize", "resize_area", "resize_cubic", "resize_linear", "resize_lanczos4",
-           "resize_nearest", "rgb_to_hsv", "hsv_to_rgb"]
+           "resize_nearest", "rgb_to_hsv", "hsv_to_rgb", "resize_linear_float",
+           "apply_colormap_jet", "JET_RGB"]
 
 
 def _taps(dst: int, src: int):
@@ -192,6 +207,65 @@ def _linear_vertical(buf: np.ndarray, idx: np.ndarray, w: np.ndarray) -> np.ndar
     s0, s1 = buf[idx[:, 0]] >> 4, buf[idx[:, 1]] >> 4
     t = ((s0 * w[:, 0, None, None]) >> 16) + ((s1 * w[:, 1, None, None]) >> 16)
     return np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def _float_taps(dst: int, src: int):
+    """(first tap [dst], second tap [dst], f32 fraction [dst]) of one axis
+    of the float linear resize, both taps clamped to the image."""
+    pos = (np.arange(dst, dtype=np.float64) + 0.5) * (src / dst) - 0.5
+    s = np.floor(pos)
+    frac = (pos - s).astype(np.float32)
+    s = s.astype(np.int64)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), frac
+
+
+def resize_linear_float(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, size)`` (``INTER_LINEAR``) for an [H, W] or [H, W,
+    C] float32 image; ``size`` is (width, height)."""
+    if img.dtype != np.float32 or img.ndim not in (2, 3):
+        raise ValueError(f"resize_linear_float takes an [H, W] or [H, W, C] float32 image, "
+                         f"got {img.shape} {img.dtype}")
+    dw, dh = int(size[0]), int(size[1])
+    if dw <= 0 or dh <= 0:
+        raise ValueError(f"bad size {size}")
+    src = img[:, :, None] if img.ndim == 2 else img
+    x0, x1, fx = _float_taps(dw, src.shape[1])
+    y0, y1, fy = _float_taps(dh, src.shape[0])
+    buf = _fma(src[:, x1] - src[:, x0], fx[None, :, None], src[:, x0])
+    out = _fma(buf[y1] - buf[y0], fy[:, None, None], buf[y0])
+    return out[:, :, 0] if img.ndim == 2 else out
+
+
+def _jet_rgb() -> np.ndarray:
+    f32 = np.float32
+    x = np.arange(256, dtype=np.float64) / 255.0
+    # OpenCV's basemap: red, green, blue ramps of slope 4 capped to [0, 1]
+    base = [np.clip(np.minimum(4 * x + lo, -4 * x + hi), 0, 1).astype(f32)
+            for lo, hi in ((-1.5, 4.5), (-0.5, 3.5), (0.5, 2.5))]
+    step = f32(1) / f32(255)
+    xs = f32(0) + np.arange(256, dtype=f32) * step  # OpenCV's f32 linspace
+    lo = np.maximum(np.arange(256) - 1, 0)
+    hi = lo + 1
+    out = []
+    for y in base:
+        # interp1 at the table's own points: each from its left neighbour
+        v = y[lo] + ((xs - xs[lo]) * (y[hi] - y[lo])) / (xs[hi] - xs[lo])
+        out.append(np.rint(v * f32(255)))
+    table = np.stack(out, axis=1).astype(np.uint8)
+    table.setflags(write=False)
+    return table
+
+
+JET_RGB = _jet_rgb()  # the 256-entry RGB table of apply_colormap_jet
+
+
+def apply_colormap_jet(gray: np.ndarray) -> np.ndarray:
+    """``cvtColor(applyColorMap(gray, COLORMAP_JET), COLOR_BGR2RGB)`` for an
+    [H, W] uint8 image: [H, W, 3] uint8 RGB."""
+    if gray.dtype != np.uint8 or gray.ndim != 2:
+        raise ValueError(f"apply_colormap_jet takes an [H, W] uint8 image, got "
+                         f"{gray.shape} {gray.dtype}")
+    return JET_RGB[gray]
 
 
 def resize_lanczos4(img: np.ndarray, size) -> np.ndarray:

@@ -1,6 +1,16 @@
 """Evaluation of the port: metrics (PSNR/SSIM/LPIPS/FID), skimage-compatible
-evaluation metrics, and what of the visualisation needs no matplotlib."""
+evaluation metrics, explainability (Grad-CAM, SE attention), and what of
+the visualisation needs no matplotlib."""
 
+from facesr_torch.evaluation.explainability import (
+    FACE_REGIONS,
+    AttentionExtractor,
+    GradCAM,
+    apply_heatmap,
+    create_attention_report,
+    create_gradcam_visualization,
+    visualize_attention_flow,
+)
 from facesr_torch.evaluation.metrics import (
     LPIPS,
     PSNR,
@@ -33,4 +43,11 @@ __all__ = [
     "tensor_to_image",
     "create_metrics_table",
     "save_sr_result",
+    "FACE_REGIONS",
+    "GradCAM",
+    "AttentionExtractor",
+    "apply_heatmap",
+    "create_gradcam_visualization",
+    "create_attention_report",
+    "visualize_attention_flow",
 ]

@@ -2,10 +2,12 @@
 `facesr/evaluation/visualize.py`).
 
 Ported: `tensor_to_image`, `save_sr_result` (PNG through the port's own
-encoder, `data.png`) and `create_metrics_table` (text). The matplotlib
-figures (`create_comparison_grid`, `create_zoom_comparison`,
-`plot_training_curves`) raise NotImplementedError: the card's machine has
-no matplotlib (ROADMAP A.8).
+encoder, `data.png`) and `create_metrics_table` (text). The explainability
+panels are composed without matplotlib (`evaluation.explainability`). The
+three matplotlib figures here (`create_comparison_grid`,
+`create_zoom_comparison`, `plot_training_curves`) raise
+NotImplementedError: the card's machine has no matplotlib, and their port
+as PNGs the port draws itself is ROADMAP A.8.4.
 """
 
 from __future__ import annotations
@@ -42,9 +44,9 @@ def _figures_not_ported(name: str):
     def figure(*args, **kwargs):
         raise NotImplementedError(
             f"{name} draws a matplotlib figure, which is not ported (the card's machine "
-            "has no matplotlib; ROADMAP A.8)")
+            "has no matplotlib; ROADMAP A.8.4)")
     figure.__name__ = name
-    figure.__doc__ = f"Not ported: {name} needs matplotlib (ROADMAP A.8)."
+    figure.__doc__ = f"Not ported: {name} needs matplotlib (ROADMAP A.8.4)."
     return figure
 
 

@@ -22,7 +22,7 @@ or built ValueError; both name the file.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,7 +32,8 @@ from facesr_torch.models.esrgan import RRDBNet, infer_rrdbnet_config
 from facesr_torch.models.face_enhance_net import FaceEnhanceNet
 from facesr_torch.models.transfer import GROWTH, TransferSRModel
 
-__all__ = ["load_any_model", "read_model_state", "build_model", "sniff_model_type"]
+__all__ = ["load_any_model", "read_model_state", "build_model", "sniff_model_type",
+           "checkpoint_files"]
 
 _PTH_MAGIC = b"PK\x03\x04"  # torch.save's zip container
 
@@ -130,3 +131,27 @@ def load_any_model(path, device: DeviceLike = None):
     mtype, cfg, sd = read_model_state(path)
     model = build_model(mtype, cfg, sd, where=str(path))
     return model.to(device) if device is not None else model
+
+
+def _is_trainer_twin(pth: Path, fck: Path) -> bool:
+    """Whether ``pth`` and ``fck`` are the two files of one save of the
+    port's Trainer (the same epoch, step and model type)."""
+    try:
+        ckpt = torch.load(str(pth), map_location="cpu", weights_only=True, mmap=True)
+        meta = fckpt.read_meta(str(fck))
+    except Exception:  # noqa: BLE001 — an unreadable file is nobody's twin
+        return False
+    return (isinstance(ckpt, dict) and "optimizer_state" in ckpt
+            and all(ckpt.get(k) == meta.get(k) for k in ("epoch", "global_step", "model_type")))
+
+
+def checkpoint_files(checkpoint_dir) -> List[Path]:
+    """Every ``*.fckpt`` (sorted), then every ``*.pth`` (sorted) in the
+    directory, less each ``.pth`` that the port's Trainer wrote beside a
+    ``.fckpt`` of the same stem in the same save: the two hold one state,
+    and the ``.fckpt`` (which the JAX package reads too) stands for it."""
+    d = Path(checkpoint_dir)
+    fckpts = sorted(d.glob("*.fckpt"))
+    by_stem = {p.stem: p for p in fckpts}
+    return fckpts + [p for p in sorted(d.glob("*.pth"))
+                     if not (p.stem in by_stem and _is_trainer_twin(p, by_stem[p.stem]))]

@@ -29,12 +29,16 @@ them; plus ``model_config``, ``trainer_config``, ``optimizer_state``,
 ``training_history``, ``scheduler_state``, ``model_type`` and
 ``use_gan``; a GAN trainer adds ``discriminator_state_dict`` (its
 parameters and BatchNorm running stats), ``discriminator_config`` and
-``d_optimizer_state``. With ``async_checkpoint`` one writer thread writes
-them; the tensors are copied to the host before the step loop goes on.
-`Trainer.load_checkpoint` also reads the JAX package's ``.fckpt`` files
-(told apart by content), weights only. A full resume of a non-GAN
-checkpoint into a GAN trainer restores G and keeps the fresh D; a
-weights-only load always keeps the fresh D.
+``d_optimizer_state``. Beside each ``.pth`` the Trainer writes a ``.fckpt``
+of the same stem: the JAX Trainer's file (its ``TrainState`` tree with
+the optax state of the same optimiser, `ckpt.fckpt.train_state_tree`, and
+its meta), which the JAX package's loaders and Trainer read. With
+``async_checkpoint`` one writer thread writes both; the tensors are copied
+to the host before the step loop goes on.
+`Trainer.load_checkpoint` reads either format (told apart by content), a
+``.fckpt`` from either package, weights only or as a full resume. A full
+resume of a non-GAN checkpoint into a GAN trainer restores G and keeps the
+fresh D; a weights-only load always keeps the fresh D.
 
 With ``qat`` every conv site the int8 serving path quantizes runs
 fake-quantized (`ops.quant.fake_quant_params`: the serving grid, with
@@ -74,8 +78,10 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from facesr_torch.ckpt import fckpt
+from facesr_torch.ckpt import optax_state as ox
 from facesr_torch.ckpt.weights import (REFERENCE_CONFIG_FIELDS,  # noqa: F401 — re-exported
-                                       reference_config, state_dict_from_jax)
+                                       discriminator_state_dict_from_jax, reference_config,
+                                       state_dict_from_jax, vgg_params_from_jax)
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.ops.quant import fake_quant_params
 from facesr_torch.training import schedules
@@ -212,6 +218,19 @@ def _write(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+CHECKPOINT_SUFFIXES = (".pth", ".fckpt")
+
+
+def _fckpt_meta(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX Trainer's checkpoint meta, from a `.pth` payload."""
+    return {"epoch": payload["epoch"], "global_step": payload["global_step"],
+            "best_metric": payload["best_metric"],
+            "training_history": payload["training_history"],
+            "config": payload["trainer_config"], "model_config": payload["model_config"],
+            "model_type": payload["model_type"],
+            "scheduler_state": payload["scheduler_state"], "use_gan": payload["use_gan"]}
+
+
 class Trainer:
     """Single-card training manager.
 
@@ -319,6 +338,7 @@ class Trainer:
         self.training_history: Dict[str, List] = {k: [] for k in self._history_keys()}
         self._ckpt_pool: Optional[ThreadPoolExecutor] = None
         self._ckpt_futures: List[Future] = []
+        self._loss_tree: Optional[Dict[str, Any]] = None
         self.last_step_times: List[float] = []
         self.last_train_metrics: Dict[str, float] = {}
 
@@ -398,18 +418,18 @@ class Trainer:
             self._log_epoch_metrics(epoch, train_metrics, val_metrics, self.current_lr)
 
             if self.config.save_every and (epoch + 1) % self.config.save_every == 0:
-                self.save_checkpoint(f"epoch_{epoch + 1}.pth")
+                self.save_checkpoint(f"epoch_{epoch + 1}")
 
             metric_key = self.config.early_stopping_metric.replace("val_", "")
             metric_value = val_metrics.get(metric_key, val_metrics.get("psnr", 0.0))
             if self._last_val_batches > 0:  # zero-batch validation = no metric
                 if self.config.save_best and self._is_best(metric_value):
-                    self.save_checkpoint("best_model.pth", is_best=True)
+                    self.save_checkpoint("best_model", is_best=True)
                 if self.early_stopping(metric_value):
                     print(f"\nEarly stopping triggered at epoch {epoch + 1}")
                     break
 
-        self.save_checkpoint("final_model.pth")
+        self.save_checkpoint("final_model")
         self.flush_checkpoints()
         return self.training_history
 
@@ -533,22 +553,48 @@ class Trainer:
             **gan,
         }
 
+    def _loss_params_tree(self) -> Dict[str, Any]:
+        """The loss's frozen params in the JAX layout, copied to the host
+        once (they change only when a full resume loads them)."""
+        if self._loss_tree is None:
+            self._loss_tree = fckpt.loss_params_tree(self.loss_fn.params)
+        return self._loss_tree
+
+    def _write_checkpoints(self, base: str, payload: Dict[str, Any],
+                           loss_tree: Dict[str, Any]) -> None:
+        """``base.pth`` and ``base.fckpt`` of one host payload."""
+        _write(f"{base}.pth", payload)
+        gan = payload["use_gan"]
+        tree = fckpt.train_state_tree(
+            self.model_type, payload["model_state_dict"], self.optimizer,
+            payload["optimizer_state"], payload["step"], loss_tree,
+            ema=payload["ema_state_dict"],
+            disc_sd=payload["discriminator_state_dict"] if gan else None,
+            d_optimizer=self.d_optimizer if gan else None,
+            d_opt_state=payload["d_optimizer_state"] if gan else None)
+        fckpt.save_checkpoint(f"{base}.fckpt", tree, _fckpt_meta(payload))
+
     def save_checkpoint(self, filename: str, is_best: bool = False) -> None:
-        """Write ``checkpoint_dir/filename``: on the writer thread with
-        ``async_checkpoint`` (the payload is on the host before this
-        returns), else here."""
+        """Write ``checkpoint_dir/<stem>.pth`` and ``<stem>.fckpt`` (the
+        stem of ``filename``: a ``.pth`` or ``.fckpt`` suffix is dropped):
+        on the writer thread with ``async_checkpoint`` (the payload is on
+        the host before this returns), else here."""
+        stem = filename
+        for suffix in CHECKPOINT_SUFFIXES:
+            if stem.endswith(suffix):
+                stem = stem[:-len(suffix)]
         payload = self._checkpoint_payload()
-        path = str(self.checkpoint_dir / filename)
+        args = (str(self.checkpoint_dir / stem), payload, self._loss_params_tree())
         if self.config.async_checkpoint:
             if self._ckpt_pool is None:
                 self._ckpt_pool = ThreadPoolExecutor(max_workers=1,
                                                      thread_name_prefix="ckpt-writer")
             # submit first, reap after: an earlier failure must not stop
             # this write
-            self._ckpt_futures.append(self._ckpt_pool.submit(_write, path, payload))
+            self._ckpt_futures.append(self._ckpt_pool.submit(self._write_checkpoints, *args))
             self._reap_ckpt_errors(wait=False)
         else:
-            _write(path, payload)
+            self._write_checkpoints(*args)
         if is_best:
             print(f"  New best model saved: {self.best_metric:.4f}")
 
@@ -579,19 +625,18 @@ class Trainer:
 
     def load_checkpoint(self, path: str, weights_only: bool = False) -> None:
         """Full resume (epoch + 1, global_step, optimiser and EMA state,
-        history) or, with ``weights_only``, the model weights alone and a
+        history, the scheduler, and from a ``.fckpt`` the loss's frozen
+        params) or, with ``weights_only``, the model weights alone and a
         fresh EMA (a new stage). The format is told by content: a
-        ``torch.save`` zip file, or a JAX ``.fckpt`` (flax msgpack), which
-        loads weights only: its tree's ``params``, as the JAX package's
-        weights-only path takes them."""
+        ``torch.save`` zip file, or a ``.fckpt`` (flax msgpack) of either
+        package, whose optax state `ckpt.optax_state` maps onto this
+        trainer's optimisers (a tree of other settings raises, naming the
+        path). The EMA follows this trainer's setting: dropped when off,
+        started from the loaded weights when the file has none."""
         self.flush_checkpoints()  # the file may still be in the write queue
         with open(path, "rb") as f:
             head = f.read(4)
         if fckpt.is_fckpt(head):
-            if not weights_only:
-                raise NotImplementedError(
-                    f"{path}: a full resume from a JAX .fckpt needs its optax state mapped "
-                    "to the port's optimiser (ROADMAP A.5); load it weights only")
             tree, meta = fckpt.load_checkpoint(path)
             if "params" not in tree:
                 raise ValueError(f"{path}: no 'params' in the checkpoint tree")
@@ -614,7 +659,25 @@ class Trainer:
             print(f"Loaded model weights from epoch {epoch} (fine-tuning mode)")
             print(f"  Starting fresh with LR={self.config.learning_rate}")
             return
+        if fckpt.is_fckpt(head):
+            self._resume_fckpt(tree, meta, path)
+        else:
+            self._resume_pth(ckpt)
+            meta = ckpt
+        # the restored state carries the checkpoint's LR: mark ours unknown
+        # so the first epoch writes the schedule's
+        self.current_lr = None
+        self.current_epoch = meta["epoch"] + 1
+        self.global_step = meta["global_step"]
+        self.best_metric = meta["best_metric"]
+        self.training_history = meta["training_history"]
+        for k in self._history_keys():  # a checkpoint of another trainer may lack some
+            self.training_history.setdefault(k, [])
+        if self.plateau is not None and meta.get("scheduler_state"):
+            self.plateau.load_state_dict(meta["scheduler_state"])
+        print(f"Loaded checkpoint from epoch {meta['epoch'] + 1}")
 
+    def _resume_pth(self, ckpt: Dict[str, Any]) -> None:
         self.state.opt_state = _to_device(ckpt["optimizer_state"], self.state.opt_state,
                                           self.device, "optimizer_state")
         ema = ckpt.get("ema_state_dict")
@@ -634,18 +697,66 @@ class Trainer:
         elif self.use_gan:
             print("  Checkpoint has no discriminator state; D starts fresh")
         self.state.step = ckpt["step"]
-        # the restored state carries the checkpoint's LR: mark ours unknown
-        # so the first epoch writes the schedule's
-        self.current_lr = None
-        self.current_epoch = ckpt["epoch"] + 1
-        self.global_step = ckpt["global_step"]
-        self.best_metric = ckpt["best_metric"]
-        self.training_history = ckpt["training_history"]
-        for k in self._history_keys():  # a checkpoint of another trainer may lack some
-            self.training_history.setdefault(k, [])
-        if self.plateau is not None and ckpt.get("scheduler_state"):
-            self.plateau.load_state_dict(ckpt["scheduler_state"])
-        print(f"Loaded checkpoint from epoch {ckpt['epoch'] + 1}")
+
+    def _resume_fckpt(self, tree: Dict[str, Any], meta: Dict[str, Any], path: str) -> None:
+        """The rest of a full resume from a ``.fckpt`` (the JAX Trainer's
+        ``load_checkpoint``): optimiser, EMA, loss params and D; a non-GAN
+        file into a GAN trainer restores the generator side only."""
+        missing = [k for k in fckpt.TRAIN_STATE_FIELDS if k not in tree]
+        if missing:
+            raise ValueError(f"{path}: not a trainer checkpoint (no {missing} in its tree)")
+        mtype = self.model_type
+        model_sd = self.model.state_dict()
+        labels = ox.stage_labels(self.optimizer, self.state.opt_state, model_sd, mtype)
+        self.state.opt_state = ox.port_state_from_optax(
+            self.optimizer, tree["opt_state"], self.state.opt_state, mtype, model_sd, labels,
+            where=f"{path}: opt_state")
+        if not self.use_ema:
+            self.state.ema_params = None
+        elif tree["ema_params"] is None:  # EMA turned on at resume: start from the weights
+            self.state.ema_params = init_ema(self.model)
+        else:
+            ema = state_dict_from_jax(fckpt.prepare_params(tree["ema_params"], mtype), mtype)
+            self.state.ema_params = _to_device(ema, self.state.ema_params, self.device,
+                                               "ema_params")
+        gan_file = bool(meta.get("use_gan", False))
+        if self.use_gan and not gan_file:
+            print("  Checkpoint has no discriminator state; D starts fresh")
+        else:
+            self._load_loss_params(tree["loss_params"], path)
+        if self.use_gan and gan_file:
+            d_params = fckpt.restore_list_nodes(tree["d_params"])
+            d_stats = fckpt.restore_list_nodes(tree["d_stats"])
+            with torch.no_grad():
+                self.disc.load_state_dict(discriminator_state_dict_from_jax(d_params, d_stats),
+                                          strict=True)
+            d_named = {k: v for k, v in self.disc.state_dict().items() if ".running_" not in k}
+            self.state.d_opt_state = ox.port_state_from_optax(
+                self.d_optimizer, tree["d_opt_state"], self.state.d_opt_state, "disc", d_named,
+                where=f"{path}: d_opt_state")
+        self.state.step = int(tree["step"])
+
+    def _load_loss_params(self, loss_tree: Any, path: str) -> None:
+        """The loss's frozen params from a ``.fckpt`` (each package seeds its
+        own VGG without pretrained weights: the file's are the run's)."""
+        ours = self.loss_fn.params
+        if set(loss_tree) != set(ours):
+            raise ValueError(f"{path}: loss_params holds {sorted(loss_tree)}, this trainer's "
+                             f"loss {sorted(ours)} (perceptual weight on in one only?)")
+        if "vgg" not in ours:
+            return
+        vgg = vgg_params_from_jax(fckpt.restore_list_nodes(loss_tree["vgg"]))
+        if len(vgg) != len(ours["vgg"]):
+            raise ValueError(f"{path}: loss_params holds {len(vgg)} VGG convs, this "
+                             f"trainer's loss {len(ours['vgg'])}")
+        with torch.no_grad():
+            for mine, theirs in zip(ours["vgg"], vgg):
+                for k in ("w", "b"):
+                    if mine[k].shape != theirs[k].shape:
+                        raise ValueError(f"{path}: loss_params VGG shape {tuple(theirs[k].shape)}"
+                                         f" vs {tuple(mine[k].shape)}")
+                    mine[k].copy_(theirs[k])
+        self._loss_tree = None
 
 
 def overfit_test(model, dataloader, loss_fn=None, num_images: int = 10,

@@ -155,8 +155,9 @@ def test_port_trainer_chains_from_a_jax_trainer_file_weights_only(files, tmp_pat
     assert all(torch.equal(tr.state.ema_params[k], got[k]) for k in tr.state.ema_params)
     assert int(tr.state.opt_state["count"]) == 0 and tr.current_epoch == 0
     _forward_equal(tr.model.config, got, params)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        tr.load_checkpoint(str(files["trainer"]))
+    # a full resume from the same file takes its optimiser state too
+    tr.load_checkpoint(str(files["trainer"]))
+    assert int(tr.state.opt_state["count"]) == 2 and tr.current_epoch == 1
 
 
 def test_format_is_told_by_content(files, tmp_path):

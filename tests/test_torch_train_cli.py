@@ -113,12 +113,14 @@ def test_stage1_then_stage2_chains_through_the_pth_beside_the_fckpt_name(
     assert len(t1.last_step_times) == 3 and _finite(t1)
     assert t1.last_train_metrics["loader_wait_s"] >= 0 and t1.last_train_metrics["step_ms"] > 0
     assert t1.loss_fn.get_weights() == {"l1": 1.0, "perceptual": 1.0}
-    assert {"best_model.pth", "final_model.pth"} <= {
+    assert {"best_model.pth", "final_model.pth", "best_model.fckpt", "final_model.fckpt"} <= {
         p.name for p in (workdir / "checkpoints").iterdir()}
     assert not record_loads
     best = torch.load(workdir / "checkpoints" / "best_model.pth", map_location="cpu",
                       weights_only=True)["model_state_dict"]
 
+    # a run folder written before the port wrote .fckpt holds the .pth only
+    (workdir / "checkpoints" / "best_model.fckpt").unlink()
     t2 = _run("stage2_ssim_config.yaml", "--epochs", "1")
     out2 = capsys.readouterr().out
     assert ("checkpoint.resume ./checkpoints/best_model.fckpt not found; loading the port's "
@@ -156,6 +158,18 @@ def test_stage2_chains_from_a_jax_written_fckpt(workdir, record_loads):
     np.testing.assert_allclose(got, want_out, atol=2e-5, rtol=1e-4)
 
 
+def test_resume_from_the_ports_fckpt_is_a_full_resume(workdir, capsys):
+    t1 = _run("stage1_psnr_config.yaml", "--epochs", "1")
+    capsys.readouterr()
+    t2 = _run("stage1_psnr_config.yaml", "--epochs", "2", "--resume",
+              "checkpoints/final_model.fckpt")
+    out = capsys.readouterr().out
+    assert "Loaded checkpoint from epoch 1" in out and "Epoch 2/2" in out
+    assert t2.global_step == 2 * t1.global_step
+    assert all(len(v) == 2 and v[0] == t1.training_history[k][0]
+               for k, v in t2.training_history.items())
+
+
 def test_a_missing_chain_checkpoint_raises(workdir):
     with pytest.raises(SystemExit, match="checkpoint.resume not found"):
         _run("stage2_ssim_config.yaml", "--epochs", "1")
@@ -173,9 +187,11 @@ def test_stage3_chains_from_stage2_and_trains_the_gan(workdir, record_loads, cap
     out = capsys.readouterr().out
     assert "GAN Training Configuration:" in out and "GAN weight: 0.005, type: vanilla" in out
     assert "D LR: 0.0001, D updates/G: 1" in out
-    assert "Chaining from stage checkpoint checkpoints/best_model.pth (weights only)" in out
+    # the stage YAML's best_model.fckpt is the port's own file now
+    assert "Chaining from stage checkpoint ./checkpoints/best_model.fckpt (weights only)" in out
+    assert "not found; loading the port's" not in out
     path, loaded = record_loads[-1]
-    assert path == "checkpoints/best_model.pth"
+    assert path == "./checkpoints/best_model.fckpt"
     assert set(loaded) == set(best2) and all(torch.equal(loaded[k], best2[k]) for k in best2)
     h = t3.training_history
     assert len(h["d_loss"]) == 1 and _finite(t3) and h["d_loss"][0] > 0
