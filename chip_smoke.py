@@ -205,6 +205,29 @@ catches an error and goes on):
    wall times; (15.4) ``python -m facesr_torch.cli.convert`` of a
    FaceEnhanceNet 6x10x64 and an RRDBNet x4plus ``.pth`` to ``.fckpt``
    and back with ``--reverse``: the state dict bitwise, keys in order.
+16. data parallelism, in child processes (`parallel.launch.run_ranks`)
+   started after the parent freed its cache. The machine has one card, so
+   NCCL runs at world size 1 and two ranks share cuda:0 over gloo (NCCL
+   refuses two ranks on one device). One world-1 NCCL rank: (d) the train
+   CLI on the stage-1 YAML under torchrun's environment with
+   ``--print-memory`` for one epoch on phase 8's PNGs (the measured step
+   peak against phase 7's), (a) the stage-1 step (6x10x64 f32, batch 48,
+   HR 256) in the group bitwise the step alone (cuDNN deterministic), the
+   all-reduce ms of the gradient bucket, and (e) `ShardedPredictor` over
+   [cuda:0, cuda:0] in bf16 at batch 128: each 64-image shard bitwise
+   `Predictor` at that size, 6 group launches a shard (counted in the
+   kernel line), images/s. Two gloo ranks: (b) the stage-1 and the GAN
+   step, 24 of the 48 rows each, against the single-process step on all
+   48 (relative L2 of each loss, gradient, parameter and BN stat, TF32
+   off, each <= max(1e-4, 10 x that tensor's rounding floor: its largest
+   error in the same single-process step on its input times (1 + 2^-23
+   noise), two noise draws, with G, D's convs and D's dense layers run on
+   the ranks' row blocks), the
+   controls (one rank's rows alone, unreduced; a per-rank BatchNorm)
+   rejected by the same limits, the ranks' states bitwise equal after 3 steps, ms
+   a dp step and of a gloo all-reduce of the bucket (two ranks
+   time-sharing one card: no speedup figure); (c) a Trainer epoch on phase
+   8's PNGs, 24 rows a rank a step, only rank 0 writing.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -546,13 +569,15 @@ def train_step_conv_flops(cfg, n, hr_size):
 F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 
-def production_step_fn(dev, qat: bool = False):
+def production_step_fn(dev, qat: bool = False, mesh=None, opt_cls=None):
     """Stage-1 training at the production width, the YAML's values written
     out (the card has no PyYAML): FaceEnhanceNet 6x10x64 (remat save_ca),
     f32, L1 + perceptual conv3_4, AdamW lr 1e-4, wd 0, clip 0.5,
     vgg_remat off; with ``qat`` every int8 site fake-quantized. conv_last
     is redrawn non-zero: from the zero init the output is the bicubic
     skip, and the first steps move away from it before the loss falls.
+    ``mesh``: the step's data-parallel mesh; ``opt_cls``: the optimiser's
+    class (phase 16's records the gradients), kept as ``step.optimizers``.
     Returns (state, step, loss)."""
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet
     from facesr_torch.ops.init import kaiming_normal
@@ -566,12 +591,14 @@ def production_step_fn(dev, qat: bool = False):
                                                     torch.Generator().manual_seed(1), scale=0.1))
     model.to(dev)
     loss = stage1_loss(dev)
-    opt = AdamW(weight_decay=0.0, gradient_clip=0.5)
+    opt = (opt_cls or AdamW)(weight_decay=0.0, gradient_clip=0.5)
     state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
                              loss_params=loss.params)
     sites = fake_quant_params(model) if qat else None
     step = steps.make_train_step(lambda lp, p, t: loss.apply(lp, p, t, vgg_remat=False), opt,
-                                 compute_dtype=None, quant_fn=(lambda: sites) if qat else None)
+                                 compute_dtype=None, quant_fn=(lambda: sites) if qat else None,
+                                 mesh=mesh)
+    step.optimizers = (opt,)
     return state, step, loss
 
 
@@ -1223,12 +1250,13 @@ def eval_phase(dev, card: str, tmp: Path) -> int:
 GAN_BATCH, GAN_HR, GAN_D_BASE, GAN_WARMUP, GAN_TIMED = 48, 256, 64, 2, 6
 
 
-def gan_step_fn(dev):
+def gan_step_fn(dev, mesh=None, opt_cls=None):
     """Stage 3's GAN step at the production width, the YAML's values written
     out: FaceEnhanceNet 6x10x64 (remat save_ca, conv_last redrawn
     non-zero), f32, L1 0.01 + perceptual 1.0 at conv3_4, vanilla GAN
     0.005, G AdamW lr 1e-5 wd 0 clip 0.5, D AdamW lr 1e-4 wd 0 (no clip),
-    one D update a step. Returns (state, step, loss)."""
+    one D update a step; ``mesh`` and ``opt_cls`` as `production_step_fn`'s
+    (``step.optimizers`` is (G's, D's)). Returns (state, step, loss)."""
     from facesr_torch.losses.combined import CombinedLoss, LossConfig
     from facesr_torch.models.discriminator import create_discriminator
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet
@@ -1246,13 +1274,15 @@ def gan_step_fn(dev):
                                 seed=0, device=dev)
     loss = CombinedLoss(LossConfig(l1_weight=0.01, perceptual_weight=1.0, ssim_weight=0.0,
                                    perceptual_layers=["conv3_4"]), seed=0, device=dev)
-    opt, d_opt = AdamW(weight_decay=0.0, gradient_clip=0.5), AdamW(weight_decay=0.0,
-                                                                   gradient_clip=0.0)
+    opt_cls = opt_cls or AdamW
+    opt = opt_cls(weight_decay=0.0, gradient_clip=0.5)
+    d_opt = opt_cls(weight_decay=0.0, gradient_clip=0.0)
     state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-5),
                              loss_params=loss.params, disc=disc,
                              d_opt_state=d_opt.init(dict(disc.named_parameters()), 1e-4))
     step = steps.make_gan_train_step(lambda lp, p, t: loss.apply(lp, p, t, vgg_remat=False),
-                                     opt, d_opt, gan_weight=0.005, gan_type="vanilla")
+                                     opt, d_opt, gan_weight=0.005, gan_type="vanilla", mesh=mesh)
+    step.optimizers = (opt, d_opt)
     return state, step, loss
 
 
@@ -2717,7 +2747,7 @@ def zoo_phase(dev, card: str, tmp: Path) -> dict:
 
 # phase 14: the zoo's int8 and the .pt2 files at full width (RealESRGAN x4plus;
 # transfer 16+4 at 64 channels), seeded random weights, batch 128 of 64x64
-ZOO8_TIMED = 5                  # forwards (CUDA events, mean) and Predictor calls (median)
+ZOO8_TIMED = 3                  # forwards (CUDA events, mean) and Predictor calls (median)
 ZOO8_CHECK_IMAGES = 4           # int8_full card against the CPU port, at the small depths:
 ZOO8_SMALL = {"esrgan": dict(num_feat=64, num_blocks=2, num_grow_ch=32),
               "transfer": dict(backbone_blocks=2, head_blocks=2, head_channels=64)}
@@ -3336,6 +3366,390 @@ def explain_phase(dev, card, tmp: Path) -> None:
         raise AssertionError("phase 15 launched the bf16 group kernel")
 
 
+# phase 16: data parallelism on the card, in child processes started after
+# the parent freed its cache: one world-1 NCCL rank for (a) the step in a
+# group against the step alone, (d) the train CLI with --print-memory and
+# (e) ShardedPredictor over [cuda:0, cuda:0]; two gloo ranks sharing cuda:0
+# (NCCL refuses two ranks on one device) for (b) the dp steps against the
+# single-process step and (c) a Trainer epoch. The card's machine has one
+# card: NCCL across cards is not exercised here.
+DP_TIMED = 2            # timed dp steps in (b)
+# (b)'s limit a tensor: max(STEP_RTOL, DP_FLOOR_FACTOR x its rounding
+# floor), the floor being how far that tensor of the single-process step
+# moves under rounding alone: its input times (1 + 2^-23 N(0, 1)), and the generator, D's convs
+# and D's dense layers run on the ranks' row blocks (the same math with the
+# cuDNN and cuBLAS algorithms of 24 rows), BatchNorm and the losses still
+# over all 48. D's first-layer gradients are sums that cancel (a BatchNorm
+# follows), so rounding moves them far more than 1e-4; and Adam's first step
+# (~lr * sign(g)) turns a near-zero gradient's flip into a 2 lr move of a
+# zero-initialised bias, so a tensor's floor is the larger of two noise
+# draws (one draw can miss a flip the dp step makes)
+DP_FLOOR_FACTOR = 10
+DP_FLOOR_NOISE = 2.0 ** -23
+DP_FLOOR_SEEDS = (11, 12)
+DP_SHOWN = 6            # tensors of (b) printed with their limits
+DP_TRAINER_WORKERS = 4  # loader threads a rank in (c)
+DP_TIMEOUT = 300        # seconds: each collective and the group's join
+DP_DEVICE, DP_BACKEND = "cuda:0", "nccl"  # the world-1 rank's (the two ranks: gloo)
+DP_CLI_FLAGS = ()       # extra train CLI flags of (d)
+
+
+def _state_hash(tensors) -> str:
+    """sha256 over the bytes of tensors, in order (bitwise equality across
+    processes without sending them)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _step_record(state, step, hr, gan):
+    """One step; the loss(es), the recorded gradients, the updated params
+    (and D's params and stats), all on the host."""
+    _, metrics = step(state, hr)
+    rec = {"losses": {k: metrics[k].detach().cpu() for k in
+                      (("loss", "d_loss", "g_adv") if gan else ("loss",))},
+           "g_grads": step.optimizers[0].grads,
+           "g_params": {k: v.detach().cpu().clone() for k, v in
+                        state.model.named_parameters()}}
+    if gan:
+        rec.update(d_grads=step.optimizers[1].grads,
+                   d_params={k: v.detach().cpu().clone() for k, v in
+                             state.disc.named_parameters()},
+                   d_stats={k: v.detach().cpu().clone() for k, v in state.disc.named_buffers()})
+    return rec
+
+
+def _tensor_errors(got, want) -> dict:
+    """The relative L2 of each tensor of two `_step_record`s, by part."""
+    from facesr_torch.cli.step_numerics import rel_l2
+
+    return {part: {k: rel_l2(got[part][k], v) for k, v in want[part].items()}
+            for part in want}
+
+
+def _time_all_reduce(mesh, n, reps=10) -> float:
+    """Median ms of one all-reduce of n floats on the rank's card."""
+    import torch.distributed as dist
+
+    bucket = torch.randn(n, device=mesh.device)
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(bucket, group=mesh.group)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _row_blocks(fn, parts):
+    """fn on each of ``parts`` row blocks of its first argument, concatenated."""
+    return lambda x, *args, **kwargs: torch.cat([fn(p, *args, **kwargs)
+                                                 for p in x.chunk(parts)])
+
+
+def _rounding_floor(build, dev, hr, gan, parts, seed):
+    """The single-process step on all of ``hr`` with rounding-sized changes
+    only (see DP_FLOOR_FACTOR), its noise drawn from ``seed``: the recorded
+    step."""
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+    from facesr_torch.models import discriminator as dmod
+
+    conv, dense = dmod.conv2d, dmod._dense
+    dmod.conv2d, dmod._dense = _row_blocks(conv, parts), _row_blocks(dense, parts)
+    try:
+        state, step, _ = build(dev, opt_cls=RecordingAdamW)
+        state.model.forward = _row_blocks(state.model.forward, parts)
+        noise = torch.randn(hr.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+        return _step_record(state, step, hr * (1 + DP_FLOOR_NOISE * noise), gan)
+    finally:
+        dmod.conv2d, dmod._dense = conv, dense
+
+
+def dp_world1_rank(mesh, tmp: str, card: str) -> dict:
+    """(d), (a), the NCCL bucket time and (e) in one world-1 NCCL rank."""
+    import gc
+    import io
+    import os
+    import re
+
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.parallel.serving import Predictor, ShardedPredictor, shard_bounds
+
+    dev, out, tmp = mesh.device, {"lines": []}, Path(tmp)
+    # (d) first, in a fresh process, so its peak is the step's own
+    run_dir = tmp / "dp_cli"
+    run_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            trainer = train_cli.run(["--config", str(STAGE1_YAML), "--data-root",
+                                     str(tmp / "data"), "--epochs", "1", "--print-memory",
+                                     *DP_CLI_FLAGS])
+    finally:
+        os.chdir(cwd)
+    text = buf.getvalue()
+    report = {k: int(v) for k, v in re.findall(r"  (\w[\w ]*?)\s+[\d.]+ MB \((\d+) bytes\)",
+                                                  text)}
+    out["cli"] = {"s": time.perf_counter() - t0, "report": report,
+                  "rank_line": "rank 0 of 1, device memory" in text,
+                  "joined": "Data parallel: rank 0 of 1" in text,
+                  "distributed": trainer.mesh.distributed, "steps": trainer.global_step,
+                  "history": trainer.training_history,
+                  "files": sorted(p.name for p in (run_dir / "checkpoints").iterdir()),
+                  "step_ms": trainer.last_train_metrics.get("step_ms")}
+    out["lines"] += [f"  (d) {line.strip()}" for line in text.splitlines()
+                     if "MB (" in line or "rank 0 of 1" in line or "Batch size" in line]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the stage-1 step in the NCCL group against the same step alone,
+    # cuDNN deterministic (its backward algorithms may sum in any order)
+    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, m in (("alone", None), ("nccl", mesh)):
+            state, step, _ = production_step_fn(dev, mesh=m, opt_cls=RecordingAdamW)
+            runs[name] = _step_record(state, step, hr, gan=False)
+            del state, step
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["alone"], runs["nccl"]
+    out["a_bitwise"] = all(torch.equal(a[part][k], b[part][k]) for part in a
+                           for k in a[part])
+    n_params = sum(v.numel() for v in a["g_params"].values())
+    out["n_params"] = n_params
+    out["nccl_ms"] = _time_all_reduce(mesh, n_params)
+    del runs, a, b, hr
+    torch.cuda.empty_cache()
+
+    # (e) ShardedPredictor over [cuda:0, cuda:0] in bf16 at batch MAX_BATCH
+    model = production_model(dev, nonzero_last=True)
+    x = np.random.default_rng(3).random((MAX_BATCH, 64, 64, 3), dtype=np.float32)
+    sp = ShardedPredictor(model, mesh=[dev, dev], dtype=torch.bfloat16, max_batch=MAX_BATCH)
+    sp(x)  # warm-up
+    rg.fused_residual_group.launches = 0
+    got = sp(x)
+    torch.cuda.synchronize()
+    out["launches"] = rg.fused_residual_group.launches
+    bounds = shard_bounds(MAX_BATCH, 2)
+    pred = Predictor(model, dtype=torch.bfloat16, max_batch=bounds[0][1], device=dev)
+    out["e_bitwise"] = all(np.array_equal(got[lo:hi], pred(x[lo:hi])) for lo, hi in bounds)
+    out["e_finite"] = bool(np.isfinite(got).all()) and got.shape == (MAX_BATCH, 256, 256, 3)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sp(x)
+        times.append(time.perf_counter() - t0)
+    out["e_ms"] = statistics.median(times) * 1e3
+    out["shards"] = len(bounds)
+    return out
+
+
+def dp_two_rank(mesh, tmp: str, card: str) -> dict:
+    """(b) and (c) on one of two gloo ranks sharing cuda:0."""
+    import io
+
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+    from facesr_torch.data.dataset import get_dataloader
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.parallel.mesh import shard_batch
+    from facesr_torch.training.trainer import Trainer, TrainerConfig
+
+    dev, rank, tmp = mesh.device, mesh.rank, Path(tmp)
+    out = {"rank": rank}
+    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)  # the same global batch
+    rows = shard_batch(hr, mesh)
+    for gan in (False, True):
+        build = gan_step_fn if gan else production_step_fn
+        key = "gan" if gan else "content"
+        if rank == 0:  # the single-process step on the global batch, and on rank 0's rows
+            state, step, _ = build(dev, opt_cls=RecordingAdamW)
+            want = _step_record(state, step, hr, gan)
+            del state, step
+            state, step, _ = build(dev, opt_cls=RecordingAdamW)
+            alone = _step_record(state, step, rows, gan)
+            del state, step
+            draws = [_tensor_errors(_rounding_floor(build, dev, hr, gan, mesh.world_size, seed),
+                                    want) for seed in DP_FLOOR_SEEDS]
+            floor = {part: {k: max(d[part][k] for d in draws) for k in draws[0][part]}
+                     for part in draws[0]}
+            torch.cuda.empty_cache()
+        state, step, _ = build(dev, mesh=mesh, opt_cls=RecordingAdamW)
+        got = _step_record(state, step, rows, gan)
+        times = []
+        for _ in range(DP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, rows)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        tensors = list(state.model.parameters()) + list(state.opt_state["mu"].values())
+        if gan:
+            tensors += list(state.disc.parameters()) + list(state.disc.buffers())
+        out[key] = {"hash": _state_hash(tensors), "ms": statistics.median(times)}
+        del state, step
+        control = None
+        if gan:  # the per-rank BatchNorm control: D's forward without the mesh
+            state, step, _ = build(dev, mesh=mesh, opt_cls=RecordingAdamW)
+            forward = state.disc.forward
+            state.disc.forward = lambda x, train=True, dtype=None, mesh=None: forward(x, train,
+                                                                                     dtype)
+            control = _step_record(state, step, rows, gan)
+            del state, step
+        if rank == 0:
+            out[key].update(errors=_tensor_errors(got, want), floor=floor,
+                            unreduced=_tensor_errors(alone, want),
+                            per_rank_bn=None if control is None else _tensor_errors(control, want))
+            del want, alone, floor, draws
+        torch.cuda.empty_cache()
+    out["gloo_ms"] = _time_all_reduce(mesh, sum(p.numel() for p in
+                                                production_model("cpu", False).parameters()))
+
+    # (c) a Trainer epoch on phase 8's PNGs: each rank loads 24 of every 48
+    local = TRAIN_BATCH // mesh.world_size
+    train = get_dataloader(str(tmp / "data"), mode="train", batch_size=local,
+                           num_workers=DP_TRAINER_WORKERS, hr_patch_size=CLI_HR, seed=42)
+    val = get_dataloader(str(tmp / "data"), mode="val", batch_size=local,
+                         num_workers=DP_TRAINER_WORKERS, seed=42)
+    ckpt = tmp / "dp_trainer" / f"rank{rank}"
+    cfg = TrainerConfig(epochs=1, learning_rate=1e-4, weight_decay=0.0, gradient_clip=0.5,
+                        use_amp=False, save_every=1, checkpoint_dir=str(ckpt), step_log_every=0)
+    tr = Trainer(FaceEnhanceNet(production_config(), seed=0, device="cpu"), train, val,
+                 stage1_loss("cpu"), cfg, mesh=mesh)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the two ranks' epoch lines
+        history = tr.train()
+    out["trainer"] = {"s": time.perf_counter() - t0, "history": history,
+                      "steps": tr.global_step, "writer": tr.is_writer,
+                      "files": sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else None,
+                      "step_ms": tr.last_train_metrics.get("step_ms"),
+                      "batch_rows": train.batch_size, "hash": _state_hash(tr.model.parameters())}
+    return out
+
+
+def dp_phase(card: str, tmp: Path) -> int:
+    """Phase 16: data parallelism on the card; returns the group kernel's
+    launches on its serving path (e)."""
+    from facesr_torch.parallel.launch import run_ranks
+
+    log(f"== 16. data parallelism (child processes; the card's machine has one card, so NCCL "
+        f"runs at world size 1 and two ranks share cuda:0 over gloo) [{card}]")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    w1 = run_ranks(dp_world1_rank, 1, args=(str(tmp), card), devices=[DP_DEVICE],
+                   backend=DP_BACKEND, timeout=DP_TIMEOUT)[0]
+    cli = w1["cli"]
+    for line in w1["lines"]:
+        log(line)
+    peak = cli["report"].get("step peak")
+    log(f"  (d) the train CLI on the stage-1 YAML under a world-1 torchrun env (NCCL), "
+        f"--print-memory, 1 epoch on phase 8's PNGs: {cli['steps']} steps, "
+        f"{cli['step_ms']:.3f} ms/step, {cli['s']:.1f} s with its set-up; reported step peak "
+        f"{(peak or 0) / 2 ** 30:.3f} GiB against phase 7's 22.1 GiB (PERF.md, batch 48 alone) "
+        f"[{card}]")
+    measured = not DP_DEVICE.startswith("cuda") or (peak or 0) > cli["report"]["state"]
+    if not (cli["joined"] and cli["distributed"] and cli["rank_line"] and measured
+            and "final_model.fckpt" in cli["files"]
+            and all(math.isfinite(v) for v in cli["history"]["val_psnr"])):
+        raise AssertionError(f"the world-1 train CLI run: {cli}")
+    log(f"  (a) the stage-1 step (6x10x64 f32, batch {TRAIN_BATCH}, HR {TRAIN_HR}) in a "
+        f"world-1 NCCL group against the same step without a group (cuDNN deterministic): "
+        f"loss, gradients and params bitwise equal: {w1['a_bitwise']}")
+    if not w1["a_bitwise"]:
+        raise AssertionError("the world-1 NCCL step is not bitwise the step alone")
+    log(f"  all-reduce of the {w1['n_params']}-float gradient bucket, NCCL world 1: median of "
+        f"10 {w1['nccl_ms']:.3f} ms [{card}]")
+    per = production_config().num_groups
+    log(f"  (e) ShardedPredictor(mesh=[cuda:0, cuda:0]) bf16, batch {MAX_BATCH} of 64x64: "
+        f"{w1['shards']} shards, each bitwise Predictor at its size: {w1['e_bitwise']}; group "
+        f"launches {w1['launches']} (want {per} a shard = {per * w1['shards']}); median of 3 "
+        f"{w1['e_ms']:.3f} ms = {MAX_BATCH / w1['e_ms'] * 1e3:.1f} images/s (both shards on "
+        f"one card) [{card}]")
+    if not (w1["e_bitwise"] and w1["e_finite"] and w1["launches"] == per * w1["shards"]):
+        raise AssertionError("ShardedPredictor over [cuda:0, cuda:0] failed its checks")
+
+    two = run_ranks(dp_two_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
+                    backend="gloo", timeout=DP_TIMEOUT)
+    r0, r1 = two
+    fmt = lambda d: json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+    for key, name in (("content", "stage-1 step"), ("gan", "stage-3 GAN step")):
+        res = r0[key]
+        limit = {part: {k: max(STEP_RTOL, DP_FLOOR_FACTOR * f) for k, f in floors.items()}
+                 for part, floors in res["floor"].items()}
+        worst = lambda errs: {part: max(errs[part].values()) for part in errs}
+        over = lambda errs, part: [k for k, v in errs[part].items() if v > limit[part][k]]
+        ratio = {part: max((e / limit[part][k], k) for k, e in res["errors"][part].items())
+                 for part in limit}
+        raised = {part: sorted(((v, k) for k, v in limit[part].items() if v > STEP_RTOL),
+                               reverse=True) for part in limit}
+        log(f"  (b) {name}, 2 gloo ranks x {TRAIN_BATCH // 2} rows on cuda:0 against the "
+            f"single-process step on all {TRAIN_BATCH}, relative L2 (TF32 off), the worst "
+            f"tensor a part: {fmt(worst(res['errors']))}; the rounding floor (the "
+            f"single-process step, its input x (1 + 2^-23 N(0,1)), the larger of two draws, G, "
+            f"D's convs and dense layers on the ranks' row blocks), the worst tensor a part: "
+            f"{fmt(worst(res['floor']))}; each tensor's limit max({STEP_RTOL}, "
+            f"{DP_FLOOR_FACTOR} x its floor): the largest error / limit a part "
+            f"{json.dumps({p: [float(f'{r:.3g}'), k] for p, (r, k) in ratio.items()})}; "
+            f"tensors whose limit is above {STEP_RTOL}, of all a part: "
+            f"{json.dumps({p: [len(v), len(limit[p])] for p, v in raised.items()})}; "
+            f"control, rank 0's rows alone (unreduced gradients), the worst tensor a part: "
+            f"{fmt(worst(res['unreduced']))}, G gradients over their limits "
+            f"{len(over(res['unreduced'], 'g_grads'))} of {len(limit['g_grads'])}"
+            + (f"; control, a per-rank BatchNorm, the worst tensor a part: "
+               f"{fmt(worst(res['per_rank_bn']))}, over their limits: D gradients "
+               f"{len(over(res['per_rank_bn'], 'd_grads'))} of {len(limit['d_grads'])}, "
+               f"stats {len(over(res['per_rank_bn'], 'd_stats'))} of {len(limit['d_stats'])}"
+               if key == "gan" else "")
+            + f"; states bitwise equal across ranks after {1 + DP_TIMED} steps: "
+              f"{res['hash'] == r1[key]['hash']}; {res['ms']:.3f} ms a dp step "
+              f"(median of {DP_TIMED}; two ranks time-sharing one card, no speedup figure) "
+              f"[{card}]")
+        closest = sorted(((e / limit[p][k], p, k) for p in limit
+                          for k, e in res["errors"][p].items()), reverse=True)[:DP_SHOWN]
+        log(f"  (b) {name}, [error, floor, limit] of the {DP_SHOWN} tensors nearest their "
+            f"limits: " + json.dumps({f"{p}.{k}": [float(f"{res[r][p][k]:.3g}") for r in
+                                                   ("errors", "floor")]
+                                      + [float(f"{limit[p][k]:.3g}")] for _, p, k in closest}))
+        failed = {part: over(res["errors"], part) for part in limit}
+        if any(failed.values()):
+            raise AssertionError(f"the dp {name} disagrees with the single-process step: "
+                                 f"{failed}")
+        if not over(res["unreduced"], "g_grads"):
+            raise AssertionError("the step limits cannot see unreduced gradients")
+        control = res["per_rank_bn"]
+        if key == "gan" and not (over(control, "d_grads") and over(control, "d_stats")):
+            raise AssertionError("the step limits cannot see a per-rank BatchNorm")
+        if r0[key]["hash"] != r1[key]["hash"]:
+            raise AssertionError(f"the ranks' {name} states differ")
+    log(f"  all-reduce of the {w1['n_params']}-float gradient bucket, gloo on CUDA (2 ranks, "
+        f"one card): median of 10 {r0['gloo_ms']:.3f} ms [{card}]")
+    t0, t1 = r0["trainer"], r1["trainer"]
+    log(f"  (c) a two-rank Trainer epoch on phase 8's PNGs ({t0['batch_rows']} rows a rank a "
+        f"step): {t0['steps']} steps, {t0['step_ms']:.3f} ms/step, {t0['s']:.1f} s; val PSNR "
+        f"{t0['history']['val_psnr']}; rank 0 wrote {t0['files']}, rank 1 wrote "
+        f"{t1['files']}; params bitwise equal across ranks: {t0['hash'] == t1['hash']} [{card}]")
+    if not (t0["writer"] and not t1["writer"] and t1["files"] is None
+            and "final_model.fckpt" in (t0["files"] or []) and t0["hash"] == t1["hash"]
+            and t0["history"] == t1["history"] and t0["batch_rows"] == TRAIN_BATCH // 2):
+        raise AssertionError("the two-rank Trainer epoch failed its checks")
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return w1["launches"]
+
+
 def input_shape_str(program) -> str:
     from facesr_torch.ckpt.export import input_shape
 
@@ -3610,6 +4024,7 @@ def main() -> int:
         launches["fused_residual_group"] += zoo_int8_phase(
             dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
         explain_phase(dev, card, Path(tmp))
+        launches["fused_residual_group"] += dp_phase(card, Path(tmp))  # and phase 16's
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

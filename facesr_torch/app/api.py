@@ -1,4 +1,4 @@
-"""HTTP serving API of the port: `app/api.py` on one card.
+"""HTTP serving API of the port: `app/api.py` on one card or every visible one.
 
 Standard-library ``http.server`` with threads, HTTP/1.1 keep-alive.
 
@@ -18,7 +18,8 @@ Usage:
   python -m facesr_torch.app.api --checkpoint-dir checkpoints --port 8000 --dtype bf16
   curl -X POST --data-binary @face.png localhost:8000/super-resolve > sr.png
 
-``--dtype bf16`` serves every model through `Predictor` (the group-kernel
+``--dtype bf16`` serves every model through `ShardedPredictor` over every
+visible card (`Predictor` on one; the group-kernel
 trunk: 6 kernel launches a forward of the production 6x10x64 model);
 without it (or with ``f32``) the raw f32 forward. ``--dtype int8`` serves
 per-channel int8 weights dequantized to bf16 (the kernel trunk too);
@@ -68,7 +69,8 @@ class SRService:
                  batch_window_ms: float = 0.0, max_batch: int = 0,
                  exported: Optional[str] = None, device: DeviceLike = None):
         """dtype: None/'f32' raw f32 forwards; 'bf16', 'int8' and
-        'int8_full' through `Predictor` (`app.demo.wrap_predictors`, with
+        'int8_full' through `ShardedPredictor` (`app.demo.wrap_predictors`:
+        every visible card unless ``device`` names one; with
         ``calib_dir`` and the per-model ``quant_cache`` for int8_full).
         batch_window_ms > 0
         coalesces concurrent requests into one forward (`MicroBatcher`) of
@@ -91,7 +93,8 @@ class SRService:
         self.predictors = {}
         if dtype and dtype != "f32":
             self.predictors = wrap_predictors(self.models, dtype, calib_dir, quant_cache,
-                                              max_batch=max(1, max_batch, mb))
+                                              max_batch=max(1, max_batch, mb),
+                                              device=self.device)
         self.batchers = {}
         if batch_window_ms > 0:
             servables = {**self.models, **self.exported, **self.predictors}

@@ -1,5 +1,5 @@
 """The serving demo of the port, headless: `app/demo.py`'s interface on
-one card.
+one card or every visible one.
 
     python -m facesr_torch.app.demo --checkpoint-dir checkpoints \\
         --image face.png --output outputs/demo [--dtype bf16] [--device cpu]
@@ -14,7 +14,7 @@ the reference's: an image of at most 128 px is already LR (resized to 64
 with ``INTER_AREA`` when it is not 64x64, no ground truth); a larger one
 is centre-cropped to a square, resized to 256 with ``INTER_AREA`` and its
 64 px LR synthesised with the trainer's bicubic. ``--dtype bf16`` serves
-through `Predictor` (the group-kernel trunk), ``int8`` with int8 weights
+through `ShardedPredictor` (every visible card; the group-kernel trunk), ``int8`` with int8 weights
 dequantized to bf16, ``int8_full`` with s8 convs: static activation
 scales calibrated on ``--calib-dir`` images, or loaded from the per-model
 quant cache ``<--quant-cache>.<model name>.fckpt`` (written there after a
@@ -125,7 +125,8 @@ def _assemble_models(checkpoint_dir: str, dtype: Optional[str] = None,
     predictors -> exported artifacts, in one dict."""
     models, artifacts = load_servables(checkpoint_dir, dtype, calib_dir, quant_cache,
                                        exported, device)
-    return {**wrap_predictors(models, dtype, calib_dir, quant_cache), **artifacts}
+    return {**wrap_predictors(models, dtype, calib_dir, quant_cache, device=device),
+            **artifacts}
 
 
 SERVING_DTYPES = (None, "f32", "bf16", "int8", "int8_full")
@@ -138,15 +139,18 @@ def _check_serving_dtype(dtype: Optional[str]) -> None:
 
 def wrap_predictors(models: dict, dtype: Optional[str] = None,
                     calib_dir: Optional[str] = None, quant_cache: Optional[str] = None,
-                    max_batch: int = 8) -> dict:
-    """Every model through a `Predictor` when a serving dtype is asked
-    for: ``bf16`` the group-kernel trunk, ``int8`` int8 weights dequantized
+                    max_batch: int = 8, device: DeviceLike = None) -> dict:
+    """Every model through a `ShardedPredictor` when a serving dtype is
+    asked for, as the JAX demo and API serve: over every visible card when
+    ``device`` is ``cuda`` without an index, else on the model's own
+    device (on one device it is `Predictor`): ``bf16`` the group-kernel
+    trunk, ``int8`` int8 weights dequantized
     to bf16, ``int8_full`` s8 convs with static scales calibrated on
     ``calib_dir`` images or loaded from the model's quant cache
     (`per_model_quant_cache` of ``quant_cache``), else dynamic scales. f32
     (or none) keeps the raw models. ``calib_dir``/``quant_cache`` under
     another dtype print a warning and are ignored."""
-    from facesr_torch.parallel.serving import (Predictor, load_calibration_images,
+    from facesr_torch.parallel.serving import (ShardedPredictor, load_calibration_images,
                                                per_model_quant_cache)
 
     _check_serving_dtype(dtype)
@@ -159,9 +163,10 @@ def wrap_predictors(models: dict, dtype: Optional[str] = None,
     if calib_dir and dtype == "int8_full":
         calibration = load_calibration_images(calib_dir)
     serve_dtype = torch.bfloat16 if dtype == "bf16" else dtype
-    return {name: Predictor(
-                m, dtype=serve_dtype, max_batch=max_batch, device=next(m.parameters()).device,
-                calibration=calibration,
+    every_card = device is not None and torch.device(device) == torch.device("cuda")
+    return {name: ShardedPredictor(
+                m, mesh=None if every_card else [next(m.parameters()).device],
+                dtype=serve_dtype, max_batch=max_batch, calibration=calibration,
                 quant_cache=per_model_quant_cache(quant_cache if dtype == "int8_full" else None,
                                                   name))
             for name, m in models.items()}

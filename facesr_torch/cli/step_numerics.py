@@ -85,7 +85,7 @@ def smooth_loss_apply(loss_params, sr, hr):
     return comps["l2"] + comps["perceptual"] + 0.1 * comps["ssim"], comps
 
 
-class _Recording(AdamW):
+class RecordingAdamW(AdamW):
     """AdamW that keeps a host copy of the gradients it was given."""
 
     def update(self, grads, state, params):
@@ -245,7 +245,7 @@ def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool 
     model = _small_model(weight_noise).to(dev)
     loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
                                    perceptual_layers=["conv3_4"]), seed=0, device=dev)
-    opt = _Recording(weight_decay=0.0, gradient_clip=0.5)
+    opt = RecordingAdamW(weight_decay=0.0, gradient_clip=0.5)
     state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
                              loss_params=loss.params)
     sites = fake_quant_params(model) if qat else None
@@ -293,7 +293,7 @@ def small_zoo_step(dev, kind: str = "transfer", stage: int = 1, tf32_forced: boo
     model = model.to(dev)
     loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
                                    perceptual_layers=["conv3_4"]), seed=0, device=dev)
-    opt = _Recording(weight_decay=0.0, gradient_clip=0.5)
+    opt = RecordingAdamW(weight_decay=0.0, gradient_clip=0.5)
     state = steps.TrainState(model=model, loss_params=loss.params,
                              opt_state=opt.init(steps.trainable_parameters(model), 1e-4))
     sites = fake_quant_params(model) if qat else None
@@ -322,7 +322,7 @@ def small_gan_step(dev, tf32_forced: bool = False) -> Dict[str, Dict[str, torch.
                                 device=dev)
     loss = CombinedLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
                                    perceptual_layers=["conv3_4"]), seed=0, device=dev)
-    opt, d_opt = _Recording(weight_decay=0.0, gradient_clip=0.5), _Recording(gradient_clip=0.0,
+    opt, d_opt = RecordingAdamW(weight_decay=0.0, gradient_clip=0.5), RecordingAdamW(gradient_clip=0.0,
                                                                              weight_decay=0.0)
     state = steps.TrainState(model=model, opt_state=opt.init(dict(model.named_parameters()), 1e-4),
                              loss_params=loss.params, disc=disc,

@@ -6,9 +6,22 @@
     python -m facesr_torch.cli.train --config configs/stages/stage3_gan_config.yaml
 
 CLI flags override the YAML, which overrides the coded defaults. It trains
-on one CUDA card unless ``--device cpu`` is given, and raises when there
-is no card and no ``--device``. Images are PNG files under ``data_root``
+on CUDA unless ``--device cpu`` is given, and raises when there is no card
+and no ``--device``. Images are PNG files under ``data_root``
 (``train/HR`` with or without ``train/LR``, ``val/HR`` + ``val/LR``).
+
+Data parallelism (``mesh_axes: data``, the default), as the JAX CLI runs
+over every visible chip: under torchrun (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` set) each process joins
+that group, one rank a card (``cuda:<LOCAL_RANK>``; NCCL, or gloo with
+``--device cpu``); a plain launch on a host with N > 1 visible cards
+starts the N ranks itself (`parallel.launch.run_cli_ranks`). The YAML's
+``batch_size`` is the global batch: each rank loads ``batch_size / N``
+rows of its own slice of the shuffled order (a remainder is trimmed with
+the JAX warning), and only rank 0 writes checkpoints. ``--print-memory``
+prints each rank's memory budget of the train step (the state's and the
+batch's bytes, and on a card the peak of one step, run once) at the
+effective batch, after any checkpoint load and ``--qat-scales`` pinning.
 
 Stage chaining: a ``checkpoint.resume`` path in the YAML loads weights only
 (a new stage); ``--resume`` is a full resume unless ``--fine-tune``, from
@@ -44,9 +57,9 @@ fake-quantized, frozen transfer parameters included (their forward is
 what serving quantizes), and the stage optimiser still updates only what
 the stage trains.
 
-What is not ported raises and names its ROADMAP item: mesh axes other
-than ``data``, ``--mesh-shape``,
-``pp_microbatches`` and ``--print-memory`` (A.13), the gradient monitor
+What is not ported raises and names its ROADMAP item: the mesh axes
+``space`` (A.13.2), ``model`` (A.13.3) and ``pp`` with ``pp_microbatches``
+(A.13.4), a multi-axis ``--mesh-shape`` (A.13.5), the gradient monitor
 (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
 with random weights drawn from seed 0 (no pretrained file is in the repo).
 SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
@@ -56,19 +69,17 @@ process exits.
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 from pathlib import Path
 from typing import List, Optional
 
 from facesr_torch.config import load_config, set_seed
+from facesr_torch.parallel.mesh import ROADMAP_ITEMS, NotPorted, check_mesh_axes
 
 __all__ = ["main", "run", "parse_args", "make_loaders", "create_model", "resolve_chain_path",
            "NotPorted"]
-
-
-class NotPorted(NotImplementedError):
-    pass
 
 
 def create_model(model_type: str, config: dict, seed: int = 0):
@@ -117,20 +128,29 @@ def resolve_chain_path(path: str) -> str:
     raise SystemExit(f"checkpoint.resume not found: {path}")
 
 
-def _refuse_unported(args, config: dict, model_type: str) -> None:
+def _mesh_settings(args, config: dict):
+    """(mesh_axes, mesh_shape) from the CLI over the YAML; raises NotPorted
+    for any mesh but the data axis."""
     training = config.get("training", {})
-    logging_config = config.get("logging", {})
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
-    if mesh_axes != "data" or args.mesh_shape or training.get("mesh_shape") \
-            or training.get("pp_microbatches", 0):
-        raise NotPorted(f"mesh_axes={mesh_axes!r}, --mesh-shape / mesh_shape and "
-                        "pp_microbatches: the port trains on one card (ROADMAP A.13)")
-    if args.print_memory:
-        raise NotPorted("--print-memory reports XLA buffer assignment and is not ported "
-                        "(ROADMAP A.13)")
+    mesh_shape = (tuple(int(v) for v in args.mesh_shape.split(",")) if args.mesh_shape
+                  else tuple(training["mesh_shape"]) if training.get("mesh_shape") else None)
+    check_mesh_axes([a.strip() for a in mesh_axes.split(",") if a.strip()] or ["data"],
+                    mesh_shape)
+    if training.get("pp_microbatches", 0):
+        raise NotPorted(f"pp_microbatches: the pp axis is {ROADMAP_ITEMS['pp']}")
+    return mesh_axes, mesh_shape
+
+
+def _refuse_unported(args, config: dict, model_type: str):
+    """Raise NotPorted for what the port does not have; returns the mesh
+    settings (`_mesh_settings`)."""
+    logging_config = config.get("logging", {})
+    mesh = _mesh_settings(args, config)
     if logging_config.get("log_gradients_every", 0):
         raise NotPorted("logging.log_gradients_every: the gradient monitor is not ported "
                         "yet (ROADMAP A.14)")
+    return mesh
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -161,9 +181,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="calibrated int8 artifact (cli.export_quantized) pinning QAT's "
                              "activation grid to the static serving scales "
                              "(training.qat must be on)")
-    parser.add_argument("--mesh-axes", type=str, default=None)
-    parser.add_argument("--mesh-shape", type=str, default=None)
-    parser.add_argument("--print-memory", action="store_true")
+    parser.add_argument("--mesh-axes", type=str, default=None,
+                        help="mesh composition; 'data' (data parallel over the ranks) is "
+                             "the one ported")
+    parser.add_argument("--mesh-shape", type=str, default=None,
+                        help="the mesh shape; one entry, the rank count, for 'data'")
+    parser.add_argument("--print-memory", action="store_true",
+                        help="print each rank's device memory of the train step before "
+                             "training (on a card the step runs once to measure its peak)")
     parser.add_argument("--fast-loader", action="store_true",
                         help="Use the native (C++) HR-only batch assembler for the "
                              "training loader (LR is made on the device anyway)")
@@ -242,18 +267,27 @@ def run(argv: Optional[List[str]] = None):
     checkpoint_config = config.get("checkpoint", {})
     logging_config = config.get("logging", {})
     model_type = args.model or config.get("model", {}).get("type", "custom")
-    _refuse_unported(args, config, model_type)
+    mesh_axes, mesh_shape = _refuse_unported(args, config, model_type)
 
     import torch
 
     from facesr_torch.device import resolve_device
+    from facesr_torch.parallel.mesh import Mesh, get_mesh
+    from facesr_torch.training.trainer import local_batch_size
 
     device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:  # a rank of torchrun's (or run_cli_ranks') group
+        mesh = get_mesh(devices=None if args.device is None else [device])
+        device = mesh.device
+        print(f"Data parallel: rank {mesh.rank} of {mesh.world_size} on {device}")
+    else:
+        mesh = Mesh((device,))
     seed = project_config.get("seed", 42)
     set_seed(seed)
 
-    batch_size = (args.batch_size if args.batch_size is not None
-                  else data_config.get("batch_size", 16))
+    global_batch = (args.batch_size if args.batch_size is not None
+                    else data_config.get("batch_size", 16))
+    batch_size = local_batch_size(global_batch, mesh.world_size)
     epochs = args.epochs if args.epochs is not None else training_config.get("epochs", 50)
     lr = args.lr if args.lr is not None else training_config.get("optimizer", {}).get("lr", 1e-4)
     data_root = args.data_root or data_config.get("data_root", "data/processed")
@@ -264,7 +298,8 @@ def run(argv: Optional[List[str]] = None):
     print(f"{'=' * 60}")
     print(f"Model: {model_type}")
     print(f"Epochs: {epochs}")
-    print(f"Batch size: {batch_size}")
+    print(f"Batch size: {global_batch} global, {batch_size} a rank over "
+          f"{mesh.world_size} rank(s)")
     print(f"Learning rate: {lr}")
     print(f"Device: {device} ({name})")
     print(f"Data root: {data_root}")
@@ -304,7 +339,7 @@ def run(argv: Optional[List[str]] = None):
         print("Running overfitting test...")
         print("=" * 60)
         results = overfit_test(model, train_loader, loss_fn, num_images=10,
-                               num_iterations=1000, device=device)
+                               num_iterations=1000, device=device, mesh=mesh)
         if not results["converged"]:
             print("\nWarning: Model did not converge on small batch!")
             if not args.yes:
@@ -359,6 +394,8 @@ def run(argv: Optional[List[str]] = None):
         d_updates_per_g=gan_config.get("d_updates_per_g", 1),
         gan_start_epoch=gan_config.get("start_epoch", 0),
         qat=training_config.get("qat", False),
+        mesh_axes=mesh_axes,
+        mesh_shape=mesh_shape,
     )
     if args.qat_scales and not trainer_config.qat:
         raise SystemExit("--qat-scales requires training.qat: true")
@@ -380,7 +417,7 @@ def run(argv: Optional[List[str]] = None):
                                              use_bn=gan_config.get("d_use_bn", True),
                                              device="cpu")
     trainer = Trainer(model, train_loader, val_loader, loss_fn, trainer_config, device=device,
-                      discriminator=discriminator)
+                      discriminator=discriminator, mesh=mesh)
 
     # --resume is a full resume (unless --fine-tune); a `resume:` path in the
     # stage YAML chains stages and loads weights only
@@ -403,6 +440,17 @@ def run(argv: Optional[List[str]] = None):
                                                        require_weight_match=False))
         print(f"QAT pinned to calibrated activation scales from {args.qat_scales}")
 
+    if args.print_memory:
+        # after any load and --qat-scales pinning: the step it measures is
+        # the one training runs, at the batch the ranks load
+        effective = batch_size * mesh.world_size
+        if effective != global_batch:
+            print(f"(--print-memory: reporting on the effective batch {effective}, the "
+                  f"ranks' trim/pad of {global_batch})")
+        hr_patch = config.get("augmentation", {}).get("random_crop", {}).get("hr_patch_size",
+                                                                              128)
+        trainer.memory_report(effective, hr_patch)
+
     print("\n" + "=" * 60)
     print("Starting training...")
     print("=" * 60 + "\n")
@@ -423,18 +471,44 @@ def run(argv: Optional[List[str]] = None):
     except KeyboardInterrupt as e:
         print(f"\n\nTraining interrupted ({e or 'user'}).")
         print("Saving checkpoint...")
-        trainer.save_checkpoint("interrupted")
+        trainer.save_checkpoint("interrupted")  # the writer's only
         trainer.flush_checkpoints()
-        print(f"Checkpoint saved to {trainer_config.checkpoint_dir}/interrupted.pth "
-              "(and .fckpt)")
+        if trainer.is_writer:
+            print(f"Checkpoint saved to {trainer_config.checkpoint_dir}/interrupted.pth "
+                  "(and .fckpt)")
     finally:
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
     return trainer
 
 
+def _visible_cards(argv: Optional[List[str]]) -> int:
+    """The cards a plain launch trains over: every visible one, unless a
+    device is named or this process is a rank already."""
+    args = parse_args(argv)
+    if "WORLD_SIZE" in os.environ or args.device or args.platform:
+        return 1
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    run(argv)
+    cards = _visible_cards(argv)
+    if cards > 1:
+        from facesr_torch.parallel.launch import run_cli_ranks
+
+        print(f"Data parallel over {cards} visible cards: starting one rank a card")
+        codes = run_cli_ranks("facesr_torch.cli.train",
+                              sys.argv[1:] if argv is None else argv, cards)
+        return max(codes, key=abs)
+    try:
+        run(argv)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

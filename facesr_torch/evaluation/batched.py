@@ -3,8 +3,9 @@
 Port of `facesr/evaluation/batched.py`. The evaluation CLIs decode N
 images, synthesise their LR on the device (the trainer's bicubic x1/scale,
 `ops.resize.bicubic_down`) and run the model through the port's
-`Predictor` in chunks, one group of same-shaped images at a time, in
-place of one batch-1 forward an image. With ``dtype=None`` the batched
+`ShardedPredictor` (every visible card unless one device is named; on
+one device it is `Predictor`) in chunks, one group of same-shaped images
+at a time, in place of one batch-1 forward an image. With ``dtype=None`` the batched
 forward is the per-image f32 computation; a batch's images are
 independent in a conv net, so the metrics match the per-image path up to
 the conv library's choice of summation order for each batch size, which
@@ -21,7 +22,7 @@ import torch
 
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.ops.resize import bicubic_down
-from facesr_torch.parallel.serving import Predictor
+from facesr_torch.parallel.serving import ShardedPredictor
 
 __all__ = ["sr_batched", "synthesize_lr_batched", "make_predictor", "to_uint8"]
 
@@ -51,8 +52,10 @@ def synthesize_lr_batched(hr_uint8_list: Sequence[np.ndarray], scale: int, chunk
 
 def make_predictor(model: torch.nn.Module, max_batch: Optional[int] = None, dtype=None,
                    device: DeviceLike = None,
-                   calibration: Optional[np.ndarray] = None) -> Predictor:
-    """A `Predictor` with the evaluation defaults: ``dtype`` None is f32
+                   calibration: Optional[np.ndarray] = None) -> ShardedPredictor:
+    """A `ShardedPredictor` over every visible card (``device`` None or
+    ``"cuda"``), or on the one device named, with the evaluation
+    defaults: ``dtype`` None is f32
     (the per-image computation), ``torch.bfloat16`` the kernel trunk,
     "int8"/"int8_full" the quantized paths (``calibration``: LR images
     that calibrate int8_full's static activation scales); ``max_batch``
@@ -61,17 +64,18 @@ def make_predictor(model: torch.nn.Module, max_batch: Optional[int] = None, dtyp
     dev = resolve_device(device)
     if max_batch is None:
         max_batch = 128 if dev.type == "cuda" else 8
-    return Predictor(model, dtype=dtype, max_batch=max_batch, device=dev,
-                     calibration=calibration)
+    mesh = None if dev.type == "cuda" and dev.index is None else [dev]
+    return ShardedPredictor(model, mesh=mesh, dtype=dtype, max_batch=max_batch,
+                            calibration=calibration)
 
 
 def sr_batched(model: Optional[torch.nn.Module], lr_float_list: Sequence[np.ndarray],
                max_batch: Optional[int] = None, dtype=None,
-               predictor: Optional[Predictor] = None,
+               predictor: Optional[ShardedPredictor] = None,
                device: DeviceLike = None) -> List[np.ndarray]:
-    """SR of a list of HWC float [0, 1] LR images through a `Predictor`
-    (``predictor``, or one made for ``model``), as HWC uint8 in input
-    order."""
+    """SR of a list of HWC float [0, 1] LR images through a predictor
+    (``predictor``, or `make_predictor`'s for ``model``), as HWC uint8 in
+    input order."""
     if predictor is None:
         predictor = make_predictor(model, max_batch=max_batch, dtype=dtype, device=device)
     out: List[Optional[np.ndarray]] = [None] * len(lr_float_list)

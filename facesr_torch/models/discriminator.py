@@ -12,7 +12,17 @@ BatchNorm has torch semantics (`F.batch_norm`): in train mode the biased
 batch variance normalises and the running stats take the batch mean and
 the unbiased variance with momentum 0.1, on every train-mode call; eval
 mode normalises by the running stats. The running stats are the module's
-buffers, so a step can snapshot and restore them (`load_stats`). The flatten
+buffers, so a step can snapshot and restore them (`load_stats`).
+
+Under data parallelism (``mesh`` a group of more than one rank) a
+train-mode BatchNorm is global, as XLA makes it under the JAX package's
+sharded batch: the mean and the biased variance are taken over every
+rank's rows, from per-channel sums all-reduced through a differentiable
+all-reduce (its backward sums the ranks' gradients, so D's gradients are
+those of the global statistics), and ``running_var`` takes the unbiased
+factor of the global count. The variance is the all-reduced sum of
+squared deviations from the global mean (a second all-reduce; a raw sum
+of squares would cancel). With one rank it is `F.batch_norm`. The flatten
 is in NCHW order, so converted classifier weights drop in. f32 convs and
 matmuls run without TF32 (`full_f32`), as the JAX package's HIGHEST.
 """
@@ -117,10 +127,12 @@ class Discriminator(nn.Module):
         self.to(dev)
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None, mesh=None) -> torch.Tensor:
         """NHWC image -> f32 logits [N, 1]; ``train`` uses (and updates) the
-        batch statistics, ``dtype`` is the compute dtype of the convs and
-        dense layers (None: f32)."""
+        batch statistics, over every rank of ``mesh`` when it has more
+        than one; ``dtype`` is the compute dtype of the convs and dense
+        layers (None: f32)."""
+        global_bn = train and mesh is not None and mesh.world_size > 1
         with full_f32():
             h = x.to(dtype) if dtype is not None else x
             for block in self.blocks:
@@ -128,9 +140,13 @@ class Discriminator(nn.Module):
                            stride=block.stride)
                 if block.bn is not None:
                     bn = block.bn
-                    hf = F.batch_norm(h.float().permute(0, 3, 1, 2), bn.running_mean,
-                                      bn.running_var, bn.weight, bn.bias, training=train,
-                                      momentum=BN_MOMENTUM, eps=BN_EPS)
+                    hf = h.float().permute(0, 3, 1, 2)
+                    if global_bn:
+                        hf = _global_batch_norm(hf, bn, mesh)
+                    else:
+                        hf = F.batch_norm(hf, bn.running_mean, bn.running_var, bn.weight,
+                                          bn.bias, training=train, momentum=BN_MOMENTUM,
+                                          eps=BN_EPS)
                     h = hf.permute(0, 2, 3, 1).to(h.dtype)
                 h = leaky_relu(h, 0.2)
             # NCHW flatten order, as the reference classifier weights expect
@@ -152,6 +168,26 @@ class Discriminator(nn.Module):
 
     def get_model_info(self) -> Dict[str, Any]:
         return get_model_info(self)
+
+
+def _global_batch_norm(x: torch.Tensor, bn: _BatchNorm, mesh) -> torch.Tensor:
+    """Train-mode BatchNorm of NCHW f32 ``x`` with the statistics of every
+    rank's rows; updates the running stats as `F.batch_norm` does."""
+    from facesr_torch.parallel.mesh import all_reduce_sum
+
+    c = x.shape[1]
+    sums = all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
+                                     x.new_tensor([x.numel() // c])]), mesh)
+    count = sums[c]
+    mean = sums[:c] / count
+    dev = x - mean[None, :, None, None]
+    var = all_reduce_sum((dev * dev).sum(dim=(0, 2, 3)), mesh) / count
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(mean.detach() * BN_MOMENTUM)
+        bn.running_var.mul_(1 - BN_MOMENTUM).add_(
+            var.detach() * (count / (count - 1)) * BN_MOMENTUM)
+    scale = torch.rsqrt(var + BN_EPS) * bn.weight
+    return dev * scale[None, :, None, None] + bn.bias[None, :, None, None]
 
 
 def _dense(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:

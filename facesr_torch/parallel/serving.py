@@ -1,7 +1,7 @@
-"""Single-card serving: a chunking predictor, a per-shape predictor and a
-request micro-batcher.
+"""Serving: a chunking predictor on one card or over several, a per-shape
+predictor and a request micro-batcher.
 
-Port of `facesr/parallel/serving.py` for one CUDA card:
+Port of `facesr/parallel/serving.py`:
 
 - `build_serving_fn`: the serving precision dispatch of any model the
   port loads (FaceEnhanceNet, the transfer model, RRDBNet): f32, bf16
@@ -14,16 +14,20 @@ Port of `facesr/parallel/serving.py` for one CUDA card:
   package's `load_calibrated_qparams` reads too, pinned to its source
   weights by a hash), `per_model_quant_cache` (the API's and the demo's
   cache names) and `load_calibration_images` (PNG only).
-- `pad_to_multiple`: the JAX module's batch-padding helper (the port's
-  predictors run every chunk at its true size and do not pad).
-- `Predictor`: the single-card counterpart of the JAX ``ShardedPredictor``
-  — chunks a request at ``max_batch`` and runs each chunk at its true
-  size (eager PyTorch keeps no compiled batch shape, and the group kernel
-  masks any N), clips to [0, 1] and returns numpy. On a card the copies
-  go through pinned host memory and the chunks are pipelined at depth 2.
+- `pad_to_multiple`: the JAX module's batch-padding helper, re-exported
+  from `parallel.mesh` (the port's predictors run every chunk at its true
+  size and do not pad).
+- `Predictor`: one device — chunks a request at ``max_batch`` and runs
+  each chunk at its true size (eager PyTorch keeps no compiled batch
+  shape, and the group kernel masks any N), clips to [0, 1] and returns
+  numpy. On a card the copies go through pinned host memory and the
+  chunks are pipelined at depth 2.
+- `ShardedPredictor`: the JAX class — a weight replica on every device of
+  a mesh (every visible card by default), each chunk's rows split over
+  them; on one device it is `Predictor`.
 - `SpatialPredictor`: one forward per call at the input's own shape (the
-  JAX class splits rows over a mesh; on one card it is a per-shape
-  forward).
+  JAX class splits rows over a mesh, which is ROADMAP A.13.2; on one card
+  it is a per-shape forward).
 - `MicroBatcher`: coalesces concurrent single-image requests into one
   batched forward (an own copy of the JAX package's threading logic).
 """
@@ -36,16 +40,18 @@ import threading
 import time
 from collections import deque
 from pathlib import Path
-from typing import Callable, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from facesr_torch.device import DeviceLike, resolve_device
+from facesr_torch.parallel.mesh import ROADMAP_ITEMS, Mesh, NotPorted, pad_to_multiple
 
-__all__ = ["build_serving_fn", "pad_to_multiple", "Predictor", "SpatialPredictor",
-           "MicroBatcher", "calibrated_qparams", "load_calibrated_qparams",
-           "load_calibration_images", "per_model_quant_cache"]
+__all__ = ["build_serving_fn", "pad_to_multiple", "Predictor", "ShardedPredictor",
+           "SpatialPredictor", "MicroBatcher", "serving_devices", "shard_bounds",
+           "calibrated_qparams", "load_calibrated_qparams", "load_calibration_images",
+           "per_model_quant_cache"]
 
 ServingDtype = Optional[Union[torch.dtype, str]]
 
@@ -221,17 +227,32 @@ def build_serving_fn(model: torch.nn.Module, dtype: ServingDtype = None,
     return forward
 
 
-def pad_to_multiple(array: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
-    """Pad the leading axis to a multiple by repeating the last element.
-    Returns (padded, valid_count)."""
-    n = array.shape[0]
-    if n == 0:
-        raise ValueError("pad_to_multiple: empty batch (0 rows)")
-    rem = n % multiple
-    if rem == 0:
-        return array, n
-    pad = np.repeat(array[-1:], multiple - rem, axis=0)
-    return np.concatenate([array, pad], axis=0), n
+def serving_devices(mesh=None) -> Tuple[torch.device, ...]:
+    """The devices a `ShardedPredictor` serves on: a `Mesh`'s, a list's (a
+    device may repeat), or with None every visible card (raises without
+    one)."""
+    if mesh is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("ShardedPredictor(mesh=None) serves on every visible CUDA card "
+                               "and none is available; pass mesh=['cpu'] for the CPU")
+        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    devices = mesh.devices if isinstance(mesh, Mesh) else mesh
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("ShardedPredictor: an empty mesh")
+    return devs
+
+
+def shard_bounds(n: int, parts: int) -> List[Tuple[int, int]]:
+    """``parts`` contiguous row ranges covering ``range(n)``, the first
+    ``n % parts`` one row longer."""
+    base, extra = divmod(n, parts)
+    bounds, start = [], 0
+    for i in range(parts):
+        stop = start + base + (i < extra)
+        bounds.append((start, stop))
+        start = stop
+    return bounds
 
 
 class Predictor:
@@ -252,18 +273,47 @@ class Predictor:
     output buffer, which the returned array views: chunk i+1 is uploaded
     and run while chunk i downloads, and a chunk is waited for once two
     newer ones are in flight (the JAX class's depth-2 pipeline). Each call
-    takes its own pinned buffers and stream, so concurrent callers (the
+    takes its own pinned buffers and streams, so concurrent callers (the
     HTTP server's threads) share nothing; the result is returned only
-    after every download's event has completed."""
+    after every download's event has completed.
+
+    The same loop serves `ShardedPredictor`, which differs only in the
+    devices it places replicas on: ``devices`` holds one entry a shard of
+    each chunk (here one), ``_forwards`` one serving function a distinct
+    device, and ``_forward`` is the first device's."""
 
     def __init__(self, model: torch.nn.Module, dtype: ServingDtype = torch.bfloat16,
                  max_batch: int = 128, device: DeviceLike = None,
                  calibration: Optional[np.ndarray] = None, quant_cache: Optional[str] = None):
-        self.device = resolve_device(device)
-        self.max_batch = max(1, int(max_batch))
-        self.model = model.to(self.device).eval()
-        self._forward = build_serving_fn(self.model, dtype, calibration=calibration,
-                                         quant_cache=quant_cache, max_batch=self.max_batch)
+        self._place(model, (resolve_device(device),), dtype, max_batch, calibration,
+                    quant_cache)
+
+    def _place(self, model: torch.nn.Module, devices: Tuple[torch.device, ...],
+               dtype: ServingDtype, max_batch: int, calibration: Optional[np.ndarray],
+               quant_cache: Optional[str]) -> None:
+        """A serving function on each distinct device of ``devices``: the
+        model itself on the first, copies on the others (with a quant cache,
+        the first writes it and the others read it). ``max_batch`` is
+        rounded down to a multiple of ``len(devices)``, as the JAX class
+        does."""
+        n = len(devices)
+        self.devices, self.device = devices, devices[0]
+        self.max_batch = max(int(max_batch) - int(max_batch) % n, n)
+        self.model = model
+        self._forwards: Dict[torch.device, Callable] = {}
+        for i, dev in enumerate(dict.fromkeys(devices)):
+            replica = (model if i == 0 else copy.deepcopy(model)).to(dev).eval()
+            self._forwards[dev] = build_serving_fn(replica, dtype, calibration=calibration,
+                                                   quant_cache=quant_cache,
+                                                   max_batch=self.max_batch)
+
+    @property
+    def _forward(self) -> Callable:
+        return self._forwards[self.device]
+
+    @_forward.setter
+    def _forward(self, fn: Callable) -> None:
+        self._forwards[self.device] = fn
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
         return self._serve(images, self.max_batch)
@@ -273,32 +323,44 @@ class Predictor:
         n = len(images)
         if n == 0:
             raise ValueError(f"{type(self).__name__} called with 0 images")
-        cuda = self.device.type == "cuda"
-        download = torch.cuda.Stream(self.device) if cuda else None
+        cuda = any(d.type == "cuda" for d in self.devices)
+        downloads = {d: torch.cuda.Stream(d) for d in self._forwards if d.type == "cuda"}
         out = None  # the whole result, pinned on a card
-        in_flight: deque = deque()  # download events not yet waited for
+        in_flight: deque = deque()  # each chunk's download events not yet waited for
         for start in range(0, n, chunk):
-            x = torch.from_numpy(np.require(images[start:start + chunk], requirements="CW"))
-            if cuda:
-                x = x.pin_memory().to(self.device, non_blocking=True)
-            y = self._forward(x)
+            rows = images[start:start + chunk]
+            launched = []  # every shard is launched before any result is copied back
+            for dev, (a, b) in zip(self.devices, shard_bounds(len(rows), len(self.devices))):
+                if a == b:
+                    continue
+                x = torch.from_numpy(np.require(rows[a:b], requirements="CW"))
+                if dev.type == "cuda":
+                    x = x.pin_memory().to(dev, non_blocking=True)
+                launched.append((dev, start + a, self._forwards[dev](x)))
             if out is None:
-                out = torch.empty((n, *y.shape[1:]), dtype=torch.float32, pin_memory=cuda)
-            dst = out[start:start + len(x)]
-            if not cuda:
-                dst.copy_(y)
-                continue
-            download.wait_stream(torch.cuda.current_stream(self.device))
-            y.record_stream(download)  # y's memory is reused only after its copy
-            with torch.cuda.stream(download):
-                dst.copy_(y, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            in_flight.append(done)
+                out = torch.empty((n, *launched[0][2].shape[1:]), dtype=torch.float32,
+                                  pin_memory=cuda)
+            events = []
+            for dev, row, y in launched:
+                dst = out[row:row + len(y)]
+                if dev.type != "cuda":
+                    dst.copy_(y)
+                    continue
+                download = downloads[dev]
+                download.wait_stream(torch.cuda.current_stream(dev))
+                y.record_stream(download)  # y's memory is reused only after its copy
+                with torch.cuda.stream(download):
+                    dst.copy_(y, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                events.append(done)
+            in_flight.append(events)
             if len(in_flight) > 2:
-                in_flight.popleft().synchronize()
-        for done in in_flight:
-            done.synchronize()
+                for done in in_flight.popleft():
+                    done.synchronize()
+        for events in in_flight:
+            for done in events:
+                done.synchronize()
         return out.numpy()
 
 
@@ -311,7 +373,7 @@ class SpatialPredictor(Predictor):
     count that divides H. On one card that count is 1 for every H, so the
     class is a per-shape forward; large inputs reach the group kernel's
     scratch variant (W > 64, or H outside 8..64). A ``mesh`` raises: row
-    splitting over several cards is ROADMAP A.13. The int8 dtypes serve as
+    splitting over several cards is ROADMAP A.13.2. The int8 dtypes serve as
     in `Predictor`; calibration forwards run one image at a time (pass
     small calibration images: the scales are per-site scalars)."""
 
@@ -319,15 +381,38 @@ class SpatialPredictor(Predictor):
                  dtype: ServingDtype = torch.bfloat16, device: DeviceLike = None,
                  calibration: Optional[np.ndarray] = None, quant_cache: Optional[str] = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "SpatialPredictor over a mesh of cards is not ported yet (ROADMAP "
-                "A.13: parallelism); with mesh=None one card serves every H")
+            raise NotPorted(f"SpatialPredictor over a mesh (image rows split over devices) "
+                            f"is {ROADMAP_ITEMS['space']}; with mesh=None one card serves "
+                            "every H")
         super().__init__(model, dtype=dtype, max_batch=1, device=device,
                          calibration=calibration, quant_cache=quant_cache)
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
         """NHWC float batch (usually N=1) -> SR batch, one forward."""
         return self._serve(images, max(1, len(images)))
+
+
+class ShardedPredictor(Predictor):
+    """Serve a model over the devices of a mesh (the JAX ``ShardedPredictor``).
+
+    ``mesh``: a `Mesh`, a list of devices (one may repeat: ``["cpu",
+    "cpu"]``, ``[cuda:0, cuda:0]``) or None for every visible card. Each
+    distinct device holds a weight replica (the model itself on the first,
+    copies on the others). A request is chunked at ``max_batch`` (rounded
+    down to a multiple of the device count, as the JAX class does); each
+    chunk's rows are split into one contiguous shard a mesh entry
+    (`shard_bounds`), and `Predictor`'s loop launches every shard before
+    it copies any result back and pipelines the chunks at depth 2. Every
+    shard runs at its true size: the JAX class pads to one compiled size,
+    which eager PyTorch does not need. ``dtype``, ``calibration`` and
+    ``quant_cache`` are `build_serving_fn`'s, for every replica. With one
+    device it is `Predictor`."""
+
+    def __init__(self, model: torch.nn.Module, mesh=None, dtype: ServingDtype = torch.bfloat16,
+                 max_batch: int = 128, calibration: Optional[np.ndarray] = None,
+                 quant_cache: Optional[str] = None):
+        self._place(model, serving_devices(mesh), dtype, max_batch, calibration, quant_cache)
+        self.n_devices = len(self.devices)
 
 
 class MicroBatcher:

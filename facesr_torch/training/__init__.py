@@ -1,5 +1,5 @@
 """Training of the port: schedules, the optax-exact AdamW, the train/eval
-steps and the single-card Trainer."""
+steps and the Trainer (one card, or data-parallel over ranks)."""
 
 from facesr_torch.training.optim import AdamW, set_learning_rate
 from facesr_torch.training.schedules import (ReduceLROnPlateau, compute_lr,

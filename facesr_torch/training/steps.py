@@ -11,6 +11,17 @@ fake-quant sites each forward runs with (`ops.quant.fake_quant_params`).
 A step differentiates and updates the parameters that require grad
 (`trainable_parameters`): all of them, except the frozen ones of the
 transfer model's stages.
+
+Data parallelism (``mesh``, a `parallel.mesh.Mesh` with a process group):
+each rank steps on its own rows, and the gradients are averaged over the
+ranks (`all_reduce_mean`, one flat bucket) between autograd and the
+optimiser, where XLA inserts its psum in the JAX package; the clip's
+global norm and the non-finite guard then see the global gradients and
+every rank applies the same update. Frozen tensors have no gradient and
+are not reduced. The step's metrics are means over the ranks (one more
+all-reduce), the discriminator's BatchNorm is global, and the eval step
+takes PSNR from the all-reduced squared-error sum. With one rank the
+reduced values are bitwise the local ones.
 """
 
 from __future__ import annotations
@@ -26,10 +37,11 @@ from facesr_torch.losses.gan import gan_loss
 from facesr_torch.losses.ssim import ssim
 from facesr_torch.ops.conv import full_f32
 from facesr_torch.ops.resize import bicubic_down
+from facesr_torch.parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum
 from facesr_torch.training.optim import AdamW
 
 __all__ = ["TrainState", "init_ema", "ema_update", "trainable_parameters", "make_train_step",
-           "make_gan_train_step", "make_eval_step"]
+           "make_gan_train_step", "make_eval_step", "eval_metrics_from_sums"]
 
 LossApply = Callable[[Dict[str, Any], torch.Tensor, torch.Tensor],
                      Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -39,6 +51,24 @@ QuantFn = Optional[Callable[[], Dict[str, Any]]]
 
 def _quant(quant_fn: QuantFn):
     return None if quant_fn is None else quant_fn()
+
+
+def _dp(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` when it carries a process group to reduce over, else None."""
+    return mesh if mesh is not None and mesh.distributed else None
+
+
+def _reduced(grads, mesh: Optional[Mesh]):
+    return grads if mesh is None else all_reduce_mean(grads, mesh)
+
+
+def _mean_metrics(metrics: Metrics, mesh: Optional[Mesh]) -> Metrics:
+    """Each metric's mean over the ranks (one all-reduce)."""
+    if mesh is None:
+        return metrics
+    keys = list(metrics)
+    reduced = all_reduce_mean([torch.stack([metrics[k].float() for k in keys])], mesh)[0]
+    return dict(zip(keys, reduced.unbind()))
 
 
 @dataclass
@@ -78,12 +108,14 @@ def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> 
 def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int = 4,
                     compute_dtype: Optional[torch.dtype] = None,
                     ema_decay: float = 0.0, quant_fn: QuantFn = None,
+                    mesh: Optional[Mesh] = None,
                     ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Content-only (no GAN) step: ``train_step(state, hr) -> (state,
-    metrics)``, ``hr`` an NHWC batch in [0, 1] on the model's device. The
-    state is updated in place and returned; metrics are the loss
-    components, ``loss`` and, with the non-finite guard, the running count
-    ``opt_notfinite``."""
+    metrics)``, ``hr`` an NHWC batch in [0, 1] on the model's device (this
+    rank's rows under ``mesh``). The state is updated in place and
+    returned; metrics are the loss components, ``loss`` and, with the
+    non-finite guard, the running count ``opt_notfinite``."""
+    mesh = _dp(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -92,13 +124,14 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
             lr_img = bicubic_down(hr, scale_factor)
             sr = state.model(lr_img, train=True, dtype=compute_dtype, quant=_quant(quant_fn))
             loss, comps = loss_apply(state.loss_params, sr, hr)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = _reduced(torch.autograd.grad(loss, list(params.values())), mesh)
         optimizer.update(dict(zip(params, grads)), state.opt_state, params)
         if ema_decay > 0:
             ema_update(state.ema_params, state.model, ema_decay)
         state.step += 1
         metrics = {k: v.detach() for k, v in comps.items()}
         metrics["loss"] = loss.detach()
+        metrics = _mean_metrics(metrics, mesh)
         if "total_notfinite" in state.opt_state:
             metrics["opt_notfinite"] = state.opt_state["total_notfinite"]
         return state, metrics
@@ -111,6 +144,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                         gan_type: str = "vanilla", d_updates_per_g: int = 1,
                         compute_dtype: Optional[torch.dtype] = None, ema_decay: float = 0.0,
                         guard_stats: bool = False, quant_fn: QuantFn = None,
+                        mesh: Optional[Mesh] = None,
                         ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Adversarial step: ``d_updates_per_g`` discriminator updates on
     (hr, detached sr), then one generator update with content +
@@ -127,7 +161,10 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     values (``torch.where``, no host sync). Metrics: the content
     components, ``g_adv``, ``loss``, ``d_loss``, ``d_real`` and ``d_fake``
     (mean sigmoid of the last D update's logits), and the guards' running
-    counts ``opt_notfinite`` and ``d_opt_notfinite``."""
+    counts ``opt_notfinite`` and ``d_opt_notfinite``. Under ``mesh`` D's
+    BatchNorm takes global statistics, both gradient sets are reduced, and
+    the stats guard reads the global losses."""
+    mesh = _dp(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -142,27 +179,30 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
             sr = state.model(lr_img, train=True, dtype=compute_dtype, quant=_quant(quant_fn))
             sr_for_d = sr.detach()
             for _ in range(d_updates_per_g):
-                d_real = disc(hr, train=True, dtype=compute_dtype)
-                d_fake = disc(sr_for_d, train=True, dtype=compute_dtype)
+                d_real = disc(hr, train=True, dtype=compute_dtype, mesh=mesh)
+                d_fake = disc(sr_for_d, train=True, dtype=compute_dtype, mesh=mesh)
                 d_loss = (gan_loss(d_real, True, gan_type) + gan_loss(d_fake, False, gan_type)) / 2
-                d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
+                d_grads = _reduced(torch.autograd.grad(d_loss, list(d_params.values())), mesh)
                 d_optimizer.update(dict(zip(d_params, d_grads)), state.d_opt_state, d_params)
                 d_loss = d_loss.detach()
                 d_real_score = torch.sigmoid(d_real.detach()).mean()
                 d_fake_score = torch.sigmoid(d_fake.detach()).mean()
             content, comps = loss_apply(state.loss_params, sr, hr)
-            g_adv = gan_loss(disc(sr, train=True, dtype=compute_dtype), True, gan_type)
+            g_adv = gan_loss(disc(sr, train=True, dtype=compute_dtype, mesh=mesh), True,
+                             gan_type)
             loss = content + gan_weight * g_adv
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = _reduced(torch.autograd.grad(loss, list(params.values())), mesh)
         optimizer.update(dict(zip(params, grads)), state.opt_state, params)
-        if guard_stats:
-            disc.load_stats(stats_in, keep=torch.isfinite(loss) & torch.isfinite(d_loss))
-        if ema_decay > 0:
-            ema_update(state.ema_params, state.model, ema_decay)
-        state.step += 1
         metrics = {k: v.detach() for k, v in comps.items()}
         metrics.update(g_adv=g_adv.detach(), loss=loss.detach(), d_loss=d_loss,
                        d_real=d_real_score, d_fake=d_fake_score)
+        metrics = _mean_metrics(metrics, mesh)
+        if guard_stats:
+            disc.load_stats(stats_in, keep=torch.isfinite(metrics["loss"])
+                            & torch.isfinite(metrics["d_loss"]))
+        if ema_decay > 0:
+            ema_update(state.ema_params, state.model, ema_decay)
+        state.step += 1
         if "total_notfinite" in state.opt_state:
             metrics["opt_notfinite"] = state.opt_state["total_notfinite"]
         if "total_notfinite" in state.d_opt_state:
@@ -173,14 +213,24 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
 
 
 def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool = False,
-                   quant_fn: QuantFn = None,
-                   ) -> Callable[[TrainState, torch.Tensor],
-                                 Tuple[Metrics, torch.Tensor, torch.Tensor]]:
+                   quant_fn: QuantFn = None, mesh: Optional[Mesh] = None,
+                   ) -> Callable[..., Tuple[Metrics, torch.Tensor, torch.Tensor]]:
     """Validation step: the f32 eval forward (clamped), the f32 loss, batch
     PSNR ``10*log10(1/max(mse, 1e-12))`` and SSIM. ``use_ema`` validates
-    the EMA weights. Returns (metrics, sr, lr)."""
+    the EMA weights. Returns (metrics, sr, lr).
 
-    def eval_step(state: TrainState, hr: torch.Tensor):
+    Under ``mesh`` the batch is the union of the ranks' rows, as in the
+    JAX package: the squared-error sum and its element count are
+    all-reduced before the log (a mean of the ranks' PSNRs would be
+    another number), and the loss and SSIM are row-weighted means, so a
+    rank may hold any number of rows. ``eval_step(state, hr,
+    reduce=False)`` returns this rank's sums instead (``{"sums": [sq_err,
+    elements, loss * rows, ssim * rows, rows]}``, no collective), which
+    the Trainer reduces for a whole epoch at once
+    (`eval_metrics_from_sums`)."""
+    mesh = _dp(mesh)
+
+    def eval_step(state: TrainState, hr: torch.Tensor, reduce: bool = True):
         if use_ema and state.ema_params is None:
             raise ValueError(
                 "make_eval_step(use_ema=True) on a TrainState without EMA "
@@ -195,9 +245,26 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
             else:
                 sr = state.model(lr_img, train=False, quant=quant)
             loss, _ = loss_apply(state.loss_params, sr, hr)
+            ssim_val = ssim(sr, hr)
+            if mesh is not None:
+                rows = float(hr.shape[0])
+                sums = torch.stack([((sr - hr) ** 2).sum(), hr.new_tensor(rows * hr[0].numel()),
+                                    loss * rows, ssim_val * rows, hr.new_tensor(rows)])
+                if not reduce:
+                    return {"sums": sums}, sr, lr_img
+                return eval_metrics_from_sums(all_reduce_sum(sums, mesh)), sr, lr_img
             mse = ((sr - hr) ** 2).mean()
             psnr = 10.0 * torch.log10(1.0 / mse.clamp_min(1e-12))
-            ssim_val = ssim(sr, hr)
         return {"loss": loss, "psnr": psnr, "ssim": ssim_val}, sr, lr_img
 
     return eval_step
+
+
+def eval_metrics_from_sums(sums: torch.Tensor) -> Metrics:
+    """The eval step's metrics from summed ``[..., 5]`` rows of
+    ``[sq_err, elements, loss * rows, ssim * rows, rows]``: PSNR of the
+    global MSE, row-weighted loss and SSIM."""
+    mse = sums[..., 0] / sums[..., 1]
+    return {"loss": sums[..., 2] / sums[..., 4],
+            "psnr": 10.0 * torch.log10(1.0 / mse.clamp_min(1e-12)),
+            "ssim": sums[..., 3] / sums[..., 4]}
