@@ -190,7 +190,7 @@ catches an error and goes on):
    the SE attention, on the card against the CPU (CAM max abs <= 1e-4,
    attention <= 1e-5), with a TF32 control that must be rejected; the ms
    of ``generate_multi_region`` (batch 8) and ``visualize_attention_flow``
-   (one image), CUDA events, median of 5, the peak memory, and
+   (one image), CUDA events, median of 3, the peak memory, and
    ``create_attention_report``'s files; then (15.3) the stage-1 Trainer
    (batch 48, HR 256, L1 + perceptual, EMA on, epochs of 2 batches) for
    1 epoch, resumed fully in a new Trainer from its ``.fckpt`` and from
@@ -228,6 +228,25 @@ catches an error and goes on):
    a dp step and of a gloo all-reduce of the bucket (two ranks
    time-sharing one card: no speedup figure); (c) a Trainer epoch on phase
    8's PNGs, 24 rows a rank a step, only rank 0 writing.
+17. spatial parallelism (image rows over a mesh; one card, so two row
+   shards share cuda:0): (a) `SpatialPredictor` over [cuda:0, cuda:0] at
+   1x256x256 LR (one thread and stream a shard) against [cuda:0]: f32
+   within max abs 1e-4; bf16, ``int8`` (both the plain trunk) and
+   ``int8_full`` (calibrated on phase 8's PNGs, and dynamic) bitwise; the
+   kernel trunk (bf16, and int8 on a dequantized copy) against two plain
+   shards on the unclamped outputs within phase 4's limits; group launches
+   0 sharded and 6 at n = 1; controls that those checks must reject: a
+   zero-filled halo (f32, bf16), an SE mean over the shard's rows (bf16,
+   ``int8_full``) and a dynamic int8 scale over the shard's rows; ms a
+   call, peak memory and the exchanges a forward; (b) the stage-1 step
+   (f32, batch 48, HR 256, L1 + VGG19 conv3_4) on a data,space [1, 2]
+   grid of two gloo ranks against the single-process step, each tensor
+   within phase 16's floor-based limit, gradients summed over space (the
+   wrong factor) rejected, the ranks' states bitwise equal, ms a step;
+   (c) the stage-1 YAML through the train CLI on data,space [1, 2] under
+   torchrun's environment with ``--dist-backend gloo`` and
+   ``--print-memory`` for one epoch on 96 of phase 8's train PNGs (two
+   steps) and its val set.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -3073,7 +3092,7 @@ EXPLAIN_LAYERS = ("conv_first", "group3", "group6")
 # 5.8e-03. The limit sits between the two, ~3x above the one and ~10x
 # below the other, so another cuDNN algorithm does not fail a right CAM.
 CAM_ATOL, ATTN_ATOL = 3e-4, 1e-5
-EXPLAIN_TIMED = 5
+EXPLAIN_TIMED = 3
 PANEL_IMAGES, PANEL_HR = 4, 256
 # stage_panel card vs CPU: each model's f32 forward in other summation
 # orders moves a uint8 value where the output sits near a rounding midpoint
@@ -3750,6 +3769,374 @@ def dp_phase(card: str, tmp: Path) -> int:
     return w1["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 17: spatial parallelism on the card. (a) SpatialPredictor over
+# [cuda:0, cuda:0] in the parent: one thread a row shard, each on its own
+# stream; (b) the stage-1 step on a [1, 2] data,space grid of two gloo ranks
+# sharing cuda:0 (NCCL refuses two ranks on one card) against the step
+# alone; (c) the train CLI on data,space through torchrun's environment.
+# The machine has one card: no NCCL across cards, no multi-card speed-up.
+SP_SHAPE = (1, 256, 256, 3)     # (a)'s LR input, its rows darkening towards the top
+SP_F32_ATOL = 1e-4              # (a) f32 over two shards against one
+SP_TIMED = 2                    # (a) timed calls a timed configuration
+SP_STEP_TIMED = 2               # (b) timed sp steps
+SP_GRID = (1, 2)
+SP_CLI_FLAGS = ()               # extra train CLI flags of (c)
+SP_CLI_TRAIN = 2 * CLI_BATCH    # (c) trains on two steps' worth of phase 8's train PNGs
+
+
+def sp_serving(dev, card: str, tmp: Path) -> dict:
+    """(a): SpatialPredictor over [dev, dev] against [dev] in every dtype;
+    returns the group kernel's launches at n = 1 and the numbers.
+
+    Two row shards of the plain trunk must give bitwise the unsharded plain
+    forward in bf16, ``int8`` and ``int8_full`` (the halo rows are the
+    neighbours' own values, an int8 scale is a max, and the SE mean rounds
+    to the same bf16), f32 within SP_F32_ATOL (cuDNN may sum another way at
+    another height). The kernel trunk is held to phase 4's limits on the
+    unclamped outputs. Planted faults in the sharded forward (a zero halo,
+    an SE mean or a dynamic int8 scale over one shard's rows) must fail
+    those same checks."""
+    import copy
+
+    from facesr_torch.models import blocks
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.ops.quant import dequantize_pytree, quantize_conv_kernels
+    from facesr_torch.ops.rcab_group import fused_residual_group
+    from facesr_torch.ops.resize import bicubic_up
+    from facesr_torch.parallel import spatial
+    from facesr_torch.parallel.serving import SpatialPredictor, load_calibration_images
+
+    model = production_model(dev, nonzero_last=True)
+    res_scale = model.config.res_scale
+    # check_input's ramp: an SE mean or an int8 scale over one shard's rows
+    # is not the image's
+    ramp = np.linspace(0.1, 1.0, SP_SHAPE[1], dtype=np.float32).reshape(1, -1, 1, 1)
+    x = np.random.default_rng(17).random(SP_SHAPE, dtype=np.float32) * ramp
+    xt = torch.from_numpy(x).to(dev)
+    calib = load_calibration_images(str(tmp / "data" / "val" / "LR"), size=64,
+                                    limit=INT8_CALIB_IMAGES)
+    cache = str(tmp / "sp_int8_full.fckpt")  # the n = 1 predictor writes it, n = 2 reads it
+    one, two = [dev], [dev, dev]
+    kw_calib = dict(calibration=calib, quant_cache=cache)
+
+    def serve(mesh, dtype, plain=False, timed=True, **kw):
+        """A SpatialPredictor's output on x, its group launches, ms (median
+        of SP_TIMED after a warm-up; None untimed), peak GiB and exchanges."""
+        kernel_trunk = model.kernel_trunk
+        model.kernel_trunk = kernel_trunk and not plain
+        try:
+            sp = SpatialPredictor(model, mesh=mesh, dtype=dtype, **kw)
+            sp(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = rg.fused_residual_group.launches
+            got = sp(x)
+            launches = rg.fused_residual_group.launches - before
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ms = host_ms(lambda: sp(x), reps=SP_TIMED) if timed else None
+        finally:
+            model.kernel_trunk = kernel_trunk
+        return {"out": got, "launches": launches, "ms": ms, "peak": peak,
+                "exchanges": dict(sp.last_exchanges)}
+
+    runs = {"f32_1": serve(one, None), "f32_2": serve(two, None),
+            "bf16_kernel_1": serve(one, torch.bfloat16),
+            "bf16_plain_1": serve(one, torch.bfloat16, plain=True, timed=False),
+            "bf16_2": serve(two, torch.bfloat16),
+            "int8_1": serve(one, "int8"), "int8_plain_1": serve(one, "int8", plain=True,
+                                                                timed=False),
+            "int8_2": serve(two, "int8"),
+            "int8_full_1": serve(one, "int8_full", **kw_calib),
+            "int8_full_2": serve(two, "int8_full", **kw_calib),
+            "int8_full_dyn_1": serve(one, "int8_full"), "int8_full_dyn_2": serve(two, "int8_full")}
+    out = {"launches_one": sum(r["launches"] for k, r in runs.items() if k.endswith("_1"))}
+
+    # the checks: (name, sharded, unsharded, max abs limit; 0 is bitwise)
+    checks = [("f32", "f32_2", "f32_1", SP_F32_ATOL),
+              ("bf16 (plain trunk)", "bf16_2", "bf16_plain_1", 0.0),
+              ("int8 (plain trunk)", "int8_2", "int8_plain_1", 0.0),
+              ("int8_full calibrated", "int8_full_2", "int8_full_1", 0.0),
+              ("int8_full dynamic", "int8_full_dyn_2", "int8_full_dyn_1", 0.0)]
+    limit_of = {c[1]: (c[2], c[3]) for c in checks}
+
+    def held(sharded_key, got):
+        """(max abs against the unsharded output, within the check's limit)."""
+        want, limit = limit_of[sharded_key]
+        d = float(np.abs(got - runs[want]["out"]).max())
+        return d, d <= limit
+
+    # the controls: a fault planted in the sharded forward, run as sharded_key
+    def zero_halo(self, t, top, bottom):
+        n, _, w, c = t.shape
+        return t.new_zeros((n, top, w, c)), t.new_zeros((n, bottom, w, c))
+
+    local_mean = (spatial, "mean",
+                  lambda t, dim=None: t.mean() if dim is None else t.mean(dim=tuple(dim)))
+    controls = [("a zero-filled halo", "f32_2", None, (spatial.ThreadShard, "_halo", zero_halo),
+                 {}),
+                ("a zero-filled halo", "bf16_2", torch.bfloat16,
+                 (spatial.ThreadShard, "_halo", zero_halo), {}),
+                ("an SE mean over the shard's rows", "bf16_2", torch.bfloat16, local_mean, {}),
+                ("an SE mean over the shard's rows", "int8_full_2", "int8_full", local_mean,
+                 kw_calib),
+                ("a dynamic int8 scale over the shard's rows", "int8_full_dyn_2", "int8_full",
+                 (spatial.ThreadShard, "_max", lambda self, t: t), {})]
+    control_rows = []
+    for what, key, dtype, (target, attr, fake), kw in controls:
+        real = getattr(target, attr)
+        setattr(target, attr, fake)
+        try:
+            got = SpatialPredictor(model, mesh=two, dtype=dtype, **kw)(x)
+        finally:
+            setattr(target, attr, real)
+        control_rows.append((what, key, *held(key, got)))
+
+    # the kernel trunk against the plain one on the unclamped outputs (phase
+    # 4's limits), the plain one also over two shards (the predictor's row
+    # threads, its forward without the clamp): bf16, and int8 on a copy
+    # holding the dequantized weights, as the int8 predictor serves
+    def plain_trunk(groups, f):
+        return blocks.residual_groups(groups, f, res_scale, 1, remat="none")[0]
+
+    def kernel_trunk(groups, f):
+        for g in groups:
+            f = fused_residual_group(f, group_weights(g, dev), res_scale)
+        return f
+
+    def unclamped(m, trunk, sharded):
+        def fn(t):
+            with torch.inference_mode():
+                return m(t, train=True, dtype=torch.bfloat16, trunk_fn=trunk)
+        if not sharded:
+            return fn(xt).float().cpu().numpy()
+        sp = SpatialPredictor(m, mesh=two, dtype=None)
+        sp._forwards = {dev: fn}
+        return sp._serve_rows(x, (dev, dev)).astype(np.float32)
+
+    deq = copy.deepcopy(model)
+    deq._kernel_weights = None
+    with torch.no_grad():
+        for name, w in dequantize_pytree(quantize_conv_kernels(model), torch.bfloat16).items():
+            deq.get_parameter(f"{name}.weight").copy_(w)
+    skip = bicubic_up(xt, 4).float().cpu().numpy()
+    kernel_rows = []
+    for label, m, plain_key in (("bf16", model, "bf16_plain_1"), ("int8", deq, "int8_plain_1")):
+        u1, u2, uk = (unclamped(m, plain_trunk, False), unclamped(m, plain_trunk, True),
+                      unclamped(m, kernel_trunk, False))
+        if not np.array_equal(np.clip(u1, 0, 1), runs[plain_key]["out"]):
+            raise AssertionError(f"the plain n = 1 {label} SpatialPredictor is not the plain "
+                                 f"{label} forward clamped")
+        resid = np.abs(u1 - skip)
+        lim_max, lim_mean = MODEL_RTOL * float(resid.max()), MODEL_RTOL * float(resid.mean())
+        dk = np.abs(uk - u2)
+        kernel_rows.append((label, float(np.abs(u2 - u1).max()), float(dk.max()),
+                            float(dk.mean()), lim_max, lim_mean))
+    del deq
+
+    log(f"  (a) SpatialPredictor {SP_SHAPE} LR (noise, rows darkening towards the top) on "
+        f"[cuda:0, cuda:0] (two row shards, one thread and stream each) against [cuda:0] "
+        f"[{card}]")
+    failed = []
+    for name, key, want, limit in checks:
+        d, ok = held(key, runs[key]["out"])
+        log(f"    {name}: {key} vs {want}: max abs {d:.6g} (limit "
+            f"{'bitwise' if limit == 0 else limit}) -> {'within' if ok else 'OUTSIDE'}")
+        if not ok:
+            failed.append(name)
+    for label, d2, mx, mean, lim_max, lim_mean in kernel_rows:
+        ok = d2 == 0 and mx <= lim_max and mean <= lim_mean
+        log(f"    {label} unclamped: two plain shards vs one, max abs {d2:.6g} (bitwise); the "
+            f"n = 1 kernel trunk vs two plain shards max abs {mx:.6g} (limit {lim_max:.6g}), "
+            f"mean {mean:.6g} (limit {lim_mean:.6g}; phase 4's {MODEL_RTOL} x the plain "
+            f"forward's max and mean |out - bicubic|) -> {'within' if ok else 'OUTSIDE'}")
+        if not ok:
+            failed.append(f"{label} unclamped")
+    not_rejected = []
+    for what, key, d, ok in control_rows:
+        log(f"    control, {what}, as {key}: max abs {d:.6g} against {limit_of[key][0]} -> "
+            f"{'NOT rejected' if ok else 'rejected'}")
+        if ok:
+            not_rejected.append(f"{what} ({key})")
+    for name, r in runs.items():
+        ms = "untimed" if r["ms"] is None else f"{r['ms']:.3f} ms a call (median of {SP_TIMED}, " \
+            "numpy in and out)"
+        log(f"    {name}: {ms}, peak {r['peak']:.3f} GiB, group launches {r['launches']}, "
+            f"exchanges a forward {json.dumps(r['exchanges'])} [{card}]")
+    if failed or not_rejected:
+        raise AssertionError(f"SpatialPredictor over two row shards: {failed}; controls not "
+                             f"rejected: {not_rejected}")
+    per = production_config().num_groups
+    kernel_runs = {k: r["launches"] for k, r in runs.items()}
+    want = {k: (per if k in ("bf16_kernel_1", "int8_1") else 0) for k in runs}
+    if kernel_runs != want:
+        raise AssertionError(f"group launches {kernel_runs}, want {want}")
+    for name, r in runs.items():
+        if r["out"].shape != (1, 1024, 1024, 3) or not np.isfinite(r["out"]).all():
+            raise AssertionError(f"{name}: output {r['out'].shape} or not finite")
+    out.update(runs={k: {kk: v for kk, v in r.items() if kk != "out"} for k, r in runs.items()})
+    # where a sharded bf16 call's time goes: the card's kernels against the wall
+    from torch.profiler import ProfilerActivity, profile
+
+    sp = SpatialPredictor(model, mesh=two, dtype=torch.bfloat16)
+    sp(x)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sp(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    kernels = [e for e in prof.key_averages()
+               if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    log(f"    profiler, one bf16 call on two shards: {device_ms:.3f} ms of kernels on the card "
+        f"({launches} kernels) in {wall_ms:.3f} ms of wall time (under the profiler): "
+        f"{100 * (1 - device_ms / wall_ms):.1f}% of the call the card runs no kernel [{card}]")
+    out.update(profile_device_ms=device_ms, profile_wall_ms=wall_ms)
+    del model, runs, sp, xt
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_step_rank(mesh, tmp: str, card: str) -> dict:
+    """(b) on one of two gloo ranks of the [1, 2] grid sharing cuda:0."""
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+    from facesr_torch.parallel.mesh import shard_batch
+    from facesr_torch.training import steps
+
+    dev, rank = mesh.device, mesh.rank
+    out = {"rank": rank, "coords": mesh.coords}
+    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)
+    rows = shard_batch(hr, mesh)  # the data axis is 1: every rank holds the whole batch
+    if rank == 0:
+        state, step, _ = production_step_fn(dev, opt_cls=RecordingAdamW)
+        want = _step_record(state, step, hr, False)
+        del state, step
+        draws = [_tensor_errors(_rounding_floor(production_step_fn, dev, hr, False, 2, seed),
+                                want) for seed in DP_FLOOR_SEEDS]
+        floor = {part: {k: max(d[part][k] for d in draws) for k in draws[0][part]}
+                 for part in draws[0]}
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, _ = production_step_fn(dev, mesh=mesh, opt_cls=RecordingAdamW)
+    got = _step_record(state, step, rows, False)
+    out["exchanges"] = dict(step.row_shard.counts)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = []
+    for _ in range(SP_STEP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = statistics.median(times)
+    out["hash"] = _state_hash(list(state.model.parameters())
+                              + list(state.opt_state["mu"].values()))
+    del state, step
+    # the control: gradients summed over `space` (a mean over `data` only)
+    reduced = steps._reduced
+    steps._reduced = lambda g, m: [t * m.space_size for t in reduced(g, m)]
+    try:
+        state, step, _ = production_step_fn(dev, mesh=mesh, opt_cls=RecordingAdamW)
+        control = _step_record(state, step, rows, False)
+        del state, step
+    finally:
+        steps._reduced = reduced
+    if rank == 0:
+        out.update(errors=_tensor_errors(got, want), floor=floor,
+                   wrong_factor=_tensor_errors(control, want))
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_phase(card: str, tmp: Path) -> int:
+    """Phase 17: spatial parallelism on the card; returns the group kernel's
+    launches on its n = 1 serving calls."""
+    import re
+
+    from facesr_torch.parallel.launch import run_cli_ranks, run_ranks
+
+    log(f"== 17. spatial parallelism (image rows over a mesh; the card's machine has one card, "
+        f"so two row shards share cuda:0: threads for serving, two gloo ranks for training) "
+        f"[{card}]")
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    serving = sp_serving(dev, card, tmp)
+
+    r0, r1 = run_ranks(sp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
+                       backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "space"),
+                       shape=SP_GRID)
+    limit = {part: {k: max(STEP_RTOL, DP_FLOOR_FACTOR * f) for k, f in floors.items()}
+             for part, floors in r0["floor"].items()}
+    over = lambda errs, part: [k for k, v in errs[part].items() if v > limit[part][k]]
+    worst = lambda errs: {part: float(f"{max(errs[part].values()):.3g}") for part in errs}
+    ratio = {part: max((e / limit[part][k], k) for k, e in r0["errors"][part].items())
+             for part in limit}
+    log(f"  (b) the stage-1 step (6x10x64 f32, batch {TRAIN_BATCH}, HR {TRAIN_HR}, L1 + VGG19 "
+        f"conv3_4) on a data,space {list(SP_GRID)} grid, 2 gloo ranks x {TRAIN_HR // 2} image "
+        f"rows on cuda:0, against the single-process step, relative L2 (TF32 off), the worst "
+        f"tensor a part: {json.dumps(worst(r0['errors']))}; phase 16's rounding floor, the worst "
+        f"tensor a part: {json.dumps(worst(r0['floor']))}; each tensor's limit max({STEP_RTOL}, "
+        f"{DP_FLOOR_FACTOR} x its floor): the largest error / limit a part "
+        f"{json.dumps({p: [float(f'{r:.3g}'), k] for p, (r, k) in ratio.items()})}; control, "
+        f"gradients summed over space, the worst tensor a part: "
+        f"{json.dumps(worst(r0['wrong_factor']))}, G gradients over their limits "
+        f"{len(over(r0['wrong_factor'], 'g_grads'))} of {len(limit['g_grads'])}; states bitwise "
+        f"equal across ranks after {1 + SP_STEP_TIMED} steps: {r0['hash'] == r1['hash']}; "
+        f"{r0['ms']:.3f} ms a sp step (median of {SP_STEP_TIMED}; two ranks time-sharing one "
+        f"card); a rank's peak {r0['peak_gib']:.3f} GiB; a rank's exchanges in the first step "
+        f"(forward, remat recompute and the VGG sweeps) {json.dumps(r0['exchanges'])} [{card}]")
+    failed = {part: over(r0["errors"], part) for part in limit}
+    if any(failed.values()):
+        raise AssertionError(f"the sp step disagrees with the single-process step: {failed}")
+    if not over(r0["wrong_factor"], "g_grads"):
+        raise AssertionError("the step limits cannot see gradients reduced with the wrong "
+                             "factor over space")
+    if r0["hash"] != r1["hash"] or (r0["coords"], r1["coords"]) != ((0, 0), (0, 1)):
+        raise AssertionError("the sp ranks' states differ")
+
+    run_dir = tmp / "sp_cli"
+    run_dir.mkdir()
+    data = tmp / "sp_cli_data"  # the first SP_CLI_TRAIN train PNGs and the whole val set
+    (data / "train" / "HR").mkdir(parents=True)
+    for src in sorted((tmp / "data" / "train" / "HR").iterdir())[:SP_CLI_TRAIN]:
+        (data / "train" / "HR" / src.name).symlink_to(src)
+    (data / "val").symlink_to(tmp / "data" / "val")
+    t0 = time.perf_counter()
+    codes = run_cli_ranks("facesr_torch.cli.train",
+                          ["--config", str(STAGE1_YAML), "--data-root", str(data),
+                           "--epochs", "1", "--print-memory", "--mesh-axes", "data,space",
+                           "--mesh-shape", ",".join(map(str, SP_GRID)), "--dist-backend", "gloo",
+                           *SP_CLI_FLAGS],
+                          2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
+                          env={"PYTHONPATH": str(REPO)})
+    cli_s = time.perf_counter() - t0
+    logs = [(run_dir / f"rank{r}.log").read_text() for r in range(2)]
+    files = sorted(p.name for p in (run_dir / "checkpoints").iterdir()) \
+        if (run_dir / "checkpoints").exists() else []
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            if "MB (" in line or "data,space grid" in line or "Batch size" in line \
+                    or "Val PSNR" in line or "ms/step" in line:
+                log(f"  (c) rank {r}: {line.strip()}")
+    psnr = [float(v) for v in re.findall(r"Val PSNR:\s+([-\d.]+) dB", logs[0])]
+    log(f"  (c) the stage-1 YAML through the train CLI on data,space {list(SP_GRID)} (torchrun's "
+        f"environment, 2 ranks on cuda:0 over gloo), --print-memory, 1 epoch on {SP_CLI_TRAIN} of "
+        f"phase 8's train PNGs and its val set: "
+        f"exit codes {codes}, {cli_s:.1f} s with set-up; rank 0 wrote {files} [{card}]")
+    if codes != [0, 0] or "final_model.fckpt" not in files or not psnr \
+            or not all(math.isfinite(v) for v in psnr) \
+            or not all(f"at (0, {r}) of the data,space grid" in logs[r] for r in range(2)) \
+            or not all("device memory" in t for t in logs):
+        raise AssertionError(f"the data,space train CLI run: {codes}, "
+                             + " | ".join(t[-1500:] for t in logs))
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return serving["launches_one"]
+
+
 def input_shape_str(program) -> str:
     from facesr_torch.ckpt.export import input_shape
 
@@ -4025,6 +4412,7 @@ def main() -> int:
             dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
         explain_phase(dev, card, Path(tmp))
         launches["fused_residual_group"] += dp_phase(card, Path(tmp))  # and phase 16's
+        launches["fused_residual_group"] += sp_phase(card, Path(tmp))  # and phase 17's
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

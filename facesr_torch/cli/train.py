@@ -18,7 +18,16 @@ that group, one rank a card (``cuda:<LOCAL_RANK>``; NCCL, or gloo with
 starts the N ranks itself (`parallel.launch.run_cli_ranks`). The YAML's
 ``batch_size`` is the global batch: each rank loads ``batch_size / N``
 rows of its own slice of the shuffled order (a remainder is trimmed with
-the JAX warning), and only rank 0 writes checkpoints. ``--print-memory``
+the JAX warning), and only rank 0 writes checkpoints.
+
+Spatial parallelism on top (``--mesh-axes data,space --mesh-shape d,s``,
+or ``training.mesh_axes``/``mesh_shape`` in the YAML): d * s ranks in a
+grid, the s ranks of each `space` group loading the same ``batch_size / d``
+rows of their data coordinate's slice and splitting the image rows
+(`parallel.spatial`); a plain launch starts the d * s ranks itself. On
+CUDA it refuses more ranks than visible cards unless ``--dist-backend
+gloo`` lets them share the cards (NCCL takes one rank a card); under
+torchrun the same holds for the ranks of one host. ``--print-memory``
 prints each rank's memory budget of the train step (the state's and the
 batch's bytes, and on a card the peak of one step, run once) at the
 effective batch, after any checkpoint load and ``--qat-scales`` pinning.
@@ -58,9 +67,9 @@ what serving quantizes), and the stage optimiser still updates only what
 the stage trains.
 
 What is not ported raises and names its ROADMAP item: the mesh axes
-``space`` (A.13.2), ``model`` (A.13.3) and ``pp`` with ``pp_microbatches``
-(A.13.4), a multi-axis ``--mesh-shape`` (A.13.5), the gradient monitor
-(A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
+``model`` (A.13.3) and ``pp`` with ``pp_microbatches`` (A.13.4), three mesh
+axes (A.13.5), the GAN stage and QAT on ``space`` (A.13.2.1), the gradient
+monitor (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
 with random weights drawn from seed 0 (no pretrained file is in the repo).
 SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
 process exits.
@@ -69,11 +78,12 @@ process exits.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import signal
 import sys
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from facesr_torch.config import load_config, set_seed
 from facesr_torch.parallel.mesh import ROADMAP_ITEMS, NotPorted, check_mesh_axes
@@ -130,13 +140,16 @@ def resolve_chain_path(path: str) -> str:
 
 def _mesh_settings(args, config: dict):
     """(mesh_axes, mesh_shape) from the CLI over the YAML; raises NotPorted
-    for any mesh but the data axis."""
+    for any mesh but the data axis and data,space."""
     training = config.get("training", {})
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
     mesh_shape = (tuple(int(v) for v in args.mesh_shape.split(",")) if args.mesh_shape
                   else tuple(training["mesh_shape"]) if training.get("mesh_shape") else None)
-    check_mesh_axes([a.strip() for a in mesh_axes.split(",") if a.strip()] or ["data"],
-                    mesh_shape)
+    axes = [a.strip() for a in mesh_axes.split(",") if a.strip()] or ["data"]
+    check_mesh_axes(axes, mesh_shape)
+    if len(axes) > 1 and mesh_shape is None:
+        raise ValueError("mesh_shape is required with multiple mesh_axes, e.g. "
+                         "mesh_shape: [4, 2] for 'data,space' on 8 chips")
     if training.get("pp_microbatches", 0):
         raise NotPorted(f"pp_microbatches: the pp axis is {ROADMAP_ITEMS['pp']}")
     return mesh_axes, mesh_shape
@@ -182,10 +195,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "activation grid to the static serving scales "
                              "(training.qat must be on)")
     parser.add_argument("--mesh-axes", type=str, default=None,
-                        help="mesh composition; 'data' (data parallel over the ranks) is "
-                             "the one ported")
+                        help="mesh composition: 'data' (data parallel over the ranks) or "
+                             "'data,space' (dp x sp: image rows over the ranks of a row)")
     parser.add_argument("--mesh-shape", type=str, default=None,
-                        help="the mesh shape; one entry, the rank count, for 'data'")
+                        help="the mesh shape: the rank count for 'data', d,s for "
+                             "'data,space'")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                        help="the ranks' torch.distributed backend (default: NCCL on a "
+                             "card, gloo on the CPU); gloo lets ranks share a card")
     parser.add_argument("--print-memory", action="store_true",
                         help="print each rank's device memory of the train step before "
                              "training (on a card the step runs once to measure its peak)")
@@ -196,11 +213,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def make_loaders(args: argparse.Namespace, config: dict, data_root: str, batch_size: int,
-                 seed: int):
+                 seed: int, shard: Optional[Tuple[int, int]] = None):
     """(train loader, val loader) as the JAX CLI builds them: the threaded
     `get_dataloader` with the effective augmentation, or with
     ``--fast-loader`` the native HR-only `FastHRLoader` (crop and flip
-    only)."""
+    only). ``shard``: (index, count) of this rank's slice of the order
+    along the data axis (default: torch.distributed's rank and world)."""
+    index, count = shard if shard is not None else (None, None)
     from facesr_torch.data.dataset import FFHQDataset, get_dataloader
     from facesr_torch.data.fast_loader import FastHRLoader
 
@@ -226,7 +245,8 @@ def make_loaders(args: argparse.Namespace, config: dict, data_root: str, batch_s
         train_dataset = FFHQDataset(data_root, mode="train", hr_patch_size=hr_patch)
         train_loader = FastHRLoader(train_dataset, batch_size=batch_size, crop=hr_patch,
                                     flip_prob=aug_config.get("horizontal_flip", 0.5),
-                                    num_workers=num_workers, seed=seed)
+                                    num_workers=num_workers, seed=seed, process_index=index,
+                                    process_count=count)
     else:
         eff_aug = dict(
             horizontal_flip=aug_config.get("horizontal_flip", 0.5),
@@ -240,9 +260,11 @@ def make_loaders(args: argparse.Namespace, config: dict, data_root: str, batch_s
         print("Effective augmentation: " + ", ".join(f"{k}={v}" for k, v in eff_aug.items()))
         train_loader = get_dataloader(data_root, mode="train", batch_size=batch_size,
                                       num_workers=num_workers, hr_patch_size=hr_patch,
-                                      seed=seed, **eff_aug)
+                                      seed=seed, process_index=index, process_count=count,
+                                      **eff_aug)
     val_loader = get_dataloader(data_root, mode="val", batch_size=batch_size,
-                                num_workers=num_workers, seed=seed)
+                                num_workers=num_workers, seed=seed, process_index=index,
+                                process_count=count)
     return train_loader, val_loader
 
 
@@ -275,19 +297,23 @@ def run(argv: Optional[List[str]] = None):
     from facesr_torch.parallel.mesh import Mesh, get_mesh
     from facesr_torch.training.trainer import local_batch_size
 
+    axes = tuple(a.strip() for a in mesh_axes.split(",") if a.strip())
     device = resolve_device(args.device)
     if "WORLD_SIZE" in os.environ:  # a rank of torchrun's (or run_cli_ranks') group
-        mesh = get_mesh(devices=None if args.device is None else [device])
+        mesh = get_mesh(devices=None if args.device is None else [device], axis_names=axes,
+                        shape=mesh_shape, backend=args.dist_backend)
         device = mesh.device
-        print(f"Data parallel: rank {mesh.rank} of {mesh.world_size} on {device}")
+        print(f"Data parallel: rank {mesh.rank} of {mesh.world_size} on {device}"
+              + (f", at {mesh.coords} of the data,space grid {mesh.shape}"
+                 if mesh.space_size > 1 else ""))
     else:
-        mesh = Mesh((device,))
+        mesh = Mesh((device,), axis_names=axes, shape=mesh_shape if len(axes) > 1 else None)
     seed = project_config.get("seed", 42)
     set_seed(seed)
 
     global_batch = (args.batch_size if args.batch_size is not None
                     else data_config.get("batch_size", 16))
-    batch_size = local_batch_size(global_batch, mesh.world_size)
+    batch_size = local_batch_size(global_batch, mesh.data_size)
     epochs = args.epochs if args.epochs is not None else training_config.get("epochs", 50)
     lr = args.lr if args.lr is not None else training_config.get("optimizer", {}).get("lr", 1e-4)
     data_root = args.data_root or data_config.get("data_root", "data/processed")
@@ -299,7 +325,7 @@ def run(argv: Optional[List[str]] = None):
     print(f"Model: {model_type}")
     print(f"Epochs: {epochs}")
     print(f"Batch size: {global_batch} global, {batch_size} a rank over "
-          f"{mesh.world_size} rank(s)")
+          f"{mesh.data_size} rank(s) of the data axis")
     print(f"Learning rate: {lr}")
     print(f"Device: {device} ({name})")
     print(f"Data root: {data_root}")
@@ -309,7 +335,8 @@ def run(argv: Optional[List[str]] = None):
     from facesr_torch.training.trainer import Trainer, TrainerConfig, overfit_test
 
     print("Creating data loaders...")
-    train_loader, val_loader = make_loaders(args, config, data_root, batch_size, seed)
+    train_loader, val_loader = make_loaders(args, config, data_root, batch_size, seed,
+                                            shard=(mesh.coords[0], mesh.data_size))
     print(f"Train samples: {len(train_loader.dataset)}")
     print(f"Val samples: {len(val_loader.dataset)}")
 
@@ -443,7 +470,7 @@ def run(argv: Optional[List[str]] = None):
     if args.print_memory:
         # after any load and --qat-scales pinning: the step it measures is
         # the one training runs, at the batch the ranks load
-        effective = batch_size * mesh.world_size
+        effective = batch_size * mesh.data_size
         if effective != global_batch:
             print(f"(--print-memory: reporting on the effective batch {effective}, the "
                   f"ranks' trim/pad of {global_batch})")
@@ -482,25 +509,41 @@ def run(argv: Optional[List[str]] = None):
     return trainer
 
 
-def _visible_cards(argv: Optional[List[str]]) -> int:
-    """The cards a plain launch trains over: every visible one, unless a
-    device is named or this process is a rank already."""
-    args = parse_args(argv)
-    if "WORLD_SIZE" in os.environ or args.device or args.platform:
-        return 1
+def _ranks_to_start(argv: Optional[List[str]]) -> int:
+    """The ranks a plain launch starts: d * s of a ``mesh_shape`` that asks
+    for more than one, else every visible card unless a device is named;
+    1 when this process is a rank already. On CUDA a shape of more ranks
+    than visible cards is refused unless ``--dist-backend gloo``."""
     import torch
 
-    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+    args = parse_args(argv)
+    if "WORLD_SIZE" in os.environ:
+        return 1
+    config = load_config(args.config) if Path(args.config).exists() else {}
+    _, shape = _mesh_settings(args, config)
+    device = args.device or args.platform
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if shape is not None and math.prod(shape) > 1:
+        ranks = math.prod(shape)
+        on_cards = cards and (device is None or torch.device(device).type == "cuda")
+        if on_cards and ranks > cards and args.dist_backend != "gloo":
+            raise ValueError(f"mesh shape {tuple(shape)} needs {ranks} ranks and {cards} "
+                             f"card(s) are visible: a plain launch starts one rank a card "
+                             "over NCCL; pass --dist-backend gloo to share the cards")
+        return ranks
+    if device:
+        return 1
+    return cards or 1
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    cards = _visible_cards(argv)
-    if cards > 1:
+    ranks = _ranks_to_start(argv)
+    if ranks > 1:
         from facesr_torch.parallel.launch import run_cli_ranks
 
-        print(f"Data parallel over {cards} visible cards: starting one rank a card")
+        print(f"Starting {ranks} ranks")
         codes = run_cli_ranks("facesr_torch.cli.train",
-                              sys.argv[1:] if argv is None else argv, cards)
+                              sys.argv[1:] if argv is None else argv, ranks)
         return max(codes, key=abs)
     try:
         run(argv)

@@ -1,21 +1,25 @@
-"""Pixel losses: L1, L2, Charbonnier (port of `facesr/losses/basic.py`)."""
+"""Pixel losses: L1, L2, Charbonnier (port of `facesr/losses/basic.py`).
+
+Each mean is over the whole images under a row shard (`parallel.spatial.mean`)."""
 
 from __future__ import annotations
 
 import torch
 
+from facesr_torch.parallel.spatial import mean
+
 __all__ = ["l1_loss", "l2_loss", "charbonnier_loss"]
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred - target).abs().mean()
+    return mean((pred - target).abs())
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred - target).square().mean()
+    return mean((pred - target).square())
 
 
 def charbonnier_loss(pred: torch.Tensor, target: torch.Tensor,
                      epsilon: float = 1e-6) -> torch.Tensor:
     diff = pred - target
-    return torch.sqrt(diff * diff + epsilon * epsilon).mean()
+    return mean(torch.sqrt(diff * diff + epsilon * epsilon))

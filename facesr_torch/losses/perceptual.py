@@ -15,6 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from facesr_torch.losses.basic import l1_loss, l2_loss
 from facesr_torch.models import vgg
+from facesr_torch.parallel import spatial
 
 __all__ = ["init_perceptual", "perceptual_loss", "DEFAULT_LAYERS"]
 
@@ -59,8 +60,11 @@ def perceptual_loss(vgg_params: vgg.VGGParams, pred: torch.Tensor, target: torch
         pred = pred.to(dtype)
         target = target.to(dtype)
 
+    shard = spatial.current()  # re-entered by the backward pass's recompute
+
     def extract(x):
-        return vgg.extract_features(vgg_params, x, idxs, normalize=normalize)
+        with spatial.rows(shard):
+            return vgg.extract_features(vgg_params, x, idxs, normalize=normalize)
 
     if remat:
         pred_feats = checkpoint(extract, pred, use_reentrant=False,

@@ -10,6 +10,11 @@ package does, so a negative mean cannot turn the product into NaN).
 Always float32 with TF32 off (`conv2d` runs f32 convs under `full_f32`):
 E[x^2] - E[x]^2 cancels catastrophically in reduced precision and drives
 SSIM above 1.
+
+Under a row shard (`parallel.spatial`) the gaussian's column pass takes its
+halo rows from the neighbouring shards (`conv2d`) and every mean is over
+the whole images, so the clamps and the MS-SSIM product act on the global
+means; the pyramid's pools need shard heights divisible by 2 a level.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from facesr_torch.ops.conv import conv2d
 from facesr_torch.ops.resize import avg_pool2
+from facesr_torch.parallel.spatial import mean
 
 __all__ = ["create_gaussian_window", "ssim", "ms_ssim", "ssim_loss", "ms_ssim_loss",
            "MS_SSIM_WEIGHTS"]
@@ -93,8 +99,8 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, window_size: int = 11,
     luminance, cs = _ssim_components(pred, target, window_size, sigma, c1, c2)
     ssim_map = luminance * cs
     if size_average:
-        return ssim_map.mean()
-    return ssim_map.mean(dim=(1, 2, 3))
+        return mean(ssim_map)
+    return mean(ssim_map, (1, 2, 3))
 
 
 def ms_ssim(pred: torch.Tensor, target: torch.Tensor, window_size: int = 11,
@@ -109,9 +115,9 @@ def ms_ssim(pred: torch.Tensor, target: torch.Tensor, window_size: int = 11,
     for i in range(levels):
         luminance, cs = _ssim_components(pred, target, window_size, sigma, c1, c2)
         if i == levels - 1:
-            result = (luminance * cs).mean().clamp_min(0.0)
+            result = mean(luminance * cs).clamp_min(0.0)
         else:
-            mcs.append(cs.mean().clamp_min(0.0))
+            mcs.append(mean(cs).clamp_min(0.0))
             pred = avg_pool2(pred)
             target = avg_pool2(target)
     for i, m in enumerate(mcs):

@@ -37,6 +37,7 @@ from facesr_torch.ops.conv import conv2d, prelu, quantize_act
 from facesr_torch.ops.pixel_shuffle import pixel_shuffle
 from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import GroupWeights, fused_residual_group
+from facesr_torch.parallel import spatial
 
 __all__ = ["reduced_channels", "KernelWeightCache", "ChannelAttention", "RCAB", "ResidualGroup",
            "UpsampleStage", "Upsample", "make_conv", "channel_attention", "rcab",
@@ -211,8 +212,9 @@ def make_upsample(c: int, scale_factor: int, gen: torch.Generator) -> Upsample:
 
 def channel_attention(ca: ChannelAttention,
                       x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SE gating. Returns (gated tensor, attention weights [N, C])."""
-    y = x.mean(dim=(1, 2))
+    """SE gating. Returns (gated tensor, attention weights [N, C]). Under a
+    row shard the squeeze is the mean over the whole image."""
+    y = spatial.mean(x, (1, 2))
     y = torch.relu(y @ ca.fc[0].weight.t().to(y.dtype))
     y = torch.sigmoid(y @ ca.fc[2].weight.t().to(y.dtype))
     return x * y[:, None, None, :], y
@@ -230,6 +232,11 @@ def rcab(blk: RCAB, x: torch.Tensor, res_scale: float, padding: int,
                  padding=padding)
     out, attn = channel_attention(blk.channel_attention, out)
     return x + out * res_scale, attn
+
+
+def _rcab_on(shard, *args):
+    with spatial.rows(shard):
+        return rcab(*args)
 
 
 def _save_only(ops):
@@ -275,9 +282,14 @@ def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
             context_fn = functools.partial(create_selective_checkpoint_contexts,
                                            _save_only(_SAVED_OPS[remat]))
 
+        # the recompute runs in the backward pass, maybe on autograd's
+        # thread: it re-enters this forward's row shard itself
+        shard = spatial.current()
+
         def block_fn(blk, h, scale, pad, quant, name):
-            return checkpoint(rcab, blk, h, scale, pad, quant, name, use_reentrant=False,
-                              preserve_rng_state=False, context_fn=context_fn)
+            return checkpoint(_rcab_on, shard, blk, h, scale, pad, quant, name,
+                              use_reentrant=False, preserve_rng_state=False,
+                              context_fn=context_fn)
 
     attns: List[torch.Tensor] = []
     for gi, g in enumerate(groups):

@@ -17,6 +17,8 @@ a block). ``quant`` maps conv sites (module paths: ``conv_first``,
 sites (`ops.quant`): under ``int8_full`` a dense conv quantizes its whole
 concatenated input with one per-image scale, as the JAX package does.
 There is no packed int8 layout: the upsample is `nearest_up` then a conv.
+On row shards (`parallel.spatial`) every conv takes its halo rows through
+`conv2d`; `nearest_up` and the dense blocks' `torch.cat` are row-local.
 
 `ESRGANBaseline` is the frozen pretrained baseline: an `RRDBNet` whose
 eval forward clamps to [0, 1] (the JAX ``__call__``), with uint8

@@ -26,6 +26,15 @@ subpixel-packed, as the JAX ``apply`` does on a transformed tree.
 Weight-only int8 serving is the bf16 forward of a copy of the model that
 holds the dequantized weights (`parallel.serving.build_serving_fn`), so it
 takes the kernel trunk.
+
+On two or more row shards (`parallel.spatial`: `SpatialPredictor` over a
+mesh, training on `data,space`) the forward is the same code on the
+shard's rows, and the bf16 eval forward takes the plain trunk: a residual
+group cannot be one kernel launch there, since every RCAB's SE gate needs
+the mean over the whole image and each of the group's convs a halo row of
+the neighbouring shard, exchanges between launches that the kernel does
+not make (a variant that exports its SE partial sums and takes a halo plan
+is on ROADMAP's perf list). One shard keeps the kernel trunk.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import (KERNEL_CHANNELS, GroupWeights,
                                          fused_residual_group, prepare_group_weights)
 from facesr_torch.ops.resize import bicubic_up
+from facesr_torch.parallel import spatial
 
 __all__ = ["FaceEnhanceNetConfig", "FaceEnhanceNet", "kernel_trunk_fits", "param_count",
            "get_model_info"]
@@ -151,7 +161,8 @@ class FaceEnhanceNet(blocks.KernelWeightCache, nn.Module):
         residual = feat
         if trunk_fn is not None:
             feat = trunk_fn(self.residual_groups, feat)
-        elif dtype == torch.bfloat16 and not train and self.kernel_trunk and quant is None:
+        elif (dtype == torch.bfloat16 and not train and self.kernel_trunk and quant is None
+              and spatial.current() is None):
             feat = feat.contiguous()
             for gw in self.kernel_group_weights():
                 feat = fused_residual_group(feat, gw, cfg.res_scale)

@@ -54,6 +54,7 @@ from facesr_torch.ops.pixel_shuffle import pixel_shuffle
 from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import (KERNEL_CHANNELS, GroupWeights, fused_residual_group,
                                          prepare_group_weights)
+from facesr_torch.parallel import spatial
 
 __all__ = ["STAGE2_UNFREEZE_BLOCKS", "HEAD_RES_SCALE", "HEAD_REDUCTION", "TrainingStage",
            "TransferModelConfig", "TransferSRModel", "FaceHead", "Backbone", "head_kernel_fits",
@@ -171,8 +172,10 @@ class TransferSRModel(blocks.KernelWeightCache, nn.Module):
         JAX ``apply``). ``head_fn(face_head, feat) -> feat`` overrides the
         head's residual group; by default the bf16 eval forward without
         ``quant`` runs the group kernel where the config fits it
-        (``self.kernel_head``), every other forward `plain_head`.
-        ``quant``: the int8 serving or QAT sites (`ops.quant`)."""
+        (``self.kernel_head``), every other forward `plain_head`; so does
+        a forward on two or more row shards (`parallel.spatial`: the SE gate
+        needs the whole image's mean). ``quant``: the int8 serving or QAT
+        sites (`ops.quant`)."""
         bb, hd = self.backbone, self.face_head
         h = x.to(dtype) if dtype is not None else x
         feat = conv2d(h, site_weight(quant, "backbone.conv_first", bb.conv_first.weight),
@@ -184,7 +187,8 @@ class TransferSRModel(blocks.KernelWeightCache, nn.Module):
                              bb.conv_body.bias, padding=1)
         if head_fn is not None:
             feat = head_fn(hd, feat)
-        elif dtype == torch.bfloat16 and not train and self.kernel_head and quant is None:
+        elif (dtype == torch.bfloat16 and not train and self.kernel_head and quant is None
+              and spatial.current() is None):
             feat = fused_residual_group(feat.contiguous(), self.kernel_head_weights(),
                                         HEAD_RES_SCALE)
         else:

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from facesr_torch.ops import init as finit
 from facesr_torch.ops.conv import conv2d
+from facesr_torch.parallel import spatial
 
 __all__ = ["VGG19_CFG", "LAYER_MAP", "IMAGENET_MEAN", "IMAGENET_STD",
            "module_sequence", "num_convs_needed", "init_vgg19", "max_pool2",
@@ -85,7 +86,9 @@ def init_vgg19(generator: torch.Generator, max_index: int = 36) -> VGGParams:
 
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 stride-2 VALID max pool on NHWC."""
+    """2x2 stride-2 VALID max pool on NHWC (row-local under a row shard,
+    whose height must then be even)."""
+    spatial.check_slab(x.shape[1], 2, "the VGG max pool")
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 

@@ -27,6 +27,13 @@ graph node, whose im2col chunking runs at the batch the program is
 called with: an int8 ``.pt2`` keeps a symbolic batch, and the chunks stay
 under `INT8_CHUNK_BYTES` at any batch. A site with a calibration id runs
 the same code outside the op, to record its dynamic scales.
+
+Under a row shard (`parallel.spatial`, two or more shards) a stride-1 conv
+pads its rows with the neighbours' boundary rows (`RowShard.halo`, zeros
+at the image's edges) instead of zeros, and its W padding stays local; an
+int8 conv exchanges the float rows before it quantizes them, with the
+dynamic scale the max over the shards; a strided conv and the QAT
+fake-quant conv raise `NotPorted` (ROADMAP A.13.2.1).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch.nn.functional as F
 
 from facesr_torch.ops import quant as _quant
 from facesr_torch.ops.quant import FakeQuantWeight, Int8Weight
+from facesr_torch.parallel import spatial
 
 __all__ = ["conv2d", "quantize_act", "prelu", "leaky_relu", "global_avg_pool", "full_f32",
            "INT8_CHUNK_BYTES", "int8_gemm_pads", "int8_site_of_gemm", "fake_quant_scale"]
@@ -97,6 +105,9 @@ def conv2d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
     follows the input's dtype. The bias is added after the convolution in
     the output dtype, as in the JAX package. An `Int8Weight` or a
     `FakeQuantWeight` takes the int8 or the fake-quant conv."""
+    shard = spatial.current()
+    if shard is not None:
+        x, padding = _halo_rows(shard, x, w, padding, stride)
     if isinstance(w, Int8Weight):
         return _conv2d_int8(x, w, b, stride, padding, groups, dtype)
     if isinstance(w, FakeQuantWeight):
@@ -115,6 +126,27 @@ def conv2d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
     if b is not None:
         out = out + b.to(out.dtype)
     return out
+
+
+def _halo_rows(shard, x: torch.Tensor, w, padding: Padding, stride: int):
+    """``x`` with its row padding taken from the neighbouring shards, and
+    the padding left for the conv (the W padding only). Only a stride-1
+    'same' conv (2 * row padding = kernel height - 1) splits over rows."""
+    from facesr_torch.parallel.mesh import ROADMAP_ITEMS, NotPorted
+
+    if isinstance(w, FakeQuantWeight):
+        raise NotPorted(f"the QAT fake-quant conv over row shards (its dynamic scale) is "
+                        f"{ROADMAP_ITEMS['space_gan_qat']}")
+    kh = (w.q if isinstance(w, Int8Weight) else w).shape[2]
+    pad = _pad_arg(padding)
+    ph, pw = (pad, pad) if isinstance(pad, int) else pad
+    if stride != 1:
+        raise NotPorted(f"a stride-{stride} conv over row shards is "
+                        f"{ROADMAP_ITEMS['space_gan_qat']}")
+    if 2 * ph != kh - 1:
+        raise ValueError(f"a conv over row shards needs 'same' row padding: kernel height "
+                         f"{kh}, row padding {ph}")
+    return shard.halo(x, ph, ph), ((0, 0), (pw, pw))
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +223,7 @@ def _conv2d_int8(x: torch.Tensor, w: Int8Weight, b: Optional[torch.Tensor], stri
     Python (it records its dynamic scales)."""
     if groups != 1:
         raise NotImplementedError("the int8 conv takes groups=1 only")
-    if w.sid is not None:
+    if w.sid is not None or spatial.current() is not None:
         return _int8_conv(x, w, b, stride, padding, dtype)
     pad = _pad_arg(padding)
     pad = [pad, pad] if isinstance(pad, int) else list(pad)
@@ -262,7 +294,11 @@ def _int8_conv(x: torch.Tensor, w: Int8Weight, b: Optional[torch.Tensor], stride
             # per image, so an image's grid does not depend on its batchmates;
             # max|x| = max(-min x, max x), without an |x| pass
             lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
-            a = _quant.over_127(torch.maximum(-lo, hi).float().reshape(-1, 1, 1, 1))
+            amax = torch.maximum(-lo, hi).float().reshape(-1, 1, 1, 1)
+            shard = spatial.current()
+            if shard is not None:  # the image's max: halo rows are its rows or zeros
+                amax = shard.max(amax)
+            a = _quant.over_127(amax)
             a = torch.where(a == 0, torch.ones_like(a), a)
             _quant.record_act_scale(w, a)
         xq = quantize_act(x, a)
@@ -359,5 +395,6 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """NHWC -> [N, C] global average pool (SE squeeze)."""
-    return x.mean(dim=(1, 2))
+    """NHWC -> [N, C] global average pool (SE squeeze), over the whole
+    image under a row shard."""
+    return spatial.mean(x, (1, 2))

@@ -17,6 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from facesr_torch.parallel import spatial
+
 __all__ = ["resize_matrix", "resize2d", "bicubic_resize", "bicubic_up",
            "bicubic_down", "nearest_up", "avg_pool2"]
 
@@ -115,8 +117,19 @@ def bicubic_resize(x: torch.Tensor, scale_factor: float) -> torch.Tensor:
 
 
 def bicubic_up(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """Integer-scale bicubic upsample (the model's global skip)."""
-    return bicubic_resize(x, float(scale))
+    """Integer-scale bicubic upsample (the model's global skip). Under a row
+    shard ``x`` is the shard's rows: the whole image is gathered and the
+    shard's output rows come from its rows of the row matrix."""
+    shard = spatial.current()
+    if shard is None:
+        return bicubic_resize(x, float(scale))
+    full = shard.gather(x)
+    _, h, w, _ = full.shape
+    a, b = shard.bounds(h)[shard.index]
+    rows = _matrix(h, h * scale, "bicubic", x.device)[a * scale:b * scale]
+    xf = torch.einsum("oh,nhwc->nowc", rows, full.float())
+    xf = torch.einsum("ow,nhwc->nhoc", _matrix(w, w * scale, "bicubic", x.device), xf)
+    return xf.to(x.dtype)
 
 
 def bicubic_down(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -127,7 +140,8 @@ def bicubic_down(x: torch.Tensor, scale: int) -> torch.Tensor:
 def nearest_up(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Integer-scale nearest upsample of NHWC ``x`` (the ESRGAN upsampling
     path): PyTorch's legacy 'nearest' at an integer scale is a pure
-    repeat, a broadcast and a reshape here as in the JAX package."""
+    repeat, a broadcast and a reshape here as in the JAX package (row-local
+    under a row shard)."""
     n, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c)
     return x.reshape(n, h * scale, w * scale, c)
@@ -135,8 +149,10 @@ def nearest_up(x: torch.Tensor, scale: int) -> torch.Tensor:
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 average pool on NHWC (MS-SSIM pyramid), dropping the
-    trailing row/column of odd dims like `F.avg_pool2d(kernel_size=2)`."""
+    trailing row/column of odd dims like `F.avg_pool2d(kernel_size=2)`.
+    Row-local under a row shard (see `spatial.check_slab`)."""
     n, h, w, c = x.shape
+    spatial.check_slab(h, 2, "avg_pool2")
     h2, w2 = h // 2, w // 2
     x = x[:, : h2 * 2, : w2 * 2, :]
     return x.reshape(n, h2, 2, w2, 2, c).mean(dim=(2, 4))

@@ -1,4 +1,5 @@
-"""Start the ranks of a data-parallel group on this host.
+"""Start the ranks of a data-parallel group (or a data,space grid) on this
+host.
 
 - `run_ranks(fn, world_size, ...)`: ``fn(mesh, *args)`` in ``world_size``
   fresh processes (the spawn start method), each joined to one group over
@@ -46,15 +47,16 @@ def torchrun_env(rank: int, world_size: int, port: int) -> dict:
             "MASTER_PORT": str(port)}
 
 
-def _rank_main(fn, rank, world_size, port, device, backend, timeout, args, results):
+def _rank_main(fn, rank, world_size, port, device, backend, timeout, axis_names, shape, args,
+               results):
     import torch.distributed as dist
 
     from facesr_torch.parallel.mesh import get_mesh
 
     os.environ.update(torchrun_env(rank, world_size, port))
     try:
-        mesh = get_mesh(devices=None if device is None else [device], backend=backend,
-                        timeout=timeout)
+        mesh = get_mesh(devices=None if device is None else [device], axis_names=axis_names,
+                        shape=shape, backend=backend, timeout=timeout)
         try:
             results.put((rank, True, fn(mesh, *args)))
         finally:
@@ -65,12 +67,15 @@ def _rank_main(fn, rank, world_size, port, device, backend, timeout, args, resul
 
 def run_ranks(fn: Callable, world_size: int, args: Sequence[Any] = (),
               devices: Optional[Sequence[Any]] = None, backend: Optional[str] = None,
-              timeout: float = DEFAULT_TIMEOUT_S, run_timeout: Optional[float] = None
+              timeout: float = DEFAULT_TIMEOUT_S, run_timeout: Optional[float] = None,
+              axis_names: Sequence[str] = ("data",), shape: Optional[Sequence[int]] = None
               ) -> List[Any]:
     """``[fn(mesh_r, *args) for r in range(world_size)]``, each in its own
-    process on ``devices[r]`` (default: ``cuda:r``); ``backend`` as
-    `get_mesh`'s; ``timeout`` bounds each collective, ``run_timeout``
-    (default ``2 * timeout``) the whole run."""
+    process on ``devices[r]`` (default: ``cuda:r``); ``backend``,
+    ``axis_names`` and ``shape`` as `get_mesh`'s (``("data", "space")``
+    with ``shape=(d, s)``: the d * s ranks of a dp x sp grid; ranks that
+    share a card need ``backend="gloo"``); ``timeout`` bounds each
+    collective, ``run_timeout`` (default ``2 * timeout``) the whole run."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
@@ -79,7 +84,8 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence[Any] = (),
         raise ValueError(f"{len(devs)} devices for {world_size} ranks")
     procs = [ctx.Process(target=_rank_main, daemon=True, name=f"facesr-rank{r}",
                          args=(fn, r, world_size, port, None if devs[r] is None else str(devs[r]),
-                               backend, timeout, tuple(args), results))
+                               backend, timeout, tuple(axis_names),
+                               None if shape is None else tuple(shape), tuple(args), results))
              for r in range(world_size)]
     for p in procs:
         p.start()

@@ -1,4 +1,5 @@
-"""The port's `data` mesh (port of `facesr/parallel/mesh.py`).
+"""The port's mesh: the `data` axis and the `data,space` grid (port of
+`facesr/parallel/mesh.py`).
 
 PyTorch's idiom for data parallelism is one process per card: the ranks of
 a `torch.distributed` group make up the `data` axis. Each rank holds a
@@ -9,23 +10,33 @@ rank applies the same update and the replicas stay bitwise equal. State
 is made equal at start and after every resume by a broadcast from rank 0
 (`replicate`).
 
+On a 2-D ``("data", "space")`` mesh of shape (d, s) the ranks form a grid,
+rank ``r`` at ``(r // s, r % s)``: the s ranks of a grid row (a `space`
+group) hold the same batch rows and split their image rows
+(`parallel.spatial`: halo exchanges, global means and the bicubic skip's
+gather), and the d ranks of a column (a `data` group) hold the same image
+rows of other batch rows. Every rank creates every group, in one order
+(NCCL and gloo hang otherwise).
+
 A `Mesh` is either that (a group of ranks, one device each: training) or,
 for serving, the devices one process drives (`ShardedPredictor`: a
-weight replica a device, the rows of a request split over them). The
-collectives used are `all_reduce` and `broadcast` only: gloo supports no
-other on CUDA tensors, and two ranks sharing one card (NCCL refuses that)
-run over gloo.
+weight replica a device, the rows of a request split over them;
+`SpatialPredictor`: the image rows split over them). The collectives used
+are `all_reduce` and `broadcast` only: gloo supports no other on CUDA
+tensors, and two ranks sharing one card (NCCL refuses that) run over
+gloo.
 
-The `space` (sp), `model` (tp) and `pp` axes and their compositions are
-not ported: they raise `NotPorted` and name their ROADMAP item.
+The `model` (tp) and `pp` axes raise `NotPorted` and name their ROADMAP
+item, as do the GAN and QAT steps under `space` (A.13.2.1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,7 +52,8 @@ __all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "repl
 DEFAULT_TIMEOUT_S = 600.0
 
 ROADMAP_ITEMS = {
-    "space": "ROADMAP A.13.2 (sp: image rows over ranks)",
+    "space_gan_qat": "ROADMAP A.13.2.1 (GAN and QAT under sp: D's strided convs, its dense "
+                     "head over rows, the QAT fake-quant scale)",
     "model": "ROADMAP A.13.3 (tp: conv channels over ranks)",
     "pp": "ROADMAP A.13.4 (pp: the residual groups as a pipeline)",
     "compositions": "ROADMAP A.13.5 (compositions of the mesh axes)",
@@ -55,19 +67,24 @@ class NotPorted(NotImplementedError):
 
 @dataclass(frozen=True)
 class Mesh:
-    """The `data` axis. ``devices``: the devices this process drives (one
-    for a rank of a training group; several for serving); ``group``: the
-    process group of the ranks (None: this process alone)."""
+    """The `data` axis, or the `data,space` grid. ``devices``: the devices
+    this process drives (one for a rank of a training group; several for
+    serving); ``group``: the process group of all the ranks (None: this
+    process alone); ``shape``: the grid's (d, s), or None for the 1-D
+    `data` axis; ``axis_groups``: this rank's process group along each
+    axis of a grid (``{"data": its column, "space": its row}``)."""
 
     devices: Tuple[torch.device, ...]
     group: Optional[Any] = None
     rank: int = 0
     world_size: int = 1
     axis_names: Tuple[str, ...] = ("data",)
+    shape: Optional[Tuple[int, ...]] = None
+    axis_groups: Optional[Dict[str, Any]] = field(default=None, compare=False)
 
     @property
     def size(self) -> int:
-        """The `data` axis's length: every device of every rank."""
+        """Every device of every rank."""
         return self.world_size * len(self.devices)
 
     @property
@@ -78,48 +95,98 @@ class Mesh:
     def distributed(self) -> bool:
         return self.group is not None
 
+    @property
+    def space_size(self) -> int:
+        """The `space` axis's length (1 without one)."""
+        return self.shape[self.axis_names.index("space")] if "space" in self.axis_names else 1
+
+    @property
+    def data_size(self) -> int:
+        """The `data` axis's length: the batch's divisor."""
+        return self.size // self.space_size
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        """This rank's (data, space) coordinates."""
+        return divmod(self.rank, self.space_size)
+
+    def row_shard(self):
+        """This rank's `parallel.spatial.RankShard` of its `space` group
+        (None without a `space` axis of two or more ranks)."""
+        from facesr_torch.parallel.spatial import RankShard
+
+        if self.space_size < 2 or not self.distributed:
+            return None
+        return RankShard(self.axis_groups["space"], self.coords[1], self.space_size)
+
 
 class Sharding(NamedTuple):
-    """How a tensor lies on a mesh: ``spec`` () replicated, ("data",) its
-    leading axis split over the ranks."""
+    """How a tensor lies on a mesh: ``spec`` names the mesh axis each
+    tensor axis is split over (None: whole), as JAX's PartitionSpec: ()
+    replicated, ("data",) the batch, (None, "data") the image rows,
+    ("data", "space") the batch and the image rows."""
 
     mesh: Mesh
     spec: Tuple[str, ...]
 
 
 def check_mesh_axes(axis_names: Sequence[str], shape: Optional[Sequence[int]] = None) -> None:
-    """Raise `NotPorted` for any mesh but the 1-D `data` axis."""
+    """Let the 1-D `data` axis and the `data,space` grid through; raise
+    `NotPorted` for `model` (A.13.3), `pp` (A.13.4) and three axes (A.13.5),
+    and ValueError for a shape that does not fit the axes."""
     axes = tuple(axis_names)
     if not axes or axes[0] != "data":
         raise ValueError(f"mesh axes must start with the batch axis 'data', got {axes}")
     extra = [a for a in axes[1:] if a not in ("space", "model", "pp")]
     if extra:
         raise ValueError(f"Unknown mesh axes {extra}; supported extra axes: space, model, pp")
-    if len(axes) > 1:
-        item = ROADMAP_ITEMS[axes[1]] if len(axes) == 2 else ROADMAP_ITEMS["compositions"]
-        raise NotPorted(f"mesh axes {','.join(axes)}: the port has the data axis only; "
-                        f"{axes[1]} is {item}; compositions with data are "
+    if len(axes) > 2:
+        raise NotPorted(f"mesh axes {','.join(axes)}: three axes are "
                         f"{ROADMAP_ITEMS['compositions']}")
-    if shape is not None and len(tuple(shape)) > 1:
-        raise NotPorted(f"mesh shape {tuple(shape)}: a multi-axis mesh is "
-                        f"{ROADMAP_ITEMS['compositions']}; the data axis takes no shape")
+    if len(axes) == 2 and axes[1] != "space":
+        raise NotPorted(f"mesh axes {','.join(axes)}: {axes[1]} is {ROADMAP_ITEMS[axes[1]]}; "
+                        f"the port has the data axis and data,space")
+    if shape is not None and len(tuple(shape)) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} does not fit the mesh axes "
+                         f"{','.join(axes)}: give one length an axis")
+
+
+def _local_card(local_rank: int) -> int:
+    """The card of a local rank: its index, wrapped around the visible
+    cards when there are fewer (ranks then share cards)."""
+    cards = torch.cuda.device_count()
+    return local_rank % cards if cards else local_rank
 
 
 def _rank_device(devices, local_rank: int) -> torch.device:
     """The device of a rank: ``devices``' one entry (an index-less ``cuda``
-    is this rank's card, ``cuda:<local_rank>``) or ``cuda:<local_rank>``."""
+    is this rank's card, `_local_card`) or `_local_card`."""
     if devices is not None:
         devs = [torch.device(d) for d in devices]
         if len(devs) != 1:
             raise ValueError(f"a rank of a data-parallel group drives one device, got {devs} "
                              "(launch one process per card)")
         if devs[0].type == "cuda" and devs[0].index is None:
-            return torch.device("cuda", local_rank)
+            return torch.device("cuda", _local_card(local_rank))
         return devs[0]
     if not torch.cuda.is_available():
         raise RuntimeError("facesr_torch runs on CUDA by default and no CUDA device is "
                            "available; pass devices=['cpu'] to run a rank on the CPU")
-    return torch.device("cuda", local_rank % torch.cuda.device_count())
+    return torch.device("cuda", _local_card(local_rank))
+
+
+def _backend(device: torch.device, backend: Optional[str], local_ranks: int) -> str:
+    """``backend``, else NCCL on CUDA and gloo on the CPU. NCCL takes one
+    rank a card, so more local ranks than cards over NCCL are refused:
+    sharing the cards over gloo is the caller's explicit choice."""
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    cards = torch.cuda.device_count()
+    if backend == "nccl" and local_ranks > cards:
+        raise ValueError(f"{local_ranks} ranks on this host over NCCL, which takes one rank a "
+                         f"card, and {cards} card(s) are visible: start at most {cards} ranks, "
+                         "or share the cards over gloo (backend='gloo'; the train CLI's "
+                         "--dist-backend gloo)")
+    return backend
 
 
 def _join(devices, rank, world_size, local_rank, init_method, backend, timeout) -> Mesh:
@@ -135,11 +202,41 @@ def _join(devices, rank, world_size, local_rank, init_method, backend, timeout) 
     device = _rank_device(devices, local_rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)  # before the group: NCCL binds the current device
-    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    backend = _backend(device, backend, int(env.get("LOCAL_WORLD_SIZE", 1)))
     dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout))
     return Mesh((device,), dist.group.WORLD, rank, world_size)
+
+
+def _grid(mesh: Mesh, axis_names: Tuple[str, ...], shape, timeout: float) -> Mesh:
+    """The ranks of ``mesh`` as the (d, s) `data,space` grid: rank r at
+    (r // s, r % s), with a process group for every grid row (`space`)
+    and every column (`data`), created by every rank in one order."""
+    n = mesh.world_size
+    if len(axis_names) == 1:
+        if shape is not None and tuple(shape) != (n,):
+            raise ValueError(f"mesh shape {tuple(shape)} does not match the {n} rank(s) of "
+                             "the data axis")
+        return mesh
+    if shape is None:
+        raise ValueError("mesh_shape is required with multiple mesh_axes, e.g. "
+                         "mesh_shape: [4, 2] for 'data,space' on 8 chips")
+    d, s = (int(v) for v in shape)
+    if d * s != n:
+        raise ValueError(f"mesh shape {(d, s)} needs {d * s} ranks, the group has {n}")
+    kw = dict(timeout=datetime.timedelta(seconds=timeout))
+    groups = {}
+    for i in range(d):
+        g = dist.new_group(list(range(i * s, (i + 1) * s)), **kw)
+        if i == mesh.rank // s:
+            groups["space"] = g
+    for j in range(s):
+        g = dist.new_group(list(range(j, n, s)), **kw)
+        if j == mesh.rank % s:
+            groups["data"] = g
+    return dataclasses.replace(mesh, axis_names=tuple(axis_names), shape=(d, s),
+                               axis_groups=groups)
 
 
 def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] = ("data",),
@@ -147,26 +244,31 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
              world_size: Optional[int] = None, local_rank: Optional[int] = None,
              init_method: Optional[str] = None, backend: Optional[str] = None,
              timeout: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """The `data` mesh.
+    """The `data` mesh, or the `data,space` grid of ``shape`` (d, s).
 
     Training (a group of ranks): when a process group is initialised, when
     ``rank``/``world_size`` are given, or when torchrun's environment is
     set (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/
     ``MASTER_PORT``), this process joins (or reuses) the default group.
-    Its device is ``devices[0]`` or ``cuda:<local rank>``, made current
-    before the group starts; the backend is NCCL on CUDA and gloo on the
-    CPU unless ``backend`` names one; ``timeout`` bounds the join and every
-    collective. ``init_method`` defaults to ``env://``.
+    Its device is ``devices[0]`` or ``cuda:<local rank>`` (modulo the
+    visible cards), made current before the group starts; the backend is
+    NCCL on CUDA and gloo on the CPU unless ``backend`` names one (ranks
+    that share a card need gloo: over NCCL, more ranks than cards, by
+    torchrun's ``LOCAL_WORLD_SIZE``, are refused); ``timeout`` bounds the
+    join and every collective. ``init_method`` defaults to ``env://``. On a grid the
+    d * s ranks also create the process groups of its rows and columns.
 
     Serving (this process alone): a mesh over ``devices``, by default every
     visible card. A device may repeat (``["cpu", "cpu"]``).
 
-    Other axes raise `NotPorted`."""
-    check_mesh_axes(axis_names, shape)
+    The `model` and `pp` axes raise `NotPorted`."""
+    axes = tuple(axis_names)
+    check_mesh_axes(axes, shape)
     joining = (dist.is_initialized() or rank is not None or world_size is not None
                or "WORLD_SIZE" in os.environ)
     if joining:
-        return _join(devices, rank, world_size, local_rank, init_method, backend, timeout)
+        return _grid(_join(devices, rank, world_size, local_rank, init_method, backend,
+                           timeout), axes, shape, timeout)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("facesr_torch runs on CUDA by default and no CUDA device is "
@@ -178,7 +280,9 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
     if shape is not None and int(np.prod(shape)) != len(devs):
         raise ValueError(f"mesh shape {tuple(shape)} needs {int(np.prod(shape))} devices, "
                          f"got {len(devs)}")
-    return Mesh(devs)
+    if len(axes) == 2 and shape is None:
+        shape = (len(devs), 1)
+    return Mesh(devs, axis_names=axes, shape=None if len(axes) == 1 else tuple(shape))
 
 
 def replicated(mesh: Mesh) -> Sharding:
@@ -186,17 +290,23 @@ def replicated(mesh: Mesh) -> Sharding:
 
 
 def batch_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
+    """The leading (batch) axis split over ``axis``."""
     check_mesh_axes((axis,) if axis == "data" else ("data", axis))
     return Sharding(mesh, (axis,))
 
 
 def row_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
-    raise NotPorted(f"row_sharding (image rows over the mesh) is {ROADMAP_ITEMS['space']}")
+    """NHWC images split along H over ``axis``: the spatial-parallel
+    sharding (`SpatialPredictor`); the batch is whole on every shard."""
+    check_mesh_axes((axis,) if axis == "data" else ("data", axis))
+    return Sharding(mesh, (None, axis))
 
 
 def grid_sharding(mesh: Mesh, batch_axis: str = "data", row_axis: str = "space") -> Sharding:
-    raise NotPorted(f"grid_sharding (batch x rows) is {ROADMAP_ITEMS['compositions']}, "
-                    f"after {ROADMAP_ITEMS['space']}")
+    """NHWC batch over ``batch_axis`` and image rows over ``row_axis``: dp x
+    sp on a 2-D mesh (the Trainer's ``mesh_axes: data,space``)."""
+    check_mesh_axes((batch_axis, row_axis))
+    return Sharding(mesh, (batch_axis, row_axis))
 
 
 def tp_param_shardings(params: Any, mesh: Mesh, axis: str = "data") -> Any:
@@ -204,19 +314,39 @@ def tp_param_shardings(params: Any, mesh: Mesh, axis: str = "data") -> Any:
                     f"{ROADMAP_ITEMS['model']}")
 
 
-def shard_batch(batch: Any, mesh: Mesh, axis: str = "data") -> Any:
-    """This rank's rows of a global batch (a tensor, an array or a dict of
-    them): the ``rank``-th of ``world_size`` equal contiguous slices of the
-    leading axis, which must divide."""
-    batch_sharding(mesh, axis)
+def _axis_index(mesh: Mesh, axis: str) -> Tuple[int, int]:
+    """This rank's index along ``axis`` and the axis's length."""
+    if axis == "space":
+        return mesh.coords[1], mesh.space_size
+    if "space" in mesh.axis_names:
+        return mesh.coords[0], mesh.data_size
+    return mesh.rank, mesh.world_size
+
+
+def shard_batch(batch: Any, mesh: Union[Mesh, Sharding], axis: str = "data") -> Any:
+    """This rank's part of a global batch (a tensor, an array or a dict of
+    them): under ``mesh`` (or ``batch_sharding(mesh, axis)``) its slice of
+    the leading axis, the ``i``-th of the axis's equal contiguous slices;
+    under a `Sharding` its part of every axis the spec names (a
+    `grid_sharding`: its batch rows and its image rows). Each must divide."""
+    sharding = mesh if isinstance(mesh, Sharding) else batch_sharding(mesh, axis)
     if isinstance(batch, dict):
-        return {k: shard_batch(v, mesh, axis) for k, v in batch.items()}
-    n = batch.shape[0]
-    if n % mesh.world_size:
-        raise ValueError(f"shard_batch: {n} rows do not split over {mesh.world_size} ranks "
-                         "(pad_to_multiple first)")
-    per = n // mesh.world_size
-    return batch[mesh.rank * per:(mesh.rank + 1) * per]
+        return {k: shard_batch(v, sharding) for k, v in batch.items()}
+    out = batch
+    for dim, name in enumerate(sharding.spec):
+        if name is None:
+            continue
+        i, n = _axis_index(sharding.mesh, name)
+        size = out.shape[dim]
+        if size % n:
+            if dim == 0:
+                raise ValueError(f"shard_batch: {size} rows do not split over {n} ranks "
+                                 "(pad_to_multiple first)")
+            raise ValueError(f"image height {size} must divide over the {n}-way {name!r} axis "
+                             f"(pick a height divisible by {n})")
+        per = size // n
+        out = out[(slice(None),) * dim + (slice(i * per, (i + 1) * per),)]
+    return out
 
 
 def _tensors(tree: Any) -> List[torch.Tensor]:

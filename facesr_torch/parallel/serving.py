@@ -25,9 +25,10 @@ Port of `facesr/parallel/serving.py`:
 - `ShardedPredictor`: the JAX class — a weight replica on every device of
   a mesh (every visible card by default), each chunk's rows split over
   them; on one device it is `Predictor`.
-- `SpatialPredictor`: one forward per call at the input's own shape (the
-  JAX class splits rows over a mesh, which is ROADMAP A.13.2; on one card
-  it is a per-shape forward).
+- `SpatialPredictor`: one forward per call at the input's own shape, its
+  image rows split over a mesh the caller names (one device by default;
+  for an H the mesh does not divide, fewer entries), one thread a row
+  shard (`parallel.spatial`).
 - `MicroBatcher`: coalesces concurrent single-image requests into one
   batched forward (an own copy of the JAX package's threading logic).
 """
@@ -39,6 +40,7 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from facesr_torch.device import DeviceLike, resolve_device
-from facesr_torch.parallel.mesh import ROADMAP_ITEMS, Mesh, NotPorted, pad_to_multiple
+from facesr_torch.parallel.mesh import Mesh, pad_to_multiple
 
 __all__ = ["build_serving_fn", "pad_to_multiple", "Predictor", "ShardedPredictor",
            "SpatialPredictor", "MicroBatcher", "serving_devices", "shard_bounds",
@@ -228,9 +230,9 @@ def build_serving_fn(model: torch.nn.Module, dtype: ServingDtype = None,
 
 
 def serving_devices(mesh=None) -> Tuple[torch.device, ...]:
-    """The devices a `ShardedPredictor` serves on: a `Mesh`'s, a list's (a
-    device may repeat), or with None every visible card (raises without
-    one)."""
+    """The devices a `ShardedPredictor` (or a `SpatialPredictor` given a
+    mesh) serves on: a `Mesh`'s, a list's (a device may repeat), or with
+    None every visible card (raises without one)."""
     if mesh is None:
         if not torch.cuda.is_available():
             raise RuntimeError("ShardedPredictor(mesh=None) serves on every visible CUDA card "
@@ -318,19 +320,23 @@ class Predictor:
     def __call__(self, images: np.ndarray) -> np.ndarray:
         return self._serve(images, self.max_batch)
 
-    def _serve(self, images: np.ndarray, chunk: int) -> np.ndarray:
+    def _serve(self, images: np.ndarray, chunk: int,
+               devices: Optional[Tuple[torch.device, ...]] = None) -> np.ndarray:
+        """``images`` in chunks of ``chunk``, each chunk's rows split over
+        ``devices`` (default: every mesh entry)."""
+        devices = self.devices if devices is None else devices
         images = np.asarray(images, np.float32)
         n = len(images)
         if n == 0:
             raise ValueError(f"{type(self).__name__} called with 0 images")
-        cuda = any(d.type == "cuda" for d in self.devices)
+        cuda = any(d.type == "cuda" for d in devices)
         downloads = {d: torch.cuda.Stream(d) for d in self._forwards if d.type == "cuda"}
         out = None  # the whole result, pinned on a card
         in_flight: deque = deque()  # each chunk's download events not yet waited for
         for start in range(0, n, chunk):
             rows = images[start:start + chunk]
             launched = []  # every shard is launched before any result is copied back
-            for dev, (a, b) in zip(self.devices, shard_bounds(len(rows), len(self.devices))):
+            for dev, (a, b) in zip(devices, shard_bounds(len(rows), len(devices))):
                 if a == b:
                     continue
                 x = torch.from_numpy(np.require(rows[a:b], requirements="CW"))
@@ -366,30 +372,107 @@ class Predictor:
 
 class SpatialPredictor(Predictor):
     """Serve inputs of any H and W, one forward per call at the input's
-    own shape: no padding and no chunking.
+    own shape (no padding, no chunking), its image rows split over a mesh
+    (the JAX class).
 
-    The JAX class splits the image rows over a mesh of devices (halo
-    exchanges by XLA's partitioner) and falls back to the largest device
-    count that divides H. On one card that count is 1 for every H, so the
-    class is a per-shape forward; large inputs reach the group kernel's
-    scratch variant (W > 64, or H outside 8..64). A ``mesh`` raises: row
-    splitting over several cards is ROADMAP A.13.2. The int8 dtypes serve as
-    in `Predictor`; calibration forwards run one image at a time (pass
-    small calibration images: the scales are per-site scalars)."""
+    ``mesh``: a `Mesh` or a list of devices (one may repeat: ``["cpu"] *
+    8``, ``[cuda:0, cuda:0]``). ``mesh=None`` serves on one device,
+    ``device`` (the default card without it), and not on every visible
+    card as the JAX class does: a sharded forward gives up the group
+    kernel's trunk and exchanges rows through the host, and no measurement
+    across cards shows it faster than one card's kernel forward, so the
+    split is the caller's explicit choice. Each distinct device holds one weight
+    replica, made once (the model itself on the first device), so the JAX
+    class's LRU of replicated parameter sets, which bounds the copies it
+    makes a plan on device 0, has nothing to bound here.
+
+    A call on H rows serves on the largest number n of mesh entries that
+    divides H (`_plan`; a smaller n prints the JAX warning once per H):
+    with n = 1 it is one forward on the first device (the group kernel's
+    trunk, its scratch variant for large inputs); with n >= 2 one thread a
+    mesh entry runs the forward on its H / n rows (`parallel.spatial`:
+    halo rows for every conv, the SE means and the dynamic int8 scales
+    over the whole image, the bicubic skip from the gathered LR image) and
+    the plain trunk in bf16, each thread on its own stream on a card. Two
+    shards on one device share its replica, which holds no per-call state
+    (the plain trunk reads no kernel-weight cache). f32, bf16, ``int8`` and
+    ``int8_full`` (dynamic, or calibrated on ``calibration`` / a
+    ``quant_cache``; the calibration forwards run unsharded at load) serve
+    as in `Predictor`. ``last_exchanges`` holds the first shard's
+    exchanges of the last sharded call, by kind."""
 
     def __init__(self, model: torch.nn.Module, mesh=None,
                  dtype: ServingDtype = torch.bfloat16, device: DeviceLike = None,
                  calibration: Optional[np.ndarray] = None, quant_cache: Optional[str] = None):
-        if mesh is not None:
-            raise NotPorted(f"SpatialPredictor over a mesh (image rows split over devices) "
-                            f"is {ROADMAP_ITEMS['space']}; with mesh=None one card serves "
-                            "every H")
-        super().__init__(model, dtype=dtype, max_batch=1, device=device,
-                         calibration=calibration, quant_cache=quant_cache)
+        devices = (resolve_device(device),) if mesh is None else serving_devices(mesh)
+        self._place(model, devices, dtype, len(devices), calibration, quant_cache)
+        self.n_devices = len(devices)
+        self._warned_h: set = set()
+        self.last_exchanges: Dict[str, int] = {}
+
+    def _plan(self, h: int) -> int:
+        """The mesh entries a call on ``h`` rows serves on: the largest
+        count up to the mesh's that divides h."""
+        n = self.n_devices
+        while h % n:
+            n -= 1
+        if n < self.n_devices and h not in self._warned_h and len(self._warned_h) < 256:
+            self._warned_h.add(h)
+            print(f"SpatialPredictor: H={h} not divisible by the {self.n_devices}-device mesh "
+                  f"— serving this shape on {n} device(s). Pad/resize inputs to a multiple of "
+                  f"{self.n_devices} rows to use the whole mesh.")
+        return n
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
-        """NHWC float batch (usually N=1) -> SR batch, one forward."""
-        return self._serve(images, max(1, len(images)))
+        """NHWC float batch (usually N=1) -> SR batch, one forward, its rows
+        split over the mesh (or the largest H-dividing part of it)."""
+        images = np.asarray(images, np.float32)
+        if len(images) == 0:
+            raise ValueError("SpatialPredictor called with 0 images")
+        n = self._plan(images.shape[1])
+        if n == 1:
+            return self._serve(images, len(images), self.devices[:1])
+        return self._serve_rows(images, self.devices[:n])
+
+    def _serve_rows(self, images: np.ndarray, devices: Tuple[torch.device, ...]) -> np.ndarray:
+        """One forward a mesh entry on its rows, in one thread each (this
+        one runs the first); a failing shard breaks the others' barrier."""
+        from facesr_torch.parallel import spatial
+
+        group = spatial.ThreadRows(devices)
+        shards = group.shards()
+        bounds = spatial.row_bounds(images.shape[1], len(devices))
+        outs: List[Optional[torch.Tensor]] = [None] * len(devices)
+        errors: List[BaseException] = []
+
+        def run(shard) -> None:
+            dev = devices[shard.index]
+            try:
+                stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+                with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                    a, b = bounds[shard.index]
+                    x = torch.from_numpy(np.ascontiguousarray(images[:, a:b]))
+                    if stream is not None:
+                        x = x.pin_memory().to(dev, non_blocking=True)
+                    with spatial.rows(shard):
+                        y = self._forwards[dev](x)
+                    outs[shard.index] = y.to("cpu")  # waits for this stream's work
+            except BaseException as e:  # noqa: BLE001 — raised below, in the caller
+                errors.append(e)
+                group.abort()
+
+        threads = [threading.Thread(target=run, args=(s,), daemon=True,
+                                    name=f"facesr-rows{s.index}") for s in shards[1:]]
+        for t in threads:
+            t.start()
+        run(shards[0])
+        for t in threads:
+            t.join()
+        if errors:  # the first failure, not a barrier another one broke
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                       errors[0])
+        self.last_exchanges = dict(shards[0].counts)
+        return torch.cat(outs, dim=1).numpy()
 
 
 class ShardedPredictor(Predictor):

@@ -22,6 +22,18 @@ are not reduced. The step's metrics are means over the ranks (one more
 all-reduce), the discriminator's BatchNorm is global, and the eval step
 takes PSNR from the all-reduced squared-error sum. With one rank the
 reduced values are bitwise the local ones.
+
+On a `data,space` grid (`Mesh.row_shard`) every rank of a `space` group
+holds its batch rows' whole HR images: it makes the whole LR images, takes
+its own rows of both (`RowShard.slab`) and runs the forward and the loss
+on them under `parallel.spatial.rows` (halo rows for every conv, global
+means, the bicubic skip from the gathered LR). The loss is then the same
+on every rank of the group, and each rank's gradients are its share of
+the group's, times S: the sums' backward adds the S ranks' upstream
+gradients. So the one reduction over all d * s ranks is their mean, as
+for dp: (1/d) sum over the data groups of (1/S) x (S x the group's
+gradient). The GAN and QAT steps under `space` raise `NotPorted`
+(ROADMAP A.13.2.1).
 """
 
 from __future__ import annotations
@@ -37,7 +49,9 @@ from facesr_torch.losses.gan import gan_loss
 from facesr_torch.losses.ssim import ssim
 from facesr_torch.ops.conv import full_f32
 from facesr_torch.ops.resize import bicubic_down
-from facesr_torch.parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum
+from facesr_torch.parallel import spatial
+from facesr_torch.parallel.mesh import (ROADMAP_ITEMS, Mesh, NotPorted, all_reduce_mean,
+                                        all_reduce_sum)
 from facesr_torch.training.optim import AdamW
 
 __all__ = ["TrainState", "init_ema", "ema_update", "trainable_parameters", "make_train_step",
@@ -56,6 +70,20 @@ def _quant(quant_fn: QuantFn):
 def _dp(mesh: Optional[Mesh]) -> Optional[Mesh]:
     """``mesh`` when it carries a process group to reduce over, else None."""
     return mesh if mesh is not None and mesh.distributed else None
+
+
+def _row_shard(mesh: Optional[Mesh], quant_fn: QuantFn, what: str):
+    """This rank's row shard on a `data,space` grid (None otherwise); QAT
+    there raises."""
+    shard = None if mesh is None else mesh.row_shard()
+    if shard is not None and quant_fn is not None:
+        raise NotPorted(f"{what} with QAT on the space axis is {ROADMAP_ITEMS['space_gan_qat']}")
+    return shard
+
+
+def _slabs(shard, *images: torch.Tensor):
+    """The shard's rows of each of ``images`` (unchanged without a shard)."""
+    return images if shard is None else tuple(shard.slab(x) for x in images)
 
 
 def _reduced(grads, mesh: Optional[Mesh]):
@@ -112,19 +140,23 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
                     ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Content-only (no GAN) step: ``train_step(state, hr) -> (state,
     metrics)``, ``hr`` an NHWC batch in [0, 1] on the model's device (this
-    rank's rows under ``mesh``). The state is updated in place and
+    rank's batch rows under ``mesh``, whole images on a grid). The state is updated in place and
     returned; metrics are the loss components, ``loss`` and, with the
     non-finite guard, the running count ``opt_notfinite``."""
     mesh = _dp(mesh)
+    shard = _row_shard(mesh, quant_fn, "make_train_step")
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
         with full_f32():
             hr = hr.float()
-            lr_img = bicubic_down(hr, scale_factor)
-            sr = state.model(lr_img, train=True, dtype=compute_dtype, quant=_quant(quant_fn))
-            loss, comps = loss_apply(state.loss_params, sr, hr)
-            grads = _reduced(torch.autograd.grad(loss, list(params.values())), mesh)
+            lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
+            with spatial.rows(shard):
+                sr = state.model(lr_img, train=True, dtype=compute_dtype,
+                                 quant=_quant(quant_fn))
+                loss, comps = loss_apply(state.loss_params, sr, hr)
+                grads = torch.autograd.grad(loss, list(params.values()))
+            grads = _reduced(grads, mesh)
         optimizer.update(dict(zip(params, grads)), state.opt_state, params)
         if ema_decay > 0:
             ema_update(state.ema_params, state.model, ema_decay)
@@ -136,6 +168,7 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
             metrics["opt_notfinite"] = state.opt_state["total_notfinite"]
         return state, metrics
 
+    train_step.row_shard = shard  # its exchange counts (None unsharded)
     return train_step
 
 
@@ -163,8 +196,12 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     (mean sigmoid of the last D update's logits), and the guards' running
     counts ``opt_notfinite`` and ``d_opt_notfinite``. Under ``mesh`` D's
     BatchNorm takes global statistics, both gradient sets are reduced, and
-    the stats guard reads the global losses."""
+    the stats guard reads the global losses. A `space` axis raises
+    (ROADMAP A.13.2.1)."""
     mesh = _dp(mesh)
+    if mesh is not None and mesh.space_size > 1:
+        raise NotPorted(f"make_gan_train_step on the space axis is "
+                        f"{ROADMAP_ITEMS['space_gan_qat']}")
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -227,17 +264,21 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
     reduce=False)`` returns this rank's sums instead (``{"sums": [sq_err,
     elements, loss * rows, ssim * rows, rows]}``, no collective), which
     the Trainer reduces for a whole epoch at once
-    (`eval_metrics_from_sums`)."""
+    (`eval_metrics_from_sums`). On a grid each rank takes its image rows
+    (sr and lr are returned as those rows), the loss and SSIM are global
+    over the rows, and the sums add over every rank: each space rank
+    counts its batch rows too, so the row-weighted means are unchanged."""
     mesh = _dp(mesh)
+    shard = _row_shard(mesh, quant_fn, "make_eval_step")
 
     def eval_step(state: TrainState, hr: torch.Tensor, reduce: bool = True):
         if use_ema and state.ema_params is None:
             raise ValueError(
                 "make_eval_step(use_ema=True) on a TrainState without EMA "
                 "weights (ema_params is None); build the step with use_ema=False")
-        with torch.no_grad(), full_f32():
+        with torch.no_grad(), full_f32(), spatial.rows(shard):
             hr = hr.float()
-            lr_img = bicubic_down(hr, scale_factor)
+            lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
             quant = _quant(quant_fn)
             if use_ema:
                 sr = functional_call(state.model, state.ema_params, (lr_img,),

@@ -592,10 +592,22 @@ def test_sharded_predictor_over_two_devices_matches_jaxs():
 def test_other_mesh_axes_raise_and_name_their_item(axes, item, where, tmp_path):
     from facesr_torch.training.trainer import Trainer, TrainerConfig
 
+    if axes == "data,space" and where == "get_mesh":  # ported: tests/test_torch_sp.py
+        mesh = pmesh.get_mesh(["cpu"] * 2, axis_names=axes.split(","), shape=(1, 2))
+        assert (mesh.data_size, mesh.space_size) == (1, 2)
+        return
+    # data,space trains (tests/test_torch_sp.py); its GAN stage is A.13.2.1
+    space = {} if axes != "data,space" else dict(
+        mesh_shape=(1, 2), gan_weight=0.1,
+        mesh=pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
+                        axis_names=("data", "space"), shape=(1, 2),
+                        axis_groups={"data": object(), "space": object()}))
+    mesh = space.pop("mesh", None)
     with pytest.raises(pmesh.NotPorted, match=item.replace(".", r"\.")):
         if where == "trainer":
             Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
-                    TrainerConfig(mesh_axes=axes, checkpoint_dir=str(tmp_path)), device="cpu")
+                    TrainerConfig(mesh_axes=axes, checkpoint_dir=str(tmp_path), **space),
+                    device="cpu", discriminator=_disc() if space else None, mesh=mesh)
         else:
             pmesh.get_mesh(["cpu"], axis_names=axes.split(","))
 
@@ -606,9 +618,14 @@ def test_unported_mesh_functions_raise_and_name_their_item(fn):
     import facesr_torch.parallel as par
 
     mesh = pmesh.get_mesh(["cpu", "cpu"])
+    if fn in ("row_sharding", "grid_sharding"):  # ported: tests/test_torch_sp.py
+        grid = pmesh.get_mesh(["cpu"] * 4, axis_names=("data", "space"), shape=(2, 2))
+        want = (None, "data") if fn == "row_sharding" else ("data", "space")
+        assert getattr(par, fn)(grid).spec == want
+        return
     with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.[2-5]"):
-        if fn == "mesh_shape":
-            pmesh.get_mesh(["cpu"] * 4, shape=(2, 2))
+        if fn == "mesh_shape":  # a shape of three axes: the compositions, A.13.5
+            pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
         elif fn == "tp_param_shardings":
             par.tp_param_shardings({}, mesh)
         elif fn in ("pp_param_shardings", "make_pp_apply"):

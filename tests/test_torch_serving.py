@@ -103,8 +103,10 @@ def test_spatial_predictor_is_one_forward_at_any_shape():
     np.testing.assert_array_equal(got, want)
     assert sp(np.concatenate([images, images]))[1].shape == (160, 320, 3)  # one forward of 2
     assert seen[-1] == (2, 40, 80, 3)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        SpatialPredictor(model, mesh=object(), device="cpu")
+    # over a mesh of two entries the rows split (tests/test_torch_sp.py
+    # holds the sharded forward to JAX's)
+    np.testing.assert_allclose(SpatialPredictor(model, mesh=["cpu", "cpu"], dtype=None)(images),
+                               want, atol=2e-5)
     with pytest.raises(ValueError):
         sp(np.zeros((0, 8, 8, 3), np.float32))
 

@@ -245,7 +245,9 @@ REFUSED = {
     "qat_scales": ("stage1_psnr_config.yaml", ["--qat-scales", "x.npz"],
                    "requires training.qat"),
     "mesh_axes": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,model"], "ROADMAP A.13"),
-    "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-shape", "4,2"], "ROADMAP A.13"),
+    # a shape of three axes: the compositions (data,space itself is ported)
+    "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,space,model",
+                                               "--mesh-shape", "2,2,2"], "ROADMAP A.13.5"),
     # --print-memory is ported; under an axis that is not, the run still refuses
     "print_memory": ("stage1_psnr_config.yaml", ["--print-memory", "--mesh-axes", "data,pp"],
                      "ROADMAP A.13.4"),
@@ -267,11 +269,24 @@ def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
 @pytest.mark.parametrize("section", ["mesh_shape: [4, 2]", "mesh_axes: data,space",
                                      "pp_microbatches: 4"])
 def test_what_is_not_ported_in_the_yaml_raises(workdir, section):
+    """pp_microbatches is not ported; the YAML's mesh_shape and mesh_axes
+    are read (data,space trains: tests/test_torch_sp.py)."""
     text = (workdir / "stage1_psnr_config.yaml").read_text()
     text = text.replace("training:\n", f"training:\n  {section}\n", 1)
     (workdir / "s.yaml").write_text(text)
-    with pytest.raises(train_cli.NotPorted, match="ROADMAP A.13"):
-        _run("s.yaml")
+    if section == "mesh_shape: [4, 2]":  # a plain launch starts the grid's 8 ranks
+        assert train_cli._ranks_to_start(["--config", "s.yaml", "--mesh-axes",
+                                          "data,space"]) == 8
+        with pytest.raises(ValueError, match="does not fit the mesh axes data"):
+            _run("s.yaml")
+    elif section == "mesh_axes: data,space":  # JAX's message without a shape; 1x1 trains
+        with pytest.raises(ValueError, match="mesh_shape is required with multiple mesh_axes"):
+            _run("s.yaml")
+        trainer = _run("s.yaml", "--mesh-shape", "1,1", "--epochs", "1")
+        assert trainer.mesh.shape == (1, 1) and trainer.global_step > 0
+    else:
+        with pytest.raises(train_cli.NotPorted, match="ROADMAP A.13"):
+            _run("s.yaml")
 
 
 # the QAT rehearsal YAML's sizes, cut as the stage YAMLs are
