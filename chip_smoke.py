@@ -160,8 +160,8 @@ catches an error and goes on):
    widths and seeded weights: RRDBNet and TransferSRModel at batch 128
    in bf16, ``int8``, ``int8_full`` dynamic and ``int8_full`` calibrated
    (on 32 of phase 8's 64x64 val LR PNGs, written as a quant cache):
-   forward ms (CUDA events, mean of 5), `Predictor` images/s (median of
-   5), peak memory, group launches a forward (the transfer model's bf16
+   forward ms (CUDA events, mean of 2), `Predictor` images/s (median of
+   2), peak memory, group launches a forward (the transfer model's bf16
    and int8: 1) and the profiler's split of each int8 forward; the
    weight-only int8 transfer forward bitwise the bf16 forward of a copy
    holding the dequantized weights, its kernel head held to phase 4's
@@ -190,14 +190,14 @@ catches an error and goes on):
    the SE attention, on the card against the CPU (CAM max abs <= 1e-4,
    attention <= 1e-5), with a TF32 control that must be rejected; the ms
    of ``generate_multi_region`` (batch 8) and ``visualize_attention_flow``
-   (one image), CUDA events, median of 3, the peak memory, and
+   (one image), CUDA events, median of 2, the peak memory, and
    ``create_attention_report``'s files; then (15.3) the stage-1 Trainer
    (batch 48, HR 256, L1 + perceptual, EMA on, epochs of 2 batches) for
    1 epoch, resumed fully in a new Trainer from its ``.fckpt`` and from
    its ``.pth``, for 1 more, against 2 uninterrupted epochs (params, EMA,
    moments, counts bitwise with cuDNN deterministic for this phase only,
    else within 1e-6 relative L2 a tensor, the reason printed), and the
-   same for the GAN trainer at batch 8, HR 128 (D, its stats and its
+   same for the GAN trainer at batch 8, HR 64 (D, its stats and its
    optimiser too), with the ``.fckpt``'s size and write time; (15.2)
    ``python -m facesr_torch.cli.stage_panel`` on 15.3's epoch 1 and 2
    files and 4 256x256 PNGs with ``--device cuda`` and ``--device cpu``
@@ -224,7 +224,7 @@ catches an error and goes on):
    noise), two noise draws, with G, D's convs and D's dense layers run on
    the ranks' row blocks), the
    controls (one rank's rows alone, unreduced; a per-rank BatchNorm)
-   rejected by the same limits, the ranks' states bitwise equal after 3 steps, ms
+   rejected by the same limits, the ranks' states bitwise equal after 2 steps, ms
    a dp step and of a gloo all-reduce of the bucket (two ranks
    time-sharing one card: no speedup figure); (c) a Trainer epoch on phase
    8's PNGs, 24 rows a rank a step, only rank 0 writing.
@@ -246,7 +246,19 @@ catches an error and goes on):
    (c) the stage-1 YAML through the train CLI on data,space [1, 2] under
    torchrun's environment with ``--dist-backend gloo`` and
    ``--print-memory`` for one epoch on 96 of phase 8's train PNGs (two
-   steps) and its val set.
+   steps) and its val set; (d) stage 3's GAN step (G 6x10x64, D at 256
+   with 64 base channels and BatchNorm, batch 16) on the grid against
+   the single-process step, within the same floor-based limits, the
+   wrong factor rejected on G's and D's gradients, D's forward alone
+   against one process with a zero stride-2 halo and a BatchNorm over
+   one shard's rows as its controls, the ranks bitwise, ms a step, peak
+   and exchanges; (e) phase 12's QAT step (batch 2) on the grid, its
+   fake-quant levels pinned at ties to the single-process step's (none
+   off a tie, ties counted), within the floor-based limits, a per-shard
+   activation scale rejected; (f) the stage-3 YAML chained from (c)'s
+   final model and the QAT YAML (with phase 12's calibrated scales when
+   there), each through the CLI on the grid for one epoch of two steps,
+   side by side: exit codes, finite val PSNR, rank 0 writing.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
@@ -316,7 +328,7 @@ ROUNDING_FAULT = "bf16_feat"
 SPLIT_FAULT, SPLIT_CHECK = "half_image_se", 7  # the fault and its CHECK_SHAPES entry
 # training: the stage-1 batch (48 images of HR 256x256), warm-up and timed
 # steps on one repeated batch; the Trainer phase's smaller batches
-TRAIN_BATCH, TRAIN_HR, TRAIN_WARMUP, TRAIN_TIMED = 48, 256, 2, 6
+TRAIN_BATCH, TRAIN_HR, TRAIN_WARMUP, TRAIN_TIMED = 48, 256, 2, 3
 TRAINER_BATCH = 8
 # CUDA step vs CPU step in f32, relative L2 per tensor: other summation
 # orders give ~1e-7-1e-6; TF32 convs (10-bit mantissa) ~3e-4 and more
@@ -1266,7 +1278,7 @@ def eval_phase(dev, card: str, tmp: Path) -> int:
 
 # phase 10: the stage-3 GAN step at the production size (batch 48, HR 256;
 # the discriminator at 256 with 64 base channels), warm-up and timed steps
-GAN_BATCH, GAN_HR, GAN_D_BASE, GAN_WARMUP, GAN_TIMED = 48, 256, 64, 2, 6
+GAN_BATCH, GAN_HR, GAN_D_BASE, GAN_WARMUP, GAN_TIMED = 48, 256, 64, 2, 3
 
 
 def gan_step_fn(dev, mesh=None, opt_cls=None):
@@ -1948,13 +1960,13 @@ INT8_CONV_SHAPES = (("conv_first", (4, 64, 64, 3), 64), ("trunk conv", (4, 64, 6
                     ("upsample conv 2", (4, 128, 128, 64), 256),
                     ("conv_last", (4, 256, 256, 64), 3),
                     ("packed conv_last", (4, 128, 128, 256), 12))
-INT8_TIMED = 5                    # timed forwards / Predictor calls a mode
+INT8_TIMED = 3                    # timed forwards / Predictor calls a mode
 INT8_CHECK_IMAGES = 4             # card against the CPU port (bf16: bitwise), at
 INT8_CHECK_DEPTH = (2, 2)         # groups, blocks of that comparison's model
 INT8_CALIB_IMAGES = 32            # phase 8's val LR PNGs that calibrate int8_full
 INT8_HTTP_CLIENTS, INT8_HTTP_REQUESTS = 8, 4
 INT8_SPATIAL = (1, 256, 256, 3)   # SpatialPredictor's int8_full input
-QAT_WARMUP, QAT_TIMED = 1, 3      # the production QAT step
+QAT_WARMUP, QAT_TIMED = 1, 2      # the production QAT step
 QAT_YAML = REPO / "configs/rehearsal/stage1_qat_ft.yaml"
 
 
@@ -2340,7 +2352,7 @@ ZOO_CHECK_IMAGES, ZOO_BATCH, ZOO_TIMED = 2, 128, 3
 ZOO_HEAD_IMAGES = 8            # the whole-model check of the head on the kernel
 ZOO_HTTP_REQUESTS = 8          # single-image requests to the transfer API
 ZOO_ESRGAN_BATCHES = (48, 32, 24, 16)  # the stage-1 YAML's batch, then the fallbacks
-ZOO_STEP_TIMED = 4
+ZOO_STEP_TIMED = 2
 TRANSFER_YAML = REPO / "configs/transfer_config.yaml"
 
 
@@ -2766,7 +2778,7 @@ def zoo_phase(dev, card: str, tmp: Path) -> dict:
 
 # phase 14: the zoo's int8 and the .pt2 files at full width (RealESRGAN x4plus;
 # transfer 16+4 at 64 channels), seeded random weights, batch 128 of 64x64
-ZOO8_TIMED = 3                  # forwards (CUDA events, mean) and Predictor calls (median)
+ZOO8_TIMED = 2                  # forwards (CUDA events, mean) and Predictor calls (median)
 ZOO8_CHECK_IMAGES = 4           # int8_full card against the CPU port, at the small depths:
 ZOO8_SMALL = {"esrgan": dict(num_feat=64, num_blocks=2, num_grow_ch=32),
               "transfer": dict(backbone_blocks=2, head_blocks=2, head_channels=64)}
@@ -3092,13 +3104,13 @@ EXPLAIN_LAYERS = ("conv_first", "group3", "group6")
 # 5.8e-03. The limit sits between the two, ~3x above the one and ~10x
 # below the other, so another cuDNN algorithm does not fail a right CAM.
 CAM_ATOL, ATTN_ATOL = 3e-4, 1e-5
-EXPLAIN_TIMED = 3
+EXPLAIN_TIMED = 2
 PANEL_IMAGES, PANEL_HR = 4, 256
 # stage_panel card vs CPU: each model's f32 forward in other summation
 # orders moves a uint8 value where the output sits near a rounding midpoint
 PANEL_OFF_SHARE = 0.005
 RESUME_BATCH, RESUME_HR = 48, 256
-RESUME_GAN_BATCH, RESUME_GAN_HR = 8, 128
+RESUME_GAN_BATCH, RESUME_GAN_HR = 8, 64
 # a resumed run against the uninterrupted one: bitwise with cuDNN made
 # deterministic; where the card cannot be, per tensor relative L2
 RESUME_RTOL = 1e-6
@@ -3392,7 +3404,7 @@ def explain_phase(dev, card, tmp: Path) -> None:
 # (NCCL refuses two ranks on one device) for (b) the dp steps against the
 # single-process step and (c) a Trainer epoch. The card's machine has one
 # card: NCCL across cards is not exercised here.
-DP_TIMED = 2            # timed dp steps in (b)
+DP_TIMED = 1            # timed dp steps in (b)
 # (b)'s limit a tensor: max(STEP_RTOL, DP_FLOOR_FACTOR x its rounding
 # floor), the floor being how far that tensor of the single-process step
 # moves under rounding alone: its input times (1 + 2^-23 N(0, 1)), and the generator, D's convs
@@ -3772,17 +3784,23 @@ def dp_phase(card: str, tmp: Path) -> int:
 # ---------------------------------------------------------------------------
 # phase 17: spatial parallelism on the card. (a) SpatialPredictor over
 # [cuda:0, cuda:0] in the parent: one thread a row shard, each on its own
-# stream; (b) the stage-1 step on a [1, 2] data,space grid of two gloo ranks
-# sharing cuda:0 (NCCL refuses two ranks on one card) against the step
-# alone; (c) the train CLI on data,space through torchrun's environment.
-# The machine has one card: no NCCL across cards, no multi-card speed-up.
+# stream; on a [1, 2] data,space grid of two gloo ranks sharing cuda:0 (NCCL
+# refuses two ranks on one card), one launch: (b) the stage-1 step, (d) the
+# stage-3 GAN step and (e) phase 12's QAT step, each against the step
+# alone; (c) the train CLI on data,space through torchrun's environment, and
+# (f) the stage-3 YAML chained from (c) and the QAT YAML the same way. The
+# machine has one card: no NCCL across cards, no multi-card speed-up.
 SP_SHAPE = (1, 256, 256, 3)     # (a)'s LR input, its rows darkening towards the top
 SP_F32_ATOL = 1e-4              # (a) f32 over two shards against one
-SP_TIMED = 2                    # (a) timed calls a timed configuration
-SP_STEP_TIMED = 2               # (b) timed sp steps
+SP_TIMED = 1                    # (a) timed calls a timed configuration
+SP_STEP_TIMED = 1               # (b) timed sp steps
 SP_GRID = (1, 2)
-SP_CLI_FLAGS = ()               # extra train CLI flags of (c)
+SP_CLI_FLAGS = ()               # extra train CLI flags of (c) and (f)
 SP_CLI_TRAIN = 2 * CLI_BATCH    # (c) trains on two steps' worth of phase 8's train PNGs
+SP_GAN_BATCH = 16               # (d) stage 3's step, its batch cut from 48 (time)
+SP_GAN_TIMED = 0                # (d) timed sp GAN steps after the first (none: the first's ms)
+SP_QAT_BATCH = 64               # (f) the QAT YAML's batch: two steps' worth of PNGs
+SP_QAT_STEP_BATCH = 2           # (e) the QAT step's batch, cut from 48: its level records
 
 
 def sp_serving(dev, card: str, tmp: Path) -> dict:
@@ -3999,55 +4017,423 @@ def sp_serving(dev, card: str, tmp: Path) -> dict:
     return out
 
 
-def sp_step_rank(mesh, tmp: str, card: str) -> dict:
-    """(b) on one of two gloo ranks of the [1, 2] grid sharing cuda:0."""
-    from facesr_torch.cli.step_numerics import RecordingAdamW
-    from facesr_torch.parallel.mesh import shard_batch
-    from facesr_torch.training import steps
+def _floor_of(draws) -> dict:
+    """The larger of the draws' errors, a tensor (phase 16's rounding floor)."""
+    return {part: {k: max(d[part][k] for d in draws) for k in draws[0][part]}
+            for part in draws[0]}
 
-    dev, rank = mesh.device, mesh.rank
-    out = {"rank": rank, "coords": mesh.coords}
-    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)
-    rows = shard_batch(hr, mesh)  # the data axis is 1: every rank holds the whole batch
-    if rank == 0:
-        state, step, _ = production_step_fn(dev, opt_cls=RecordingAdamW)
-        want = _step_record(state, step, hr, False)
-        del state, step
-        draws = [_tensor_errors(_rounding_floor(production_step_fn, dev, hr, False, 2, seed),
-                                want) for seed in DP_FLOOR_SEEDS]
-        floor = {part: {k: max(d[part][k] for d in draws) for k in draws[0][part]}
-                 for part in draws[0]}
-        torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    state, step, _ = production_step_fn(dev, mesh=mesh, opt_cls=RecordingAdamW)
-    got = _step_record(state, step, rows, False)
-    out["exchanges"] = dict(step.row_shard.counts)
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+def _sp_timed(state, step, rows, n):
+    """The median ms of ``n`` more steps (None for none)."""
+    if n == 0:
+        return None
     times = []
-    for _ in range(SP_STEP_TIMED):
+    for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(state, rows)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    out["ms"] = statistics.median(times)
-    out["hash"] = _state_hash(list(state.model.parameters())
-                              + list(state.opt_state["mu"].values()))
-    del state, step
-    # the control: gradients summed over `space` (a mean over `data` only)
-    reduced = steps._reduced
-    steps._reduced = lambda g, m: [t * m.space_size for t in reduced(g, m)]
+    return statistics.median(times)
+
+
+def _disc_forward(template, hr, mesh=None, noise_seed=None) -> dict:
+    """One train-mode forward of a fresh copy of ``template`` (stage 3's
+    discriminator) on ``hr`` (this rank's image rows under ``mesh``): its
+    logits and updated running stats on the host, as a `_step_record`-like
+    record. ``noise_seed``: the input times (1 + 2^-23 N(0, 1)) first."""
+    import copy
+
+    from facesr_torch.parallel import spatial
+
+    if noise_seed is not None:
+        gen = torch.Generator().manual_seed(noise_seed)
+        hr = hr * (1 + DP_FLOOR_NOISE * torch.randn(hr.shape, generator=gen).to(hr.device))
+    disc = copy.deepcopy(template)
+    shard = None if mesh is None else mesh.row_shard()
+    with torch.no_grad(), spatial.rows(shard):
+        logits = disc(hr if shard is None else shard.slab(hr), train=True, mesh=mesh)
+    return {"d_logits": {"logits": logits.cpu()},
+            "d_stats": {k: v.detach().cpu().clone() for k, v in disc.named_buffers()}}
+
+
+@contextlib.contextmanager
+def _sp_fault(name):
+    """A fault planted in the sharded path of (d) or (e): a zero stride-2
+    halo (the one row a stride-2 conv borrows from above, still in the
+    exchange's graph so every rank runs the same collectives), D's
+    BatchNorm over the shard's rows alone, gradients summed over `space`,
+    or a per-shard fake-quant activation scale."""
+    from facesr_torch.models import discriminator as dmod
+    from facesr_torch.ops import conv as conv_ops
+    from facesr_torch.parallel import spatial
+    from facesr_torch.training import steps
+
+    saved = []
+
+    def patch(owner, attr, value):
+        saved.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, value)
+
+    if name == "zero_stride2_halo":
+        halo = spatial.RankShard._halo
+
+        def zero_above(self, x, top, bottom):
+            above, below = halo(self, x, top, bottom)
+            return (above * 0 if bottom == 0 else above), below
+
+        patch(spatial.RankShard, "_halo", zero_above)
+    elif name == "per_shard_bn":
+        bn_sum = dmod._bn_sum
+        patch(dmod, "_bn_sum", lambda train, mesh, shard:
+              None if shard is not None else bn_sum(train, mesh, shard))
+    elif name == "wrong_factor":
+        reduced = steps._reduced
+        patch(steps, "_reduced", lambda g, m: [t * m.space_size for t in reduced(g, m)])
+    elif name == "per_shard_scale":
+        scale = conv_ops.fake_quant_scale
+        patch(conv_ops, "fake_quant_scale", lambda t, static=None, shard=None: scale(t, static))
+    else:
+        raise ValueError(name)
     try:
-        state, step, _ = production_step_fn(dev, mesh=mesh, opt_cls=RecordingAdamW)
-        control = _step_record(state, step, rows, False)
-        del state, step
+        yield
     finally:
-        steps._reduced = reduced
-    if rank == 0:
+        for owner, attr, value in reversed(saved):
+            setattr(owner, attr, value)
+
+
+def _sp_step_case(mesh, build, hr, gan: bool, controls, timed: int) -> dict:
+    """One sp step case on a rank of the grid: rank 0's single-process step
+    on the whole batch and its rounding floor (phase 16's two draws, the
+    model's forward and D's convs and dense layers on two row blocks); the
+    grid's step, its exchanges, peak and ms, the state's hash after
+    ``timed`` more steps; and each planted control's step."""
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+    from facesr_torch.parallel.mesh import shard_batch
+
+    dev, out = mesh.device, {}
+    rows = shard_batch(hr, mesh)  # the data axis is 1: every rank holds the whole batch
+    if mesh.rank == 0:
+        state, step, _ = build(dev, opt_cls=RecordingAdamW)
+        want = _step_record(state, step, hr, gan)
+        del state, step
+        floor = _floor_of([_tensor_errors(_rounding_floor(build, dev, hr, gan, 2, seed), want)
+                           for seed in DP_FLOOR_SEEDS])
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, _ = build(dev, mesh=mesh, opt_cls=RecordingAdamW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = _step_record(state, step, rows, gan)
+    out["first_ms"] = (time.perf_counter() - t0) * 1e3  # the host copies of the record too
+    out["exchanges"] = dict(step.row_shard.counts)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["ms"] = _sp_timed(state, step, rows, timed)
+    tensors = list(state.model.parameters()) + list(state.opt_state["mu"].values())
+    if gan:
+        tensors += list(state.disc.parameters()) + list(state.disc.buffers())
+    out["hash"] = _state_hash(tensors)
+    del state, step
+    faults = {}
+    for name in controls:
+        with _sp_fault(name):
+            state, step, _ = build(dev, mesh=mesh, opt_cls=RecordingAdamW)
+            faults[name] = _step_record(state, step, rows, gan)
+            del state, step
+    if mesh.rank == 0:
         out.update(errors=_tensor_errors(got, want), floor=floor,
-                   wrong_factor=_tensor_errors(control, want))
+                   controls={k: _tensor_errors(v, want) for k, v in faults.items()})
     torch.cuda.empty_cache()
     return out
+
+
+def _sp_qat_case(mesh, tmp: Path) -> dict:
+    """(e) on a rank of the grid: phase 12's QAT step at SP_QAT_STEP_BATCH,
+    every run's fake-quant levels pinned at ties to rank 0's single-process
+    step (`step_numerics.fake_quant_levels`; the grid's runs cut to their
+    rows by `row_shard_levels`), so that a level one run rounds the other
+    way does not spread through the step: the single-process step and its
+    floor (two draws of its input times (1 + 2^-23 N(0, 1)), pinned
+    alike), the grid's step and the per-shard-scale control, each with its
+    ties taken and its levels off a tie counted. The record goes from rank
+    0 to the other through a file."""
+    import functools
+
+    import torch.distributed as dist
+
+    from facesr_torch.cli.step_numerics import (RecordingAdamW, fake_quant_levels,
+                                                row_shard_levels)
+    from facesr_torch.parallel.mesh import shard_batch
+
+    dev, out = mesh.device, {}
+    build = functools.partial(production_step_fn, qat=True)
+    hr = smooth_hr(SP_QAT_STEP_BATCH, TRAIN_HR, seed=7, dev=dev)
+    path = tmp / "sp_qat_levels.pt"
+    pins = lambda pin: {k: pin[k] for k in ("ties", "off_tie")} | {  # noqa: E731
+        "levels": sum(lv.numel() for lv in pin["levels"])}
+    if mesh.rank == 0:
+        state, step, _ = build(dev, opt_cls=RecordingAdamW)
+        with fake_quant_levels() as rec:
+            want = _step_record(state, step, hr, False)
+        del state, step
+        record = {"weights": [t.to(torch.int8) for t in rec["weights"]],
+                  "levels": [t.to(torch.int8) for t in rec["levels"]],
+                  "outputs": rec["outputs"]}
+        del rec
+        torch.save(record, path)
+        draws = []
+        for seed in DP_FLOOR_SEEDS:
+            state, step, _ = build(dev, opt_cls=RecordingAdamW)
+            noise = torch.randn(hr.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+            with fake_quant_levels(lambda i, w: (record["weights"][i], record["levels"][i],
+                                                 record["outputs"][i])):
+                draws.append(_tensor_errors(_step_record(
+                    state, step, hr * (1 + DP_FLOOR_NOISE * noise), False), want))
+            del state, step
+        floor = _floor_of(draws)
+        torch.cuda.empty_cache()
+    dist.barrier(group=mesh.group)  # rank 0's record is written
+    if mesh.rank != 0:
+        record = torch.load(path)
+    rows = shard_batch(hr, mesh)
+    runs = {}
+    for name in ("right", "per_shard_scale"):
+        with _sp_fault(name) if name != "right" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            state, step, _ = build(dev, mesh=mesh, opt_cls=RecordingAdamW)
+            with fake_quant_levels(row_shard_levels(record, step.row_shard)) as pin:
+                runs[name] = _step_record(state, step, rows, False)
+            out[name] = pins(pin)
+            if name == "right":
+                out.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                           exchanges=dict(step.row_shard.counts),
+                           hash=_state_hash(list(state.model.parameters())
+                                            + list(state.opt_state["mu"].values())))
+            del state, step, pin
+    if mesh.rank == 0:
+        out.update(errors=_tensor_errors(runs["right"], want), floor=floor,
+                   control=_tensor_errors(runs["per_shard_scale"], want))
+    del record, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_step_rank(mesh, tmp: str, card: str) -> dict:
+    """(b), (d) and (e) on one of two gloo ranks of the [1, 2] grid sharing
+    cuda:0."""
+    from facesr_torch.models.discriminator import create_discriminator
+
+    dev, rank = mesh.device, mesh.rank
+    out = {"rank": rank, "coords": mesh.coords, "seconds": {}}
+    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)
+    # (b) the stage-1 step, and the control: gradients summed over `space`
+    t0 = time.perf_counter()
+    b = _sp_step_case(mesh, production_step_fn, hr, False, ("wrong_factor",), SP_STEP_TIMED)
+    out.update(b, wrong_factor=b.get("controls", {}).get("wrong_factor"))
+    out["seconds"]["(b)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # (d) stage 3's GAN step at SP_GAN_BATCH; the D forward alone for the
+    # halo and BatchNorm controls
+    hr_g = smooth_hr(SP_GAN_BATCH, GAN_HR, seed=8, dev=dev)
+    gan = _sp_step_case(mesh, gan_step_fn, hr_g, True, ("wrong_factor",), SP_GAN_TIMED)
+    disc = create_discriminator(input_size=GAN_HR, base_channels=GAN_D_BASE, use_bn=True,
+                                seed=0, device=dev)  # gan_step_fn's
+    if rank == 0:
+        d_want = _disc_forward(disc, hr_g)
+        gan["d_floor"] = _floor_of([_tensor_errors(_disc_forward(disc, hr_g, noise_seed=seed),
+                                                   d_want) for seed in DP_FLOOR_SEEDS])
+    d_got = {"right": _disc_forward(disc, hr_g, mesh)}
+    for name in ("zero_stride2_halo", "per_shard_bn"):
+        with _sp_fault(name):
+            d_got[name] = _disc_forward(disc, hr_g, mesh)
+    del disc
+    if rank == 0:
+        gan["d_errors"] = {k: _tensor_errors(v, d_want) for k, v in d_got.items()}
+    gan["d_logits_hash"] = _state_hash([d_got["right"]["d_logits"]["logits"]])
+    out["gan"] = gan
+    out["seconds"]["(d)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # (e) phase 12's QAT step (phase 7's, fake-quantized), and the control:
+    # a per-shard activation scale
+    out["qat"] = _sp_qat_case(mesh, Path(tmp))
+    out["seconds"]["(e)"] = time.perf_counter() - t0
+    return out
+
+
+def _sp_limits(case) -> dict:
+    """Each tensor's limit of a sp case: max(STEP_RTOL, DP_FLOOR_FACTOR x
+    its rounding floor)."""
+    return {part: {k: max(STEP_RTOL, DP_FLOOR_FACTOR * f) for k, f in floors.items()}
+            for part, floors in case["floor"].items()}
+
+
+def _over(errs, limit) -> dict:
+    """The tensors of each part past their limits."""
+    return {part: [k for k, v in errs[part].items() if v > limit[part][k]] for part in limit}
+
+
+def _worst(errs) -> dict:
+    return {part: float(f"{max(errs[part].values()):.3g}") for part in errs}
+
+
+def _ratios(errs, limit) -> dict:
+    """The largest error / limit a part, and its tensor."""
+    return {part: [float(f"{r:.3g}"), k] for part, (r, k) in
+            ((p, max((e / limit[p][k], k) for k, e in errs[p].items())) for p in limit)}
+
+
+def sp_gan_report(g0, g1, card: str) -> None:
+    """(d): the sp GAN step's numbers and checks (rank 0's comparisons, both
+    ranks' hashes)."""
+    limit = _sp_limits(g0)
+    failed = _over(g0["errors"], limit)
+    wrong = _over(g0["controls"]["wrong_factor"], limit)
+    d_limit = {part: {k: max(STEP_RTOL, DP_FLOOR_FACTOR * f) for k, f in floors.items()}
+               for part, floors in g0["d_floor"].items()}
+    d_over = {k: _over(v, d_limit) for k, v in g0["d_errors"].items()}
+    log(f"  (d) the stage-3 GAN step (G 6x10x64, D at {GAN_HR} with {GAN_D_BASE} base channels "
+        f"and BatchNorm, f32, batch {SP_GAN_BATCH} (cut from 48: time), HR {GAN_HR}, L1 0.01 + "
+        f"VGG19 conv3_4 + 0.005 vanilla GAN) on the {list(SP_GRID)} grid against the "
+        f"single-process step, relative L2 (TF32 off), the worst tensor a part: "
+        f"{json.dumps(_worst(g0['errors']))}; the rounding floor, the worst tensor a part: "
+        f"{json.dumps(_worst(g0['floor']))}; each tensor's limit max({STEP_RTOL}, "
+        f"{DP_FLOOR_FACTOR} x its floor): the largest error / limit a part "
+        f"{json.dumps(_ratios(g0['errors'], limit))}; control, gradients summed over space: "
+        f"G gradients over their limits {len(wrong['g_grads'])} of {len(limit['g_grads'])}, "
+        f"D's {len(wrong['d_grads'])} of {len(limit['d_grads'])}; states bitwise equal across "
+        f"ranks after {1 + SP_GAN_TIMED} step(s): {g0['hash'] == g1['hash']}; "
+        f"{g0['first_ms']:.3f} ms the first sp GAN step (with its record's host copies; "
+        f"two ranks time-sharing one card); a rank's peak {g0['peak_gib']:.3f} GiB; a rank's exchanges in "
+        f"the first step (G's forward and remat recompute, the VGG sweeps, D's three forwards; "
+        f"D's BatchNorm sums are all-reduces over the grid's group beside these) "
+        f"{json.dumps(g0['exchanges'])} [{card}]")
+    log(f"  (d) D's train-mode forward alone (fresh, batch {SP_GAN_BATCH}) on the grid against "
+        f"one process, relative L2 of the logits and the updated running stats, the worst "
+        f"tensor a part (limit max({STEP_RTOL}, {DP_FLOOR_FACTOR} x the floor {json.dumps(_worst(g0['d_floor']))})): "
+        + "; ".join(f"{k} {json.dumps(_worst(v))}" for k, v in g0["d_errors"].items())
+        + f"; logits bitwise across ranks: {g0['d_logits_hash'] == g1['d_logits_hash']} [{card}]")
+    if any(failed.values()) or any(d_over["right"].values()):
+        raise AssertionError(f"the sp GAN step disagrees with the single-process step: "
+                             f"{failed}, D's forward {d_over['right']}")
+    if not (wrong["g_grads"] and wrong["d_grads"]):
+        raise AssertionError("the GAN step limits cannot see gradients reduced with the wrong "
+                             "factor over space")
+    for name in ("zero_stride2_halo", "per_shard_bn"):
+        if not any(d_over[name].values()):
+            raise AssertionError(f"D's forward limits cannot see the planted {name}")
+    if g0["hash"] != g1["hash"] or g0["d_logits_hash"] != g1["d_logits_hash"]:
+        raise AssertionError("the sp GAN ranks' states differ")
+
+
+def sp_qat_report(q0, q1, card: str) -> None:
+    """(e): the sp QAT step's numbers and checks."""
+    limit = _sp_limits(q0)
+    failed = _over(q0["errors"], limit)
+    control = _over(q0["control"], limit)
+    right, fault = q0["right"], q0["per_shard_scale"]
+    log(f"  (e) phase 12's QAT step (phase 7's step with every int8 site fake-quantized, "
+        f"dynamic scales: the image's max over both shards; batch {SP_QAT_STEP_BATCH}, cut from "
+        f"{TRAIN_BATCH} for its level records, HR {TRAIN_HR}) on the {list(SP_GRID)} grid, "
+        f"its fake-quant levels pinned at ties to the single-process step's: "
+        f"{right['ties']} of {right['levels']} levels and signs taken at a tie on rank 0, "
+        f"{right['off_tie']} off a tie; against the single-process step, relative L2, the "
+        f"worst tensor a part: {json.dumps(_worst(q0['errors']))}; the floor (two input draws, "
+        f"pinned alike), the worst tensor a part: {json.dumps(_worst(q0['floor']))}; the "
+        f"largest error / limit a part {json.dumps(_ratios(q0['errors'], limit))}; control, a "
+        f"per-shard activation scale: {fault['off_tie']} levels off a tie, G gradients over "
+        f"their limits {len(control['g_grads'])} of {len(limit['g_grads'])}; states bitwise "
+        f"equal across ranks: {q0['hash'] == q1['hash']}; a rank's peak {q0['peak_gib']:.3f} "
+        f"GiB; a rank's exchanges in the step {json.dumps(q0['exchanges'])} [{card}]")
+    if right["off_tie"] or q1["right"]["off_tie"] or right["ties"] > 1e-4 * right["levels"]:
+        raise AssertionError(f"the sp QAT step's levels leave the single process's: {right}, "
+                             f"rank 1 {q1['right']}")
+    if any(failed.values()):
+        raise AssertionError(f"the sp QAT step disagrees with the single-process step: {failed}")
+    if not (fault["off_tie"] or control["g_grads"]):
+        raise AssertionError("the QAT step checks cannot see a per-shard activation scale")
+    if q0["hash"] != q1["hash"]:
+        raise AssertionError("the sp QAT ranks' states differ")
+
+
+def _sp_cli(name: str, argv, tmp: Path, card: str):
+    """The train CLI through torchrun's environment on the data,space grid
+    (2 ranks on cuda:0 over gloo), in ``tmp / name``: (exit codes, seconds,
+    each rank's log)."""
+    from facesr_torch.parallel.launch import run_cli_ranks
+
+    run_dir = tmp / name
+    run_dir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    codes = run_cli_ranks("facesr_torch.cli.train",
+                          [*argv, "--epochs", "1", "--mesh-axes", "data,space", "--mesh-shape",
+                           ",".join(map(str, SP_GRID)), "--dist-backend", "gloo", *SP_CLI_FLAGS],
+                          2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
+                          env={"PYTHONPATH": str(REPO)})
+    return codes, time.perf_counter() - t0, [(run_dir / f"rank{r}.log").read_text()
+                                             for r in range(2)]
+
+
+def _cli_checked(what: str, codes, logs, files, extra_ok=True) -> list:
+    """The val PSNRs of a CLI run on the grid, once both ranks exited 0,
+    found their grid place and rank 0 wrote final_model.fckpt."""
+    import re
+
+    psnr = [float(v) for v in re.findall(r"Val PSNR:\s+([-\d.]+) dB", logs[0])]
+    if codes != [0, 0] or "final_model.fckpt" not in files or not psnr or not extra_ok \
+            or not all(math.isfinite(v) for v in psnr) \
+            or not all(f"at (0, {r}) of the data,space grid" in logs[r] for r in range(2)):
+        raise AssertionError(f"{what}: {codes}, " + " | ".join(t[-1500:] for t in logs))
+    return psnr
+
+
+def sp_cli_chain(tmp: Path, stage1_dir: Path, data: Path, card: str) -> None:
+    """(f): stage 3 chained from (c)'s final model, and the QAT YAML, each
+    through the CLI on the grid for one epoch of two steps, the two runs
+    side by side (four ranks on cuda:0)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    run3 = tmp / "sp_cli_gan"
+    (run3 / "checkpoints").mkdir(parents=True)
+    # stage 3's YAML starts from ./checkpoints/best_model.fckpt: (c)'s final model
+    shutil.copy(stage1_dir / "checkpoints" / "final_model.fckpt",
+                run3 / "checkpoints" / "best_model.fckpt")
+    qat_data = tmp / "sp_qat_data"  # two steps' worth of train PNGs and the whole val set
+    (qat_data / "train" / "HR").mkdir(parents=True)
+    for src in sorted((tmp / "data" / "train" / "HR").iterdir())[:2 * SP_QAT_BATCH]:
+        (qat_data / "train" / "HR" / src.name).symlink_to(src)
+    (qat_data / "val").symlink_to(tmp / "data" / "val")
+    ckpt = tmp / "sp_qat_checkpoints"
+    yaml = tmp / "sp_stage1_qat_ft.yaml"
+    yaml.write_text(QAT_YAML.read_text().replace("save_dir: /tmp/rehearsal/ckpt_s1_qat",
+                                                 f"save_dir: {ckpt}"))
+    cache = tmp / "quant" / "int8.production.fckpt"  # phase 12's calibrated sites, when there
+    pin = ["--qat-scales", str(cache)] if cache.exists() else []
+    with ThreadPoolExecutor(2) as pool:
+        gan = pool.submit(_sp_cli, "sp_cli_gan", ["--config", str(STAGE3_YAML), "--data-root",
+                                                  str(data)], tmp, card)
+        qat = pool.submit(_sp_cli, "sp_cli_qat", ["--config", str(yaml), "--data-root",
+                                                  str(qat_data), *pin], tmp, card)
+        runs = {"stage 3": gan.result(), "QAT": qat.result()}
+    for what, keys in (("stage 3", ("Val PSNR", "ms/step", "GAN:", "Loaded")),
+                       ("QAT", ("Val PSNR", "ms/step", "QAT"))):
+        for r, text in enumerate(runs[what][2]):
+            for line in text.splitlines():
+                if any(k in line for k in keys):
+                    log(f"  (f) {what} rank {r}: {line.strip()}")
+    codes, secs, logs = runs["stage 3"]
+    files = sorted(p.name for p in (run3 / "checkpoints").iterdir())
+    psnr = _cli_checked("the data,space stage-3 CLI run", codes, logs, files,
+                        all("GAN:" in t for t in logs))
+    log(f"  (f) the stage-3 YAML through the train CLI on data,space {list(SP_GRID)} (2 ranks on "
+        f"cuda:0 over gloo, beside the QAT run's 2), chained from (c)'s final_model.fckpt, 1 "
+        f"epoch on {SP_CLI_TRAIN} of phase 8's train PNGs: exit codes {codes}, {secs:.1f} s "
+        f"with set-up, val PSNR {psnr}; rank 0 wrote {files} [{card}]")
+    codes, secs, logs = runs["QAT"]
+    files = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
+    psnr = _cli_checked("the data,space QAT CLI run", codes, logs, files)
+    log(f"  (f) {QAT_YAML.name} through the train CLI on data,space {list(SP_GRID)}"
+        f"{' with --qat-scales (phase 12' + chr(39) + 's cache)' if pin else ''}, beside the "
+        f"stage-3 run, 1 epoch on {2 * SP_QAT_BATCH} of phase 8's train PNGs: exit codes "
+        f"{codes}, {secs:.1f} s with set-up, val PSNR {psnr}; rank 0 wrote {files} [{card}]")
 
 
 def sp_phase(card: str, tmp: Path) -> int:
@@ -4065,10 +4451,14 @@ def sp_phase(card: str, tmp: Path) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     serving = sp_serving(dev, card, tmp)
+    parts = {"(a)": time.perf_counter() - t_phase}
 
+    t0 = time.perf_counter()
     r0, r1 = run_ranks(sp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
                        backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "space"),
                        shape=SP_GRID)
+    parts["(b), (d), (e): one launch of two ranks"] = time.perf_counter() - t0
+    parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
     limit = {part: {k: max(STEP_RTOL, DP_FLOOR_FACTOR * f) for k, f in floors.items()}
              for part, floors in r0["floor"].items()}
     over = lambda errs, part: [k for k, v in errs[part].items() if v > limit[part][k]]
@@ -4097,6 +4487,8 @@ def sp_phase(card: str, tmp: Path) -> int:
                              "factor over space")
     if r0["hash"] != r1["hash"] or (r0["coords"], r1["coords"]) != ((0, 0), (0, 1)):
         raise AssertionError("the sp ranks' states differ")
+    sp_gan_report(r0["gan"], r1["gan"], card)
+    sp_qat_report(r0["qat"], r1["qat"], card)
 
     run_dir = tmp / "sp_cli"
     run_dir.mkdir()
@@ -4133,7 +4525,12 @@ def sp_phase(card: str, tmp: Path) -> int:
             or not all("device memory" in t for t in logs):
         raise AssertionError(f"the data,space train CLI run: {codes}, "
                              + " | ".join(t[-1500:] for t in logs))
-    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    parts["(c)"] = cli_s
+    t0 = time.perf_counter()
+    sp_cli_chain(tmp, run_dir, data, card)
+    parts["(f)"] = time.perf_counter() - t0
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
     return serving["launches_one"]
 
 

@@ -34,7 +34,9 @@ weight gradient, for an upstream gradient drawn N(0, 1) and for its sign.
 `small_zoo_step` is the zoo's step (with ``qat``, fake-quantized), and
 `fake_quant_levels` records one run's fake-quant levels and output signs
 and pins another run's to them where the two round a tie apart, so that
-two QAT steps compare without one tie spreading through the step.
+two QAT steps compare without one tie spreading through the step; under
+a row shard it reads the shard's levels on the image's grid, and
+`row_shard_levels` cuts an unsharded run's record to a shard's rows.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from facesr_torch.models.face_enhance_net import FaceEnhanceNet, FaceEnhanceNetC
 from facesr_torch.ops.init import kaiming_normal
 from facesr_torch.ops.quant import fake_quant_params
 from facesr_torch.ops.resize import bicubic_up
+from facesr_torch.parallel import spatial
 from facesr_torch.training import steps
 from facesr_torch.training.optim import AdamW
 
@@ -210,7 +213,8 @@ def fake_quant_levels(reference: Optional[Callable[[int, torch.Tensor], Tuple[to
         if dtype is not None:
             x = x.to(dtype)
         wf, xf = w.w.detach().float(), x.detach().float()
-        s, a = conv_ops.fake_quant_scale(wf), conv_ops.fake_quant_scale(xf, w.a)
+        s = conv_ops.fake_quant_scale(wf)
+        a = conv_ops.fake_quant_scale(xf, w.a, shard=spatial.current())
         i = len(out["levels"])
         out["weights"].append(grid_levels(wf, s)[1].cpu())
         out["levels"].append(grid_levels(xf, a)[1].cpu())
@@ -233,6 +237,22 @@ def fake_quant_levels(reference: Optional[Callable[[int, torch.Tensor], Tuple[to
 
     with mock.patch.object(conv_ops, "_conv2d_fakequant", pinned):
         yield out
+
+
+def row_shard_levels(record, shard, batch: slice = slice(None)):
+    """`fake_quant_levels`'s reference for a run on row ``shard`` (rows of
+    the images of ``batch``) from an unsharded run's ``record`` (its
+    ``weights``, ``levels``, ``outputs``): each call's kernel levels, its
+    activation levels cut to the shard's rows with one halo row each way
+    (the 3x3 'same' convs of the models; zeros beyond the image), and its
+    output cut to the shard's rows."""
+    def of(i, w):
+        levels, y = record["levels"][i][batch], record["outputs"][i][batch]
+        rows = y.shape[1] // shard.size
+        top = shard.index * rows
+        padded = torch.nn.functional.pad(levels, (0, 0, 0, 0, 1, 1))
+        return (record["weights"][i], padded[:, top:top + rows + 2], y[:, top:top + rows])
+    return of
 
 
 def small_step(dev, loss_apply: Callable = smooth_loss_apply, tf32_forced: bool = False,

@@ -24,10 +24,11 @@ Spatial parallelism on top (``--mesh-axes data,space --mesh-shape d,s``,
 or ``training.mesh_axes``/``mesh_shape`` in the YAML): d * s ranks in a
 grid, the s ranks of each `space` group loading the same ``batch_size / d``
 rows of their data coordinate's slice and splitting the image rows
-(`parallel.spatial`); a plain launch starts the d * s ranks itself. On
-CUDA it refuses more ranks than visible cards unless ``--dist-backend
-gloo`` lets them share the cards (NCCL takes one rank a card); under
-torchrun the same holds for the ranks of one host. ``--print-memory``
+(`parallel.spatial`), for every stage, the GAN stage and QAT included; a
+plain launch starts the d * s ranks itself. On CUDA it refuses more ranks
+than visible cards unless ``--dist-backend gloo`` lets them share the
+cards (NCCL takes one rank a card); under torchrun the same holds for the
+ranks of one host. ``--print-memory``
 prints each rank's memory budget of the train step (the state's and the
 batch's bytes, and on a card the peak of one step, run once) at the
 effective batch, after any checkpoint load and ``--qat-scales`` pinning.
@@ -68,9 +69,9 @@ the stage trains.
 
 What is not ported raises and names its ROADMAP item: the mesh axes
 ``model`` (A.13.3) and ``pp`` with ``pp_microbatches`` (A.13.4), three mesh
-axes (A.13.5), the GAN stage and QAT on ``space`` (A.13.2.1), the gradient
-monitor (A.14). W&B is not ported and stays off. The perceptual loss uses a VGG19
-with random weights drawn from seed 0 (no pretrained file is in the repo).
+axes (A.13.5), the gradient monitor (A.14). W&B is not ported and stays
+off. The perceptual loss uses a VGG19 with random weights drawn from seed
+0 (no pretrained file is in the repo).
 SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
 process exits.
 """

@@ -25,6 +25,22 @@ squared deviations from the global mean (a second all-reduce; a raw sum
 of squares would cancel). With one rank it is `F.batch_norm`. The flatten
 is in NCHW order, so converted classifier weights drop in. f32 convs and
 matmuls run without TF32 (`full_f32`), as the JAX package's HIGHEST.
+
+Under a row shard (`parallel.spatial.rows`: the GAN step on a
+`data,space` grid) the input is the shard's rows of each image. The convs
+take their halo rows (a stride-2 conv one row from above), so each map
+stays split, its rows halved at every stride-2 conv. Where a map's rows
+no longer split by the next conv's stride (a shard of one row, D at 32
+over 2 shards or at 64 over 4), the shards gather the whole map and every
+rank runs the rest unsharded, as XLA does. A train-mode BatchNorm's
+statistics cover every rank's rows of the grid (the sums over ``mesh``'s
+whole group, each rank counting its own rows; over a thread group,
+`RowShard.sum`) while the map is split, and the ranks of the `data` axis
+once it is whole. The first dense layer reads the NCHW flatten, so a
+shard's rows h are the columns c * H * W + h * W + w: the shard takes the
+partial product with its columns, the partials are summed over the
+shards (differentiable, `RowShard.sum`) and the bias is added once; the
+logits are then the same on every shard.
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ from torch.nn.utils import skip_init
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.ops.conv import conv2d, full_f32, leaky_relu
 from facesr_torch.ops.init import kaiming_normal
+from facesr_torch.parallel import spatial
 
 __all__ = ["DiscriminatorConfig", "Discriminator", "create_discriminator", "param_count",
            "get_model_info", "BN_EPS", "BN_MOMENTUM"]
@@ -128,30 +145,23 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 dtype: Optional[torch.dtype] = None, mesh=None) -> torch.Tensor:
-        """NHWC image -> f32 logits [N, 1]; ``train`` uses (and updates) the
-        batch statistics, over every rank of ``mesh`` when it has more
-        than one; ``dtype`` is the compute dtype of the convs and dense
-        layers (None: f32)."""
-        global_bn = train and mesh is not None and mesh.world_size > 1
+        """NHWC image (this shard's rows under a row shard) -> f32 logits
+        [N, 1]; ``train`` uses (and updates) the batch statistics, over
+        every rank of ``mesh`` when it has more than one; ``dtype`` is the
+        compute dtype of the convs and dense layers (None: f32)."""
+        shard = spatial.current()
         with full_f32():
             h = x.to(dtype) if dtype is not None else x
             for block in self.blocks:
-                h = conv2d(h, block.conv.weight, block.conv.bias, padding=1,
-                           stride=block.stride)
+                if shard is not None and shard.conv_rows(h.shape[1], 3, 1, block.stride) is None:
+                    h, shard = shard.gather(h), None  # whole maps from here on
+                with spatial.rows(shard):
+                    h = conv2d(h, block.conv.weight, block.conv.bias, padding=1,
+                               stride=block.stride)
                 if block.bn is not None:
-                    bn = block.bn
-                    hf = h.float().permute(0, 3, 1, 2)
-                    if global_bn:
-                        hf = _global_batch_norm(hf, bn, mesh)
-                    else:
-                        hf = F.batch_norm(hf, bn.running_mean, bn.running_var, bn.weight,
-                                          bn.bias, training=train, momentum=BN_MOMENTUM,
-                                          eps=BN_EPS)
-                    h = hf.permute(0, 2, 3, 1).to(h.dtype)
+                    h = _batch_norm(h, block.bn, train, _bn_sum(train, mesh, shard))
                 h = leaky_relu(h, 0.2)
-            # NCHW flatten order, as the reference classifier weights expect
-            h = h.permute(0, 3, 1, 2).reshape(h.shape[0], -1)
-            h = leaky_relu(_dense(h, self.fc1), 0.2)
+            h = leaky_relu(_dense_rows(h, self.fc1, shard), 0.2)
             out = _dense(h, self.fc2)
             if self.config.use_sigmoid:
                 out = torch.sigmoid(out)
@@ -170,24 +180,71 @@ class Discriminator(nn.Module):
         return get_model_info(self)
 
 
-def _global_batch_norm(x: torch.Tensor, bn: _BatchNorm, mesh) -> torch.Tensor:
-    """Train-mode BatchNorm of NCHW f32 ``x`` with the statistics of every
-    rank's rows; updates the running stats as `F.batch_norm` does."""
-    from facesr_torch.parallel.mesh import all_reduce_sum
+def _bn_sum(train: bool, mesh, shard):
+    """The sum over every row a train-mode BatchNorm's statistics cover
+    (differentiable), or None for this process's rows alone (`F.batch_norm`):
+    while the map is split, every rank's rows (``mesh``'s whole group) or a
+    thread group's (`RowShard.sum`); once it is whole, the ranks of the
+    `data` axis."""
+    from facesr_torch.parallel.mesh import _AllReduceSum
 
+    if not train:
+        return None
+    distributed = mesh is not None and mesh.distributed
+    if shard is not None:
+        if not distributed:
+            return shard.sum
+        group = mesh.group
+    elif not distributed or mesh.data_size < 2:
+        return None
+    else:
+        group = mesh.axis_groups["data"] if mesh.space_size > 1 else mesh.group
+    return lambda t: _AllReduceSum.apply(t, group)
+
+
+def _batch_norm(h: torch.Tensor, bn: _BatchNorm, train: bool, reduce) -> torch.Tensor:
+    """BatchNorm of NHWC ``h`` on an f32 copy, cast back: ``F.batch_norm``,
+    or with ``reduce`` (`_bn_sum`) the statistics of every row it sums."""
+    hf = h.float().permute(0, 3, 1, 2)
+    if reduce is None:
+        hf = F.batch_norm(hf, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                          training=train, momentum=BN_MOMENTUM, eps=BN_EPS)
+    else:
+        hf = _global_batch_norm(hf, bn, reduce)
+    return hf.permute(0, 2, 3, 1).to(h.dtype)
+
+
+def _global_batch_norm(x: torch.Tensor, bn: _BatchNorm, reduce) -> torch.Tensor:
+    """Train-mode BatchNorm of NCHW f32 ``x`` with the statistics of every
+    row ``reduce`` sums over (each part counting its own rows); updates
+    the running stats as `F.batch_norm` does."""
     c = x.shape[1]
-    sums = all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
-                                     x.new_tensor([x.numel() // c])]), mesh)
+    sums = reduce(torch.cat([x.sum(dim=(0, 2, 3)), x.new_tensor([x.numel() // c])]))
     count = sums[c]
     mean = sums[:c] / count
     dev = x - mean[None, :, None, None]
-    var = all_reduce_sum((dev * dev).sum(dim=(0, 2, 3)), mesh) / count
+    var = reduce((dev * dev).sum(dim=(0, 2, 3))) / count
     with torch.no_grad():
         bn.running_mean.mul_(1 - BN_MOMENTUM).add_(mean.detach() * BN_MOMENTUM)
         bn.running_var.mul_(1 - BN_MOMENTUM).add_(
             var.detach() * (count / (count - 1)) * BN_MOMENTUM)
     scale = torch.rsqrt(var + BN_EPS) * bn.weight
     return dev * scale[None, :, None, None] + bn.bias[None, :, None, None]
+
+
+def _dense_rows(x: torch.Tensor, fc: nn.Linear, shard) -> torch.Tensor:
+    """``fc`` of the NCHW flatten of NHWC ``x``. Under a row ``shard`` (``x``
+    its rows of the map) the partial product with the columns those rows
+    hold (c * H * W + h * W + w), summed over the shards, the bias added
+    once."""
+    n, h, w, c = x.shape
+    flat = x.permute(0, 3, 1, 2).reshape(n, -1)
+    if shard is None:
+        return _dense(flat, fc)
+    rows = h * shard.size
+    a, b = shard.bounds(rows)[shard.index]
+    cols = fc.weight.view(fc.out_features, c, rows, w)[:, :, a:b].reshape(fc.out_features, -1)
+    return shard.sum(flat @ cols.to(x.dtype).t()) + fc.bias.to(x.dtype)
 
 
 def _dense(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:

@@ -28,12 +28,16 @@ called with: an int8 ``.pt2`` keeps a symbolic batch, and the chunks stay
 under `INT8_CHUNK_BYTES` at any batch. A site with a calibration id runs
 the same code outside the op, to record its dynamic scales.
 
-Under a row shard (`parallel.spatial`, two or more shards) a stride-1 conv
-pads its rows with the neighbours' boundary rows (`RowShard.halo`, zeros
-at the image's edges) instead of zeros, and its W padding stays local; an
-int8 conv exchanges the float rows before it quantizes them, with the
-dynamic scale the max over the shards; a strided conv and the QAT
-fake-quant conv raise `NotPorted` (ROADMAP A.13.2.1).
+Under a row shard (`parallel.spatial`, two or more shards) a conv pads
+its rows with the neighbours' boundary rows (`RowShard.halo`, zeros at the
+image's edges) instead of zeros, as many above and below as
+`spatial.conv_halo` plans (a stride-2 3x3 conv one above, none below),
+and its W padding stays local; a strided conv whose output rows do not
+split with the shards' raises ValueError (the discriminator gathers the
+map before it). An int8 conv and the QAT fake-quant conv exchange the
+float rows before they quantize them, their dynamic activation scale the
+max over the shards (the whole image's max|x|); a static scale and the
+weights' per-channel scales need no exchange.
 """
 
 from __future__ import annotations
@@ -129,24 +133,18 @@ def conv2d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
 
 
 def _halo_rows(shard, x: torch.Tensor, w, padding: Padding, stride: int):
-    """``x`` with its row padding taken from the neighbouring shards, and
-    the padding left for the conv (the W padding only). Only a stride-1
-    'same' conv (2 * row padding = kernel height - 1) splits over rows."""
-    from facesr_torch.parallel.mesh import ROADMAP_ITEMS, NotPorted
-
-    if isinstance(w, FakeQuantWeight):
-        raise NotPorted(f"the QAT fake-quant conv over row shards (its dynamic scale) is "
-                        f"{ROADMAP_ITEMS['space_gan_qat']}")
-    kh = (w.q if isinstance(w, Int8Weight) else w).shape[2]
+    """``x`` with its row padding taken from the neighbouring shards
+    (`spatial.conv_halo`), and the padding left for the conv (the W
+    padding only)."""
+    kh = (w.q if isinstance(w, Int8Weight) else w.w if isinstance(w, FakeQuantWeight)
+          else w).shape[2]
     pad = _pad_arg(padding)
     ph, pw = (pad, pad) if isinstance(pad, int) else pad
-    if stride != 1:
-        raise NotPorted(f"a stride-{stride} conv over row shards is "
-                        f"{ROADMAP_ITEMS['space_gan_qat']}")
-    if 2 * ph != kh - 1:
-        raise ValueError(f"a conv over row shards needs 'same' row padding: kernel height "
-                         f"{kh}, row padding {ph}")
-    return shard.halo(x, ph, ph), ((0, 0), (pw, pw))
+    plan = shard.conv_rows(x.shape[1], kh, ph, stride)
+    if plan is None:
+        raise ValueError(f"a stride-{stride} conv over row shards of {x.shape[1]} rows: its "
+                         f"output rows do not split with the shards' (gather the map first)")
+    return shard.halo(x, *plan), ((0, 0), (pw, pw))
 
 
 # ---------------------------------------------------------------------------
@@ -367,20 +365,26 @@ def _conv2d_fakequant(x: torch.Tensor, w: FakeQuantWeight, b: Optional[torch.Ten
     s = fake_quant_scale(wf)
     wq = _clip127(_ste_round(wf / s)) * s
     xf = x.float()
-    a = fake_quant_scale(xf, w.a)
+    a = fake_quant_scale(xf, w.a, shard=spatial.current())
     xq = _clip127(_ste_round(xf / a)) * a
-    return conv2d(xq.to(out_dtype), wq.to(out_dtype), b, padding=padding, groups=groups,
-                  stride=stride)
+    with spatial.rows(None):  # x already holds its halo rows
+        return conv2d(xq.to(out_dtype), wq.to(out_dtype), b, padding=padding, groups=groups,
+                      stride=stride)
 
 
-def fake_quant_scale(t: torch.Tensor, static: Optional[torch.Tensor] = None) -> torch.Tensor:
+def fake_quant_scale(t: torch.Tensor, static: Optional[torch.Tensor] = None,
+                     shard=None) -> torch.Tensor:
     """The scale the fake-quant conv divides f32 ``t`` by: the calibrated
     serving grid ``static`` of an activation (saturation included), else
     max|t| / 127 (0 -> 1) per leading index (an image of an NHWC
-    activation, an output channel of an OIHW kernel), detached."""
+    activation, an output channel of an OIHW kernel), detached. Under a
+    row ``shard`` (``t`` its rows) the max is the whole image's, over the
+    shards, taken before the 0 -> 1."""
     if static is not None:
         return static.reshape(1, 1, 1, 1)
     a = _quant.amax_scale(t, (1, 2, 3)).detach()
+    if shard is not None:
+        a = shard.max(a)
     return torch.where(a == 0, torch.ones_like(a), a)
 
 

@@ -26,8 +26,9 @@ are `all_reduce` and `broadcast` only: gloo supports no other on CUDA
 tensors, and two ranks sharing one card (NCCL refuses that) run over
 gloo.
 
-The `model` (tp) and `pp` axes raise `NotPorted` and name their ROADMAP
-item, as do the GAN and QAT steps under `space` (A.13.2.1).
+Every training step runs on the grid: the content, GAN and QAT steps and
+the eval step. The `model` (tp) and `pp` axes and three axes raise
+`NotPorted` and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,8 +53,6 @@ __all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "repl
 DEFAULT_TIMEOUT_S = 600.0
 
 ROADMAP_ITEMS = {
-    "space_gan_qat": "ROADMAP A.13.2.1 (GAN and QAT under sp: D's strided convs, its dense "
-                     "head over rows, the QAT fake-quant scale)",
     "model": "ROADMAP A.13.3 (tp: conv channels over ranks)",
     "pp": "ROADMAP A.13.4 (pp: the residual groups as a pipeline)",
     "compositions": "ROADMAP A.13.5 (compositions of the mesh axes)",

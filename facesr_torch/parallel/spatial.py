@@ -8,12 +8,18 @@ divide). A forward runs on the shard's rows under `rows(shard)`, a
 thread-local context, and the ops below ask `current()` which shard they
 are on:
 
-- a stride-1 conv pads its rows with `RowShard.halo` (the neighbours'
-  boundary rows; zeros at the image's top and bottom) instead of zeros;
+- a conv pads its rows with `RowShard.halo` (the neighbours' boundary
+  rows; zeros at the image's top and bottom) instead of zeros, as many
+  above and below as `conv_halo` plans for its kernel, padding and stride
+  (a 3x3 'same' conv one each way; at stride 2 one above and none below);
+  where a strided conv's output rows do not split with the shards'
+  (`RowShard.conv_rows` is None), the caller gathers the whole map and
+  runs unsharded from there on (the discriminator's last stride-2 convs
+  on small maps);
 - every mean over H (the SE pool, the loss means, SSIM's means) is the
   global one, `mean`: the shards' partial sums added by `RowShard.sum`;
-- the dynamic int8 activation scale is the max over the shards
-  (`RowShard.max`);
+- the dynamic int8 activation scale and the QAT fake-quant scale are the
+  max over the shards (`RowShard.max`);
 - the bicubic skip gathers the whole LR image (`RowShard.gather`) and
   computes this shard's output rows from it.
 
@@ -46,7 +52,8 @@ from typing import Any, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["RowShard", "RankShard", "ThreadRows", "rows", "current", "mean", "row_bounds"]
+__all__ = ["RowShard", "RankShard", "ThreadRows", "rows", "current", "mean", "row_bounds",
+           "conv_halo"]
 
 # seconds a thread shard waits for the others at an exchange: a shard that
 # hangs fails the call instead of hanging it
@@ -89,6 +96,24 @@ def check_slab(h: int, factor: int, what: str) -> None:
                          f"pooling factor {factor}, got {h} rows a shard")
 
 
+def conv_halo(kernel: int, padding: int, stride: int) -> Tuple[int, int]:
+    """The (top, bottom) halo rows a conv of ``kernel`` rows, row padding
+    ``padding`` and ``stride`` takes from the neighbouring shards, when
+    every shard's rows start on a multiple of the stride. Output row o
+    reads input rows ``o * stride - padding`` on to ``+ kernel - 1``, so a
+    shard's first output row reads ``padding`` rows above its own and its
+    last ``kernel - padding - stride`` below: a 3x3 'same' conv (1, 1), at
+    stride 2 (1, 0). A conv splits so only when the whole map's output
+    has ``H / stride`` rows (``kernel - stride <= 2 * padding < kernel``);
+    any other raises ValueError."""
+    bottom = kernel - padding - stride
+    if stride < 1 or padding < 0 or bottom < 0 or not kernel - stride <= 2 * padding < kernel:
+        raise ValueError(f"a conv of kernel height {kernel}, row padding {padding} and stride "
+                         f"{stride} does not split over row shards (its output rows are not "
+                         f"its input rows / {stride})")
+    return padding, bottom
+
+
 class RowShard:
     """Shard ``index`` of ``size`` row shards: the interface the ops use."""
 
@@ -107,6 +132,15 @@ class RowShard:
         """This shard's rows of the whole NHWC images ``x``."""
         a, b = self.bounds(x.shape[1])[self.index]
         return x[:, a:b]
+
+    def conv_rows(self, h: int, kernel: int, padding: int,
+                  stride: int) -> Optional[Tuple[int, int]]:
+        """`conv_halo` of a conv over shards of ``h`` rows, or None when
+        the shards' rows do not start on multiples of its stride (its
+        output has fewer rows than shards, or shards that would start
+        inside a stride): the caller gathers the whole map instead."""
+        plan = conv_halo(kernel, padding, stride)
+        return None if h % stride else plan
 
     def halo(self, x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
         """``x`` (this shard's rows) with ``top`` rows of the shard above and

@@ -32,8 +32,17 @@ on every rank of the group, and each rank's gradients are its share of
 the group's, times S: the sums' backward adds the S ranks' upstream
 gradients. So the one reduction over all d * s ranks is their mean, as
 for dp: (1/d) sum over the data groups of (1/S) x (S x the group's
-gradient). The GAN and QAT steps under `space` raise `NotPorted`
-(ROADMAP A.13.2.1).
+gradient). The GAN step runs the same way: the generator on the LR rows,
+the discriminator's updates on the shard's rows of ``hr`` and of the
+detached ``sr``, the G head on the ``sr`` rows. D's convs take halo rows,
+its BatchNorm sums over the grid and its dense head sums partial products
+over the shards (`models.discriminator`), so its logits and the GAN loss
+are replicated over the group too, and both gradient sets take the one
+mean over d * s ranks. Where D gathers a small map and runs it whole on
+every rank, those layers' gradients are the group's own on each rank (no
+sum lies between them and the loss), and the mean over the S equal ranks
+keeps them. QAT runs the fake-quant convs over the rows (`ops.conv`: the
+float halo rows, the image's activation scale over the shards).
 """
 
 from __future__ import annotations
@@ -50,8 +59,7 @@ from facesr_torch.losses.ssim import ssim
 from facesr_torch.ops.conv import full_f32
 from facesr_torch.ops.resize import bicubic_down
 from facesr_torch.parallel import spatial
-from facesr_torch.parallel.mesh import (ROADMAP_ITEMS, Mesh, NotPorted, all_reduce_mean,
-                                        all_reduce_sum)
+from facesr_torch.parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum
 from facesr_torch.training.optim import AdamW
 
 __all__ = ["TrainState", "init_ema", "ema_update", "trainable_parameters", "make_train_step",
@@ -72,13 +80,9 @@ def _dp(mesh: Optional[Mesh]) -> Optional[Mesh]:
     return mesh if mesh is not None and mesh.distributed else None
 
 
-def _row_shard(mesh: Optional[Mesh], quant_fn: QuantFn, what: str):
-    """This rank's row shard on a `data,space` grid (None otherwise); QAT
-    there raises."""
-    shard = None if mesh is None else mesh.row_shard()
-    if shard is not None and quant_fn is not None:
-        raise NotPorted(f"{what} with QAT on the space axis is {ROADMAP_ITEMS['space_gan_qat']}")
-    return shard
+def _row_shard(mesh: Optional[Mesh]):
+    """This rank's row shard on a `data,space` grid (None otherwise)."""
+    return None if mesh is None else mesh.row_shard()
 
 
 def _slabs(shard, *images: torch.Tensor):
@@ -144,7 +148,7 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
     returned; metrics are the loss components, ``loss`` and, with the
     non-finite guard, the running count ``opt_notfinite``."""
     mesh = _dp(mesh)
-    shard = _row_shard(mesh, quant_fn, "make_train_step")
+    shard = _row_shard(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -196,12 +200,10 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     (mean sigmoid of the last D update's logits), and the guards' running
     counts ``opt_notfinite`` and ``d_opt_notfinite``. Under ``mesh`` D's
     BatchNorm takes global statistics, both gradient sets are reduced, and
-    the stats guard reads the global losses. A `space` axis raises
-    (ROADMAP A.13.2.1)."""
+    the stats guard reads the global losses; on a `data,space` grid every
+    forward runs on the shard's image rows (the module docstring)."""
     mesh = _dp(mesh)
-    if mesh is not None and mesh.space_size > 1:
-        raise NotPorted(f"make_gan_train_step on the space axis is "
-                        f"{ROADMAP_ITEMS['space_gan_qat']}")
+    shard = _row_shard(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -212,23 +214,29 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
         d_loss = d_real_score = d_fake_score = zero
         with full_f32():
             hr = hr.float()
-            lr_img = bicubic_down(hr, scale_factor)
-            sr = state.model(lr_img, train=True, dtype=compute_dtype, quant=_quant(quant_fn))
-            sr_for_d = sr.detach()
-            for _ in range(d_updates_per_g):
-                d_real = disc(hr, train=True, dtype=compute_dtype, mesh=mesh)
-                d_fake = disc(sr_for_d, train=True, dtype=compute_dtype, mesh=mesh)
-                d_loss = (gan_loss(d_real, True, gan_type) + gan_loss(d_fake, False, gan_type)) / 2
-                d_grads = _reduced(torch.autograd.grad(d_loss, list(d_params.values())), mesh)
-                d_optimizer.update(dict(zip(d_params, d_grads)), state.d_opt_state, d_params)
-                d_loss = d_loss.detach()
-                d_real_score = torch.sigmoid(d_real.detach()).mean()
-                d_fake_score = torch.sigmoid(d_fake.detach()).mean()
-            content, comps = loss_apply(state.loss_params, sr, hr)
-            g_adv = gan_loss(disc(sr, train=True, dtype=compute_dtype, mesh=mesh), True,
-                             gan_type)
-            loss = content + gan_weight * g_adv
-            grads = _reduced(torch.autograd.grad(loss, list(params.values())), mesh)
+            lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
+            with spatial.rows(shard):
+                sr = state.model(lr_img, train=True, dtype=compute_dtype,
+                                 quant=_quant(quant_fn))
+                sr_for_d = sr.detach()
+                for _ in range(d_updates_per_g):
+                    d_real = disc(hr, train=True, dtype=compute_dtype, mesh=mesh)
+                    d_fake = disc(sr_for_d, train=True, dtype=compute_dtype, mesh=mesh)
+                    d_loss = (gan_loss(d_real, True, gan_type)
+                              + gan_loss(d_fake, False, gan_type)) / 2
+                    d_grads = _reduced(torch.autograd.grad(d_loss, list(d_params.values())),
+                                       mesh)
+                    d_optimizer.update(dict(zip(d_params, d_grads)), state.d_opt_state,
+                                       d_params)
+                    d_loss = d_loss.detach()
+                    d_real_score = torch.sigmoid(d_real.detach()).mean()
+                    d_fake_score = torch.sigmoid(d_fake.detach()).mean()
+                content, comps = loss_apply(state.loss_params, sr, hr)
+                g_adv = gan_loss(disc(sr, train=True, dtype=compute_dtype, mesh=mesh), True,
+                                 gan_type)
+                loss = content + gan_weight * g_adv
+                grads = torch.autograd.grad(loss, list(params.values()))
+            grads = _reduced(grads, mesh)
         optimizer.update(dict(zip(params, grads)), state.opt_state, params)
         metrics = {k: v.detach() for k, v in comps.items()}
         metrics.update(g_adv=g_adv.detach(), loss=loss.detach(), d_loss=d_loss,
@@ -246,6 +254,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
             metrics["d_opt_notfinite"] = state.d_opt_state["total_notfinite"]
         return state, metrics
 
+    train_step.row_shard = shard  # its exchange counts (None unsharded)
     return train_step
 
 
@@ -269,7 +278,7 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
     over the rows, and the sums add over every rank: each space rank
     counts its batch rows too, so the row-weighted means are unchanged."""
     mesh = _dp(mesh)
-    shard = _row_shard(mesh, quant_fn, "make_eval_step")
+    shard = _row_shard(mesh)
 
     def eval_step(state: TrainState, hr: torch.Tensor, reduce: bool = True):
         if use_ema and state.ema_params is None:
@@ -298,6 +307,7 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
             psnr = 10.0 * torch.log10(1.0 / mse.clamp_min(1e-12))
         return {"loss": loss, "psnr": psnr, "ssim": ssim_val}, sr, lr_img
 
+    eval_step.row_shard = shard  # its exchange counts (None unsharded)
     return eval_step
 
 

@@ -76,9 +76,10 @@ JAX Trainer's trim-or-pad rule for a global batch over the ranks.
 d * s ranks (`parallel.mesh` grid): the ranks of a `space` group load the
 same batch rows (the loaders shard by the data coordinate), the steps split
 the image rows (`training.steps`), the batch divisor is d, and an HR
-height must divide by s x the scale. The GAN step and QAT there, the
-``model`` and ``pp`` axes raise `NotPorted` (ROADMAP A.13.2.1, A.13.3,
-A.13.4). `memory_report` gives the state's and the batch's bytes per rank
+height must divide by s x the scale. GAN and QAT training run there too
+(D's rows split, its BatchNorm over the grid; the fake-quant scale over
+the shards). The ``model`` and ``pp`` axes raise `NotPorted` (ROADMAP
+A.13.3, A.13.4). `memory_report` gives the state's and the batch's bytes per rank
 and, on a card, the measured peak of one step.
 
 Not in this slice: W&B, the validation image grid and the gradient

@@ -589,25 +589,30 @@ def test_sharded_predictor_over_two_devices_matches_jaxs():
 @pytest.mark.parametrize("axes,item", [("data,space", "A.13.2"), ("data,model", "A.13.3"),
                                        ("data,pp", "A.13.4")])
 @pytest.mark.parametrize("where", ["trainer", "get_mesh"])
-def test_other_mesh_axes_raise_and_name_their_item(axes, item, where, tmp_path):
+def test_other_mesh_axes_raise_and_name_their_item(axes, item, where, tmp_path, monkeypatch):
+    import facesr_torch.training.trainer as trainer_mod
     from facesr_torch.training.trainer import Trainer, TrainerConfig
 
     if axes == "data,space" and where == "get_mesh":  # ported: tests/test_torch_sp.py
         mesh = pmesh.get_mesh(["cpu"] * 2, axis_names=axes.split(","), shape=(1, 2))
         assert (mesh.data_size, mesh.space_size) == (1, 2)
         return
-    # data,space trains (tests/test_torch_sp.py); its GAN stage is A.13.2.1
-    space = {} if axes != "data,space" else dict(
-        mesh_shape=(1, 2), gan_weight=0.1,
-        mesh=pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
-                        axis_names=("data", "space"), shape=(1, 2),
-                        axis_groups={"data": object(), "space": object()}))
-    mesh = space.pop("mesh", None)
+    if axes == "data,space":  # ported, the GAN stage too: tests/test_torch_sp_gan.py
+        mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
+                          axis_names=("data", "space"), shape=(1, 2),
+                          axis_groups={"data": object(), "space": object()})
+        monkeypatch.setattr(trainer_mod, "replicate", lambda tree, m: tree)  # no group to call
+        tr = Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
+                     TrainerConfig(mesh_axes=axes, mesh_shape=(1, 2), gan_weight=0.1,
+                                   checkpoint_dir=str(tmp_path)),
+                     device="cpu", discriminator=_disc(), mesh=mesh)
+        assert tr.use_gan and tr._gan_step.row_shard.size == 2
+        return
     with pytest.raises(pmesh.NotPorted, match=item.replace(".", r"\.")):
         if where == "trainer":
             Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
-                    TrainerConfig(mesh_axes=axes, checkpoint_dir=str(tmp_path), **space),
-                    device="cpu", discriminator=_disc() if space else None, mesh=mesh)
+                    TrainerConfig(mesh_axes=axes, checkpoint_dir=str(tmp_path)),
+                    device="cpu", mesh=None)
         else:
             pmesh.get_mesh(["cpu"], axis_names=axes.split(","))
 

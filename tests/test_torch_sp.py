@@ -364,37 +364,11 @@ def test_the_train_cli_trains_on_data_space_over_two_ranks(tmp_path):
 
 
 def _grid_mesh(rank=0):
-    """A [1, 2] grid mesh whose groups are never called (for the refusals
-    made at step construction)."""
+    """A [1, 2] grid mesh whose groups are never called (for checks made
+    before any exchange)."""
     return pmesh.Mesh((torch.device("cpu"),), group=object(), rank=rank, world_size=2,
                       axis_names=("data", "space"), shape=(1, 2),
                       axis_groups={"space": object(), "data": object()})
-
-
-@pytest.mark.parametrize("what", ["gan", "qat", "qat_eval", "strided_conv", "fake_quant_conv"])
-def test_gan_and_qat_on_the_space_axis_raise_and_name_a_13_2_1(what):
-    from facesr_torch.ops.conv import conv2d
-    from facesr_torch.ops.quant import fake_quant_params, site_weight
-
-    loss = CombinedLoss(LossConfig(**LOSS), device="cpu")
-    apply = lambda lp, p, t: loss.apply(lp, p, t)
-    opt = RecordingAdamW()
-    with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.2\.1"):
-        if what == "gan":
-            steps.make_gan_train_step(apply, opt, RecordingAdamW(), mesh=_grid_mesh())
-        elif what == "qat":
-            steps.make_train_step(apply, opt, quant_fn=lambda: {}, mesh=_grid_mesh())
-        elif what == "qat_eval":
-            steps.make_eval_step(apply, quant_fn=lambda: {}, mesh=_grid_mesh())
-        else:
-            shard = spatial.ThreadRows(["cpu", "cpu"]).shards()[0]
-            model = _model()
-            w = model.conv_first.weight
-            if what == "fake_quant_conv":
-                w = site_weight(fake_quant_params(model), "conv_first", w)
-            with spatial.rows(shard):
-                conv2d(torch.zeros((1, 4, 4, 3)), w, padding=1,
-                       stride=2 if what == "strided_conv" else 1)
 
 
 def test_the_mesh_builds_the_grid_and_shards_batch_and_image_rows():
@@ -417,7 +391,8 @@ def test_the_mesh_builds_the_grid_and_shards_batch_and_image_rows():
         pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
     with pytest.raises(ValueError, match="does not fit the mesh axes"):
         pmesh.get_mesh(["cpu"] * 4, shape=(2, 2))
-    assert "space" not in pmesh.ROADMAP_ITEMS and "A.13.2.1" in pmesh.ROADMAP_ITEMS["space_gan_qat"]
+    # GAN and QAT train on data,space (tests/test_torch_sp_gan.py): no item left for them
+    assert "space" not in pmesh.ROADMAP_ITEMS and "space_gan_qat" not in pmesh.ROADMAP_ITEMS
 
 
 def test_a_trainer_on_data_space_needs_its_shape_and_an_hr_height_that_splits(tmp_path):
