@@ -2778,11 +2778,17 @@ def zoo_phase(dev, card: str, tmp: Path) -> dict:
 
 # phase 14: the zoo's int8 and the .pt2 files at full width (RealESRGAN x4plus;
 # transfer 16+4 at 64 channels), seeded random weights, batch 128 of 64x64
-ZOO8_TIMED = 2                  # forwards (CUDA events, mean) and Predictor calls (median)
+ZOO8_TIMED = 1                  # forwards (CUDA events, mean) and Predictor calls (median)
 ZOO8_CHECK_IMAGES = 4           # int8_full card against the CPU port, at the small depths:
 ZOO8_SMALL = {"esrgan": dict(num_feat=64, num_blocks=2, num_grow_ch=32),
               "transfer": dict(backbone_blocks=2, head_blocks=2, head_channels=64)}
 ZOO8_EXPORT_BATCHES = (1, MAX_BATCH)
+# the zoo's .pt2 files are exported from its models at a cut depth (the
+# export's trace and the load take ~1 s a block): RRDBNet with 4 RRDBs,
+# the transfer model with a backbone of 4 (its head whole); FaceEnhanceNet's
+# at full depth
+ZOO8_EXPORT_DEPTH = {"esrgan": dict(num_blocks=4),
+                     "transfer": dict(backbone_blocks=4, freeze_blocks=4)}
 EXPORT_BF16_TOL = 1e-2          # cli.export_serving --verify's bf16 tolerance
 ZOO8_HTTP_REQUESTS = 8          # single-image requests to the transfer int8_full .pt2
 
@@ -2822,6 +2828,9 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
     models = {name: zoo_model(name, dev) for name in ("esrgan", "transfer")}
     caches = {name: tmp / "zoo_quant" / f"int8.{name}.fckpt" for name in models}
 
+    parts = {}
+    mark = lambda name, t0: parts.__setitem__(name, time.perf_counter() - t0)  # noqa: E731
+    t_part = time.perf_counter()
     # 14.1 times of the four serving modes at batch 128
     for name, model in models.items():
         t0 = time.perf_counter()
@@ -2902,6 +2911,8 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
         del modes
         torch.cuda.empty_cache()
 
+    mark("14.1-14.2", t_part)
+    t_part = time.perf_counter()
     # 14.3 int8_full on the card against the CPU port at small depths
     xc = x[:ZOO8_CHECK_IMAGES]
     xt = torch.from_numpy(xc)
@@ -2938,17 +2949,25 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
                 raise AssertionError(f"{name} int8_full {label}: the card is not the CPU port")
         del small, small_cpu
 
+    mark("14.3", t_part)
+    t_part = time.perf_counter()
     # 14.4 the .pt2 files of every family, loaded back against the live forward
     fen = production_model(dev, nonzero_last=True)
+    cut = {"esrgan": tesr.RRDBNet(tesr.RRDBNetConfig(**ZOO8_EXPORT_DEPTH["esrgan"]), seed=0,
+                                  device=dev).eval(),
+           "transfer": ttr.TransferSRModel(ttr.TransferModelConfig(
+               **ZOO8_EXPORT_DEPTH["transfer"]), seed=0, device=dev).eval()}
     art_dir = tmp / "zoo_pt2"
     art_dir.mkdir()
     # (artifact, model, dtype, build kw, rcab_group nodes, int8_conv nodes)
-    n_sites = {k: len(quantize_conv_kernels(m)) for k, m in (("transfer", models["transfer"]),
+    n_sites = {k: len(quantize_conv_kernels(m)) for k, m in (("transfer", cut["transfer"]),
                                                               ("fen", fen))}
-    plan = [("rrdbnet_bf16", models["esrgan"], torch.bfloat16, {}, 0, 0),
-            ("transfer_bf16", models["transfer"], torch.bfloat16, {}, 1, 0),
-            ("transfer_int8_full", models["transfer"], "int8_full",
-             {"quant_cache": str(caches["transfer"])}, 0, n_sites["transfer"]),
+    plan = [("rrdbnet_bf16", cut["esrgan"], torch.bfloat16, {}, 0, 0),
+            ("transfer_bf16", cut["transfer"], torch.bfloat16, {}, 1, 0),
+            ("transfer_int8_full", cut["transfer"], "int8_full",
+             {"calibration": calib, "max_batch": MAX_BATCH,
+              "quant_cache": str(tmp / "zoo_quant" / "int8.transfer_cut.fckpt")}, 0,
+             n_sites["transfer"]),
             ("fen_int8", fen, "int8", {}, production_config().num_groups, 0),
             ("fen_int8_full", fen, "int8_full", {}, 0, n_sites["fen"])]
     artifacts = {}
@@ -2978,7 +2997,9 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
                     err != 0.0 if "int8" in stem else err >= EXPORT_BF16_TOL):
                 raise AssertionError(f"{stem}.pt2 at batch {n}: max |artifact - live| {err}, "
                                      f"{runs} group launches (want {nodes}), {got.shape}")
-        log(f"  14.4 {stem}.pt2: {len(blob) / 1e6:.2f} MB, export {export_s:.1f} s, load "
+        family = "esrgan" if stem.startswith("rrdb") else "transfer"
+        depth = "" if model is fen else f" ({ZOO8_EXPORT_DEPTH[family]})"
+        log(f"  14.4 {stem}.pt2{depth}: {len(blob) / 1e6:.2f} MB, export {export_s:.1f} s, load "
             f"{load_s:.1f} s, symbolic batch {input_shape_str(fn.exported)}; rcab_group nodes "
             f"{got_nodes[0]} (want {nodes}), int8_conv nodes {got_nodes[1]} (want {int8_nodes}); "
             + "; ".join(f"batch {n}: max |artifact - live| {e:.3g}, {r} group launches"
@@ -2988,8 +3009,10 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
             raise AssertionError(f"{stem}.pt2 holds {got_nodes} custom-op nodes")
         artifacts[stem] = fn
         del module, live
-    del fen
+    del fen, cut
 
+    mark("14.4", t_part)
+    t_part = time.perf_counter()
     # 14.5 the API serving the transfer int8_full artifact
     fn = artifacts["transfer_int8_full"]
     imgs = smooth_u8(ZOO8_HTTP_REQUESTS, 64, 64, 141)
@@ -3022,6 +3045,8 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
     del models
     torch.cuda.empty_cache()
 
+    mark("14.5", t_part)
+    t_part = time.perf_counter()
     # 14.6 QAT: the transfer YAML through the CLI, and small zoo steps card vs CPU
     run_dir = tmp / "zoo_qat_cli"
     run_dir.mkdir()
@@ -3086,16 +3111,18 @@ def zoo_int8_phase(dev, card: str, tmp: Path, step_alone_ms: float) -> int:
             f"{'rejected' if rejected else 'within'}")
         if not rejected:
             raise AssertionError(f"the {kind} QAT step check lets TF32 convs pass")
+    mark("14.6", t_part)
     launches = rg.fused_residual_group.launches - start_launches
     log(f"  {launches} group launches in phase 14; phase 14 took "
-        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+        f"{time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
     return launches
 
 
 # ---------------------------------------------------------------------------
 # 15. explainability, stage_panel and the checkpoint bridge
 
-EXPLAIN_BATCH = 8
+EXPLAIN_BATCH = 4  # cut from 8 (time: the CPU's Grad-CAM at full width)
 EXPLAIN_LAYERS = ("conv_first", "group3", "group6")
 # card vs CPU, both the port in f32 with TF32 off. The CAM's channel
 # weights are the spatial mean of dTarget/dA, which f32 conditions poorly:
@@ -3109,7 +3136,7 @@ PANEL_IMAGES, PANEL_HR = 4, 256
 # stage_panel card vs CPU: each model's f32 forward in other summation
 # orders moves a uint8 value where the output sits near a rounding midpoint
 PANEL_OFF_SHARE = 0.005
-RESUME_BATCH, RESUME_HR = 48, 256
+RESUME_BATCH, RESUME_HR = 16, 256  # the stage-1 resume, its batch cut from 48 (time)
 RESUME_GAN_BATCH, RESUME_GAN_HR = 8, 64
 # a resumed run against the uninterrupted one: bitwise with cuDNN made
 # deterministic; where the card cannot be, per tensor relative L2
@@ -3405,6 +3432,7 @@ def explain_phase(dev, card, tmp: Path) -> None:
 # single-process step and (c) a Trainer epoch. The card's machine has one
 # card: NCCL across cards is not exercised here.
 DP_TIMED = 1            # timed dp steps in (b)
+DP_STEP_BATCH = 16      # (b)'s global batch, 8 rows a rank (cut from 48: time)
 # (b)'s limit a tensor: max(STEP_RTOL, DP_FLOOR_FACTOR x its rounding
 # floor), the floor being how far that tensor of the single-process step
 # moves under rounding alone: its input times (1 + 2^-23 N(0, 1)), and the generator, D's convs
@@ -3436,9 +3464,10 @@ def _state_hash(tensors) -> str:
     return h.hexdigest()
 
 
-def _step_record(state, step, hr, gan):
+def _step_record(state, step, hr, gan, moments=False):
     """One step; the loss(es), the recorded gradients, the updated params
-    (and D's params and stats), all on the host."""
+    (and D's params and stats), all on the host; with ``moments`` also G's
+    first moments."""
     _, metrics = step(state, hr)
     rec = {"losses": {k: metrics[k].detach().cpu() for k in
                       (("loss", "d_loss", "g_adv") if gan else ("loss",))},
@@ -3450,6 +3479,8 @@ def _step_record(state, step, hr, gan):
                    d_params={k: v.detach().cpu().clone() for k, v in
                              state.disc.named_parameters()},
                    d_stats={k: v.detach().cpu().clone() for k, v in state.disc.named_buffers()})
+    if moments:
+        rec["g_mu"] = {k: v.detach().cpu().clone() for k, v in state.opt_state["mu"].items()}
     return rec
 
 
@@ -3483,10 +3514,10 @@ def _row_blocks(fn, parts):
                                                  for p in x.chunk(parts)])
 
 
-def _rounding_floor(build, dev, hr, gan, parts, seed):
+def _rounding_floor(build, dev, hr, gan, parts, seed, moments=False):
     """The single-process step on all of ``hr`` with rounding-sized changes
-    only (see DP_FLOOR_FACTOR), its noise drawn from ``seed``: the recorded
-    step."""
+    only (see DP_FLOOR_FACTOR), its noise drawn from ``seed`` (None: no
+    noise): the recorded step (``moments``: with G's first moments)."""
     from facesr_torch.cli.step_numerics import RecordingAdamW
     from facesr_torch.models import discriminator as dmod
 
@@ -3495,8 +3526,10 @@ def _rounding_floor(build, dev, hr, gan, parts, seed):
     try:
         state, step, _ = build(dev, opt_cls=RecordingAdamW)
         state.model.forward = _row_blocks(state.model.forward, parts)
-        noise = torch.randn(hr.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
-        return _step_record(state, step, hr * (1 + DP_FLOOR_NOISE * noise), gan)
+        if seed is not None:
+            noise = torch.randn(hr.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+            hr = hr * (1 + DP_FLOOR_NOISE * noise)
+        return _step_record(state, step, hr, gan, moments)
     finally:
         dmod.conv2d, dmod._dense = conv, dense
 
@@ -3601,7 +3634,7 @@ def dp_two_rank(mesh, tmp: str, card: str) -> dict:
 
     dev, rank, tmp = mesh.device, mesh.rank, Path(tmp)
     out = {"rank": rank}
-    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)  # the same global batch
+    hr = smooth_hr(DP_STEP_BATCH, TRAIN_HR, seed=7, dev=dev)  # the same global batch
     rows = shard_batch(hr, mesh)
     for gan in (False, True):
         build = gan_step_fn if gan else production_step_fn
@@ -3727,8 +3760,9 @@ def dp_phase(card: str, tmp: Path) -> int:
                  for part in limit}
         raised = {part: sorted(((v, k) for k, v in limit[part].items() if v > STEP_RTOL),
                                reverse=True) for part in limit}
-        log(f"  (b) {name}, 2 gloo ranks x {TRAIN_BATCH // 2} rows on cuda:0 against the "
-            f"single-process step on all {TRAIN_BATCH}, relative L2 (TF32 off), the worst "
+        log(f"  (b) {name}, 2 gloo ranks x {DP_STEP_BATCH // 2} rows on cuda:0 against the "
+            f"single-process step on all {DP_STEP_BATCH} (cut from 48: time), relative L2 (TF32 "
+            f"off), the worst "
             f"tensor a part: {fmt(worst(res['errors']))}; the rounding floor (the "
             f"single-process step, its input x (1 + 2^-23 N(0,1)), the larger of two draws, G, "
             f"D's convs and dense layers on the ranks' row blocks), the worst tensor a part: "
@@ -3796,11 +3830,25 @@ SP_TIMED = 1                    # (a) timed calls a timed configuration
 SP_STEP_TIMED = 1               # (b) timed sp steps
 SP_GRID = (1, 2)
 SP_CLI_FLAGS = ()               # extra train CLI flags of (c) and (f)
-SP_CLI_TRAIN = 2 * CLI_BATCH    # (c) trains on two steps' worth of phase 8's train PNGs
+SP_STEP_BATCH = 8               # (b) the stage-1 step's batch, cut from 48 (time)
+SP_CLI_BATCH = 8                # (c) and (f)'s stage 3: --batch-size, cut from the YAMLs' 48
+SP_CLI_TRAIN = 2 * SP_CLI_BATCH  # (c) trains on two steps' worth of phase 8's train PNGs
 SP_GAN_BATCH = 16               # (d) stage 3's step, its batch cut from 48 (time)
 SP_GAN_TIMED = 0                # (d) timed sp GAN steps after the first (none: the first's ms)
-SP_QAT_BATCH = 64               # (f) the QAT YAML's batch: two steps' worth of PNGs
+SP_QAT_BATCH = 8                # (f) the QAT YAML's --batch-size (its 64 cut): two steps of PNGs
 SP_QAT_STEP_BATCH = 2           # (e) the QAT step's batch, cut from 48: its level records
+
+
+def png_subset(tmp: Path, name: str, n_train: int, n_val: int) -> Path:
+    """``tmp / name``: the first ``n_train`` train PNGs and ``n_val`` val
+    pairs of phase 8's set, linked (a CLI run's data cut to its steps)."""
+    data = tmp / name
+    for split, n in (("train", n_train), ("val", n_val)):
+        for sub in ("HR", "LR") if split == "val" else ("HR",):
+            (data / split / sub).mkdir(parents=True)
+            for src in sorted((tmp / "data" / split / sub).iterdir())[:n]:
+                (data / split / sub / src.name).symlink_to(src)
+    return data
 
 
 def sp_serving(dev, card: str, tmp: Path) -> dict:
@@ -4089,7 +4137,7 @@ def _sp_fault(name):
               None if shard is not None else bn_sum(train, mesh, shard))
     elif name == "wrong_factor":
         reduced = steps._reduced
-        patch(steps, "_reduced", lambda g, m: [t * m.space_size for t in reduced(g, m)])
+        patch(steps, "_reduced", lambda g, m: [t * m.axis_size("space") for t in reduced(g, m)])
     elif name == "per_shard_scale":
         scale = conv_ops.fake_quant_scale
         patch(conv_ops, "fake_quant_scale", lambda t, static=None, shard=None: scale(t, static))
@@ -4224,8 +4272,9 @@ def sp_step_rank(mesh, tmp: str, card: str) -> dict:
     from facesr_torch.models.discriminator import create_discriminator
 
     dev, rank = mesh.device, mesh.rank
-    out = {"rank": rank, "coords": mesh.coords, "seconds": {}}
-    hr = smooth_hr(TRAIN_BATCH, TRAIN_HR, seed=7, dev=dev)
+    out = {"rank": rank, "coords": (mesh.axis_index("data"), mesh.axis_index("space")),
+           "seconds": {}}
+    hr = smooth_hr(SP_STEP_BATCH, TRAIN_HR, seed=7, dev=dev)
     # (b) the stage-1 step, and the control: gradients summed over `space`
     t0 = time.perf_counter()
     b = _sp_step_case(mesh, production_step_fn, hr, False, ("wrong_factor",), SP_STEP_TIMED)
@@ -4396,11 +4445,7 @@ def sp_cli_chain(tmp: Path, stage1_dir: Path, data: Path, card: str) -> None:
     # stage 3's YAML starts from ./checkpoints/best_model.fckpt: (c)'s final model
     shutil.copy(stage1_dir / "checkpoints" / "final_model.fckpt",
                 run3 / "checkpoints" / "best_model.fckpt")
-    qat_data = tmp / "sp_qat_data"  # two steps' worth of train PNGs and the whole val set
-    (qat_data / "train" / "HR").mkdir(parents=True)
-    for src in sorted((tmp / "data" / "train" / "HR").iterdir())[:2 * SP_QAT_BATCH]:
-        (qat_data / "train" / "HR" / src.name).symlink_to(src)
-    (qat_data / "val").symlink_to(tmp / "data" / "val")
+    qat_data = png_subset(tmp, "sp_qat_data", 2 * SP_QAT_BATCH, SP_QAT_BATCH)  # two steps
     ckpt = tmp / "sp_qat_checkpoints"
     yaml = tmp / "sp_stage1_qat_ft.yaml"
     yaml.write_text(QAT_YAML.read_text().replace("save_dir: /tmp/rehearsal/ckpt_s1_qat",
@@ -4409,9 +4454,11 @@ def sp_cli_chain(tmp: Path, stage1_dir: Path, data: Path, card: str) -> None:
     pin = ["--qat-scales", str(cache)] if cache.exists() else []
     with ThreadPoolExecutor(2) as pool:
         gan = pool.submit(_sp_cli, "sp_cli_gan", ["--config", str(STAGE3_YAML), "--data-root",
-                                                  str(data)], tmp, card)
+                                                  str(data), "--batch-size", str(SP_CLI_BATCH)],
+                          tmp, card)
         qat = pool.submit(_sp_cli, "sp_cli_qat", ["--config", str(yaml), "--data-root",
-                                                  str(qat_data), *pin], tmp, card)
+                                                  str(qat_data), "--batch-size",
+                                                  str(SP_QAT_BATCH), *pin], tmp, card)
         runs = {"stage 3": gan.result(), "QAT": qat.result()}
     for what, keys in (("stage 3", ("Val PSNR", "ms/step", "GAN:", "Loaded")),
                        ("QAT", ("Val PSNR", "ms/step", "QAT"))):
@@ -4424,15 +4471,17 @@ def sp_cli_chain(tmp: Path, stage1_dir: Path, data: Path, card: str) -> None:
     psnr = _cli_checked("the data,space stage-3 CLI run", codes, logs, files,
                         all("GAN:" in t for t in logs))
     log(f"  (f) the stage-3 YAML through the train CLI on data,space {list(SP_GRID)} (2 ranks on "
-        f"cuda:0 over gloo, beside the QAT run's 2), chained from (c)'s final_model.fckpt, 1 "
-        f"epoch on {SP_CLI_TRAIN} of phase 8's train PNGs: exit codes {codes}, {secs:.1f} s "
+        f"cuda:0 over gloo, beside the QAT run's 2), chained from (c)'s final_model.fckpt, "
+        f"--batch-size {SP_CLI_BATCH}, 1 epoch on {SP_CLI_TRAIN} of phase 8's train PNGs: exit "
+        f"codes {codes}, {secs:.1f} s "
         f"with set-up, val PSNR {psnr}; rank 0 wrote {files} [{card}]")
     codes, secs, logs = runs["QAT"]
     files = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
     psnr = _cli_checked("the data,space QAT CLI run", codes, logs, files)
     log(f"  (f) {QAT_YAML.name} through the train CLI on data,space {list(SP_GRID)}"
         f"{' with --qat-scales (phase 12' + chr(39) + 's cache)' if pin else ''}, beside the "
-        f"stage-3 run, 1 epoch on {2 * SP_QAT_BATCH} of phase 8's train PNGs: exit codes "
+        f"stage-3 run, --batch-size {SP_QAT_BATCH}, 1 epoch on {2 * SP_QAT_BATCH} of phase 8's "
+        f"train PNGs: exit codes "
         f"{codes}, {secs:.1f} s with set-up, val PSNR {psnr}; rank 0 wrote {files} [{card}]")
 
 
@@ -4465,7 +4514,8 @@ def sp_phase(card: str, tmp: Path) -> int:
     worst = lambda errs: {part: float(f"{max(errs[part].values()):.3g}") for part in errs}
     ratio = {part: max((e / limit[part][k], k) for k, e in r0["errors"][part].items())
              for part in limit}
-    log(f"  (b) the stage-1 step (6x10x64 f32, batch {TRAIN_BATCH}, HR {TRAIN_HR}, L1 + VGG19 "
+    log(f"  (b) the stage-1 step (6x10x64 f32, batch {SP_STEP_BATCH} (cut from 48: time), HR "
+        f"{TRAIN_HR}, L1 + VGG19 "
         f"conv3_4) on a data,space {list(SP_GRID)} grid, 2 gloo ranks x {TRAIN_HR // 2} image "
         f"rows on cuda:0, against the single-process step, relative L2 (TF32 off), the worst "
         f"tensor a part: {json.dumps(worst(r0['errors']))}; phase 16's rounding floor, the worst "
@@ -4492,15 +4542,12 @@ def sp_phase(card: str, tmp: Path) -> int:
 
     run_dir = tmp / "sp_cli"
     run_dir.mkdir()
-    data = tmp / "sp_cli_data"  # the first SP_CLI_TRAIN train PNGs and the whole val set
-    (data / "train" / "HR").mkdir(parents=True)
-    for src in sorted((tmp / "data" / "train" / "HR").iterdir())[:SP_CLI_TRAIN]:
-        (data / "train" / "HR" / src.name).symlink_to(src)
-    (data / "val").symlink_to(tmp / "data" / "val")
+    data = png_subset(tmp, "sp_cli_data", SP_CLI_TRAIN, SP_CLI_BATCH)  # two steps, one val batch
     t0 = time.perf_counter()
     codes = run_cli_ranks("facesr_torch.cli.train",
                           ["--config", str(STAGE1_YAML), "--data-root", str(data),
-                           "--epochs", "1", "--print-memory", "--mesh-axes", "data,space",
+                           "--batch-size", str(SP_CLI_BATCH), "--epochs", "1", "--print-memory",
+                           "--mesh-axes", "data,space",
                            "--mesh-shape", ",".join(map(str, SP_GRID)), "--dist-backend", "gloo",
                            *SP_CLI_FLAGS],
                           2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
@@ -4516,8 +4563,9 @@ def sp_phase(card: str, tmp: Path) -> int:
                 log(f"  (c) rank {r}: {line.strip()}")
     psnr = [float(v) for v in re.findall(r"Val PSNR:\s+([-\d.]+) dB", logs[0])]
     log(f"  (c) the stage-1 YAML through the train CLI on data,space {list(SP_GRID)} (torchrun's "
-        f"environment, 2 ranks on cuda:0 over gloo), --print-memory, 1 epoch on {SP_CLI_TRAIN} of "
-        f"phase 8's train PNGs and its val set: "
+        f"environment, 2 ranks on cuda:0 over gloo), --print-memory, --batch-size "
+        f"{SP_CLI_BATCH}, 1 epoch on {SP_CLI_TRAIN} of "
+        f"phase 8's train PNGs and {SP_CLI_BATCH} of its val pairs: "
         f"exit codes {codes}, {cli_s:.1f} s with set-up; rank 0 wrote {files} [{card}]")
     if codes != [0, 0] or "final_model.fckpt" not in files or not psnr \
             or not all(math.isfinite(v) for v in psnr) \
@@ -4532,6 +4580,513 @@ def sp_phase(card: str, tmp: Path) -> int:
     log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
     return serving["launches_one"]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tensor parallelism on the card. On a [1, 2] data,model grid of
+# two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card), one
+# launch: (a) the stage-1 step, (b) stage 3's GAN step and (c) phase 12's
+# QAT step, each against the step alone; then (d) the stage-1 YAML through
+# the train CLI on data,model, its final checkpoint resumed by one process.
+# The machine has one card: no NCCL across cards, no multi-card speed-up.
+TP_GRID = (1, 2)
+# every split conv's output goes through gloo on the host as a full-size
+# buffer (and its input gradient back): the batches are cut for time
+TP_BATCH = 8                    # (a) the stage-1 step's batch, cut from 48
+TP_GAN_BATCH = 8                # (b) stage 3's step, cut from 48
+TP_QAT_BATCH, TP_QAT_HR = 2, 128  # (c) the QAT step, cut from 48 at 256: its level records
+TP_CLI_BATCH = 4                # (d) --batch-size: two steps' worth of phase 8's train PNGs
+TP_CLI_FLAGS = ()               # extra train CLI flags of (d)
+TP_CONTROLS = {False: ("gather_backward_sum", "clip_without_model_sum"),
+               True: ("reversed_d_gather",)}
+# the floor's draws: phase 16's two input-noise seeds and the input as it is
+# (None), each with every conv in output-channel halves (`_channel_halves`).
+# Adam's first step moves an element by ~lr x sign(g), so an element whose
+# gradient is at rounding level flips by 2 lr in any draw; the noise-free
+# draw sums as the tp ranks' convs do and finds the flips their order makes
+TP_FLOOR_DRAWS = DP_FLOOR_SEEDS + (None,)
+# the parameters each record's gradients update (Adam's first step)
+ADAM_PARTS = {"g_params": "g_grads", "d_params": "d_grads"}
+
+
+@contextlib.contextmanager
+def _tp_fault(name):
+    """A fault planted in the tp path: a gather whose backward sums over
+    `model` (every gradient upstream of a split conv t times too large), a
+    clip whose global norm skips the `model` sum, or D's convs gathering
+    the ranks' channel blocks in reversed order."""
+    import torch.distributed as dist
+
+    from facesr_torch.models import discriminator as dmod
+    from facesr_torch.parallel import tensor
+    from facesr_torch.training import optim
+
+    if name == "gather_backward_sum":
+        backward = tensor._Gather.backward
+        owner, attr, real = tensor._Gather, "backward", staticmethod(backward)
+
+        def summed(ctx, grad):
+            g = backward(ctx, grad)[0].clone()
+            dist.all_reduce(g, group=ctx.shard.group)
+            return g, None, None
+
+        value = staticmethod(summed)
+    elif name == "clip_without_model_sum":
+        owner, attr, real = optim, "global_norm", optim.global_norm
+        value = lambda grads, params, shard=None: real(grads, params, None)  # noqa: E731
+    elif name == "reversed_d_gather":
+        owner, attr, real = dmod, "conv2d", dmod.conv2d
+
+        def value(x, w, b=None, padding=1, dtype=None, groups=1, stride=1):
+            tp = tensor.current()
+            if tp is None or not tensor.is_split(w):
+                return real(x, w, b, padding=padding, dtype=dtype, groups=groups, stride=stride)
+            with tensor.split(None):
+                y = real(tp.copy(x), w, b, padding=padding, dtype=dtype, stride=stride)
+            return torch.cat(tp.gather(y).split(y.shape[-1], dim=-1)[::-1], dim=-1)
+    else:
+        raise ValueError(name)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, real)
+
+
+@contextlib.contextmanager
+def _channel_halves():
+    """Every conv whose output channels divide by 2 computed as its two
+    halves, concatenated: the same math with the cuDNN algorithms of the
+    tp ranks' convs (phase 16's row blocks, for channels), a draw of the
+    rounding floor."""
+    import torch.nn.functional as F
+
+    real = F.conv2d
+
+    def halves(x, w, *args, **kwargs):
+        o = w.shape[0]
+        if o % 2 or kwargs.get("groups", 1) != 1:
+            return real(x, w, *args, **kwargs)
+        return torch.cat([real(x, w[:o // 2], *args, **kwargs),
+                          real(x, w[o // 2:], *args, **kwargs)], dim=1)
+
+    F.conv2d = halves
+    try:
+        yield
+    finally:
+        F.conv2d = real
+
+
+def _tp_built(build, dev, mesh, **kw):
+    """``build``'s (state, step), the state split over the grid's `model`
+    group (`parallel.tensor.shard_state`), and its placement."""
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+    from facesr_torch.parallel import tensor
+    from facesr_torch.parallel.mesh import tp_param_shardings
+
+    state, step, _ = build(dev, mesh=mesh, opt_cls=RecordingAdamW, **kw)
+    specs = tp_param_shardings(state, mesh)
+    tensor.shard_state(state, mesh.model_shard(), specs)
+    return state, step, specs
+
+
+def _tp_record(state, step, hr, gan, mesh, specs):
+    """`_step_record` of a tp step with G's first moments: the gradients come
+    whole from `RecordingAdamW`; the parameters, moments and D's stats are
+    gathered whole."""
+    from facesr_torch.parallel import tensor
+
+    rec = _step_record(state, step, hr, gan)
+    shard = mesh.model_shard()
+    tensor.unshard_state(state, shard, specs)
+    try:
+        rec["g_params"] = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        rec["g_mu"] = {k: v.detach().cpu().clone() for k, v in state.opt_state["mu"].items()}
+        if gan:
+            rec["d_params"] = {k: v.detach().cpu().clone()
+                               for k, v in state.disc.named_parameters()}
+            rec["d_stats"] = {k: v.detach().cpu().clone() for k, v in state.disc.named_buffers()}
+    finally:
+        tensor.shard_state(state, shard, specs)
+    return rec
+
+
+def _tp_hash(state, mesh, specs) -> str:
+    """The hash of the whole state (gathered: a collective)."""
+    from facesr_torch.parallel import tensor
+
+    shard = mesh.model_shard()
+    tensor.unshard_state(state, shard, specs)
+    try:
+        return _state_hash([t for _, t in tensor.state_tensors(state)])
+    finally:
+        tensor.shard_state(state, shard, specs)
+
+
+def _state_bytes(state) -> int:
+    """The bytes of a step state's tensors (a rank's slices under tp)."""
+    from facesr_torch.parallel import tensor
+
+    return sum(t.numel() * t.element_size() for _, t in tensor.state_tensors(state))
+
+
+def _adam_ties(want, draws) -> dict:
+    """Per parameter tensor, the elements whose gradient lies within
+    DP_FLOOR_FACTOR x its rounding noise (the largest |draw - want| over the
+    floor's draws) of zero. Adam's first step moves them by ~lr x sign(g),
+    a sign that rounding decides: such an element is a tie, as a
+    fake-quant level at a boundary is (phase 17 (e))."""
+    ties = {}
+    for part, grads in ADAM_PARTS.items():
+        if part in want:
+            ties[part] = {k: g.abs() <= DP_FLOOR_FACTOR * torch.stack(
+                              [(d[grads][k] - g).abs() for d in draws]).amax(0)
+                          for k, g in want[grads].items()}
+    return ties
+
+
+def _errors_off_ties(got, want, ties) -> dict:
+    """`_tensor_errors`, the parameters' over the elements off their ties."""
+    from facesr_torch.cli.step_numerics import rel_l2
+
+    errs = _tensor_errors(got, want)
+    for part, masks in ties.items():
+        for k, tie in masks.items():
+            off = ~tie
+            errs[part][k] = rel_l2(got[part][k][off], want[part][k][off]) if off.any() else 0.0
+    return errs
+
+
+def _timed(step, times):
+    """``step`` that appends each call's ms (ending in a synchronize) to
+    ``times``."""
+    def run(state, hr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, hr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    run.optimizers, run.model_shard = step.optimizers, step.model_shard
+    return run
+
+
+def _tp_case(mesh, build, hr, gan: bool) -> dict:
+    """One tp step case on a rank of the grid: on rank 0 the single-process
+    step (its record, ms, peak and state bytes) and its rounding floor
+    (`TP_FLOOR_DRAWS`); each planted control's tp step, then the right tp
+    step, warm (its record, ms, exchanges, peak, state bytes and the
+    gathered state's hash). The parameters are compared off their Adam
+    ties (`_adam_ties`)."""
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+
+    dev, out = mesh.device, {}
+    if mesh.rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        state, step, _ = build(dev, opt_cls=RecordingAdamW)
+        times = []
+        want = _step_record(state, _timed(step, times), hr, gan, moments=True)
+        out["single"] = {"first_ms": times[0], "ms": _sp_timed(state, step, hr, 1),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "state_bytes": _state_bytes(state)}
+        del state, step
+        with _channel_halves():
+            draws = [_rounding_floor(build, dev, hr, gan, 1, seed, moments=True)
+                     for seed in TP_FLOOR_DRAWS]
+        ties = _adam_ties(want, draws)
+        floor = _floor_of([_errors_off_ties(d, want, ties) for d in draws])
+        out["ties"] = {part: sum(int(m.sum()) for m in masks.values())
+                       for part, masks in ties.items()}
+        del draws
+        torch.cuda.empty_cache()
+    faults = {}
+    for name in TP_CONTROLS[gan]:
+        with _tp_fault(name):
+            state, step, specs = _tp_built(build, dev, mesh)
+            faults[name] = _tp_record(state, step, hr, gan, mesh, specs)
+            del state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, specs = _tp_built(build, dev, mesh)
+    out["state_bytes"] = _state_bytes(state)
+    times = []
+    got = _tp_record(state, _timed(step, times), hr, gan, mesh, specs)
+    out["ms"] = times[0]
+    out["exchanges"] = dict(step.model_shard.counts)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["hash"] = _tp_hash(state, mesh, specs)
+    del state, step
+    if mesh.rank == 0:
+        out.update(errors=_errors_off_ties(got, want, ties), floor=floor,
+                   controls={k: _errors_off_ties(v, want, ties) for k, v in faults.items()})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_qat_case(mesh, tmp: Path) -> dict:
+    """(c) on a rank of the grid: phase 12's QAT step at TP_QAT_BATCH, every
+    run's fake-quant levels pinned at ties to rank 0's single-process step
+    (`step_numerics.fake_quant_levels`; the tp run's record cut to its
+    output channels by `model_shard_levels`): the single-process step and
+    its floor (`TP_FLOOR_DRAWS`, pinned alike), the tp step with its ties
+    taken and its levels off a tie counted. The record goes from rank 0 to
+    the other through a file."""
+    import functools
+
+    import torch.distributed as dist
+
+    from facesr_torch.cli.step_numerics import (RecordingAdamW, fake_quant_levels,
+                                                model_shard_levels)
+
+    dev, out = mesh.device, {}
+    build = functools.partial(production_step_fn, qat=True)
+    hr = smooth_hr(TP_QAT_BATCH, TP_QAT_HR, seed=7, dev=dev)
+    path = tmp / "tp_qat_levels.pt"
+    if mesh.rank == 0:
+        state, step, _ = build(dev, opt_cls=RecordingAdamW)
+        with fake_quant_levels() as rec:
+            want = _step_record(state, step, hr, False, moments=True)
+        del state, step
+        record = {"weights": [t.to(torch.int8) for t in rec["weights"]],
+                  "levels": [t.to(torch.int8) for t in rec["levels"]],
+                  "outputs": rec["outputs"]}
+        del rec
+        torch.save(record, path)
+        draws = []
+        for seed in TP_FLOOR_DRAWS:
+            state, step, _ = build(dev, opt_cls=RecordingAdamW)
+            x = hr
+            if seed is not None:
+                x = hr * (1 + DP_FLOOR_NOISE * torch.randn(
+                    hr.shape, generator=torch.Generator().manual_seed(seed)).to(dev))
+            with _channel_halves(), fake_quant_levels(
+                    lambda i, w: (record["weights"][i], record["levels"][i],
+                                  record["outputs"][i])):
+                draws.append(_step_record(state, step, x, False, moments=True))
+            del state, step
+        ties = _adam_ties(want, draws)
+        floor = _floor_of([_errors_off_ties(d, want, ties) for d in draws])
+        out["adam_ties"] = {part: sum(int(m.sum()) for m in masks.values())
+                            for part, masks in ties.items()}
+        del draws
+        torch.cuda.empty_cache()
+    dist.barrier(group=mesh.group)  # rank 0's record is written
+    if mesh.rank != 0:
+        record = torch.load(path)
+    torch.cuda.reset_peak_memory_stats()
+    state, step, specs = _tp_built(build, dev, mesh)
+    with fake_quant_levels(model_shard_levels(record, step.model_shard)) as pin:
+        got = _tp_record(state, step, hr, False, mesh, specs)
+    out.update(ties=pin["ties"], off_tie=pin["off_tie"],
+               levels=sum(lv.numel() for lv in pin["levels"]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               exchanges=dict(step.model_shard.counts), hash=_tp_hash(state, mesh, specs))
+    del state, step, pin, record
+    if mesh.rank == 0:
+        out.update(errors=_errors_off_ties(got, want, ties), floor=floor)
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_step_rank(mesh, tmp: str, card: str) -> dict:
+    """(a), (b) and (c) on one of two gloo ranks of the [1, 2] data,model
+    grid sharing cuda:0."""
+    from facesr_torch.ops import rcab_group as rg
+
+    dev, rank = mesh.device, mesh.rank
+    out = {"rank": rank, "coords": (mesh.axis_index("data"), mesh.axis_index("model")),
+           "seconds": {}}
+    t0 = time.perf_counter()
+    out["content"] = _tp_case(mesh, production_step_fn,
+                              smooth_hr(TP_BATCH, TRAIN_HR, seed=7, dev=dev), False)
+    out["seconds"]["(a)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["gan"] = _tp_case(mesh, gan_step_fn, smooth_hr(TP_GAN_BATCH, GAN_HR, seed=8, dev=dev),
+                          True)
+    out["seconds"]["(b)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["qat"] = _tp_qat_case(mesh, Path(tmp))
+    out["seconds"]["(c)"] = time.perf_counter() - t0
+    out["launches"] = rg.fused_residual_group.launches
+    return out
+
+
+def tp_report(name: str, case: dict, other: dict, card: str, what: str) -> None:
+    """A tp step case's numbers and checks (rank 0's comparisons, both
+    ranks' hashes)."""
+    limit = _sp_limits(case)
+    failed = _over(case["errors"], limit)
+    single = case.get("single")
+    log(f"  {name} {what} on the {list(TP_GRID)} data,model grid (2 gloo ranks on cuda:0, the "
+        f"state split by tp_param_shardings) against the single-process step, relative L2 "
+        f"(TF32 off), the worst tensor a part: {json.dumps(_worst(case['errors']))}; the "
+        f"rounding floor (the convs in output-channel halves, the input x (1 + 2^-23 N(0, 1)) "
+        f"twice and as it is, the largest of the three draws), the worst tensor a part: "
+        f"{json.dumps(_worst(case['floor']))}; each "
+        f"tensor's limit max({STEP_RTOL}, {DP_FLOOR_FACTOR} x its floor): the largest error / "
+        f"limit a part {json.dumps(_ratios(case['errors'], limit))}; parameters compared off "
+        f"their Adam ties (elements whose gradient is within {DP_FLOOR_FACTOR} x its rounding "
+        f"noise of zero): {json.dumps(case['ties'])}; states (gathered) bitwise equal across "
+        f"ranks: {case['hash'] == other['hash']} [{card}]")
+    if single is not None:
+        log(f"  {name} ms a step: tp {case['ms']:.3f} (warm: after the controls' steps), one "
+            f"process first {single['first_ms']:.3f}, then {single['ms']:.3f}; a rank's "
+            f"peak {case['peak_gib']:.3f} GiB against {single['peak_gib']:.3f} alone; a rank's "
+            f"state {case['state_bytes']} bytes against {single['state_bytes']} alone "
+            f"({case['state_bytes'] / single['state_bytes']:.3f}); a rank's exchanges in the "
+            f"step {json.dumps(case['exchanges'])} [{card}]")
+    for control, errs in case.get("controls", {}).items():
+        over = _over(errs, limit)
+        log(f"  {name} control {control}: tensors over their limits "
+            + json.dumps({p: f"{len(v)} of {len(limit[p])}" for p, v in over.items()})
+            + f", the worst tensor a part {json.dumps(_worst(errs))}")
+        if not any(over.values()):
+            raise AssertionError(f"the tp checks cannot see the planted {control}")
+    if any(failed.values()):
+        raise AssertionError(f"the tp {what} disagrees with the single-process step: {failed}")
+    if case["hash"] != other["hash"]:
+        raise AssertionError(f"the tp ranks' {what} states differ")
+
+
+def tp_cli(tmp: Path, card: str) -> dict:
+    """(d): the stage-1 YAML through the train CLI on data,model [1, 2] with
+    --print-memory, one epoch of two steps at --batch-size TP_CLI_BATCH;
+    rank 0's final_model.pth loaded strict by a single-process model, its
+    final_model.fckpt resumed by a single-process CLI run for epoch 2."""
+    import io
+    import os
+    import re
+
+    from facesr_torch.ckpt.weights import read_state_dict
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.parallel.launch import run_cli_ranks
+
+    data = png_subset(tmp, "tp_cli_data", 2 * TP_CLI_BATCH, TP_CLI_BATCH)  # two steps
+    run_dir = tmp / "tp_cli"
+    run_dir.mkdir()
+    flags = ["--config", str(STAGE1_YAML), "--data-root", str(data), "--batch-size",
+             str(TP_CLI_BATCH), *TP_CLI_FLAGS]
+    t0 = time.perf_counter()
+    codes = run_cli_ranks("facesr_torch.cli.train",
+                          [*flags, "--epochs", "1", "--print-memory", "--mesh-axes",
+                           "data,model", "--mesh-shape", ",".join(map(str, TP_GRID)),
+                           "--dist-backend", "gloo"],
+                          2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
+                          env={"PYTHONPATH": str(REPO)})
+    out = {"s": time.perf_counter() - t0, "codes": codes}
+    logs = [(run_dir / f"rank{r}.log").read_text() for r in range(2)]
+    ckpt = run_dir / "checkpoints"
+    out["files"] = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            if "MB (" in line or "data,model grid" in line or "Batch size" in line \
+                    or "Val PSNR" in line or "ms/step" in line:
+                log(f"  (d) rank {r}: {line.strip()}")
+    psnr = [float(v) for v in re.findall(r"Val PSNR:\s+([-\d.]+) dB", logs[0])]
+    if codes != [0, 0] or "final_model.fckpt" not in out["files"] or not psnr \
+            or not all(math.isfinite(v) for v in psnr) \
+            or not all(f"at (0, {r}) of the data,model grid" in logs[r] for r in range(2)) \
+            or not all("device memory" in t for t in logs):
+        raise AssertionError("the data,model train CLI run: "
+                             + f"{codes}, " + " | ".join(t[-1500:] for t in logs))
+    model = FaceEnhanceNet(production_config(), seed=1, device="cpu")
+    model.load_state_dict(read_state_dict(str(ckpt / "final_model.pth")), strict=True)
+    out["pth_finite"] = all(bool(torch.isfinite(v).all()) for v in model.state_dict().values())
+    # one process resumes the tp run's file and trains epoch 2
+    resume_dir = tmp / "tp_cli_resume"
+    resume_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(resume_dir)
+    buf = io.StringIO()
+    before = rg.fused_residual_group.launches
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            trainer = train_cli.run([*flags, "--epochs", "2", "--resume",
+                                     str(ckpt / "final_model.fckpt")])
+    finally:
+        os.chdir(cwd)
+    out["resume_s"] = time.perf_counter() - t0
+    out["resume"] = {"epoch": trainer.current_epoch, "steps": trainer.global_step,
+                     "history": trainer.training_history["val_psnr"],
+                     "launches": rg.fused_residual_group.launches - before}
+    del trainer
+    torch.cuda.empty_cache()
+    if not (out["pth_finite"] and out["resume"]["steps"] == 4
+            and len(out["resume"]["history"]) == 2
+            and all(math.isfinite(v) for v in out["resume"]["history"])):
+        raise AssertionError(f"the tp checkpoint did not resume in one process: {out}, "
+                             + buf.getvalue()[-1500:])
+    return out
+
+
+def tp_phase(card: str, tmp: Path) -> int:
+    """Phase 18: tensor parallelism on the card; returns the group kernel's
+    launches on its paths (none: training runs the plain trunk)."""
+    from facesr_torch.parallel.launch import run_ranks
+
+    log(f"== 18. tensor parallelism (the convs' output channels and the training state over a "
+        f"data,model grid; the card's machine has one card, so two gloo ranks share cuda:0) "
+        f"[{card}]")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0, r1 = run_ranks(tp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
+                       backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "model"),
+                       shape=TP_GRID)
+    parts = {"(a), (b), (c): one launch of two ranks": time.perf_counter() - t_phase}
+    parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
+    log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    if (r0["coords"], r1["coords"]) != ((0, 0), (0, 1)):
+        raise AssertionError(f"the grid's coordinates: {r0['coords']}, {r1['coords']}")
+    cfg = production_config()
+    width = f"{cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels}"
+    tp_report("(a)", r0["content"], r1["content"], card,
+              f"the stage-1 step ({width} f32, batch {TP_BATCH} (cut from 48: gloo traffic), HR "
+              f"{TRAIN_HR}, L1 + VGG19 conv3_4, clip 0.5)")
+    tp_report("(b)", r0["gan"], r1["gan"], card,
+              f"stage 3's GAN step (G {width}, D at {GAN_HR} with {GAN_D_BASE} base channels and "
+              f"BatchNorm, f32, batch {TP_GAN_BATCH}, L1 0.01 + VGG19 conv3_4 + 0.005 vanilla GAN)")
+    q0, q1 = r0["qat"], r1["qat"]
+    limit = _sp_limits(q0)
+    failed = _over(q0["errors"], limit)
+    log(f"  (c) phase 12's QAT step (batch {TP_QAT_BATCH}, HR {TP_QAT_HR}: its level records) on "
+        f"the grid, its "
+        f"fake-quant levels pinned at ties to the single-process step's: {q0['ties']} of "
+        f"{q0['levels']} levels and signs taken at a tie on rank 0, {q0['off_tie']} off a tie "
+        f"(rank 1: {q1['ties']}, {q1['off_tie']}); against the single-process step, relative "
+        f"L2, the worst tensor a part: {json.dumps(_worst(q0['errors']))}; the floor (the convs "
+        f"in channel halves, three draws as (a)'s, pinned alike), the worst tensor a part: "
+        f"{json.dumps(_worst(q0['floor']))}; the "
+        f"largest error / limit a part {json.dumps(_ratios(q0['errors'], limit))}; parameters "
+        f"off their Adam ties {json.dumps(q0['adam_ties'])}; states "
+        f"bitwise equal across ranks: {q0['hash'] == q1['hash']}; a rank's peak "
+        f"{q0['peak_gib']:.3f} GiB; a rank's exchanges {json.dumps(q0['exchanges'])} [{card}]")
+    if q0["off_tie"] or q1["off_tie"] or q0["ties"] > 1e-4 * q0["levels"]:
+        raise AssertionError(f"the tp QAT step's levels leave the single process's: {q0}")
+    if any(failed.values()):
+        raise AssertionError(f"the tp QAT step disagrees with the single-process step: {failed}")
+    if q0["hash"] != q1["hash"]:
+        raise AssertionError("the tp QAT ranks' states differ")
+    t0 = time.perf_counter()
+    cli = tp_cli(tmp, card)
+    parts["(d)"] = time.perf_counter() - t0
+    log(f"  (d) the stage-1 YAML through the train CLI on data,model {list(TP_GRID)} (torchrun's "
+        f"environment, 2 ranks on cuda:0 over gloo), --print-memory, --batch-size {TP_CLI_BATCH}, "
+        f"1 epoch on {2 * TP_CLI_BATCH} of phase 8's train PNGs: exit codes {cli['codes']}, "
+        f"{cli['s']:.1f} s with set-up; rank 0 wrote {cli['files']}; final_model.pth loaded "
+        f"strict into a {width} FaceEnhanceNet (finite: {cli['pth_finite']}); final_model.fckpt "
+        f"resumed by one process for epoch 2: epoch {cli['resume']['epoch'] + 1}, "
+        f"{cli['resume']['steps']} steps, val PSNR {cli['resume']['history']}, "
+        f"{cli['resume_s']:.1f} s [{card}]")
+    launches = r0["launches"] + r1["launches"] + cli["resume"]["launches"]
+    log(f"  (e) group-kernel launches in phase 18: {launches} (training runs the plain trunk)")
+    if launches:
+        raise AssertionError("phase 18 launched the group kernel")
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
+    return launches
 
 
 def input_shape_str(program) -> str:
@@ -4810,6 +5365,7 @@ def main() -> int:
         explain_phase(dev, card, Path(tmp))
         launches["fused_residual_group"] += dp_phase(card, Path(tmp))  # and phase 16's
         launches["fused_residual_group"] += sp_phase(card, Path(tmp))  # and phase 17's
+        launches["fused_residual_group"] += tp_phase(card, Path(tmp))  # and phase 18's
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

@@ -58,6 +58,7 @@ from facesr_torch.ops.init import kaiming_normal
 from facesr_torch.ops.quant import fake_quant_params
 from facesr_torch.ops.resize import bicubic_up
 from facesr_torch.parallel import spatial
+from facesr_torch.parallel.tensor import whole_named
 from facesr_torch.training import steps
 from facesr_torch.training.optim import AdamW
 
@@ -89,11 +90,13 @@ def smooth_loss_apply(loss_params, sr, hr):
 
 
 class RecordingAdamW(AdamW):
-    """AdamW that keeps a host copy of the gradients it was given."""
+    """AdamW that keeps a host copy of the gradients it was given (under a
+    `model` shard, the split ones gathered whole)."""
 
-    def update(self, grads, state, params):
-        self.grads = {k: v.detach().cpu().clone() for k, v in grads.items()}
-        super().update(grads, state, params)
+    def update(self, grads, state, params, shard=None):
+        whole = whole_named(grads, params, shard)
+        self.grads = {k: v.detach().cpu().clone() for k, v in whole.items()}
+        super().update(grads, state, params, shard=shard)
 
 
 def _small_model(weight_noise: float = 0.0) -> FaceEnhanceNet:
@@ -252,6 +255,21 @@ def row_shard_levels(record, shard, batch: slice = slice(None)):
         top = shard.index * rows
         padded = torch.nn.functional.pad(levels, (0, 0, 0, 0, 1, 1))
         return (record["weights"][i], padded[:, top:top + rows + 2], y[:, top:top + rows])
+    return of
+
+
+def model_shard_levels(record, shard, batch: slice = slice(None)):
+    """`fake_quant_levels`'s reference for a run on `model` ``shard`` (the
+    images of ``batch``) from an unsharded run's ``record``: a call whose
+    latent kernel is this rank's slice of the output channels takes that
+    slice of the kernel levels and of the output; the activation levels
+    (the whole input) stay whole."""
+    def of(i, w):
+        kernel, y = record["weights"][i], record["outputs"][i][batch]
+        if w.shape[0] != kernel.shape[0]:
+            a, b = shard.bounds(kernel.shape[0])
+            kernel, y = kernel[a:b], y[..., a:b]
+        return kernel, record["levels"][i][batch], y
     return of
 
 

@@ -28,7 +28,11 @@ rows of their data coordinate's slice and splitting the image rows
 plain launch starts the d * s ranks itself. On CUDA it refuses more ranks
 than visible cards unless ``--dist-backend gloo`` lets them share the
 cards (NCCL takes one rank a card); under torchrun the same holds for the
-ranks of one host. ``--print-memory``
+ranks of one host. Tensor parallelism the same way (``--mesh-axes
+data,model --mesh-shape d,t``): d * t ranks, the t ranks of each `model`
+group loading the same rows and holding their slices of the conv output
+channels and of the training state (`parallel.tensor`); rank 0 writes the
+checkpoints whole. ``--print-memory``
 prints each rank's memory budget of the train step (the state's and the
 batch's bytes, and on a card the peak of one step, run once) at the
 effective batch, after any checkpoint load and ``--qat-scales`` pinning.
@@ -67,13 +71,16 @@ fake-quantized, frozen transfer parameters included (their forward is
 what serving quantizes), and the stage optimiser still updates only what
 the stage trains.
 
-What is not ported raises and names its ROADMAP item: the mesh axes
-``model`` (A.13.3) and ``pp`` with ``pp_microbatches`` (A.13.4), three mesh
-axes (A.13.5), the gradient monitor (A.14). W&B is not ported and stays
+What is not ported raises and names its ROADMAP item: the mesh axis
+``pp`` with ``pp_microbatches`` (A.13.4), three mesh axes (A.13.5), the
+gradient monitor (A.14); ``model`` with ``pp`` and tp over more than one
+host are refused as JAX refuses them. W&B is not ported and stays
 off. The perceptual loss uses a VGG19 with random weights drawn from seed
 0 (no pretrained file is in the repo).
 SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
-process exits.
+process exits. Under ``data,model`` SIGTERM and SIGINT to any rank stop
+every rank at the end of the step that is running, where they gather the
+state for that save together.
 """
 
 from __future__ import annotations
@@ -141,7 +148,7 @@ def resolve_chain_path(path: str) -> str:
 
 def _mesh_settings(args, config: dict):
     """(mesh_axes, mesh_shape) from the CLI over the YAML; raises NotPorted
-    for any mesh but the data axis and data,space."""
+    for any mesh but the data axis, data,space and data,model."""
     training = config.get("training", {})
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
     mesh_shape = (tuple(int(v) for v in args.mesh_shape.split(",")) if args.mesh_shape
@@ -305,8 +312,8 @@ def run(argv: Optional[List[str]] = None):
                         shape=mesh_shape, backend=args.dist_backend)
         device = mesh.device
         print(f"Data parallel: rank {mesh.rank} of {mesh.world_size} on {device}"
-              + (f", at {mesh.coords} of the data,space grid {mesh.shape}"
-                 if mesh.space_size > 1 else ""))
+              + (f", at {(mesh.axis_index(axes[0]), mesh.axis_index(axes[1]))} of the "
+                 f"{','.join(axes)} grid {mesh.shape}" if len(axes) > 1 else ""))
     else:
         mesh = Mesh((device,), axis_names=axes, shape=mesh_shape if len(axes) > 1 else None)
     seed = project_config.get("seed", 42)
@@ -337,7 +344,7 @@ def run(argv: Optional[List[str]] = None):
 
     print("Creating data loaders...")
     train_loader, val_loader = make_loaders(args, config, data_root, batch_size, seed,
-                                            shard=(mesh.coords[0], mesh.data_size))
+                                            shard=(mesh.axis_index("data"), mesh.data_size))
     print(f"Train samples: {len(train_loader.dataset)}")
     print(f"Val samples: {len(val_loader.dataset)}")
 
@@ -486,7 +493,14 @@ def run(argv: Optional[List[str]] = None):
     def _sigterm(_signum, _frame):
         raise KeyboardInterrupt("SIGTERM")
 
-    prev_sigterm = signal.signal(signal.SIGTERM, _sigterm)
+    def _at_step_end(signum, _frame):
+        trainer.request_stop(signal.Signals(signum).name)
+
+    # under tp the interrupted save gathers the state (a collective), so a
+    # signal stops every rank at the end of the same step
+    handlers = ({signal.SIGTERM: _at_step_end, signal.SIGINT: _at_step_end}
+                if trainer.stops_at_step_boundary else {signal.SIGTERM: _sigterm})
+    previous = {s: signal.signal(s, h) for s, h in handlers.items()}
     try:
         history = trainer.train()
         print("\n" + "=" * 60)
@@ -499,14 +513,15 @@ def run(argv: Optional[List[str]] = None):
     except KeyboardInterrupt as e:
         print(f"\n\nTraining interrupted ({e or 'user'}).")
         print("Saving checkpoint...")
-        trainer.save_checkpoint("interrupted")  # the writer's only
+        trainer.save_checkpoint("interrupted")  # the writer's only (tp: all gather)
         trainer.flush_checkpoints()
         if trainer.is_writer:
             print(f"Checkpoint saved to {trainer_config.checkpoint_dir}/interrupted.pth "
                   "(and .fckpt)")
     finally:
-        if prev_sigterm is not None:
-            signal.signal(signal.SIGTERM, prev_sigterm)
+        for s, h in previous.items():
+            if h is not None:
+                signal.signal(s, h)
     return trainer
 
 

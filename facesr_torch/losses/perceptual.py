@@ -15,7 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from facesr_torch.losses.basic import l1_loss, l2_loss
 from facesr_torch.models import vgg
-from facesr_torch.parallel import spatial
+from facesr_torch.parallel import spatial, tensor
 
 __all__ = ["init_perceptual", "perceptual_loss", "DEFAULT_LAYERS"]
 
@@ -60,10 +60,11 @@ def perceptual_loss(vgg_params: vgg.VGGParams, pred: torch.Tensor, target: torch
         pred = pred.to(dtype)
         target = target.to(dtype)
 
-    shard = spatial.current()  # re-entered by the backward pass's recompute
+    # re-entered by the backward pass's recompute
+    shard, tp = spatial.current(), tensor.current()
 
     def extract(x):
-        with spatial.rows(shard):
+        with spatial.rows(shard), tensor.split(tp):
             return vgg.extract_features(vgg_params, x, idxs, normalize=normalize)
 
     if remat:

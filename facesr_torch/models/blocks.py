@@ -37,7 +37,7 @@ from facesr_torch.ops.conv import conv2d, prelu, quantize_act
 from facesr_torch.ops.pixel_shuffle import pixel_shuffle
 from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import GroupWeights, fused_residual_group
-from facesr_torch.parallel import spatial
+from facesr_torch.parallel import spatial, tensor
 
 __all__ = ["reduced_channels", "KernelWeightCache", "ChannelAttention", "RCAB", "ResidualGroup",
            "UpsampleStage", "Upsample", "make_conv", "channel_attention", "rcab",
@@ -234,8 +234,8 @@ def rcab(blk: RCAB, x: torch.Tensor, res_scale: float, padding: int,
     return x + out * res_scale, attn
 
 
-def _rcab_on(shard, *args):
-    with spatial.rows(shard):
+def _rcab_on(shard, tp, *args):
+    with spatial.rows(shard), tensor.split(tp):
         return rcab(*args)
 
 
@@ -283,11 +283,11 @@ def residual_groups(groups: nn.ModuleList, x: torch.Tensor, res_scale: float,
                                            _save_only(_SAVED_OPS[remat]))
 
         # the recompute runs in the backward pass, maybe on autograd's
-        # thread: it re-enters this forward's row shard itself
-        shard = spatial.current()
+        # thread: it re-enters this forward's row and model shards itself
+        shard, tp = spatial.current(), tensor.current()
 
         def block_fn(blk, h, scale, pad, quant, name):
-            return checkpoint(_rcab_on, shard, blk, h, scale, pad, quant, name,
+            return checkpoint(_rcab_on, shard, tp, blk, h, scale, pad, quant, name,
                               use_reentrant=False, preserve_rng_state=False,
                               context_fn=context_fn)
 

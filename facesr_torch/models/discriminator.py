@@ -41,12 +41,21 @@ shard's rows h are the columns c * H * W + h * W + w: the shard takes the
 partial product with its columns, the partials are summed over the
 shards (differentiable, `RowShard.sum`) and the bias is added once; the
 logits are then the same on every shard.
+
+Under a `model` shard (`parallel.tensor`: the GAN step on `data,model`)
+every conv computes its slice of the output channels and the ranks'
+slices are gathered (`ops.conv.conv2d`), so each BatchNorm runs on the
+whole map: its affine and running stats, split like the conv, are
+gathered for the use (the affine's gradient is this rank's slice), its
+statistics sum over the `data` group, and each rank writes its slice of
+the updated running stats back. The dense layers are whole on every
+rank, as JAX keeps ``fc1``/``fc2``, and read the gathered map.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +65,7 @@ from torch.nn.utils import skip_init
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.ops.conv import conv2d, full_f32, leaky_relu
 from facesr_torch.ops.init import kaiming_normal
-from facesr_torch.parallel import spatial
+from facesr_torch.parallel import spatial, tensor
 
 __all__ = ["DiscriminatorConfig", "Discriminator", "create_discriminator", "param_count",
            "get_model_info", "BN_EPS", "BN_MOMENTUM"]
@@ -198,13 +207,29 @@ def _bn_sum(train: bool, mesh, shard):
     elif not distributed or mesh.data_size < 2:
         return None
     else:
-        group = mesh.axis_groups["data"] if mesh.space_size > 1 else mesh.group
+        group = mesh.axis_group("data")
     return lambda t: _AllReduceSum.apply(t, group)
 
 
 def _batch_norm(h: torch.Tensor, bn: _BatchNorm, train: bool, reduce) -> torch.Tensor:
     """BatchNorm of NHWC ``h`` on an f32 copy, cast back: ``F.batch_norm``,
-    or with ``reduce`` (`_bn_sum`) the statistics of every row it sums."""
+    or with ``reduce`` (`_bn_sum`) the statistics of every row it sums.
+    Under a `model` shard whose slices ``bn`` holds, on its gathered
+    leaves, this rank's slice of the running stats written back."""
+    tp = tensor.current()
+    if tp is not None and tensor.is_split(bn.weight):
+        weight, bias = tp.gather(torch.stack([bn.weight, bn.bias]), dim=1, kind="leaf")
+        with torch.no_grad():
+            stats = tp.gather(torch.stack([bn.running_mean, bn.running_var]), dim=1,
+                              kind="leaf")
+        whole = _BatchNormLeaves(weight, bias, stats[0].clone(), stats[1].clone())
+        out = _batch_norm(h, whole, train, reduce)
+        if train:
+            with torch.no_grad():
+                a, b = tp.bounds(whole.running_mean.shape[0])
+                bn.running_mean.copy_(whole.running_mean[a:b])
+                bn.running_var.copy_(whole.running_var[a:b])
+        return out
     hf = h.float().permute(0, 3, 1, 2)
     if reduce is None:
         hf = F.batch_norm(hf, bn.running_mean, bn.running_var, bn.weight, bn.bias,
@@ -214,7 +239,16 @@ def _batch_norm(h: torch.Tensor, bn: _BatchNorm, train: bool, reduce) -> torch.T
     return hf.permute(0, 2, 3, 1).to(h.dtype)
 
 
-def _global_batch_norm(x: torch.Tensor, bn: _BatchNorm, reduce) -> torch.Tensor:
+class _BatchNormLeaves(NamedTuple):
+    """A BatchNorm's whole leaves, gathered from a `model` shard's slices."""
+
+    weight: torch.Tensor
+    bias: torch.Tensor
+    running_mean: torch.Tensor
+    running_var: torch.Tensor
+
+
+def _global_batch_norm(x: torch.Tensor, bn, reduce) -> torch.Tensor:
     """Train-mode BatchNorm of NCHW f32 ``x`` with the statistics of every
     row ``reduce`` sums over (each part counting its own rows); updates
     the running stats as `F.batch_norm` does."""

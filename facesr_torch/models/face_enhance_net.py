@@ -53,7 +53,7 @@ from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import (KERNEL_CHANNELS, GroupWeights,
                                          fused_residual_group, prepare_group_weights)
 from facesr_torch.ops.resize import bicubic_up
-from facesr_torch.parallel import spatial
+from facesr_torch.parallel import spatial, tensor
 
 __all__ = ["FaceEnhanceNetConfig", "FaceEnhanceNet", "kernel_trunk_fits", "param_count",
            "get_model_info"]
@@ -162,7 +162,7 @@ class FaceEnhanceNet(blocks.KernelWeightCache, nn.Module):
         if trunk_fn is not None:
             feat = trunk_fn(self.residual_groups, feat)
         elif (dtype == torch.bfloat16 and not train and self.kernel_trunk and quant is None
-              and spatial.current() is None):
+              and spatial.current() is None and tensor.current() is None):
             feat = feat.contiguous()
             for gw in self.kernel_group_weights():
                 feat = fused_residual_group(feat, gw, cfg.res_scale)

@@ -54,7 +54,7 @@ from facesr_torch.ops.pixel_shuffle import pixel_shuffle
 from facesr_torch.ops.quant import QuantSites, is_int8_kernel, site_weight
 from facesr_torch.ops.rcab_group import (KERNEL_CHANNELS, GroupWeights, fused_residual_group,
                                          prepare_group_weights)
-from facesr_torch.parallel import spatial
+from facesr_torch.parallel import spatial, tensor
 
 __all__ = ["STAGE2_UNFREEZE_BLOCKS", "HEAD_RES_SCALE", "HEAD_REDUCTION", "TrainingStage",
            "TransferModelConfig", "TransferSRModel", "FaceHead", "Backbone", "head_kernel_fits",
@@ -188,7 +188,7 @@ class TransferSRModel(blocks.KernelWeightCache, nn.Module):
         if head_fn is not None:
             feat = head_fn(hd, feat)
         elif (dtype == torch.bfloat16 and not train and self.kernel_head and quant is None
-              and spatial.current() is None):
+              and spatial.current() is None and tensor.current() is None):
             feat = fused_residual_group(feat.contiguous(), self.kernel_head_weights(),
                                         HEAD_RES_SCALE)
         else:

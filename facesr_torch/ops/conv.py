@@ -38,6 +38,16 @@ map before it). An int8 conv and the QAT fake-quant conv exchange the
 float rows before they quantize them, their dynamic activation scale the
 max over the shards (the whole image's max|x|); a static scale and the
 weights' per-channel scales need no exchange.
+
+Under a `model` shard (`parallel.tensor`, two or more ranks) a conv whose
+weight is this rank's slice of the output channels (a marked leaf)
+computes only those channels, with its bias slice, from the whole input
+(``copy``: its gradient sums over the ranks), and the ranks' channels are
+gathered into the whole output (``gather``: its gradient is this rank's
+slice). The fake-quant conv does the same: the weight's scales are per
+output channel, the activation's are the whole input's. A conv whose
+weight is whole (conv_last's 3 channels) runs whole. `prelu` gathers a
+sliced alpha for its use.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ import torch.nn.functional as F
 
 from facesr_torch.ops import quant as _quant
 from facesr_torch.ops.quant import FakeQuantWeight, Int8Weight
-from facesr_torch.parallel import spatial
+from facesr_torch.parallel import spatial, tensor
 
 __all__ = ["conv2d", "quantize_act", "prelu", "leaky_relu", "global_avg_pool", "full_f32",
            "INT8_CHUNK_BYTES", "int8_gemm_pads", "int8_site_of_gemm", "fake_quant_scale"]
@@ -109,6 +119,13 @@ def conv2d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
     follows the input's dtype. The bias is added after the convolution in
     the output dtype, as in the JAX package. An `Int8Weight` or a
     `FakeQuantWeight` takes the int8 or the fake-quant conv."""
+    tp = tensor.current()
+    if tp is not None and tensor.is_split(w.w if isinstance(w, FakeQuantWeight) else w):
+        if groups != 1:
+            raise NotImplementedError("a grouped conv does not split its output channels")
+        with tensor.split(None):
+            out = conv2d(tp.copy(x), w, b, padding=padding, dtype=dtype, stride=stride)
+        return tp.gather(out)
     shard = spatial.current()
     if shard is not None:
         x, padding = _halo_rows(shard, x, w, padding, stride)
@@ -389,7 +406,11 @@ def fake_quant_scale(t: torch.Tensor, static: Optional[torch.Tensor] = None,
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Per-channel PReLU on NHWC; alpha [C]."""
+    """Per-channel PReLU on NHWC; alpha [C] (this rank's slice, gathered
+    for the use, under a `model` shard)."""
+    tp = tensor.current()
+    if tp is not None and tensor.is_split(alpha):
+        alpha = tp.gather(alpha, dim=0, kind="leaf")
     a = alpha.to(x.dtype)
     return torch.where(x >= 0, x, a * x)
 

@@ -1,6 +1,8 @@
-"""Parallelism of the port: the `data` mesh and the `data,space` grid over
-the ranks of a process group, their collectives, row shards of one image
-(`parallel.spatial`), and serving over one card or several."""
+"""Parallelism of the port: the `data` mesh and the `data,space` and
+`data,model` grids over the ranks of a process group, their collectives,
+row shards of one image (`parallel.spatial`), the convs' channels and the
+training state over a `model` group (`parallel.tensor`), and serving over
+one card or several."""
 
 from facesr_torch.parallel.mesh import (ROADMAP_ITEMS, Mesh, NotPorted, batch_sharding,
                                         get_mesh, grid_sharding, pad_to_multiple, replicate,

@@ -1,5 +1,5 @@
-"""Start the ranks of a data-parallel group (or a data,space grid) on this
-host.
+"""Start the ranks of a data-parallel group (or a data,space or data,model
+grid) on this host.
 
 - `run_ranks(fn, world_size, ...)`: ``fn(mesh, *args)`` in ``world_size``
   fresh processes (the spawn start method), each joined to one group over

@@ -1,5 +1,5 @@
-"""The port's mesh: the `data` axis and the `data,space` grid (port of
-`facesr/parallel/mesh.py`).
+"""The port's mesh: the `data` axis and the `data,space` and `data,model`
+grids (port of `facesr/parallel/mesh.py`).
 
 PyTorch's idiom for data parallelism is one process per card: the ranks of
 a `torch.distributed` group make up the `data` axis. Each rank holds a
@@ -10,13 +10,20 @@ rank applies the same update and the replicas stay bitwise equal. State
 is made equal at start and after every resume by a broadcast from rank 0
 (`replicate`).
 
-On a 2-D ``("data", "space")`` mesh of shape (d, s) the ranks form a grid,
-rank ``r`` at ``(r // s, r % s)``: the s ranks of a grid row (a `space`
-group) hold the same batch rows and split their image rows
-(`parallel.spatial`: halo exchanges, global means and the bicubic skip's
-gather), and the d ranks of a column (a `data` group) hold the same image
-rows of other batch rows. Every rank creates every group, in one order
-(NCCL and gloo hang otherwise).
+On a 2-D mesh of shape (d, k), ``("data", "space")`` or ``("data",
+"model")``, the ranks form a grid, rank ``r`` at ``(r // k, r % k)``, as
+JAX reshapes its devices with the last axis fastest: the k ranks of a
+grid row (a `space` or `model` group) hold the same batch rows, and the d
+ranks of a column (a `data` group) hold other batch rows. A `space` group
+splits its image rows (`parallel.spatial`: halo exchanges, global means
+and the bicubic skip's gather); a `model` group splits the output
+channels of the convs (`parallel.tensor`: each rank holds its slice of
+every leaf `tp_param_shardings` splits, the whole training state
+included). Every rank creates every group, in one order (NCCL and gloo
+hang otherwise). `Mesh.axis_size`, `Mesh.axis_index` and
+`Mesh.axis_group` read an axis; `Mesh.sum_group` is the group whose
+ranks hold different parts of one sum (the gradient mean, the metrics):
+the whole group, except under `model`, whose ranks hold copies.
 
 A `Mesh` is either that (a group of ranks, one device each: training) or,
 for serving, the devices one process drives (`ShardedPredictor`: a
@@ -26,9 +33,9 @@ are `all_reduce` and `broadcast` only: gloo supports no other on CUDA
 tensors, and two ranks sharing one card (NCCL refuses that) run over
 gloo.
 
-Every training step runs on the grid: the content, GAN and QAT steps and
-the eval step. The `model` (tp) and `pp` axes and three axes raise
-`NotPorted` and name their ROADMAP item.
+Every training step runs on both grids: the content, GAN and QAT steps
+and the eval step. The `pp` axis and three axes raise `NotPorted` and
+name their ROADMAP item; `model` with `pp` is refused as JAX refuses it.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "replicated",
+__all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "check_single_host",
+           "replicated",
            "batch_sharding", "row_sharding", "grid_sharding", "tp_param_shardings",
            "shard_batch", "replicate", "pad_to_multiple", "all_reduce_mean",
            "all_reduce_sum", "all_reduce_max", "DEFAULT_TIMEOUT_S", "ROADMAP_ITEMS"]
@@ -53,7 +61,6 @@ __all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "repl
 DEFAULT_TIMEOUT_S = 600.0
 
 ROADMAP_ITEMS = {
-    "model": "ROADMAP A.13.3 (tp: conv channels over ranks)",
     "pp": "ROADMAP A.13.4 (pp: the residual groups as a pipeline)",
     "compositions": "ROADMAP A.13.5 (compositions of the mesh axes)",
 }
@@ -66,12 +73,13 @@ class NotPorted(NotImplementedError):
 
 @dataclass(frozen=True)
 class Mesh:
-    """The `data` axis, or the `data,space` grid. ``devices``: the devices
-    this process drives (one for a rank of a training group; several for
-    serving); ``group``: the process group of all the ranks (None: this
-    process alone); ``shape``: the grid's (d, s), or None for the 1-D
-    `data` axis; ``axis_groups``: this rank's process group along each
-    axis of a grid (``{"data": its column, "space": its row}``)."""
+    """The `data` axis, or a 2-D grid (`data,space`, `data,model`).
+    ``devices``: the devices this process drives (one for a rank of a
+    training group; several for serving); ``group``: the process group of
+    all the ranks (None: this process alone); ``shape``: the grid's (d, k),
+    or None for the 1-D `data` axis; ``axis_groups``: this rank's process
+    group along each axis of a grid (``{"data": its column, "space" or
+    "model": its row}``)."""
 
     devices: Tuple[torch.device, ...]
     group: Optional[Any] = None
@@ -94,29 +102,66 @@ class Mesh:
     def distributed(self) -> bool:
         return self.group is not None
 
-    @property
-    def space_size(self) -> int:
-        """The `space` axis's length (1 without one)."""
-        return self.shape[self.axis_names.index("space")] if "space" in self.axis_names else 1
+    def axis_size(self, name: str) -> int:
+        """The length of axis ``name`` (1 for an axis the mesh lacks)."""
+        if name not in self.axis_names:
+            return 1
+        if self.shape is None:  # the 1-D data axis
+            return self.size
+        return self.shape[self.axis_names.index(name)]
+
+    def axis_index(self, name: str) -> int:
+        """This rank's index along axis ``name`` (0 for an axis the mesh
+        lacks): rank r of a (d, k) grid sits at (r // k, r % k)."""
+        if name not in self.axis_names:
+            return 0
+        inner = self.shape[1] if self.shape is not None and len(self.shape) > 1 else 1
+        return self.rank // inner if name == self.axis_names[0] else self.rank % inner
+
+    def axis_group(self, name: str) -> Any:
+        """This rank's process group along axis ``name``: the whole group
+        on the 1-D data axis, a row or a column of a grid."""
+        if self.shape is None or len(self.shape) == 1:
+            return self.group
+        return self.axis_groups[name]
 
     @property
     def data_size(self) -> int:
         """The `data` axis's length: the batch's divisor."""
-        return self.size // self.space_size
+        return self.axis_size("data")
 
     @property
-    def coords(self) -> Tuple[int, int]:
-        """This rank's (data, space) coordinates."""
-        return divmod(self.rank, self.space_size)
+    def sum_size(self) -> int:
+        """The ranks of `sum_group`."""
+        return self.data_size if "model" in self.axis_names else self.world_size
+
+    @property
+    def sum_group(self) -> Any:
+        """The group whose ranks hold different parts of the step's sums
+        (the gradients, the metrics, the eval sums): the whole group, or
+        on `data,model` the `data` group (a `model` group's ranks hold
+        copies of them)."""
+        return self.axis_group("data") if "model" in self.axis_names else self.group
 
     def row_shard(self):
         """This rank's `parallel.spatial.RankShard` of its `space` group
         (None without a `space` axis of two or more ranks)."""
         from facesr_torch.parallel.spatial import RankShard
 
-        if self.space_size < 2 or not self.distributed:
+        s = self.axis_size("space")
+        if s < 2 or not self.distributed:
             return None
-        return RankShard(self.axis_groups["space"], self.coords[1], self.space_size)
+        return RankShard(self.axis_groups["space"], self.axis_index("space"), s)
+
+    def model_shard(self):
+        """This rank's `parallel.tensor.ModelShard` of its `model` group
+        (None without a `model` axis of two or more ranks)."""
+        from facesr_torch.parallel.tensor import ModelShard
+
+        t = self.axis_size("model")
+        if t < 2 or not self.distributed:
+            return None
+        return ModelShard(self.axis_groups["model"], self.axis_index("model"), t)
 
 
 class Sharding(NamedTuple):
@@ -130,24 +175,40 @@ class Sharding(NamedTuple):
 
 
 def check_mesh_axes(axis_names: Sequence[str], shape: Optional[Sequence[int]] = None) -> None:
-    """Let the 1-D `data` axis and the `data,space` grid through; raise
-    `NotPorted` for `model` (A.13.3), `pp` (A.13.4) and three axes (A.13.5),
-    and ValueError for a shape that does not fit the axes."""
+    """Let the 1-D `data` axis and the `data,space` and `data,model` grids
+    through; raise ValueError for `model` with `pp` (JAX's refusal: both
+    split the parameter tree) and for a shape that does not fit the axes,
+    and `NotPorted` for `pp` (A.13.4) and three axes (A.13.5)."""
     axes = tuple(axis_names)
     if not axes or axes[0] != "data":
         raise ValueError(f"mesh axes must start with the batch axis 'data', got {axes}")
     extra = [a for a in axes[1:] if a not in ("space", "model", "pp")]
     if extra:
         raise ValueError(f"Unknown mesh axes {extra}; supported extra axes: space, model, pp")
+    if "model" in axes and "pp" in axes:
+        raise ValueError("mesh_axes cannot combine 'model' and 'pp': both shard the parameter "
+                         "tree")
     if len(axes) > 2:
         raise NotPorted(f"mesh axes {','.join(axes)}: three axes are "
                         f"{ROADMAP_ITEMS['compositions']}")
-    if len(axes) == 2 and axes[1] != "space":
-        raise NotPorted(f"mesh axes {','.join(axes)}: {axes[1]} is {ROADMAP_ITEMS[axes[1]]}; "
-                        f"the port has the data axis and data,space")
+    if len(axes) == 2 and axes[1] == "pp":
+        raise NotPorted(f"mesh axes {','.join(axes)}: pp is {ROADMAP_ITEMS['pp']}; "
+                        f"the port has the data axis, data,space and data,model")
     if shape is not None and len(tuple(shape)) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} does not fit the mesh axes "
                          f"{','.join(axes)}: give one length an axis")
+
+
+def check_single_host(world_size: int) -> None:
+    """tp state over ranks on more than one host is refused, with JAX's
+    reason (torchrun's ``LOCAL_WORLD_SIZE`` below ``WORLD_SIZE``)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    if local != world_size:
+        raise NotImplementedError(
+            "tp/pp-sharded training state is single-host for now: checkpoint saves gather "
+            "the state, which requires all shards addressable by the writing process; "
+            f"multi-host tp/pp needs an all-gather-on-save path ({local} of {world_size} "
+            "ranks on this host)")
 
 
 def _local_card(local_rank: int) -> int:
@@ -209,9 +270,10 @@ def _join(devices, rank, world_size, local_rank, init_method, backend, timeout) 
 
 
 def _grid(mesh: Mesh, axis_names: Tuple[str, ...], shape, timeout: float) -> Mesh:
-    """The ranks of ``mesh`` as the (d, s) `data,space` grid: rank r at
-    (r // s, r % s), with a process group for every grid row (`space`)
-    and every column (`data`), created by every rank in one order."""
+    """The ranks of ``mesh`` as the (d, k) grid of ``axis_names``
+    (`data,space` or `data,model`): rank r at (r // k, r % k), with a
+    process group for every grid row (the second axis) and every column
+    (`data`), created by every rank in one order."""
     n = mesh.world_size
     if len(axis_names) == 1:
         if shape is not None and tuple(shape) != (n,):
@@ -221,20 +283,21 @@ def _grid(mesh: Mesh, axis_names: Tuple[str, ...], shape, timeout: float) -> Mes
     if shape is None:
         raise ValueError("mesh_shape is required with multiple mesh_axes, e.g. "
                          "mesh_shape: [4, 2] for 'data,space' on 8 chips")
-    d, s = (int(v) for v in shape)
-    if d * s != n:
-        raise ValueError(f"mesh shape {(d, s)} needs {d * s} ranks, the group has {n}")
+    d, k = (int(v) for v in shape)
+    if d * k != n:
+        raise ValueError(f"mesh shape {(d, k)} needs {d * k} ranks, the group has {n}")
     kw = dict(timeout=datetime.timedelta(seconds=timeout))
+    inner = axis_names[1]
     groups = {}
     for i in range(d):
-        g = dist.new_group(list(range(i * s, (i + 1) * s)), **kw)
-        if i == mesh.rank // s:
-            groups["space"] = g
-    for j in range(s):
-        g = dist.new_group(list(range(j, n, s)), **kw)
-        if j == mesh.rank % s:
+        g = dist.new_group(list(range(i * k, (i + 1) * k)), **kw)
+        if i == mesh.rank // k:
+            groups[inner] = g
+    for j in range(k):
+        g = dist.new_group(list(range(j, n, k)), **kw)
+        if j == mesh.rank % k:
             groups["data"] = g
-    return dataclasses.replace(mesh, axis_names=tuple(axis_names), shape=(d, s),
+    return dataclasses.replace(mesh, axis_names=tuple(axis_names), shape=(d, k),
                                axis_groups=groups)
 
 
@@ -243,7 +306,8 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
              world_size: Optional[int] = None, local_rank: Optional[int] = None,
              init_method: Optional[str] = None, backend: Optional[str] = None,
              timeout: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """The `data` mesh, or the `data,space` grid of ``shape`` (d, s).
+    """The `data` mesh, or the `data,space` or `data,model` grid of
+    ``shape`` (d, k).
 
     Training (a group of ranks): when a process group is initialised, when
     ``rank``/``world_size`` are given, or when torchrun's environment is
@@ -255,12 +319,12 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
     that share a card need gloo: over NCCL, more ranks than cards, by
     torchrun's ``LOCAL_WORLD_SIZE``, are refused); ``timeout`` bounds the
     join and every collective. ``init_method`` defaults to ``env://``. On a grid the
-    d * s ranks also create the process groups of its rows and columns.
+    d * k ranks also create the process groups of its rows and columns.
 
     Serving (this process alone): a mesh over ``devices``, by default every
     visible card. A device may repeat (``["cpu", "cpu"]``).
 
-    The `model` and `pp` axes raise `NotPorted`."""
+    The `pp` axis and three axes raise `NotPorted`."""
     axes = tuple(axis_names)
     check_mesh_axes(axes, shape)
     joining = (dist.is_initialized() or rank is not None or world_size is not None
@@ -308,18 +372,95 @@ def grid_sharding(mesh: Mesh, batch_axis: str = "data", row_axis: str = "space")
     return Sharding(mesh, (batch_axis, row_axis))
 
 
-def tp_param_shardings(params: Any, mesh: Mesh, axis: str = "data") -> Any:
-    raise NotPorted(f"tp_param_shardings (conv kernels over output channels) is "
-                    f"{ROADMAP_ITEMS['model']}")
+def tp_param_shardings(state: Any, mesh: Mesh, axis: str = "model") -> Dict[str, Sharding]:
+    """The tensor-parallel placement of every leaf of a training state: JAX's
+    rule (`facesr/parallel/mesh.py` `tp_param_shardings`) read in the
+    port's layouts. ``state`` is a `training.steps.TrainState` (or a bare
+    model). Returns ``{path: Sharding}`` by `parallel.tensor.state_tensors`'
+    paths (``params/<name>``, ``opt_state/mu/<name>``, ``ema_params/...``,
+    ``loss_params/vgg/<i>/w``, ``d_params/...``, ``d_stats/...``,
+    ``d_opt_state/...``; ``step`` too).
+
+    A leaf splits over ``axis`` along the axis that is JAX's trailing one
+    when that axis's length divides by the axis's size: axis 0 of an OIHW
+    conv weight, of a `Linear` weight ([out, in]), of a bias, a PReLU
+    alpha and a BatchNorm weight, bias or running stat (``spec`` ``(axis,
+    None, ...)``). A leaf whose JAX path has a key ``ca`` or a key
+    starting ``fc`` stays whole, as in JAX, decided on the path the
+    checkpoint bridge (`ckpt.weights`) maps the leaf to: the SE and the
+    discriminator's ``fc1``/``fc2`` (``fc1_w``, ...) stay whole. The
+    optimiser's moments, the EMA and the accumulated gradients follow
+    their parameter; scalars stay whole (``spec`` ``()``)."""
+    from facesr_torch.parallel.tensor import state_tensors
+
+    n = mesh.axis_size(axis)
+    if isinstance(state, torch.nn.Module):
+        model, disc = state, None
+        tensors = [(f"params/{k}", t) for k, t in state.state_dict(keep_vars=True).items()]
+    else:
+        model, disc, tensors = state.model, state.disc, list(state_tensors(state))
+        tensors.append(("step", torch.as_tensor(state.step)))
+    jax_paths = {"params": _jax_paths(model, _model_to_jax(model))}
+    if disc is not None:
+        from facesr_torch.ckpt.weights import jax_discriminator_from_state_dict
+
+        def disc_to_jax(sd):
+            params, stats = jax_discriminator_from_state_dict(sd)
+            return {"d_params": params, "d_stats": stats}
+
+        jax_paths["disc"] = _jax_paths(disc, disc_to_jax)
+
+    def keys_of(path: str) -> Tuple[str, ...]:
+        parts = path.split("/")
+        field_, name = parts[0], parts[-1]
+        if field_ in ("params", "ema_params") or (field_ == "opt_state" and len(parts) == 3):
+            return (field_,) + jax_paths["params"].get(name, ())
+        if field_ in ("d_params", "d_stats") or (field_ == "d_opt_state" and len(parts) == 3):
+            return (field_,) + jax_paths["disc"].get(name, ())[1:]
+        return tuple(parts)
+
+    out = {}
+    for path, t in tensors:
+        keys = keys_of(path)
+        whole = any(k == "ca" or k.startswith("fc") for k in keys)
+        if not whole and t.dim() >= 1 and t.shape[0] and t.shape[0] % n == 0:
+            out[path] = Sharding(mesh, (axis,) + (None,) * (t.dim() - 1))
+        else:
+            out[path] = Sharding(mesh, ())
+    return out
 
 
-def _axis_index(mesh: Mesh, axis: str) -> Tuple[int, int]:
-    """This rank's index along ``axis`` and the axis's length."""
-    if axis == "space":
-        return mesh.coords[1], mesh.space_size
-    if "space" in mesh.axis_names:
-        return mesh.coords[0], mesh.data_size
-    return mesh.rank, mesh.world_size
+def _model_to_jax(model):
+    """The checkpoint bridge of ``model``'s family (state dict -> JAX tree)."""
+    from facesr_torch.ckpt import weights
+
+    mtype = getattr(model, "model_type", "custom")
+    return {"transfer": weights.jax_params_from_transfer_state_dict,
+            "esrgan": weights.jax_params_from_esrgan_state_dict}.get(
+                mtype, weights.jax_params_from_state_dict)
+
+
+def _jax_paths(module: torch.nn.Module, to_jax) -> Dict[str, Tuple[str, ...]]:
+    """The JAX tree path each state-dict entry of ``module`` lands on under
+    the bridge ``to_jax``: a probe state dict whose entry i is a one-element
+    tensor of the entry's rank holding i goes through the bridge, and the
+    tree's leaves are read back (a stacked JAX leaf holds every entry it
+    stacks)."""
+    sd = module.state_dict(keep_vars=True)
+    names = list(sd)
+    probe = {k: torch.full((1,) * sd[k].dim(), float(i)) for i, k in enumerate(names)}
+    paths: Dict[str, Tuple[str, ...]] = {}
+    stack = [((), to_jax(probe))]
+    while stack:
+        path, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((path + (str(k),), v) for k, v in node.items())
+        elif isinstance(node, (list, tuple)):
+            stack.extend((path + (str(i),), v) for i, v in enumerate(node))
+        elif node is not None:
+            for i in np.unique(np.asarray(node)):
+                paths[names[int(i)]] = path
+    return paths
 
 
 def shard_batch(batch: Any, mesh: Union[Mesh, Sharding], axis: str = "data") -> Any:
@@ -335,7 +476,7 @@ def shard_batch(batch: Any, mesh: Union[Mesh, Sharding], axis: str = "data") -> 
     for dim, name in enumerate(sharding.spec):
         if name is None:
             continue
-        i, n = _axis_index(sharding.mesh, name)
+        i, n = sharding.mesh.axis_index(name), sharding.mesh.axis_size(name)
         size = out.shape[dim]
         if size % n:
             if dim == 0:
@@ -398,12 +539,13 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """The mean over the ranks of each tensor (new tensors, views of one flat
-    bucket per dtype and device): a sum by ``all_reduce``, divided by the
-    world size. With one rank the values are bitwise the inputs."""
+    """The mean over the ranks of `Mesh.sum_group` of each tensor (new
+    tensors, views of one flat bucket per dtype and device): a sum by
+    ``all_reduce``, divided by their count. With one rank there the
+    values are bitwise the inputs."""
     def mean(flat: torch.Tensor) -> None:
-        dist.all_reduce(flat, group=mesh.group)
-        flat.div_(mesh.world_size)
+        dist.all_reduce(flat, group=mesh.sum_group)
+        flat.div_(mesh.sum_size)
 
     return _bucketed(tensors, mean, in_place=False)
 
@@ -428,9 +570,9 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable (the global
-    BatchNorm's statistics)."""
-    return _AllReduceSum.apply(x, mesh.group)
+    """The sum of ``x`` over the ranks of `Mesh.sum_group`,
+    differentiable."""
+    return _AllReduceSum.apply(x, mesh.sum_group)
 
 
 def all_reduce_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -37,15 +37,24 @@ rates (the epoch schedule does not reach them, as in JAX). Its clip comes
 before the split, so its global norm covers every leaf, frozen ones
 included: with clipping on it asks for their gradients too
 (``needs_frozen_grads``).
+
+Under tensor parallelism (``update(..., shard=)``, a `parallel.tensor.
+ModelShard`) a parameter marked as this rank's slice has its slice's
+gradient: the clip's global norm (`global_norm`) sums those leaves'
+squares over the `model` group and counts each whole leaf once, so every
+rank clips by the whole gradient's norm, and the non-finite guard takes
+one decision for the group. Everything else is per leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-__all__ = ["AdamW", "StageAdamW", "set_learning_rate"]
+from facesr_torch.parallel import tensor
+
+__all__ = ["AdamW", "StageAdamW", "set_learning_rate", "global_norm"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -87,11 +96,11 @@ class AdamW:
                          total_notfinite=scalar(0))
         return state
 
-    def _clip(self, grads: Tensors) -> Tensors:
+    def _clip(self, grads: Tensors, params: Tensors, shard) -> Tensors:
         """optax.clip_by_global_norm over ``grads``."""
         if not (self.gradient_clip and self.gradient_clip > 0):
             return grads
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        norm = global_norm(grads, params, shard)
         keep = norm < self.gradient_clip
         return {n: torch.where(keep, g, (g / norm) * self.gradient_clip)
                 for n, g in grads.items()}
@@ -100,9 +109,9 @@ class AdamW:
         """The negated learning rate of parameter ``name`` (None: no update)."""
         return -state["lr"]
 
-    def _inner(self, grads: Tensors, state: Dict[str, Any], params: Tensors):
+    def _inner(self, grads: Tensors, state: Dict[str, Any], params: Tensors, shard=None):
         """clip_by_global_norm -> adamw: (updates, new count, mu, nu)."""
-        grads = self._clip(grads)
+        grads = self._clip(grads, params, shard)
         b1, b2 = self.b1, self.b2
         count = state["count"] + 1
         bc1 = 1 - torch.pow(b1, count.float())
@@ -121,16 +130,20 @@ class AdamW:
         return updates, count, mu, nu
 
     @torch.no_grad()
-    def update(self, grads: Tensors, state: Dict[str, Any], params: Tensors) -> None:
+    def update(self, grads: Tensors, state: Dict[str, Any], params: Tensors,
+               shard: Optional["tensor.ModelShard"] = None) -> None:
         """One optimiser step: ``params`` (by name, the tensors training
-        reads) and ``state`` are updated in place."""
+        reads) and ``state`` are updated in place. ``shard``: the `model`
+        shard whose slices the marked parameters are (tp)."""
         new: Dict[str, Any] = {}
         if self.skip_nonfinite > 0:  # judged on the incoming gradients
             finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+            if shard is not None:
+                finite = shard.all(finite)
         if self.accumulation_steps > 1:
             mini = state["mini_step"]
             grads = {n: a + (grads[n] - a) / (mini + 1) for n, a in state["acc"].items()}
-        updates, new["count"], new["mu"], new["nu"] = self._inner(grads, state, params)
+        updates, new["count"], new["mu"], new["nu"] = self._inner(grads, state, params, shard)
         if self.accumulation_steps > 1:
             emit = mini == self.accumulation_steps - 1
             updates = {n: emit * u for n, u in updates.items()}
@@ -183,6 +196,19 @@ class StageAdamW(AdamW):
     def _neg_lr(self, name: str, state: Dict[str, Any]):
         lr = self.lrs[self.labels[name]]
         return -lr if lr > 0 else None
+
+
+def global_norm(grads: Tensors, params: Tensors, shard=None) -> torch.Tensor:
+    """The L2 norm of the whole gradient: with a `model` ``shard``, the
+    squares of the marked (split) parameters' slices summed over the
+    group, and each whole parameter's counted once."""
+    sq = [torch.sum(g * g) for g in grads.values()]
+    if shard is None:
+        return torch.sqrt(sum(sq))
+    split = [tensor.is_split(params[n]) for n in grads]
+    zero = torch.zeros((), dtype=sq[0].dtype, device=sq[0].device)
+    parts = shard.sum(sum((s for s, p in zip(sq, split) if p), zero))
+    return torch.sqrt(sum((s for s, p in zip(sq, split) if not p), zero) + parts)
 
 
 def _select(cond: torch.Tensor, new: Any, old: Any) -> Any:

@@ -43,6 +43,21 @@ every rank, those layers' gradients are the group's own on each rank (no
 sum lies between them and the loss), and the mean over the S equal ranks
 keeps them. QAT runs the fake-quant convs over the rows (`ops.conv`: the
 float halo rows, the image's activation scale over the shards).
+
+On a `data,model` grid (`Mesh.model_shard`) the state is split over the
+`model` group (`parallel.tensor.shard_state`; each rank holds its slice
+of every split leaf, the moments and the EMA included) and every forward
+runs under `parallel.tensor.split`: each split conv computes its output
+channels and gathers the group's. Every replicated tensor, the loss
+included, then has the same value and gradient on the group's ranks, and
+each rank's gradient of a split leaf is its slice of the whole one, so
+the gradients are averaged over the `data` group only (`Mesh.sum_group`;
+the metrics and the eval sums too), and the whole leaves' over `model`
+as well, which only keeps rounding on the card from setting the replicas
+apart. The optimiser takes the shard: the clip's global norm sums the
+split leaves' squares over the group and counts each replicated leaf
+once, and the non-finite guard decides once for the group. The EMA, the
+weight decay and the moments stay per leaf.
 """
 
 from __future__ import annotations
@@ -58,7 +73,7 @@ from facesr_torch.losses.gan import gan_loss
 from facesr_torch.losses.ssim import ssim
 from facesr_torch.ops.conv import full_f32
 from facesr_torch.ops.resize import bicubic_down
-from facesr_torch.parallel import spatial
+from facesr_torch.parallel import spatial, tensor
 from facesr_torch.parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum
 from facesr_torch.training.optim import AdamW
 
@@ -85,9 +100,26 @@ def _row_shard(mesh: Optional[Mesh]):
     return None if mesh is None else mesh.row_shard()
 
 
+def _model_shard(mesh: Optional[Mesh]):
+    """This rank's `model` shard on a `data,model` grid (None otherwise)."""
+    return None if mesh is None else mesh.model_shard()
+
+
 def _slabs(shard, *images: torch.Tensor):
     """The shard's rows of each of ``images`` (unchanged without a shard)."""
     return images if shard is None else tuple(shard.slab(x) for x in images)
+
+
+def _update(optimizer: AdamW, grads, state, params, tp) -> None:
+    """``optimizer.update`` with the `model` shard (None off tp). Under tp
+    the whole leaves' gradients are first averaged over the `model`
+    group, so that rounding apart on the card (atomics) cannot make the
+    replicas differ (`parallel.tensor`)."""
+    if tp is not None:
+        whole = [n for n in grads if not tensor.is_split(params[n])]
+        if whole:
+            grads = {**grads, **dict(zip(whole, tp.mean([grads[n] for n in whole])))}
+    optimizer.update(grads, state, params, shard=tp)
 
 
 def _reduced(grads, mesh: Optional[Mesh]):
@@ -95,7 +127,8 @@ def _reduced(grads, mesh: Optional[Mesh]):
 
 
 def _mean_metrics(metrics: Metrics, mesh: Optional[Mesh]) -> Metrics:
-    """Each metric's mean over the ranks (one all-reduce)."""
+    """Each metric's mean over the ranks of `Mesh.sum_group` (one
+    all-reduce)."""
     if mesh is None:
         return metrics
     keys = list(metrics)
@@ -148,20 +181,20 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
     returned; metrics are the loss components, ``loss`` and, with the
     non-finite guard, the running count ``opt_notfinite``."""
     mesh = _dp(mesh)
-    shard = _row_shard(mesh)
+    shard, tp = _row_shard(mesh), _model_shard(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
         with full_f32():
             hr = hr.float()
             lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
-            with spatial.rows(shard):
+            with spatial.rows(shard), tensor.split(tp):
                 sr = state.model(lr_img, train=True, dtype=compute_dtype,
                                  quant=_quant(quant_fn))
                 loss, comps = loss_apply(state.loss_params, sr, hr)
                 grads = torch.autograd.grad(loss, list(params.values()))
             grads = _reduced(grads, mesh)
-        optimizer.update(dict(zip(params, grads)), state.opt_state, params)
+        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp)
         if ema_decay > 0:
             ema_update(state.ema_params, state.model, ema_decay)
         state.step += 1
@@ -173,6 +206,7 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
         return state, metrics
 
     train_step.row_shard = shard  # its exchange counts (None unsharded)
+    train_step.model_shard = tp
     return train_step
 
 
@@ -201,9 +235,10 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     counts ``opt_notfinite`` and ``d_opt_notfinite``. Under ``mesh`` D's
     BatchNorm takes global statistics, both gradient sets are reduced, and
     the stats guard reads the global losses; on a `data,space` grid every
-    forward runs on the shard's image rows (the module docstring)."""
+    forward runs on the shard's image rows (the module docstring); on a
+    `data,model` grid every forward on the rank's channel slices."""
     mesh = _dp(mesh)
-    shard = _row_shard(mesh)
+    shard, tp = _row_shard(mesh), _model_shard(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -215,7 +250,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
         with full_f32():
             hr = hr.float()
             lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
-            with spatial.rows(shard):
+            with spatial.rows(shard), tensor.split(tp):
                 sr = state.model(lr_img, train=True, dtype=compute_dtype,
                                  quant=_quant(quant_fn))
                 sr_for_d = sr.detach()
@@ -226,8 +261,8 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                               + gan_loss(d_fake, False, gan_type)) / 2
                     d_grads = _reduced(torch.autograd.grad(d_loss, list(d_params.values())),
                                        mesh)
-                    d_optimizer.update(dict(zip(d_params, d_grads)), state.d_opt_state,
-                                       d_params)
+                    _update(d_optimizer, dict(zip(d_params, d_grads)), state.d_opt_state,
+                                            d_params, tp)
                     d_loss = d_loss.detach()
                     d_real_score = torch.sigmoid(d_real.detach()).mean()
                     d_fake_score = torch.sigmoid(d_fake.detach()).mean()
@@ -237,7 +272,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                 loss = content + gan_weight * g_adv
                 grads = torch.autograd.grad(loss, list(params.values()))
             grads = _reduced(grads, mesh)
-        optimizer.update(dict(zip(params, grads)), state.opt_state, params)
+        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp)
         metrics = {k: v.detach() for k, v in comps.items()}
         metrics.update(g_adv=g_adv.detach(), loss=loss.detach(), d_loss=d_loss,
                        d_real=d_real_score, d_fake=d_fake_score)
@@ -255,6 +290,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
         return state, metrics
 
     train_step.row_shard = shard  # its exchange counts (None unsharded)
+    train_step.model_shard = tp
     return train_step
 
 
@@ -276,16 +312,18 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
     (`eval_metrics_from_sums`). On a grid each rank takes its image rows
     (sr and lr are returned as those rows), the loss and SSIM are global
     over the rows, and the sums add over every rank: each space rank
-    counts its batch rows too, so the row-weighted means are unchanged."""
+    counts its batch rows too, so the row-weighted means are unchanged. On
+    a `data,model` grid the forward runs on the rank's channel slices (the
+    EMA's too) and the sums add over the `data` group."""
     mesh = _dp(mesh)
-    shard = _row_shard(mesh)
+    shard, tp = _row_shard(mesh), _model_shard(mesh)
 
     def eval_step(state: TrainState, hr: torch.Tensor, reduce: bool = True):
         if use_ema and state.ema_params is None:
             raise ValueError(
                 "make_eval_step(use_ema=True) on a TrainState without EMA "
                 "weights (ema_params is None); build the step with use_ema=False")
-        with torch.no_grad(), full_f32(), spatial.rows(shard):
+        with torch.no_grad(), full_f32(), spatial.rows(shard), tensor.split(tp):
             hr = hr.float()
             lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
             quant = _quant(quant_fn)
@@ -308,6 +346,7 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
         return {"loss": loss, "psnr": psnr, "ssim": ssim_val}, sr, lr_img
 
     eval_step.row_shard = shard  # its exchange counts (None unsharded)
+    eval_step.model_shard = tp
     return eval_step
 
 

@@ -593,9 +593,24 @@ def test_other_mesh_axes_raise_and_name_their_item(axes, item, where, tmp_path, 
     import facesr_torch.training.trainer as trainer_mod
     from facesr_torch.training.trainer import Trainer, TrainerConfig
 
-    if axes == "data,space" and where == "get_mesh":  # ported: tests/test_torch_sp.py
+    if axes in ("data,space", "data,model") and where == "get_mesh":
+        # ported: tests/test_torch_sp.py, tests/test_torch_tp.py
         mesh = pmesh.get_mesh(["cpu"] * 2, axis_names=axes.split(","), shape=(1, 2))
-        assert (mesh.data_size, mesh.space_size) == (1, 2)
+        assert (mesh.data_size, mesh.axis_size(axes.split(",")[1])) == (1, 2)
+        return
+    if axes == "data,model":  # ported, the whole state split: tests/test_torch_tp.py
+        mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
+                          axis_names=("data", "model"), shape=(1, 2),
+                          axis_groups={"data": object(), "model": object()})
+        monkeypatch.setattr(trainer_mod, "replicate", lambda tree, m: tree)  # no group to call
+        tr = Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
+                     TrainerConfig(mesh_axes=axes, mesh_shape=(1, 2), gan_weight=0.1,
+                                   checkpoint_dir=str(tmp_path)),
+                     device="cpu", discriminator=_disc(), mesh=mesh)
+        assert tr.use_gan and tr._gan_step.model_shard.size == 2 and tr._batch_divisor == 1
+        # rank 0's slices of the convs' output channels; conv_last whole
+        assert tr.model.conv_first.weight.shape[0] == _model().conv_first.weight.shape[0] // 2
+        assert tr.model.conv_last.weight.shape == _model().conv_last.weight.shape
         return
     if axes == "data,space":  # ported, the GAN stage too: tests/test_torch_sp_gan.py
         mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
@@ -628,11 +643,15 @@ def test_unported_mesh_functions_raise_and_name_their_item(fn):
         want = (None, "data") if fn == "row_sharding" else ("data", "space")
         assert getattr(par, fn)(grid).spec == want
         return
+    if fn == "tp_param_shardings":  # ported: tests/test_torch_tp.py holds it to JAX's
+        grid = pmesh.get_mesh(["cpu"] * 4, axis_names=("data", "model"), shape=(2, 2))
+        specs = par.tp_param_shardings(_model(), grid)
+        assert specs["params/conv_first.weight"].spec == ("model", None, None, None)
+        assert specs["params/conv_last.weight"].spec == ()
+        return
     with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.[2-5]"):
         if fn == "mesh_shape":  # a shape of three axes: the compositions, A.13.5
             pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
-        elif fn == "tp_param_shardings":
-            par.tp_param_shardings({}, mesh)
         elif fn in ("pp_param_shardings", "make_pp_apply"):
             getattr(par, fn)()
         else:

@@ -164,9 +164,9 @@ def test_qat_forward_tracks_int8_serving():
 class _RecordingAdamW(optim.AdamW):
     """AdamW that keeps the gradients of its last update."""
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, shard=None):
         self.grads = {k: v.detach().clone() for k, v in grads.items()}
-        return super().update(grads, state, params)
+        return super().update(grads, state, params, shard=shard)
 
 
 def test_one_qat_train_step_matches_jax():

@@ -135,7 +135,7 @@ def _trainer(ckpt_dir, train, val, mesh=None, **cfg):
 def _sp_worker(mesh, tmp, extras):
     """Everything a rank of one grid runs, in one launch."""
     torch.set_num_threads(1)
-    out = {"rank": mesh.rank, "coords": mesh.coords}
+    out = {"rank": mesh.rank, "coords": (mesh.axis_index("data"), mesh.axis_index("space"))}
     state, opt, step, apply = _content_step(mesh)
     losses, grads = [], []
     for seed in SEEDS:
@@ -152,7 +152,7 @@ def _sp_worker(mesh, tmp, extras):
     # the control: gradients summed over `space` (a mean over `data` only)
     state, opt, step, _ = _content_step(mesh)
     reduced = steps._reduced
-    steps._reduced = lambda g, m: [t * m.space_size for t in reduced(g, m)]
+    steps._reduced = lambda g, m: [t * m.axis_size("space") for t in reduced(g, m)]
     try:
         step(state, _rows(_hr(SEEDS[0]), mesh))
     finally:
@@ -377,7 +377,7 @@ def test_the_mesh_builds_the_grid_and_shards_batch_and_image_rows():
         mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), rank=rank, world_size=4,
                           axis_names=("data", "space"), shape=(2, 2))
         i, j = divmod(rank, 2)
-        assert mesh.coords == (i, j) and mesh.data_size == 2 and mesh.space_size == 2
+        assert (mesh.axis_index("data"), mesh.axis_index("space")) == (i, j) and mesh.data_size == 2 and mesh.axis_size("space") == 2
         assert np.array_equal(pmesh.shard_batch(x, mesh), x[2 * i:2 * i + 2])
         got = pmesh.shard_batch({"hr": x}, pmesh.grid_sharding(mesh))["hr"]
         assert np.array_equal(got, x[2 * i:2 * i + 2, 4 * j:4 * j + 4])
@@ -386,7 +386,7 @@ def test_the_mesh_builds_the_grid_and_shards_batch_and_image_rows():
     with pytest.raises(ValueError, match="image height 7 must divide over the 2-way"):
         pmesh.shard_batch(x[:, :7], pmesh.grid_sharding(mesh))
     serving = pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space"), shape=(4, 2))
-    assert serving.shape == (4, 2) and serving.data_size == 4 and serving.space_size == 2
+    assert serving.shape == (4, 2) and serving.data_size == 4 and serving.axis_size("space") == 2
     with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.5"):
         pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
     with pytest.raises(ValueError, match="does not fit the mesh axes"):

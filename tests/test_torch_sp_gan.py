@@ -238,7 +238,7 @@ def _planted(control, shard_cls=spatial.RankShard):
                 size=shard.size, index=shard.index, bounds=shard.bounds, sum=lambda t: t)))
     elif control == "wrong_factor":  # gradients summed over `space` (a mean over `data` only)
         reduced = steps._reduced
-        patch(steps, "_reduced", lambda g, m: [t * m.space_size for t in reduced(g, m)])
+        patch(steps, "_reduced", lambda g, m: [t * m.axis_size("space") for t in reduced(g, m)])
     elif control == "per_shard_scale":
         scale = tconv.fake_quant_scale
         patch(tconv, "fake_quant_scale", lambda t, static=None, shard=None: scale(t, static))
@@ -303,7 +303,7 @@ def _qat_run(mesh, ref, calibrated, control=False):
     state, opt, step, _ = _qat_step(mesh, calibrated)
     shard = step.row_shard
     per = BATCH // mesh.data_size
-    batch = slice(mesh.coords[0] * per, (mesh.coords[0] + 1) * per)
+    batch = slice(mesh.axis_index("data") * per, (mesh.axis_index("data") + 1) * per)
     losses, grads, pins = [], [], []
     with fake_quant_levels(row_shard_levels(ref["steps"], shard, batch)) as pin:
         for seed in QAT_SEEDS[:1] if control else QAT_SEEDS:
@@ -389,7 +389,8 @@ def _worker(mesh, tmp, extras, refs):
     """Everything a rank of one grid runs, in one launch; ``refs``: the
     single-process QAT runs' records (`_qat_reference`)."""
     torch.set_num_threads(1)
-    out = {"rank": mesh.rank, "coords": mesh.coords, "gan": {}}
+    out = {"rank": mesh.rank, "coords": (mesh.axis_index("data"), mesh.axis_index("space")),
+           "gan": {}}
     for case, kw in GAN_CASES.items():
         state, _, _, step = _gan_step(mesh, **kw)
         metrics = []
