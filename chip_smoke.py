@@ -259,14 +259,45 @@ catches an error and goes on):
    final model and the QAT YAML (with phase 12's calibrated scales when
    there), each through the CLI on the grid for one epoch of two steps,
    side by side: exit codes, finite val PSNR, rank 0 writing.
+18. tensor parallelism (the convs' output channels and the training state
+   over a data,model [1, 2] grid of two gloo ranks sharing cuda:0): (a)
+   the stage-1 step (batch 8), (b) stage 3's GAN step (batch 8) and (c)
+   phase 12's QAT step (batch 2, pinned at fake-quant ties) against the
+   step alone within phase 16's floor-based limits, parameters off their
+   Adam ties, a summed gather, a clip without the `model` sum and D's
+   reversed gather as controls, the ranks' gathered states bitwise; (d)
+   the stage-1 YAML through the CLI on the grid, its ``.fckpt`` resumed
+   by one process; (e) no group launch.
+19. pipeline parallelism (the residual groups as a GPipe pipeline over a
+   data,pp [1, 2] grid of two gloo ranks sharing cuda:0, three groups a
+   stage): (a) the stage-1 step (batch 8 in 2 microbatches) and (b) stage
+   3's GAN step (batch 8) against the step alone within phase 16's
+   floor-based limits (the floor's third draw runs the trunk in the
+   microbatches), parameters off their Adam ties, a broadcast whose
+   backward sums over `pp` and a clip without the `pp` sum as controls,
+   the ranks' gathered states bitwise, ms a step, exchanges, a rank's
+   peak and its state against one process's (at most 0.55); (c) the
+   stage-1 YAML through the CLI on the grid with ``--print-memory``, its
+   ``.fckpt`` resumed by one process; (d) `make_pp_apply`'s bf16 eval
+   forward at 16x64x64, each stage's groups through the group kernel
+   (launches counted into the kernel table), the unclamped output within
+   phase 4's limits of the same pipeline on plain groups, a dropped SE
+   gate rejected.
 
-It prints the kernel table as one JSON line, then the nvidia-smi line,
+Phases 18 and 19 run their steps in child processes (two ranks each),
+one launch after the other, beside phases 15 and 16 in this process:
+the host, not the card, bounds those phases, so their ms figures are
+taken with the other work running. Their reports follow phase 17, and the
+CLI ranks of 18 (d) and 19 (c) run side by side after it; phase 17 runs
+its CLI ranks ((c), then (f)) beside its own launch. Every phase prints
+its seconds. It prints the kernel table as one JSON line, then the nvidia-smi line,
 then the result line ``{"ok": true, "device": {...}}`` last. Without a
 CUDA card it exits non-zero and prints no result.
 """
 
 import contextlib
 import ctypes
+import functools
 import http.client
 import json
 import math
@@ -277,6 +308,7 @@ import tempfile
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1346,10 +1378,13 @@ def gan_trainer_phase(dev):
     def trainer(ckpt_dir, epochs, seed, gan=True):
         cfg = TrainerConfig(epochs=epochs, learning_rate=1e-5, weight_decay=0.0,
                             gradient_clip=0.5, use_amp=False, scheduler_type="step",
-                            scheduler_step_size=20, scheduler_gamma=1.0, save_every=1,
-                            checkpoint_dir=ckpt_dir, early_stopping_metric="val_loss",
-                            early_stopping_mode="min", gan_weight=0.005 if gan else 0.0,
-                            d_learning_rate=1e-4, gan_start_epoch=1)
+                            scheduler_step_size=20, scheduler_gamma=1.0,
+                            # no epoch_N files (time: D at 256 makes each save ~1.2 GB);
+                            # best_model and final_model are still written and resumed
+                            save_every=0, checkpoint_dir=ckpt_dir,
+                            early_stopping_metric="val_loss", early_stopping_mode="min",
+                            gan_weight=0.005 if gan else 0.0, d_learning_rate=1e-4,
+                            gan_start_epoch=1)
         loss = stage1_loss("cpu")
         model = FaceEnhanceNet(production_config(), seed=seed, device="cpu")
         disc = (create_discriminator(input_size=GAN_HR, base_channels=GAN_D_BASE, seed=seed,
@@ -4402,7 +4437,7 @@ def sp_qat_report(q0, q1, card: str) -> None:
         raise AssertionError("the sp QAT ranks' states differ")
 
 
-def _sp_cli(name: str, argv, tmp: Path, card: str):
+def _sp_cli(name: str, argv, tmp: Path):
     """The train CLI through torchrun's environment on the data,space grid
     (2 ranks on cuda:0 over gloo), in ``tmp / name``: (exit codes, seconds,
     each rank's log)."""
@@ -4433,12 +4468,11 @@ def _cli_checked(what: str, codes, logs, files, extra_ok=True) -> list:
     return psnr
 
 
-def sp_cli_chain(tmp: Path, stage1_dir: Path, data: Path, card: str) -> None:
-    """(f): stage 3 chained from (c)'s final model, and the QAT YAML, each
-    through the CLI on the grid for one epoch of two steps, the two runs
-    side by side (four ranks on cuda:0)."""
+def sp_cli_chain_runs(tmp: Path, stage1_dir: Path, data: Path) -> dict:
+    """(f)'s runs: stage 3 chained from (c)'s final model, and the QAT YAML,
+    each through the CLI on the grid for one epoch of two steps, the two
+    runs side by side (four ranks on cuda:0); `sp_cli_chain` checks them."""
     import shutil
-    from concurrent.futures import ThreadPoolExecutor
 
     run3 = tmp / "sp_cli_gan"
     (run3 / "checkpoints").mkdir(parents=True)
@@ -4455,11 +4489,17 @@ def sp_cli_chain(tmp: Path, stage1_dir: Path, data: Path, card: str) -> None:
     with ThreadPoolExecutor(2) as pool:
         gan = pool.submit(_sp_cli, "sp_cli_gan", ["--config", str(STAGE3_YAML), "--data-root",
                                                   str(data), "--batch-size", str(SP_CLI_BATCH)],
-                          tmp, card)
+                          tmp)
         qat = pool.submit(_sp_cli, "sp_cli_qat", ["--config", str(yaml), "--data-root",
                                                   str(qat_data), "--batch-size",
-                                                  str(SP_QAT_BATCH), *pin], tmp, card)
-        runs = {"stage 3": gan.result(), "QAT": qat.result()}
+                                                  str(SP_QAT_BATCH), *pin], tmp)
+        return {"stage 3": gan.result(), "QAT": qat.result(), "pin": pin}
+
+
+def sp_cli_chain(tmp: Path, runs: dict, card: str) -> None:
+    """(f): `sp_cli_chain_runs`' two runs checked: exit codes, the grid's
+    places, finite val PSNR, rank 0 writing (stage 3 with its GAN line)."""
+    run3, ckpt, pin = tmp / "sp_cli_gan", tmp / "sp_qat_checkpoints", runs["pin"]
     for what, keys in (("stage 3", ("Val PSNR", "ms/step", "GAN:", "Loaded")),
                        ("QAT", ("Val PSNR", "ms/step", "QAT"))):
         for r, text in enumerate(runs[what][2]):
@@ -4471,7 +4511,8 @@ def sp_cli_chain(tmp: Path, stage1_dir: Path, data: Path, card: str) -> None:
     psnr = _cli_checked("the data,space stage-3 CLI run", codes, logs, files,
                         all("GAN:" in t for t in logs))
     log(f"  (f) the stage-3 YAML through the train CLI on data,space {list(SP_GRID)} (2 ranks on "
-        f"cuda:0 over gloo, beside the QAT run's 2), chained from (c)'s final_model.fckpt, "
+        f"cuda:0 over gloo, beside the QAT run's 2 and the launch of (b), (d) and (e)), chained "
+        f"from (c)'s final_model.fckpt, "
         f"--batch-size {SP_CLI_BATCH}, 1 epoch on {SP_CLI_TRAIN} of phase 8's train PNGs: exit "
         f"codes {codes}, {secs:.1f} s "
         f"with set-up, val PSNR {psnr}; rank 0 wrote {files} [{card}]")
@@ -4502,11 +4543,37 @@ def sp_phase(card: str, tmp: Path) -> int:
     serving = sp_serving(dev, card, tmp)
     parts = {"(a)": time.perf_counter() - t_phase}
 
+    run_dir = tmp / "sp_cli"
+    run_dir.mkdir()
+    data = png_subset(tmp, "sp_cli_data", SP_CLI_TRAIN, SP_CLI_BATCH)  # two steps, one val batch
+
+    def cli_runs():
+        """(c)'s ranks, then (f)'s runs once (c) wrote its final model."""
+        t0 = time.perf_counter()
+        codes = run_cli_ranks("facesr_torch.cli.train",
+                              ["--config", str(STAGE1_YAML), "--data-root", str(data),
+                               "--batch-size", str(SP_CLI_BATCH), "--epochs", "1",
+                               "--print-memory", "--mesh-axes", "data,space",
+                               "--mesh-shape", ",".join(map(str, SP_GRID)), "--dist-backend",
+                               "gloo", *SP_CLI_FLAGS],
+                              2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
+                              env={"PYTHONPATH": str(REPO)})
+        cli_s, chain, t1 = time.perf_counter() - t0, None, time.perf_counter()
+        if codes == [0, 0] and (run_dir / "checkpoints" / "final_model.fckpt").exists():
+            chain = sp_cli_chain_runs(tmp, run_dir, data)
+        return codes, cli_s, chain, time.perf_counter() - t1
+
+    # (c)'s and then (f)'s CLI ranks run beside the launch of (b), (d) and (e) (time)
     t0 = time.perf_counter()
-    r0, r1 = run_ranks(sp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
-                       backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "space"),
-                       shape=SP_GRID)
-    parts["(b), (d), (e): one launch of two ranks"] = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        clis = pool.submit(cli_runs)
+        r0, r1 = run_ranks(sp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
+                           backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "space"),
+                           shape=SP_GRID)
+        parts["(b), (d), (e): one launch of two ranks, beside (c)'s and (f)'s"] = (
+            time.perf_counter() - t0)
+        codes, cli_s, chain, chain_s = clis.result()
+        parts["(c) and (f) with the launch"] = time.perf_counter() - t0
     parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
     limit = {part: {k: max(STEP_RTOL, DP_FLOOR_FACTOR * f) for k, f in floors.items()}
              for part, floors in r0["floor"].items()}
@@ -4540,19 +4607,6 @@ def sp_phase(card: str, tmp: Path) -> int:
     sp_gan_report(r0["gan"], r1["gan"], card)
     sp_qat_report(r0["qat"], r1["qat"], card)
 
-    run_dir = tmp / "sp_cli"
-    run_dir.mkdir()
-    data = png_subset(tmp, "sp_cli_data", SP_CLI_TRAIN, SP_CLI_BATCH)  # two steps, one val batch
-    t0 = time.perf_counter()
-    codes = run_cli_ranks("facesr_torch.cli.train",
-                          ["--config", str(STAGE1_YAML), "--data-root", str(data),
-                           "--batch-size", str(SP_CLI_BATCH), "--epochs", "1", "--print-memory",
-                           "--mesh-axes", "data,space",
-                           "--mesh-shape", ",".join(map(str, SP_GRID)), "--dist-backend", "gloo",
-                           *SP_CLI_FLAGS],
-                          2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
-                          env={"PYTHONPATH": str(REPO)})
-    cli_s = time.perf_counter() - t0
     logs = [(run_dir / f"rank{r}.log").read_text() for r in range(2)]
     files = sorted(p.name for p in (run_dir / "checkpoints").iterdir()) \
         if (run_dir / "checkpoints").exists() else []
@@ -4563,7 +4617,8 @@ def sp_phase(card: str, tmp: Path) -> int:
                 log(f"  (c) rank {r}: {line.strip()}")
     psnr = [float(v) for v in re.findall(r"Val PSNR:\s+([-\d.]+) dB", logs[0])]
     log(f"  (c) the stage-1 YAML through the train CLI on data,space {list(SP_GRID)} (torchrun's "
-        f"environment, 2 ranks on cuda:0 over gloo), --print-memory, --batch-size "
+        f"environment, 2 ranks on cuda:0 over gloo, beside the launch of (b), (d) and (e)), "
+        f"--print-memory, --batch-size "
         f"{SP_CLI_BATCH}, 1 epoch on {SP_CLI_TRAIN} of "
         f"phase 8's train PNGs and {SP_CLI_BATCH} of its val pairs: "
         f"exit codes {codes}, {cli_s:.1f} s with set-up; rank 0 wrote {files} [{card}]")
@@ -4573,10 +4628,8 @@ def sp_phase(card: str, tmp: Path) -> int:
             or not all("device memory" in t for t in logs):
         raise AssertionError(f"the data,space train CLI run: {codes}, "
                              + " | ".join(t[-1500:] for t in logs))
-    parts["(c)"] = cli_s
-    t0 = time.perf_counter()
-    sp_cli_chain(tmp, run_dir, data, card)
-    parts["(f)"] = time.perf_counter() - t0
+    parts["(c)"], parts["(f)"] = cli_s, chain_s
+    sp_cli_chain(tmp, chain, card)
     log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
     return serving["launches_one"]
@@ -4947,10 +5000,33 @@ def tp_report(name: str, case: dict, other: dict, card: str, what: str) -> None:
         raise AssertionError(f"the tp ranks' {what} states differ")
 
 
-def tp_cli(tmp: Path, card: str) -> dict:
-    """(d): the stage-1 YAML through the train CLI on data,model [1, 2] with
-    --print-memory, one epoch of two steps at --batch-size TP_CLI_BATCH;
-    rank 0's final_model.pth loaded strict by a single-process model, its
+def _tp_cli_flags(tmp: Path) -> list:
+    return ["--config", str(STAGE1_YAML), "--data-root", str(tmp / "tp_cli_data"),
+            "--batch-size", str(TP_CLI_BATCH), *TP_CLI_FLAGS]
+
+
+def tp_cli_ranks(tmp: Path) -> dict:
+    """(d)'s two ranks: the stage-1 YAML through the train CLI on data,model
+    [1, 2] with --print-memory, one epoch of two steps at --batch-size
+    TP_CLI_BATCH: exit codes, seconds with set-up."""
+    from facesr_torch.parallel.launch import run_cli_ranks
+
+    png_subset(tmp, "tp_cli_data", 2 * TP_CLI_BATCH, TP_CLI_BATCH)  # two steps
+    run_dir = tmp / "tp_cli"
+    run_dir.mkdir()
+    t0 = time.perf_counter()
+    codes = run_cli_ranks("facesr_torch.cli.train",
+                          [*_tp_cli_flags(tmp), "--epochs", "1", "--print-memory",
+                           "--mesh-axes", "data,model", "--mesh-shape",
+                           ",".join(map(str, TP_GRID)), "--dist-backend", "gloo"],
+                          2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
+                          env={"PYTHONPATH": str(REPO)})
+    return {"s": time.perf_counter() - t0, "codes": codes}
+
+
+def tp_cli(tmp: Path, card: str, ranks=None) -> dict:
+    """(d): `tp_cli_ranks`' run (``ranks``, else run here) checked; rank 0's
+    final_model.pth loaded strict by a single-process model, its
     final_model.fckpt resumed by a single-process CLI run for epoch 2."""
     import io
     import os
@@ -4960,21 +5036,9 @@ def tp_cli(tmp: Path, card: str) -> dict:
     from facesr_torch.cli import train as train_cli
     from facesr_torch.models.face_enhance_net import FaceEnhanceNet
     from facesr_torch.ops import rcab_group as rg
-    from facesr_torch.parallel.launch import run_cli_ranks
 
-    data = png_subset(tmp, "tp_cli_data", 2 * TP_CLI_BATCH, TP_CLI_BATCH)  # two steps
-    run_dir = tmp / "tp_cli"
-    run_dir.mkdir()
-    flags = ["--config", str(STAGE1_YAML), "--data-root", str(data), "--batch-size",
-             str(TP_CLI_BATCH), *TP_CLI_FLAGS]
-    t0 = time.perf_counter()
-    codes = run_cli_ranks("facesr_torch.cli.train",
-                          [*flags, "--epochs", "1", "--print-memory", "--mesh-axes",
-                           "data,model", "--mesh-shape", ",".join(map(str, TP_GRID)),
-                           "--dist-backend", "gloo"],
-                          2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
-                          env={"PYTHONPATH": str(REPO)})
-    out = {"s": time.perf_counter() - t0, "codes": codes}
+    out = dict(ranks or tp_cli_ranks(tmp))
+    flags, codes, run_dir = _tp_cli_flags(tmp), out["codes"], tmp / "tp_cli"
     logs = [(run_dir / f"rank{r}.log").read_text() for r in range(2)]
     ckpt = run_dir / "checkpoints"
     out["files"] = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
@@ -5021,21 +5085,34 @@ def tp_cli(tmp: Path, card: str) -> dict:
     return out
 
 
-def tp_phase(card: str, tmp: Path) -> int:
-    """Phase 18: tensor parallelism on the card; returns the group kernel's
-    launches on its paths (none: training runs the plain trunk)."""
+def tp_launch(card: str, tmp: Path):
+    """Phase 18's launch: (a), (b) and (c) on two gloo ranks of the [1, 2]
+    data,model grid sharing cuda:0; (rank 0's, rank 1's results, seconds)."""
     from facesr_torch.parallel.launch import run_ranks
 
+    t0 = time.perf_counter()
+    r0, r1 = run_ranks(tp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
+                       backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "model"),
+                       shape=TP_GRID)
+    return r0, r1, time.perf_counter() - t0
+
+
+def tp_phase(card: str, tmp: Path, cli: bool = True, launched=None) -> int:
+    """Phase 18: tensor parallelism on the card; returns the group kernel's
+    launches on its paths (none: training runs the plain trunk).
+    ``launched``: `tp_launch`'s result when the launch ran earlier (beside
+    other phases), else it runs here. Without ``cli`` (d) and (e) are left
+    to `tp_cli_phase`."""
     log(f"== 18. tensor parallelism (the convs' output channels and the training state over a "
         f"data,model grid; the card's machine has one card, so two gloo ranks share cuda:0) "
         f"[{card}]")
     t_phase = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    r0, r1 = run_ranks(tp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
-                       backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "model"),
-                       shape=TP_GRID)
-    parts = {"(a), (b), (c): one launch of two ranks": time.perf_counter() - t_phase}
+    if launched is None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    r0, r1, launch_s = launched or tp_launch(card, tmp)
+    parts = {"(a), (b), (c): one launch of two ranks"
+             + (" (beside phases 15 and 16)" if launched is not None else ""): launch_s}
     parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
     log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
     if (r0["coords"], r1["coords"]) != ((0, 0), (0, 1)):
@@ -5069,22 +5146,499 @@ def tp_phase(card: str, tmp: Path) -> int:
         raise AssertionError(f"the tp QAT step disagrees with the single-process step: {failed}")
     if q0["hash"] != q1["hash"]:
         raise AssertionError("the tp QAT ranks' states differ")
+    launches = r0["launches"] + r1["launches"]
+    log(f"  phase 18 (a)-(c) took {time.perf_counter() - t_phase:.1f} s here: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
+    return tp_cli_phase(card, tmp, launches=launches) if cli else launches
+
+
+def tp_cli_phase(card: str, tmp: Path, ranks=None, launches: int = 0) -> int:
+    """Phase 18 (d) and (e): `tp_cli` on (d)'s rank run (``ranks``, else run
+    here), then the phase's group launches (``launches`` from its launch)
+    checked to be 0."""
+    cfg = production_config()
+    width = f"{cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels}"
     t0 = time.perf_counter()
-    cli = tp_cli(tmp, card)
-    parts["(d)"] = time.perf_counter() - t0
+    cli = tp_cli(tmp, card, ranks)
     log(f"  (d) the stage-1 YAML through the train CLI on data,model {list(TP_GRID)} (torchrun's "
-        f"environment, 2 ranks on cuda:0 over gloo), --print-memory, --batch-size {TP_CLI_BATCH}, "
+        f"environment, 2 ranks on cuda:0 over gloo"
+        f"{', beside phase 19 (c)' + chr(39) + 's 2' if ranks is not None else ''}), "
+        f"--print-memory, --batch-size {TP_CLI_BATCH}, "
         f"1 epoch on {2 * TP_CLI_BATCH} of phase 8's train PNGs: exit codes {cli['codes']}, "
         f"{cli['s']:.1f} s with set-up; rank 0 wrote {cli['files']}; final_model.pth loaded "
         f"strict into a {width} FaceEnhanceNet (finite: {cli['pth_finite']}); final_model.fckpt "
         f"resumed by one process for epoch 2: epoch {cli['resume']['epoch'] + 1}, "
         f"{cli['resume']['steps']} steps, val PSNR {cli['resume']['history']}, "
         f"{cli['resume_s']:.1f} s [{card}]")
-    launches = r0["launches"] + r1["launches"] + cli["resume"]["launches"]
+    launches += cli["resume"]["launches"]
     log(f"  (e) group-kernel launches in phase 18: {launches} (training runs the plain trunk)")
     if launches:
         raise AssertionError("phase 18 launched the group kernel")
-    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s: "
+    log(f"  phase 18 (d) took {time.perf_counter() - t0:.1f} s here [{card}]")
+    return launches
+
+
+# phase 19: pipeline parallelism on the card. On a [1, 2] data,pp grid of
+# two gloo ranks sharing cuda:0 (stage i holds groups 3i..3i+2 and their
+# state), one launch: (a) the stage-1 step and (b) stage 3's GAN step,
+# each against the step alone; (d) make_pp_apply's bf16 eval forward
+# through the group kernel; then (c) the stage-1 YAML through the train CLI
+# on data,pp, its final checkpoint resumed by one process. The machine has
+# one card: no NCCL across cards, no multi-card speed-up.
+PP_GRID = (1, 2)
+PP_BATCH = 8                    # (a) the stage-1 step's batch, cut from 48, in 2 microbatches
+PP_GAN_BATCH = 16               # (b) stage 3's step, cut from 48 (at 8 an Adam tie escaped the floor)
+PP_CLI_BATCH = 4                # (c) --batch-size: two steps' worth of phase 8's train PNGs
+PP_CLI_FLAGS = ()               # extra train CLI flags of (c)
+PP_FWD_SHAPE = (16, 64, 64, 3)  # (d) the bf16 eval forward's LR batch, in 2 microbatches
+PP_MICRO = 2                    # microbatches a step and a forward (the default: one a stage)
+PP_CONTROLS = {False: ("broadcast_backward_sum", "clip_without_pp_sum"), True: ()}
+PP_STATE_GATE = 0.55            # a rank's G parameters and moments against one process's
+
+
+@contextlib.contextmanager
+def _pp_fault(name):
+    """A fault planted in the pp path: the broadcast of the finished trunk
+    whose backward sums over `pp` (every group's gradient S times too
+    large), or a clip whose global norm skips the `pp` sum."""
+    import torch.distributed as dist
+
+    from facesr_torch.parallel import pipeline
+    from facesr_torch.training import optim
+
+    if name == "broadcast_backward_sum":
+        owner, attr, real = pipeline._Broadcast, "backward", pipeline._Broadcast.backward
+
+        def summed(ctx, grad):
+            g = grad.clone()
+            dist.all_reduce(g, group=ctx.pipe.group)
+            return g, None, None
+
+        value, real = staticmethod(summed), staticmethod(real)
+    elif name == "clip_without_pp_sum":
+        owner, attr, real = optim, "global_norm", optim.global_norm
+        value = lambda grads, params, shard=None: real(grads, params, None)  # noqa: E731
+    else:
+        raise ValueError(name)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, real)
+
+
+@contextlib.contextmanager
+def _microbatched_trunk(n_micro):
+    """FaceEnhanceNet's trunk in ``n_micro`` microbatches, one after the
+    other, in one process: the pipeline's sums (its convs at the
+    microbatch's batch), a draw of the rounding floor."""
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.parallel import pipeline
+
+    real = FaceEnhanceNet.forward
+
+    def forward(self, x, *args, trunk_fn=None, **kwargs):
+        trunk_fn = trunk_fn or pipeline.stage_trunk(self, None, n_micro, kwargs.get("train"))
+        return real(self, x, *args, trunk_fn=trunk_fn, **kwargs)
+
+    FaceEnhanceNet.forward = forward
+    try:
+        yield
+    finally:
+        FaceEnhanceNet.forward = real
+
+
+def _pp_built(build, dev, mesh):
+    """``build``'s (state, step), the state kept to this rank's stage
+    (`parallel.pipeline.shard_state`), and the stage of each split leaf."""
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+    from facesr_torch.parallel import pipeline
+    from facesr_torch.parallel.mesh import pp_stages
+
+    state, step, _ = build(dev, mesh=mesh, opt_cls=RecordingAdamW)
+    stages = pp_stages(state, mesh)
+    pipeline.shard_state(state, mesh.pp_shard(), stages)
+    return state, step, stages
+
+
+@contextlib.contextmanager
+def _pp_whole(state, mesh, stages):
+    """The block sees the state whole (gathered from the stages: a
+    collective), each rank's stage kept again after."""
+    from facesr_torch.parallel import pipeline
+
+    pipe = mesh.pp_shard()
+    pipeline.unshard_state(state, pipe, stages)
+    try:
+        yield
+    finally:
+        pipeline.shard_state(state, pipe, stages)
+
+
+def _pp_record(state, step, hr, gan, mesh, stages):
+    """`_step_record` of a pp step with G's first moments: the gradients come
+    whole from `RecordingAdamW`; the parameters, moments and D's stats are
+    gathered whole."""
+    from facesr_torch.parallel import tensor
+
+    rec = _step_record(state, step, hr, gan)
+    with _pp_whole(state, mesh, stages):
+        rec["g_params"] = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        rec["g_mu"] = {k: v.detach().cpu().clone() for k, v in state.opt_state["mu"].items()}
+        if gan:
+            rec["d_params"] = {k: v.detach().cpu().clone()
+                               for k, v in state.disc.named_parameters()}
+            rec["d_stats"] = {k: v.detach().cpu().clone() for k, v in state.disc.named_buffers()}
+        rec["hash"] = _state_hash([t for _, t in tensor.state_tensors(state)])
+    return rec
+
+
+def _g_state_bytes(state) -> int:
+    """The bytes of G's parameters, optimiser state and EMA (the leaves pp
+    splits; D and the VGG stay whole on every stage)."""
+    from facesr_torch.parallel import tensor
+
+    return sum(t.numel() * t.element_size() for path, t in tensor.state_tensors(state)
+               if path.startswith(("params/", "opt_state/", "ema_params/")))
+
+
+def _pp_case(mesh, build, hr, gan: bool) -> dict:
+    """One pp step case on a rank of the grid: on rank 0 the single-process
+    step (its record, ms, peak and state bytes) and its rounding floor
+    (two input-noise draws and the trunk in PP_MICRO microbatches); each
+    planted control's pp step, then the right pp step, warm (its record,
+    ms, exchanges, peak, state bytes and the gathered state's hash). The
+    parameters are compared off their Adam ties (`_adam_ties`)."""
+    from facesr_torch.cli.step_numerics import RecordingAdamW
+
+    dev, out = mesh.device, {}
+    if mesh.rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        state, step, _ = build(dev, opt_cls=RecordingAdamW)
+        times = []
+        want = _step_record(state, _timed(step, times), hr, gan, moments=True)
+        out["single"] = {"first_ms": times[0], "ms": _sp_timed(state, step, hr, 1),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "state_bytes": _state_bytes(state),
+                         "g_state_bytes": _g_state_bytes(state)}
+        del state, step
+        draws = [_rounding_floor(build, dev, hr, gan, 1, seed, moments=True)
+                 for seed in DP_FLOOR_SEEDS]
+        with _microbatched_trunk(PP_MICRO):
+            draws.append(_rounding_floor(build, dev, hr, gan, 1, None, moments=True))
+        ties = _adam_ties(want, draws)
+        floor = _floor_of([_errors_off_ties(d, want, ties) for d in draws])
+        out["ties"] = {part: sum(int(m.sum()) for m in masks.values())
+                       for part, masks in ties.items()}
+        del draws
+        torch.cuda.empty_cache()
+    faults = {}
+    for name in PP_CONTROLS[gan]:
+        with _pp_fault(name):
+            state, step, stages = _pp_built(build, dev, mesh)
+            faults[name] = _pp_record(state, step, hr, gan, mesh, stages)
+            del state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, stages = _pp_built(build, dev, mesh)
+    out["state_bytes"], out["g_state_bytes"] = _state_bytes(state), _g_state_bytes(state)
+    times = []
+    got = _pp_record(state, _timed(step, times), hr, gan, mesh, stages)
+    out["ms"] = times[0]
+    out["exchanges"] = dict(step.pp_shard.counts)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["hash"] = got.pop("hash")
+    for rec in faults.values():
+        rec.pop("hash")
+    del state, step
+    if mesh.rank == 0:
+        out.update(errors=_errors_off_ties(got, want, ties), floor=floor,
+                   controls={k: _errors_off_ties(v, want, ties) for k, v in faults.items()})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_forward(mesh) -> dict:
+    """(d) on a rank of the grid: `make_pp_apply`'s bf16 eval forward of the
+    6x10x64 model (conv_last redrawn non-zero, the rank's stage of its
+    state) at PP_FWD_SHAPE in PP_MICRO microbatches, its group launches
+    counted from 0 just before to just after; then, on the unclamped
+    output, the same stage trunk on the group kernel against it on plain
+    groups (`rcab_group_reference`) and on plain groups without the SE
+    gate (the control), and ms a forward."""
+    from facesr_torch.models import blocks
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.ops.resize import bicubic_up
+    from facesr_torch.parallel import pipeline
+    from facesr_torch.parallel.mesh import pp_stages
+    from facesr_torch.training.steps import TrainState
+
+    dev = mesh.device
+    model = production_model(dev, nonzero_last=True)
+    state = TrainState(model=model, opt_state={}, loss_params={})
+    pipe = mesh.pp_shard()
+    pipeline.shard_state(state, pipe, pp_stages(state, mesh))
+    x = torch.rand(PP_FWD_SHAPE, generator=torch.Generator().manual_seed(2)).to(dev)
+    apply = pipeline.make_pp_apply(model, mesh, n_micro=PP_MICRO)
+    out = {}
+    with torch.inference_mode():
+        rg.fused_residual_group.launches = 0  # just before the path
+        main = apply(x, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out["launches"] = rg.fused_residual_group.launches  # just after
+        out["exchanges"] = dict(apply.pipe.counts)
+        out["ms"] = host_ms(lambda: (apply(x, dtype=torch.bfloat16), torch.cuda.synchronize()),
+                            3)
+        trunk = pipeline.stage_trunk(model, pipe, PP_MICRO, train=False, dtype=torch.bfloat16)
+        real = blocks.run_kernel_groups
+
+        def unclamped(group_fn=None):
+            if group_fn is not None:
+                blocks.run_kernel_groups = lambda feat, groups, rs: functools.reduce(
+                    lambda f, gw: group_fn(f, gw, rs), groups,
+                    feat.clone(memory_format=torch.contiguous_format))
+            try:
+                return model(x, train=True, dtype=torch.bfloat16, trunk_fn=trunk)
+            finally:
+                blocks.run_kernel_groups = real
+
+        before = rg.fused_residual_group.launches
+        out_k = unclamped()
+        out["check_launches"] = rg.fused_residual_group.launches - before
+        out_p = unclamped(rg.rcab_group_reference)
+        out_f = unclamped(lambda f, gw, rs: planted_fault_group(f, gw, rs, "no_gate"))
+        resid = (out_p - bicubic_up(x, 4)).abs()
+        out["limit"] = (MODEL_RTOL * resid.max().item(), MODEL_RTOL * resid.mean().item())
+        for name, o in (("kernel", out_k), ("no_gate", out_f)):
+            d = (o - out_p).abs()
+            out[name] = (d.max().item(), d.mean().item())
+        out["main_is_clamped_kernel"] = bool(torch.equal(main, out_k.clamp(0.0, 1.0)))
+        n, h, w, _ = PP_FWD_SHAPE
+        out["main_ok"] = (tuple(main.shape) == (n, 4 * h, 4 * w, 3)
+                          and bool(torch.isfinite(main).all()))
+    del model, state, main, out_k, out_p, out_f
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_step_rank(mesh, tmp: str, card: str) -> dict:
+    """(a), (b) and (d) on one of two gloo ranks of the [1, 2] data,pp grid
+    sharing cuda:0."""
+    dev, rank = mesh.device, mesh.rank
+    out = {"rank": rank, "coords": (mesh.axis_index("data"), mesh.axis_index("pp")),
+           "seconds": {}}
+    t0 = time.perf_counter()
+    out["content"] = _pp_case(mesh, production_step_fn,
+                              smooth_hr(PP_BATCH, TRAIN_HR, seed=7, dev=dev), False)
+    out["seconds"]["(a)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["gan"] = _pp_case(mesh, gan_step_fn, smooth_hr(PP_GAN_BATCH, GAN_HR, seed=8, dev=dev),
+                          True)
+    out["seconds"]["(b)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["forward"] = _pp_forward(mesh)
+    out["seconds"]["(d)"] = time.perf_counter() - t0
+    return out
+
+
+def pp_report(name: str, case: dict, other: dict, card: str, what: str) -> None:
+    """A pp step case's numbers and checks (rank 0's comparisons, both
+    ranks' hashes)."""
+    limit = _sp_limits(case)
+    failed = _over(case["errors"], limit)
+    single = case["single"]
+    share = case["g_state_bytes"] / single["g_state_bytes"]
+    share1 = other["g_state_bytes"] / single["g_state_bytes"]
+    log(f"  {name} {what} on the {list(PP_GRID)} data,pp grid (2 gloo ranks on cuda:0, the "
+        f"state kept to each rank's stage by pp_param_shardings) against the single-process "
+        f"step, relative L2 (TF32 off), the worst tensor a part: "
+        f"{json.dumps(_worst(case['errors']))}; the rounding floor (the input x (1 + 2^-23 "
+        f"N(0, 1)) twice, and the trunk in {PP_MICRO} microbatches, the largest of the three "
+        f"draws), the worst tensor a part: {json.dumps(_worst(case['floor']))}; each tensor's "
+        f"limit max({STEP_RTOL}, {DP_FLOOR_FACTOR} x its floor): the largest error / limit a "
+        f"part {json.dumps(_ratios(case['errors'], limit))}; parameters compared off their "
+        f"Adam ties: {json.dumps(case['ties'])}; states (gathered) bitwise equal across ranks: "
+        f"{case['hash'] == other['hash']} [{card}]")
+    log(f"  {name} ms a step: pp {case['ms']:.3f} (warm: after the controls' steps), one "
+        f"process first {single['first_ms']:.3f}, then {single['ms']:.3f}; a rank's peak "
+        f"{case['peak_gib']:.3f} GiB against {single['peak_gib']:.3f} alone; G's parameters "
+        f"and Adam moments on a rank {case['g_state_bytes']} bytes (rank 1 "
+        f"{other['g_state_bytes']}) against {single['g_state_bytes']} alone ({share:.3f}, "
+        f"{share1:.3f}); the whole step state with the VGG{' and D' if 'd_params' in case['errors'] else ''} "
+        f"{case['state_bytes']} against {single['state_bytes']}; a rank's exchanges in the step "
+        f"{json.dumps(case['exchanges'])} [{card}]")
+    for control, errs in case.get("controls", {}).items():
+        over = _over(errs, limit)
+        log(f"  {name} control {control}: tensors over their limits "
+            + json.dumps({p: f"{len(v)} of {len(limit[p])}" for p, v in over.items()})
+            + f", the worst tensor a part {json.dumps(_worst(errs))}")
+        if not any(over.values()):
+            raise AssertionError(f"the pp checks cannot see the planted {control}")
+    if any(failed.values()):
+        raise AssertionError(f"the pp {what} disagrees with the single-process step: {failed}")
+    if case["hash"] != other["hash"]:
+        raise AssertionError(f"the pp ranks' {what} states differ")
+    if max(share, share1) > PP_STATE_GATE:
+        raise AssertionError(f"a pp rank holds {max(share, share1):.3f} of one process's G state")
+
+
+def _pp_cli_flags(tmp: Path) -> list:
+    return ["--config", str(STAGE1_YAML), "--data-root", str(tmp / "pp_cli_data"),
+            "--batch-size", str(PP_CLI_BATCH), *PP_CLI_FLAGS]
+
+
+def pp_cli_ranks(tmp: Path) -> dict:
+    """(c)'s two ranks: the stage-1 YAML through the train CLI on data,pp
+    [1, 2] with --print-memory, one epoch of two steps at --batch-size
+    PP_CLI_BATCH: exit codes, seconds with set-up."""
+    from facesr_torch.parallel.launch import run_cli_ranks
+
+    png_subset(tmp, "pp_cli_data", 2 * PP_CLI_BATCH, PP_CLI_BATCH)  # two steps
+    flags = _pp_cli_flags(tmp)
+    run_dir = tmp / "pp_cli"
+    run_dir.mkdir()
+    t0 = time.perf_counter()
+    codes = run_cli_ranks("facesr_torch.cli.train",
+                          [*flags, "--epochs", "1", "--print-memory", "--mesh-axes",
+                           "data,pp", "--mesh-shape", ",".join(map(str, PP_GRID)),
+                           "--dist-backend", "gloo"],
+                          2, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
+                          env={"PYTHONPATH": str(REPO)})
+    return {"s": time.perf_counter() - t0, "codes": codes}
+
+
+def pp_cli(tmp: Path, card: str, ranks=None) -> dict:
+    """(c): `pp_cli_ranks`' run (``ranks``, else run here) checked: exit 0,
+    the grid's places, the memory report, finite val PSNR, rank 0 alone
+    writing; its final_model.fckpt resumed by a single-process CLI run for
+    epoch 2."""
+    import io
+    import os
+    import re
+
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.ops import rcab_group as rg
+
+    out = dict(ranks or pp_cli_ranks(tmp))
+    flags, codes, run_dir = _pp_cli_flags(tmp), out["codes"], tmp / "pp_cli"
+    logs = [(run_dir / f"rank{r}.log").read_text() for r in range(2)]
+    ckpt = run_dir / "checkpoints"
+    out["files"] = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            if "MB (" in line or "data,pp grid" in line or "Batch size" in line \
+                    or "Val PSNR" in line or "ms/step" in line:
+                log(f"  (c) rank {r}: {line.strip()}")
+    psnr = [float(v) for v in re.findall(r"Val PSNR:\s+([-\d.]+) dB", logs[0])]
+    if codes != [0, 0] or "final_model.fckpt" not in out["files"] or not psnr \
+            or not all(math.isfinite(v) for v in psnr) \
+            or not all(f"at (0, {r}) of the data,pp grid" in logs[r] for r in range(2)) \
+            or not all("device memory" in t for t in logs) \
+            or "delegated to rank 0" not in logs[1]:
+        raise AssertionError("the data,pp train CLI run: "
+                             + f"{codes}, " + " | ".join(t[-1500:] for t in logs))
+    # one process resumes the pp run's file and trains epoch 2
+    resume_dir = tmp / "pp_cli_resume"
+    resume_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(resume_dir)
+    buf = io.StringIO()
+    before = rg.fused_residual_group.launches
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            trainer = train_cli.run([*flags, "--epochs", "2", "--resume",
+                                     str(ckpt / "final_model.fckpt")])
+    finally:
+        os.chdir(cwd)
+    out["resume_s"] = time.perf_counter() - t0
+    out["resume"] = {"epoch": trainer.current_epoch, "steps": trainer.global_step,
+                     "history": trainer.training_history["val_psnr"],
+                     "launches": rg.fused_residual_group.launches - before}
+    del trainer
+    torch.cuda.empty_cache()
+    if not (out["resume"]["steps"] == 4 and len(out["resume"]["history"]) == 2
+            and all(math.isfinite(v) for v in out["resume"]["history"])):
+        raise AssertionError(f"the pp checkpoint did not resume in one process: {out}, "
+                             + buf.getvalue()[-1500:])
+    return out
+
+
+def pp_launch(card: str, tmp: Path):
+    """Phase 19's launch: (a), (b) and (d) on two gloo ranks of the [1, 2]
+    data,pp grid sharing cuda:0; (rank 0's, rank 1's results, seconds)."""
+    from facesr_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    r0, r1 = run_ranks(pp_step_rank, 2, args=(str(tmp), card), devices=[DP_DEVICE] * 2,
+                       backend="gloo", timeout=DP_TIMEOUT, axis_names=("data", "pp"),
+                       shape=PP_GRID)
+    return r0, r1, time.perf_counter() - t0
+
+
+def pp_phase(card: str, tmp: Path, launched=None, cli_ranks=None) -> int:
+    """Phase 19: pipeline parallelism on the card; returns the group
+    kernel's launches on its main path, (d)'s bf16 eval forward.
+    ``launched``: `pp_launch`'s result when the launch ran earlier (beside
+    other phases), else it runs here; ``cli_ranks``: (c)'s two ranks
+    already run (`pp_cli_ranks`), else they run here."""
+    per_stage = production_config().num_groups // PP_GRID[1]
+    log(f"== 19. pipeline parallelism (the residual groups as a pipeline of stages over a "
+        f"data,pp grid, {per_stage} groups and their training state a stage; the card's "
+        f"machine has one card, so two gloo ranks share cuda:0) [{card}]")
+    t_phase = time.perf_counter()
+    if launched is None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    r0, r1, launch_s = launched or pp_launch(card, tmp)
+    parts = {"(a), (b), (d): one launch of two ranks"
+             + (" (beside phases 15 and 16, after phase 18's)" if launched is not None else ""):
+             launch_s}
+    parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
+    log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    if (r0["coords"], r1["coords"]) != ((0, 0), (0, 1)):
+        raise AssertionError(f"the grid's coordinates: {r0['coords']}, {r1['coords']}")
+    cfg = production_config()
+    width = f"{cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels}"
+    pp_report("(a)", r0["content"], r1["content"], card,
+              f"the stage-1 step ({width} f32, batch {PP_BATCH} in {PP_MICRO} microbatches "
+              f"(cut from 48), HR {TRAIN_HR}, L1 + VGG19 conv3_4, clip 0.5)")
+    pp_report("(b)", r0["gan"], r1["gan"], card,
+              f"stage 3's GAN step (G {width}, D at {GAN_HR} with {GAN_D_BASE} base channels and "
+              f"BatchNorm, f32, batch {PP_GAN_BATCH} in {PP_MICRO} microbatches, L1 0.01 + VGG19 "
+              f"conv3_4 + 0.005 vanilla GAN)")
+    f0, f1 = r0["forward"], r1["forward"]
+    per_rank = cfg.num_groups // PP_GRID[1] * PP_MICRO
+    lim_max, lim_mean = f0["limit"]
+    log(f"  (d) make_pp_apply's bf16 eval forward of {PP_FWD_SHAPE} in {PP_MICRO} "
+        f"microbatches: group launches rank 0 {f0['launches']}, rank 1 {f1['launches']} "
+        f"({per_rank} a rank: {cfg.num_groups // PP_GRID[1]} groups x {PP_MICRO} "
+        f"microbatches); ms a forward {f0['ms']:.3f} (rank 1 {f1['ms']:.3f}); exchanges "
+        f"{json.dumps(f0['exchanges'])}; the stage trunk on the kernel against plain groups, "
+        f"unclamped: max_abs {f0['kernel'][0]:.6g} (limit {lim_max:.6g}), mean_abs "
+        f"{f0['kernel'][1]:.6g} (limit {lim_mean:.6g}); the control without the SE gate: "
+        f"max_abs {f0['no_gate'][0]:.6g}, mean_abs {f0['no_gate'][1]:.6g}; the main path's "
+        f"output is the clamped kernel output bitwise: {f0['main_is_clamped_kernel']} [{card}]")
+    for f in (f0, f1):
+        if not (f["main_ok"] and f["main_is_clamped_kernel"]
+                and f["launches"] == f["check_launches"] == per_rank):
+            raise AssertionError(f"the pp bf16 eval forward: {f}")
+        if f["kernel"][0] > lim_max or f["kernel"][1] > lim_mean:
+            raise AssertionError(f"the pp kernel trunk disagrees with plain groups: {f}")
+        if f["no_gate"][0] <= f["limit"][0] and f["no_gate"][1] <= f["limit"][1]:
+            raise AssertionError(f"the pp forward's limits let a dropped SE gate pass: {f}")
+    t0 = time.perf_counter()
+    cli = pp_cli(tmp, card, cli_ranks)
+    parts["(c)" if cli_ranks is None else "(c)'s check and resume"] = time.perf_counter() - t0
+    log(f"  (c) the stage-1 YAML through the train CLI on data,pp {list(PP_GRID)} (torchrun's "
+        f"environment, 2 ranks on cuda:0 over gloo"
+        f"{', beside phase 18 (d)' + chr(39) + 's 2' if cli_ranks is not None else ''}), "
+        f"--print-memory, --batch-size {PP_CLI_BATCH}, "
+        f"1 epoch on {2 * PP_CLI_BATCH} of phase 8's train PNGs: exit codes {cli['codes']}, "
+        f"{cli['s']:.1f} s with set-up; rank 0 wrote {cli['files']}, rank 1 nothing; "
+        f"final_model.fckpt resumed by one process for epoch 2: epoch "
+        f"{cli['resume']['epoch'] + 1}, {cli['resume']['steps']} steps, val PSNR "
+        f"{cli['resume']['history']}, {cli['resume_s']:.1f} s [{card}]")
+    launches = f0["launches"] + f1["launches"]
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s here: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
     return launches
 
@@ -5362,10 +5916,26 @@ def main() -> int:
         launches["fused_residual_group"] += zoo["launches"]  # and phase 13's
         launches["fused_residual_group"] += zoo_int8_phase(
             dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
-        explain_phase(dev, card, Path(tmp))
-        launches["fused_residual_group"] += dp_phase(card, Path(tmp))  # and phase 16's
+        # the launches of phases 18 and 19 (child processes) run one after the
+        # other beside phases 15 and 16 in this process (time: the host, not
+        # the card, bounds them); their numbers are read once phase 17 is due
+        with ThreadPoolExecutor(1) as pool:
+            launched = pool.submit(lambda: (tp_launch(card, Path(tmp)),
+                                            pp_launch(card, Path(tmp))))
+            explain_phase(dev, card, Path(tmp))
+            launches["fused_residual_group"] += dp_phase(card, Path(tmp))  # and phase 16's
+            tp_launched, pp_launched = launched.result()
         launches["fused_residual_group"] += sp_phase(card, Path(tmp))  # and phase 17's
-        launches["fused_residual_group"] += tp_phase(card, Path(tmp))  # and phase 18's
+        tp_ranks_launches = tp_phase(card, Path(tmp), cli=False, launched=tp_launched)
+        # the CLI ranks of phases 18 (d) and 19 (c), side by side
+        with ThreadPoolExecutor(2) as pool:
+            tp_cli_run, pp_cli_run = (pool.submit(f, Path(tmp)) for f in (tp_cli_ranks,
+                                                                           pp_cli_ranks))
+            tp_cli_run, pp_cli_run = tp_cli_run.result(), pp_cli_run.result()
+        launches["fused_residual_group"] += pp_phase(card, Path(tmp), launched=pp_launched,
+                                                     cli_ranks=pp_cli_run)  # and 19's
+        launches["fused_residual_group"] += tp_cli_phase(  # and 18's
+            card, Path(tmp), tp_cli_run, launches=tp_ranks_launches)
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

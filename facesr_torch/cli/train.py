@@ -32,6 +32,12 @@ ranks of one host. Tensor parallelism the same way (``--mesh-axes
 data,model --mesh-shape d,t``): d * t ranks, the t ranks of each `model`
 group loading the same rows and holding their slices of the conv output
 channels and of the training state (`parallel.tensor`); rank 0 writes the
+checkpoints whole. Pipeline parallelism likewise (``--mesh-axes data,pp
+--mesh-shape d,S``, and ``training.pp_microbatches``, 0 = S, as
+``scripts/train.py`` reads it): d * S ranks, the S stages of each `pp`
+group loading the same rows and running their residual groups as a
+pipeline in that many microbatches, each holding only its groups' leaves
+of the training state (`parallel.pipeline`); rank 0 writes the
 checkpoints whole. ``--print-memory``
 prints each rank's memory budget of the train step (the state's and the
 batch's bytes, and on a card the peak of one step, run once) at the
@@ -71,14 +77,14 @@ fake-quantized, frozen transfer parameters included (their forward is
 what serving quantizes), and the stage optimiser still updates only what
 the stage trains.
 
-What is not ported raises and names its ROADMAP item: the mesh axis
-``pp`` with ``pp_microbatches`` (A.13.4), three mesh axes (A.13.5), the
-gradient monitor (A.14); ``model`` with ``pp`` and tp over more than one
-host are refused as JAX refuses them. W&B is not ported and stays
+What is not ported raises and names its ROADMAP item: three mesh axes
+(A.13.5), the gradient monitor (A.14); ``model`` with ``pp``, ``space``
+with ``pp``, QAT or another model than FaceEnhanceNet under ``pp``, and
+tp or pp over more than one host are refused as JAX refuses them. W&B is not ported and stays
 off. The perceptual loss uses a VGG19 with random weights drawn from seed
 0 (no pretrained file is in the repo).
 SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
-process exits. Under ``data,model`` SIGTERM and SIGINT to any rank stop
+process exits. Under ``data,model`` and ``data,pp`` SIGTERM and SIGINT to any rank stop
 every rank at the end of the step that is running, where they gather the
 state for that save together.
 """
@@ -94,7 +100,7 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 from facesr_torch.config import load_config, set_seed
-from facesr_torch.parallel.mesh import ROADMAP_ITEMS, NotPorted, check_mesh_axes
+from facesr_torch.parallel.mesh import NotPorted, check_mesh_axes
 
 __all__ = ["main", "run", "parse_args", "make_loaders", "create_model", "resolve_chain_path",
            "NotPorted"]
@@ -148,7 +154,7 @@ def resolve_chain_path(path: str) -> str:
 
 def _mesh_settings(args, config: dict):
     """(mesh_axes, mesh_shape) from the CLI over the YAML; raises NotPorted
-    for any mesh but the data axis, data,space and data,model."""
+    for three axes, and JAX's errors for the refused compositions."""
     training = config.get("training", {})
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
     mesh_shape = (tuple(int(v) for v in args.mesh_shape.split(",")) if args.mesh_shape
@@ -158,8 +164,6 @@ def _mesh_settings(args, config: dict):
     if len(axes) > 1 and mesh_shape is None:
         raise ValueError("mesh_shape is required with multiple mesh_axes, e.g. "
                          "mesh_shape: [4, 2] for 'data,space' on 8 chips")
-    if training.get("pp_microbatches", 0):
-        raise NotPorted(f"pp_microbatches: the pp axis is {ROADMAP_ITEMS['pp']}")
     return mesh_axes, mesh_shape
 
 
@@ -203,11 +207,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "activation grid to the static serving scales "
                              "(training.qat must be on)")
     parser.add_argument("--mesh-axes", type=str, default=None,
-                        help="mesh composition: 'data' (data parallel over the ranks) or "
-                             "'data,space' (dp x sp: image rows over the ranks of a row)")
+                        help="mesh composition: 'data' (data parallel over the ranks), "
+                             "'data,space' (dp x sp: image rows over the ranks of a row), "
+                             "'data,model' (dp x tp: the convs' output channels) or "
+                             "'data,pp' (dp x pp: the residual groups as a pipeline)")
     parser.add_argument("--mesh-shape", type=str, default=None,
-                        help="the mesh shape: the rank count for 'data', d,s for "
-                             "'data,space'")
+                        help="the mesh shape: the rank count for 'data', d,k for two axes")
     parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                         help="the ranks' torch.distributed backend (default: NCCL on a "
                              "card, gloo on the CPU); gloo lets ranks share a card")
@@ -431,6 +436,7 @@ def run(argv: Optional[List[str]] = None):
         qat=training_config.get("qat", False),
         mesh_axes=mesh_axes,
         mesh_shape=mesh_shape,
+        pp_microbatches=training_config.get("pp_microbatches", 0),
     )
     if args.qat_scales and not trainer_config.qat:
         raise SystemExit("--qat-scales requires training.qat: true")
@@ -478,7 +484,10 @@ def run(argv: Optional[List[str]] = None):
     if args.print_memory:
         # after any load and --qat-scales pinning: the step it measures is
         # the one training runs, at the batch the ranks load
-        effective = batch_size * mesh.data_size
+        # under pp a rank's rows are trimmed or padded to the microbatches
+        micro = trainer._pp_micro
+        effective = (batch_size - batch_size % micro if batch_size >= micro
+                     else micro) * mesh.data_size
         if effective != global_batch:
             print(f"(--print-memory: reporting on the effective batch {effective}, the "
                   f"ranks' trim/pad of {global_batch})")
@@ -496,8 +505,8 @@ def run(argv: Optional[List[str]] = None):
     def _at_step_end(signum, _frame):
         trainer.request_stop(signal.Signals(signum).name)
 
-    # under tp the interrupted save gathers the state (a collective), so a
-    # signal stops every rank at the end of the same step
+    # under tp and pp the interrupted save gathers the state (a collective),
+    # so a signal stops every rank at the end of the same step
     handlers = ({signal.SIGTERM: _at_step_end, signal.SIGINT: _at_step_end}
                 if trainer.stops_at_step_boundary else {signal.SIGTERM: _sigterm})
     previous = {s: signal.signal(s, h) for s, h in handlers.items()}
@@ -513,7 +522,7 @@ def run(argv: Optional[List[str]] = None):
     except KeyboardInterrupt as e:
         print(f"\n\nTraining interrupted ({e or 'user'}).")
         print("Saving checkpoint...")
-        trainer.save_checkpoint("interrupted")  # the writer's only (tp: all gather)
+        trainer.save_checkpoint("interrupted")  # the writer's only (tp, pp: all gather)
         trainer.flush_checkpoints()
         if trainer.is_writer:
             print(f"Checkpoint saved to {trainer_config.checkpoint_dir}/interrupted.pth "

@@ -35,6 +35,14 @@ the mean over the whole image and each of the group's convs a halo row of
 the neighbouring shard, exchanges between launches that the kernel does
 not make (a variant that exports its SE partial sums and takes a halo plan
 is on ROADMAP's perf list). One shard keeps the kernel trunk.
+
+Under pipeline parallelism (`parallel.pipeline.make_pp_apply`, training
+on `data,pp`) the forward takes the pipelined trunk as ``trunk_fn``: each
+stage runs its own groups, in the bf16 eval forward through the group
+kernel as above (whole groups on whole images). A stage's model holds
+only its groups' weights, so `get_attention_maps` (JAX's
+``collect_attention``) raises there, as JAX refuses it with a custom
+``trunk_fn``.
 """
 
 from __future__ import annotations
@@ -195,7 +203,12 @@ class FaceEnhanceNet(blocks.KernelWeightCache, nn.Module):
     @torch.no_grad()
     def get_attention_maps(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Per-RCAB SE attention weights [N, C] of the plain f32 trunk,
-        keyed 'group{g}_rcab{b}'."""
+        keyed 'group{g}_rcab{b}'. A pipeline stage's model (its other
+        groups' weights held by the other stages) raises."""
+        if any(p.numel() == 0 for p in self.residual_groups.parameters()):
+            raise ValueError("collect_attention is not supported with a custom trunk_fn "
+                             "(pipeline-parallel trunk): this stage holds only its own "
+                             "residual groups")
         cfg = self.config
         pad = cfg.kernel_size // 2
         feat = conv2d(x, self.conv_first.weight, self.conv_first.bias, padding=pad)

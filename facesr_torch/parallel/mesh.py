@@ -1,5 +1,5 @@
-"""The port's mesh: the `data` axis and the `data,space` and `data,model`
-grids (port of `facesr/parallel/mesh.py`).
+"""The port's mesh: the `data` axis and the `data,space`, `data,model` and
+`data,pp` grids (port of `facesr/parallel/mesh.py`).
 
 PyTorch's idiom for data parallelism is one process per card: the ranks of
 a `torch.distributed` group make up the `data` axis. Each rank holds a
@@ -10,20 +10,23 @@ rank applies the same update and the replicas stay bitwise equal. State
 is made equal at start and after every resume by a broadcast from rank 0
 (`replicate`).
 
-On a 2-D mesh of shape (d, k), ``("data", "space")`` or ``("data",
-"model")``, the ranks form a grid, rank ``r`` at ``(r // k, r % k)``, as
-JAX reshapes its devices with the last axis fastest: the k ranks of a
-grid row (a `space` or `model` group) hold the same batch rows, and the d
-ranks of a column (a `data` group) hold other batch rows. A `space` group
-splits its image rows (`parallel.spatial`: halo exchanges, global means
-and the bicubic skip's gather); a `model` group splits the output
-channels of the convs (`parallel.tensor`: each rank holds its slice of
-every leaf `tp_param_shardings` splits, the whole training state
-included). Every rank creates every group, in one order (NCCL and gloo
-hang otherwise). `Mesh.axis_size`, `Mesh.axis_index` and
-`Mesh.axis_group` read an axis; `Mesh.sum_group` is the group whose
-ranks hold different parts of one sum (the gradient mean, the metrics):
-the whole group, except under `model`, whose ranks hold copies.
+On a 2-D mesh of shape (d, k), ``("data", "space")``, ``("data",
+"model")`` or ``("data", "pp")``, the ranks form a grid, rank ``r`` at
+``(r // k, r % k)``, as JAX reshapes its devices with the last axis
+fastest: the k ranks of a grid row (a `space`, `model` or `pp` group)
+hold the same batch rows, and the d ranks of a column (a `data` group)
+hold other batch rows. A `space` group splits its image rows
+(`parallel.spatial`: halo exchanges, global means and the bicubic skip's
+gather); a `model` group splits the output channels of the convs
+(`parallel.tensor`: each rank holds its slice of every leaf
+`tp_param_shardings` splits, the whole training state included); a `pp`
+group runs the residual groups as a pipeline of stages
+(`parallel.pipeline`: each rank holds its own groups' leaves of the state,
+`pp_param_shardings`). Every rank creates every group, in one order (NCCL
+and gloo hang otherwise). `Mesh.axis_size`, `Mesh.axis_index` and
+`Mesh.axis_group` read an axis; `Mesh.sum_group` is the group whose ranks
+hold different parts of one sum (the gradient mean, the metrics): the
+whole group, except under `model` or `pp`, whose ranks hold copies.
 
 A `Mesh` is either that (a group of ranks, one device each: training) or,
 for serving, the devices one process drives (`ShardedPredictor`: a
@@ -33,9 +36,9 @@ are `all_reduce` and `broadcast` only: gloo supports no other on CUDA
 tensors, and two ranks sharing one card (NCCL refuses that) run over
 gloo.
 
-Every training step runs on both grids: the content, GAN and QAT steps
-and the eval step. The `pp` axis and three axes raise `NotPorted` and
-name their ROADMAP item; `model` with `pp` is refused as JAX refuses it.
+Every training step runs on the three grids (QAT not under `pp`, as in
+JAX). Three axes raise `NotPorted` and name their ROADMAP item; `model`
+with `pp` and `space` with `pp` are refused as JAX refuses them.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch.distributed as dist
 __all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "check_single_host",
            "replicated",
            "batch_sharding", "row_sharding", "grid_sharding", "tp_param_shardings",
+           "pp_param_shardings", "pp_stages",
            "shard_batch", "replicate", "pad_to_multiple", "all_reduce_mean",
            "all_reduce_sum", "all_reduce_max", "DEFAULT_TIMEOUT_S", "ROADMAP_ITEMS"]
 
@@ -61,7 +65,6 @@ __all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "chec
 DEFAULT_TIMEOUT_S = 600.0
 
 ROADMAP_ITEMS = {
-    "pp": "ROADMAP A.13.4 (pp: the residual groups as a pipeline)",
     "compositions": "ROADMAP A.13.5 (compositions of the mesh axes)",
 }
 
@@ -73,7 +76,7 @@ class NotPorted(NotImplementedError):
 
 @dataclass(frozen=True)
 class Mesh:
-    """The `data` axis, or a 2-D grid (`data,space`, `data,model`).
+    """The `data` axis, or a 2-D grid (`data,space`, `data,model`, `data,pp`).
     ``devices``: the devices this process drives (one for a rank of a
     training group; several for serving); ``group``: the process group of
     all the ranks (None: this process alone); ``shape``: the grid's (d, k),
@@ -131,17 +134,23 @@ class Mesh:
         return self.axis_size("data")
 
     @property
+    def _copies(self) -> bool:
+        """Whether a grid row's ranks hold copies of the step's sums (`model`
+        and `pp`: the same batch rows, the loss replicated)."""
+        return "model" in self.axis_names or "pp" in self.axis_names
+
+    @property
     def sum_size(self) -> int:
         """The ranks of `sum_group`."""
-        return self.data_size if "model" in self.axis_names else self.world_size
+        return self.data_size if self._copies else self.world_size
 
     @property
     def sum_group(self) -> Any:
         """The group whose ranks hold different parts of the step's sums
         (the gradients, the metrics, the eval sums): the whole group, or
-        on `data,model` the `data` group (a `model` group's ranks hold
-        copies of them)."""
-        return self.axis_group("data") if "model" in self.axis_names else self.group
+        on `data,model` and `data,pp` the `data` group (a `model` or `pp`
+        group's ranks hold copies of them)."""
+        return self.axis_group("data") if self._copies else self.group
 
     def row_shard(self):
         """This rank's `parallel.spatial.RankShard` of its `space` group
@@ -163,6 +172,16 @@ class Mesh:
             return None
         return ModelShard(self.axis_groups["model"], self.axis_index("model"), t)
 
+    def pp_shard(self, axis: str = "pp"):
+        """This rank's `parallel.pipeline.PipeShard`, its stage of the
+        ``axis`` group (None without such an axis of two or more ranks)."""
+        from facesr_torch.parallel.pipeline import PipeShard
+
+        s = self.axis_size(axis)
+        if s < 2 or not self.distributed:
+            return None
+        return PipeShard(self.axis_groups[axis], self.axis_index(axis), s)
+
 
 class Sharding(NamedTuple):
     """How a tensor lies on a mesh: ``spec`` names the mesh axis each
@@ -175,10 +194,11 @@ class Sharding(NamedTuple):
 
 
 def check_mesh_axes(axis_names: Sequence[str], shape: Optional[Sequence[int]] = None) -> None:
-    """Let the 1-D `data` axis and the `data,space` and `data,model` grids
-    through; raise ValueError for `model` with `pp` (JAX's refusal: both
-    split the parameter tree) and for a shape that does not fit the axes,
-    and `NotPorted` for `pp` (A.13.4) and three axes (A.13.5)."""
+    """Let the 1-D `data` axis and the `data,space`, `data,model` and
+    `data,pp` grids through; raise ValueError for `model` with `pp` (both
+    split the parameter tree) and `space` with `pp` (the pipelined trunk
+    has no halo exchange), as JAX refuses them, and for a shape that does
+    not fit the axes, and `NotPorted` for three axes (A.13.5)."""
     axes = tuple(axis_names)
     if not axes or axes[0] != "data":
         raise ValueError(f"mesh axes must start with the batch axis 'data', got {axes}")
@@ -188,12 +208,13 @@ def check_mesh_axes(axis_names: Sequence[str], shape: Optional[Sequence[int]] = 
     if "model" in axes and "pp" in axes:
         raise ValueError("mesh_axes cannot combine 'model' and 'pp': both shard the parameter "
                          "tree")
+    if "space" in axes and "pp" in axes:
+        raise ValueError("mesh_axes cannot combine 'space' and 'pp': the pipelined trunk runs "
+                         "under manual sharding (no automatic halo exchange); use dp x pp or "
+                         "dp x sp")
     if len(axes) > 2:
         raise NotPorted(f"mesh axes {','.join(axes)}: three axes are "
                         f"{ROADMAP_ITEMS['compositions']}")
-    if len(axes) == 2 and axes[1] == "pp":
-        raise NotPorted(f"mesh axes {','.join(axes)}: pp is {ROADMAP_ITEMS['pp']}; "
-                        f"the port has the data axis, data,space and data,model")
     if shape is not None and len(tuple(shape)) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} does not fit the mesh axes "
                          f"{','.join(axes)}: give one length an axis")
@@ -271,7 +292,7 @@ def _join(devices, rank, world_size, local_rank, init_method, backend, timeout) 
 
 def _grid(mesh: Mesh, axis_names: Tuple[str, ...], shape, timeout: float) -> Mesh:
     """The ranks of ``mesh`` as the (d, k) grid of ``axis_names``
-    (`data,space` or `data,model`): rank r at (r // k, r % k), with a
+    (`data,space`, `data,model` or `data,pp`): rank r at (r // k, r % k), with a
     process group for every grid row (the second axis) and every column
     (`data`), created by every rank in one order."""
     n = mesh.world_size
@@ -306,8 +327,8 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
              world_size: Optional[int] = None, local_rank: Optional[int] = None,
              init_method: Optional[str] = None, backend: Optional[str] = None,
              timeout: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """The `data` mesh, or the `data,space` or `data,model` grid of
-    ``shape`` (d, k).
+    """The `data` mesh, or the `data,space`, `data,model` or `data,pp` grid
+    of ``shape`` (d, k).
 
     Training (a group of ranks): when a process group is initialised, when
     ``rank``/``world_size`` are given, or when torchrun's environment is
@@ -324,7 +345,7 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
     Serving (this process alone): a mesh over ``devices``, by default every
     visible card. A device may repeat (``["cpu", "cpu"]``).
 
-    The `pp` axis and three axes raise `NotPorted`."""
+    Three axes raise `NotPorted`."""
     axes = tuple(axis_names)
     check_mesh_axes(axes, shape)
     joining = (dist.is_initialized() or rank is not None or world_size is not None
@@ -372,6 +393,47 @@ def grid_sharding(mesh: Mesh, batch_axis: str = "data", row_axis: str = "space")
     return Sharding(mesh, (batch_axis, row_axis))
 
 
+def _state_leaves(state) -> List[Tuple[str, torch.Tensor, Tuple[str, ...], Tuple[int, int]]]:
+    """(path, tensor, JAX keys, (JAX leading length, index along it)) of
+    every leaf of a training state (or a bare model) by
+    `parallel.tensor.state_tensors`' paths (``step`` too): the JAX tree
+    path the checkpoint bridge (`ckpt.weights`) maps the leaf to, and
+    where on the JAX leaf's leading axis the port's entry lies (a stacked
+    JAX leaf, such as a ``groups`` leaf [G, ...], holds one port entry a
+    group). The moments, the EMA and the accumulated gradients take their
+    parameter's; other leaves their own path and (1, 0)."""
+    from facesr_torch.parallel.tensor import state_tensors
+
+    if isinstance(state, torch.nn.Module):
+        model, disc = state, None
+        tensors = [(f"params/{k}", t) for k, t in state.state_dict(keep_vars=True).items()]
+    else:
+        model, disc, tensors = state.model, state.disc, list(state_tensors(state))
+        tensors.append(("step", torch.as_tensor(state.step)))
+    jax_leaves = {"params": _jax_leaves(model, _model_to_jax(model))}
+    if disc is not None:
+        from facesr_torch.ckpt.weights import jax_discriminator_from_state_dict
+
+        def disc_to_jax(sd):
+            params, stats = jax_discriminator_from_state_dict(sd)
+            return {"d_params": params, "d_stats": stats}
+
+        jax_leaves["disc"] = _jax_leaves(disc, disc_to_jax)
+
+    def leaf_of(path: str):
+        parts = path.split("/")
+        field_, name = parts[0], parts[-1]
+        if field_ in ("params", "ema_params") or (field_ == "opt_state" and len(parts) == 3):
+            keys, at = jax_leaves["params"].get(name, ((), (1, 0)))
+            return (field_,) + keys, at
+        if field_ in ("d_params", "d_stats") or (field_ == "d_opt_state" and len(parts) == 3):
+            keys, at = jax_leaves["disc"].get(name, ((), (1, 0)))
+            return (field_,) + keys[1:], at
+        return tuple(parts), (1, 0)
+
+    return [(path, t, *leaf_of(path)) for path, t in tensors]
+
+
 def tp_param_shardings(state: Any, mesh: Mesh, axis: str = "model") -> Dict[str, Sharding]:
     """The tensor-parallel placement of every leaf of a training state: JAX's
     rule (`facesr/parallel/mesh.py` `tp_param_shardings`) read in the
@@ -391,43 +453,51 @@ def tp_param_shardings(state: Any, mesh: Mesh, axis: str = "model") -> Dict[str,
     discriminator's ``fc1``/``fc2`` (``fc1_w``, ...) stay whole. The
     optimiser's moments, the EMA and the accumulated gradients follow
     their parameter; scalars stay whole (``spec`` ``()``)."""
-    from facesr_torch.parallel.tensor import state_tensors
-
     n = mesh.axis_size(axis)
-    if isinstance(state, torch.nn.Module):
-        model, disc = state, None
-        tensors = [(f"params/{k}", t) for k, t in state.state_dict(keep_vars=True).items()]
-    else:
-        model, disc, tensors = state.model, state.disc, list(state_tensors(state))
-        tensors.append(("step", torch.as_tensor(state.step)))
-    jax_paths = {"params": _jax_paths(model, _model_to_jax(model))}
-    if disc is not None:
-        from facesr_torch.ckpt.weights import jax_discriminator_from_state_dict
-
-        def disc_to_jax(sd):
-            params, stats = jax_discriminator_from_state_dict(sd)
-            return {"d_params": params, "d_stats": stats}
-
-        jax_paths["disc"] = _jax_paths(disc, disc_to_jax)
-
-    def keys_of(path: str) -> Tuple[str, ...]:
-        parts = path.split("/")
-        field_, name = parts[0], parts[-1]
-        if field_ in ("params", "ema_params") or (field_ == "opt_state" and len(parts) == 3):
-            return (field_,) + jax_paths["params"].get(name, ())
-        if field_ in ("d_params", "d_stats") or (field_ == "d_opt_state" and len(parts) == 3):
-            return (field_,) + jax_paths["disc"].get(name, ())[1:]
-        return tuple(parts)
-
     out = {}
-    for path, t in tensors:
-        keys = keys_of(path)
+    for path, t, keys, _ in _state_leaves(state):
         whole = any(k == "ca" or k.startswith("fc") for k in keys)
         if not whole and t.dim() >= 1 and t.shape[0] and t.shape[0] % n == 0:
             out[path] = Sharding(mesh, (axis,) + (None,) * (t.dim() - 1))
         else:
             out[path] = Sharding(mesh, ())
     return out
+
+
+def _pp_rule(state: Any, mesh: Mesh, axis: str):
+    """``{path: (Sharding, stage or None)}``: JAX's pipeline rule on every
+    leaf (`pp_param_shardings`) and the stage that holds a split one."""
+    n = mesh.axis_size(axis)
+    out = {}
+    for path, _, keys, (lead, index) in _state_leaves(state):
+        if "groups" in keys and lead % n == 0:
+            out[path] = (Sharding(mesh, (axis,)), index // (lead // n))
+        else:
+            out[path] = (Sharding(mesh, ()), None)
+    return out
+
+
+def pp_param_shardings(state: Any, mesh: Mesh, axis: str = "pp") -> Dict[str, Sharding]:
+    """The pipeline-parallel placement of every leaf of a training state (or
+    a bare model), JAX's rule (`facesr/parallel/pipeline.py`
+    `pp_param_shardings`) decided on the JAX path of each port leaf, as
+    `tp_param_shardings` is: a leaf under a ``groups`` path whose JAX
+    leading axis (the residual groups, [G, ...]) divides by the axis's
+    size S is split on that axis over ``axis`` (``spec`` ``(axis,)``);
+    everything else is replicated (``()``). The moments, the EMA and the
+    accumulated gradients follow their parameter; D, the loss's VGG and
+    the scalars have no ``groups``. A port leaf is one group's slice of
+    the JAX leaf: `pp_stages` names the stage that holds it."""
+    return {path: sharding for path, (sharding, _) in _pp_rule(state, mesh, axis).items()}
+
+
+def pp_stages(state: Any, mesh: Mesh, axis: str = "pp") -> Dict[str, int]:
+    """The stage that holds each leaf `pp_param_shardings` splits: stage i
+    of S holds the JAX leaf's groups [i G / S, (i + 1) G / S), so the
+    port's entries of those groups (``residual_groups.{g}.*`` of
+    FaceEnhanceNet, their moments and EMA)."""
+    return {path: stage for path, (_, stage) in _pp_rule(state, mesh, axis).items()
+            if stage is not None}
 
 
 def _model_to_jax(model):
@@ -440,16 +510,18 @@ def _model_to_jax(model):
                 mtype, weights.jax_params_from_state_dict)
 
 
-def _jax_paths(module: torch.nn.Module, to_jax) -> Dict[str, Tuple[str, ...]]:
+def _jax_leaves(module: torch.nn.Module, to_jax
+                ) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, int]]]:
     """The JAX tree path each state-dict entry of ``module`` lands on under
-    the bridge ``to_jax``: a probe state dict whose entry i is a one-element
-    tensor of the entry's rank holding i goes through the bridge, and the
-    tree's leaves are read back (a stacked JAX leaf holds every entry it
-    stacks)."""
+    the bridge ``to_jax``, with the JAX leaf's leading length and the
+    entry's index along it: a probe state dict whose entry i is a
+    one-element tensor of the entry's rank holding i goes through the
+    bridge, and the tree's leaves are read back (a stacked JAX leaf holds
+    every entry it stacks, each at its place)."""
     sd = module.state_dict(keep_vars=True)
     names = list(sd)
     probe = {k: torch.full((1,) * sd[k].dim(), float(i)) for i, k in enumerate(names)}
-    paths: Dict[str, Tuple[str, ...]] = {}
+    leaves: Dict[str, Tuple[Tuple[str, ...], Tuple[int, int]]] = {}
     stack = [((), to_jax(probe))]
     while stack:
         path, node = stack.pop()
@@ -458,9 +530,12 @@ def _jax_paths(module: torch.nn.Module, to_jax) -> Dict[str, Tuple[str, ...]]:
         elif isinstance(node, (list, tuple)):
             stack.extend((path + (str(i),), v) for i, v in enumerate(node))
         elif node is not None:
-            for i in np.unique(np.asarray(node)):
-                paths[names[int(i)]] = path
-    return paths
+            arr = np.asarray(node)
+            lead = arr.shape[0] if arr.ndim else 1
+            for i in np.unique(arr):
+                at = int(np.argwhere(arr == i)[0][0]) if arr.ndim else 0
+                leaves[names[int(i)]] = (path, (lead, at))
+    return leaves
 
 
 def shard_batch(batch: Any, mesh: Union[Mesh, Sharding], axis: str = "data") -> Any:

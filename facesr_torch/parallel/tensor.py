@@ -51,6 +51,10 @@ step by step. So the optimiser's caller averages the whole leaves'
 gradients over the group (`ModelShard.mean`, one small bucket: the SE,
 conv_last, D's dense layers), which leaves equal values equal.
 
+`GroupShard` holds the group's ops that do not split channels (``copy``,
+``sum``, ``all``, ``mean``); the pipeline's stages (`parallel.pipeline.
+PipeShard`) share them.
+
 The training state moves between its whole and its split form with
 `shard_state` (each rank keeps its contiguous slice of every split leaf,
 marking the ones a forward reads) and `unshard_state` (the slices
@@ -67,7 +71,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["ModelShard", "split", "current", "mark", "is_split", "shard_state",
+__all__ = ["GroupShard", "ModelShard", "split", "current", "mark", "is_split", "shard_state",
            "unshard_state", "mark_split", "state_tensors", "whole_named"]
 
 _local = threading.local()
@@ -124,7 +128,10 @@ class _Copy(torch.autograd.Function):
     def backward(ctx, grad):
         shard = ctx.shard
         shard.counts["copy"] += 1
-        g = grad.to(_wire_dtype(grad)).clone()
+        # contiguous: the ranks' gradients may lie in other layouts (a pp
+        # stage that did not read the input holds zeros), and the reduce
+        # sums storage element by element
+        g = grad.to(dtype=_wire_dtype(grad), memory_format=torch.contiguous_format, copy=True)
         dist.all_reduce(g, group=shard.group)
         return g.to(grad.dtype), None
 
@@ -143,7 +150,7 @@ class _Gather(torch.autograd.Function):
 class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shard):
-        y = x.to(_wire_dtype(x)).clone()
+        y = x.to(dtype=_wire_dtype(x), memory_format=torch.contiguous_format, copy=True)
         dist.all_reduce(y, group=shard.group)
         return y.to(x.dtype)
 
@@ -152,37 +159,19 @@ class _Sum(torch.autograd.Function):
         return grad, None
 
 
-class ModelShard:
-    """Rank ``index`` of the ``size`` ranks of the `model` process group
-    ``group``: the exchanges the ops and the optimiser use."""
+class GroupShard:
+    """Rank ``index`` of the ``size`` ranks of the process group ``group``
+    that holds copies of one batch (a `model` group here, a `pp` group in
+    `parallel.pipeline`): the exchanges the optimiser and the steps use,
+    counted by kind (``counts``)."""
 
     def __init__(self, group: Any, index: int, size: int):
         self.group, self.index, self.size = group, index, size
         self.counts: Counter = Counter()
 
-    def bounds(self, n: int) -> Tuple[int, int]:
-        """This rank's [start, stop) of a split axis of length ``n``."""
-        if n % self.size:
-            raise ValueError(f"an axis of {n} does not split over {self.size} model ranks")
-        per = n // self.size
-        return self.index * per, (self.index + 1) * per
-
-    def part(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of axis 0 of a whole tensor (a copy, no
-        gradient): a leaf of the state."""
-        a, b = self.bounds(t.shape[0])
-        return t.detach()[a:b].clone()
-
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         """The identity, whose backward sums the gradient over the group."""
         return _Copy.apply(x, self)
-
-    def gather(self, x: torch.Tensor, dim: int = -1, kind: str = "gather") -> torch.Tensor:
-        """Every rank's ``x`` concatenated along ``dim`` in rank order (the
-        whole channels of a split conv's output); backward: this rank's
-        slice of the gradient. ``kind`` is the count it adds to."""
-        self.counts[kind] += 1
-        return _Gather.apply(x, self, dim % x.dim())
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise sum of ``x`` over the group; backward: the
@@ -210,6 +199,31 @@ class ModelShard:
             flat.div_(self.size)
 
         return _bucketed(tensors, mean, in_place=False)
+
+
+class ModelShard(GroupShard):
+    """Rank ``index`` of the ``size`` ranks of the `model` process group
+    ``group``: the exchanges the ops and the optimiser use."""
+
+    def bounds(self, n: int) -> Tuple[int, int]:
+        """This rank's [start, stop) of a split axis of length ``n``."""
+        if n % self.size:
+            raise ValueError(f"an axis of {n} does not split over {self.size} model ranks")
+        per = n // self.size
+        return self.index * per, (self.index + 1) * per
+
+    def part(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of axis 0 of a whole tensor (a copy, no
+        gradient): a leaf of the state."""
+        a, b = self.bounds(t.shape[0])
+        return t.detach()[a:b].clone()
+
+    def gather(self, x: torch.Tensor, dim: int = -1, kind: str = "gather") -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+        whole channels of a split conv's output); backward: this rank's
+        slice of the gradient. ``kind`` is the count it adds to."""
+        self.counts[kind] += 1
+        return _Gather.apply(x, self, dim % x.dim())
 
     def whole(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """Every tensor's whole form (the ranks' slices along axis 0, in
@@ -310,8 +324,9 @@ def unshard_state(state, shard: "ModelShard", specs: Dict[str, Any]) -> None:
 def whole_named(tensors: Dict[str, torch.Tensor], like: Dict[str, torch.Tensor],
                 shard: Optional["ModelShard"]) -> Dict[str, torch.Tensor]:
     """``tensors`` (by parameter name) with the entries whose ``like``
-    tensor is a marked slice gathered whole (a collective of the group;
-    unchanged without a shard)."""
+    tensor is a marked part (a `model` slice, or a `pp` stage's leaf)
+    gathered whole (a collective of the group; unchanged without a
+    shard)."""
     if shard is None:
         return dict(tensors)
     names = [n for n in tensors if is_split(like[n])]

@@ -38,10 +38,12 @@ before the split, so its global norm covers every leaf, frozen ones
 included: with clipping on it asks for their gradients too
 (``needs_frozen_grads``).
 
-Under tensor parallelism (``update(..., shard=)``, a `parallel.tensor.
-ModelShard`) a parameter marked as this rank's slice has its slice's
-gradient: the clip's global norm (`global_norm`) sums those leaves'
-squares over the `model` group and counts each whole leaf once, so every
+Under tensor or pipeline parallelism (``update(..., shard=)``, a
+`parallel.tensor.ModelShard` or a `parallel.pipeline.PipeShard`) a
+parameter marked as this rank's part (a slice of its channels, or under
+pp a residual group's leaf, empty on the stages that do not hold it) has
+that part's gradient: the clip's global norm (`global_norm`) sums those
+leaves' squares over the group and counts each whole leaf once, so every
 rank clips by the whole gradient's norm, and the non-finite guard takes
 one decision for the group. Everything else is per leaf.
 """
@@ -131,10 +133,11 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Tensors, state: Dict[str, Any], params: Tensors,
-               shard: Optional["tensor.ModelShard"] = None) -> None:
+               shard: Optional["tensor.GroupShard"] = None) -> None:
         """One optimiser step: ``params`` (by name, the tensors training
         reads) and ``state`` are updated in place. ``shard``: the `model`
-        shard whose slices the marked parameters are (tp)."""
+        shard or the `pp` stage whose parts the marked parameters are (tp,
+        pp)."""
         new: Dict[str, Any] = {}
         if self.skip_nonfinite > 0:  # judged on the incoming gradients
             finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
@@ -199,8 +202,8 @@ class StageAdamW(AdamW):
 
 
 def global_norm(grads: Tensors, params: Tensors, shard=None) -> torch.Tensor:
-    """The L2 norm of the whole gradient: with a `model` ``shard``, the
-    squares of the marked (split) parameters' slices summed over the
+    """The L2 norm of the whole gradient: with a `model` or `pp` ``shard``,
+    the squares of the marked (split) parameters' parts summed over the
     group, and each whole parameter's counted once."""
     sq = [torch.sum(g * g) for g in grads.values()]
     if shard is None:

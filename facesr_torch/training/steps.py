@@ -73,7 +73,7 @@ from facesr_torch.losses.gan import gan_loss
 from facesr_torch.losses.ssim import ssim
 from facesr_torch.ops.conv import full_f32
 from facesr_torch.ops.resize import bicubic_down
-from facesr_torch.parallel import spatial, tensor
+from facesr_torch.parallel import pipeline, spatial, tensor
 from facesr_torch.parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum
 from facesr_torch.training.optim import AdamW
 
@@ -105,16 +105,39 @@ def _model_shard(mesh: Optional[Mesh]):
     return None if mesh is None else mesh.model_shard()
 
 
+def _pipe(mesh: Optional[Mesh]):
+    """This rank's stage on a `data,pp` grid (None otherwise)."""
+    return None if mesh is None else mesh.pp_shard()
+
+
+def _trunk(state: "TrainState", pipe, n_micro: int, train: bool, dtype=None):
+    """The forward's ``trunk_fn`` keyword: the pipelined trunk on a stage
+    (``n_micro`` 0: one microbatch a stage), none otherwise."""
+    if pipe is None:
+        return {}
+    return {"trunk_fn": pipeline.stage_trunk(state.model, pipe, n_micro or pipe.size, train,
+                                             dtype)}
+
+
+def _grad(loss: torch.Tensor, params: Dict[str, torch.Tensor], pipe):
+    """The gradients of ``loss`` for ``params``; on a stage, the other
+    stages' groups (empty leaves the forward does not read) get empty
+    ones."""
+    staged = pipe is not None
+    return torch.autograd.grad(loss, list(params.values()), allow_unused=staged,
+                               materialize_grads=staged)
+
+
 def _slabs(shard, *images: torch.Tensor):
     """The shard's rows of each of ``images`` (unchanged without a shard)."""
     return images if shard is None else tuple(shard.slab(x) for x in images)
 
 
 def _update(optimizer: AdamW, grads, state, params, tp) -> None:
-    """``optimizer.update`` with the `model` shard (None off tp). Under tp
-    the whole leaves' gradients are first averaged over the `model`
-    group, so that rounding apart on the card (atomics) cannot make the
-    replicas differ (`parallel.tensor`)."""
+    """``optimizer.update`` with the `model` shard or the `pp` stage (None
+    off tp and pp). There the whole leaves' gradients are first averaged
+    over the group, so that rounding apart on the card (atomics) cannot
+    make the replicas differ (`parallel.tensor`)."""
     if tp is not None:
         whole = [n for n in grads if not tensor.is_split(params[n])]
         if whole:
@@ -173,15 +196,16 @@ def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> 
 def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int = 4,
                     compute_dtype: Optional[torch.dtype] = None,
                     ema_decay: float = 0.0, quant_fn: QuantFn = None,
-                    mesh: Optional[Mesh] = None,
+                    mesh: Optional[Mesh] = None, pp_microbatches: int = 0,
                     ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Content-only (no GAN) step: ``train_step(state, hr) -> (state,
     metrics)``, ``hr`` an NHWC batch in [0, 1] on the model's device (this
     rank's batch rows under ``mesh``, whole images on a grid). The state is updated in place and
     returned; metrics are the loss components, ``loss`` and, with the
-    non-finite guard, the running count ``opt_notfinite``."""
+    non-finite guard, the running count ``opt_notfinite``. On `data,pp`
+    the trunk runs in ``pp_microbatches`` (0: S) microbatches."""
     mesh = _dp(mesh)
-    shard, tp = _row_shard(mesh), _model_shard(mesh)
+    shard, tp, pipe = _row_shard(mesh), _model_shard(mesh), _pipe(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -190,11 +214,12 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
             lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
             with spatial.rows(shard), tensor.split(tp):
                 sr = state.model(lr_img, train=True, dtype=compute_dtype,
-                                 quant=_quant(quant_fn))
+                                 quant=_quant(quant_fn),
+                                 **_trunk(state, pipe, pp_microbatches, True, compute_dtype))
                 loss, comps = loss_apply(state.loss_params, sr, hr)
-                grads = torch.autograd.grad(loss, list(params.values()))
+                grads = _grad(loss, params, pipe)
             grads = _reduced(grads, mesh)
-        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp)
+        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp or pipe)
         if ema_decay > 0:
             ema_update(state.ema_params, state.model, ema_decay)
         state.step += 1
@@ -207,6 +232,7 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
 
     train_step.row_shard = shard  # its exchange counts (None unsharded)
     train_step.model_shard = tp
+    train_step.pp_shard = pipe
     return train_step
 
 
@@ -215,7 +241,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                         gan_type: str = "vanilla", d_updates_per_g: int = 1,
                         compute_dtype: Optional[torch.dtype] = None, ema_decay: float = 0.0,
                         guard_stats: bool = False, quant_fn: QuantFn = None,
-                        mesh: Optional[Mesh] = None,
+                        mesh: Optional[Mesh] = None, pp_microbatches: int = 0,
                         ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Adversarial step: ``d_updates_per_g`` discriminator updates on
     (hr, detached sr), then one generator update with content +
@@ -236,9 +262,10 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     BatchNorm takes global statistics, both gradient sets are reduced, and
     the stats guard reads the global losses; on a `data,space` grid every
     forward runs on the shard's image rows (the module docstring); on a
-    `data,model` grid every forward on the rank's channel slices."""
+    `data,model` grid every forward on the rank's channel slices; on a
+    `data,pp` grid G's trunk runs as the pipeline, D replicated."""
     mesh = _dp(mesh)
-    shard, tp = _row_shard(mesh), _model_shard(mesh)
+    shard, tp, pipe = _row_shard(mesh), _model_shard(mesh), _pipe(mesh)
 
     def train_step(state: TrainState, hr: torch.Tensor) -> Tuple[TrainState, Metrics]:
         params = trainable_parameters(state.model)
@@ -252,7 +279,8 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
             lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
             with spatial.rows(shard), tensor.split(tp):
                 sr = state.model(lr_img, train=True, dtype=compute_dtype,
-                                 quant=_quant(quant_fn))
+                                 quant=_quant(quant_fn),
+                                 **_trunk(state, pipe, pp_microbatches, True, compute_dtype))
                 sr_for_d = sr.detach()
                 for _ in range(d_updates_per_g):
                     d_real = disc(hr, train=True, dtype=compute_dtype, mesh=mesh)
@@ -262,7 +290,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                     d_grads = _reduced(torch.autograd.grad(d_loss, list(d_params.values())),
                                        mesh)
                     _update(d_optimizer, dict(zip(d_params, d_grads)), state.d_opt_state,
-                                            d_params, tp)
+                            d_params, tp or pipe)
                     d_loss = d_loss.detach()
                     d_real_score = torch.sigmoid(d_real.detach()).mean()
                     d_fake_score = torch.sigmoid(d_fake.detach()).mean()
@@ -270,9 +298,9 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                 g_adv = gan_loss(disc(sr, train=True, dtype=compute_dtype, mesh=mesh), True,
                                  gan_type)
                 loss = content + gan_weight * g_adv
-                grads = torch.autograd.grad(loss, list(params.values()))
+                grads = _grad(loss, params, pipe)
             grads = _reduced(grads, mesh)
-        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp)
+        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp or pipe)
         metrics = {k: v.detach() for k, v in comps.items()}
         metrics.update(g_adv=g_adv.detach(), loss=loss.detach(), d_loss=d_loss,
                        d_real=d_real_score, d_fake=d_fake_score)
@@ -291,11 +319,13 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
 
     train_step.row_shard = shard  # its exchange counts (None unsharded)
     train_step.model_shard = tp
+    train_step.pp_shard = pipe
     return train_step
 
 
 def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool = False,
                    quant_fn: QuantFn = None, mesh: Optional[Mesh] = None,
+                   pp_microbatches: int = 0,
                    ) -> Callable[..., Tuple[Metrics, torch.Tensor, torch.Tensor]]:
     """Validation step: the f32 eval forward (clamped), the f32 loss, batch
     PSNR ``10*log10(1/max(mse, 1e-12))`` and SSIM. ``use_ema`` validates
@@ -314,9 +344,10 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
     over the rows, and the sums add over every rank: each space rank
     counts its batch rows too, so the row-weighted means are unchanged. On
     a `data,model` grid the forward runs on the rank's channel slices (the
-    EMA's too) and the sums add over the `data` group."""
+    EMA's too) and the sums add over the `data` group; on a `data,pp` grid
+    the trunk runs as the pipeline and the sums add over `data` too."""
     mesh = _dp(mesh)
-    shard, tp = _row_shard(mesh), _model_shard(mesh)
+    shard, tp, pipe = _row_shard(mesh), _model_shard(mesh), _pipe(mesh)
 
     def eval_step(state: TrainState, hr: torch.Tensor, reduce: bool = True):
         if use_ema and state.ema_params is None:
@@ -327,11 +358,12 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
             hr = hr.float()
             lr_img, hr = _slabs(shard, bicubic_down(hr, scale_factor), hr)
             quant = _quant(quant_fn)
+            trunk = _trunk(state, pipe, pp_microbatches, False)
             if use_ema:
                 sr = functional_call(state.model, state.ema_params, (lr_img,),
-                                     {"train": False, "quant": quant})
+                                     {"train": False, "quant": quant, **trunk})
             else:
-                sr = state.model(lr_img, train=False, quant=quant)
+                sr = state.model(lr_img, train=False, quant=quant, **trunk)
             loss, _ = loss_apply(state.loss_params, sr, hr)
             ssim_val = ssim(sr, hr)
             if mesh is not None:
@@ -347,6 +379,7 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
 
     eval_step.row_shard = shard  # its exchange counts (None unsharded)
     eval_step.model_shard = tp
+    eval_step.pp_shard = pipe
     return eval_step
 
 

@@ -6,8 +6,10 @@ without running it. Eager PyTorch has no such plan, so the port reports
 what it can count and, on a card, what it measures:
 
 - the state's bytes, by part (the parameters and buffers, the optimiser
-  state, the EMA, the discriminator and its optimiser state), every rank
-  holding a full replica;
+  state, the EMA, the discriminator and its optimiser state) that this
+  rank holds: a full replica, under tp its slices, under pp its stage's
+  residual groups and the replicated rest (the other stages' leaves are
+  empty tensors, counted as 0);
 - the batch's bytes (this rank's rows);
 - on CUDA, the peak of one step: ``torch.cuda.max_memory_allocated``
   after ``reset_peak_memory_stats``, around a step that really runs once
@@ -63,7 +65,7 @@ def format_memory_report(report: Dict[str, Any], label: str = "step") -> str:
              if k.endswith("_bytes") and k not in ("state_bytes", "batch_bytes",
                                                    "peak_step_bytes")]
     lines = [f"[{label}] rank {report['rank']} of {report['world_size']}, device memory "
-             "(a full state replica on every rank):"]
+             "(this rank's state: a full replica, or under tp and pp its part):"]
     lines += [f"  {p:<14}{mb(report[p + '_bytes'])}" for p in parts]
     lines.append(f"  {'state':<14}{mb(report['state_bytes'])}  (the parts above)")
     lines.append(f"  {'batch':<14}{mb(report['batch_bytes'])}  (this rank's rows)")

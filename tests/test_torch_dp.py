@@ -593,10 +593,26 @@ def test_other_mesh_axes_raise_and_name_their_item(axes, item, where, tmp_path, 
     import facesr_torch.training.trainer as trainer_mod
     from facesr_torch.training.trainer import Trainer, TrainerConfig
 
-    if axes in ("data,space", "data,model") and where == "get_mesh":
-        # ported: tests/test_torch_sp.py, tests/test_torch_tp.py
+    if where == "get_mesh":
+        # ported: tests/test_torch_sp.py, tests/test_torch_tp.py, tests/test_torch_pp.py
         mesh = pmesh.get_mesh(["cpu"] * 2, axis_names=axes.split(","), shape=(1, 2))
         assert (mesh.data_size, mesh.axis_size(axes.split(",")[1])) == (1, 2)
+        return
+    if axes == "data,pp":  # ported, each stage's groups: tests/test_torch_pp.py
+        mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
+                          axis_names=("data", "pp"), shape=(1, 2),
+                          axis_groups={"data": object(), "pp": object()})
+        monkeypatch.setattr(trainer_mod, "replicate", lambda tree, m: tree)  # no group to call
+        tr = Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
+                     TrainerConfig(mesh_axes=axes, mesh_shape=(1, 2), gan_weight=0.1,
+                                   checkpoint_dir=str(tmp_path)),
+                     device="cpu", discriminator=_disc(), mesh=mesh)
+        # one microbatch a stage: a rank's rows split in 2
+        assert tr.use_gan and tr._gan_step.pp_shard.size == 2 and tr._batch_divisor == 2
+        # rank 0 is stage 0: group 0 kept, group 1 freed; the head whole
+        assert tr.model.residual_groups[0].conv.weight.shape == (C, C, 3, 3)
+        assert tr.model.residual_groups[1].conv.weight.numel() == 0
+        assert tr.model.conv_first.weight.shape == _model().conv_first.weight.shape
         return
     if axes == "data,model":  # ported, the whole state split: tests/test_torch_tp.py
         mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
@@ -612,24 +628,16 @@ def test_other_mesh_axes_raise_and_name_their_item(axes, item, where, tmp_path, 
         assert tr.model.conv_first.weight.shape[0] == _model().conv_first.weight.shape[0] // 2
         assert tr.model.conv_last.weight.shape == _model().conv_last.weight.shape
         return
-    if axes == "data,space":  # ported, the GAN stage too: tests/test_torch_sp_gan.py
-        mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
-                          axis_names=("data", "space"), shape=(1, 2),
-                          axis_groups={"data": object(), "space": object()})
-        monkeypatch.setattr(trainer_mod, "replicate", lambda tree, m: tree)  # no group to call
-        tr = Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
-                     TrainerConfig(mesh_axes=axes, mesh_shape=(1, 2), gan_weight=0.1,
-                                   checkpoint_dir=str(tmp_path)),
-                     device="cpu", discriminator=_disc(), mesh=mesh)
-        assert tr.use_gan and tr._gan_step.row_shard.size == 2
-        return
-    with pytest.raises(pmesh.NotPorted, match=item.replace(".", r"\.")):
-        if where == "trainer":
-            Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
-                    TrainerConfig(mesh_axes=axes, checkpoint_dir=str(tmp_path)),
-                    device="cpu", mesh=None)
-        else:
-            pmesh.get_mesh(["cpu"], axis_names=axes.split(","))
+    # data,space: ported, the GAN stage too: tests/test_torch_sp_gan.py
+    mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
+                      axis_names=("data", "space"), shape=(1, 2),
+                      axis_groups={"data": object(), "space": object()})
+    monkeypatch.setattr(trainer_mod, "replicate", lambda tree, m: tree)  # no group to call
+    tr = Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
+                 TrainerConfig(mesh_axes=axes, mesh_shape=(1, 2), gan_weight=0.1,
+                               checkpoint_dir=str(tmp_path)),
+                 device="cpu", discriminator=_disc(), mesh=mesh)
+    assert tr.use_gan and tr._gan_step.row_shard.size == 2
 
 
 @pytest.mark.parametrize("fn", ["row_sharding", "grid_sharding", "tp_param_shardings",
@@ -637,7 +645,6 @@ def test_other_mesh_axes_raise_and_name_their_item(axes, item, where, tmp_path, 
 def test_unported_mesh_functions_raise_and_name_their_item(fn):
     import facesr_torch.parallel as par
 
-    mesh = pmesh.get_mesh(["cpu", "cpu"])
     if fn in ("row_sharding", "grid_sharding"):  # ported: tests/test_torch_sp.py
         grid = pmesh.get_mesh(["cpu"] * 4, axis_names=("data", "space"), shape=(2, 2))
         want = (None, "data") if fn == "row_sharding" else ("data", "space")
@@ -649,13 +656,20 @@ def test_unported_mesh_functions_raise_and_name_their_item(fn):
         assert specs["params/conv_first.weight"].spec == ("model", None, None, None)
         assert specs["params/conv_last.weight"].spec == ()
         return
-    with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.[2-5]"):
-        if fn == "mesh_shape":  # a shape of three axes: the compositions, A.13.5
-            pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
-        elif fn in ("pp_param_shardings", "make_pp_apply"):
-            getattr(par, fn)()
-        else:
-            getattr(par, fn)(mesh)
+    if fn in ("pp_param_shardings", "make_pp_apply"):  # ported: tests/test_torch_pp.py
+        grid = pmesh.get_mesh(["cpu"] * 4, axis_names=("data", "pp"), shape=(2, 2))
+        if fn == "pp_param_shardings":
+            specs = par.pp_param_shardings(_model(), grid)
+            assert specs["params/residual_groups.1.conv.weight"].spec == ("pp",)
+            assert specs["params/conv_first.weight"].spec == ()
+        else:  # one process holds every group: the trunk in microbatches
+            x = torch.rand((4, 8, 8, 3), generator=torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                torch.testing.assert_close(par.make_pp_apply(_model(), grid)(x), _model()(x))
+        return
+    with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.5"):
+        # a shape of three axes: the compositions, A.13.5
+        pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
 
 
 def test_mesh_shards_a_batch_and_keeps_pad_to_multiple():

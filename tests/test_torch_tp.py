@@ -918,3 +918,11 @@ def test_tp_over_more_than_one_host_and_model_with_pp_are_refused(monkeypatch, t
         Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
                 TrainerConfig(mesh_axes="data,model", mesh_shape=(2, 2),
                               checkpoint_dir=str(tmp_path)), device="cpu", mesh=mesh)
+    # pp's state is split too: refused over hosts alike (tests/test_torch_pp.py)
+    mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=4,
+                      axis_names=("data", "pp"), shape=(2, 2),
+                      axis_groups={"data": object(), "pp": object()})
+    with pytest.raises(NotImplementedError, match="single-host for now"):
+        Trainer(_model(), [], [], CombinedLoss(LossConfig(**LOSS), device="cpu"),
+                TrainerConfig(mesh_axes="data,pp", mesh_shape=(2, 2),
+                              checkpoint_dir=str(tmp_path)), device="cpu", mesh=mesh)

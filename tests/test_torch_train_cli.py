@@ -251,9 +251,10 @@ REFUSED = {
     # a shape of three axes: the compositions (data,space itself is ported)
     "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,space,model",
                                                "--mesh-shape", "2,2,2"], "ROADMAP A.13.5"),
-    # --print-memory is ported; under an axis that is not, the run still refuses
+    # --print-memory is ported, and data,pp (tests/test_torch_pp.py): without a
+    # shape it is JAX's refusal, with [1, 1] it reports and trains
     "print_memory": ("stage1_psnr_config.yaml", ["--print-memory", "--mesh-axes", "data,pp"],
-                     "ROADMAP A.13.4"),
+                     "mesh_shape is required with multiple mesh_axes"),
     "transfer": ("stage1_psnr_config.yaml", ["--model", "transfer", "--qat-scales", "x.npz"],
                  "requires training.qat"),
     "esrgan": ("stage1_psnr_config.yaml", ["--model", "esrgan", "--qat-scales", "x.npz"],
@@ -264,7 +265,7 @@ REFUSED = {
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
     config, flags, item = REFUSED[what]
-    if what == "mesh_axes":
+    if what in ("mesh_axes", "print_memory"):
         with pytest.raises(ValueError, match=item):
             _run(config, *flags)
         trainer = _run(config, *flags, "--mesh-shape", "1,1", "--epochs", "1")
@@ -278,8 +279,9 @@ def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
 @pytest.mark.parametrize("section", ["mesh_shape: [4, 2]", "mesh_axes: data,space",
                                      "pp_microbatches: 4"])
 def test_what_is_not_ported_in_the_yaml_raises(workdir, section):
-    """pp_microbatches is not ported; the YAML's mesh_shape and mesh_axes
-    are read (data,space trains: tests/test_torch_sp.py)."""
+    """The YAML's mesh_shape, mesh_axes and pp_microbatches are read
+    (data,space trains: tests/test_torch_sp.py; data,pp:
+    tests/test_torch_pp.py)."""
     text = (workdir / "stage1_psnr_config.yaml").read_text()
     text = text.replace("training:\n", f"training:\n  {section}\n", 1)
     (workdir / "s.yaml").write_text(text)
@@ -293,9 +295,11 @@ def test_what_is_not_ported_in_the_yaml_raises(workdir, section):
             _run("s.yaml")
         trainer = _run("s.yaml", "--mesh-shape", "1,1", "--epochs", "1")
         assert trainer.mesh.shape == (1, 1) and trainer.global_step > 0
-    else:
-        with pytest.raises(train_cli.NotPorted, match="ROADMAP A.13"):
-            _run("s.yaml")
+    else:  # as scripts/train.py reads it: a rank's 2 rows padded to the 4 microbatches
+        trainer = _run("s.yaml", "--mesh-axes", "data,pp", "--mesh-shape", "1,1", "--epochs",
+                       "1")
+        assert trainer.config.pp_microbatches == 4 and trainer._batch_divisor == 4
+        assert trainer.global_step > 0
 
 
 # the QAT rehearsal YAML's sizes, cut as the stage YAMLs are
