@@ -283,16 +283,38 @@ catches an error and goes on):
    (launches counted into the kernel table), the unclamped output within
    phase 4's limits of the same pipeline on plain groups, a dropped SE
    gate rejected.
+20. the three-axis mesh (the image rows over `space`, the convs' output
+   channels and the training state over `model`, on a data,space,model
+   [1, 2, 2] grid of four gloo ranks sharing cuda:0): (a) the stage-1 step
+   (batch 8), (b) stage 3's GAN step (batch 16) and (c) phase 12's QAT
+   step (batch 2, pinned at fake-quant ties, cut to each rank's rows and
+   channels) against the step alone within phase 16's floor-based limits
+   (the floor's draws with the convs in output-channel halves and the
+   step on two batch blocks), parameters off their Adam ties, the
+   gradient mean over the whole group in place of the data x space plane
+   and a zeroed halo on the gathered channels as controls, the ranks'
+   gathered states bitwise, ms a step, exchanges over `model` and over
+   `space`, a rank's peak and state share; D's forward alone at batch 2
+   against one process, its BatchNorm summed over the whole group
+   rejected; (d) the stage-1 YAML through the CLI on the grid with
+   ``--print-memory``, its ``.fckpt`` resumed by one process; (e) no
+   group launch.
 
-Phases 18 and 19 run their steps in child processes (two ranks each),
-one launch after the other, beside phases 15 and 16 in this process:
-the host, not the card, bounds those phases, so their ms figures are
-taken with the other work running. Their reports follow phase 17, and the
-CLI ranks of 18 (d) and 19 (c) run side by side after it; phase 17 runs
-its CLI ranks ((c), then (f)) beside its own launch. Every phase prints
-its seconds. It prints the kernel table as one JSON line, then the nvidia-smi line,
-then the result line ``{"ok": true, "device": {...}}`` last. Without a
-CUDA card it exits non-zero and prints no result.
+Phases 19 and 18 run their steps in child processes (two ranks each),
+one launch after the other, beside phases 15 and 16 in this process, and
+phase 20's two launches (four ranks each: (a) and (c), then (b) once
+phase 17's GAN step is done) beside phase 17 and what follows it: the
+host, not the card, bounds those phases, so their ms figures are taken
+with the other work running. Their reports follow phase 17, and the CLI
+ranks of 18 (d), 19 (c) and 20 (d) run side by side after it; phase 17
+runs its CLI ranks ((c), then (f)) beside its own launch. Processes that share the card keep what
+their allocators cached, so their peaks add up (`MemoryWatch`); the
+card's used memory (every process's) is sampled through phases 15-20
+and its peak and a timeline printed for each of those three stretches.
+Every phase prints its seconds. It prints the kernel table as one JSON
+line, then the nvidia-smi line, then the result line ``{"ok": true,
+"device": {...}}`` last. Without a CUDA card it exits non-zero and
+prints no result.
 """
 
 import contextlib
@@ -376,6 +398,72 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0].strip()
+
+
+def host_available() -> float:
+    """The host's available memory in bytes (MemAvailable), NaN unread."""
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemAvailable:"):
+                    return float(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return math.nan
+
+
+class MemoryWatch:
+    """The card's used memory (cudaMemGetInfo: every process's, this one's
+    and its children's) and the host's available memory, sampled every
+    ``every`` s in a thread; `take` gives the card's peak, its largest
+    reading in each ``bucket`` s and the host's low since the last take.
+
+    Processes that share the card each keep what their allocator once
+    cached, so their peaks add up; near the card's size a conv may also
+    find no room for its cuDNN workspace and take another algorithm in one
+    rank than in its peer, and replicated results then differ in their
+    last bits. Phase 20's GAN step beside phase 17's filled the card (a
+    rank of phase 17's stage-3 CLI run out of memory), and phases 15-16
+    with 18's and 19's launches came within 4 GiB of it (19's ranks'
+    replicated GAN state no longer bitwise equal)."""
+
+    def __init__(self, every: float = 0.25, bucket: float = 10.0):
+        self._lock, self._stop = threading.Lock(), threading.Event()
+        self.total, self.bucket = torch.cuda.mem_get_info(0)[1], bucket
+        self._rows, self._t0 = [], time.perf_counter()
+        self._thread = threading.Thread(target=self._run, args=(every,), daemon=True,
+                                        name="memory-watch")
+        self._thread.start()
+
+    def _run(self, every):
+        while not self._stop.wait(every):
+            used = self.total - torch.cuda.mem_get_info(0)[0]
+            row = (time.perf_counter(), used, host_available())
+            with self._lock:
+                self._rows.append(row)
+
+    def take(self, what: str, card: str) -> str:
+        with self._lock:
+            rows, t0 = self._rows, self._t0
+            self._rows, self._t0 = [], time.perf_counter()
+        if not rows:
+            return f"  the card's used memory over {what}: no reading [{card}]"
+        peak = max(rows, key=lambda r: r[1])
+        buckets: dict = {}
+        for t, used, _ in rows:
+            k = int((t - t0) // self.bucket)
+            buckets[k] = max(buckets.get(k, 0), used)
+        return (f"  the card's used memory (every process's) over {what}: peak "
+                f"{peak[1] / 2 ** 30:.3f} of {self.total / 2 ** 30:.3f} GiB at "
+                f"{peak[0] - t0:.1f} s; the host's available memory low "
+                f"{min(r[2] for r in rows) / 2 ** 30:.3f} GiB; the largest reading in each "
+                f"{self.bucket:g} s (s: GiB) "
+                + " ".join(f"{k * self.bucket:g}:{v / 2 ** 30:.1f}"
+                           for k, v in sorted(buckets.items())) + f" [{card}]")
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
 
 
 def cuda_ms(fn, iters, warmup=2) -> float:
@@ -3872,6 +3960,7 @@ SP_GAN_BATCH = 16               # (d) stage 3's step, its batch cut from 48 (tim
 SP_GAN_TIMED = 0                # (d) timed sp GAN steps after the first (none: the first's ms)
 SP_QAT_BATCH = 8                # (f) the QAT YAML's --batch-size (its 64 cut): two steps of PNGs
 SP_QAT_STEP_BATCH = 2           # (e) the QAT step's batch, cut from 48: its level records
+SP_GAN_DONE = "sp_gan_done"     # the file rank 0 writes under tmp once (d) let go of the card
 
 
 def png_subset(tmp: Path, name: str, n_train: int, n_val: int) -> Path:
@@ -4334,6 +4423,10 @@ def sp_step_rank(mesh, tmp: str, card: str) -> dict:
         gan["d_errors"] = {k: _tensor_errors(v, d_want) for k, v in d_got.items()}
     gan["d_logits_hash"] = _state_hash([d_got["right"]["d_logits"]["logits"]])
     out["gan"] = gan
+    del d_got, hr_g
+    torch.cuda.empty_cache()
+    if rank == 0:  # phase 20's GAN launch waits for this (`tp3_launches`)
+        (Path(tmp) / SP_GAN_DONE).touch()
     out["seconds"]["(d)"], t0 = time.perf_counter() - t0, time.perf_counter()
     # (e) phase 12's QAT step (phase 7's, fake-quantized), and the control:
     # a per-shard activation scale
@@ -4455,6 +4548,22 @@ def _sp_cli(name: str, argv, tmp: Path):
                                              for r in range(2)]
 
 
+def _ranks_failed(what: str, codes, logs) -> str:
+    """A failed CLI run's message: each rank's log tail, then one line that
+    says what ended it (a rank's own exit code, or every rank killed at the
+    run's deadline, -9) with each rank's last log line."""
+    last = [next((ln.strip() for ln in reversed(t.splitlines()) if ln.strip()), "")[-300:]
+            for t in logs]
+    ended = ("every rank killed at the deadline" if codes and all(c == -9 for c in codes)
+             else f"ranks {[r for r, c in enumerate(codes) if c not in (0, -9)]} failed "
+                  "on their own, the others were stopped" if any(c not in (0, -9) for c in codes)
+             else "every rank exited 0, a check failed")
+    return (" | ".join(f"rank {r} (exit {c}): {t[-1500:]}" for r, (c, t) in
+                       enumerate(zip(codes, logs)))
+            + f"\n{what}: exit codes {codes} ({ended}); last lines: "
+            + " | ".join(f"rank {r}: {ln}" for r, ln in enumerate(last)))
+
+
 def _cli_checked(what: str, codes, logs, files, extra_ok=True) -> list:
     """The val PSNRs of a CLI run on the grid, once both ranks exited 0,
     found their grid place and rank 0 wrote final_model.fckpt."""
@@ -4464,7 +4573,7 @@ def _cli_checked(what: str, codes, logs, files, extra_ok=True) -> list:
     if codes != [0, 0] or "final_model.fckpt" not in files or not psnr or not extra_ok \
             or not all(math.isfinite(v) for v in psnr) \
             or not all(f"at (0, {r}) of the data,space grid" in logs[r] for r in range(2)):
-        raise AssertionError(f"{what}: {codes}, " + " | ".join(t[-1500:] for t in logs))
+        raise AssertionError(_ranks_failed(what, codes, logs))
     return psnr
 
 
@@ -4626,8 +4735,7 @@ def sp_phase(card: str, tmp: Path) -> int:
             or not all(math.isfinite(v) for v in psnr) \
             or not all(f"at (0, {r}) of the data,space grid" in logs[r] for r in range(2)) \
             or not all("device memory" in t for t in logs):
-        raise AssertionError(f"the data,space train CLI run: {codes}, "
-                             + " | ".join(t[-1500:] for t in logs))
+        raise AssertionError(_ranks_failed("the data,space train CLI run", codes, logs))
     parts["(c)"], parts["(f)"] = cli_s, chain_s
     sp_cli_chain(tmp, chain, card)
     log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s: "
@@ -4667,12 +4775,19 @@ def _tp_fault(name):
     """A fault planted in the tp path: a gather whose backward sums over
     `model` (every gradient upstream of a split conv t times too large), a
     clip whose global norm skips the `model` sum, or D's convs gathering
-    the ranks' channel blocks in reversed order."""
+    the ranks' channel blocks in reversed order; in the three-axis path
+    (phase 20): the gradient mean over the whole group in place of the
+    `data` x `space` plane, D's BatchNorm summed over the whole group while
+    its map is split, or every split conv's halo rows zeroed (each still in
+    its exchanges' graph, so every rank runs the same collectives)."""
     import torch.distributed as dist
 
     from facesr_torch.models import discriminator as dmod
+    from facesr_torch.ops import conv as conv_ops
+    from facesr_torch.ops.quant import FakeQuantWeight
+    from facesr_torch.parallel import mesh as pmesh
     from facesr_torch.parallel import tensor
-    from facesr_torch.training import optim
+    from facesr_torch.training import optim, steps
 
     if name == "gather_backward_sum":
         backward = tensor._Gather.backward
@@ -4687,6 +4802,34 @@ def _tp_fault(name):
     elif name == "clip_without_model_sum":
         owner, attr, real = optim, "global_norm", optim.global_norm
         value = lambda grads, params, shard=None: real(grads, params, None)  # noqa: E731
+    elif name == "grad_mean_whole_group":
+        owner, attr, real = steps, "_reduced", steps._reduced
+
+        def value(grads, mesh):
+            out = [g.to(memory_format=torch.contiguous_format, copy=True) for g in grads]
+            for g in out:
+                dist.all_reduce(g, group=mesh.group)
+                g.div_(mesh.world_size)
+            return out
+    elif name == "bn_whole_group":
+        owner, attr, real = dmod, "_bn_sum", dmod._bn_sum
+
+        def value(train, mesh, shard):
+            if train and shard is not None and mesh is not None and mesh.distributed:
+                return lambda t: pmesh._AllReduceSum.apply(t, mesh.group)
+            return real(train, mesh, shard)
+    elif name == "zero_halo_gathered":
+        owner, attr, real = conv_ops, "_halo_rows", conv_ops._halo_rows
+
+        def value(shard, x, w, padding, stride):
+            xh, pad = real(shard, x, w, padding, stride)
+            extra = xh.shape[1] - x.shape[1]
+            if not extra or not tensor.is_split(w.w if isinstance(w, FakeQuantWeight) else w):
+                return xh, pad
+            top = extra - extra // 2 if stride == 1 else extra  # 3x3: (1, 1), at stride 2 (1, 0)
+            keep = torch.zeros(xh.shape[1], dtype=xh.dtype, device=xh.device)
+            keep[top:top + x.shape[1]] = 1
+            return xh * keep.view(1, -1, 1, 1), pad
     elif name == "reversed_d_gather":
         owner, attr, real = dmod, "conv2d", dmod.conv2d
 
@@ -4821,19 +4964,22 @@ def _timed(step, times):
         times.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    run.optimizers, run.model_shard = step.optimizers, step.model_shard
+    run.optimizers, run.model_shard, run.row_shard = (step.optimizers, step.model_shard,
+                                                      step.row_shard)
     return run
 
 
-def _tp_case(mesh, build, hr, gan: bool) -> dict:
+def _tp_case(mesh, build, hr, gan: bool, controls=None, parts: int = 1) -> dict:
     """One tp step case on a rank of the grid: on rank 0 the single-process
     step (its record, ms, peak and state bytes) and its rounding floor
-    (`TP_FLOOR_DRAWS`); each planted control's tp step, then the right tp
-    step, warm (its record, ms, exchanges, peak, state bytes and the
-    gathered state's hash). The parameters are compared off their Adam
+    (`TP_FLOOR_DRAWS`, the step on ``parts`` batch blocks); each planted
+    control's tp step (``controls``, by default `TP_CONTROLS`'), then the
+    right tp step, warm (its record, ms, exchanges, peak, state bytes and
+    the gathered state's hash). The parameters are compared off their Adam
     ties (`_adam_ties`)."""
     from facesr_torch.cli.step_numerics import RecordingAdamW
 
+    controls = TP_CONTROLS[gan] if controls is None else controls
     dev, out = mesh.device, {}
     if mesh.rank == 0:
         torch.cuda.reset_peak_memory_stats()
@@ -4845,7 +4991,7 @@ def _tp_case(mesh, build, hr, gan: bool) -> dict:
                          "state_bytes": _state_bytes(state)}
         del state, step
         with _channel_halves():
-            draws = [_rounding_floor(build, dev, hr, gan, 1, seed, moments=True)
+            draws = [_rounding_floor(build, dev, hr, gan, parts, seed, moments=True)
                      for seed in TP_FLOOR_DRAWS]
         ties = _adam_ties(want, draws)
         floor = _floor_of([_errors_off_ties(d, want, ties) for d in draws])
@@ -4854,7 +5000,7 @@ def _tp_case(mesh, build, hr, gan: bool) -> dict:
         del draws
         torch.cuda.empty_cache()
     faults = {}
-    for name in TP_CONTROLS[gan]:
+    for name in controls:
         with _tp_fault(name):
             state, step, specs = _tp_built(build, dev, mesh)
             faults[name] = _tp_record(state, step, hr, gan, mesh, specs)
@@ -4867,6 +5013,8 @@ def _tp_case(mesh, build, hr, gan: bool) -> dict:
     got = _tp_record(state, _timed(step, times), hr, gan, mesh, specs)
     out["ms"] = times[0]
     out["exchanges"] = dict(step.model_shard.counts)
+    if step.row_shard is not None:
+        out["row_exchanges"] = dict(step.row_shard.counts)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["hash"] = _tp_hash(state, mesh, specs)
     del state, step
@@ -4877,25 +5025,27 @@ def _tp_case(mesh, build, hr, gan: bool) -> dict:
     return out
 
 
-def _tp_qat_case(mesh, tmp: Path) -> dict:
-    """(c) on a rank of the grid: phase 12's QAT step at TP_QAT_BATCH, every
-    run's fake-quant levels pinned at ties to rank 0's single-process step
-    (`step_numerics.fake_quant_levels`; the tp run's record cut to its
-    output channels by `model_shard_levels`): the single-process step and
-    its floor (`TP_FLOOR_DRAWS`, pinned alike), the tp step with its ties
-    taken and its levels off a tie counted. The record goes from rank 0 to
-    the other through a file."""
+def _tp_qat_case(mesh, tmp: Path, batch: int = TP_QAT_BATCH, size: int = TP_QAT_HR,
+                 name: str = "tp") -> dict:
+    """(c) on a rank of the grid: phase 12's QAT step at ``batch`` x
+    ``size``, every run's fake-quant levels pinned at ties to rank 0's
+    single-process step (`step_numerics.fake_quant_levels`; the tp run's
+    record cut to its output channels by `model_shard_levels`, on three
+    axes to its rows too by `grid_shard_levels`): the single-process step
+    and its floor (`TP_FLOOR_DRAWS`, pinned alike), the tp step with its
+    ties taken and its levels off a tie counted. The record goes from rank
+    0 to the others through a file (``name``'s)."""
     import functools
 
     import torch.distributed as dist
 
     from facesr_torch.cli.step_numerics import (RecordingAdamW, fake_quant_levels,
-                                                model_shard_levels)
+                                                grid_shard_levels, model_shard_levels)
 
     dev, out = mesh.device, {}
     build = functools.partial(production_step_fn, qat=True)
-    hr = smooth_hr(TP_QAT_BATCH, TP_QAT_HR, seed=7, dev=dev)
-    path = tmp / "tp_qat_levels.pt"
+    hr = smooth_hr(batch, size, seed=7, dev=dev)
+    path = tmp / f"{name}_qat_levels.pt"
     if mesh.rank == 0:
         state, step, _ = build(dev, opt_cls=RecordingAdamW)
         with fake_quant_levels() as rec:
@@ -4929,12 +5079,16 @@ def _tp_qat_case(mesh, tmp: Path) -> dict:
         record = torch.load(path)
     torch.cuda.reset_peak_memory_stats()
     state, step, specs = _tp_built(build, dev, mesh)
-    with fake_quant_levels(model_shard_levels(record, step.model_shard)) as pin:
+    levels = (model_shard_levels(record, step.model_shard) if step.row_shard is None
+              else grid_shard_levels(record, step.row_shard, step.model_shard))
+    with fake_quant_levels(levels) as pin:
         got = _tp_record(state, step, hr, False, mesh, specs)
     out.update(ties=pin["ties"], off_tie=pin["off_tie"],
                levels=sum(lv.numel() for lv in pin["levels"]),
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                exchanges=dict(step.model_shard.counts), hash=_tp_hash(state, mesh, specs))
+    if step.row_shard is not None:
+        out["row_exchanges"] = dict(step.row_shard.counts)
     del state, step, pin, record
     if mesh.rank == 0:
         out.update(errors=_errors_off_ties(got, want, ties), floor=floor)
@@ -4963,41 +5117,49 @@ def tp_step_rank(mesh, tmp: str, card: str) -> dict:
     return out
 
 
-def tp_report(name: str, case: dict, other: dict, card: str, what: str) -> None:
-    """A tp step case's numbers and checks (rank 0's comparisons, both
-    ranks' hashes)."""
+def tp_report(name: str, case: dict, other: dict, card: str, what: str,
+              where: str = f"the {list(TP_GRID)} data,model grid (2 gloo ranks on cuda:0, the "
+                           "state split by tp_param_shardings)", phase: str = "tp",
+              parts: int = 1) -> None:
+    """A tp step case's numbers and checks (rank 0's comparisons, the
+    ranks' hashes: ``other`` one other rank's case, or a list of them)."""
     limit = _sp_limits(case)
     failed = _over(case["errors"], limit)
     single = case.get("single")
-    log(f"  {name} {what} on the {list(TP_GRID)} data,model grid (2 gloo ranks on cuda:0, the "
-        f"state split by tp_param_shardings) against the single-process step, relative L2 "
+    others = other if isinstance(other, list) else [other]
+    equal = all(case["hash"] == o["hash"] for o in others)
+    log(f"  {name} {what} on {where} against the single-process step, relative L2 "
         f"(TF32 off), the worst tensor a part: {json.dumps(_worst(case['errors']))}; the "
-        f"rounding floor (the convs in output-channel halves, the input x (1 + 2^-23 N(0, 1)) "
+        f"rounding floor (the convs in output-channel halves"
+        f"{f', the step on {parts} batch blocks' if parts > 1 else ''}, the input x (1 + 2^-23 N(0, 1)) "
         f"twice and as it is, the largest of the three draws), the worst tensor a part: "
         f"{json.dumps(_worst(case['floor']))}; each "
         f"tensor's limit max({STEP_RTOL}, {DP_FLOOR_FACTOR} x its floor): the largest error / "
         f"limit a part {json.dumps(_ratios(case['errors'], limit))}; parameters compared off "
         f"their Adam ties (elements whose gradient is within {DP_FLOOR_FACTOR} x its rounding "
         f"noise of zero): {json.dumps(case['ties'])}; states (gathered) bitwise equal across "
-        f"ranks: {case['hash'] == other['hash']} [{card}]")
+        f"ranks: {equal} [{card}]")
     if single is not None:
-        log(f"  {name} ms a step: tp {case['ms']:.3f} (warm: after the controls' steps), one "
-            f"process first {single['first_ms']:.3f}, then {single['ms']:.3f}; a rank's "
+        rows = (f", over space {json.dumps(case['row_exchanges'])}"
+                if "row_exchanges" in case else "")
+        log(f"  {name} ms a step: {phase} {case['ms']:.3f} (warm: after the controls' steps), "
+            f"one process first {single['first_ms']:.3f}, then {single['ms']:.3f}; a rank's "
             f"peak {case['peak_gib']:.3f} GiB against {single['peak_gib']:.3f} alone; a rank's "
             f"state {case['state_bytes']} bytes against {single['state_bytes']} alone "
             f"({case['state_bytes'] / single['state_bytes']:.3f}); a rank's exchanges in the "
-            f"step {json.dumps(case['exchanges'])} [{card}]")
+            f"step over model {json.dumps(case['exchanges'])}{rows} [{card}]")
     for control, errs in case.get("controls", {}).items():
         over = _over(errs, limit)
         log(f"  {name} control {control}: tensors over their limits "
             + json.dumps({p: f"{len(v)} of {len(limit[p])}" for p, v in over.items()})
             + f", the worst tensor a part {json.dumps(_worst(errs))}")
         if not any(over.values()):
-            raise AssertionError(f"the tp checks cannot see the planted {control}")
+            raise AssertionError(f"the {phase} checks cannot see the planted {control}")
     if any(failed.values()):
-        raise AssertionError(f"the tp {what} disagrees with the single-process step: {failed}")
-    if case["hash"] != other["hash"]:
-        raise AssertionError(f"the tp ranks' {what} states differ")
+        raise AssertionError(f"the {phase} {what} disagrees with the single-process step: "
+                             f"{failed}")
+    if not equal:
+        raise AssertionError(f"the {phase} ranks' {what} states differ")
 
 
 def _tp_cli_flags(tmp: Path) -> list:
@@ -5052,8 +5214,7 @@ def tp_cli(tmp: Path, card: str, ranks=None) -> dict:
             or not all(math.isfinite(v) for v in psnr) \
             or not all(f"at (0, {r}) of the data,model grid" in logs[r] for r in range(2)) \
             or not all("device memory" in t for t in logs):
-        raise AssertionError("the data,model train CLI run: "
-                             + f"{codes}, " + " | ".join(t[-1500:] for t in logs))
+        raise AssertionError(_ranks_failed("the data,model train CLI run", codes, logs))
     model = FaceEnhanceNet(production_config(), seed=1, device="cpu")
     model.load_state_dict(read_state_dict(str(ckpt / "final_model.pth")), strict=True)
     out["pth_finite"] = all(bool(torch.isfinite(v).all()) for v in model.state_dict().values())
@@ -5112,7 +5273,8 @@ def tp_phase(card: str, tmp: Path, cli: bool = True, launched=None) -> int:
         torch.cuda.empty_cache()
     r0, r1, launch_s = launched or tp_launch(card, tmp)
     parts = {"(a), (b), (c): one launch of two ranks"
-             + (" (beside phases 15 and 16)" if launched is not None else ""): launch_s}
+             + (" (beside phases 15 and 16, after phase 19's)" if launched is not None else ""):
+             launch_s}
     parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
     log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
     if (r0["coords"], r1["coords"]) != ((0, 0), (0, 1)):
@@ -5162,7 +5324,7 @@ def tp_cli_phase(card: str, tmp: Path, ranks=None, launches: int = 0) -> int:
     cli = tp_cli(tmp, card, ranks)
     log(f"  (d) the stage-1 YAML through the train CLI on data,model {list(TP_GRID)} (torchrun's "
         f"environment, 2 ranks on cuda:0 over gloo"
-        f"{', beside phase 19 (c)' + chr(39) + 's 2' if ranks is not None else ''}), "
+        f"{', beside the 2 of 19 (c) and the 4 of 20 (d)' if ranks is not None else ''}), "
         f"--print-memory, --batch-size {TP_CLI_BATCH}, "
         f"1 epoch on {2 * TP_CLI_BATCH} of phase 8's train PNGs: exit codes {cli['codes']}, "
         f"{cli['s']:.1f} s with set-up; rank 0 wrote {cli['files']}; final_model.pth loaded "
@@ -5533,8 +5695,7 @@ def pp_cli(tmp: Path, card: str, ranks=None) -> dict:
             or not all(f"at (0, {r}) of the data,pp grid" in logs[r] for r in range(2)) \
             or not all("device memory" in t for t in logs) \
             or "delegated to rank 0" not in logs[1]:
-        raise AssertionError("the data,pp train CLI run: "
-                             + f"{codes}, " + " | ".join(t[-1500:] for t in logs))
+        raise AssertionError(_ranks_failed("the data,pp train CLI run", codes, logs))
     # one process resumes the pp run's file and trains epoch 2
     resume_dir = tmp / "pp_cli_resume"
     resume_dir.mkdir()
@@ -5590,7 +5751,7 @@ def pp_phase(card: str, tmp: Path, launched=None, cli_ranks=None) -> int:
         torch.cuda.empty_cache()
     r0, r1, launch_s = launched or pp_launch(card, tmp)
     parts = {"(a), (b), (d): one launch of two ranks"
-             + (" (beside phases 15 and 16, after phase 18's)" if launched is not None else ""):
+             + (" (beside phases 15 and 16, before phase 18's)" if launched is not None else ""):
              launch_s}
     parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
     log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
@@ -5630,7 +5791,7 @@ def pp_phase(card: str, tmp: Path, launched=None, cli_ranks=None) -> int:
     parts["(c)" if cli_ranks is None else "(c)'s check and resume"] = time.perf_counter() - t0
     log(f"  (c) the stage-1 YAML through the train CLI on data,pp {list(PP_GRID)} (torchrun's "
         f"environment, 2 ranks on cuda:0 over gloo"
-        f"{', beside phase 18 (d)' + chr(39) + 's 2' if cli_ranks is not None else ''}), "
+        f"{', beside the 2 of 18 (d) and the 4 of 20 (d)' if cli_ranks is not None else ''}), "
         f"--print-memory, --batch-size {PP_CLI_BATCH}, "
         f"1 epoch on {2 * PP_CLI_BATCH} of phase 8's train PNGs: exit codes {cli['codes']}, "
         f"{cli['s']:.1f} s with set-up; rank 0 wrote {cli['files']}, rank 1 nothing; "
@@ -5639,6 +5800,319 @@ def pp_phase(card: str, tmp: Path, launched=None, cli_ranks=None) -> int:
         f"{cli['resume']['history']}, {cli['resume_s']:.1f} s [{card}]")
     launches = f0["launches"] + f1["launches"]
     log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s here: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
+    return launches
+
+# phase 20: the three axes at once on the card. On a [1, 2, 2]
+# data,space,model grid of four gloo ranks sharing cuda:0 (the image rows
+# over `space`, the convs' output channels and the training state over
+# `model`), one launch: (a) the stage-1 step, (b) stage 3's GAN step and D's
+# forward alone, (c) phase 12's QAT step, each against the step alone;
+# then (d) the stage-1 YAML through the train CLI on the grid, its final
+# checkpoint resumed by one process. The machine has one card: no NCCL
+# across cards, no multi-card speed-up.
+TP3_AXES = ("data", "space", "model")
+TP3_GRID = (1, 2, 2)
+TP3_RANKS = 4
+TP3_BATCH = 8                   # (a) the stage-1 step's batch, cut from 48 (gloo traffic)
+TP3_GAN_BATCH = 16              # (b) stage 3's step (at 8 an Adam tie escaped in phases 17-19)
+TP3_D_BATCH = 2                 # (b) D's forward alone: a small count a BatchNorm
+TP3_QAT_BATCH, TP3_QAT_HR = 2, 128  # (c) phase 18's QAT step
+TP3_CLI_BATCH = 4               # (d) --batch-size: two steps' worth of phase 8's train PNGs
+TP3_CLI_FLAGS = ()              # extra train CLI flags of (d)
+TP3_CONTROLS = {False: ("grad_mean_whole_group", "zero_halo_gathered"), True: ()}
+# the cases of phase 20's two launches: (a) and (c), then (b) (stage 3's
+# step at batch 16) once phase 17's own GAN step is done (`tp3_launches`).
+# Beside phase 17's GAN step and its stage-3 CLI run, (b) took the card's
+# last free byte (a rank of that CLI run ran out of memory)
+TP3_LAUNCHES = (("content", "qat"), ("gan",))
+TP3_WHERE = (f"the {list(TP3_GRID)} data,space,model grid (4 gloo ranks on cuda:0: the rows "
+             "over space, the state split over model by tp_param_shardings)")
+
+
+def tp3_step_rank(mesh, tmp: str, card: str, cases=("content", "gan", "qat")) -> dict:
+    """``cases`` of (a) "content", (b) "gan" and (c) "qat" on one of the
+    four gloo ranks of the [1, 2, 2] data,space,model grid sharing
+    cuda:0."""
+    from facesr_torch.ops import rcab_group as rg
+
+    dev, rank = mesh.device, mesh.rank
+    out = {"rank": rank, "coords": tuple(mesh.axis_index(a) for a in TP3_AXES), "seconds": {}}
+    t0 = time.perf_counter()
+    if "content" in cases:
+        out["content"] = _tp_case(mesh, production_step_fn,
+                                  smooth_hr(TP3_BATCH, TRAIN_HR, seed=7, dev=dev), False,
+                                  controls=TP3_CONTROLS[False], parts=2)
+        out["seconds"]["(a)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    if "gan" in cases:
+        out.update(_tp3_gan_case(mesh))
+        out["seconds"]["(b)"], t0 = time.perf_counter() - t0, time.perf_counter()
+    if "qat" in cases:
+        out["qat"] = _tp_qat_case(mesh, Path(tmp), TP3_QAT_BATCH, TP3_QAT_HR, name="tp3")
+        out["seconds"]["(c)"] = time.perf_counter() - t0
+    out["launches"] = rg.fused_residual_group.launches
+    return out
+
+
+def _tp3_gan_case(mesh) -> dict:
+    """(b) on a rank of the three-axis grid: stage 3's step against the
+    single process, then D's forward alone at TP3_D_BATCH with its control:
+    a BatchNorm summed over the whole group counts every row t times in its
+    sums and in its count, so its mean and variance come out right and only
+    the running variance's unbiased factor moves, by more the fewer rows it
+    counts."""
+    from facesr_torch.models.discriminator import create_discriminator
+
+    dev, rank = mesh.device, mesh.rank
+    out = {"gan": _tp_case(mesh, gan_step_fn, smooth_hr(TP3_GAN_BATCH, GAN_HR, seed=8, dev=dev),
+                           True, controls=TP3_CONTROLS[True], parts=2)}
+    disc = create_discriminator(input_size=GAN_HR, base_channels=GAN_D_BASE, use_bn=True,
+                                seed=0, device=dev)  # gan_step_fn's
+    hr_d = smooth_hr(TP3_D_BATCH, GAN_HR, seed=9, dev=dev)
+    if rank == 0:
+        d_want = _disc_forward(disc, hr_d)
+        out["d_floor"] = _floor_of([_tensor_errors(_disc_forward(disc, hr_d, noise_seed=seed),
+                                                   d_want) for seed in DP_FLOOR_SEEDS])
+    d_got = {"right": _disc_forward(disc, hr_d, mesh)}
+    with _tp_fault("bn_whole_group"):
+        d_got["bn_whole_group"] = _disc_forward(disc, hr_d, mesh)
+    del disc
+    if rank == 0:
+        out["d_errors"] = {k: _tensor_errors(v, d_want) for k, v in d_got.items()}
+    out["d_hash"] = _state_hash([d_got["right"]["d_logits"]["logits"]])
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp3_cli_flags(tmp: Path) -> list:
+    return ["--config", str(STAGE1_YAML), "--data-root", str(tmp / "tp3_cli_data"),
+            "--batch-size", str(TP3_CLI_BATCH), *TP3_CLI_FLAGS]
+
+
+def tp3_cli_ranks(tmp: Path) -> dict:
+    """(d)'s four ranks: the stage-1 YAML through the train CLI on
+    data,space,model [1, 2, 2] with --print-memory, one epoch of two steps
+    at --batch-size TP3_CLI_BATCH: exit codes, seconds with set-up."""
+    from facesr_torch.parallel.launch import run_cli_ranks
+
+    png_subset(tmp, "tp3_cli_data", 2 * TP3_CLI_BATCH, TP3_CLI_BATCH)  # two steps
+    run_dir = tmp / "tp3_cli"
+    run_dir.mkdir()
+    t0 = time.perf_counter()
+    codes = run_cli_ranks("facesr_torch.cli.train",
+                          [*_tp3_cli_flags(tmp), "--epochs", "1", "--print-memory",
+                           "--mesh-axes", ",".join(TP3_AXES), "--mesh-shape",
+                           ",".join(map(str, TP3_GRID)), "--dist-backend", "gloo"],
+                          TP3_RANKS, timeout=DP_TIMEOUT, log_dir=str(run_dir), cwd=str(run_dir),
+                          env={"PYTHONPATH": str(REPO)})
+    return {"s": time.perf_counter() - t0, "codes": codes}
+
+
+def tp3_cli(tmp: Path, card: str, ranks=None) -> dict:
+    """(d): `tp3_cli_ranks`' run (``ranks``, else run here) checked: exit 0,
+    the grid's places, the memory reports, finite val PSNR, rank 0 alone
+    writing, final_model.pth loaded strict by a single-process model; its
+    final_model.fckpt resumed by a single-process CLI run for epoch 2."""
+    import io
+    import os
+    import re
+
+    from facesr_torch.ckpt.weights import read_state_dict
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.ops import rcab_group as rg
+
+    out = dict(ranks or tp3_cli_ranks(tmp))
+    flags, codes, run_dir = _tp3_cli_flags(tmp), out["codes"], tmp / "tp3_cli"
+    logs = [(run_dir / f"rank{r}.log").read_text() for r in range(TP3_RANKS)]
+    ckpt = run_dir / "checkpoints"
+    out["files"] = sorted(p.name for p in ckpt.iterdir()) if ckpt.exists() else []
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            if "MB (" in line or "data,space,model grid" in line or "Batch size" in line \
+                    or "Val PSNR" in line or "ms/step" in line:
+                log(f"  (d) rank {r}: {line.strip()}")
+    psnr = [float(v) for v in re.findall(r"Val PSNR:\s+([-\d.]+) dB", logs[0])]
+    places = [tuple(int(c) for c in np.unravel_index(r, TP3_GRID)) for r in range(TP3_RANKS)]
+    if codes != [0] * TP3_RANKS or "final_model.fckpt" not in out["files"] or not psnr \
+            or not all(math.isfinite(v) for v in psnr) \
+            or not all(f"at {places[r]} of the data,space,model grid" in logs[r]
+                       for r in range(TP3_RANKS)) \
+            or not all("device memory" in t for t in logs) \
+            or not all("delegated to rank 0" in t for t in logs[1:]):
+        raise AssertionError(_ranks_failed("the data,space,model train CLI run", codes, logs))
+    model = FaceEnhanceNet(production_config(), seed=1, device="cpu")
+    model.load_state_dict(read_state_dict(str(ckpt / "final_model.pth")), strict=True)
+    out["pth_finite"] = all(bool(torch.isfinite(v).all()) for v in model.state_dict().values())
+    # one process resumes the grid's file and trains epoch 2
+    resume_dir = tmp / "tp3_cli_resume"
+    resume_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(resume_dir)
+    buf = io.StringIO()
+    before = rg.fused_residual_group.launches
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            trainer = train_cli.run([*flags, "--epochs", "2", "--resume",
+                                     str(ckpt / "final_model.fckpt")])
+    finally:
+        os.chdir(cwd)
+    out["resume_s"] = time.perf_counter() - t0
+    out["resume"] = {"epoch": trainer.current_epoch, "steps": trainer.global_step,
+                     "history": trainer.training_history["val_psnr"],
+                     "launches": rg.fused_residual_group.launches - before}
+    del trainer
+    torch.cuda.empty_cache()
+    if not (out["pth_finite"] and out["resume"]["steps"] == 4
+            and len(out["resume"]["history"]) == 2
+            and all(math.isfinite(v) for v in out["resume"]["history"])):
+        raise AssertionError(f"the three-axis checkpoint did not resume in one process: {out}, "
+                             + buf.getvalue()[-1500:])
+    return out
+
+
+def tp3_launch(card: str, tmp: Path, cases=("content", "gan", "qat")):
+    """A launch of phase 20: ``cases`` (`tp3_step_rank`'s) on the four
+    gloo ranks of the [1, 2, 2] data,space,model grid sharing cuda:0;
+    (the ranks' results, seconds, cases)."""
+    from facesr_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp3_step_rank, TP3_RANKS, args=(str(tmp), card, tuple(cases)),
+                      devices=[DP_DEVICE] * TP3_RANKS, backend="gloo", timeout=DP_TIMEOUT,
+                      axis_names=TP3_AXES, shape=TP3_GRID)
+    return ranks, time.perf_counter() - t0, tuple(cases)
+
+
+def tp3_launches(card: str, tmp: Path, abort: threading.Event):
+    """Phase 20's two launches (`TP3_LAUNCHES`) one after the other, beside
+    phase 17 and what follows it: (a) and (c), then (b) once phase 17's
+    GAN step has let go of the card (rank 0 writes ``tmp / SP_GAN_DONE``),
+    so that the two GAN steps at batch 16 never share it; without that
+    file after DP_TIMEOUT, (b) starts all the same. ``abort`` set (the
+    main thread failed): (b) does not start. Returns both launches'
+    results (the second None when aborted)."""
+    first = tp3_launch(card, tmp, TP3_LAUNCHES[0])
+    deadline = time.monotonic() + DP_TIMEOUT
+    while not (tmp / SP_GAN_DONE).exists() and time.monotonic() < deadline:
+        if abort.wait(0.5):
+            break
+    if abort.is_set():
+        return first, None
+    return first, tp3_launch(card, tmp, TP3_LAUNCHES[1])
+
+
+def _tp3_merged(launched) -> list:
+    """Each rank's results over the launches of ``launched`` (`tp3_launch`'s
+    results): one dict a rank, its seconds and kernel launches summed."""
+    ranks = [{"seconds": {}, "launches": 0} for _ in range(TP3_RANKS)]
+    for got, _, _ in launched:
+        for merged, r in zip(ranks, got):
+            merged.update({k: v for k, v in r.items() if k not in ("seconds", "launches")})
+            merged["seconds"].update(r["seconds"])
+            merged["launches"] += r["launches"]
+    return ranks
+
+
+def tp3_phase(card: str, tmp: Path, launched=None, cli_ranks=None) -> int:
+    """Phase 20: the three-axis mesh on the card; returns the group
+    kernel's launches on its paths (none: training runs the plain trunk).
+    ``launched``: `tp3_launch`'s results when its launches ran earlier
+    (beside other phases; between them every case), else one launch of
+    every case runs here; ``cli_ranks``: (d)'s four ranks already run
+    (`tp3_cli_ranks`), else they run here."""
+    log(f"== 20. the three-axis mesh (the image rows over space and the convs' output channels "
+        f"and the training state over model, under the batch split; the card's machine has "
+        f"one card, so four gloo ranks share cuda:0) [{card}]")
+    t_phase = time.perf_counter()
+    if launched is None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    launches_of = launched or [tp3_launch(card, tmp)]
+    names = {"content": "(a)", "gan": "(b)", "qat": "(c)"}
+    if sorted(c for _, _, cases in launches_of for c in cases) != sorted(names):
+        raise AssertionError(f"phase 20's launches ran {[c for *_, c in launches_of]}")
+    parts = {", ".join(names[c] for c in cases) + ": a launch of four ranks"
+             + (" (beside other phases)" if launched is not None else ""): s
+             for _, s, cases in launches_of}
+    ranks = _tp3_merged(launches_of)
+    parts.update({f"rank 0's {k}": v for k, v in ranks[0]["seconds"].items()})
+    log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    places = [tuple(int(c) for c in np.unravel_index(r, TP3_GRID)) for r in range(TP3_RANKS)]
+    if [r["coords"] for r in ranks] != places:
+        raise AssertionError(f"the grid's coordinates: {[r['coords'] for r in ranks]}")
+    cfg = production_config()
+    width = f"{cfg.num_groups}x{cfg.blocks_per_group}x{cfg.num_channels}"
+    r0, rest = ranks[0], ranks[1:]
+    tp_report("(a)", r0["content"], [r["content"] for r in rest], card,
+              f"the stage-1 step ({width} f32, batch {TP3_BATCH} (cut from 48: gloo traffic), "
+              f"HR {TRAIN_HR}, L1 + VGG19 conv3_4, clip 0.5)", where=TP3_WHERE, phase="3-D",
+              parts=2)
+    tp_report("(b)", r0["gan"], [r["gan"] for r in rest], card,
+              f"stage 3's GAN step (G {width}, D at {GAN_HR} with {GAN_D_BASE} base channels and "
+              f"BatchNorm, f32, batch {TP3_GAN_BATCH}, L1 0.01 + VGG19 conv3_4 + 0.005 vanilla "
+              f"GAN)", where=TP3_WHERE, phase="3-D", parts=2)
+    d_limit = {part: {k: max(STEP_RTOL, DP_FLOOR_FACTOR * f) for k, f in floors.items()}
+               for part, floors in r0["d_floor"].items()}
+    d_right = _over(r0["d_errors"]["right"], d_limit)
+    d_ctl = _over(r0["d_errors"]["bn_whole_group"], d_limit)
+    d_equal = all(r["d_hash"] == r0["d_hash"] for r in rest)
+    log(f"  (b) D's train-mode forward alone at batch {TP3_D_BATCH} on the grid (rows over "
+        f"space, BatchNorm summed over the data x space plane) against one process, the worst "
+        f"tensor a part: {json.dumps(_worst(r0['d_errors']['right']))} (limits max({STEP_RTOL}, "
+        f"{DP_FLOOR_FACTOR} x the floor of two input draws), the largest error / limit a part "
+        f"{json.dumps(_ratios(r0['d_errors']['right'], d_limit))}); the control, BatchNorm "
+        f"summed over the whole group: over their limits "
+        + json.dumps({p: f"{len(v)} of {len(d_limit[p])}" for p, v in d_ctl.items()})
+        + f", the worst tensor a part {json.dumps(_worst(r0['d_errors']['bn_whole_group']))}; "
+        f"logits bitwise equal across ranks: {d_equal} [{card}]")
+    if any(d_right.values()) or not d_equal:
+        raise AssertionError(f"D's forward on the three-axis grid disagrees: {d_right}")
+    if not any(d_ctl.values()):
+        raise AssertionError("D's checks cannot see a BatchNorm summed over the whole group")
+    q0 = r0["qat"]
+    limit = _sp_limits(q0)
+    failed = _over(q0["errors"], limit)
+    q_equal = all(r["qat"]["hash"] == q0["hash"] for r in rest)
+    log(f"  (c) phase 12's QAT step (batch {TP3_QAT_BATCH}, HR {TP3_QAT_HR}) on the grid, its "
+        f"fake-quant levels pinned at ties to the single-process step's (cut to each rank's "
+        f"rows and output channels): {q0['ties']} of {q0['levels']} levels and signs taken at "
+        f"a tie on rank 0, {q0['off_tie']} off a tie (ranks 1-3: "
+        f"{[(r['qat']['ties'], r['qat']['off_tie']) for r in rest]}); against the "
+        f"single-process step, relative L2, the worst tensor a part: "
+        f"{json.dumps(_worst(q0['errors']))}; the floor, the worst tensor a part: "
+        f"{json.dumps(_worst(q0['floor']))}; the largest error / limit a part "
+        f"{json.dumps(_ratios(q0['errors'], limit))}; parameters off their Adam ties "
+        f"{json.dumps(q0['adam_ties'])}; states bitwise equal across ranks: {q_equal}; a "
+        f"rank's peak {q0['peak_gib']:.3f} GiB; a rank's exchanges over model "
+        f"{json.dumps(q0['exchanges'])}, over space {json.dumps(q0['row_exchanges'])} [{card}]")
+    if any(r["qat"]["off_tie"] for r in ranks) or q0["ties"] > 1e-4 * q0["levels"]:
+        raise AssertionError(f"the three-axis QAT step's levels leave the single process's: {q0}")
+    if any(failed.values()):
+        raise AssertionError(f"the three-axis QAT step disagrees with the single-process step: "
+                             f"{failed}")
+    if not q_equal:
+        raise AssertionError("the three-axis QAT ranks' states differ")
+    t0 = time.perf_counter()
+    cli = tp3_cli(tmp, card, cli_ranks)
+    parts["(d)" if cli_ranks is None else "(d)'s check and resume"] = time.perf_counter() - t0
+    log(f"  (d) the stage-1 YAML through the train CLI on data,space,model {list(TP3_GRID)} "
+        f"(torchrun's environment, {TP3_RANKS} ranks on cuda:0 over gloo"
+        + (", beside the 2 of 18 (d) and of 19 (c) and the launch of (b)"
+           if cli_ranks is not None else "") + "), "
+        f"--print-memory, "
+        f"--batch-size {TP3_CLI_BATCH}, 1 epoch on {2 * TP3_CLI_BATCH} of phase 8's train PNGs: "
+        f"exit codes {cli['codes']}, {cli['s']:.1f} s with set-up; rank 0 wrote {cli['files']}, "
+        f"ranks 1-3 nothing; final_model.pth loaded strict into a {width} FaceEnhanceNet "
+        f"(finite: {cli['pth_finite']}); final_model.fckpt resumed by one process for epoch 2: "
+        f"epoch {cli['resume']['epoch'] + 1}, {cli['resume']['steps']} steps, val PSNR "
+        f"{cli['resume']['history']}, {cli['resume_s']:.1f} s [{card}]")
+    launches = sum(r["launches"] for r in ranks) + cli["resume"]["launches"]
+    log(f"  (e) group-kernel launches in phase 20: {launches} (training runs the plain trunk)")
+    if launches:
+        raise AssertionError("phase 20 launched the group kernel")
+    log(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s here: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
     return launches
 
@@ -5916,26 +6390,46 @@ def main() -> int:
         launches["fused_residual_group"] += zoo["launches"]  # and phase 13's
         launches["fused_residual_group"] += zoo_int8_phase(
             dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
-        # the launches of phases 18 and 19 (child processes) run one after the
+        # the launches of phases 19 and 18 (child processes) run one after the
         # other beside phases 15 and 16 in this process (time: the host, not
-        # the card, bounds them); their numbers are read once phase 17 is due
+        # the card, bounds them); their numbers are read once phase 17 is due.
+        # 19's GAN step at 16 runs beside phase 15, 18's steps beside 16's
+        # (memory: see `MemoryWatch`)
+        watch = MemoryWatch()
         with ThreadPoolExecutor(1) as pool:
-            launched = pool.submit(lambda: (tp_launch(card, Path(tmp)),
-                                            pp_launch(card, Path(tmp))))
+            launched = pool.submit(lambda: (pp_launch(card, Path(tmp)),
+                                            tp_launch(card, Path(tmp))))
             explain_phase(dev, card, Path(tmp))
             launches["fused_residual_group"] += dp_phase(card, Path(tmp))  # and phase 16's
-            tp_launched, pp_launched = launched.result()
-        launches["fused_residual_group"] += sp_phase(card, Path(tmp))  # and phase 17's
-        tp_ranks_launches = tp_phase(card, Path(tmp), cli=False, launched=tp_launched)
-        # the CLI ranks of phases 18 (d) and 19 (c), side by side
-        with ThreadPoolExecutor(2) as pool:
-            tp_cli_run, pp_cli_run = (pool.submit(f, Path(tmp)) for f in (tp_cli_ranks,
-                                                                           pp_cli_ranks))
-            tp_cli_run, pp_cli_run = tp_cli_run.result(), pp_cli_run.result()
-        launches["fused_residual_group"] += pp_phase(card, Path(tmp), launched=pp_launched,
-                                                     cli_ranks=pp_cli_run)  # and 19's
-        launches["fused_residual_group"] += tp_cli_phase(  # and 18's
-            card, Path(tmp), tp_cli_run, launches=tp_ranks_launches)
+            pp_launched, tp_launched = launched.result()
+        log(watch.take("phases 15 and 16 with the launches of 18 and 19 beside them", card))
+        # phase 20's launches (four child processes each) one after the
+        # other beside phase 17 and then beside the CLI ranks of 18 (d), 19
+        # (c) and 20 (d) and the checks of 18 and 19: (a) and (c) first,
+        # (b) once phase 17's GAN step is done (`tp3_launches`: memory)
+        abort = threading.Event()
+        with ThreadPoolExecutor(4) as pool:
+            tp3_launched = pool.submit(tp3_launches, card, Path(tmp), abort)
+            try:
+                launches["fused_residual_group"] += sp_phase(card, Path(tmp))  # and 17's
+                log(watch.take("phase 17 with phase 20's launches beside it", card))
+                tp_ranks_launches = tp_phase(card, Path(tmp), cli=False, launched=tp_launched)
+                runs = [pool.submit(f, Path(tmp)) for f in (tp_cli_ranks, pp_cli_ranks,
+                                                            tp3_cli_ranks)]
+                tp_cli_run, pp_cli_run, tp3_cli_run = (r.result() for r in runs)
+                launches["fused_residual_group"] += pp_phase(
+                    card, Path(tmp), launched=pp_launched, cli_ranks=pp_cli_run)  # and 19's
+                launches["fused_residual_group"] += tp_cli_phase(  # and 18's
+                    card, Path(tmp), tp_cli_run, launches=tp_ranks_launches)
+            except BaseException:
+                abort.set()
+                raise
+            tp3_launched = tp3_launched.result()
+        log(watch.take("the CLI ranks and the checks of 18 and 19 with phase 20's (b) beside "
+                       "them until it ended", card))
+        watch.close()
+        launches["fused_residual_group"] += tp3_phase(  # and 20's
+            card, Path(tmp), launched=list(tp3_launched), cli_ranks=tp3_cli_run)
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
     table = {"kernels": [{

@@ -36,7 +36,9 @@ weight gradient, for an upstream gradient drawn N(0, 1) and for its sign.
 and pins another run's to them where the two round a tie apart, so that
 two QAT steps compare without one tie spreading through the step; under
 a row shard it reads the shard's levels on the image's grid, and
-`row_shard_levels` cuts an unsharded run's record to a shard's rows.
+`row_shard_levels` cuts an unsharded run's record to a shard's rows
+(`model_shard_levels` to a `model` rank's output channels,
+`grid_shard_levels` to both at once).
 """
 
 from __future__ import annotations
@@ -270,6 +272,23 @@ def model_shard_levels(record, shard, batch: slice = slice(None)):
             a, b = shard.bounds(kernel.shape[0])
             kernel, y = kernel[a:b], y[..., a:b]
         return kernel, record["levels"][i][batch], y
+    return of
+
+
+def grid_shard_levels(record, row_shard, model_shard, batch: slice = slice(None)):
+    """`fake_quant_levels`'s reference for a run on a `data,space,model`
+    grid (row ``row_shard`` and `model` ``model_shard`` at once, the images
+    of ``batch``) from an unsharded run's ``record``: `row_shard_levels`'s
+    cut to the shard's rows, then `model_shard_levels`'s slice of the
+    output channels where the call's latent kernel is this rank's slice."""
+    rows = row_shard_levels(record, row_shard, batch)
+
+    def of(i, w):
+        kernel, levels, y = rows(i, w)
+        if w.shape[0] != kernel.shape[0]:
+            a, b = model_shard.bounds(kernel.shape[0])
+            kernel, y = kernel[a:b], y[..., a:b]
+        return kernel, levels, y
     return of
 
 

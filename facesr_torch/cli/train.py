@@ -38,6 +38,11 @@ checkpoints whole. Pipeline parallelism likewise (``--mesh-axes data,pp
 group loading the same rows and running their residual groups as a
 pipeline in that many microbatches, each holding only its groups' leaves
 of the training state (`parallel.pipeline`); rank 0 writes the
+checkpoints whole. The three axes at once (``--mesh-axes data,space,model
+--mesh-shape d,s,t``, or ``data,model,space`` with the shape in that
+order): d * s * t ranks, the s * t ranks of each batch shard loading the
+same rows, each splitting the image rows over `space` and holding its
+slices of the channels and of the state over `model`; rank 0 writes the
 checkpoints whole. ``--print-memory``
 prints each rank's memory budget of the train step (the state's and the
 batch's bytes, and on a card the peak of one step, run once) at the
@@ -77,14 +82,14 @@ fake-quantized, frozen transfer parameters included (their forward is
 what serving quantizes), and the stage optimiser still updates only what
 the stage trains.
 
-What is not ported raises and names its ROADMAP item: three mesh axes
-(A.13.5), the gradient monitor (A.14); ``model`` with ``pp``, ``space``
-with ``pp``, QAT or another model than FaceEnhanceNet under ``pp``, and
-tp or pp over more than one host are refused as JAX refuses them. W&B is not ported and stays
+What is not ported raises and names its ROADMAP item: the gradient
+monitor (A.14); ``model`` with ``pp``, ``space`` with ``pp``, QAT or
+another model than FaceEnhanceNet under ``pp``, and tp or pp over more
+than one host are refused as JAX refuses them. W&B is not ported and stays
 off. The perceptual loss uses a VGG19 with random weights drawn from seed
 0 (no pretrained file is in the repo).
 SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
-process exits. Under ``data,model`` and ``data,pp`` SIGTERM and SIGINT to any rank stop
+process exits. Under ``model`` and ``pp`` SIGTERM and SIGINT to any rank stop
 every rank at the end of the step that is running, where they gather the
 state for that save together.
 """
@@ -153,8 +158,8 @@ def resolve_chain_path(path: str) -> str:
 
 
 def _mesh_settings(args, config: dict):
-    """(mesh_axes, mesh_shape) from the CLI over the YAML; raises NotPorted
-    for three axes, and JAX's errors for the refused compositions."""
+    """(mesh_axes, mesh_shape) from the CLI over the YAML; raises JAX's
+    errors for the refused compositions and a missing shape."""
     training = config.get("training", {})
     mesh_axes = args.mesh_axes or training.get("mesh_axes", "data")
     mesh_shape = (tuple(int(v) for v in args.mesh_shape.split(",")) if args.mesh_shape
@@ -209,10 +214,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--mesh-axes", type=str, default=None,
                         help="mesh composition: 'data' (data parallel over the ranks), "
                              "'data,space' (dp x sp: image rows over the ranks of a row), "
-                             "'data,model' (dp x tp: the convs' output channels) or "
-                             "'data,pp' (dp x pp: the residual groups as a pipeline)")
+                             "'data,model' (dp x tp: the convs' output channels), "
+                             "'data,pp' (dp x pp: the residual groups as a pipeline) or "
+                             "'data,space,model' (dp x sp x tp)")
     parser.add_argument("--mesh-shape", type=str, default=None,
-                        help="the mesh shape: the rank count for 'data', d,k for two axes")
+                        help="the mesh shape: the rank count for 'data', d,k for two axes, "
+                             "d,s,t for three")
     parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                         help="the ranks' torch.distributed backend (default: NCCL on a "
                              "card, gloo on the CPU); gloo lets ranks share a card")
@@ -317,7 +324,7 @@ def run(argv: Optional[List[str]] = None):
                         shape=mesh_shape, backend=args.dist_backend)
         device = mesh.device
         print(f"Data parallel: rank {mesh.rank} of {mesh.world_size} on {device}"
-              + (f", at {(mesh.axis_index(axes[0]), mesh.axis_index(axes[1]))} of the "
+              + (f", at {tuple(mesh.axis_index(a) for a in axes)} of the "
                  f"{','.join(axes)} grid {mesh.shape}" if len(axes) > 1 else ""))
     else:
         mesh = Mesh((device,), axis_names=axes, shape=mesh_shape if len(axes) > 1 else None)
@@ -535,7 +542,7 @@ def run(argv: Optional[List[str]] = None):
 
 
 def _ranks_to_start(argv: Optional[List[str]]) -> int:
-    """The ranks a plain launch starts: d * s of a ``mesh_shape`` that asks
+    """The ranks a plain launch starts: the product of a ``mesh_shape`` that asks
     for more than one, else every visible card unless a device is named;
     1 when this process is a rank already. On CUDA a shape of more ranks
     than visible cards is refused unless ``--dist-backend gloo``."""

@@ -50,6 +50,16 @@ gathered for the use (the affine's gradient is this rank's slice), its
 statistics sum over the `data` group, and each rank writes its slice of
 the updated running stats back. The dense layers are whole on every
 rank, as JAX keeps ``fc1``/``fc2``, and read the gathered map.
+
+On a `data,space,model` grid both hold at once: each conv computes its
+channel slice of the shard's rows (its halo rows taken over `space` from
+the whole-channel input), the BatchNorm runs on the gathered channels and
+sums its statistics over the `data` x `space` plane while the map is
+split, over `data` once it is whole. (The whole group's sums would count
+every row t times, its `model` ranks being copies: the mean, the
+variance and the gradients would come out the same, the count t times
+too large, and the running variance would take the wrong unbiased
+factor.)
 """
 
 from __future__ import annotations
@@ -192,9 +202,10 @@ class Discriminator(nn.Module):
 def _bn_sum(train: bool, mesh, shard):
     """The sum over every row a train-mode BatchNorm's statistics cover
     (differentiable), or None for this process's rows alone (`F.batch_norm`):
-    while the map is split, every rank's rows (``mesh``'s whole group) or a
-    thread group's (`RowShard.sum`); once it is whole, the ranks of the
-    `data` axis."""
+    while the map is split, every rank's rows (``mesh``'s `Mesh.sum_group`:
+    the whole group of a `data,space` grid, the `data` x `space` plane of a
+    three-axis one, whose `model` ranks hold copies) or a thread group's
+    (`RowShard.sum`); once it is whole, the ranks of the `data` axis."""
     from facesr_torch.parallel.mesh import _AllReduceSum
 
     if not train:
@@ -203,7 +214,7 @@ def _bn_sum(train: bool, mesh, shard):
     if shard is not None:
         if not distributed:
             return shard.sum
-        group = mesh.group
+        group = mesh.sum_group
     elif not distributed or mesh.data_size < 2:
         return None
     else:

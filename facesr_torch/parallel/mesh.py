@@ -1,5 +1,6 @@
-"""The port's mesh: the `data` axis and the `data,space`, `data,model` and
-`data,pp` grids (port of `facesr/parallel/mesh.py`).
+"""The port's mesh: the `data` axis, the `data,space`, `data,model` and
+`data,pp` grids and the three-axis `data,space,model` grid (port of
+`facesr/parallel/mesh.py`).
 
 PyTorch's idiom for data parallelism is one process per card: the ranks of
 a `torch.distributed` group make up the `data` axis. Each rank holds a
@@ -10,23 +11,28 @@ rank applies the same update and the replicas stay bitwise equal. State
 is made equal at start and after every resume by a broadcast from rank 0
 (`replicate`).
 
-On a 2-D mesh of shape (d, k), ``("data", "space")``, ``("data",
-"model")`` or ``("data", "pp")``, the ranks form a grid, rank ``r`` at
-``(r // k, r % k)``, as JAX reshapes its devices with the last axis
-fastest: the k ranks of a grid row (a `space`, `model` or `pp` group)
-hold the same batch rows, and the d ranks of a column (a `data` group)
-hold other batch rows. A `space` group splits its image rows
-(`parallel.spatial`: halo exchanges, global means and the bicubic skip's
-gather); a `model` group splits the output channels of the convs
-(`parallel.tensor`: each rank holds its slice of every leaf
+On a grid of shape (d, k), ``("data", "space")``, ``("data", "model")`` or
+``("data", "pp")``, or (d, s, t), ``("data", "space", "model")`` or
+``("data", "model", "space")``, rank ``r`` sits at its row-major
+coordinates in that shape (the last axis fastest), as JAX reshapes its
+devices. Each line of ranks along an axis is that axis's process group:
+the ranks of a `space`, `model` or `pp` group hold the same batch rows,
+those of a `data` group other batch rows. A `space` group splits its
+image rows (`parallel.spatial`: halo exchanges, global means and the
+bicubic skip's gather); a `model` group splits the output channels of the
+convs (`parallel.tensor`: each rank holds its slice of every leaf
 `tp_param_shardings` splits, the whole training state included); a `pp`
 group runs the residual groups as a pipeline of stages
 (`parallel.pipeline`: each rank holds its own groups' leaves of the state,
-`pp_param_shardings`). Every rank creates every group, in one order (NCCL
-and gloo hang otherwise). `Mesh.axis_size`, `Mesh.axis_index` and
-`Mesh.axis_group` read an axis; `Mesh.sum_group` is the group whose ranks
-hold different parts of one sum (the gradient mean, the metrics): the
-whole group, except under `model` or `pp`, whose ranks hold copies.
+`pp_param_shardings`). On three axes both splits run at once: a split
+conv's inner conv takes its halo rows over `space` from the whole-channel
+input it was copied over `model`. Every rank creates every group, in one
+order (NCCL and gloo hang otherwise). `Mesh.axis_size`, `Mesh.axis_index`
+and `Mesh.axis_group` read an axis; `Mesh.sum_group` is the group whose
+ranks hold different parts of one sum (the gradient mean, the metrics):
+the whole group, except under `model` or `pp`, whose ranks hold copies:
+then the `data` group, or on three axes the `data` x `space` plane of the
+ranks that share this rank's `model` index.
 
 A `Mesh` is either that (a group of ranks, one device each: training) or,
 for serving, the devices one process drives (`ShardedPredictor`: a
@@ -36,15 +42,15 @@ are `all_reduce` and `broadcast` only: gloo supports no other on CUDA
 tensors, and two ranks sharing one card (NCCL refuses that) run over
 gloo.
 
-Every training step runs on the three grids (QAT not under `pp`, as in
-JAX). Three axes raise `NotPorted` and name their ROADMAP item; `model`
-with `pp` and `space` with `pp` are refused as JAX refuses them.
+Every training step runs on every grid (QAT not under `pp`, as in JAX);
+`model` with `pp` and `space` with `pp` are refused as JAX refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -64,9 +70,12 @@ __all__ = ["NotPorted", "Mesh", "Sharding", "get_mesh", "check_mesh_axes", "chec
 # rank fails the run instead of hanging it
 DEFAULT_TIMEOUT_S = 600.0
 
-ROADMAP_ITEMS = {
-    "compositions": "ROADMAP A.13.5 (compositions of the mesh axes)",
-}
+# what the port does not have yet, by ROADMAP item (every mesh axis and
+# composition is ported)
+ROADMAP_ITEMS: Dict[str, str] = {}
+
+# the axes whose ranks hold copies of one batch's sums (the loss replicated)
+_COPY_AXES = ("model", "pp")
 
 
 class NotPorted(NotImplementedError):
@@ -76,13 +85,14 @@ class NotPorted(NotImplementedError):
 
 @dataclass(frozen=True)
 class Mesh:
-    """The `data` axis, or a 2-D grid (`data,space`, `data,model`, `data,pp`).
-    ``devices``: the devices this process drives (one for a rank of a
-    training group; several for serving); ``group``: the process group of
-    all the ranks (None: this process alone); ``shape``: the grid's (d, k),
-    or None for the 1-D `data` axis; ``axis_groups``: this rank's process
-    group along each axis of a grid (``{"data": its column, "space" or
-    "model": its row}``)."""
+    """The `data` axis, or a grid (`data,space`, `data,model`, `data,pp`,
+    `data,space,model`). ``devices``: the devices this process drives (one
+    for a rank of a training group; several for serving); ``group``: the
+    process group of all the ranks (None: this process alone); ``shape``:
+    the grid's lengths in axis order, or None for the 1-D `data` axis;
+    ``axis_groups``: this rank's process group along each axis of a grid
+    (``{"data": ..., "space": ..., "model": ...}``), and on three axes its
+    `data` x `space` plane (``"plane"``)."""
 
     devices: Tuple[torch.device, ...]
     group: Optional[Any] = None
@@ -115,15 +125,17 @@ class Mesh:
 
     def axis_index(self, name: str) -> int:
         """This rank's index along axis ``name`` (0 for an axis the mesh
-        lacks): rank r of a (d, k) grid sits at (r // k, r % k)."""
+        lacks): rank r sits at its row-major coordinates in the shape (of
+        a (d, k) grid (r // k, r % k))."""
         if name not in self.axis_names:
             return 0
-        inner = self.shape[1] if self.shape is not None and len(self.shape) > 1 else 1
-        return self.rank // inner if name == self.axis_names[0] else self.rank % inner
+        if self.shape is None:  # the 1-D data axis
+            return self.rank
+        return int(np.unravel_index(self.rank, self.shape)[self.axis_names.index(name)])
 
     def axis_group(self, name: str) -> Any:
         """This rank's process group along axis ``name``: the whole group
-        on the 1-D data axis, a row or a column of a grid."""
+        on the 1-D data axis, a line of the grid otherwise."""
         if self.shape is None or len(self.shape) == 1:
             return self.group
         return self.axis_groups[name]
@@ -135,22 +147,30 @@ class Mesh:
 
     @property
     def _copies(self) -> bool:
-        """Whether a grid row's ranks hold copies of the step's sums (`model`
+        """Whether some axis's ranks hold copies of the step's sums (`model`
         and `pp`: the same batch rows, the loss replicated)."""
-        return "model" in self.axis_names or "pp" in self.axis_names
+        return any(a in self.axis_names for a in _COPY_AXES)
 
     @property
     def sum_size(self) -> int:
         """The ranks of `sum_group`."""
-        return self.data_size if self._copies else self.world_size
+        if not self._copies:
+            return self.world_size
+        return math.prod(self.axis_size(a) for a in self.axis_names if a not in _COPY_AXES)
 
     @property
     def sum_group(self) -> Any:
         """The group whose ranks hold different parts of the step's sums
-        (the gradients, the metrics, the eval sums): the whole group, or
-        on `data,model` and `data,pp` the `data` group (a `model` or `pp`
-        group's ranks hold copies of them)."""
-        return self.axis_group("data") if self._copies else self.group
+        (the gradients, the metrics, the eval sums): the whole group; on
+        `data,model` and `data,pp` the `data` group (a `model` or `pp`
+        group's ranks hold copies of them); on three axes the `data` x
+        `space` plane of this rank's `model` index (a `space` group's ranks
+        hold other rows, a `model` group's copies)."""
+        if not self._copies:
+            return self.group
+        if "space" in self.axis_names:
+            return self.axis_groups["plane"]
+        return self.axis_group("data")
 
     def row_shard(self):
         """This rank's `parallel.spatial.RankShard` of its `space` group
@@ -194,11 +214,12 @@ class Sharding(NamedTuple):
 
 
 def check_mesh_axes(axis_names: Sequence[str], shape: Optional[Sequence[int]] = None) -> None:
-    """Let the 1-D `data` axis and the `data,space`, `data,model` and
-    `data,pp` grids through; raise ValueError for `model` with `pp` (both
-    split the parameter tree) and `space` with `pp` (the pipelined trunk
-    has no halo exchange), as JAX refuses them, and for a shape that does
-    not fit the axes, and `NotPorted` for three axes (A.13.5)."""
+    """Let the 1-D `data` axis, the `data,space`, `data,model` and
+    `data,pp` grids and the three-axis `data,space,model` (and
+    `data,model,space`) grid through; raise ValueError for `model` with
+    `pp` (both split the parameter tree) and `space` with `pp` (the
+    pipelined trunk has no halo exchange), as JAX refuses them, for an axis
+    named twice, and for a shape that does not fit the axes."""
     axes = tuple(axis_names)
     if not axes or axes[0] != "data":
         raise ValueError(f"mesh axes must start with the batch axis 'data', got {axes}")
@@ -212,9 +233,8 @@ def check_mesh_axes(axis_names: Sequence[str], shape: Optional[Sequence[int]] = 
         raise ValueError("mesh_axes cannot combine 'space' and 'pp': the pipelined trunk runs "
                          "under manual sharding (no automatic halo exchange); use dp x pp or "
                          "dp x sp")
-    if len(axes) > 2:
-        raise NotPorted(f"mesh axes {','.join(axes)}: three axes are "
-                        f"{ROADMAP_ITEMS['compositions']}")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"mesh axes {','.join(axes)} name an axis twice")
     if shape is not None and len(tuple(shape)) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} does not fit the mesh axes "
                          f"{','.join(axes)}: give one length an axis")
@@ -290,11 +310,19 @@ def _join(devices, rank, world_size, local_rank, init_method, backend, timeout) 
     return Mesh((device,), dist.group.WORLD, rank, world_size)
 
 
+def _lines(shape: Tuple[int, ...], axis: int) -> List[List[int]]:
+    """The ranks of each line of the grid along ``axis`` (every other
+    coordinate fixed), lines in row-major order of those coordinates."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    return [list(map(int, line)) for line in np.moveaxis(ranks, axis, -1).reshape(-1, shape[axis])]
+
+
 def _grid(mesh: Mesh, axis_names: Tuple[str, ...], shape, timeout: float) -> Mesh:
-    """The ranks of ``mesh`` as the (d, k) grid of ``axis_names``
-    (`data,space`, `data,model` or `data,pp`): rank r at (r // k, r % k), with a
-    process group for every grid row (the second axis) and every column
-    (`data`), created by every rank in one order."""
+    """The ranks of ``mesh`` as the grid of ``axis_names`` and ``shape``:
+    rank r at its row-major coordinates, with a process group for every
+    line along every axis (the last axis's first, `data`'s last) and, on
+    three axes, for every `data` x `space` plane (the ranks that share a
+    `model` index), created by every rank in one order."""
     n = mesh.world_size
     if len(axis_names) == 1:
         if shape is not None and tuple(shape) != (n,):
@@ -304,21 +332,24 @@ def _grid(mesh: Mesh, axis_names: Tuple[str, ...], shape, timeout: float) -> Mes
     if shape is None:
         raise ValueError("mesh_shape is required with multiple mesh_axes, e.g. "
                          "mesh_shape: [4, 2] for 'data,space' on 8 chips")
-    d, k = (int(v) for v in shape)
-    if d * k != n:
-        raise ValueError(f"mesh shape {(d, k)} needs {d * k} ranks, the group has {n}")
+    shape = tuple(int(v) for v in shape)
+    if math.prod(shape) != n:
+        raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} ranks, the group has {n}")
     kw = dict(timeout=datetime.timedelta(seconds=timeout))
-    inner = axis_names[1]
     groups = {}
-    for i in range(d):
-        g = dist.new_group(list(range(i * k, (i + 1) * k)), **kw)
-        if i == mesh.rank // k:
-            groups[inner] = g
-    for j in range(k):
-        g = dist.new_group(list(range(j, n, k)), **kw)
-        if j == mesh.rank % k:
-            groups["data"] = g
-    return dataclasses.replace(mesh, axis_names=tuple(axis_names), shape=(d, k),
+    for axis in reversed(range(len(shape))):
+        for line in _lines(shape, axis):
+            g = dist.new_group(line, **kw)
+            if mesh.rank in line:
+                groups[axis_names[axis]] = g
+    if len(shape) == 3:  # data, space and model: a plane a model index
+        at = np.unravel_index(np.arange(n), shape)[axis_names.index("model")]
+        for m in range(shape[axis_names.index("model")]):
+            plane = [int(r) for r in np.flatnonzero(at == m)]
+            g = dist.new_group(plane, **kw)
+            if mesh.rank in plane:
+                groups["plane"] = g
+    return dataclasses.replace(mesh, axis_names=tuple(axis_names), shape=shape,
                                axis_groups=groups)
 
 
@@ -328,7 +359,8 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
              init_method: Optional[str] = None, backend: Optional[str] = None,
              timeout: float = DEFAULT_TIMEOUT_S) -> Mesh:
     """The `data` mesh, or the `data,space`, `data,model` or `data,pp` grid
-    of ``shape`` (d, k).
+    of ``shape`` (d, k), or the `data,space,model` grid (either order of
+    the last two axes) of ``shape`` (d, s, t).
 
     Training (a group of ranks): when a process group is initialised, when
     ``rank``/``world_size`` are given, or when torchrun's environment is
@@ -340,12 +372,12 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
     that share a card need gloo: over NCCL, more ranks than cards, by
     torchrun's ``LOCAL_WORLD_SIZE``, are refused); ``timeout`` bounds the
     join and every collective. ``init_method`` defaults to ``env://``. On a grid the
-    d * k ranks also create the process groups of its rows and columns.
+    ranks also create the process groups of its lines (and on three axes
+    of its `data` x `space` planes).
 
     Serving (this process alone): a mesh over ``devices``, by default every
-    visible card. A device may repeat (``["cpu", "cpu"]``).
-
-    Three axes raise `NotPorted`."""
+    visible card. A device may repeat (``["cpu", "cpu"]``); without
+    ``shape`` the devices lie along `data`."""
     axes = tuple(axis_names)
     check_mesh_axes(axes, shape)
     joining = (dist.is_initialized() or rank is not None or world_size is not None
@@ -364,8 +396,8 @@ def get_mesh(devices: Optional[Sequence[Any]] = None, axis_names: Sequence[str] 
     if shape is not None and int(np.prod(shape)) != len(devs):
         raise ValueError(f"mesh shape {tuple(shape)} needs {int(np.prod(shape))} devices, "
                          f"got {len(devs)}")
-    if len(axes) == 2 and shape is None:
-        shape = (len(devs), 1)
+    if len(axes) > 1 and shape is None:
+        shape = (len(devs),) + (1,) * (len(axes) - 1)
     return Mesh(devs, axis_names=axes, shape=None if len(axes) == 1 else tuple(shape))
 
 
@@ -388,7 +420,8 @@ def row_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
 
 def grid_sharding(mesh: Mesh, batch_axis: str = "data", row_axis: str = "space") -> Sharding:
     """NHWC batch over ``batch_axis`` and image rows over ``row_axis``: dp x
-    sp on a 2-D mesh (the Trainer's ``mesh_axes: data,space``)."""
+    sp on a `data,space` grid, and the batch of a `data,space,model` grid
+    (the Trainer's ``mesh_axes``), whole over `model`."""
     check_mesh_axes((batch_axis, row_axis))
     return Sharding(mesh, (batch_axis, row_axis))
 

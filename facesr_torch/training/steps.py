@@ -58,6 +58,21 @@ apart. The optimiser takes the shard: the clip's global norm sums the
 split leaves' squares over the group and counts each replicated leaf
 once, and the non-finite guard decides once for the group. The EMA, the
 weight decay and the moments stay per leaf.
+
+On a `data,space,model` grid (d x s x t ranks, both shards at once) the
+state is split over `model` as on `data,model`, and every forward runs
+under both contexts: each split conv computes its output channels of the
+shard's rows from the whole-channel input, which takes its halo rows over
+`space`. The loss is then replicated over the s x t ranks of a batch
+shard; a `space` rank's gradient is its share of its data group's times S
+(as on `data,space`) and a `model` rank's is its slice (as on
+`data,model`). So the gradients and the metrics are averaged over the `data`
+x `space` plane of the rank's `model` index (`Mesh.sum_group`, d * s
+ranks): not over `data` alone (the space ranks hold other rows), and not
+over the whole group (its model ranks hold other channel slices of every
+split leaf). The whole leaves are
+averaged over `model` too, as on `data,model`; the eval sums add over the
+plane.
 """
 
 from __future__ import annotations
@@ -96,12 +111,12 @@ def _dp(mesh: Optional[Mesh]) -> Optional[Mesh]:
 
 
 def _row_shard(mesh: Optional[Mesh]):
-    """This rank's row shard on a `data,space` grid (None otherwise)."""
+    """This rank's row shard on a grid with `space` (None otherwise)."""
     return None if mesh is None else mesh.row_shard()
 
 
 def _model_shard(mesh: Optional[Mesh]):
-    """This rank's `model` shard on a `data,model` grid (None otherwise)."""
+    """This rank's `model` shard on a grid with `model` (None otherwise)."""
     return None if mesh is None else mesh.model_shard()
 
 
@@ -263,7 +278,8 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     the stats guard reads the global losses; on a `data,space` grid every
     forward runs on the shard's image rows (the module docstring); on a
     `data,model` grid every forward on the rank's channel slices; on a
-    `data,pp` grid G's trunk runs as the pipeline, D replicated."""
+    `data,space,model` grid on both; on a `data,pp` grid G's trunk runs as
+    the pipeline, D replicated."""
     mesh = _dp(mesh)
     shard, tp, pipe = _row_shard(mesh), _model_shard(mesh), _pipe(mesh)
 
@@ -344,8 +360,11 @@ def make_eval_step(loss_apply: LossApply, scale_factor: int = 4, use_ema: bool =
     over the rows, and the sums add over every rank: each space rank
     counts its batch rows too, so the row-weighted means are unchanged. On
     a `data,model` grid the forward runs on the rank's channel slices (the
-    EMA's too) and the sums add over the `data` group; on a `data,pp` grid
-    the trunk runs as the pipeline and the sums add over `data` too."""
+    EMA's too) and the sums add over the `data` group; on a
+    `data,space,model` grid the forward runs on the rank's rows and
+    channel slices and the sums add over the `data` x `space` plane; on a
+    `data,pp` grid the trunk runs as the pipeline and the sums add over
+    `data` too."""
     mesh = _dp(mesh)
     shard, tp, pipe = _row_shard(mesh), _model_shard(mesh), _pipe(mesh)
 

@@ -98,7 +98,14 @@ moments and EMA; `parallel.mesh.pp_param_shardings`,
 `parallel.pipeline.shard_state`), which checkpoints gather whole as
 under tp. As in JAX, pp refuses QAT, a model other than FaceEnhanceNet,
 ``num_groups`` that does not divide over the stages and more than one
-host. `memory_report` gives the state's and the batch's bytes per rank
+host. ``mesh_axes: data,space,model`` (or ``data,model,space``) with
+``mesh_shape: [d, s, t]`` (in the axes' order) trains all three at once
+on d * s * t ranks: the ranks of a batch shard's `space` x `model` block
+load the same rows (by the data coordinate), each holds its slice of the
+state as under tp and runs the steps on its image rows and channel slices,
+the batch divisor is d and an HR height must divide by s x the scale;
+checkpoints, loads, the stop at a step's end and the single-host rule
+are tp's. `memory_report` gives the state's and the batch's bytes per rank
 (under tp a rank's slices, under pp its stage's groups) and, on a card,
 the measured peak of one step.
 
@@ -209,7 +216,8 @@ class TrainerConfig:
     # (train and validation); checkpoints keep the latent float weights
     qat: bool = False
     # the mesh: the batch axis and the composition ("data", or "data,space",
-    # "data,model" or "data,pp" with mesh_shape [d, k])
+    # "data,model" or "data,pp" with mesh_shape [d, k], or "data,space,model"
+    # with [d, s, t])
     mesh_axis: str = "data"
     mesh_axes: str = "data"
     mesh_shape: Optional[tuple] = None

@@ -667,9 +667,13 @@ def test_unported_mesh_functions_raise_and_name_their_item(fn):
             with torch.no_grad():
                 torch.testing.assert_close(par.make_pp_apply(_model(), grid)(x), _model()(x))
         return
-    with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.5"):
-        # a shape of three axes: the compositions, A.13.5
-        pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
+    # a shape of three axes: ported (tests/test_torch_sp_tp.py), a grid in
+    # either order of the last two axes, rank r at its row-major coordinates
+    for axes in (("data", "space", "model"), ("data", "model", "space")):
+        grid = pmesh.get_mesh(["cpu"] * 8, axis_names=axes, shape=(2, 2, 2))
+        assert grid.shape == (2, 2, 2) and grid.data_size == 2
+        assert grid.axis_size("space") == grid.axis_size("model") == 2
+    assert "compositions" not in pmesh.ROADMAP_ITEMS
 
 
 def test_mesh_shards_a_batch_and_keeps_pad_to_multiple():

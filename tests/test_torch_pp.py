@@ -1181,8 +1181,11 @@ def test_what_jax_refuses_under_pp_is_refused(what, monkeypatch, tmp_path):
             pmesh.check_mesh_axes(("data", what, "pp"))
         with pytest.raises(ValueError, match=f"cannot combine '{what}' and 'pp'"):
             pmesh.get_mesh(["cpu"] * 4, axis_names=("data", what, "pp"), shape=(1, 2, 2))
-        with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.5"):  # the compositions
-            pmesh.check_mesh_axes(("data", "space", "model"))
+        # space with model is ported (tests/test_torch_sp_tp.py); pp on
+        # top of both, a fourth axis, is refused with JAX's message
+        pmesh.check_mesh_axes(("data", "space", "model"))
+        with pytest.raises(ValueError, match="cannot combine 'model' and 'pp'"):
+            pmesh.check_mesh_axes(("data", "space", "model", "pp"))
         return
     mesh = pmesh.Mesh((torch.device("cpu"),), group=object(), world_size=2,
                       axis_names=("data", "pp"), shape=(1, 2),

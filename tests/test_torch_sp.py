@@ -387,8 +387,10 @@ def test_the_mesh_builds_the_grid_and_shards_batch_and_image_rows():
         pmesh.shard_batch(x[:, :7], pmesh.grid_sharding(mesh))
     serving = pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space"), shape=(4, 2))
     assert serving.shape == (4, 2) and serving.data_size == 4 and serving.axis_size("space") == 2
-    with pytest.raises(pmesh.NotPorted, match=r"ROADMAP A\.13\.5"):
-        pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
+    # three axes are ported (tests/test_torch_sp_tp.py): the rows split over
+    # `space` under the batch split, whole over `model`
+    grid = pmesh.get_mesh(["cpu"] * 8, axis_names=("data", "space", "model"), shape=(2, 2, 2))
+    assert grid.shape == (2, 2, 2) and pmesh.grid_sharding(grid).spec == ("data", "space")
     with pytest.raises(ValueError, match="does not fit the mesh axes"):
         pmesh.get_mesh(["cpu"] * 4, shape=(2, 2))
     # GAN and QAT train on data,space (tests/test_torch_sp_gan.py): no item left for them

@@ -248,9 +248,10 @@ REFUSED = {
     # JAX's refusal, with [1, 1] it trains
     "mesh_axes": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,model"],
                   "mesh_shape is required with multiple mesh_axes"),
-    # a shape of three axes: the compositions (data,space itself is ported)
-    "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,space,model",
-                                               "--mesh-shape", "2,2,2"], "ROADMAP A.13.5"),
+    # three axes are ported (tests/test_torch_sp_tp.py): without a shape it
+    # is JAX's refusal, with [1, 1, 1] it trains
+    "mesh_shape": ("stage1_psnr_config.yaml", ["--mesh-axes", "data,space,model"],
+                   "mesh_shape is required with multiple mesh_axes"),
     # --print-memory is ported, and data,pp (tests/test_torch_pp.py): without a
     # shape it is JAX's refusal, with [1, 1] it reports and trains
     "print_memory": ("stage1_psnr_config.yaml", ["--print-memory", "--mesh-axes", "data,pp"],
@@ -265,14 +266,14 @@ REFUSED = {
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_what_is_not_ported_raises_and_names_its_roadmap_item(workdir, what):
     config, flags, item = REFUSED[what]
-    if what in ("mesh_axes", "print_memory"):
+    if what in ("mesh_axes", "print_memory", "mesh_shape"):
         with pytest.raises(ValueError, match=item):
             _run(config, *flags)
-        trainer = _run(config, *flags, "--mesh-shape", "1,1", "--epochs", "1")
-        assert trainer.mesh.shape == (1, 1) and trainer.global_step > 0
+        shape = "1,1,1" if what == "mesh_shape" else "1,1"
+        trainer = _run(config, *flags, "--mesh-shape", shape, "--epochs", "1")
+        assert trainer.mesh.shape == tuple(map(int, shape.split(","))) and trainer.global_step > 0
         return
-    with pytest.raises(SystemExit if what in ("qat_scales", "transfer", "esrgan")
-                       else train_cli.NotPorted, match=item):
+    with pytest.raises(SystemExit, match=item):
         _run(config, *flags)
 
 
