@@ -183,7 +183,8 @@ catches an error and goes on):
    bitwise, the CPU taking the card's fake-quant level wherever the two
    round a tie apart (an activation within 1e-3 of a level boundary;
    counted), each with its TF32 control rejected.
-15. explainability, ``stage_panel`` and the checkpoint bridge (no kernel:
+15. in a child process beside phase 14: explainability, ``stage_panel``
+   and the checkpoint bridge (no kernel:
    everything here runs in f32, and the phase fails if the group kernel
    launches): Grad-CAM of the 6x10x64 model (conv_last non-zero) on 8
    64x64 images at conv_first, group3 and group6, all four regions, and
@@ -205,29 +206,29 @@ catches an error and goes on):
    wall times; (15.4) ``python -m facesr_torch.cli.convert`` of a
    FaceEnhanceNet 6x10x64 and an RRDBNet x4plus ``.pth`` to ``.fckpt``
    and back with ``--reverse``: the state dict bitwise, keys in order.
-16. data parallelism, in child processes (`parallel.launch.run_ranks`)
-   started after the parent freed its cache. The machine has one card, so
-   NCCL runs at world size 1 and two ranks share cuda:0 over gloo (NCCL
-   refuses two ranks on one device). One world-1 NCCL rank: (d) the train
-   CLI on the stage-1 YAML under torchrun's environment with
-   ``--print-memory`` for one epoch on phase 8's PNGs (the measured step
-   peak against phase 7's), (a) the stage-1 step (6x10x64 f32, batch 48,
-   HR 256) in the group bitwise the step alone (cuDNN deterministic), the
-   all-reduce ms of the gradient bucket, and (e) `ShardedPredictor` over
-   [cuda:0, cuda:0] in bf16 at batch 128: each 64-image shard bitwise
-   `Predictor` at that size, 6 group launches a shard (counted in the
-   kernel line), images/s. Two gloo ranks: (b) the stage-1 and the GAN
-   step, 24 of the 48 rows each, against the single-process step on all
-   48 (relative L2 of each loss, gradient, parameter and BN stat, TF32
-   off, each <= max(1e-4, 10 x that tensor's rounding floor: its largest
-   error in the same single-process step on its input times (1 + 2^-23
-   noise), two noise draws, with G, D's convs and D's dense layers run on
-   the ranks' row blocks), the
-   controls (one rank's rows alone, unreduced; a per-rank BatchNorm)
-   rejected by the same limits, the ranks' states bitwise equal after 2 steps, ms
-   a dp step and of a gloo all-reduce of the bucket (two ranks
-   time-sharing one card: no speedup figure); (c) a Trainer epoch on phase
-   8's PNGs, 24 rows a rank a step, only rank 0 writing.
+16. in a child process beside phase 14: data parallelism, in child
+   processes of that child (`parallel.launch.run_ranks`). The machine has
+   one card, so NCCL runs at world size 1 and two ranks share cuda:0 over
+   gloo (NCCL refuses two ranks on one device). One world-1 NCCL rank:
+   (d) the train CLI on the stage-1 YAML under torchrun's environment
+   with ``--print-memory`` for one epoch on phase 8's PNGs (the measured
+   step peak against phase 7's), (a) the stage-1 step (6x10x64 f32, batch
+   48, HR 256) in the group bitwise the step alone (cuDNN deterministic),
+   the all-reduce ms of the gradient bucket, and (e) `ShardedPredictor`
+   over [cuda:0, cuda:0] in bf16 at batch 128: each 64-image shard
+   bitwise `Predictor` at that size, 6 group launches a shard (counted in
+   the kernel line), images/s. Two gloo ranks: (b) the stage-1 and the
+   GAN step, 24 of the 48 rows each, against the single-process step on
+   all 48 (relative L2 of each loss, gradient, parameter and BN stat,
+   TF32 off, each <= max(1e-4, 10 x that tensor's rounding floor: its
+   largest error in the same single-process step on its input times (1 +
+   2^-23 noise), two noise draws, with G, D's convs and D's dense layers
+   run on the ranks' row blocks), the controls (one rank's rows alone,
+   unreduced; a per-rank BatchNorm) rejected by the same limits, the
+   ranks' states bitwise equal after 2 steps, ms a dp step and of a gloo
+   all-reduce of the bucket (two ranks time-sharing one card: no speedup
+   figure); (c) a Trainer epoch on phase 8's PNGs, 24 rows a rank a step,
+   only rank 0 writing.
 17. spatial parallelism (image rows over a mesh; one card, so two row
    shards share cuda:0): (a) `SpatialPredictor` over [cuda:0, cuda:0] at
    1x256x256 LR (one thread and stream a shard) against [cuda:0]: f32
@@ -299,18 +300,42 @@ catches an error and goes on):
    rejected; (d) the stage-1 YAML through the CLI on the grid with
    ``--print-memory``, its ``.fckpt`` resumed by one process; (e) no
    group launch.
+21. the offline data CLIs and the auxiliaries, in one child process
+   started before phase 8 and read after phase 14 (its own launch
+   counts; host work and small steps beside the light phases): (a)
+   ``facesr_torch.cli.dress_rehearsal.rehearse`` at a cut depth with the
+   production model: 64 synthetic faces at 160, ``prepare_data`` at hr 128
+   / lr 32, the three ``configs/rehearsal`` stage YAMLs (batch 8, one
+   epoch each) through the train CLI, each chained from the one before,
+   the comparison and the stage panel; (b) ``compare_two_models`` on the
+   stage-3 checkpoint in f32 (no launch) and ``--serve-dtype bf16`` (the
+   group kernel on trained weights, the counts zeroed just before and read
+   just after): bf16 PSNR within 0.1 dB of f32; (c) one 6x10x64 stage-1
+   Trainer step (batch 2, HR 64, phase 7's smooth loss) with
+   ``log_gradients_every=1`` on the card against the CPU: every
+   per-parameter gradient norm within phase 7's 1e-4 relative, a TF32
+   control rejected; (d) ``quick_search`` in bf16 on the card: 4
+   experiments completed with finite PSNR, a second run skipping all 4;
+   (e) ``graft_entry.entry()``'s production forward finite, and
+   ``dryrun_multichip(2)``'s GAN step on two gloo ranks sharing the card
+   finite and equal on both.
 
-Phases 19 and 18 run their steps in child processes (two ranks each),
-one launch after the other, beside phases 15 and 16 in this process, and
-phase 20's two launches (four ranks each: (a) and (c), then (b) once
-phase 17's GAN step is done) beside phase 17 and what follows it: the
-host, not the card, bounds those phases, so their ms figures are taken
-with the other work running. Their reports follow phase 17, and the CLI
-ranks of 18 (d), 19 (c) and 20 (d) run side by side after it; phase 17
-runs its CLI ranks ((c), then (f)) beside its own launch. Processes that share the card keep what
-their allocators cached, so their peaks add up (`MemoryWatch`); the
-card's used memory (every process's) is sampled through phases 15-20
-and its peak and a timeline printed for each of those three stretches.
+The host, not the card, bounds most phases, and this process keeps one
+or two of its cores busy; so work runs beside it, placed by the card's
+memory (processes that share the card keep what their allocators cached,
+so their peaks add up: `MemoryWatch`). Phase 21's child runs from phase 8
+on; the steps of phases 18 and then 19 run in child processes (two ranks
+each) beside phases 8-12, and phase 13, which fills most of the card,
+waits for them; phases 15 and 16 run in child processes beside phase 14,
+which keeps below 17 GiB; phase 20's two launches (four ranks each: (a)
+and (c), then (b) once phase 17's GAN step is done) run beside phase 17
+and what follows it. Their ms figures are taken with the other work
+running. The reports of 18 and 19 follow phase 17, and the CLI ranks of
+18 (d), 19 (c) and 20 (d) run side by side after it; phase 17 runs its
+CLI ranks ((c), then (f)) beside its own launch. The card's used memory
+(every process's) and the host's available memory are sampled from phase
+8 on, with a timeline printed for each stretch; every phase header
+carries the seconds since the start and this process's CPU seconds.
 Every phase prints its seconds. It prints the kernel table as one JSON
 line, then the nvidia-smi line, then the result line ``{"ok": true,
 "device": {...}}`` last. Without a CUDA card it exits non-zero and
@@ -319,10 +344,12 @@ prints no result.
 
 import contextlib
 import ctypes
+import faulthandler
 import functools
 import http.client
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -389,7 +416,36 @@ TRAINER_BATCH = 8
 STEP_RTOL = 1e-4
 
 
+# CPU threads (OpenMP, MKL, OpenBLAS) of each process this script starts:
+# up to a dozen ranks, children and this process share the host's cores
+CHILD_THREADS = 2
+# seconds after the start at which this process's threads' stacks go to
+# stderr (a stall then shows where it is; the script's limit is 1200 s)
+STALL_DUMP_S = 1140
+
+
+class HostClock:
+    """Seconds since the script started; since the previous `mark`, the
+    seconds and this process's CPU seconds (every thread's)."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self._last = (self.t0, time.process_time())
+
+    def mark(self) -> str:
+        now, own = time.perf_counter(), time.process_time()
+        t, o = self._last
+        self._last = (now, own)
+        return (f"at {now - self.t0:.1f} s; {now - t:.1f} s since the previous header, "
+                f"{own - o:.1f} CPU s of this process")
+
+
+CLOCK = None  # set by main: phase headers carry its marks
+
+
 def log(msg=""):
+    if CLOCK is not None and msg.startswith("== "):
+        msg = f"{msg} [{CLOCK.mark()}]"
     print(msg, flush=True)
 
 
@@ -5273,7 +5329,7 @@ def tp_phase(card: str, tmp: Path, cli: bool = True, launched=None) -> int:
         torch.cuda.empty_cache()
     r0, r1, launch_s = launched or tp_launch(card, tmp)
     parts = {"(a), (b), (c): one launch of two ranks"
-             + (" (beside phases 15 and 16, after phase 19's)" if launched is not None else ""):
+             + (" (beside phases 8-10, before phase 19's)" if launched is not None else ""):
              launch_s}
     parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
     log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
@@ -5751,7 +5807,7 @@ def pp_phase(card: str, tmp: Path, launched=None, cli_ranks=None) -> int:
         torch.cuda.empty_cache()
     r0, r1, launch_s = launched or pp_launch(card, tmp)
     parts = {"(a), (b), (d): one launch of two ranks"
-             + (" (beside phases 15 and 16, before phase 18's)" if launched is not None else ""):
+             + (" (beside phases 10-12, after phase 18's)" if launched is not None else ""):
              launch_s}
     parts.update({f"rank 0's {k}": v for k, v in r0["seconds"].items()})
     log("  the launch: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
@@ -6117,6 +6173,319 @@ def tp3_phase(card: str, tmp: Path, launched=None, cli_ranks=None) -> int:
     return launches
 
 
+# phase 21: the offline data CLIs and the auxiliaries, in one child process
+# beside phases 8-14 (host work and small steps, no GAN step at batch 16)
+REH_FACES = 64              # (a) the rehearsal's faces at 160, cut from 608
+REH_BATCH = 8               # (a) each stage YAML's batch (64, 64, 48), cut
+REH_EPOCHS = 1              # (a) each stage's epochs (60, 25, 12), cut
+REH_DEVICE = None           # the child's CLIs and entry points: the card
+REH_BF16_GAP_DB = 0.1       # (b) |bf16 - f32| PSNR of the stage-3 checkpoint (phase 9's)
+REH_NORMS_BATCH, REH_NORMS_HR = 2, 64   # (c) the 6x10x64 Trainer step, card and CPU
+REH_GRID_TRAIN, REH_GRID_VAL = 32, 8    # (d) HR crops of the rehearsal's PNGs
+REH_CPU_THREADS = 2         # the child's torch threads (the parent runs phases 8-14)
+REH_TIMEOUT = 420           # seconds for the whole child (it takes ~110)
+
+
+def reh_yamls(dest: Path) -> Path:
+    """The rehearsal's stage YAMLs with their batch and epochs cut (every
+    other setting, the production model included, unchanged)."""
+    import re
+
+    from facesr_torch.cli.dress_rehearsal import STAGES
+
+    dest.mkdir(parents=True, exist_ok=True)
+    for name in STAGES:
+        text = (REPO / "configs/rehearsal" / f"{name}.yaml").read_text()
+        text = re.sub(r"batch_size: \d+", f"batch_size: {REH_BATCH}", text)
+        text = re.sub(r"\bepochs: \d+", f"epochs: {REH_EPOCHS}", text)
+        (dest / f"{name}.yaml").write_text(text)
+    return dest
+
+
+def _norm_trainer(dev, sd, hr, tmp: Path):
+    """A stage-1 Trainer (6x10x64 f32, AdamW lr 1e-4 clip 0.5) on one batch
+    with ``log_gradients_every=1``, from the state dict ``sd``, under phase
+    7's smooth loss with the stage-1 loss's ops (an L1 criterion's sign
+    flips move the card's gradients ~6e-4 from the CPU's, PERF.md §6)."""
+    from facesr_torch.cli.step_numerics import smooth_loss_apply
+    from facesr_torch.losses.combined import CombinedLoss, LossConfig
+    from facesr_torch.models.face_enhance_net import FaceEnhanceNet
+    from facesr_torch.training.trainer import Trainer, TrainerConfig
+
+    class SmoothLoss(CombinedLoss):
+        def apply(self, lp, sr, target, compute_dtype=None, vgg_remat=False):
+            return smooth_loss_apply(lp, sr, target)
+
+    model = FaceEnhanceNet(production_config(), seed=0, device="cpu")
+    model.load_state_dict(sd)
+    loss = SmoothLoss(LossConfig(l1_weight=1.0, perceptual_weight=1.0, ssim_weight=0.0,
+                                 perceptual_layers=["conv3_4"]), seed=0, device="cpu")
+    cfg = TrainerConfig(epochs=1, learning_rate=1e-4, weight_decay=0.0, gradient_clip=0.5,
+                        use_amp=False, save_every=100, save_best=False, step_log_every=0,
+                        checkpoint_dir=str(tmp), log_gradients_every=1)
+    return Trainer(model, [{"hr": hr}], [{"hr": hr}], loss, cfg, device=dev)
+
+
+def phase21_child(out_dir: str) -> None:
+    """Phase 21's work, in a child process: (a) the rehearsal, (b) bf16 on
+    its stage-3 checkpoint, (c) the Trainer's gradient norms card vs CPU,
+    (d) the grid search, (e) the dry-run entry. Writes ``summary.txt`` and
+    ``result.json`` under ``out_dir``; any failed check raises."""
+    import shutil
+
+    from facesr_torch.cli import compare_two_models
+    from facesr_torch.cli.dress_rehearsal import rehearse
+    from facesr_torch.cli.step_numerics import _tf32_forced
+    from facesr_torch.data.png import read_rgb
+    from facesr_torch.ops import _build
+    from facesr_torch.ops import rcab_group as rg
+    from facesr_torch.training.hyperparameter_search import quick_search
+    from facesr_torch import graft_entry
+
+    torch.set_num_threads(REH_CPU_THREADS)
+    out = Path(out_dir)
+
+    def say(msg):
+        with open(out / "summary.txt", "a") as f:
+            f.write(msg + "\n")
+        log(msg)
+
+    res: dict = {}
+    dev = torch.device(REH_DEVICE or "cuda")
+    card = smi_line() if dev.type == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    _build.build_all(["rcab_group"])
+
+    # (a) the rehearsal, stage 1 -> 2 -> 3, at a cut depth
+    work = out / "work"
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        reh = rehearse(str(work), str(reh_yamls(out / "yamls")), num_faces=REH_FACES,
+                       device=REH_DEVICE)
+    text, work = tee.text(), work.resolve()
+    res["rehearsal_s"] = time.perf_counter() - t0
+    res["stage_s"] = reh["seconds"]
+    for i, name in enumerate(("stage1_psnr", "stage2_ssim", "stage3_gan")):
+        if not reh["checkpoints"][name].exists():
+            raise AssertionError(f"(a) {name} wrote no best_model.fckpt")
+        if i and (f"Chaining from stage checkpoint {work / f'ckpt_s{i}' / 'best_model.fckpt'}"
+                  not in text):
+            raise AssertionError(f"(a) stage {i + 1} did not chain from stage {i}'s best")
+    summary_rows = reh["comparison"]["summary"]
+    say(f"  (a) rehearsal: {REH_FACES} faces at 160 -> hr 128 / lr 32 (train/val/test "
+        f"{[len(list((work / 'processed' / s / 'HR').iterdir())) for s in ('train', 'val', 'test')]}), "
+        f"the production model through the three stage YAMLs (batch {REH_BATCH}, "
+        f"{REH_EPOCHS} epoch each), chained 1 -> 2 -> 3; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in reh['seconds'].items()})}, "
+        f"{res['rehearsal_s']:.1f} s in all [{card}]")
+    say("      compare (f32) PSNR dB: " + json.dumps(
+        {k: round(v["psnr"], 4) for k, v in summary_rows.items()}))
+    if not all(math.isfinite(v["psnr"]) for v in summary_rows.values()):
+        raise AssertionError("(a) a compare row is not finite")
+
+    # (b) the stage-3 checkpoint served in bf16: the group kernel on trained weights
+    s3 = work / "stage3_only"
+    s3.mkdir()
+    shutil.copy(reh["checkpoints"]["stage3_gan"], s3 / "stage3_gan.fckpt")
+    runs = {}
+    for sd in ("f32", "bf16"):
+        argv = ["--checkpoint-dir", str(s3), "--test-dir", str(reh["test_hr"]), "--output",
+                str(work / f"compare_{sd}"), "--num-images", "32", "--batch-size", "8",
+                "--save-every", "0", "--serve-dtype", sd]
+        if REH_DEVICE:
+            argv += ["--device", REH_DEVICE]
+        rg.fused_residual_group.launches = 0  # just before this path
+        t0 = time.perf_counter()
+        r, _ = eval_cli(compare_two_models, argv)
+        runs[sd] = (r["summary"]["Stage3 Gan"]["psnr"], rg.fused_residual_group.launches,
+                    time.perf_counter() - t0)  # just after
+    gap = runs["bf16"][0] - runs["f32"][0]
+    res["launches"], res["bf16_gap_db"] = runs["bf16"][1], gap
+    say(f"  (b) stage-3 checkpoint, compare_two_models: f32 PSNR {runs['f32'][0]:.4f} dB "
+        f"({runs['f32'][1]} launches, {runs['f32'][2]:.2f} s), bf16 {runs['bf16'][0]:.4f} dB "
+        f"({runs['bf16'][1]} group-kernel launches, {runs['bf16'][2]:.2f} s); bf16 - f32 "
+        f"{gap:+.5f} dB (limit {REH_BF16_GAP_DB}) [{card}]")
+    if runs["f32"][1] != 0 or runs["bf16"][1] == 0:
+        raise AssertionError(f"(b) launches f32 {runs['f32'][1]}, bf16 {runs['bf16'][1]}")
+    if not abs(gap) <= REH_BF16_GAP_DB:
+        raise AssertionError(f"(b) bf16 PSNR strays from f32 by {gap} dB")
+
+    # (c) per-leaf gradient norms of one 6x10x64 stage-1 Trainer step, card vs CPU
+    sd = production_model("cpu", nonzero_last=True).state_dict()
+    hr = smooth_hr(REH_NORMS_BATCH, REH_NORMS_HR, seed=9, dev="cpu").numpy()
+
+    def norms(device, tf32=False):
+        tr = _norm_trainer(device, sd, hr, out / f"norms_{device}_{tf32}")
+        with _tf32_forced() if tf32 else contextlib.nullcontext():
+            tr.train()
+        return {k: v[0] for k, v in tr.gradient_monitor.history.items()}
+
+    want = norms("cpu")
+    errs = {}
+    for tf32 in (False, True):
+        got = norms(dev, tf32)
+        if set(got) != set(want):
+            raise AssertionError("(c) the card and the CPU name other parameters")
+        errs[tf32] = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want}
+    worst, worst_tf32 = (max(e.values()) for e in (errs[False], errs[True]))
+    top = sorted(errs[False].items(), key=lambda kv: -kv[1])[:3]
+    res["norm_worst"], res["norm_worst_tf32"] = worst, worst_tf32
+    say(f"  (c) Trainer step, 6x10x64 f32, batch {REH_NORMS_BATCH} HR {REH_NORMS_HR}, "
+        f"log_gradients_every=1: {len(want)} per-parameter norms, card vs CPU relative error "
+        f"worst {worst:.3g} (limit {STEP_RTOL}; largest {[(k, f'{v:.3g}') for k, v in top]}); "
+        f"TF32 forced: worst {worst_tf32:.3g} -> "
+        f"{'rejected' if worst_tf32 > STEP_RTOL else 'within'} [{card}]")
+    if worst > STEP_RTOL:
+        raise AssertionError(f"(c) the card's gradient norms disagree with the CPU's: {top}")
+    if worst_tf32 <= STEP_RTOL:
+        raise AssertionError("(c) the norm limit cannot see TF32 convs")
+
+    # (d) the grid search in bf16, one experiment after another on the card
+    def crops(split, n):
+        files = sorted((work / "processed" / split / "HR").iterdir())[:n]
+        return np.stack([read_rgb(f) for f in files]).astype(np.float32) / 255.0
+
+    train, val = crops("train", REH_GRID_TRAIN), crops("val", REH_GRID_VAL)
+    path = out / "grid" / "quick.json"
+    t0 = time.perf_counter()
+    searcher = quick_search(train, val, results_path=str(path), device=REH_DEVICE)
+    grid_s = time.perf_counter() - t0
+    done = [r for r in searcher.results.values() if r.status == "completed"]
+    times = [round(r.wall_time_s, 2) for r in searcher.results.values()]
+    res["grid_s"], res["grid_experiment_s"] = grid_s, times
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        quick_search(train, val, results_path=str(path), device=REH_DEVICE)
+    skipped = tee.text().count("skipped (completed)")
+    best = searcher.best()
+    say(f"  (d) quick_search, bf16, {len(train)} train / {len(val)} val crops of 128: "
+        f"{len(done)} of {len(searcher.results)} completed in {grid_s:.1f} s, seconds an "
+        f"experiment {times}, PSNR {[round(r.final_psnr, 3) for r in done]} dB, best "
+        f"{best.config['experiment_id'] if best else None}; a second run skipped {skipped} [{card}]")
+    if len(done) != 4 or not all(math.isfinite(r.final_psnr) for r in done) or skipped != 4:
+        raise AssertionError("(d) the grid search did not complete its 4 experiments with "
+                             "finite PSNR, or a second run did not skip them")
+
+    # (e) the dry-run entry: the production forward, and a GAN step on 2 gloo ranks
+    forward, (model, x) = graft_entry.entry(device=REH_DEVICE)
+    y = forward(model, x)
+    t0 = time.perf_counter()
+    vals = graft_entry.dryrun_multichip(2, device=REH_DEVICE)
+    res["dryrun_s"] = time.perf_counter() - t0
+    say(f"  (e) graft_entry.entry(): {tuple(y.shape)} finite {bool(torch.isfinite(y).all())}; "
+        f"dryrun_multichip(2), two gloo ranks sharing {dev}: losses "
+        f"{json.dumps({k: round(v, 5) for k, v in vals.items()})}, {res['dryrun_s']:.1f} s")
+    if tuple(y.shape) != (1, 256, 256, 3) or not torch.isfinite(y).all():
+        raise AssertionError("(e) the entry forward is not finite of shape (1, 256, 256, 3)")
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda"
+                       else 0.0)
+    res["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase 21 took {res['seconds']:.1f} s in its process (peak device memory of that "
+        f"process {res['peak_gib']:.3f} GiB) [{card}]")
+    (out / "result.json").write_text(json.dumps(res))
+
+
+def child_start(tmp: Path, name: str, fn: str, *args):
+    """Start ``chip_smoke.fn(out, *args)`` in a child process, ``out`` being
+    ``tmp/name``, where its output goes (``log.txt``)."""
+    out = tmp / name
+    out.mkdir()
+    call = ", ".join(repr(a) for a in (str(out), *args))
+    with open(out / "log.txt", "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+             f"import chip_smoke; chip_smoke.{fn}({call})"],
+            cwd=str(REPO), stdout=f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(REPO), os.environ.get("PYTHONPATH", "")])))
+
+
+def child_kill(proc) -> None:
+    """Kill a child started by `child_start` and every process under it
+    (its ranks), read from /proc, unless it has ended."""
+    if proc.poll() is not None:
+        return
+    parents = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        parents.setdefault(int(fields[1]), []).append(int(stat.parent.name))
+    tree, i = [proc.pid], 0
+    while i < len(tree):
+        tree += parents.get(tree[i], [])
+        i += 1
+    for pid in reversed(tree):
+        with contextlib.suppress(OSError):
+            os.kill(pid, 9)
+    proc.wait()
+
+
+def child_wait(proc, t_start: float, timeout: float):
+    """The child's exit code, or "timeout" (then killed, with what it
+    started) ``timeout`` s after ``t_start``."""
+    try:
+        return proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        child_kill(proc)
+        return "timeout"
+
+
+# phases 15 and 16 in child processes beside phase 14 (which keeps the card
+# below 17 GiB): their torch CPU threads, and seconds for each
+PHASE_CHILD_THREADS = {"15": 4, "16": CHILD_THREADS}
+PHASE_CHILD_TIMEOUT = 480
+
+
+def phase_child(out_dir: str, phase: str) -> None:
+    """Phase 15 or 16 in a child process: its lines on stdout (``log.txt``),
+    its group-kernel launches in ``result.json`` under ``out_dir``."""
+    torch.set_num_threads(PHASE_CHILD_THREADS[phase])
+    dev, card, tmp = torch.device(DEVICE), smi_line(), Path(out_dir).parent
+    if phase == "15":
+        explain_phase(dev, card, tmp)
+        launches = 0  # explain_phase raises on any
+    else:
+        launches = dp_phase(card, tmp)
+    (Path(out_dir) / "result.json").write_text(json.dumps({"launches": launches}))
+
+
+def phase_child_report(proc, tmp: Path, phase: str, t_start: float, card: str) -> int:
+    """Wait for phase ``phase``'s child and print its lines; returns its
+    group-kernel launches."""
+    out = tmp / f"phase{phase}"
+    rc = child_wait(proc, t_start, PHASE_CHILD_TIMEOUT)
+    for line in (out / "log.txt").read_text().splitlines():
+        log(line)
+    if rc != 0:
+        raise AssertionError(f"phase {phase}'s child exited with {rc}")
+    log(f"  phase {phase}'s child ended {time.perf_counter() - t_start:.1f} s after it "
+        f"started [{card}]")
+    return json.loads((out / "result.json").read_text())["launches"]
+
+
+def phase21_report(proc, tmp: Path, card: str, t_start: float) -> int:
+    """Wait for phase 21's child, print its summary; returns the group
+    kernel's launches of its main path ((b)'s bf16 comparison)."""
+    out = tmp / "phase21"
+    rc = child_wait(proc, t_start, REH_TIMEOUT)
+    log("== 21. the offline data CLIs and the auxiliaries (a child process beside phases "
+        "8-14): (a) the stage 1 -> 2 -> 3 rehearsal, (b) bf16 on its stage-3 checkpoint, "
+        "(c) gradient norms, (d) the grid search, (e) the dry-run entry")
+    if (out / "summary.txt").exists():
+        for line in (out / "summary.txt").read_text().splitlines():
+            log(line)
+    if rc != 0:
+        tail = (out / "log.txt").read_text().splitlines()[-60:]
+        log("  the child's last lines:\n    " + "\n    ".join(tail))
+        raise AssertionError(f"phase 21's child exited with {rc}")
+    res = json.loads((out / "result.json").read_text())
+    log(f"  phase 21 ended {time.perf_counter() - t_start:.1f} s after it started [{card}]")
+    return res["launches"]
+
+
 def input_shape_str(program) -> str:
     from facesr_torch.ckpt.export import input_shape
 
@@ -6128,6 +6497,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    global CLOCK
+    CLOCK = HostClock()
+    faulthandler.dump_traceback_later(STALL_DUMP_S, exit=False)
+    for name in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+        os.environ[name] = str(CHILD_THREADS)  # the children's; this process's are set
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from facesr_torch.ops import _build
     from facesr_torch.ops import rcab_group as rg
@@ -6377,32 +6751,56 @@ def main() -> int:
     torch.cuda.empty_cache()
     step_alone_ms = training_phase(dev, card)
     with tempfile.TemporaryDirectory(prefix="facesr_torch_cli_") as tmp:
-        cli_phase(card, step_alone_ms, Path(tmp))
-        eval_launches = eval_phase(dev, card, Path(tmp))
-        launches["fused_residual_group"] += eval_launches  # phase 5's and phase 9's main paths
-        gan_phase(dev, card)
-        with tempfile.TemporaryDirectory(prefix="facesr_torch_serve_") as stmp:
-            serving = serving_phase(dev, card, Path(stmp), fwd_med * 1e3, pred_med * 1e3)
-        launches["fused_residual_group"] += serving["launches"]  # and phase 11's
-        launches["fused_residual_group"] += int8_phase(dev, card, Path(tmp),
-                                                       step_alone_ms)  # and phase 12's
-        zoo = zoo_phase(dev, card, Path(tmp))
-        launches["fused_residual_group"] += zoo["launches"]  # and phase 13's
-        launches["fused_residual_group"] += zoo_int8_phase(
-            dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
-        # the launches of phases 19 and 18 (child processes) run one after the
-        # other beside phases 15 and 16 in this process (time: the host, not
-        # the card, bounds them); their numbers are read once phase 17 is due.
-        # 19's GAN step at 16 runs beside phase 15, 18's steps beside 16's
-        # (memory: see `MemoryWatch`)
+        # beside phases 8-14 in this process, which keeps one or two of the
+        # host's cores busy: phase 21's child (host work and small steps)
+        # from phase 8 on, its report after phase 14; the launches of 18 and
+        # then 19 (two ranks each) beside phases 8-12, their numbers read
+        # once phase 17 is due; phases 15 and 16 in children beside phase 14.
+        # The card's memory places them (`MemoryWatch`): phase 13 fills most
+        # of it and runs beside no launch, 19's GAN step at 16 starts once
+        # 18's ranks have ended, phase 14 keeps below 17 GiB
         watch = MemoryWatch()
-        with ThreadPoolExecutor(1) as pool:
-            launched = pool.submit(lambda: (pp_launch(card, Path(tmp)),
-                                            tp_launch(card, Path(tmp))))
-            explain_phase(dev, card, Path(tmp))
-            launches["fused_residual_group"] += dp_phase(card, Path(tmp))  # and phase 16's
-            pp_launched, tp_launched = launched.result()
-        log(watch.take("phases 15 and 16 with the launches of 18 and 19 beside them", card))
+        t21 = time.perf_counter()
+        child21 = child_start(Path(tmp), "phase21", "phase21_child")
+        children = [child21]
+        try:
+            with ThreadPoolExecutor(1) as lane:
+                launched = lane.submit(lambda: (tp_launch(card, Path(tmp)),
+                                                pp_launch(card, Path(tmp))))
+                cli_phase(card, step_alone_ms, Path(tmp))
+                torch.cuda.empty_cache()
+                # phase 5's and phase 9's main paths
+                launches["fused_residual_group"] += eval_phase(dev, card, Path(tmp))
+                torch.cuda.empty_cache()
+                gan_phase(dev, card)
+                torch.cuda.empty_cache()
+                with tempfile.TemporaryDirectory(prefix="facesr_torch_serve_") as stmp:
+                    serving = serving_phase(dev, card, Path(stmp), fwd_med * 1e3,
+                                            pred_med * 1e3)
+                launches["fused_residual_group"] += serving["launches"]  # and phase 11's
+                launches["fused_residual_group"] += int8_phase(dev, card, Path(tmp),
+                                                               step_alone_ms)  # and phase 12's
+                tp_launched, pp_launched = launched.result()
+            log(watch.take("phases 8-12 with phase 21's child and the launches of 18, then "
+                           "19, beside them", card))
+            zoo = zoo_phase(dev, card, Path(tmp))
+            launches["fused_residual_group"] += zoo["launches"]  # and phase 13's
+            log(watch.take("phase 13 (and phase 21's child if it ran on)", card))
+            t15 = time.perf_counter()
+            child15 = child_start(Path(tmp), "phase15", "phase_child", "15")
+            child16 = child_start(Path(tmp), "phase16", "phase_child", "16")
+            children += [child15, child16]
+            launches["fused_residual_group"] += zoo_int8_phase(
+                dev, card, Path(tmp), zoo["step_ms"])  # and phase 14's
+            launches["fused_residual_group"] += phase21_report(child21, Path(tmp), card,
+                                                               t21)  # and phase 21's
+            phase_child_report(child15, Path(tmp), "15", t15, card)
+            launches["fused_residual_group"] += phase_child_report(
+                child16, Path(tmp), "16", t15, card)  # and phase 16's
+            log(watch.take("phase 14 with the children of phases 15 and 16 beside it", card))
+        finally:
+            for child in children:
+                child_kill(child)
         # phase 20's launches (four child processes each) one after the
         # other beside phase 17 and then beside the CLI ranks of 18 (d), 19
         # (c) and 20 (d) and the checks of 18 and 19: (a) and (c) first,
@@ -6432,6 +6830,7 @@ def main() -> int:
             card, Path(tmp), launched=list(tp3_launched), cli_ranks=tp3_cli_run)
 
     log(f"  total script time {time.perf_counter() - t_start:.1f} s")
+    faulthandler.cancel_dump_traceback_later()
     table = {"kernels": [{
         "name": "fused_residual_group",
         "route": "cuda",

@@ -82,12 +82,14 @@ fake-quantized, frozen transfer parameters included (their forward is
 what serving quantizes), and the stage optimiser still updates only what
 the stage trains.
 
-What is not ported raises and names its ROADMAP item: the gradient
-monitor (A.14); ``model`` with ``pp``, ``space`` with ``pp``, QAT or
-another model than FaceEnhanceNet under ``pp``, and tp or pp over more
-than one host are refused as JAX refuses them. W&B is not ported and stays
-off. The perceptual loss uses a VGG19 with random weights drawn from seed
-0 (no pretrained file is in the repo).
+``logging.log_gradients_every: N`` samples every trained parameter's
+gradient norm every N steps into ``Trainer.gradient_monitor`` (whole
+leaves on every mesh). ``model`` with ``pp``, ``space`` with ``pp``, QAT
+or another model than FaceEnhanceNet under ``pp``, and tp or pp over
+more than one host are refused as JAX refuses them. W&B is not ported
+(ROADMAP: not queued) and stays off. The perceptual loss uses a VGG19
+with random weights drawn from seed 0 (no pretrained file is in the
+repo).
 SIGTERM saves ``interrupted.pth`` and ``interrupted.fckpt`` before the
 process exits. Under ``model`` and ``pp`` SIGTERM and SIGINT to any rank stop
 every rank at the end of the step that is running, where they gather the
@@ -170,17 +172,6 @@ def _mesh_settings(args, config: dict):
         raise ValueError("mesh_shape is required with multiple mesh_axes, e.g. "
                          "mesh_shape: [4, 2] for 'data,space' on 8 chips")
     return mesh_axes, mesh_shape
-
-
-def _refuse_unported(args, config: dict, model_type: str):
-    """Raise NotPorted for what the port does not have; returns the mesh
-    settings (`_mesh_settings`)."""
-    logging_config = config.get("logging", {})
-    mesh = _mesh_settings(args, config)
-    if logging_config.get("log_gradients_every", 0):
-        raise NotPorted("logging.log_gradients_every: the gradient monitor is not ported "
-                        "yet (ROADMAP A.14)")
-    return mesh
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -309,7 +300,7 @@ def run(argv: Optional[List[str]] = None):
     checkpoint_config = config.get("checkpoint", {})
     logging_config = config.get("logging", {})
     model_type = args.model or config.get("model", {}).get("type", "custom")
-    mesh_axes, mesh_shape = _refuse_unported(args, config, model_type)
+    mesh_axes, mesh_shape = _mesh_settings(args, config)
 
     import torch
 
@@ -406,8 +397,8 @@ def run(argv: Optional[List[str]] = None):
     gan_config = loss_config.get("gan", {})
     gan_weight = gan_config.get("weight", 0.0)
     if not args.no_wandb and wandb_config.get("enabled", False):
-        print("W&B: logging.wandb.enabled is set, but W&B is not ported (ROADMAP A.14); "
-              "it stays off")
+        print("W&B: logging.wandb.enabled is set, but W&B is not ported (ROADMAP: not "
+              "queued); it stays off")
     else:
         print("W&B: off")
 
@@ -432,6 +423,7 @@ def run(argv: Optional[List[str]] = None):
         save_every=checkpoint_config.get("save_every", 10),
         save_best=checkpoint_config.get("save_best", True),
         step_log_every=console_config.get("step_log_every", 24),
+        log_gradients_every=logging_config.get("log_gradients_every", 0),
         scale_factor=data_config.get("scale_factor", 4),
         skip_nonfinite_updates=training_config.get("skip_nonfinite_updates", 0),
         gan_weight=gan_weight,
@@ -526,6 +518,13 @@ def run(argv: Optional[List[str]] = None):
         if history["val_psnr"]:
             print(f"  Best PSNR: {max(history['val_psnr']):.2f} dB")
             print(f"  Best SSIM: {max(history['val_ssim']):.4f}")
+        monitor = trainer.gradient_monitor
+        if monitor is not None and monitor.history:
+            last = {k: v["last"] for k, v in monitor.summary().items()}
+            top = max(last, key=last.get)
+            print(f"  Gradient norms: {len(last)} parameters, "
+                  f"{len(next(iter(monitor.history.values())))} samples; last largest "
+                  f"{top} {last[top]:.4g}; vanishing (< 1e-7): {monitor.vanishing_layers()}")
     except KeyboardInterrupt as e:
         print(f"\n\nTraining interrupted ({e or 'user'}).")
         print("Saving checkpoint...")

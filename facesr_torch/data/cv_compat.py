@@ -13,7 +13,10 @@ evaluation CLIs call, in numpy, so the port needs no cv2:
   ``HSV2RGB`` on uint8 (the colour jitter; H in [0, 180));
 - `resize_linear_float`: ``cv2.resize(img, (w, h))`` (``INTER_LINEAR``) on
   float32, and `apply_colormap_jet`: ``cv2.applyColorMap(u8,
-  COLORMAP_JET)`` then ``COLOR_BGR2RGB`` (the explainability heatmaps).
+  COLORMAP_JET)`` then ``COLOR_BGR2RGB`` (the explainability heatmaps);
+- `gaussian_blur`: ``cv2.GaussianBlur(img, (k, k), sigma)`` with the
+  default ``BORDER_REFLECT_101``, on uint8 (the realistic degradation of
+  `data.prepare_data`) and on float32 at 3x3 (the synthetic faces).
 
 These follow the arithmetic of the OpenCV they were held against (5.0,
 x86-64, with Intel IPP). Its uint8 ``INTER_CUBIC`` runs through IPP's
@@ -49,6 +52,18 @@ src / dst - 0.5`` in f64, their fractions rounded to f32, both taps
 clamped to the image, and each pass a fused ``s0 + (s1 - s0) * t``,
 horizontal first. It matches cv2 bitwise on every source of at least 2x2
 pixels tried (a source one pixel wide or high takes another path in cv2).
+The Gaussian blur builds OpenCV's bit-exact kernel (``softdouble``: the
+weights exp(-x^2 / (2 sigma^2)) normalised by the reciprocal of their
+sum; sigma <= 0 takes the fixed 3/5/7 tables or 0.3 ((k - 1) / 2 - 1) +
+0.8). On uint8 it takes OpenCV's fixed-point path: the weights times 2^8
+rounded with error diffusion from the outside in (the centre takes the
+rest, so they sum to 256), an exact integer row pass, an exact column
+pass and ``(sum + 2^15) >> 16``; bitwise cv2's on every size and kernel
+tried. On float32 (3x3 only) the weights are rounded to f32 and each
+pass is the symmetric small filter: the row pass ``fma(c, k0, (l + r) *
+k1)`` (in a row of odd length its last value ``fma(l + r, k1, c * k0)``,
+the scalar tail), the column pass ``fma(u + d, k1, c * k0)``; bitwise on
+every size tried.
 JET is OpenCV's own construction: the piecewise-linear basemap sampled at
 i / 255 and stored in f32, resampled by ``interp1`` at an f32
 ``linspace(0, 1, 256)`` (every point is interpolated from its left
@@ -65,7 +80,7 @@ import numpy as np
 
 __all__ = ["resize", "resize_area", "resize_cubic", "resize_linear", "resize_lanczos4",
            "resize_nearest", "rgb_to_hsv", "hsv_to_rgb", "resize_linear_float",
-           "apply_colormap_jet", "JET_RGB"]
+           "apply_colormap_jet", "JET_RGB", "gaussian_blur"]
 
 
 def _taps(dst: int, src: int):
@@ -515,3 +530,81 @@ def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
     vec = np.arange(width) < width // _HSV_LANES * _HSV_LANES
     out = np.where(vec[:, None], np.trunc(rgb), np.rint(rgb))
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+_SMALL_GAUSSIANS = {1: (1.0,), 3: (0.25, 0.5, 0.25), 5: (0.0625, 0.25, 0.375, 0.25, 0.0625),
+                    7: (0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125)}
+
+
+def _gaussian_kernel(k: int, sigma: float) -> np.ndarray:
+    """OpenCV's bit-exact Gaussian kernel of odd size ``k`` (f64)."""
+    if k <= 0 or k % 2 == 0:
+        raise ValueError(f"the kernel size must be odd and positive, got {k}")
+    if sigma <= 0:
+        if k in _SMALL_GAUSSIANS:
+            return np.array(_SMALL_GAUSSIANS[k])
+        sigma = ((k - 1) * 0.5 - 1) * 0.3 + 0.8
+    scale = -0.125 / (sigma * sigma)
+    half = (k - 1) // 2
+    vals = [math.exp(float(x * x) * scale) for x in range(1 - k, -1, 2)][:half]
+    inv = 1.0 / (sum(vals) * 2 + 1.0)
+    out = np.empty(k)
+    for i, v in enumerate(vals):
+        out[i] = out[k - 1 - i] = v * inv
+    out[half] = inv
+    return out
+
+
+def _fixed_gaussian(k: int, sigma: float) -> np.ndarray:
+    """The uint8 path's integer weights (x 2^8, error-diffused, sum 256)."""
+    kern = _gaussian_kernel(k, sigma)
+    err, out, total = 0.0, np.zeros(k, np.int64), 0
+    for i in range(k // 2):
+        adj = kern[i] * 256.0 + err
+        v = int(np.rint(adj))
+        err = adj - v
+        out[i] = out[k - 1 - i] = v
+        total += v
+    out[k // 2] = 256 - 2 * total
+    return out
+
+
+def _reflect101(n: int, r: int) -> np.ndarray:
+    """[n, 2r + 1] source indices of each position's taps, reflected at
+    the borders without repeating the edge (``BORDER_REFLECT_101``)."""
+    idx = np.abs(np.arange(n)[:, None] + np.arange(-r, r + 1)[None])
+    if n == 1:
+        return np.zeros_like(idx)
+    while (idx >= n).any() or (idx < 0).any():
+        idx = np.abs(np.where(idx >= n, 2 * (n - 1) - idx, idx))
+    return idx
+
+
+def gaussian_blur(img: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (ksize, ksize), sigma)`` for an [H, W] or
+    [H, W, C] uint8 image (any odd size) or float32 image (3x3)."""
+    if img.ndim not in (2, 3):
+        raise ValueError(f"gaussian_blur takes an [H, W] or [H, W, C] image, got {img.shape}")
+    src = img[:, :, None] if img.ndim == 2 else img
+    h, w, c = src.shape
+    r = ksize // 2
+    cols, rows = _reflect101(w, r), _reflect101(h, r)
+    if img.dtype == np.uint8:
+        wt = _fixed_gaussian(ksize, sigma)
+        row = np.einsum("hxkc,k->hxc", src.astype(np.int64)[:, cols], wt)
+        out = np.einsum("ykxc,k->yxc", row[rows], wt)
+        out = ((out + (1 << 15)) >> 16).astype(np.uint8)
+    elif img.dtype == np.float32:
+        if ksize != 3:
+            raise ValueError(f"gaussian_blur takes float32 at 3x3 only, got {ksize}x{ksize}")
+        k1, k0 = _gaussian_kernel(3, sigma).astype(np.float32)[:2]
+        g = src[:, cols]                                      # [h, w, 3, c]
+        row = _fma(g[:, :, 1], k0, (g[:, :, 0] + g[:, :, 2]) * k1)
+        if (w * c) % 2:  # OpenCV's row pass computes an odd row's last value apart
+            last = _fma(g[:, -1, 0, -1] + g[:, -1, 2, -1], k1, g[:, -1, 1, -1] * k0)
+            row[:, -1, -1] = last
+        t = row[rows]                                         # [h, 3, w, c]
+        out = _fma(t[:, 0] + t[:, 2], k1, t[:, 1] * k0)
+    else:
+        raise ValueError(f"gaussian_blur takes uint8 or float32, got {img.dtype}")
+    return out[:, :, 0] if img.ndim == 2 else out

@@ -1,0 +1,227 @@
+"""Offline data preparation: raw face PNGs -> HR/LR pairs (the port of
+`facesr/data/prepare_data.py`), with its CLI:
+
+    python -m facesr_torch.data.prepare_data --input raw/ --output processed/
+
+Degradations: 'bicubic', 'bilinear' and 'realistic' (7x7 Gaussian blur,
+sigma 1.5, + N(0, 5) noise, bicubic downsample); the HR size by area
+resampling; the seeded train/val/test split (0.857/0.071 by default) in
+`random.Random(seed)` order; ``prepare_stats.json``; ``--dry-run``.
+Host-side numpy, as in the JAX package: the resizes and the blur are
+`cv_compat`'s copies of cv2's (bitwise), and the files are `data.png`'s.
+The JAX package reads BGR through cv2 and the port RGB, which changes no
+pixel: every step is per channel, and the realistic noise is drawn as
+JAX draws it (one [H, W, 3] array from ``rng``, the global numpy stream
+by default) and added to the channels in reverse, so each value lands
+on the channel it lands on in JAX.
+
+Inputs are the PNGs FFHQ ships as: 8-bit grey, RGB or with alpha,
+non-interlaced. A JPEG, BMP or TIFF file, or a 16-bit, palette or
+interlaced PNG, is refused by name before anything is written (ROADMAP
+A.7.2: the port has no decoder for them; cv2 reads them in the JAX
+package). ``--hdf5`` raises `NotPorted` (A.7.1: the card's machine has
+no h5py).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import shutil
+from collections import Counter
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from facesr_torch.data.cv_compat import (gaussian_blur, resize_area, resize_cubic,
+                                         resize_linear)
+from facesr_torch.data.png import SIGNATURE, PNGError, read_rgb, write_png
+from facesr_torch.parallel.mesh import NotPorted
+
+__all__ = ["create_lr_image", "resize_hr_image", "get_image_files", "check_inputs",
+           "split_dataset", "process_and_save_images", "save_to_hdf5", "main"]
+
+_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tiff")
+
+
+def create_lr_image(hr_image: np.ndarray, lr_size: int = 64, method: str = "bicubic",
+                    rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """Downsample an [H, W, 3] RGB uint8 HR image with the chosen
+    degradation. 'realistic' draws its noise from ``rng`` (None: the
+    global numpy stream, as the JAX package does)."""
+    size = (lr_size, lr_size)
+    if method == "bicubic":
+        return resize_cubic(hr_image, size)
+    if method == "bilinear":
+        return resize_linear(hr_image, size)
+    if method == "realistic":
+        blurred = gaussian_blur(hr_image, 7, 1.5)
+        noise = (rng or np.random).normal(0, 5, blurred.shape).astype(np.float32)
+        noisy = np.clip(blurred.astype(np.float32) + noise[..., ::-1], 0, 255).astype(np.uint8)
+        return resize_cubic(noisy, size)
+    raise ValueError(f"Unknown degradation method: {method}")
+
+
+def resize_hr_image(image: np.ndarray, hr_size: int = 256) -> np.ndarray:
+    """Area downsample of the raw image to the HR size."""
+    return resize_area(image, (hr_size, hr_size))
+
+
+def get_image_files(input_dir: Path) -> List[Path]:
+    """Every image file under ``input_dir`` (recursive; the JAX package's
+    extensions, either case), sorted."""
+    files: List[Path] = []
+    for ext in _EXTENSIONS:
+        files.extend(input_dir.glob(f"**/*{ext}"))
+        files.extend(input_dir.glob(f"**/*{ext.upper()}"))
+    return sorted(set(files))
+
+
+def _png_refusal(path: Path) -> Optional[str]:
+    """Why the port cannot read ``path`` (None when it can)."""
+    if path.suffix.lower() != ".png":
+        return f"{path.suffix} files are not decoded by the port"
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if not head.startswith(SIGNATURE) or head[12:16] != b"IHDR":
+        return "not a PNG file"
+    depth, ctype, interlace = head[24], head[25], head[28]
+    if ctype == 3:
+        return "a palette PNG"
+    if depth != 8:
+        return f"a {depth}-bit PNG"
+    if interlace:
+        return "an interlaced PNG"
+    return None
+
+
+def check_inputs(files: List[Path]) -> None:
+    """Raise, before anything is written, when a file is one the port
+    cannot decode (the JAX package reads it through cv2)."""
+    bad = [(f, why) for f in files if (why := _png_refusal(f)) is not None]
+    if bad:
+        shown = "; ".join(f"{f} ({why})" for f, why in bad[:3])
+        raise SystemExit(
+            f"{len(bad)} input file(s) the port cannot read, e.g. {shown}. The port reads "
+            "8-bit non-interlaced grey/RGB/RGBA PNGs (FFHQ's format); JPEG, BMP, TIFF, 16-bit "
+            "and palette PNGs wait for ROADMAP A.7.2. Convert them to 8-bit PNG first")
+
+
+def split_dataset(files: List[Path], train_ratio: float = 0.857, val_ratio: float = 0.071,
+                  seed: int = 42) -> Tuple[List[Path], List[Path], List[Path]]:
+    """Seeded shuffle split (~60k/5k/5k of FFHQ's 70k), in the JAX
+    package's order (a local ``random.Random(seed)``)."""
+    files = list(files)
+    random.Random(seed).shuffle(files)
+    n_total = len(files)
+    n_train = int(n_total * train_ratio)
+    n_val = int(n_total * val_ratio)
+    return files[:n_train], files[n_train:n_train + n_val], files[n_train + n_val:]
+
+
+def process_and_save_images(files: List[Path], output_dir: Path, hr_size: int = 256,
+                            lr_size: int = 64, degradation: str = "bicubic",
+                            desc: str = "Processing",
+                            rng: Optional[np.random.RandomState] = None) -> int:
+    """Write HR/ and LR/ PNGs for each input image; returns the count
+    written. This run owns the split's HR/ and LR/ folders: files of an
+    earlier run (another --max-images or --seed) are removed first, or
+    they would leak into the new split."""
+    hr_dir = output_dir / "HR"
+    lr_dir = output_dir / "LR"
+    for d in (hr_dir, lr_dir):
+        if d.exists() and any(d.iterdir()):
+            print(f"Clearing stale files in {d} from a previous run")
+            shutil.rmtree(d)
+    hr_dir.mkdir(parents=True, exist_ok=True)
+    lr_dir.mkdir(parents=True, exist_ok=True)
+
+    count = 0
+    for i, path in enumerate(files):
+        try:
+            img = read_rgb(path)
+        except PNGError as e:
+            print(f"Warning: could not read {path}: {e}")
+            continue
+        hr = resize_hr_image(img, hr_size)
+        lr = create_lr_image(hr, lr_size, degradation, rng)
+        name = f"{path.stem}.png"
+        write_png(hr_dir / name, hr)
+        write_png(lr_dir / name, lr)
+        count += 1
+        if (i + 1) % 500 == 0:
+            print(f"{desc}: {i + 1}/{len(files)}")
+    return count
+
+
+def save_to_hdf5(split_dir: Path, output_path: Path, hr_size: int = 256,
+                 lr_size: int = 64) -> None:
+    raise NotPorted("--hdf5: HDF5 output needs h5py, which the card's machine does not have "
+                    "(ROADMAP A.7.1); the train CLI reads the PNG folders this writes")
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Prepare FFHQ SR data (PyTorch port)")
+    parser.add_argument("--input", type=str, required=True, help="Raw image dir")
+    parser.add_argument("--output", type=str, required=True, help="Output dir")
+    parser.add_argument("--hr-size", type=int, default=256)
+    parser.add_argument("--lr-size", type=int, default=64)
+    parser.add_argument("--degradation", type=str, default="bicubic",
+                        choices=["bicubic", "bilinear", "realistic"])
+    parser.add_argument("--train-ratio", type=float, default=0.857)
+    parser.add_argument("--val-ratio", type=float, default=0.071)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--hdf5", "--save-hdf5", dest="hdf5", action="store_true",
+                        help="Also pack splits into .h5 files (not ported: raises)")
+    parser.add_argument("--max-images", type=int, default=None)
+    parser.add_argument("--dry-run", action="store_true",
+                        help="Show the split without processing")
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None, rng: Optional[np.random.RandomState] = None
+         ) -> dict:
+    """The CLI; returns the per-split counts (empty on a dry run).
+    ``rng``: the realistic noise's stream (None: numpy's global one)."""
+    args = parse_args(argv)
+    if args.hdf5:
+        save_to_hdf5(Path(args.output), Path(args.output))
+    files = get_image_files(Path(args.input))
+    if args.max_images:
+        files = files[: args.max_images]
+    dupes = [st for st, c in Counter(f.stem for f in files).items() if c > 1]
+    if dupes:
+        # outputs are flat HR/<stem>.png: colliding stems would overwrite pairs
+        raise SystemExit(
+            f"{len(dupes)} duplicate stems across subdirectories "
+            f"(e.g. {dupes[:3]}); rename or flatten the input first")
+    check_inputs(files)
+    print(f"Found {len(files)} images")
+
+    train_f, val_f, test_f = split_dataset(files, args.train_ratio, args.val_ratio, args.seed)
+    if args.dry_run:
+        print(f"  Train: {len(train_f)} images")
+        print(f"  Val:   {len(val_f)} images")
+        print(f"  Test:  {len(test_f)} images")
+        print("\n[Dry run] No files were processed.")
+        return {}
+    out = Path(args.output)
+    stats = {}
+    for split, flist in (("train", train_f), ("val", val_f), ("test", test_f)):
+        stats[split] = process_and_save_images(flist, out / split, args.hr_size, args.lr_size,
+                                               args.degradation, desc=split, rng=rng)
+    (out / "prepare_stats.json").write_text(json.dumps({
+        "stats": stats,
+        "hr_size": args.hr_size,
+        "lr_size": args.lr_size,
+        "degradation": args.degradation,
+        "seed": args.seed,
+    }, indent=2))
+    print(f"Done: {stats}")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

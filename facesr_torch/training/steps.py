@@ -93,7 +93,7 @@ from facesr_torch.parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum
 from facesr_torch.training.optim import AdamW
 
 __all__ = ["TrainState", "init_ema", "ema_update", "trainable_parameters", "make_train_step",
-           "make_gan_train_step", "make_eval_step", "eval_metrics_from_sums"]
+           "make_gan_train_step", "make_eval_step", "eval_metrics_from_sums", "leaf_norms"]
 
 LossApply = Callable[[Dict[str, Any], torch.Tensor, torch.Tensor],
                      Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -160,6 +160,19 @@ def _update(optimizer: AdamW, grads, state, params, tp) -> None:
     optimizer.update(grads, state, params, shard=tp)
 
 
+def leaf_norms(grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
+               shard=None) -> Dict[str, torch.Tensor]:
+    """Each gradient's L2 norm in f32, on its device (0-d tensors, no host
+    read). With the `model` shard or the `pp` stage, a split leaf's norm is
+    the whole leaf's: its parts' squares summed over the group (one
+    all-reduce), an empty part (a stage's other groups) adding 0."""
+    sq = {n: torch.sum(g.float() * g.float()) for n, g in grads.items()}
+    split = [] if shard is None else [n for n in grads if tensor.is_split(params[n])]
+    if split:
+        sq.update(zip(split, shard.sum(torch.stack([sq[n] for n in split])).unbind()))
+    return {n: torch.sqrt(v) for n, v in sq.items()}
+
+
 def _reduced(grads, mesh: Optional[Mesh]):
     return grads if mesh is None else all_reduce_mean(grads, mesh)
 
@@ -212,13 +225,17 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
                     compute_dtype: Optional[torch.dtype] = None,
                     ema_decay: float = 0.0, quant_fn: QuantFn = None,
                     mesh: Optional[Mesh] = None, pp_microbatches: int = 0,
+                    grad_norms: bool = False,
                     ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Content-only (no GAN) step: ``train_step(state, hr) -> (state,
     metrics)``, ``hr`` an NHWC batch in [0, 1] on the model's device (this
     rank's batch rows under ``mesh``, whole images on a grid). The state is updated in place and
     returned; metrics are the loss components, ``loss`` and, with the
     non-finite guard, the running count ``opt_notfinite``. On `data,pp`
-    the trunk runs in ``pp_microbatches`` (0: S) microbatches."""
+    the trunk runs in ``pp_microbatches`` (0: S) microbatches.
+    ``grad_norms``: metrics also hold ``grad_norms``, each trained
+    parameter's gradient norm (`leaf_norms`: after the mean over the
+    ranks, before the clip; the whole leaf's on every mesh)."""
     mesh = _dp(mesh)
     shard, tp, pipe = _row_shard(mesh), _model_shard(mesh), _pipe(mesh)
 
@@ -233,8 +250,9 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
                                  **_trunk(state, pipe, pp_microbatches, True, compute_dtype))
                 loss, comps = loss_apply(state.loss_params, sr, hr)
                 grads = _grad(loss, params, pipe)
-            grads = _reduced(grads, mesh)
-        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp or pipe)
+            grads = dict(zip(params, _reduced(grads, mesh)))
+            norms = leaf_norms(grads, params, tp or pipe) if grad_norms else None
+        _update(optimizer, grads, state.opt_state, params, tp or pipe)
         if ema_decay > 0:
             ema_update(state.ema_params, state.model, ema_decay)
         state.step += 1
@@ -243,6 +261,8 @@ def make_train_step(loss_apply: LossApply, optimizer: AdamW, scale_factor: int =
         metrics = _mean_metrics(metrics, mesh)
         if "total_notfinite" in state.opt_state:
             metrics["opt_notfinite"] = state.opt_state["total_notfinite"]
+        if norms is not None:
+            metrics["grad_norms"] = norms
         return state, metrics
 
     train_step.row_shard = shard  # its exchange counts (None unsharded)
@@ -257,6 +277,7 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                         compute_dtype: Optional[torch.dtype] = None, ema_decay: float = 0.0,
                         guard_stats: bool = False, quant_fn: QuantFn = None,
                         mesh: Optional[Mesh] = None, pp_microbatches: int = 0,
+                        grad_norms: bool = False,
                         ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """Adversarial step: ``d_updates_per_g`` discriminator updates on
     (hr, detached sr), then one generator update with content +
@@ -279,7 +300,8 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
     forward runs on the shard's image rows (the module docstring); on a
     `data,model` grid every forward on the rank's channel slices; on a
     `data,space,model` grid on both; on a `data,pp` grid G's trunk runs as
-    the pipeline, D replicated."""
+    the pipeline, D replicated. ``grad_norms``: G's gradient norms, as in
+    `make_train_step`."""
     mesh = _dp(mesh)
     shard, tp, pipe = _row_shard(mesh), _model_shard(mesh), _pipe(mesh)
 
@@ -315,8 +337,9 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
                                  gan_type)
                 loss = content + gan_weight * g_adv
                 grads = _grad(loss, params, pipe)
-            grads = _reduced(grads, mesh)
-        _update(optimizer, dict(zip(params, grads)), state.opt_state, params, tp or pipe)
+            grads = dict(zip(params, _reduced(grads, mesh)))
+            norms = leaf_norms(grads, params, tp or pipe) if grad_norms else None
+        _update(optimizer, grads, state.opt_state, params, tp or pipe)
         metrics = {k: v.detach() for k, v in comps.items()}
         metrics.update(g_adv=g_adv.detach(), loss=loss.detach(), d_loss=d_loss,
                        d_real=d_real_score, d_fake=d_fake_score)
@@ -331,6 +354,8 @@ def make_gan_train_step(loss_apply: LossApply, optimizer: AdamW, d_optimizer: Ad
             metrics["opt_notfinite"] = state.opt_state["total_notfinite"]
         if "total_notfinite" in state.d_opt_state:
             metrics["d_opt_notfinite"] = state.d_opt_state["total_notfinite"]
+        if norms is not None:
+            metrics["grad_norms"] = norms
         return state, metrics
 
     train_step.row_shard = shard  # its exchange counts (None unsharded)

@@ -19,7 +19,12 @@ starts) so they stay index-aligned with the others.
 
 Every ``step_log_every`` steps the loss is printed, the one host read
 between epochs; the epoch line adds the seconds the step loop waited on
-the loader and the median host interval between step dispatches.
+the loader and the median host interval between step dispatches. With
+``log_gradients_every`` N > 0 the steps compute every trained parameter's
+gradient norm on the device (the whole leaf's on every mesh), and every
+N steps they come to the host into ``gradient_monitor`` (a
+`callbacks.GradientMonitor`, by the port's parameter names); they stay
+out of the epoch's metric means.
 
 Checkpoints are ``torch.save`` files with the JAX Trainer's payload:
 ``model_state_dict`` under the reference key names and ``config`` (the
@@ -143,6 +148,7 @@ from facesr_torch.parallel.mesh import (Mesh, all_reduce_max, all_reduce_sum, ch
                                         pp_param_shardings, pp_stages, replicate, shard_batch,
                                         tp_param_shardings)
 from facesr_torch.training import schedules
+from facesr_torch.training.callbacks import GradientMonitor
 from facesr_torch.training.optim import AdamW, set_learning_rate
 from facesr_torch.training.steps import (TrainState, _dp, _mean_metrics, _reduced, _slabs,
                                          eval_metrics_from_sums, init_ema,
@@ -186,6 +192,9 @@ class TrainerConfig:
 
     # print the loss every this many steps (one host read each), 0 = off
     step_log_every: int = 24
+    # every this many steps the per-parameter gradient norms come to the
+    # host into `Trainer.gradient_monitor` (0 = off: the steps compute none)
+    log_gradients_every: int = 0
 
     checkpoint_dir: str = "checkpoints"
     save_every: int = 10
@@ -449,11 +458,14 @@ class Trainer:
             opt_state=self.optimizer.init(trainable_parameters(self.model), cfg.learning_rate),
             loss_params=self.loss_fn.params,
             ema_params=init_ema(self.model) if self.use_ema else None)
+        norms_on = cfg.log_gradients_every > 0
+        self.gradient_monitor = GradientMonitor() if norms_on else None
         self._train_step = make_train_step(loss_apply, self.optimizer,
                                            scale_factor=cfg.scale_factor,
                                            compute_dtype=self.compute_dtype,
                                            ema_decay=cfg.ema_decay, quant_fn=quant_fn,
-                                           mesh=self.mesh, pp_microbatches=self._pp_micro)
+                                           mesh=self.mesh, pp_microbatches=self._pp_micro,
+                                           grad_norms=norms_on)
         self._eval_step = make_eval_step(loss_apply_eval, scale_factor=cfg.scale_factor,
                                          use_ema=self.use_ema, quant_fn=quant_fn,
                                          mesh=self.mesh, pp_microbatches=self._pp_micro)
@@ -480,7 +492,7 @@ class Trainer:
                 ema_decay=cfg.ema_decay,
                 # the BN running stats sit outside the optimiser's guard
                 guard_stats=cfg.skip_nonfinite_updates > 0, quant_fn=quant_fn,
-                mesh=self.mesh, pp_microbatches=self._pp_micro)
+                mesh=self.mesh, pp_microbatches=self._pp_micro, grad_norms=norms_on)
         self._replicate_state()
         # tp and pp: the whole state's placement, then each rank's part
         self._tp, self._pp = self.mesh.model_shard(), self.mesh.pp_shard()
@@ -775,8 +787,11 @@ class Trainer:
                 break
             hr = self._batch_to_device(batch["hr"])
             self.state, metrics = step_fn(self.state, hr)
+            norms = metrics.pop("grad_norms", None)  # kept out of the epoch's means
             pending.append(metrics)
             self.global_step += 1
+            if norms is not None and self.global_step % self.config.log_gradients_every == 0:
+                self.gradient_monitor.update(norms)  # one host read
             dispatched.append(time.perf_counter())
             if every > 0 and len(pending) % every == 0:
                 print(f"  step {len(pending)}{total} loss {metrics['loss'].item():.4f}",

@@ -1,7 +1,7 @@
 """The port stands alone: nothing under facesr_torch/ and nothing in
 chip_smoke.py imports jax, flax, optax or the JAX package `facesr`, nor
 a package the card's machine lacks (cv2, PIL, PyYAML, h5py, msgpack,
-matplotlib, scikit-image)."""
+matplotlib, scikit-image, pandas)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "facesr", "cv2", "PIL", "yaml", "h5py",
-             "msgpack", "matplotlib", "skimage")
+             "msgpack", "matplotlib", "skimage", "pandas")
 FILES = sorted((ROOT / "facesr_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
