@@ -45,7 +45,15 @@ catches an error and goes on):
    (256x256, HR-only) and 48 validation HR + LR pairs written with the
    port's PNG encoder, 48 of them decoded back bitwise; the stage-1
    training loader alone as the CLI builds it, with and without
-   ``--fast-loader`` (images/s, single-thread decode ms an image); then
+   ``--fast-loader`` (images/s, single-thread decode ms an image); (b) the
+   image decoders, on the host: every file of ``tests/fixtures/codecs``
+   (JPEG baseline, progressive, restart intervals, every sampling, EXIF
+   orientations; 16-bit, palette, low-bit and Adam7 PNG; BMP; TIFF)
+   decoded natively and plainly, each held to the shape and SHA-256 of
+   cv2's decode in ``digests.json``; single-thread decode ms of a
+   1024x1024 and a 256x256 4:2:0 q95 JPEG, native and plain; the same
+   loaders over a folder of 1024x1024 JPEGs (images/s against the PNG
+   figure); then
    ``python -m facesr_torch.cli.train`` in this process with
    ``configs/stages/stage1_psnr_config.yaml``, then
    ``stage2_ssim_config.yaml`` and ``stage3_gan_config.yaml`` (GAN), all
@@ -107,9 +115,12 @@ catches an error and goes on):
    (micro-batched: at its cohort's batch size, every cohort recorded by
    the server and recomputed), launches = 6 x forwards,
    requests/s, p50/p99 latency and the batching factor from ``/health``;
-   controls (an f32 server launches nothing, a JPEG body gets 400); one
-   request's host time split into PNG decode, `prepare_inputs`, the
-   forward and PNG encode;
+   then JPEG bodies (the fixtures' faces and small JPEGs, their decodes
+   held to the digests) served in bf16 by 16 clients: every response
+   exactly `Predictor`'s uint8 output at batch 1 on that decode, 6
+   launches a request, requests/s; controls (an f32 server launches
+   nothing, a truncated JPEG body gets 400); one request's host time split
+   into PNG or JPEG decode, `prepare_inputs`, the forward and PNG encode;
 12. int8 serving and QAT, the sixth path: the s8 conv (im2col +
    ``torch._int_mm``) at every shape the 6x10x64 model gives it, its s32
    product bitwise against the f64 conv and its output against the CPU's,
@@ -1001,6 +1012,12 @@ REPO = Path(__file__).resolve().parent
 STAGE1_YAML = REPO / "configs/stages/stage1_psnr_config.yaml"
 STAGE2_YAML = REPO / "configs/stages/stage2_ssim_config.yaml"
 STAGE3_YAML = REPO / "configs/stages/stage3_gan_config.yaml"
+# phase 8 (b): the image decoders against cv2's digests (the card's machine
+# has no cv2), their single-thread times, the loaders over 1024x1024 JPEGs
+CODEC_FIXTURES = REPO / "tests/fixtures/codecs"
+JPEG_FACE, JPEG_FACE_256 = "face_1024_q95_420.jpg", "face_256_q95_420.jpg"
+DECODE_REPS, DECODE_PLAIN_REPS = 10, 2
+JPEG_LOADER_IMAGES = 192  # copies of the 1024x1024 face; one epoch a loader
 
 
 def write_png_set(root: Path) -> dict:
@@ -1028,6 +1045,70 @@ def write_png_set(root: Path) -> dict:
                 png.write_png(root / split / "LR" / f"{i:05d}.png",
                               resize_cubic(img, (CLI_LR, CLI_LR)), level=6)
     return written
+
+
+def codec_fixtures() -> dict:
+    """name -> (file bytes, [h, w, 3], SHA-256 of cv2's RGB decode) of every
+    file of ``tests/fixtures/codecs`` (``digests.json``)."""
+    digests = json.loads((CODEC_FIXTURES / "digests.json").read_text())
+    return {name: ((CODEC_FIXTURES / name).read_bytes(), d["shape"], d["sha256"])
+            for name, d in sorted(digests.items())}
+
+
+def rgb_digest(img: np.ndarray):
+    import hashlib
+
+    return list(img.shape), hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def decoder_check(card: str, tmp: Path, cfg1: dict, png_rates: dict) -> None:
+    """Phase 8 (b): every fixture decoded by the native and the plain
+    decoders and held to cv2's digest; the single-thread decode times; the
+    stage-1 loaders over a folder of 1024x1024 JPEGs."""
+    import shutil
+
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.data import codecs
+
+    t0 = time.perf_counter()
+    fixtures = codec_fixtures()
+    bad = [f"{name} ({label})" for name, (data, shape, sha) in fixtures.items()
+           for label, fn in (("native", codecs.imdecode), ("plain", codecs.imdecode_numpy))
+           if rgb_digest(fn(data, name)) != (shape, sha)]
+    log(f"  (b) {len(fixtures)} decoder fixtures (JPEG, PNG, BMP, TIFF): native and plain "
+        f"decodes equal to cv2's digest: {2 * len(fixtures) - len(bad)} of "
+        f"{2 * len(fixtures)} in {time.perf_counter() - t0:.2f} s")
+    if bad:
+        raise AssertionError(f"decodes that differ from cv2's: {bad}")
+    for name in (JPEG_FACE, JPEG_FACE_256):
+        data, shape = fixtures[name][:2]
+        native_ms = host_ms(lambda: codecs.imdecode(data), DECODE_REPS)
+        plain_ms = host_ms(lambda: codecs.imdecode_numpy(data), DECODE_PLAIN_REPS)
+        log(f"  single-thread decode of {name} ({shape[0]}x{shape[1]}, {len(data)} bytes): "
+            f"native median of {DECODE_REPS} {native_ms:.3f} ms, plain median of "
+            f"{DECODE_PLAIN_REPS} {plain_ms:.3f} ms [{card}]")
+    root = tmp / "jpeg_data"
+    face = fixtures[JPEG_FACE][0]
+    for split, n in (("train", JPEG_LOADER_IMAGES), ("val", 2)):  # the CLI builds both
+        (root / split / "HR").mkdir(parents=True)
+        for i in range(n):
+            (root / split / "HR" / f"{i:05d}.jpg").write_bytes(face)
+    try:
+        for fast in (False, True):
+            argv = ["--config", str(STAGE1_YAML)] + (["--fast-loader"] if fast else [])
+            loader, _ = train_cli.make_loaders(train_cli.parse_args(argv), cfg1, str(root),
+                                               CLI_BATCH, seed=42)
+            n, t0 = 0, time.perf_counter()
+            for batch in loader:
+                if batch["hr"].shape != (CLI_BATCH, CLI_HR, CLI_HR, 3):
+                    raise AssertionError(f"JPEG loader batch {batch['hr'].shape}")
+                n += len(batch["hr"])
+            rate = n / (time.perf_counter() - t0)
+            log(f"  stage-1 training loader{' --fast-loader' if fast else ''} over "
+                f"{JPEG_LOADER_IMAGES} 1024x1024 JPEGs (one epoch): {rate:.1f} images/s "
+                f"against {png_rates[fast]:.1f} on the 256x256 PNGs [{card}]")
+    finally:
+        shutil.rmtree(root)
 
 
 class _Tee:
@@ -1100,6 +1181,7 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
         log(f"  stage-1 training loader{' --fast-loader' if fast else ''} (batch "
             f"{CLI_BATCH}, {cfg1['data']['num_workers']} workers, 2 epochs): "
             f"{rates[fast]:.1f} images/s [{card}]")
+    decoder_check(card, tmp, cfg1, rates)
 
     # the CLI, in this process, from the temporary directory (the YAMLs'
     # ./checkpoints lands there)
@@ -1821,6 +1903,22 @@ def http_get(port, path):
         conn.close()
 
 
+def http_jpeg_bodies():
+    """Phase 11's JPEG request bodies: the fixtures' JPEGs of at most 128 px
+    (the API's LR path), then the 256x256 and 1024x1024 faces (its HR
+    path), each decode held to cv2's digest; returns (bodies, names)."""
+    from facesr_torch.data import codecs
+
+    fixtures = codec_fixtures()
+    names = [n for n, (data, shape, _) in fixtures.items()
+             if n.startswith("jpeg_") and max(shape[:2]) <= 128] + [JPEG_FACE_256, JPEG_FACE]
+    for n in names:
+        data, shape, sha = fixtures[n]
+        if rgb_digest(codecs.imdecode(data, n)) != (shape, sha):
+            raise AssertionError(f"{n}: the decode differs from cv2's digest")
+    return [fixtures[n][0] for n in names], names
+
+
 def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> dict:
     """Phase 11: the serving stack on the card. Returns the group-kernel
     launches of its main paths and the scratch variant's timings."""
@@ -1828,7 +1926,7 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
     from facesr_torch.app.demo import prepare_inputs
     from facesr_torch.ckpt import fckpt
     from facesr_torch.ckpt.export import export_serving, input_shape, load_exported
-    from facesr_torch.data import png
+    from facesr_torch.data import codecs, png
     from facesr_torch.ops import rcab_group as rg
     from facesr_torch.parallel.serving import Predictor, SpatialPredictor, build_serving_fn
 
@@ -2083,7 +2181,44 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
             raise AssertionError(f"HTTP {label}: {n} launches for {calls} forwards "
                                  f"(want {per_fwd} a forward)")
 
-    # controls: an f32 server launches no kernel; a JPEG body is a 400
+    # 11e: JPEG bodies served in bf16, each decode held to cv2's digest
+    jpeg_bodies, jpeg_names = http_jpeg_bodies()
+    jpeg_lrs = [prepare_inputs(codecs.imdecode(b))[0] for b in jpeg_bodies]
+    jpeg_ref = [(pred(lr[None])[0] * 255).round().astype(np.uint8) for lr in jpeg_lrs]
+    n_small = len(jpeg_bodies) - 2  # the last two are the 256x256 and 1024x1024 faces
+    jplan = [[c % n_small] + [(c * HTTP_REQUESTS + r) % n_small for r in range(HTTP_REQUESTS)]
+             + ([n_small + c % 2] if c < HTTP_HR_CLIENTS else []) for c in range(HTTP_CLIENTS)]
+    jn_req = sum(len(p) for p in jplan)
+    srv = api.serve(str(ckdir), port=0, host="127.0.0.1", device=dev, dtype="bf16")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        (wall, lat, warm, results, errors), n = counted(
+            lambda: drive_http(srv.server_address[1], jpeg_bodies, jplan))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.service.close()
+    if errors or len(results) != jn_req or any(s != 200 for _, s, _ in results):
+        raise AssertionError(f"HTTP bf16 JPEG bodies: errors {errors[:3]}, {len(results)} of "
+                             f"{jn_req} answered, statuses {sorted({s for _, s, _ in results})}: "
+                             f"{[d[:200] for _, s, d in results if s != 200][:3]}")
+    exact = sum(np.array_equal(png.decode_rgb(d), jpeg_ref[i]) for i, _, d in results)
+    lat_ms = sorted(v * 1e3 for v in lat)
+    log(f"  HTTP bf16, JPEG bodies ({n_small} small JPEGs of 24x40 to 37x53 and the 256x256 "
+        f"and 1024x1024 faces; every decode equal to cv2's digest): {jn_req - len(jplan)} timed "
+        f"requests from {HTTP_CLIENTS} keep-alive clients in {wall:.3f} s = "
+        f"{(jn_req - len(jplan)) / wall:.1f} requests/s, latency p50 "
+        f"{lat_ms[len(lat_ms) // 2]:.3f} ms p99 "
+        f"{lat_ms[min(len(lat_ms) - 1, int(math.ceil(0.99 * len(lat_ms))) - 1)]:.3f} ms; "
+        f"{exact} of {jn_req} responses exactly Predictor's uint8 output at batch 1 on the "
+        f"decoded LR; {n} launches [{card}]")
+    if exact != jn_req:
+        raise AssertionError(f"HTTP JPEG bodies: {jn_req - exact} responses are not Predictor's "
+                             "output on their decoded LR")
+    if n != per_fwd * jn_req:
+        raise AssertionError(f"HTTP JPEG bodies: {n} launches for {jn_req} requests")
+
+    # controls: an f32 server launches no kernel; a truncated JPEG body is a 400
     srv = api.serve(str(ckdir), port=0, host="127.0.0.1", device=dev, dtype="f32")
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     try:
@@ -2091,7 +2226,7 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
         (_, _, _, results, errors), n = counted(lambda: drive_http(port, bodies, [[0, 1]]))
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
         try:
-            conn.request("POST", "/super-resolve", body=b"\xff\xd8\xff\xe0\x00\x10JFIF" + b"\0" * 64)
+            conn.request("POST", "/super-resolve", body=jpeg_bodies[0][:200])
             resp = conn.getresponse()
             jpeg_status, jpeg_body = resp.status, resp.read()
         finally:
@@ -2103,19 +2238,24 @@ def serving_phase(dev, card: str, tmp: Path, fwd_ms: float, pred_ms: float) -> d
     if errors or [s for _, s, _ in results] != [200, 200] or n != 0:
         raise AssertionError(f"f32 server: errors {errors}, statuses "
                              f"{[s for _, s, _ in results]}, {n} launches (want 0)")
-    if jpeg_status != 400 or b"A.7.2" not in jpeg_body:
-        raise AssertionError(f"a JPEG body got {jpeg_status} {jpeg_body[:120]!r}")
-    log(f"  controls: f32 server 2 requests, 200, 0 launches; JPEG body -> {jpeg_status} "
-        f"{json.loads(jpeg_body)['error'][:60]!r}... (the int8 startup control is phase 12's)")
+    if jpeg_status != 400 or b"truncated" not in jpeg_body:
+        raise AssertionError(f"a truncated JPEG body got {jpeg_status} {jpeg_body[:120]!r}")
+    log(f"  controls: f32 server 2 requests, 200, 0 launches; a truncated JPEG body -> "
+        f"{jpeg_status} {json.loads(jpeg_body)['error'][:70]!r} (the int8 startup control is "
+        "phase 12's)")
 
     # how one request's host time splits (one thread, no server)
     server_pred = Predictor(model, dtype=torch.bfloat16, max_batch=1, device=dev)
-    for label, body in (("64x64", bodies[0]), ("256x256", bodies[HTTP_LR_IMAGES])):
-        rgb = png.decode_rgb(body)
+    for label, body in (("64x64 PNG", bodies[0]), ("256x256 PNG", bodies[HTTP_LR_IMAGES]),
+                        (f"{jpeg_names[0]}", jpeg_bodies[0]),
+                        (f"{jpeg_names[-2]}", jpeg_bodies[-2]),
+                        (f"{jpeg_names[-1]}", jpeg_bodies[-1])):
+        rgb = codecs.imdecode(body)
         lr, _ = prepare_inputs(rgb)
         sr = server_pred(lr[None])[0]
         u8 = (sr * 255).round().astype(np.uint8)
-        split = {"PNG decode": host_ms(lambda: png.decode_rgb(body), SPLIT_REPS),
+        kind = "JPEG" if body[:2] == b"\xff\xd8" else "PNG"
+        split = {f"{kind} decode": host_ms(lambda: codecs.imdecode(body), SPLIT_REPS),
                  "prepare_inputs": host_ms(lambda: prepare_inputs(rgb), SPLIT_REPS),
                  "forward (Predictor, numpy in and out)":
                      host_ms(lambda: server_pred(lr[None]), SPLIT_REPS),
@@ -6517,10 +6657,15 @@ def main() -> int:
     log(f"== 1. header\n  nvidia-smi: {card}\n  torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s), {kind}")
 
-    log("== 2. build (nvcc, sm_90a)")
+    log("== 2. build (nvcc, sm_90a; the JPEG decoder's host C++ with g++ beside it)")
+    from facesr_torch import native
+
     t0 = time.perf_counter()
-    _build.build_all(["rcab_group"])
-    log(f"  built in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as gxx:
+        jpeg_build = gxx.submit(lambda: (native.load("jpeg_decode"), time.perf_counter() - t0))
+        _build.build_all(["rcab_group"])
+        log(f"  built in {time.perf_counter() - t0:.1f} s; jpeg_decode.cpp (g++) in "
+            f"{jpeg_build.result()[1]:.1f} s")
     for name, text in _build.build_logs().items():
         for line in text.splitlines():
             if any(s in line for s in ("registers", "spill", "smem", "Compiling entry")):

@@ -7,7 +7,9 @@ Endpoints:
                              (+ "batching": per-model {"calls", "images"} when
                              micro-batching)
   GET  /models            -> model names + configs
-  POST /super-resolve     -> body: PNG image bytes. Query: ?model=<name>
+  POST /super-resolve     -> body: image bytes (PNG, JPEG, BMP or TIFF,
+                             decoded bitwise as cv2.imdecode by
+                             `data.codecs`). Query: ?model=<name>
                              (default: the first loaded). Response: PNG bytes
                              of the SR image. An input of at most 128 px is
                              LR (resized to 64 with INTER_AREA); a larger one
@@ -16,7 +18,7 @@ Endpoints:
 
 Usage:
   python -m facesr_torch.app.api --checkpoint-dir checkpoints --port 8000 --dtype bf16
-  curl -X POST --data-binary @face.png localhost:8000/super-resolve > sr.png
+  curl -X POST --data-binary @face.jpg localhost:8000/super-resolve > sr.png
 
 ``--dtype bf16`` serves every model through `ShardedPredictor` over every
 visible card (`Predictor` on one; the group-kernel
@@ -36,8 +38,7 @@ ladder has no work to do. ``--exported`` serves ``.pt2`` artifacts
 ``--device cpu`` is given. ``--compile-cache`` is accepted and caches
 nothing: the port compiles no programs, and its one CUDA build is kept in
 ``facesr_torch/_build/`` across restarts already.
-
-Not ported: JPEG bodies (400, ROADMAP A.7.2).
+A body that does not decode gets a 400 naming the fault.
 """
 
 from __future__ import annotations
@@ -57,7 +58,6 @@ from facesr_torch.device import DeviceLike, resolve_device
 
 __all__ = ["SRService", "make_handler", "serve", "main"]
 
-_JPEG_MAGIC = b"\xff\xd8\xff"
 PNG_LEVEL = 1  # zlib level of the response PNGs (cv2.imencode's default)
 
 
@@ -123,21 +123,20 @@ class SRService:
         return out
 
     def super_resolve(self, image_bytes: bytes, model_name: Optional[str] = None) -> bytes:
-        """PNG bytes in, the SR image's PNG bytes out. ValueError for a body
-        that is not a PNG the port reads, KeyError for an unknown model."""
+        """Image bytes in, the SR image's PNG bytes out. ValueError for a body
+        that does not decode (corrupt, or a format the port does not read),
+        KeyError for an unknown model."""
         from facesr_torch.app.demo import prepare_inputs
-        from facesr_torch.data.png import PNGError, decode_rgb, encode
+        from facesr_torch.data.codecs import ImageDecodeError, imdecode
+        from facesr_torch.data.png import encode
 
         name = model_name or self.default
         if name not in self.models and name not in self.exported:
             raise KeyError(f"unknown model {name!r}; available: "
                            f"{list(self.models) + list(self.exported)}")
-        if image_bytes.startswith(_JPEG_MAGIC):
-            raise ValueError("could not decode image: JPEG bodies are not decoded by the "
-                             "port yet (ROADMAP A.7.2); POST a PNG")
         try:
-            rgb = decode_rgb(image_bytes, "request body")
-        except PNGError as e:
+            rgb = imdecode(image_bytes, "request body")
+        except ImageDecodeError as e:
             raise ValueError(f"could not decode image: {e}") from e
         lr, _ = prepare_inputs(rgb)
         if name in self.batchers:

@@ -23,7 +23,8 @@ calibration), else per-image dynamic scales. It runs on CUDA unless
 
 Not ported: the gradio UI and its ``--port``/``--share``/``--sample-dir``
 (gradio is not installed, so ``main`` without ``--image`` prints the JAX
-demo's message) and JPEG input (PNG only, ROADMAP A.7.2).
+demo's message). ``--image`` is read by `data.codecs.imread` (PNG, JPEG,
+BMP, TIFF), bitwise cv2's.
 """
 
 from __future__ import annotations
@@ -272,7 +273,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> int:
-    from facesr_torch.data.png import PNGError, read_rgb, write_png
+    from facesr_torch.data.codecs import ImageDecodeError, imread
+    from facesr_torch.data.png import write_png
     from facesr_torch.evaluation.metrics import LPIPS
 
     args = parse_args(argv)
@@ -286,9 +288,9 @@ def main(argv=None) -> int:
         return 1
     name = next(iter(models))
     try:
-        img = read_rgb(args.image)
-    except PNGError as e:
-        print(f"Cannot read image {args.image}: {e} (PNG only; JPEG is ROADMAP A.7.2)")
+        img = imread(args.image)
+    except ImageDecodeError as e:
+        print(f"Cannot read image {args.image}: {e}")
         return 1
     res = process_image(img, models[name], LPIPS())
     out = Path(args.output)

@@ -104,14 +104,16 @@ def _calibration_lrs(files, scale: int, device) -> np.ndarray:
     """LR synthesised (the trainer's bicubic) from the readable ones of
     ``files``, as one batch of the first image's shape: the distribution
     the predictor serves."""
-    from facesr_torch.data.png import read_rgb
+    from facesr_torch.data.codecs import ImageDecodeError, UnsupportedImage, imread
     from facesr_torch.evaluation.batched import synthesize_lr_batched
 
     hrs = []
     for f in files:
         try:
-            hrs.append(_center_crop(read_rgb(f), scale))
-        except IOError:
+            hrs.append(_center_crop(imread(f), scale))
+        except UnsupportedImage:
+            raise
+        except ImageDecodeError:
             continue
     if not hrs:
         raise SystemExit(f"--calibrate: none of the first {len(files)} eval images were "
@@ -135,7 +137,8 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
     from facesr_torch.cli.test_model import compute_metrics
     from facesr_torch.data.cv_compat import resize
     from facesr_torch.data.dataset import _list_images
-    from facesr_torch.data.png import read_rgb, write_png
+    from facesr_torch.data.codecs import ImageDecodeError, UnsupportedImage, imread
+    from facesr_torch.data.png import write_png
     from facesr_torch.device import resolve_device
     from facesr_torch.evaluation.batched import (make_predictor, sr_batched,
                                                  synthesize_lr_batched, to_uint8)
@@ -194,8 +197,10 @@ def run(argv: Optional[List[str]] = None) -> Optional[dict]:
         chunk_files, hrs = [], []
         for f in files[chunk_start:chunk_start + EVAL_CHUNK]:
             try:
-                hr = read_rgb(f)
-            except IOError as e:  # a corrupt or unreadable file: skip it, go on
+                hr = imread(f)
+            except UnsupportedImage:
+                raise
+            except ImageDecodeError as e:  # a corrupt or unreadable file: skip it, go on
                 print(f"  skipping unreadable image {f.name} ({e})")
                 continue
             chunk_files.append(f)

@@ -16,8 +16,9 @@ with `parallel.serving.calibrated_qparams`: the ``.fckpt`` that
 ``--quant-cache`` and the JAX package's loaders read. The API derives its
 cache name as ``<prefix>.<model name>.fckpt``, the model name being the
 checkpoint's stem lowercased. Calibration goes to a temporary file that
-replaces the output only on success. PNG only (JPEG is ROADMAP A.7.2).
-Runs on CUDA unless ``--device`` names another device.
+replaces the output only on success. Images are read by
+`data.codecs.imread` (PNG, JPEG, BMP, TIFF). Runs on CUDA unless
+``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from facesr_torch.data.dataset import _list_images
-    from facesr_torch.data.png import PNGError, read_rgb
+    from facesr_torch.data.codecs import ImageDecodeError, UnsupportedImage, imread
     from facesr_torch.device import resolve_device
     from facesr_torch.models.load import load_any_model
     from facesr_torch.ops.resize import bicubic_down
@@ -72,8 +73,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     imgs = []
     for p in paths:
         try:
-            imgs.append(read_rgb(p).astype(np.float32) / 255.0)
-        except (PNGError, OSError) as e:
+            imgs.append(imread(p).astype(np.float32) / 255.0)
+        except UnsupportedImage:
+            raise
+        except ImageDecodeError as e:
             print(f"Skipping {p.name}: {e}")
     if not imgs:
         raise SystemExit(f"No readable images in {args.calib_dir} "

@@ -16,10 +16,10 @@ given. Checkpoints are any the port loads (`models.load.load_any_model`:
 ``.fckpt`` of either package, ``.pth``). The LR is the port's
 `bicubic_down` of the HR crop, the bicubic column cv2's ``INTER_CUBIC``
 (`data.cv_compat.resize_cubic`), each model's column its f32 forward.
-Images are PNG in and out (`data.png`); another format raises (ROADMAP
-A.7.2). The label bars keep their size and grey, without the text (ROADMAP
-A.8.2): the column order is printed and written to
-``stage_panel_columns.txt``.
+Images are read by `data.codecs.imread` (PNG, JPEG, BMP, TIFF, bitwise
+cv2's) and written as PNG (`data.png`). The label bars keep their size and
+grey, without the text (ROADMAP A.8.2): the column order is printed and
+written to ``stage_panel_columns.txt``.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ def main(argv: Optional[List[str]] = None) -> Path:
 
     import torch
 
-    from facesr_torch.data import png
+    from facesr_torch.data import codecs, png
     from facesr_torch.data.cv_compat import resize_cubic, resize_nearest
     from facesr_torch.data.dataset import _list_images
     from facesr_torch.device import resolve_device
@@ -116,12 +116,11 @@ def main(argv: Optional[List[str]] = None) -> Path:
 
     rows = []
     for i in picks:
-        if files[i].suffix.lower() != ".png":
-            raise ValueError(f"{files[i]}: only PNG images are read by the port "
-                             "(other formats: ROADMAP A.7.2)")
         try:
-            hr = png.read_rgb(files[i])
-        except png.PNGError:  # corrupt sample: skip it, keep the panel alive
+            hr = codecs.imread(files[i])
+        except codecs.UnsupportedImage:
+            raise
+        except codecs.ImageDecodeError:  # corrupt sample: skip it, keep the panel alive
             print(f"  skipping unreadable image {files[i].name}")
             continue
         ch, cw = (hr.shape[0] // args.scale * args.scale, hr.shape[1] // args.scale * args.scale)

@@ -15,8 +15,9 @@ RRDBNet (`models.load.load_any_model`); ``--config`` overrides a
 FaceEnhanceNet's architecture only, as in the JAX CLI.
 ``--exported`` evaluates a ``.pt2`` serving artifact
 (`cli.export_serving`) in place of a checkpoint: the deployed program,
-batched straight through its symbolic batch. Images are PNG files (any
-other file raises with its name).
+batched straight through its symbolic batch. Images are PNG, JPEG, BMP or
+TIFF files, read bitwise as cv2 reads them (`data.codecs`); a corrupt file
+raises with its name.
 """
 
 from __future__ import annotations
@@ -142,7 +143,8 @@ def run(argv: Optional[List[str]] = None) -> List[dict]:
     if not args.checkpoint and not args.exported:
         raise SystemExit("one of --checkpoint / --exported is required")
 
-    from facesr_torch.data.dataset import _list_images, _read_rgb
+    from facesr_torch.data.codecs import imread
+    from facesr_torch.data.dataset import _list_images
     from facesr_torch.device import resolve_device
     from facesr_torch.evaluation.batched import (make_predictor, sr_batched,
                                                  synthesize_lr_batched, to_uint8)
@@ -176,7 +178,7 @@ def run(argv: Optional[List[str]] = None) -> List[dict]:
         import torch
 
         for f in files:
-            hr = _read_rgb(f)
+            hr = imread(f)
             lr = generate_lr(hr, args.scale, device)
             if artifact is not None:
                 sr = artifact(lr[None])[0]
@@ -195,7 +197,7 @@ def run(argv: Optional[List[str]] = None) -> List[dict]:
                      else make_predictor(model, max_batch=args.batch_size, device=device))
         for start in range(0, len(files), EVAL_CHUNK):
             chunk_files = files[start:start + EVAL_CHUNK]
-            hrs = [_read_rgb(f) for f in chunk_files]
+            hrs = [imread(f) for f in chunk_files]
             lrs = synthesize_lr_batched(hrs, args.scale, device=device)
             srs = sr_batched(None, lrs, predictor=predictor)
             for f, hr, lr, sr in zip(chunk_files, hrs, lrs, srs):

@@ -7,8 +7,9 @@
 
 CLI flags override the YAML, which overrides the coded defaults. It trains
 on CUDA unless ``--device cpu`` is given, and raises when there is no card
-and no ``--device``. Images are PNG files under ``data_root``
-(``train/HR`` with or without ``train/LR``, ``val/HR`` + ``val/LR``).
+and no ``--device``. Images are PNG, JPEG, BMP or TIFF files under
+``data_root`` (``train/HR`` with or without ``train/LR``, ``val/HR`` +
+``val/LR``), read bitwise as cv2 reads them (`data.codecs`).
 
 Data parallelism (``mesh_axes: data``, the default), as the JAX CLI runs
 over every visible chip: under torchrun (``RANK``, ``WORLD_SIZE``,

@@ -140,7 +140,7 @@ def evaluate_methods(inv: dict, test_dir: Path, num_images: int, scale: int, int
 
     from facesr_torch.data.cv_compat import resize
     from facesr_torch.data.dataset import _list_images
-    from facesr_torch.data.png import read_rgb
+    from facesr_torch.data.codecs import ImageDecodeError, UnsupportedImage, imread
     from facesr_torch.device import resolve_device
     from facesr_torch.evaluation.batched import (make_predictor, sr_batched,
                                                  synthesize_lr_batched, to_uint8)
@@ -157,8 +157,10 @@ def evaluate_methods(inv: dict, test_dir: Path, num_images: int, scale: int, int
     hrs = []
     for f in files:
         try:
-            h = read_rgb(f)
-        except (IOError, ValueError) as e:
+            h = imread(f)
+        except UnsupportedImage:
+            raise
+        except ImageDecodeError as e:
             print(f"  skipping unreadable image {f.name} ({e})")
             continue
         oy, ox = (h.shape[0] % scale) // 2, (h.shape[1] % scale) // 2

@@ -8,8 +8,8 @@ cache, and the loader factory (port of `facesr/data/dataset.py`).
 - a thread-safe LRU ImageCache with a hit-rate statistic;
 - samples are ``{'hr', 'lr'[, 'filename']}`` float32 HWC arrays in [0, 1].
 
-Images are read with `png.read_rgb`; a JPEG or BMP file raises with its
-name.
+Images (PNG, JPEG, BMP, TIFF) are read with `codecs.imread`, bitwise what
+the JAX package's ``cv2.imread`` gives; a corrupt file raises with its name.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from facesr_torch.data import png
+from facesr_torch.data import codecs
 from facesr_torch.data.cv_compat import resize_cubic
 from facesr_torch.data.loader import DataLoader
 from facesr_torch.data.transforms import PairedTransform, to_array
@@ -37,14 +37,6 @@ def _list_images(d: Path) -> List[Path]:
     every .jpg the moment a single .png exists)."""
     return sorted(p for p in d.iterdir()
                   if p.suffix.lower() in _IMAGE_EXTS)
-
-
-def _read_rgb(path: Path) -> np.ndarray:
-    """HWC RGB uint8; a corrupt or unreadable file raises with its name."""
-    try:
-        return png.read_rgb(path)
-    except png.PNGError as e:
-        raise IOError(f"Could not decode image {path}: {e}") from e
 
 
 class ImageCache:
@@ -121,7 +113,7 @@ class FFHQDataset:
         if self.data_root.suffix == ".h5" or (self.data_root / f"{mode}.h5").exists():
             raise NotImplementedError(
                 f"{data_root}: HDF5 datasets are not read by the port (the card's "
-                "machine has no h5py; ROADMAP A.7); use HR/ + LR/ or HR-only PNG "
+                "machine has no h5py; ROADMAP A.7.2); use HR/ + LR/ or HR-only image "
                 "directories")
         self._init_directory()
 
@@ -204,15 +196,15 @@ class FFHQDataset:
     def load_hr(self, idx: int) -> np.ndarray:
         """Decode only the HR image (the HR-only training loader's path: it
         skips the LR that _load_images would make and discard)."""
-        return _read_rgb(self.hr_files[idx])
+        return codecs.imread(self.hr_files[idx])
 
     def _load_images(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
-        hr_image = _read_rgb(self.hr_files[idx])
+        hr_image = codecs.imread(self.hr_files[idx])
         if self.hr_only_mode:
             h, w = hr_image.shape[:2]
             lr_image = resize_cubic(hr_image, (w // self.scale_factor, h // self.scale_factor))
         else:
-            lr_image = _read_rgb(self.lr_files[idx])
+            lr_image = codecs.imread(self.lr_files[idx])
         return hr_image, lr_image
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:

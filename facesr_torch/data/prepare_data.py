@@ -15,12 +15,13 @@ JAX draws it (one [H, W, 3] array from ``rng``, the global numpy stream
 by default) and added to the channels in reverse, so each value lands
 on the channel it lands on in JAX.
 
-Inputs are the PNGs FFHQ ships as: 8-bit grey, RGB or with alpha,
-non-interlaced. A JPEG, BMP or TIFF file, or a 16-bit, palette or
-interlaced PNG, is refused by name before anything is written (ROADMAP
-A.7.2: the port has no decoder for them; cv2 reads them in the JAX
-package). ``--hdf5`` raises `NotPorted` (A.7.1: the card's machine has
-no h5py).
+Inputs (``.jpg``, ``.jpeg``, ``.png``, ``.bmp``, ``.tiff``, as the JAX
+package lists them) are read by `codecs.imread`, bitwise what the JAX
+package's ``cv2.imread`` gives. A file the port does not decode (a CMYK
+JPEG, a tiled TIFF ...: `codecs.UnsupportedImage`) is refused by name
+before anything is written; one that is corrupt for cv2 too is warned
+about and skipped, as the JAX package skips it. ``--hdf5`` raises
+`NotPorted` (A.7.1: the card's machine has no h5py).
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from facesr_torch.data import codecs
 from facesr_torch.data.cv_compat import (gaussian_blur, resize_area, resize_cubic,
                                          resize_linear)
-from facesr_torch.data.png import SIGNATURE, PNGError, read_rgb, write_png
+from facesr_torch.data.png import write_png
 from facesr_torch.parallel.mesh import NotPorted
 
 __all__ = ["create_lr_image", "resize_hr_image", "get_image_files", "check_inputs",
@@ -79,34 +81,17 @@ def get_image_files(input_dir: Path) -> List[Path]:
     return sorted(set(files))
 
 
-def _png_refusal(path: Path) -> Optional[str]:
-    """Why the port cannot read ``path`` (None when it can)."""
-    if path.suffix.lower() != ".png":
-        return f"{path.suffix} files are not decoded by the port"
-    with open(path, "rb") as f:
-        head = f.read(33)
-    if not head.startswith(SIGNATURE) or head[12:16] != b"IHDR":
-        return "not a PNG file"
-    depth, ctype, interlace = head[24], head[25], head[28]
-    if ctype == 3:
-        return "a palette PNG"
-    if depth != 8:
-        return f"a {depth}-bit PNG"
-    if interlace:
-        return "an interlaced PNG"
-    return None
-
-
 def check_inputs(files: List[Path]) -> None:
     """Raise, before anything is written, when a file is one the port
-    cannot decode (the JAX package reads it through cv2)."""
-    bad = [(f, why) for f in files if (why := _png_refusal(f)) is not None]
+    does not decode (the JAX package reads it through cv2). A corrupt file
+    passes: it is skipped with a warning when its turn comes."""
+    bad = [(f, why) for f in files if (why := codecs.refusal(f)) is not None]
     if bad:
-        shown = "; ".join(f"{f} ({why})" for f, why in bad[:3])
+        shown = "; ".join(why for _, why in bad[:3])
         raise SystemExit(
             f"{len(bad)} input file(s) the port cannot read, e.g. {shown}. The port reads "
-            "8-bit non-interlaced grey/RGB/RGBA PNGs (FFHQ's format); JPEG, BMP, TIFF, 16-bit "
-            "and palette PNGs wait for ROADMAP A.7.2. Convert them to 8-bit PNG first")
+            "JPEG (baseline, progressive), PNG, BMP and TIFF (strips; none, PackBits, LZW or "
+            "Deflate) as cv2 does; convert these first")
 
 
 def split_dataset(files: List[Path], train_ratio: float = 0.857, val_ratio: float = 0.071,
@@ -141,8 +126,10 @@ def process_and_save_images(files: List[Path], output_dir: Path, hr_size: int = 
     count = 0
     for i, path in enumerate(files):
         try:
-            img = read_rgb(path)
-        except PNGError as e:
+            img = codecs.imread(path)
+        except codecs.UnsupportedImage:
+            raise
+        except codecs.ImageDecodeError as e:
             print(f"Warning: could not read {path}: {e}")
             continue
         hr = resize_hr_image(img, hr_size)

@@ -4,7 +4,12 @@
   `facesr_torch.data.png`;
 - ``batch_assembler.cpp``: crop + flip + uint8 -> float32 + stack of a
   training batch (`assemble_hr_batch`), for
-  `facesr_torch.data.fast_loader`.
+  `facesr_torch.data.fast_loader`;
+- ``jpeg_decode.cpp``: a JPEG's Huffman data into coefficient planes
+  (`jpeg_entropy`, one call an image: sequential and progressive scans,
+  restart intervals), and the rest of libjpeg-turbo's default decode
+  (`jpeg_reconstruct`: the islow IDCT, fancy upsampling, YCbCr -> RGB), for
+  `facesr_torch.data.jpeg`. Their plain versions are in ``jpeg_numpy.py``.
 
 Each library is compiled at first use, never at import, into
 ``facesr_torch/_build/``; its file name carries a hash of the compiler
@@ -28,8 +33,13 @@ from typing import Dict, Sequence
 
 import numpy as np
 
+from facesr_torch.native.jpeg_numpy import (RECONSTRUCT_ERRORS, EntropyError,
+                                            jpeg_entropy_numpy, jpeg_reconstruct_numpy)
+
 __all__ = ["NativeBuildError", "load", "png_unfilter", "png_unfilter_numpy",
-           "assemble_hr_batch", "assemble_hr_batch_numpy"]
+           "assemble_hr_batch", "assemble_hr_batch_numpy", "jpeg_entropy",
+           "jpeg_entropy_numpy", "jpeg_reconstruct", "jpeg_reconstruct_numpy",
+           "RECONSTRUCT_ERRORS"]
 
 _SRC = Path(__file__).resolve().parent
 BUILD_DIR = _SRC.parent / "_build"
@@ -39,6 +49,7 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_VP = ctypes.c_void_p
 _SIGNATURES = {
     "png_unfilter": {
         "png_unfilter": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
@@ -48,6 +59,12 @@ _SIGNATURES = {
         "assemble_hr_batch": ([ctypes.POINTER(ctypes.c_void_p), _I32P, _I32P, ctypes.c_int32,
                                ctypes.c_int32, _I32P, _I32P, ctypes.POINTER(ctypes.c_uint8),
                                ctypes.POINTER(ctypes.c_float), ctypes.c_int32], None),
+    },
+    "jpeg_decode": {
+        "jpeg_entropy": ([_VP, ctypes.c_int64, _VP, _VP, _VP, ctypes.c_int32, _VP, _VP, _VP],
+                         ctypes.c_int32),
+        "jpeg_reconstruct": ([_VP, _VP, _VP, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                              ctypes.c_int32, _VP], ctypes.c_int32),
     },
 }
 
@@ -197,4 +214,43 @@ def assemble_hr_batch_numpy(images: Sequence[np.ndarray], crop: int, tops: np.nd
         if flips[i]:
             patch = patch[:, ::-1]
         out[i] = patch.astype(np.float32) * np.float32(1.0 / 255.0)
+    return out
+
+
+def _i32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int32)
+
+
+def jpeg_entropy(data: bytes, frame: np.ndarray, comps: np.ndarray, scans: np.ndarray,
+                 huff: np.ndarray) -> np.ndarray:
+    """Every scan's Huffman-coded data -> int16 [sum(bw * bh), 64]
+    coefficient planes, in C++ (the plan's layout: `jpeg_numpy`). Raises
+    `jpeg_numpy.EntropyError` on a fault in the data."""
+    comps, scans, frame = _i32(comps), _i32(scans), _i32(frame)
+    huff = np.ascontiguousarray(huff, np.uint8)
+    src = np.frombuffer(data, np.uint8)
+    total = int((comps[:, 2].astype(np.int64) * comps[:, 3]).sum())
+    out = np.zeros((total, 64), np.int16)
+    where = np.zeros(2, np.int32)
+    code = load("jpeg_decode").jpeg_entropy(
+        src.ctypes.data, len(data), frame.ctypes.data, comps.ctypes.data, scans.ctypes.data,
+        len(scans), huff.ctypes.data, out.ctypes.data, where.ctypes.data)
+    if code:
+        raise EntropyError(int(code), int(where[0]), int(where[1]))
+    return out
+
+
+def jpeg_reconstruct(coef: np.ndarray, comps: np.ndarray, qts: np.ndarray, width: int,
+                     height: int, color: int) -> np.ndarray:
+    """Coefficient planes -> [height, width, 3] RGB uint8, in C++ (see
+    `jpeg_numpy.jpeg_reconstruct_numpy`). Raises ValueError(code), a
+    `RECONSTRUCT_ERRORS` code."""
+    coef = np.ascontiguousarray(coef, np.int16)
+    comps, qts = _i32(comps), _i32(qts)
+    out = np.empty((height, width, 3), np.uint8)
+    code = load("jpeg_decode").jpeg_reconstruct(
+        coef.ctypes.data, comps.ctypes.data, qts.ctypes.data, len(comps), width, height,
+        color, out.ctypes.data)
+    if code:
+        raise ValueError(int(code))
     return out

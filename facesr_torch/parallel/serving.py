@@ -13,7 +13,7 @@ Port of `facesr/parallel/serving.py`:
   scales or restore them from a quant cache (a ``.fckpt`` the JAX
   package's `load_calibrated_qparams` reads too, pinned to its source
   weights by a hash), `per_model_quant_cache` (the API's and the demo's
-  cache names) and `load_calibration_images` (PNG only).
+  cache names) and `load_calibration_images` (`data.codecs.imread`).
 - `pad_to_multiple`: the JAX module's batch-padding helper, re-exported
   from `parallel.mesh` (the port's predictors run every chunk at its true
   size and do not pad).
@@ -72,19 +72,22 @@ def load_calibration_images(calib_dir: str, size: int = 64, limit: int = 64) -> 
     float batch in [0, 1], each resized with `cv_compat.resize_area` (cv2
     ``INTER_AREA``) when it is not size x size: the scales are per-site
     scalars, so the calibration shape need not be the serving shape.
-    Files that do not decode are skipped (the port reads PNG only; JPEG is
-    ROADMAP A.7.2), and the limit counts readable images."""
+    Files that do not decode (corrupt: cv2 returns None for them) are
+    skipped, and the limit counts readable images; a format the port does
+    not decode raises `codecs.UnsupportedImage`."""
+    from facesr_torch.data.codecs import ImageDecodeError, UnsupportedImage, imread
     from facesr_torch.data.cv_compat import resize_area
     from facesr_torch.data.dataset import _list_images
-    from facesr_torch.data.png import PNGError, read_rgb
 
     imgs = []
     for p in _list_images(Path(calib_dir)):
         if len(imgs) >= limit:
             break
         try:
-            rgb = read_rgb(p)
-        except (PNGError, OSError) as e:
+            rgb = imread(p)
+        except UnsupportedImage:
+            raise
+        except ImageDecodeError as e:
             print(f"Skipping calibration image {p.name}: {e}")
             continue
         if rgb.shape[:2] != (size, size):

@@ -114,8 +114,10 @@ are tp's. `memory_report` gives the state's and the batch's bytes per rank
 (under tp a rank's slices, under pp its stage's groups) and, on a card,
 the measured peak of one step.
 
-Not in this slice: W&B, the validation image grid and the gradient
-monitor.
+After each validation the writer saves the LR|SR|HR grid of the first
+batch's first images (`save_validation_grid`, ``<log_dir>/epoch_NNNN.png``)
+where its eval step returns whole images (not under a row split). Not in
+this slice: W&B.
 """
 
 from __future__ import annotations
@@ -140,8 +142,10 @@ from facesr_torch.ckpt import optax_state as ox
 from facesr_torch.ckpt.weights import (REFERENCE_CONFIG_FIELDS,  # noqa: F401 — re-exported
                                        discriminator_state_dict_from_jax, reference_config,
                                        state_dict_from_jax, vgg_params_from_jax)
+from facesr_torch.data.png import write_png
 from facesr_torch.device import DeviceLike, resolve_device
 from facesr_torch.ops.quant import fake_quant_params
+from facesr_torch.ops.resize import nearest_up
 from facesr_torch.parallel import pipeline, spatial, tensor
 from facesr_torch.parallel.mesh import (Mesh, all_reduce_max, all_reduce_sum, check_mesh_axes,
                                         check_single_host, get_mesh, pad_to_multiple,
@@ -156,7 +160,7 @@ from facesr_torch.training.steps import (TrainState, _dp, _mean_metrics, _reduce
                                          make_train_step, trainable_parameters)
 
 __all__ = ["TrainerConfig", "EarlyStopping", "Trainer", "REFERENCE_CONFIG_FIELDS",
-           "overfit_test", "local_batch_size"]
+           "overfit_test", "local_batch_size", "save_validation_grid"]
 
 HISTORY_KEYS = ("train_loss", "val_loss", "val_psnr", "val_ssim", "learning_rate")
 # a GAN trainer's history keys, and the epoch metric each one reads
@@ -164,6 +168,32 @@ GAN_HISTORY_KEYS = {"d_loss": "d_loss", "g_loss": "g_adv", "d_real": "d_real",
                     "d_fake": "d_fake"}
 # running counts of skipped steps: an epoch's value is its last step's
 COUNTERS = ("opt_notfinite", "d_opt_notfinite")
+
+
+def save_validation_grid(lr_images, sr_images, hr_images, epoch: int,
+                         save_dir: str = "training_logs") -> None:
+    """The LR|SR|HR comparison grid of an epoch, as the JAX package's
+    `save_validation_grid`: NHWC float [0, 1] in (clipped), the LR
+    nearest-upscaled to the HR size, at most 4 rows, 2-pixel white padding,
+    ``(grid * 255).astype(uint8)`` (truncated), written as
+    ``<save_dir>/epoch_NNNN.png``."""
+    save_path = Path(save_dir)
+    save_path.mkdir(parents=True, exist_ok=True)
+    lr_images = np.clip(np.asarray(lr_images), 0, 1)
+    sr_images = np.clip(np.asarray(sr_images), 0, 1)
+    hr_images = np.clip(np.asarray(hr_images), 0, 1)
+    scale = hr_images.shape[1] // lr_images.shape[1]
+    lr_up = nearest_up(torch.from_numpy(np.ascontiguousarray(lr_images)), scale).numpy()
+    num = min(4, lr_images.shape[0])
+    pad = 2
+    h, w = hr_images.shape[1], hr_images.shape[2]
+    grid = np.ones((num * (h + pad) + pad, 3 * (w + pad) + pad, 3), dtype=np.float32)
+    for i in range(num):
+        for j, img in enumerate((lr_up[i], sr_images[i], hr_images[i])):
+            y0 = pad + i * (h + pad)
+            x0 = pad + j * (w + pad)
+            grid[y0:y0 + h, x0:x0 + w] = img
+    write_png(save_path / f"epoch_{epoch:04d}.png", (grid * 255).astype(np.uint8))
 
 
 @dataclass
@@ -197,6 +227,7 @@ class TrainerConfig:
     log_gradients_every: int = 0
 
     checkpoint_dir: str = "checkpoints"
+    log_dir: str = "training_logs"  # the validation grids
     save_every: int = 10
     save_best: bool = True
     # write checkpoints on one background thread; flushed at train() end
@@ -821,11 +852,16 @@ class Trainer:
     def _validate_epoch(self) -> Dict[str, float]:
         dp = self.mesh.distributed
         pending = []
+        sample = None
+        # the grid needs whole images: under a row split sr and lr are slabs
+        grid = self.is_writer and getattr(self._eval_step, "row_shard", None) is None
         for batch in self.val_loader:
             hr = self._batch_to_device(batch["hr"])
-            metrics, _, _ = (self._eval_step(self.state, hr, reduce=False) if dp
-                             else self._eval_step(self.state, hr))
+            metrics, sr, lr_img = (self._eval_step(self.state, hr, reduce=False) if dp
+                                   else self._eval_step(self.state, hr))
             pending.append(metrics)
+            if grid and sample is None:
+                sample = tuple(t[:8].float().cpu().numpy() for t in (lr_img, sr, hr))
         if dp:
             # one reduction an epoch: every rank's batch sums, the table of a
             # rank short of batches padded with zero rows
@@ -838,6 +874,12 @@ class Trainer:
             pending = [{k: v[i] for k, v in metrics.items()} for i in range(n)]
         rows = self._host_values(pending)  # one host read
         self._last_val_batches = len(rows)
+        if sample is not None:
+            try:
+                save_validation_grid(*sample, epoch=self.current_epoch,
+                                     save_dir=self.config.log_dir)
+            except Exception as e:  # a picture must never stop training
+                print(f"Warning: failed to save validation grid: {e}")
         if not rows:
             print("WARNING: val loader yielded 0 batches — all validation "
                   "metrics are 0.0 and best-model selection / early stopping "

@@ -159,12 +159,46 @@ def test_super_resolve_roundtrip(server, ckpt_dir):
     assert levels <= F32_LEVELS and share <= F32_SHARE
 
 
+@pytest.mark.parametrize("kind", ["baseline", "progressive"])
+def test_jpeg_body_is_served_from_cv2s_pixels(server, ckpt_dir, kind):
+    """A JPEG body is decoded bitwise as the JAX API's ``cv2.imdecode``
+    decodes it, and served as the model's forward on that LR (within the
+    round trip's f32 levels: the server's threads sum in other orders)."""
+    import cv2
+
+    from app.demo import prepare_inputs as jax_prepare
+    from facesr_torch.app.demo import prepare_inputs
+    from facesr_torch.data import codecs
+
+    for img in _images(seed=5)[:3]:
+        flags = [cv2.IMWRITE_JPEG_QUALITY, 90,
+                 cv2.IMWRITE_JPEG_PROGRESSIVE, int(kind == "progressive")]
+        body = cv2.imencode(".jpg", img[..., ::-1], flags)[1].tobytes()
+        rgb = cv2.cvtColor(cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR),
+                           cv2.COLOR_BGR2RGB)
+        assert np.array_equal(codecs.imdecode(body), rgb)
+        lr = prepare_inputs(rgb)[0]
+        np.testing.assert_array_equal(lr, jax_prepare(rgb)[0])
+        status, ctype, data = _request(server, "POST", "/super-resolve", body=body)
+        assert status == 200 and ctype == "image/png"
+        model = load_any_model(ckpt_dir / "best_model.fckpt")
+        with torch.no_grad():
+            want = model(torch.from_numpy(lr[None])).numpy()[0]
+        levels, share = _levels(png.decode_rgb(data), (want * 255).round().astype(np.uint8))
+        assert levels <= F32_LEVELS and share <= F32_SHARE
+
+
 def test_error_paths(server):
     status, _, data = _request(server, "POST", "/super-resolve", body=b"not an image")
     assert status == 400 and b"decode" in data
+    # JPEG bodies decode now (test_jpeg_body_is_served_from_cv2s_pixels): a
+    # truncated one, and a format the port does not decode, are 400s
     jpeg = b"\xff\xd8\xff\xe0\x00\x10JFIF" + b"\x00" * 32
     status, _, data = _request(server, "POST", "/super-resolve", body=jpeg)
-    assert status == 400 and b"JPEG" in data and b"A.7.2" in data
+    assert status == 400 and b"request body: truncated" in data
+    webp = b"RIFF\x24\x00\x00\x00WEBPVP8 " + b"\x00" * 24
+    status, _, data = _request(server, "POST", "/super-resolve", body=webp)
+    assert status == 400 and b"WebP images are not decoded by the port" in data
     status, _, _ = _request(server, "POST", "/super-resolve")
     assert status == 400
     status, _, data = _request(server, "POST", "/super-resolve?model=nope", body=b"x" * 10)

@@ -132,20 +132,37 @@ def _with_ihdr(data, **changes):
 
 
 def test_unsupported_and_corrupt_files_raise_with_their_name(tmp_path):
+    """16-bit and palette PNGs, and JPEG and BMP files, were refused until
+    the port had its decoders: each now reads bitwise as cv2 reads it (the
+    PNGs through `png.read_rgb`, every format through `codecs.imread`).
+    Corrupt files and a format the port still refuses raise by name."""
     from PIL import Image
+
+    from facesr_torch.data import codecs
+    from facesr_torch.parallel.mesh import NotPorted
 
     rng = np.random.default_rng(0)
     img = _face(rng, 16, 16)
-    cases = {}
     cv2.imwrite(str(tmp_path / "deep.png"), (img.astype(np.uint16) * 257))
-    cases["deep.png"] = "16-bit"
     Image.fromarray(img).convert("P").save(tmp_path / "pal.png")
-    cases["pal.png"] = "palette"
-    (tmp_path / "inter.png").write_bytes(_with_ihdr(png.encode(img), interlace=1))
-    cases["inter.png"] = "interlaced"
     cv2.imwrite(str(tmp_path / "face.jpg"), img)
-    cases["face.jpg"] = "not a PNG"
     cv2.imwrite(str(tmp_path / "face.bmp"), img)
+    for name in ("deep.png", "pal.png", "face.jpg", "face.bmp"):
+        want = cv2.imread(str(tmp_path / name))[..., ::-1]
+        assert np.array_equal(codecs.imread(tmp_path / name), want), name
+        assert np.array_equal(codecs.imread_numpy(tmp_path / name), want), name
+        if name.endswith(".png"):
+            assert np.array_equal(png.read_rgb(tmp_path / name), want), name
+    Image.fromarray(img).save(tmp_path / "face.webp")
+    with pytest.raises(NotPorted, match="face.webp: WebP"):
+        codecs.imread(tmp_path / "face.webp")
+    cases = {}
+    # a non-interlaced file relabelled as interlaced: its rows misalign
+    # (cv2 returns None); Adam7 files read in test_torch_codecs.py
+    (tmp_path / "inter.png").write_bytes(_with_ihdr(png.encode(img), interlace=1))
+    assert cv2.imread(str(tmp_path / "inter.png")) is None
+    cases["inter.png"] = "filter type"
+    cases["face.jpg"] = "not a PNG"
     cases["face.bmp"] = "not a PNG"
     good = bytearray(png.encode(img))
     good[len(good) // 2] ^= 0xFF
@@ -375,10 +392,26 @@ def test_dataset_refusals(png_root, tmp_path):
     (tmp_path / "data.h5").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="HDF5"):
         FFHQDataset(str(tmp_path / "data.h5"))
+    # a .jpg folder loads as the JAX package loads it; a corrupt JPEG and one
+    # the port does not decode (CMYK) raise by name
+    from PIL import Image
+
+    from facesr_torch.parallel.mesh import NotPorted
+
     jpg = tmp_path / "jpg" / "HR"
     jpg.mkdir(parents=True)
-    cv2.imwrite(str(jpg / "face.jpg"), img)
+    cv2.imwrite(str(jpg / "face.jpg"), _face(np.random.default_rng(1), 40, 48))
+    kw = dict(mode="val", hr_patch_size=16, use_cache=False)
+    got, want = FFHQDataset(str(tmp_path / "jpg"), **kw)[0], JaxDataset(str(tmp_path / "jpg"),
+                                                                           **kw)[0]
+    for k in ("hr", "lr"):
+        np.testing.assert_array_equal(got[k], want[k])
+    data = (jpg / "face.jpg").read_bytes()
+    (jpg / "face.jpg").write_bytes(data[:len(data) // 2])
     with pytest.raises(IOError, match="face.jpg"):
+        FFHQDataset(str(tmp_path / "jpg"), hr_patch_size=8)[0]
+    Image.fromarray(img).convert("CMYK").save(jpg / "face.jpg")
+    with pytest.raises(NotPorted, match="face.jpg: CMYK"):
         FFHQDataset(str(tmp_path / "jpg"), hr_patch_size=8)[0]
 
 

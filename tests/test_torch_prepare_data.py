@@ -4,7 +4,8 @@
 ``render_face`` makes, `cli.make_synthetic_faces` against
 ``scripts/make_synthetic_faces.py``, `data.prepare_data` against
 ``facesr/data/prepare_data.py`` (its three degradations, end to end, and
-its refusals) and `cli.split_data` against ``scripts/split_data.py``.
+JPEG, 16-bit and palette inputs, and its refusals) and `cli.split_data`
+against ``scripts/split_data.py``.
 
 Tolerances: none. Every comparison is bitwise: uint8 and float32 blurs,
 every drawn shape, every synthetic face (a differing value is counted and
@@ -257,27 +258,40 @@ def _png16(path: Path) -> None:
 
 
 @pytest.mark.parametrize("case", ["jpeg", "png16", "palette"])
-def test_prepare_data_refuses_what_it_cannot_decode_before_writing(tmp_path, case):
+def test_prepare_data_refuses_what_it_cannot_decode_before_writing(tmp_path, monkeypatch, case):
+    """A JPEG, a 16-bit and a palette PNG were refused until the port had
+    its decoders: each now goes through the pipeline bitwise as the JAX
+    package's. A file the port still cannot decode (a CMYK JPEG) beside it
+    is refused by name before anything is written."""
+    from PIL import Image
+
     raw = _raw_set(tmp_path / "raw", n=3)
-    img = np.zeros((8, 8, 3), np.uint8)
+    rng = np.random.default_rng(5)
+    img = cv2.GaussianBlur(rng.integers(0, 256, (72, 88, 3), dtype=np.uint8), (9, 9), 3)
     if case == "jpeg":
-        cv2.imwrite(str(raw / "face.jpg"), img)
+        cv2.imwrite(str(raw / "face.jpg"), img, [cv2.IMWRITE_JPEG_QUALITY, 90])
     elif case == "png16":
         _png16(raw / "deep.png")
     else:
-        # a palette PNG: a one-entry PLTE, colour type 3
-        body = struct.pack(">IIBBBBB", 8, 8, 8, 3, 0, 0, 0)
-
-        def chunk(kind, b):
-            return struct.pack(">I", len(b)) + kind + b + struct.pack(">I", zlib.crc32(kind + b))
-
-        rows = b"".join(b"\x00" + bytes(8) for _ in range(8))
-        (raw / "pal.png").write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", body)
-                                      + chunk(b"PLTE", bytes(3)) + chunk(b"IDAT", zlib.compress(rows))
-                                      + chunk(b"IEND", b""))
-    with pytest.raises(SystemExit, match="A.7.2"):
-        tprep.main(["--input", str(raw), "--output", str(tmp_path / "out")])
+        Image.fromarray(img).convert("P").save(raw / "pal.png")
+    Image.fromarray(img).convert("CMYK").save(raw / "cmyk.jpg")
+    argv = ["--input", str(raw), "--hr-size", "32", "--lr-size", "8", "--train-ratio", "0.5",
+            "--val-ratio", "0.25"]
+    with pytest.raises(SystemExit, match="cmyk.jpg: CMYK/YCCK JPEG is not decoded"):
+        tprep.main(argv + ["--output", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+    (raw / "cmyk.jpg").unlink()
+    _run_jax_prepare(monkeypatch, argv + ["--output", str(tmp_path / "jax")])
+    assert tprep.main(argv + ["--output", str(tmp_path / "out")]) == {"train": 2, "val": 1,
+                                                                      "test": 1}
+    names = _split_files(tmp_path / "jax")
+    assert _split_files(tmp_path / "out") == names
+    for split, files in names.items():
+        for sub in ("HR", "LR"):
+            for n in files:
+                np.testing.assert_array_equal(read_rgb(tmp_path / "out" / split / sub / n),
+                                              read_rgb(tmp_path / "jax" / split / sub / n),
+                                              err_msg=f"{split}/{sub}/{n}")
 
 
 def test_prepare_data_refuses_hdf5_and_duplicate_stems(tmp_path):

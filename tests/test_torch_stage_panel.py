@@ -157,10 +157,21 @@ def test_refusals_match_the_jax_script(panelset, tmp_path, monkeypatch, capsys, 
 
 
 def test_other_image_formats_and_an_empty_folder_are_refused(panelset, tmp_path, capsys):
+    """JPEG files read now (`data.codecs`): a corrupt one is skipped as the
+    JAX script skips it, and a JPEG the port does not decode (CMYK) raises
+    by name."""
+    from PIL import Image
+
+    from facesr_torch.parallel.mesh import NotPorted
+
     (tmp_path / "jpg").mkdir()
     (tmp_path / "jpg" / "a.jpg").write_bytes(b"\xff\xd8\xff")
     argv = ["--checkpoints", panelset["ckpts"][0], "--output", str(tmp_path / "out")]
-    with pytest.raises(ValueError, match="ROADMAP A.7.2"):
+    with pytest.raises(SystemExit, match="unreadable"):
+        run_port(argv + ["--test-dir", str(tmp_path / "jpg")], capsys)
+    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).convert("CMYK").save(
+        tmp_path / "jpg" / "a.jpg")
+    with pytest.raises(NotPorted, match="a.jpg: CMYK"):
         run_port(argv + ["--test-dir", str(tmp_path / "jpg")], capsys)
     (tmp_path / "empty").mkdir()
     with pytest.raises(SystemExit, match="No test images"):
