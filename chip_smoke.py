@@ -50,10 +50,21 @@ catches an error and goes on):
    (JPEG baseline, progressive, restart intervals, every sampling, EXIF
    orientations; 16-bit, palette, low-bit and Adam7 PNG; BMP; TIFF)
    decoded natively and plainly, each held to the shape and SHA-256 of
-   cv2's decode in ``digests.json``; single-thread decode ms of a
-   1024x1024 and a 256x256 4:2:0 q95 JPEG, native and plain; the same
-   loaders over a folder of 1024x1024 JPEGs (images/s against the PNG
-   figure); then
+   cv2's decode in ``digests.json``; the JPEGs of
+   ``tests/fixtures/codecs/recovery`` (cut inside their entropy data,
+   progressive ones whose blocks libjpeg smooths among them, or with a
+   wrong or missing RSTn, an early EOI, a code past 16 bits):
+   `codecs.imread` and `imread_numpy` held to ``cv2.imread``'s digests,
+   `imdecode` to ``cv2.imdecode``'s or raising where it returns None;
+   single-thread decode ms of a 1024x1024 and a 256x256 4:2:0 q95 JPEG,
+   native and plain; the same loaders over a folder of 1024x1024 JPEGs
+   (images/s against the PNG figure); the HDF5 path: the ``.h5`` files of
+   ``tests/fixtures/hdf5`` (the JAX ``save_to_hdf5``'s, one with chunk
+   trees three levels deep) read by the port and held to h5py's digests,
+   the 48 val pairs packed by `save_to_hdf5` and read back bitwise, the val
+   loader over that file against the PNG folders (images/s) and one
+   chunk's read (ms), the stage-1 training loaders over an ``.h5`` root
+   (``--fast-loader``: batch for batch the PNG folders'); then
    ``python -m facesr_torch.cli.train`` in this process with
    ``configs/stages/stage1_psnr_config.yaml``, then
    ``stage2_ssim_config.yaml`` and ``stage3_gan_config.yaml`` (GAN), all
@@ -315,10 +326,12 @@ catches an error and goes on):
    started before phase 8 and read after phase 14 (its own launch
    counts; host work and small steps beside the light phases): (a)
    ``facesr_torch.cli.dress_rehearsal.rehearse`` at a cut depth with the
-   production model: 64 synthetic faces at 160, ``prepare_data`` at hr 128
-   / lr 32, the three ``configs/rehearsal`` stage YAMLs (batch 8, one
+   production model: 64 synthetic faces at 160, ``prepare_data --hdf5`` at
+   hr 128 / lr 32, the three ``configs/rehearsal`` stage YAMLs (batch 8, one
    epoch each) through the train CLI, each chained from the one before,
-   the comparison and the stage panel; (b) ``compare_two_models`` on the
+   reading the ``train.h5`` and ``val.h5`` that ``prepare_data --hdf5``
+   packs (each stage opens each file once), the comparison and the stage
+   panel; (b) ``compare_two_models`` on the
    stage-3 checkpoint in f32 (no launch) and ``--serve-dtype bf16`` (the
    group kernel on trained weights, the counts zeroed just before and read
    just after): bf16 PSNR within 0.1 dB of f32; (c) one 6x10x64 stage-1
@@ -1018,6 +1031,12 @@ CODEC_FIXTURES = REPO / "tests/fixtures/codecs"
 JPEG_FACE, JPEG_FACE_256 = "face_1024_q95_420.jpg", "face_256_q95_420.jpg"
 DECODE_REPS, DECODE_PLAIN_REPS = 10, 2
 JPEG_LOADER_IMAGES = 192  # copies of the 1024x1024 face; one epoch a loader
+# phase 8 (b): JPEGs cut or with a planted fault, against cv2.imread's and
+# cv2.imdecode's digests; the HDF5 fixtures against h5py's digests; phase
+# 8's val pairs packed into .h5 files
+RECOVERY_FIXTURES = CODEC_FIXTURES / "recovery"
+H5_FIXTURES = REPO / "tests/fixtures/hdf5"
+H5_READ_REPS, H5_LOADER_EPOCHS = 20, 3
 
 
 def write_png_set(root: Path) -> dict:
@@ -1080,6 +1099,7 @@ def decoder_check(card: str, tmp: Path, cfg1: dict, png_rates: dict) -> None:
         f"{2 * len(fixtures)} in {time.perf_counter() - t0:.2f} s")
     if bad:
         raise AssertionError(f"decodes that differ from cv2's: {bad}")
+    log(recovery_check())
     for name in (JPEG_FACE, JPEG_FACE_256):
         data, shape = fixtures[name][:2]
         native_ms = host_ms(lambda: codecs.imdecode(data), DECODE_REPS)
@@ -1109,6 +1129,154 @@ def decoder_check(card: str, tmp: Path, cfg1: dict, png_rates: dict) -> None:
                 f"against {png_rates[fast]:.1f} on the 256x256 PNGs [{card}]")
     finally:
         shutil.rmtree(root)
+
+
+def recovery_check() -> str:
+    """Phase 8 (b) (ii): the cut and planted JPEGs: `codecs.imread` and
+    `imread_numpy` against ``cv2.imread``'s digest of each file, and
+    `imdecode` / `imdecode_numpy` against ``cv2.imdecode``'s, raising where
+    that returns None. Returns the line to print."""
+    from facesr_torch.data import codecs
+
+    t0 = time.perf_counter()
+    digests = json.loads((RECOVERY_FIXTURES / "digests.json").read_text())
+    bad, raised = [], 0
+    for name, d in sorted(digests.items()):
+        path = RECOVERY_FIXTURES / name
+        want = (d["imread"]["shape"], d["imread"]["sha256"])
+        for label, fn in (("imread", codecs.imread), ("imread_numpy", codecs.imread_numpy)):
+            if rgb_digest(fn(path)) != want:
+                bad.append(f"{name} ({label})")
+        data = path.read_bytes()
+        for label, fn in (("imdecode", codecs.imdecode), ("imdecode_numpy",
+                                                          codecs.imdecode_numpy)):
+            if d["imdecode"] is None:
+                try:
+                    fn(data, name)
+                    bad.append(f"{name} ({label} decodes where cv2.imdecode returns None)")
+                except codecs.ImageDecodeError:
+                    raised += 1
+            elif rgb_digest(fn(data, name)) != (d["imdecode"]["shape"], d["imdecode"]["sha256"]):
+                bad.append(f"{name} ({label})")
+    if bad:
+        raise AssertionError(f"cut or planted JPEGs that differ from cv2's: {bad}")
+    return (f"  (b) (ii) {len(digests)} cut or planted JPEGs (cut at 30-98%, progressive ones "
+            f"mid-scan (smoothed) and in the last scan; wrong RSTn far, next and prior, RSTn "
+            f"missing, an early EOI, a code past 16 bits): imread and imread_numpy equal to cv2.imread's digests "
+            f"{2 * len(digests)} of {2 * len(digests)}; imdecode and imdecode_numpy equal to "
+            f"cv2.imdecode's or raising where it returns None ({raised} raised) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
+def h5_digest(path: Path) -> dict:
+    """What the port's HDF5 reader gives for ``path``, in the form of
+    ``tests/fixtures/hdf5/digests.json``."""
+    import hashlib
+
+    from facesr_torch.data import hdf5
+
+    with hdf5.H5File(path) as f:
+        out = {k: {"shape": list(f[k].shape),
+                   "sha256": hashlib.sha256(f[k].read().tobytes()).hexdigest()}
+               for k in ("HR", "LR")}
+        out["filenames"] = hashlib.sha256(b"\n".join(f["filenames"][:].tolist())).hexdigest()
+        out["attrs"] = dict(sorted(f.attrs.items()))
+    return out
+
+
+def hdf5_check(card: str, tmp: Path, data: Path, cfg1: dict) -> None:
+    """Phase 8 (b) (i), (iii), (iv): the committed .h5 fixtures against
+    h5py's digests; phase 8's val pairs packed by `save_to_hdf5` and read
+    back bitwise, the val loader over the .h5 file against the PNG folders,
+    one chunk's read; the stage-1 training loaders (plain and
+    ``--fast-loader``) over an .h5 root, batch for batch the loaders over
+    the PNG folders it was packed from."""
+    import shutil
+
+    from facesr_torch.cli import train as train_cli
+    from facesr_torch.data import codecs, hdf5
+    from facesr_torch.data.dataset import get_dataloader
+    from facesr_torch.data.prepare_data import save_to_hdf5
+
+    t0 = time.perf_counter()
+    digests = json.loads((H5_FIXTURES / "digests.json").read_text())
+    bad = [name for name, d in sorted(digests.items()) if h5_digest(H5_FIXTURES / name) != d]
+    log(f"  (b) (i) {len(digests)} HDF5 fixtures written by the JAX save_to_hdf5 "
+        f"({', '.join(f'{n}: {d['HR']['shape'][0]} pairs' for n, d in sorted(digests.items()))};"
+        f" chunks_4200's chunk trees three levels deep): the port's reader equal to h5py's "
+        f"digests {len(digests) - len(bad)} of {len(digests)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if bad:
+        raise AssertionError(f"HDF5 fixtures the port reads otherwise than h5py: {bad}")
+
+    h5root, pngroot = tmp / "h5data", tmp / "h5pngs"
+    h5root.mkdir()
+    t0 = time.perf_counter()
+    save_to_hdf5(data / "val", h5root / "val.h5", CLI_HR, CLI_LR)
+    pack_s = time.perf_counter() - t0
+    shutil.copy(h5root / "val.h5", h5root / "train.h5")
+    pngroot.mkdir()
+    for split in ("train", "val"):  # the same pairs as PNG folders
+        (pngroot / split).symlink_to(data / "val", target_is_directory=True)
+    try:
+        with hdf5.H5File(h5root / "val.h5") as f:
+            names = [x.decode() for x in f["filenames"][:]]
+            same = names == sorted(p.name for p in (data / "val" / "HR").iterdir()) and all(
+                np.array_equal(f[sub].image(i), codecs.imread(data / "val" / sub / n))
+                for i, n in enumerate(names) for sub in ("HR", "LR"))
+            chunk_ms = host_ms(lambda: f["HR"].image(7), H5_READ_REPS)
+            size = (h5root / "val.h5").stat().st_size
+        log(f"  (b) (iii) save_to_hdf5 of phase 8's {CLI_VAL} val pairs ({CLI_HR}/{CLI_LR}): "
+            f"{size} bytes in {pack_s:.2f} s, read back by the port bitwise equal to the "
+            f"PNGs: {same}; one {CLI_HR}x{CLI_HR} chunk's single-thread read (pread + inflate) "
+            f"median of {H5_READ_REPS} {chunk_ms:.3f} ms [{card}]")
+        if not same:
+            raise AssertionError("the packed .h5 file reads back otherwise than its PNGs")
+        rates = {}
+        for kind, root in (("h5", h5root), ("png", pngroot)):
+            loader = get_dataloader(str(root), mode="val", batch_size=CLI_BATCH,
+                                    num_workers=cfg1["data"]["num_workers"], seed=42)
+            if loader.dataset.use_hdf5 != (kind == "h5"):
+                raise AssertionError(f"the val loader over {root} read the wrong source")
+            n, t0 = 0, time.perf_counter()
+            for _ in range(H5_LOADER_EPOCHS):
+                for batch in loader:
+                    n += len(batch["hr"])
+            rates[kind] = n / (time.perf_counter() - t0)
+        log(f"  (b) (iii) val loader (batch {CLI_BATCH}, {H5_LOADER_EPOCHS} epochs): "
+            f"{rates['h5']:.1f} images/s over val.h5 against {rates['png']:.1f} over the same "
+            f"pairs as PNG folders [{card}]")
+        for fast in (False, True):
+            argv = ["--config", str(STAGE1_YAML)] + (["--fast-loader"] if fast else [])
+            batches, rate = {}, {}
+            for kind, root in (("h5", h5root), ("png", pngroot)):
+                loader, _ = train_cli.make_loaders(train_cli.parse_args(argv), cfg1, str(root),
+                                                   CLI_BATCH, seed=42)
+                if loader.dataset.use_hdf5 != (kind == "h5"):
+                    raise AssertionError(f"the training loader over {root} read the wrong "
+                                         "source")
+                n, t0, batches[kind] = 0, time.perf_counter(), []
+                for _ in range(H5_LOADER_EPOCHS):
+                    for batch in loader:
+                        batches[kind].append(batch["hr"])
+                        n += len(batch["hr"])
+                rate[kind] = n / (time.perf_counter() - t0)
+            # the fast loader draws its crops on one thread: batch for batch
+            # the same; the plain one augments on its worker threads, whose
+            # order moves the draws, so its batches are held to their shape
+            same = len(batches["h5"]) == len(batches["png"]) == H5_LOADER_EPOCHS and all(
+                (np.array_equal(a, b) if fast else a.shape == b.shape == (
+                    CLI_BATCH, CLI_HR, CLI_HR, 3)) for a, b in zip(batches["h5"], batches["png"]))
+            log(f"  (b) (iv) stage-1 training loader{' --fast-loader' if fast else ''} over "
+                f"an .h5 root (train.h5 = the {CLI_VAL} val pairs): {rate['h5']:.1f} images/s "
+                f"against {rate['png']:.1f} over the PNG folders; "
+                f"{'batches bitwise equal' if fast else 'batches of the same shape'}: {same} "
+                f"[{card}]")
+            if not same:
+                raise AssertionError("the training loader over .h5 differs from over PNGs")
+    finally:
+        shutil.rmtree(h5root)
+        shutil.rmtree(pngroot)
 
 
 class _Tee:
@@ -1182,6 +1350,7 @@ def cli_phase(card: str, step_alone_ms: float, tmp: Path) -> None:
             f"{CLI_BATCH}, {cfg1['data']['num_workers']} workers, 2 epochs): "
             f"{rates[fast]:.1f} images/s [{card}]")
     decoder_check(card, tmp, cfg1, rates)
+    hdf5_check(card, tmp, data, cfg1)
 
     # the CLI, in this process, from the temporary directory (the YAMLs'
     # ./checkpoints lands there)
@@ -6396,14 +6565,35 @@ def phase21_child(out_dir: str) -> None:
     t_phase = time.perf_counter()
     _build.build_all(["rcab_group"])
 
-    # (a) the rehearsal, stage 1 -> 2 -> 3, at a cut depth
+    # (a) the rehearsal, stage 1 -> 2 -> 3, at a cut depth; prepared with
+    # --hdf5, so the stages' loaders read train.h5 and val.h5 (each open
+    # of an .h5 file recorded)
+    from facesr_torch.data import hdf5
+
     work = out / "work"
     tee = _Tee(sys.stdout)
+    opened = []
+    real_open = hdf5.H5File.__init__
+
+    def record_open(self, path):
+        opened.append(Path(path).name)
+        real_open(self, path)
+
+    hdf5.H5File.__init__ = record_open
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
-        reh = rehearse(str(work), str(reh_yamls(out / "yamls")), num_faces=REH_FACES,
-                       device=REH_DEVICE)
+    try:
+        with contextlib.redirect_stdout(tee):
+            reh = rehearse(str(work), str(reh_yamls(out / "yamls")), num_faces=REH_FACES,
+                           device=REH_DEVICE)
+    finally:
+        hdf5.H5File.__init__ = real_open
     text, work = tee.text(), work.resolve()
+    h5_sizes = {s: (work / "processed" / f"{s}.h5").stat().st_size
+                for s in ("train", "val", "test")}
+    res["h5_opens"] = {s: opened.count(f"{s}.h5") for s in ("train", "val")}
+    if res["h5_opens"] != {"train": 3, "val": 3}:
+        raise AssertionError(f"(a) the three stages opened {res['h5_opens']} .h5 files, want "
+                             "train.h5 and val.h5 once each a stage")
     res["rehearsal_s"] = time.perf_counter() - t0
     res["stage_s"] = reh["seconds"]
     for i, name in enumerate(("stage1_psnr", "stage2_ssim", "stage3_gan")):
@@ -6416,7 +6606,8 @@ def phase21_child(out_dir: str) -> None:
     say(f"  (a) rehearsal: {REH_FACES} faces at 160 -> hr 128 / lr 32 (train/val/test "
         f"{[len(list((work / 'processed' / s / 'HR').iterdir())) for s in ('train', 'val', 'test')]}), "
         f"the production model through the three stage YAMLs (batch {REH_BATCH}, "
-        f"{REH_EPOCHS} epoch each), chained 1 -> 2 -> 3; seconds "
+        f"{REH_EPOCHS} epoch each) reading .h5 files ({json.dumps(h5_sizes)} bytes; opened "
+        f"{json.dumps(res['h5_opens'])}), chained 1 -> 2 -> 3; seconds "
         f"{json.dumps({k: round(v, 2) for k, v in reh['seconds'].items()})}, "
         f"{res['rehearsal_s']:.1f} s in all [{card}]")
     say("      compare (f32) PSNR dB: " + json.dumps(

@@ -5,11 +5,12 @@ reduced scale (60 + 25 + 12 epochs, HR 128) on synthetic faces, end to end:
     python -m facesr_torch.cli.dress_rehearsal [workdir] [--device cpu]
 
 1. 608 synthetic faces at 160 (`cli.make_synthetic_faces`, seed 0);
-2. `data.prepare_data` at HR 128 / LR 32, ``--train-ratio 0.84 --val-ratio
-   0.08``, without ``--hdf5`` (the port writes no HDF5: the card's machine
-   has no h5py, and the train CLI reads the PNG folders);
+2. `data.prepare_data` at HR 128 / LR 32, ``--hdf5 --train-ratio 0.84
+   --val-ratio 0.08``: the PNG folders and ``train.h5``, ``val.h5`` and
+   ``test.h5`` beside them (the port's own HDF5 writer, `data.hdf5`);
 3. -5. the three stage YAMLs of ``configs/rehearsal`` through
-   `cli.train` (``--no-wandb --yes``), each chained from the one before by
+   `cli.train` (``--no-wandb --yes``), which read ``train.h5`` and
+   ``val.h5`` before the folders, each chained from the one before by
    its ``checkpoint.resume``; every ``/tmp/rehearsal`` in them is rewritten
    to the workdir in generated copies under ``<workdir>/configs``, so a
    workdir chains from its own checkpoints;
@@ -93,12 +94,11 @@ def rehearse(workdir: str = DEFAULT_WORK, config_dir: Optional[str] = None,
     timed("faces", lambda: write_faces(str(work / "raw"), num_faces, FACE_SIZE, 0))
     print(f"wrote {num_faces} images ({FACE_SIZE}x{FACE_SIZE}) to {work / 'raw'}")
 
-    print(f"== [2/6] prepare (hr {HR_SIZE} / lr {LR_SIZE}, bicubic; no HDF5: the train CLI "
-          "reads the PNG folders, and the port writes no .h5) ==", flush=True)
+    print(f"== [2/6] prepare (hr {HR_SIZE} / lr {LR_SIZE}, bicubic, hdf5) ==", flush=True)
     processed = work / "processed"
     timed("prepare", lambda: prepare_data.main(
         ["--input", str(work / "raw"), "--output", str(processed), "--hr-size", str(HR_SIZE),
-         "--lr-size", str(LR_SIZE), "--train-ratio", "0.84", "--val-ratio", "0.08"]))
+         "--lr-size", str(LR_SIZE), "--hdf5", "--train-ratio", "0.84", "--val-ratio", "0.08"]))
 
     ckpts = {}
     for i, (name, title) in enumerate(zip(STAGES, ("PSNR", "+SSIM, chained from stage-1 best",

@@ -9,7 +9,10 @@ CLI flags override the YAML, which overrides the coded defaults. It trains
 on CUDA unless ``--device cpu`` is given, and raises when there is no card
 and no ``--device``. Images are PNG, JPEG, BMP or TIFF files under
 ``data_root`` (``train/HR`` with or without ``train/LR``, ``val/HR`` +
-``val/LR``), read bitwise as cv2 reads them (`data.codecs`).
+``val/LR``), read bitwise as cv2 reads them (`data.codecs`), or the
+``train.h5`` and ``val.h5`` that ``prepare_data --hdf5`` writes there, which
+every loader reads first (a ``data_root`` ending in ``.h5`` is one file for
+both), as the JAX CLI does.
 
 Data parallelism (``mesh_axes: data``, the default), as the JAX CLI runs
 over every visible chip: under torchrun (``RANK``, ``WORLD_SIZE``,

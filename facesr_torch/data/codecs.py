@@ -9,6 +9,10 @@ intervals, the EXIF orientation), PNG (`data.png`: every depth, palette,
 Adam7), BMP (`data.bmp`) and TIFF (`data.tiff`: strips, none / PackBits /
 LZW / Deflate). Every fault raises `ImageDecodeError` with the file's name:
 a truncated or corrupt file (cv2 returns None), or an unknown format. A
+JPEG cut inside its entropy data is not such a file for `imread`, which
+reads a file as ``cv2.imread`` does (libjpeg's stdio source: a fake EOI at
+the end, the rest of the image grey); `imdecode` of the same bytes raises,
+as ``cv2.imdecode`` returns None (the API answers 400). A
 format or variant that cv2 reads and the port does not (WebP, GIF, JPEG
 2000, AVIF, HDR, PNM, Sun raster, BigTIFF, CMYK JPEG ...) raises
 `UnsupportedImage`, which is also a `NotPorted`.
@@ -71,13 +75,14 @@ def format_of(data: bytes) -> str:
     return ""
 
 
-def _decode(data: bytes, name: str, plain: bool) -> np.ndarray:
+def _decode(data: bytes, name: str, plain: bool, file: bool = False) -> np.ndarray:
     kind = format_of(data)
     if kind == "jpeg":
         if plain:
             return jpeg.decode(data, name, native.jpeg_entropy_numpy,
-                               native.jpeg_reconstruct_numpy)
-        return jpeg.decode(data, name)
+                               native.jpeg_reconstruct_numpy, native.jpeg_smooth_numpy,
+                               file=file)
+        return jpeg.decode(data, name, file=file)
     if kind == "png":
         return png.decode_rgb(data, name,
                               native.png_unfilter_numpy if plain else native.png_unfilter)
@@ -112,7 +117,7 @@ def refusal(path: PathLike) -> Optional[str]:
         data = _read(path)
         kind = format_of(data)
         if kind == "jpeg":
-            jpeg.parse(data, str(path))
+            jpeg.parse(jpeg.file_bytes(data), str(path))
         elif kind == "bmp":
             bmp.decode(data, str(path))
         elif kind == "tiff":
@@ -135,10 +140,11 @@ def _read(path: PathLike) -> bytes:
 
 def imread(path: PathLike) -> np.ndarray:
     """The image file at ``path`` -> HWC RGB uint8, as ``cv2.imread`` +
-    ``BGR2RGB`` give it."""
-    return imdecode(_read(path), str(path))
+    ``BGR2RGB`` give it: a JPEG cut inside its entropy data decodes, the
+    rest grey, where `imdecode` of the same bytes raises."""
+    return _decode(_read(path), str(path), plain=False, file=True)
 
 
 def imread_numpy(path: PathLike) -> np.ndarray:
     """`imread` with the plain versions of the C++ helpers."""
-    return imdecode_numpy(_read(path), str(path))
+    return _decode(_read(path), str(path), plain=True, file=True)

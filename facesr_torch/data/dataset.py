@@ -1,9 +1,13 @@
-"""FFHQ dataset: HR+LR directories or HR-only with synthesised LR, an LRU
-cache, and the loader factory (port of `facesr/data/dataset.py`).
+"""FFHQ dataset: an HDF5 file, HR+LR directories or HR-only with
+synthesised LR, an LRU cache, and the loader factory (port of
+`facesr/data/dataset.py`).
 
-- two sources: ``HR/`` + ``LR/`` directories, or HR-only with the LR made
-  on the fly by `cv_compat.resize_cubic` (cv2's ``INTER_CUBIC``); an HDF5
-  root (``.h5``) raises, since the card's machine has no h5py;
+- three sources: an ``.h5`` file as ``save_to_hdf5`` writes it (``HR`` and
+  ``LR`` uint8 images, ``filenames``), read by the port's own `data.hdf5`
+  (the card's machine has no h5py); ``HR/`` + ``LR/`` directories; or
+  HR-only with the LR made on the fly by `cv_compat.resize_cubic` (cv2's
+  ``INTER_CUBIC``). A root ending in ``.h5``, or a root holding
+  ``<mode>.h5``, is read before any folder, as in the JAX package;
 - HR/LR pair reconciliation by file stem, and refusal of duplicate stems;
 - a thread-safe LRU ImageCache with a hit-rate statistic;
 - samples are ``{'hr', 'lr'[, 'filename']}`` float32 HWC arrays in [0, 1].
@@ -21,7 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from facesr_torch.data import codecs
+from facesr_torch.data import codecs, hdf5
 from facesr_torch.data.cv_compat import resize_cubic
 from facesr_torch.data.loader import DataLoader
 from facesr_torch.data.transforms import PairedTransform, to_array
@@ -110,12 +114,20 @@ class FFHQDataset:
         self.generate_lr_on_the_fly = generate_lr_on_the_fly
         self.hr_only_mode = False
 
-        if self.data_root.suffix == ".h5" or (self.data_root / f"{mode}.h5").exists():
-            raise NotImplementedError(
-                f"{data_root}: HDF5 datasets are not read by the port (the card's "
-                "machine has no h5py; ROADMAP A.7.2); use HR/ + LR/ or HR-only image "
-                "directories")
-        self._init_directory()
+        self.use_hdf5 = False
+        self.h5_path: Optional[Path] = None
+        self._h5: Optional[hdf5.H5File] = None  # shared by the loader threads (pread)
+
+        if self.data_root.suffix == ".h5":
+            self.use_hdf5 = True
+            self.h5_path = self.data_root
+            self._init_hdf5()
+        elif (self.data_root / f"{mode}.h5").exists():
+            self.use_hdf5 = True
+            self.h5_path = self.data_root / f"{mode}.h5"
+            self._init_hdf5()
+        else:
+            self._init_directory()
 
         rng = np.random.default_rng(seed) if seed is not None else None
         self.transform = PairedTransform(
@@ -135,7 +147,15 @@ class FFHQDataset:
         self.use_cache = use_cache and mode == "train"
         self.cache = ImageCache(cache_size) if self.use_cache else None
 
-    # -- backend --------------------------------------------------------
+    # -- backends -------------------------------------------------------
+    def _init_hdf5(self) -> None:
+        self._h5 = hdf5.H5File(self.h5_path)
+        self.length = len(self._h5["HR"])
+        if "filenames" in self._h5:
+            self.filenames = [x.decode() for x in self._h5["filenames"][:]]
+        else:
+            self.filenames = [f"{i:05d}.png" for i in range(self.length)]
+
     def _init_directory(self) -> None:
         mode_dir = self.data_root / self.mode
         if mode_dir.exists():
@@ -196,9 +216,13 @@ class FFHQDataset:
     def load_hr(self, idx: int) -> np.ndarray:
         """Decode only the HR image (the HR-only training loader's path: it
         skips the LR that _load_images would make and discard)."""
+        if self.use_hdf5:
+            return self._h5["HR"].image(idx)
         return codecs.imread(self.hr_files[idx])
 
     def _load_images(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self.use_hdf5:
+            return self._h5["HR"].image(idx), self._h5["LR"].image(idx)
         hr_image = codecs.imread(self.hr_files[idx])
         if self.hr_only_mode:
             h, w = hr_image.shape[:2]

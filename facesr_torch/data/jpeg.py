@@ -21,13 +21,32 @@ the rest as libjpeg-turbo does by default:
   as cv2 applies it.
 
 Baseline and extended sequential (SOF0/SOF1, 8-bit) and progressive (SOF2)
-files decode, with restart intervals. Refused by name, as
-`UnsupportedImage`: arithmetic coding, 12-bit, lossless and hierarchical
-files, CMYK/YCCK, and a progressive file whose first ten coefficients are
-not all refined to full precision (libjpeg would smooth its blocks). A
-truncated or corrupt file raises `ImageDecodeError` (cv2 returns None for a
-truncated one; where libjpeg only warns about corrupt entropy data and cv2
-returns a patched image, the port refuses the file).
+files decode, with restart intervals. Faults in the entropy-coded data are
+met as libjpeg-turbo meets them, where it only warns: at a marker or where
+the data ends, zero bits finish the MCU in progress and the rest of the
+restart interval is left as it is (zero, so grey, in a sequential file); a
+wrong or missing RSTn marker is resynced (``jpeg_resync_to_restart``); a
+Huffman code longer than 16 bits decodes as 0; a coefficient index past 63
+lands on 63. The two cv2 entry points differ on a file cut inside its
+entropy data: ``cv2.imread`` reads the file through libjpeg's stdio source,
+which gives a fake EOI where the file ends, and returns the patched image
+(`decode` with ``file=True``, `codecs.imread`); ``cv2.imdecode``'s memory
+source suspends there and cv2 returns None (`decode`, `codecs.imdecode`:
+`JPEGError`). A single-scan file is read as libjpeg reads it: what follows
+its scan changes nothing.
+
+A progressive file whose first ten coefficients are not all refined to
+full precision (one cut short, or with such a scan script) has its blocks
+smoothed as libjpeg smooths them (``jdcoefct.c`` ``decompress_smooth_data``:
+`Plan.smooth` holds the coefficient bits it reads, the entropy pass the
+last iMCU row the final scan reached; `native.jpeg_smooth`).
+
+Refused by name, as `UnsupportedImage`: arithmetic coding, 12-bit,
+lossless and hierarchical files, CMYK/YCCK; a dequantised coefficient or
+first-pass IDCT value beyond `RANGE_LIMIT` (which no encoder writes, but
+corrupt or cut data can give). Other faults
+(a bad marker segment, an undefined table, an out-of-order progression)
+raise `JPEGError`, where cv2 returns None or, for the progression, warns.
 """
 
 from __future__ import annotations
@@ -41,7 +60,7 @@ from facesr_torch import native
 from facesr_torch.data.image_errors import ImageDecodeError, UnsupportedImage
 from facesr_torch.native.jpeg_numpy import NATURAL_ORDER, RANGE_LIMIT
 
-__all__ = ["SIGNATURE", "JPEGError", "parse", "decode", "exif_orientation",
+__all__ = ["SIGNATURE", "JPEGError", "parse", "decode", "file_bytes", "exif_orientation",
            "apply_orientation", "RANGE_LIMIT"]
 
 SIGNATURE = b"\xff\xd8"
@@ -68,6 +87,19 @@ _SOF_REFUSED = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
                 0xCD: "arithmetic-coded hierarchical", 0xCE: "arithmetic-coded hierarchical",
                 0xCF: "arithmetic-coded hierarchical lossless"}
 _SMOOTHED = 10  # libjpeg-turbo smooths blocks when one of these coefficients is not exact
+_SMOOTHED_AT = NATURAL_ORDER[:_SMOOTHED]  # their places in a block (natural order)
+# the markers libjpeg's read_markers takes (with APP0-15); any other is a
+# fatal error there
+_KNOWN = {0xC0, 0xC1, 0xC2, 0xC4, 0xCC, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE} | set(_SOF_REFUSED)
+FAKE_EOI = b"\xff\xd9"
+
+
+def file_bytes(data: bytes) -> bytes:
+    """What libjpeg's stdio source (``cv2.imread``) reads from a file that
+    holds ``data``: the bytes, then a fake EOI each time it asks for more.
+    Enough of them follow for any marker segment cut at the end to be read
+    to its length; the next marker is then an EOI."""
+    return bytes(data) + FAKE_EOI * 32770
 
 
 class JPEGError(ImageDecodeError):
@@ -80,10 +112,11 @@ class Plan:
 
     def __init__(self, width: int, height: int, frame: np.ndarray, comps: np.ndarray,
                  scans: np.ndarray, huff: np.ndarray, qts: np.ndarray, color: int,
-                 orientation: int):
+                 orientation: int, smooth: Optional[np.ndarray] = None):
         self.width, self.height = width, height
         self.frame, self.comps, self.scans, self.huff, self.qts = frame, comps, scans, huff, qts
         self.color, self.orientation = color, orientation
+        self.smooth = smooth  # block smoothing's latch [ncomp, 2, 10], or None
 
 
 def exif_orientation(tiff: bytes) -> int:
@@ -185,6 +218,8 @@ def parse(data: bytes, name: str = "<jpeg>") -> Plan:
             continue
         if marker == 0xD8:
             raise bad("a second SOI marker")
+        if marker not in _KNOWN and not 0xE0 <= marker <= 0xEF:
+            raise bad(f"unknown marker 0x{marker:02X}")  # libjpeg: a fatal error
         if pos + 2 > n:
             raise bad("truncated marker segment")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
@@ -261,6 +296,14 @@ def parse(data: bytes, name: str = "<jpeg>") -> Plan:
             if frame is None:
                 raise bad("a scan before the frame header")
             scans.append(_scan(seg, frame, sof, ht, tables, qt, latched, restart, pos, bad))
+            if sof != 0xC2 and scans[-1][0] == len(frame[2]) and len(scans) == 1:
+                # libjpeg decodes a single-scan file as it reads it; what
+                # follows the scan changes nothing, but a memory source
+                # that ends with no EOI suspends (cv2.imdecode: None)
+                if data.find(b"\xff\xd9", pos) < 0:
+                    raise bad("truncated (no EOI marker)")
+                scans[-1][18] = n
+                break
             pos = _find_scan_end(data, pos)
             scans[-1][18] = pos
         elif marker == 0xDC:
@@ -301,8 +344,8 @@ def _scan(seg: bytes, frame, sof: int, ht: dict, tables: list, qt: dict, latched
         if ss > se or se > 63 or (ss == 0 and se != 0) or (ss > 0 and ns != 1) \
                 or ah > 13 or al > 13:
             raise bad("bad progression parameters")
-    elif ss != 0 or se != 63 or ah != 0 or al != 0:
-        raise bad("bad sequential scan parameters")
+    else:  # libjpeg only warns about other values here, and decodes the scan as sequential
+        ss, se, ah, al = 0, 63, 0, 0
     blocks = 0
     for j in range(ns):
         cid, tt = seg[1 + 2 * j], seg[2 + 2 * j]
@@ -352,28 +395,37 @@ def _plan(frame, sof: int, scans: List[list], tables: list, latched: dict, jfif:
         dw = -(-width * h // hmax)
         dh = -(-height * v // vmax)
         carr[i] = [h, v, mcux * h, mcuy * v, -(-dw // 8), -(-dh // 8), dw, dh]
-        if i not in latched:
-            raise JPEGError(f"{name}: component {cid} appears in no scan")
+        if i not in latched:  # a file that ends before its scan: libjpeg's IDCT
+            latched[i] = np.zeros(64, np.int32)  # table stays zero, the plane grey
     progressive = sof == 0xC2
+    smooth = None
     if progressive:
+        # each coefficient's successive-approximation bit (-1: no scan yet),
+        # now and before each component's last scan, as jdphuff.c keeps them
         bits = np.full((nf, 64), -1, np.int32)
-        for s in scans:
+        prior = np.full((nf, 64), -1, np.int32)
+        for n, s in enumerate(scans):
             ss, se, ah, al = s[13:17]
             if ah and al != ah - 1:
                 raise JPEGError(f"{name}: bad successive approximation (Al != Ah - 1)")
             for j in range(s[0]):
-                cur = bits[s[1 + j], ss:se + 1]
+                c = s[1 + j]
+                lo, hi = min(ss, 1), max(se, _SMOOTHED - 1) + 1
+                prior[c, lo:hi] = bits[c, lo:hi] if n else 0
+                cur = bits[c, ss:se + 1]
                 # libjpeg warns here and decodes on; the port refuses
-                if np.any(np.maximum(cur, 0) != ah) or (ss > 0 and bits[s[1 + j], 0] < 0):
+                if np.any(np.maximum(cur, 0) != ah) or (ss > 0 and bits[c, 0] < 0):
                     raise JPEGError(f"{name}: inconsistent progression (a scan out of order)")
                 cur[:] = al
-        head = bits[:, :_SMOOTHED]
-        if np.any(head[:, 0] < 0):
+        if np.any(bits[:, 0] < 0):
             raise JPEGError(f"{name}: progressive JPEG with no DC scan for a component")
-        if np.any(head != 0):
-            raise UnsupportedImage(
-                f"{name}: progressive JPEG whose low-frequency coefficients are not refined to "
-                "full precision (libjpeg smooths its blocks); not decoded by the port")
+        # jdcoefct.c smoothing_ok: smooth while one of these is inexact, with
+        # their quantisers non-zero; with one scan, the prior bits read -1
+        qtab = np.stack([latched[i] for i in range(nf)])
+        if np.any(bits[:, 1:_SMOOTHED] != 0) and np.all(qtab[:, _SMOOTHED_AT] != 0):
+            if len(scans) == 1:
+                prior[:, 1:_SMOOTHED] = -1
+            smooth = np.stack([bits[:, :_SMOOTHED], prior[:, :_SMOOTHED]], axis=1)
     if nf == 1:
         color = 0
     elif jfif:
@@ -385,20 +437,31 @@ def _plan(frame, sof: int, scans: List[list], tables: list, latched: dict, jfif:
     qts = np.stack([latched[i] for i in range(nf)]).astype(np.int32)
     huff = np.stack(tables) if tables else np.zeros((1, 272), np.uint8)
     return Plan(width, height, np.array([mcux, mcuy, nf, int(progressive)], np.int32), carr,
-                np.array(scans, np.int32).reshape(-1, 20), huff, qts, color, orientation)
+                np.array(scans, np.int32).reshape(-1, 20), huff, qts, color, orientation,
+                smooth)
 
 
 def decode(data: bytes, name: str = "<jpeg>", entropy: Callable = native.jpeg_entropy,
-           reconstruct: Callable = native.jpeg_reconstruct) -> np.ndarray:
+           reconstruct: Callable = native.jpeg_reconstruct, smooth: Callable = native.jpeg_smooth,
+           file: bool = False) -> np.ndarray:
     """A JPEG file's bytes -> HWC RGB uint8, as ``cv2.imdecode`` with
-    ``IMREAD_COLOR`` + ``BGR2RGB`` give it. ``entropy`` / ``reconstruct``:
-    the native entries, or their plain versions
-    (`native.jpeg_entropy_numpy`, `native.jpeg_reconstruct_numpy`)."""
+    ``IMREAD_COLOR`` + ``BGR2RGB`` give it; with ``file``, as ``cv2.imread``
+    gives it for a file holding these bytes (libjpeg's stdio source gives a
+    fake EOI where the file ends, so a cut file decodes with the rest grey).
+    ``entropy`` / ``reconstruct`` / ``smooth``: the native entries, or their
+    plain versions (`native.jpeg_entropy_numpy`,
+    `native.jpeg_reconstruct_numpy`, `native.jpeg_smooth_numpy`)."""
+    if file:
+        data = file_bytes(data)
     plan = parse(data, name)
+    rows = np.zeros(len(plan.scans), np.int32)
     try:
-        coef = entropy(data, plan.frame, plan.comps, plan.scans, plan.huff)
+        coef = entropy(data, plan.frame, plan.comps, plan.scans, plan.huff, rows)
     except ValueError as e:
         raise JPEGError(f"{name}: {e}") from None
+    if plan.smooth is not None:
+        coef = smooth(coef, plan.comps, plan.qts, int(plan.frame[1]), plan.smooth,
+                      int(rows[-1]))
     try:
         img = reconstruct(coef, plan.comps, plan.qts, plan.width, plan.height, plan.color)
     except ValueError as e:

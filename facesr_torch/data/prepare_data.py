@@ -20,8 +20,15 @@ package lists them) are read by `codecs.imread`, bitwise what the JAX
 package's ``cv2.imread`` gives. A file the port does not decode (a CMYK
 JPEG, a tiled TIFF ...: `codecs.UnsupportedImage`) is refused by name
 before anything is written; one that is corrupt for cv2 too is warned
-about and skipped, as the JAX package skips it. ``--hdf5`` raises
-`NotPorted` (A.7.1: the card's machine has no h5py).
+about and skipped, as the JAX package skips it. A JPEG cut inside its
+entropy data is kept: ``cv2.imread`` patches it (the rest grey), and so
+does `codecs.imread`.
+
+``--hdf5`` packs each split into ``<output>/<split>.h5`` after writing its
+PNGs (`save_to_hdf5`): gzip'd uint8 ``HR`` and ``LR``, one image a chunk,
+and ``filenames``, written by the port's own `data.hdf5` (the card's
+machine has no h5py); h5py reads the files, and the datasets read them
+before the PNG folders.
 """
 
 from __future__ import annotations
@@ -36,11 +43,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from facesr_torch.data import codecs
+from facesr_torch.data import codecs, hdf5
 from facesr_torch.data.cv_compat import (gaussian_blur, resize_area, resize_cubic,
                                          resize_linear)
 from facesr_torch.data.png import write_png
-from facesr_torch.parallel.mesh import NotPorted
 
 __all__ = ["create_lr_image", "resize_hr_image", "get_image_files", "check_inputs",
            "split_dataset", "process_and_save_images", "save_to_hdf5", "main"]
@@ -145,8 +151,28 @@ def process_and_save_images(files: List[Path], output_dir: Path, hr_size: int = 
 
 def save_to_hdf5(split_dir: Path, output_path: Path, hr_size: int = 256,
                  lr_size: int = 64) -> None:
-    raise NotPorted("--hdf5: HDF5 output needs h5py, which the card's machine does not have "
-                    "(ROADMAP A.7.1); the train CLI reads the PNG folders this writes")
+    """Pack a processed split dir (HR/ + LR/ PNGs, sorted by name) into one
+    gzip'd HDF5 file, as the JAX package does: every pair is checked
+    (readable, the sizes given) as it is written."""
+    hr_files = sorted((Path(split_dir) / "HR").glob("*.png"))
+
+    def pairs():
+        for hr_path in hr_files:
+            lr_path = Path(split_dir) / "LR" / hr_path.name
+            try:
+                hr, lr = codecs.imread(hr_path), codecs.imread(lr_path)
+            except codecs.ImageDecodeError:
+                raise IOError(f"Unreadable/missing pair for {hr_path.name} "
+                              f"(LR exists: {lr_path.exists()})") from None
+            if hr.shape[:2] != (hr_size, hr_size) or lr.shape[:2] != (lr_size, lr_size):
+                raise ValueError(
+                    f"{hr_path.name}: sizes {hr.shape[:2]}/{lr.shape[:2]} do not match "
+                    f"hr_size={hr_size}/lr_size={lr_size} — stale files from a previous run "
+                    "with different sizes?")
+            yield hr, lr, hr_path.name
+
+    n = hdf5.write_pairs(output_path, pairs(), hr_size, lr_size)
+    print(f"Saved {n} pairs to {output_path}")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -161,7 +187,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--val-ratio", type=float, default=0.071)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--hdf5", "--save-hdf5", dest="hdf5", action="store_true",
-                        help="Also pack splits into .h5 files (not ported: raises)")
+                        help="Also pack splits into .h5 files")
     parser.add_argument("--max-images", type=int, default=None)
     parser.add_argument("--dry-run", action="store_true",
                         help="Show the split without processing")
@@ -173,8 +199,6 @@ def main(argv: Optional[List[str]] = None, rng: Optional[np.random.RandomState] 
     """The CLI; returns the per-split counts (empty on a dry run).
     ``rng``: the realistic noise's stream (None: numpy's global one)."""
     args = parse_args(argv)
-    if args.hdf5:
-        save_to_hdf5(Path(args.output), Path(args.output))
     files = get_image_files(Path(args.input))
     if args.max_images:
         files = files[: args.max_images]
@@ -199,6 +223,8 @@ def main(argv: Optional[List[str]] = None, rng: Optional[np.random.RandomState] 
     for split, flist in (("train", train_f), ("val", val_f), ("test", test_f)):
         stats[split] = process_and_save_images(flist, out / split, args.hr_size, args.lr_size,
                                                args.degradation, desc=split, rng=rng)
+        if args.hdf5:
+            save_to_hdf5(out / split, out / f"{split}.h5", args.hr_size, args.lr_size)
     (out / "prepare_stats.json").write_text(json.dumps({
         "stats": stats,
         "hr_size": args.hr_size,

@@ -7,7 +7,9 @@
   `facesr_torch.data.fast_loader`;
 - ``jpeg_decode.cpp``: a JPEG's Huffman data into coefficient planes
   (`jpeg_entropy`, one call an image: sequential and progressive scans,
-  restart intervals), and the rest of libjpeg-turbo's default decode
+  restart intervals, faults in the data met as libjpeg-turbo meets them),
+  the block smoothing of a progressive file cut short (`jpeg_smooth`),
+  and the rest of libjpeg-turbo's default decode
   (`jpeg_reconstruct`: the islow IDCT, fancy upsampling, YCbCr -> RGB), for
   `facesr_torch.data.jpeg`. Their plain versions are in ``jpeg_numpy.py``.
 
@@ -34,12 +36,13 @@ from typing import Dict, Sequence
 import numpy as np
 
 from facesr_torch.native.jpeg_numpy import (RECONSTRUCT_ERRORS, EntropyError,
-                                            jpeg_entropy_numpy, jpeg_reconstruct_numpy)
+                                            jpeg_entropy_numpy, jpeg_reconstruct_numpy,
+                                            jpeg_smooth_numpy)
 
 __all__ = ["NativeBuildError", "load", "png_unfilter", "png_unfilter_numpy",
            "assemble_hr_batch", "assemble_hr_batch_numpy", "jpeg_entropy",
-           "jpeg_entropy_numpy", "jpeg_reconstruct", "jpeg_reconstruct_numpy",
-           "RECONSTRUCT_ERRORS"]
+           "jpeg_entropy_numpy", "jpeg_smooth", "jpeg_smooth_numpy", "jpeg_reconstruct",
+           "jpeg_reconstruct_numpy", "RECONSTRUCT_ERRORS"]
 
 _SRC = Path(__file__).resolve().parent
 BUILD_DIR = _SRC.parent / "_build"
@@ -61,8 +64,10 @@ _SIGNATURES = {
                                ctypes.POINTER(ctypes.c_float), ctypes.c_int32], None),
     },
     "jpeg_decode": {
-        "jpeg_entropy": ([_VP, ctypes.c_int64, _VP, _VP, _VP, ctypes.c_int32, _VP, _VP, _VP],
-                         ctypes.c_int32),
+        "jpeg_entropy": ([_VP, ctypes.c_int64, _VP, _VP, _VP, ctypes.c_int32, _VP, _VP, _VP,
+                          _VP], ctypes.c_int32),
+        "jpeg_smooth": ([_VP, _VP, _VP, ctypes.c_int32, ctypes.c_int32, _VP, ctypes.c_int32,
+                         _VP], None),
         "jpeg_reconstruct": ([_VP, _VP, _VP, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
                               ctypes.c_int32, _VP], ctypes.c_int32),
     },
@@ -222,21 +227,39 @@ def _i32(a) -> np.ndarray:
 
 
 def jpeg_entropy(data: bytes, frame: np.ndarray, comps: np.ndarray, scans: np.ndarray,
-                 huff: np.ndarray) -> np.ndarray:
+                 huff: np.ndarray, rows: np.ndarray = None) -> np.ndarray:
     """Every scan's Huffman-coded data -> int16 [sum(bw * bh), 64]
     coefficient planes, in C++ (the plan's layout: `jpeg_numpy`). Raises
-    `jpeg_numpy.EntropyError` on a fault in the data."""
+    `jpeg_numpy.EntropyError` for a bad Huffman table. ``rows`` (int32
+    [nscans]), when given, gets each scan's last iMCU row begun with data
+    left."""
     comps, scans, frame = _i32(comps), _i32(scans), _i32(frame)
     huff = np.ascontiguousarray(huff, np.uint8)
     src = np.frombuffer(data, np.uint8)
     total = int((comps[:, 2].astype(np.int64) * comps[:, 3]).sum())
     out = np.zeros((total, 64), np.int16)
     where = np.zeros(2, np.int32)
+    last = np.zeros(len(scans), np.int32)
     code = load("jpeg_decode").jpeg_entropy(
         src.ctypes.data, len(data), frame.ctypes.data, comps.ctypes.data, scans.ctypes.data,
-        len(scans), huff.ctypes.data, out.ctypes.data, where.ctypes.data)
+        len(scans), huff.ctypes.data, out.ctypes.data, where.ctypes.data, last.ctypes.data)
     if code:
         raise EntropyError(int(code), int(where[0]), int(where[1]))
+    if rows is not None:
+        rows[:] = last
+    return out
+
+
+def jpeg_smooth(coef: np.ndarray, comps: np.ndarray, qts: np.ndarray, imcu_rows: int,
+                latch: np.ndarray, last_good: int) -> np.ndarray:
+    """libjpeg's block smoothing of a progressive file's coefficient planes,
+    in C++ (see `jpeg_numpy.jpeg_smooth_numpy`): a smoothed copy."""
+    coef, comps, qts, latch = (np.ascontiguousarray(coef, np.int16), _i32(comps), _i32(qts),
+                               _i32(latch))
+    out = coef.copy()
+    load("jpeg_decode").jpeg_smooth(coef.ctypes.data, comps.ctypes.data, qts.ctypes.data,
+                                    len(comps), imcu_rows, latch.ctypes.data, last_good,
+                                    out.ctypes.data)
     return out
 
 

@@ -1,7 +1,8 @@
-"""The plain versions of ``jpeg_decode.cpp``'s two entries, in Python and
+"""The plain versions of ``jpeg_decode.cpp``'s three entries, in Python and
 numpy: `jpeg_entropy_numpy` (Huffman decoding of every scan into int16
-coefficient planes) and `jpeg_reconstruct_numpy` (dequantisation, the
-islow IDCT, upsampling and the colour conversion). Both take the plan that
+coefficient planes), `jpeg_smooth_numpy` (libjpeg's block smoothing) and
+`jpeg_reconstruct_numpy` (dequantisation, the islow IDCT, upsampling and
+the colour conversion). Both take the plan that
 `facesr_torch.data.jpeg` parses from a file's markers, and give what the
 C++ entries give, bit for bit. The entropy decoder runs one Python step a
 Huffman symbol: it is for tests and small images.
@@ -23,12 +24,13 @@ after component, each block in natural (row-major) order.
 
 from __future__ import annotations
 
+import re
 from typing import List, Tuple
 
 import numpy as np
 
 __all__ = ["NATURAL_ORDER", "EntropyError", "huffman_lut", "jpeg_entropy_numpy",
-           "jpeg_reconstruct_numpy", "RANGE_LIMIT", "RECONSTRUCT_ERRORS"]
+           "jpeg_smooth_numpy", "jpeg_reconstruct_numpy", "RANGE_LIMIT", "RECONSTRUCT_ERRORS"]
 
 # zigzag index -> natural (row-major) index, ITU T.81 figure A.6
 NATURAL_ORDER = np.array([
@@ -48,21 +50,14 @@ RECONSTRUCT_ERRORS = {1: "a dequantised coefficient beyond the decoder's range",
                       2: "an IDCT value beyond the decoder's range",
                       3: "an unsupported sampling ratio"}
 
-# error codes shared with jpeg_decode.cpp
-ERR_BAD_CODE, ERR_PAST_END, ERR_RESTART, ERR_INDEX, ERR_REFINE, ERR_TABLE = 1, 2, 3, 4, 5, 6
-_MESSAGES = {
-    ERR_BAD_CODE: "bad Huffman code",
-    ERR_PAST_END: "entropy data ends inside the MCU (truncated or corrupt)",
-    ERR_RESTART: "restart marker missing or out of order",
-    ERR_INDEX: "coefficient index past 63 (corrupt data)",
-    ERR_REFINE: "a refinement coefficient larger than one bit (corrupt data)",
-    ERR_TABLE: "bad Huffman table",
-}
+# error code shared with jpeg_decode.cpp
+ERR_TABLE = 6
+_MESSAGES = {ERR_TABLE: "bad Huffman table"}
 
 
 class EntropyError(ValueError):
-    """A fault in the entropy-coded data: ``code`` (1-6), the scan and the
-    MCU (or restart interval) where it was found."""
+    """A fault that stops entropy decoding: ``code``, the scan and the MCU
+    where it was found."""
 
     def __init__(self, code: int, scan: int, mcu: int):
         self.code, self.scan, self.mcu = code, scan, mcu
@@ -94,46 +89,87 @@ def huffman_lut(spec: np.ndarray) -> Tuple[List[int], List[int]]:
     return length, value
 
 
+_STUFFED = re.compile(b"\xff+\x00")  # FF, any fill FFs, then 00: one data byte FF
+
+
+def _next_marker(data: bytes, pos: int, end: int) -> Tuple[int, int, int]:
+    """libjpeg's next_marker from ``pos``: (the marker's offset, its code,
+    the offset after it); the end of the data counts as an EOI there."""
+    while True:
+        i = data.find(b"\xff", pos, end)
+        if i < 0:
+            return end, 0xD9, end
+        j = i + 1
+        while j < end and data[j] == 0xFF:
+            j += 1
+        if j >= end:
+            return i, 0xD9, end
+        if data[j] != 0x00:
+            return i, data[j], j + 1
+        pos = j + 1
+
+
 class _Bits:
-    """MSB-first bits of one restart interval's unstuffed bytes."""
+    """libjpeg-turbo's bit reader (jdhuff.c) on the entropy data from
+    ``pos``: the bytes up to the next marker, unstuffed, then zero bits. The
+    marker that ends them is the unread marker at once (libjpeg meets it
+    later, or finds it with next_marker at a restart: the same marker).
+    ``short`` is libjpeg's insufficient_data: a bit past the data taken."""
 
-    def __init__(self, buf: bytes):
-        self.buf = buf + b"\0\0\0\0\0"
+    def __init__(self, data: bytes, pos: int, end: int):
+        self.data, self.end = data, end
+        self.unread = 0
+        self.after = pos
+        self.load()
+
+    def load(self) -> None:
+        """The next stretch: the data from ``after`` to the next marker, or
+        none while a marker is unread (libjpeg gives zero bits then)."""
+        seg = b""
+        if not self.unread:
+            m, self.unread, nxt = _next_marker(self.data, self.after, self.end)
+            seg = _STUFFED.sub(b"\xff", self.data[self.after:m])
+            self.after = nxt
+        self.buf = seg + b"\0" * 8
+        self.total = 8 * len(seg)
         self.pos = 0
-        self.total = 8 * len(buf)
 
-    def peek16(self) -> int:
-        i, b = self.pos >> 3, self.buf
-        return (((b[i] << 16) | (b[i + 1] << 8) | b[i + 2]) >> (8 - (self.pos & 7))) & 0xFFFF
+    @property
+    def short(self) -> bool:
+        return self.pos > self.total
+
+    def _word(self, i: int) -> int:
+        b = self.buf
+        if i + 3 < len(b):
+            return (b[i] << 24) | (b[i + 1] << 16) | (b[i + 2] << 8) | b[i + 3]
+        v = 0
+        for k in range(4):
+            v = (v << 8) | (b[i + k] if i + k < len(b) else 0)
+        return v
+
+    def peek17(self) -> int:
+        return (self._word(self.pos >> 3) >> (15 - (self.pos & 7))) & 0x1FFFF
 
     def bits(self, n: int) -> int:
         if n == 0:
             return 0
-        i, b = self.pos >> 3, self.buf
-        v = (b[i] << 24) | (b[i + 1] << 16) | (b[i + 2] << 8) | b[i + 3]
-        r = (v >> (32 - (self.pos & 7) - n)) & ((1 << n) - 1)
+        r = (self._word(self.pos >> 3) >> (32 - (self.pos & 7) - n)) & ((1 << n) - 1)
         self.pos += n
-        if self.pos > self.total:
-            raise _PastEnd
         return r
 
-
-class _PastEnd(Exception):
-    pass
-
-
-class _BadCode(Exception):
-    pass
+    def next_marker(self) -> None:
+        _, self.unread, self.after = _next_marker(self.data, self.after, self.end)
 
 
 def _decode(br: _Bits, lut) -> int:
-    p = br.peek16()
+    """One Huffman symbol; a code longer than 16 bits takes 17 bits and
+    gives 0 (jpeg_huff_decode)."""
+    p = br.peek17() >> 1
     n = lut[0][p]
     if n == 0:
-        raise _BadCode
+        br.pos += 17
+        return 0
     br.pos += n
-    if br.pos > br.total:
-        raise _PastEnd
     return lut[1][p]
 
 
@@ -141,21 +177,41 @@ def _extend(v: int, s: int) -> int:
     return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
 
-def _next_marker(data: bytes, pos: int, end: int) -> int:
-    """The offset of the next marker (0xFF then neither 0x00 nor 0xFF) at
-    or after ``pos``, or ``end``."""
+def _int16(v: int) -> int:
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _int32(v: int) -> int:
+    return ((v + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
+def _natural(k: int) -> int:
+    """jpeg_natural_order with its 16 extra entries of 63."""
+    return _NAT[k] if k < 64 else 63
+
+
+def _resync(br: _Bits, desired: int) -> None:
+    """jdmarker.c jpeg_resync_to_restart: the unread marker is not
+    RST``desired``. Action 1 drops it, 2 skips to the next marker and
+    decides again, 3 keeps it (the interval is then empty)."""
     while True:
-        i = data.find(b"\xff", pos, end)
-        if i < 0 or i + 1 >= end:
-            return end
-        j = i + 1
-        while j < end and data[j] == 0xFF:
-            j += 1
-        if j >= end:
-            return end
-        if data[j] != 0x00:
-            return i
-        pos = j + 1
+        m = br.unread
+        if m < 0xC0:
+            action = 2
+        elif not 0xD0 <= m <= 0xD7:
+            action = 3
+        elif m in (0xD0 + ((desired + 1) & 7), 0xD0 + ((desired + 2) & 7)):
+            action = 3
+        elif m in (0xD0 + ((desired - 1) & 7), 0xD0 + ((desired - 2) & 7)):
+            action = 2
+        else:
+            action = 1
+        if action == 1:
+            br.unread = 0
+            return
+        if action == 3:
+            return
+        br.next_marker()
 
 
 def _block_list(comps, scan) -> List[Tuple[int, int, int]]:
@@ -173,14 +229,17 @@ def _block_list(comps, scan) -> List[Tuple[int, int, int]]:
 
 
 def jpeg_entropy_numpy(data: bytes, frame: np.ndarray, comps: np.ndarray, scans: np.ndarray,
-                       huff: np.ndarray) -> np.ndarray:
+                       huff: np.ndarray, rows: np.ndarray = None) -> np.ndarray:
     """Every scan's Huffman-coded data -> int16 [sum(bw * bh), 64]
-    coefficient planes. Raises `EntropyError` on a fault."""
+    coefficient planes. Faults in the data are handled as libjpeg-turbo
+    handles them (see jpeg_decode.cpp); raises `EntropyError` for a bad
+    Huffman table. ``rows`` (int32 [nscans]), when given, gets each scan's
+    last iMCU row begun with data left (libjpeg's last_good_iMCU_row)."""
     frame = [int(x) for x in frame]
     comps = [[int(x) for x in row] for row in comps]
     mcux, mcuy = frame[0], frame[1]
     offsets = np.cumsum([0] + [c[2] * c[3] for c in comps])
-    coef = np.zeros((int(offsets[-1]), 64), np.int64)
+    coef = [[0] * 64 for _ in range(int(offsets[-1]))]
     luts = {}
 
     def lut(t: int, si: int):
@@ -195,7 +254,7 @@ def jpeg_entropy_numpy(data: bytes, frame: np.ndarray, comps: np.ndarray, scans:
         scan = [int(x) for x in scan]
         ns = scan[0]
         ss, se, ah, al = scan[13], scan[14], scan[15], scan[16]
-        start, end, restart = scan[17], scan[18], scan[19]
+        start, end, restart = scan[17], min(scan[18], len(data)), scan[19]
         cidx = scan[1:1 + ns]
         dcl = {c: lut(scan[5 + j], si) for j, c in enumerate(cidx)
                if ss == 0 and ah == 0}
@@ -206,64 +265,55 @@ def jpeg_entropy_numpy(data: bytes, frame: np.ndarray, comps: np.ndarray, scans:
         else:
             c = cidx[0]
             total = comps[c][4] * comps[c][5]
-        per = restart if restart > 0 else total
-        pos = start
-        mcu = 0
-        interval = 0
-        while mcu < total:
-            if interval > 0:
-                m = pos
-                j = m + 1
-                while j < end and data[j] == 0xFF:
-                    j += 1
-                want = 0xD0 + ((interval - 1) & 7)  # RST0-7 in turn
-                if m >= end or data[m] != 0xFF or j >= end or data[j] != want:
-                    raise EntropyError(ERR_RESTART, si, mcu)
-                pos = j + 1
-            m = _next_marker(data, pos, end)
-            br = _Bits(data[pos:m].replace(b"\xff\x00", b"\xff"))
-            pos = m
-            pred = [0] * len(comps)
-            eobrun = 0
-            stop = min(total, mcu + per)
-            try:
-                while mcu < stop:
-                    if ns > 1:
-                        my, mx = divmod(mcu, mcux)
-                        blocks = [(c, my * comps[c][1] + yy, mx * comps[c][0] + xx)
-                                  for c, yy, xx in units]
+        br = _Bits(data, start, end)
+        pred = [0] * len(comps)
+        eobrun = 0
+        next_rst, togo, short = 0, restart, False
+        for mcu in range(total):
+            if restart > 0:
+                if togo == 0:  # process_restart + read_restart_marker (the
+                    # stretch's end marker is already unread: libjpeg's next_marker)
+                    if br.unread == 0xD0 + next_rst:
+                        br.unread = 0
                     else:
-                        c = cidx[0]
-                        by, bx = divmod(mcu, comps[c][4])
-                        blocks = [(c, by, bx)]
-                    for c, by, bx in blocks:
-                        blk = coef[offsets[c] + by * comps[c][2] + bx]
-                        eobrun = _block(br, blk, c, dcl, acl, pred, eobrun, ss, se, ah, al,
-                                        frame[3])
-                    mcu += 1
-            except _BadCode:
-                raise EntropyError(ERR_BAD_CODE, si, mcu) from None
-            except _PastEnd:
-                raise EntropyError(ERR_PAST_END, si, mcu) from None
-            except _CoefIndex as e:
-                raise EntropyError(e.args[0], si, mcu) from None
-            interval += 1
-    return coef.astype(np.int16)
+                        _resync(br, next_rst)
+                    if br.unread == 0:
+                        short = False
+                    br.load()
+                    next_rst = (next_rst + 1) & 7
+                    pred = [0] * len(comps)
+                    eobrun = 0
+                    togo = restart
+                togo -= 1
+            if short:
+                continue
+            if rows is not None:
+                c = cidx[0]
+                rows[si] = mcu // mcux if ns > 1 else mcu // comps[c][4] // comps[c][1]
+            if ns > 1:
+                my, mx = divmod(mcu, mcux)
+                blocks = [(c, my * comps[c][1] + yy, mx * comps[c][0] + xx)
+                          for c, yy, xx in units]
+            else:
+                c = cidx[0]
+                by, bx = divmod(mcu, comps[c][4])
+                blocks = [(c, by, bx)]
+            for c, by, bx in blocks:
+                blk = coef[offsets[c] + by * comps[c][2] + bx]
+                eobrun = _block(br, blk, c, dcl, acl, pred, eobrun, ss, se, ah, al, frame[3])
+            short = br.short
+    return np.array(coef, np.int64).astype(np.int16).reshape(-1, 64)
 
 
-class _CoefIndex(Exception):
-    pass
-
-
-def _block(br: _Bits, blk: np.ndarray, c: int, dcl, acl, pred, eobrun: int, ss: int,
-           se: int, ah: int, al: int, progressive: int) -> int:
-    """Decode one block of one scan into ``blk`` (int64 [64], natural
-    order); returns the EOB run left."""
+def _block(br: _Bits, blk: list, c: int, dcl, acl, pred, eobrun: int, ss: int, se: int,
+           ah: int, al: int, progressive: int) -> int:
+    """Decode one block of one scan into ``blk`` (64 ints, natural order,
+    int16 values) as jdhuff.c / jdphuff.c do; returns the EOB run left."""
     if not progressive:
         s = _decode(br, dcl[c])
         if s:
-            pred[c] += _extend(br.bits(s), s)
-        blk[0] = pred[c]
+            pred[c] = _int32(pred[c] + _extend(br.bits(s), s))
+        blk[0] = _int16(pred[c])
         table = acl[c]
         k = 1
         while k < 64:
@@ -271,9 +321,7 @@ def _block(br: _Bits, blk: np.ndarray, c: int, dcl, acl, pred, eobrun: int, ss: 
             r, s = rs >> 4, rs & 15
             if s:
                 k += r
-                if k > 63:
-                    raise _CoefIndex(ERR_INDEX)
-                blk[_NAT[k]] = _extend(br.bits(s), s)
+                blk[_natural(k)] = _extend(br.bits(s), s)
             else:
                 if r != 15:
                     break
@@ -284,10 +332,10 @@ def _block(br: _Bits, blk: np.ndarray, c: int, dcl, acl, pred, eobrun: int, ss: 
         if ah == 0:
             s = _decode(br, dcl[c])
             if s:
-                pred[c] += _extend(br.bits(s), s)
-            blk[0] = pred[c] << al
+                pred[c] = _int32(pred[c] + _extend(br.bits(s), s))
+            blk[0] = _int16(pred[c] << al)
         elif br.bits(1):
-            blk[0] |= 1 << al
+            blk[0] = _int16(blk[0] | (1 << al))
         return 0
     table = acl[c]
     if ah == 0:  # AC first
@@ -299,9 +347,7 @@ def _block(br: _Bits, blk: np.ndarray, c: int, dcl, acl, pred, eobrun: int, ss: 
             r, s = rs >> 4, rs & 15
             if s:
                 k += r
-                if k > 63:
-                    raise _CoefIndex(ERR_INDEX)
-                blk[_NAT[k]] = _extend(br.bits(s), s) * (1 << al)
+                blk[_natural(k)] = _int16(_extend(br.bits(s), s) << al)
             else:
                 if r != 15:
                     eobrun = 1 << r
@@ -311,7 +357,7 @@ def _block(br: _Bits, blk: np.ndarray, c: int, dcl, acl, pred, eobrun: int, ss: 
                 k += 15
             k += 1
         return 0
-    # AC refinement
+    # AC refinement; a new coefficient wider than one bit is only warned about
     p1, m1 = 1 << al, -1 << al
     k = ss
     if eobrun == 0:
@@ -319,20 +365,17 @@ def _block(br: _Bits, blk: np.ndarray, c: int, dcl, acl, pred, eobrun: int, ss: 
             rs = _decode(br, table)
             r, s = rs >> 4, rs & 15
             if s:
-                if s != 1:
-                    raise _CoefIndex(ERR_REFINE)
                 s = p1 if br.bits(1) else m1
-            else:
-                if r != 15:
-                    eobrun = 1 << r
-                    if r:
-                        eobrun += br.bits(r)
-                    break
+            elif r != 15:
+                eobrun = 1 << r
+                if r:
+                    eobrun += br.bits(r)
+                break
             while True:
                 z = _NAT[k]
                 if blk[z] != 0:
                     if br.bits(1) and (blk[z] & p1) == 0:
-                        blk[z] += p1 if blk[z] >= 0 else m1
+                        blk[z] = _int16(blk[z] + (p1 if blk[z] >= 0 else m1))
                 else:
                     r -= 1
                     if r < 0:
@@ -341,18 +384,128 @@ def _block(br: _Bits, blk: np.ndarray, c: int, dcl, acl, pred, eobrun: int, ss: 
                 if k > se:
                     break
             if s:
-                if k > 63:
-                    raise _CoefIndex(ERR_INDEX)
-                blk[_NAT[k]] = s
+                blk[_natural(k)] = s
             k += 1
     if eobrun > 0:
         while k <= se:
             z = _NAT[k]
             if blk[z] != 0 and br.bits(1) and (blk[z] & p1) == 0:
-                blk[z] += p1 if blk[z] >= 0 else m1
+                blk[z] = _int16(blk[z] + (p1 if blk[z] >= 0 else m1))
             k += 1
         eobrun -= 1
     return eobrun
+
+
+# ---------------------------------------------------------------------------
+# block smoothing
+
+
+def _estimate(al: int, num: int, q: int) -> int:
+    """jdcoefct.c's rounding of one estimate, clamped below 2^Al."""
+    pred = ((q << 7) + abs(num)) // (q << 8)
+    if al > 0 and pred >= (1 << al):
+        pred = (1 << al) - 1
+    return _int16(pred if num >= 0 else -pred)
+
+
+def jpeg_smooth_numpy(coef: np.ndarray, comps: np.ndarray, qts: np.ndarray, imcu_rows: int,
+                      latch: np.ndarray, last_good: int) -> np.ndarray:
+    """The plain version of jpeg_decode.cpp's ``jpeg_smooth``
+    (``decompress_smooth_data``'s estimates), block by block: returns a
+    smoothed copy of the int16 [sum(bw * bh), 64] coefficient planes.
+    ``latch``: [ncomp, 2, 10] coefficient bits of zigzag 0-9 after the last
+    scan and before it; ``last_good``: the last iMCU row the last scan
+    reached."""
+    out = coef.copy()
+    off = 0
+    for c, comp in enumerate(comps):
+        _, v, bw, bh, nbw, nbh, _, _ = (int(x) for x in comp)
+        plane = coef[off:off + bw * bh].reshape(bh, bw, 64)
+        dst = out[off:off + bw * bh].reshape(bh, bw, 64)
+        off += bw * bh
+        q = [int(x) for x in qts[c]]
+        Q00, Q01, Q10, Q20, Q11, Q02, Q03, Q12, Q21, Q30 = (q[p] for p in (0, 1, 8, 16, 9, 2,
+                                                                            3, 10, 17, 24))
+        for imcu in range(imcu_rows):
+            cb = [int(x) for x in latch[c][1 if imcu > last_good else 0]]
+            change_dc = all(b == -1 for b in cb[1:10])
+            block_rows = v if imcu < imcu_rows - 1 else (nbh % v or v)
+            image_block_rows = block_rows * imcu_rows
+            for br in range(block_rows):
+                ibr, row = imcu * block_rows + br, imcu * v + br
+                prev = row - 1 if ibr > 0 else row
+                nxt = row + 1 if ibr < image_block_rows - 1 else row
+                rows = (row - 2 if ibr > 1 else prev, prev, row, nxt,
+                        row + 2 if ibr < image_block_rows - 2 else nxt)
+                # D[i][j]: row rows[i], column b - 2 + j (libjpeg's DC01-DC25)
+                D = [[int(plane[r, 0, 0])] * 5 for r in rows]
+                last = nbw - 1
+                for b in range(nbw):
+                    w = dst[row, b]
+                    if b == 0 and last > 0:
+                        for i, r in enumerate(rows):
+                            D[i][3] = D[i][4] = int(plane[r, 1, 0])
+                    if b + 1 < last:
+                        for i, r in enumerate(rows):
+                            D[i][4] = int(plane[r, b + 2, 0])
+                    ((DC01, DC02, DC03, DC04, DC05), (DC06, DC07, DC08, DC09, DC10),
+                     (DC11, DC12, DC13, DC14, DC15), (DC16, DC17, DC18, DC19, DC20),
+                     (DC21, DC22, DC23, DC24, DC25)) = D
+                    if cb[1] != 0 and w[1] == 0:
+                        w[1] = _estimate(cb[1], Q00 * (
+                            (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09
+                             + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16
+                             + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+                            if change_dc else (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                            Q01)
+                    if cb[2] != 0 and w[8] == 0:
+                        w[8] = _estimate(cb[2], Q00 * (
+                            (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07
+                             + 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18
+                             - 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                            if change_dc else (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                            Q10)
+                    if cb[3] != 0 and w[16] == 0:
+                        w[16] = _estimate(cb[3], Q00 * (
+                            (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13
+                             - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                            if change_dc else (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                            Q20)
+                    if cb[4] != 0 and w[9] == 0:
+                        w[9] = _estimate(cb[4], Q00 * (
+                            (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21
+                             - DC25)
+                            if change_dc else (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20
+                                               + DC22 - DC24 + DC04 - DC06 + 10 * DC07
+                                               - 10 * DC09)), Q11)
+                    if cb[5] != 0 and w[2] == 0:
+                        w[2] = _estimate(cb[5], Q00 * (
+                            (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13
+                             + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                            if change_dc else (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                            Q02)
+                    if change_dc:
+                        if cb[6] != 0 and w[3] == 0:
+                            w[3] = _estimate(cb[6], Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14
+                                                           + DC17 - DC19), Q03)
+                        if cb[7] != 0 and w[10] == 0:
+                            w[10] = _estimate(cb[7], Q00 * (DC07 - 3 * DC08 + DC09 - DC17
+                                                            + 3 * DC18 - DC19), Q12)
+                        if cb[8] != 0 and w[17] == 0:
+                            w[17] = _estimate(cb[8], Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14
+                                                            + DC17 - DC19), Q21)
+                        if cb[9] != 0 and w[24] == 0:
+                            w[24] = _estimate(cb[9], Q00 * (DC07 + 2 * DC08 + DC09 - DC17
+                                                            - 2 * DC18 - DC19), Q30)
+                        w[0] = _estimate(0, Q00 * (
+                            -2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06
+                            + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12
+                            + 152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17
+                            + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23
+                            - 6 * DC24 - 2 * DC25), Q00)
+                    for i in range(5):  # slide one column on; the last stays
+                        D[i] = D[i][1:] + D[i][4:]
+    return out
 
 
 # ---------------------------------------------------------------------------

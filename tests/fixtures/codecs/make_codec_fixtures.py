@@ -8,6 +8,14 @@ the JSON cannot go stale. The files cover each decoder, progressive JPEG
 and the orientation tags, plus a 256x256 and a 1024x1024 4:2:0 q95 JPEG of
 a synthetic face for timing.
 
+``recovery/`` holds JPEGs cut inside their entropy data (progressive ones
+among them, which libjpeg smooths) or with a planted fault (a wrong or
+missing restart marker, an early EOI, a Huffman code longer than 16
+bits), made from the files above, and
+``recovery/digests.json``: for each, the digest of ``cv2.imread`` of the
+file (libjpeg's stdio source, which patches it) and that of
+``cv2.imdecode`` of its bytes, or null where that returns None.
+
     python tests/fixtures/codecs/make_codec_fixtures.py
 
 The hand-built writers (Adam7 and low-bit PNG, BMP headers, big-endian
@@ -191,6 +199,90 @@ def fixtures() -> dict:
     return out
 
 
+RECOVERY = HERE / "recovery"
+
+
+def _scan_span(data: bytes):
+    """(start, end) of a baseline JPEG's entropy data: after the first SOS
+    header, up to its EOI."""
+    sos = data.index(b"\xff\xda")
+    return sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0], data.rindex(b"\xff\xd9")
+
+
+def _scan_middle(data: bytes, k: int) -> int:
+    """The middle of the k-th scan's entropy data (from 0)."""
+    sos = -1
+    for _ in range(k + 1):
+        sos = data.index(b"\xff\xda", sos + 1)
+    start = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+    end = start
+    while data[end] != 0xFF or data[end + 1] == 0x00 or 0xD0 <= data[end + 1] <= 0xD7:
+        end += 1
+    return (start + end) // 2
+
+
+def _rst(data: bytes, k: int) -> int:
+    """The offset of the k-th restart marker's FF."""
+    found = [i for i in range(len(data) - 1) if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+    return found[k]
+
+
+def recovery_fixtures(files: dict) -> dict:
+    """The cut and planted JPEGs of ``recovery/``, made from ``fixtures()``."""
+    out = {}
+
+    def cut(name: str, share: float) -> bytes:
+        start, end = _scan_span(files[name])
+        return files[name][:start + int((end - start) * share)]
+
+    out["cut50_jpeg_420_q90.jpg"] = cut("jpeg_420_q90.jpg", 0.5)
+    out["cut90_jpeg_restart.jpg"] = cut("jpeg_restart.jpg", 0.9)
+    out["cut98_jpeg_grey.jpg"] = cut("jpeg_grey.jpg", 0.98)
+    out["cut30_jpeg_411_q50.jpg"] = cut("jpeg_411_q50.jpg", 0.3)
+    out["cut50_face_256_q95_420.jpg"] = cut("face_256_q95_420.jpg", 0.5)
+    prog = files["jpeg_progressive.jpg"]  # cut in its last scan: nothing left to smooth
+    out["cut_last_scan_jpeg_progressive.jpg"] = prog[:prog.rindex(b"\xff\xda") + 40]
+    # cut before the low coefficients are refined: libjpeg smooths the blocks
+    out["cut_scan5_jpeg_progressive.jpg"] = prog[:_scan_middle(prog, 5)]
+    pil = files["jpeg_progressive_pil_422.jpg"]
+    out["cut_scan2_jpeg_progressive_pil_422.jpg"] = pil[:_scan_middle(pil, 2)]
+    rst = files["jpeg_restart.jpg"]
+    at = _rst(rst, 2)  # RST2, which follows the third interval
+    for label, k in (("far", 6), ("next", 3), ("prior", 1)):
+        out[f"rst_{label}_jpeg_restart.jpg"] = rst[:at + 1] + bytes([0xD0 + k]) + rst[at + 2:]
+    out["rst_missing_jpeg_restart.jpg"] = rst[:at] + rst[at + 2:]
+    base = files["jpeg_420_q90.jpg"]
+    start, end = _scan_span(base)
+    mid = (start + end) // 2
+    out["early_eoi_jpeg_420_q90.jpg"] = base[:mid] + b"\xff\xd9"
+    # three stuffed FF bytes: 24 one bits, which no Huffman code is
+    out["bad_code_jpeg_420_q90.jpg"] = base[:mid] + b"\xff\x00" * 3 + base[mid + 3:]
+    return out
+
+
+def cv2_read_digest(data: bytes) -> dict:
+    """The shape and SHA-256 of ``cv2.imread`` of a file holding ``data``
+    + ``BGR2RGB`` (the stdio source: a file cut short is patched)."""
+    import tempfile
+
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "f.jpg"
+        path.write_bytes(data)
+        bgr = cv2.imread(str(path))
+    rgb = np.ascontiguousarray(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    return {"shape": list(rgb.shape), "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+
+
+def cv2_digest_or_none(data: bytes):
+    import cv2
+
+    if cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None:
+        return None
+    return cv2_digest(data)
+
+
 def cv2_digest(data: bytes) -> dict:
     """The shape and SHA-256 of ``cv2.imdecode(data)`` + ``BGR2RGB``."""
     import cv2
@@ -209,6 +301,15 @@ def main() -> None:
     (HERE / "digests.json").write_text(json.dumps(digests, indent=1, sort_keys=True) + "\n")
     total = sum(len(d) for d in files.values())
     print(f"wrote {len(files)} files, {total} bytes, and digests.json")
+    RECOVERY.mkdir(exist_ok=True)
+    cut = recovery_fixtures(files)
+    digests = {}
+    for name, data in sorted(cut.items()):
+        (RECOVERY / name).write_bytes(data)
+        digests[name] = {"imread": cv2_read_digest(data), "imdecode": cv2_digest_or_none(data)}
+    (RECOVERY / "digests.json").write_text(json.dumps(digests, indent=1, sort_keys=True) + "\n")
+    print(f"wrote {len(cut)} files, {sum(len(d) for d in cut.values())} bytes, and "
+          "recovery/digests.json")
 
 
 if __name__ == "__main__":

@@ -185,20 +185,17 @@ def test_truncated_jpeg_raises_with_its_name(cut):
 
 
 def test_corrupt_entropy_data_and_restart_markers_raise():
-    """libjpeg only warns on these and cv2 returns a patched image; the
-    port refuses the file."""
+    """libjpeg only warns on a wrong restart marker and on an early EOI
+    inside a scan, and cv2 returns a patched image: the port gives that
+    image bitwise. An undefined Huffman table still raises."""
     data = bytearray(_jpg(_smooth(5, 37, 53), Q, 90, cv2.IMWRITE_JPEG_RST_INTERVAL, 1))
     rst = data.index(b"\xff\xd1")
     bad = bytes(data[:rst + 1] + b"\xd5" + data[rst + 2:])  # RST5 where RST1 belongs
-    for fn in (codecs.imdecode, codecs.imdecode_numpy):
-        with pytest.raises(codecs.ImageDecodeError, match="bad.jpg: scan 0.*restart"):
-            fn(bad, "bad.jpg")
+    _same_as_cv2(bad, "bad.jpg")
     # an early EOI inside the scan: the data ends inside an MCU
     end = _scan_ends(bytes(data))[0]
     short = bytes(data[:end - 40]) + b"\xff\xd9"
-    for fn in (codecs.imdecode, codecs.imdecode_numpy):
-        with pytest.raises(codecs.ImageDecodeError, match="short.jpg: scan 0"):
-            fn(short, "short.jpg")
+    _same_as_cv2(short, "short.jpg")
     # an undefined Huffman table
     bad = bytearray(_jpg(_smooth(5, 37, 53), Q, 90))
     sos = bad.index(b"\xff\xda")
@@ -241,8 +238,10 @@ def test_jpeg_refusals_raise_not_ported_by_name(case, what):
     elif case == "12bit":
         data = _patch_sof(base, precision=12)
     elif case == "unrefined":
-        data = _unrefined_progressive()
-        assert _cv2(data) is not None
+        # no longer a refusal: libjpeg smooths such a file's blocks
+        # (decompress_smooth_data), and the port does as it does, bitwise
+        _same_as_cv2(_unrefined_progressive(), "unrefined.jpg")
+        return
     else:
         # a flat white q100 image with its DC quantiser raised 5x: the IDCT
         # reaches 635, past the range where cv2's 16-bit SIMD IDCT and exact

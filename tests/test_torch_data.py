@@ -389,8 +389,11 @@ def test_dataset_refusals(png_root, tmp_path):
         cv2.imwrite(str(dup / "LR" / name), img)
     with pytest.raises(ValueError, match="Duplicate image stems"):
         FFHQDataset(str(dup))
+    # an .h5 root is read by the port's HDF5 reader: an empty file is not one
+    from facesr_torch.data.hdf5 import HDF5Error
+
     (tmp_path / "data.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="HDF5"):
+    with pytest.raises(HDF5Error, match="data.h5: not an HDF5 file"):
         FFHQDataset(str(tmp_path / "data.h5"))
     # a .jpg folder loads as the JAX package loads it; a corrupt JPEG and one
     # the port does not decode (CMYK) raise by name
@@ -406,8 +409,15 @@ def test_dataset_refusals(png_root, tmp_path):
                                                                            **kw)[0]
     for k in ("hr", "lr"):
         np.testing.assert_array_equal(got[k], want[k])
+    # a JPEG cut inside its entropy data loads as cv2.imread patches it (the
+    # rest grey), as the JAX package loads it; one cut in its header raises
     data = (jpg / "face.jpg").read_bytes()
     (jpg / "face.jpg").write_bytes(data[:len(data) // 2])
+    got, want = FFHQDataset(str(tmp_path / "jpg"), **kw)[0], JaxDataset(str(tmp_path / "jpg"),
+                                                                           **kw)[0]
+    for k in ("hr", "lr"):
+        np.testing.assert_array_equal(got[k], want[k])
+    (jpg / "face.jpg").write_bytes(data[:100])
     with pytest.raises(IOError, match="face.jpg"):
         FFHQDataset(str(tmp_path / "jpg"), hr_patch_size=8)[0]
     Image.fromarray(img).convert("CMYK").save(jpg / "face.jpg")

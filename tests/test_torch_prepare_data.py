@@ -32,7 +32,6 @@ from facesr_torch.data import draw
 from facesr_torch.data import prepare_data as tprep
 from facesr_torch.data.cv_compat import gaussian_blur
 from facesr_torch.data.png import read_rgb, write_png
-from facesr_torch.parallel.mesh import NotPorted
 
 torch.set_num_threads(1)
 
@@ -295,9 +294,13 @@ def test_prepare_data_refuses_what_it_cannot_decode_before_writing(tmp_path, mon
 
 
 def test_prepare_data_refuses_hdf5_and_duplicate_stems(tmp_path):
+    """``--hdf5`` with an empty split (4 images: no val) raises as the JAX
+    CLI does, where h5py refuses a chunk larger than the dataset; the
+    splits before it are packed."""
     raw = _raw_set(tmp_path / "raw", n=4)
-    with pytest.raises(NotPorted, match="A.7.1"):
-        tprep.main(["--input", str(raw), "--output", str(tmp_path / "out"), "--hdf5"])
+    with pytest.raises(ValueError, match="Chunk shape must not be greater than data shape"):
+        tprep.main(["--input", str(raw), "--output", str(tmp_path / "h5"), "--hdf5"])
+    assert (tmp_path / "h5" / "train.h5").exists() and not (tmp_path / "h5" / "test.h5").exists()
     shutil.copy(raw / "im_00.png", raw / "sub" / "im_00.png")
     with pytest.raises(SystemExit, match="duplicate stems"):
         tprep.main(["--input", str(raw), "--output", str(tmp_path / "out")])

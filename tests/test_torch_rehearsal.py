@@ -80,7 +80,19 @@ def _cut_configs(dest: Path) -> Path:
     return dest
 
 
-def test_a_tiny_rehearsal_runs_stage_1_2_3_on_the_cpu(tmp_path, capsys):
+def test_a_tiny_rehearsal_runs_stage_1_2_3_on_the_cpu(tmp_path, capsys, monkeypatch):
+    """As the JAX script, it prepares with ``--hdf5``: each stage's loaders
+    read train.h5 and val.h5."""
+    from facesr_torch.data import hdf5
+
+    opened = []
+    real = hdf5.H5File.__init__
+
+    def record(self, path):
+        opened.append(Path(path).name)
+        real(self, path)
+
+    monkeypatch.setattr(hdf5.H5File, "__init__", record)
     out = dr.rehearse(str(tmp_path / "work"), str(_cut_configs(tmp_path / "cfg")), num_faces=16,
                       device="cpu")
     log = capsys.readouterr().out
@@ -88,6 +100,10 @@ def test_a_tiny_rehearsal_runs_stage_1_2_3_on_the_cpu(tmp_path, capsys):
     assert len(list((work / "raw").glob("face_*.png"))) == 16
     assert {s: len(list((work / "processed" / s / "HR").iterdir()))
             for s in ("train", "val", "test")} == {"train": 13, "val": 1, "test": 2}
+    with hdf5.H5File(work / "processed" / "train.h5") as f:
+        assert len(f["HR"]) == 13 and f.attrs == {"hr_size": 128, "lr_size": 32,
+                                                  "num_images": 13}
+    assert opened.count("train.h5") == 3 + 1 and opened.count("val.h5") == 3
     for i, name in enumerate(dr.STAGES):
         assert out["checkpoints"][name] == work / f"ckpt_s{i + 1}" / "best_model.fckpt"
         assert out["checkpoints"][name].exists() and (work / "best_all" / f"{name}.fckpt").exists()
